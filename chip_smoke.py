@@ -6,11 +6,12 @@
 Each phase prints its own lines:
 
   [0] device   the card's name and power limit, torch and CUDA versions
-  [1] build    nvcc builds the three CUDA kernels from the repository's
-               sources, one after another
+  [1] build    nvcc builds the four CUDA kernels from the repository's
+               sources, one nvcc per source, all at once
   [2] kernels  each kernel against its plain PyTorch version on the card,
                then its time beside the plain version's, a PyTorch
-               yardstick's and the least time the card could take
+               yardstick's and the least time the card could take; the
+               attention gradient against chunked_attention's
   [3] serve    GeneratorExecutor -> RefPolicyExecutor -> RewardExecutor
                through their ports, two steps of full-depth bf16
                llama31-8b from a seeded random init; the kernels' launch
@@ -18,6 +19,21 @@ Each phase prints its own lines:
   [4] long     four 2048-id prompts: prefill and one 16-step decode chunk
   [5] fp32     llama31-8b widths with 2 layers in fp32: the behaviour and
                reference log-probs agree within 1e-3
+  [6] train    llama31-8b widths with 8 layers, bf16 params and fp32
+               Adam: three steps of the async schedule (staleness 1) of
+               generator -> reference -> reward -> trainer -> weight sync
+               through SyncExecutorController, with the staleness,
+               snapshot and launch counts asserted, then one profiled
+               train step
+  [7] numerics llama31-8b widths with 2 layers in fp32: one train step
+               through the kernels against the same step through the
+               plain versions under autograd, within 1e-4 relative
+
+A random policy at llama31-8b's vocabulary almost never writes a number,
+so every reward is 0, every advantage is 0 and so is the policy-gradient
+term.  Phases 6 and 7 therefore add the KL term (kl_coef 0.1) against a
+frozen reference drawn from another seed: its advantage, -0.1 (log pi -
+log pi_ref), is not zero, and the params move.
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and
@@ -28,6 +44,7 @@ result.  Any failed check raises, so the script exits non-zero.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -49,9 +66,20 @@ SAMPLE_OPS_PER_LOGIT = 10
 LOGPROB_OPS_PER_LOGIT = 4
 
 V_LLAMA = 128256
-# the serve phase's generator: 4 prompts x 4 samples, 64 new tokens
-# decoded in chunks of 16
+# the serve and train phases' generator: 4 prompts x 4 samples, 64 new
+# tokens decoded in chunks of 16
 N_PROMPTS, N_PER, MAX_NEW, CHUNK = 4, 4, 64, 16
+# the train phase keeps the published widths and cuts the depth: bf16
+# params and grads and fp32 Adam moments take 12 bytes a param, 96 GB at
+# the full 32 layers, more than one 80 GB card holds
+TRAIN_LAYERS = 8
+# the KL coefficient of phases 6 and 7 (see the docstring)
+KL_COEF = 0.1
+# floating-point operations of the log-prob backward per logit: two
+# subtractions, the exp, the one-hot compare, the difference and the scale
+LOGPROB_BWD_OPS_PER_LOGIT = 6
+KERNELS = ("fused_sample", "fused_logprob", "fused_logprob_bwd",
+           "flash_attention")
 
 
 def log(msg: str = "") -> None:
@@ -120,6 +148,20 @@ def max_err(a, b) -> float:
     return d.max().item()
 
 
+def bwd_excess(torch, got, want, g, toks, rtol, atol=1e-12) -> float:
+    """The largest ratio of |got - want| to its tolerance, rtol |want| +
+    atol per element, with rtol |g| more at each row's token column, where
+    want = g (1 - p) cancels.  got, want: [N, V]; g, toks: [N].  Equal
+    infinities agree; at most 1 where every element holds."""
+    a, b = got.float(), want.float()
+    d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    require(not torch.isnan(d).any().item(), "NaN in a comparison")
+    tol = torch.where(torch.isfinite(b), b.abs() * rtol,
+                      torch.zeros_like(b)) + atol
+    tol.scatter_add_(1, toks.long()[:, None], (g.float().abs() * rtol)[:, None])
+    return (d / tol).max().item()
+
+
 # ---------------------------------------------------------------- phases ---
 
 def nvidia_smi() -> str:
@@ -133,9 +175,10 @@ def nvidia_smi() -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import build
-    log("[1] build (nvcc, one source after another)")
+    log("[1] build (one nvcc per source, all at once)")
     t0 = time.perf_counter()
-    for name in ("fused_sample", "fused_logprob", "flash_attention"):
+    build.build_all(KERNELS)
+    for name in KERNELS:
         build.library(name)
         text = build.BUILD_LOG.get(name, "")
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
@@ -153,10 +196,11 @@ def phase_kernels(torch, dev):
     """Each kernel against its plain version; returns the JSON records."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import chunked_attention, \
         flash_attention_cuda
-    from repro_torch.kernels.fused_logprob import fused_logprob_cuda, \
-        fused_logprob_plain
+    from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
+        fused_logprob_bwd_plain, fused_logprob_cuda, fused_logprob_plain
     from repro_torch.kernels.fused_sample import fused_sample_cuda, \
         fused_sample_plain
     from repro_torch.rl import prng
@@ -259,6 +303,79 @@ def phase_kernels(torch, dev):
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "shape": [16, 79, V_LLAMA],
         "dtype": "bfloat16"})
+
+    # ---- fused_logprob_bwd: the trainer's strided view, with the gradient
+    # of the whole [16, 80, V] written (zeros in the last position).  The
+    # +-1e30 and tied rows sit in batches 0 and 13, so a wrong outer stride
+    # shows; bf16 and fp32 both take the 16-byte vector path here.  Each
+    # element is held to the rounding of its own dtype: one bf16 ulp, and
+    # 1e-6 relative in fp32
+    g_out = torch.randn(16, 79, generator=gen, device=dev)
+    bwd_err = None
+    for dtype, rtol in ((bf16, 2.0 ** -7), (torch.float32, 1e-6)):
+        xb = logits.to(dtype, copy=True)
+        for b in (0, 13):
+            xb[b, b, 5], xb[b, b + 1] = 1e30, -1e30
+            xb[b, b + 2, 3] = xb[b, b + 2, 99] = 9.0
+        _, bm, bs = fused_logprob_cuda(xb[:, :-1], toks)
+        dl = fused_logprob_bwd_cuda(xb, toks, bm, torch.log(bs), g_out,
+                                    n_valid=79)
+        dl_p = fused_logprob_bwd_plain(
+            xb[:, :-1].reshape(-1, V_LLAMA), toks.reshape(-1),
+            bm.reshape(-1), torch.log(bs).reshape(-1), g_out.reshape(-1))
+        require(dl.shape == xb.shape and dl.dtype == dtype, "bwd output")
+        require(bool((dl[:, -1] == 0).all().item()), "bwd: last row not zero")
+        got = dl[:, :-1].reshape(-1, V_LLAMA)
+        err = max_err(got, dl_p)
+        excess = bwd_excess(torch, got, dl_p, g_out.reshape(-1),
+                            toks.reshape(-1), rtol)
+        require(excess <= 1.0, f"fused_logprob_bwd {dtype}: an element is "
+                f"{excess:.3g} times its tolerance (max|ddl| {err:.3e})")
+        if dtype == bf16:
+            bwd_err = err
+        log(f"  fused_logprob_bwd [16, 79, {V_LLAMA}] strided view "
+            f"{str(dtype)[6:]} with +-1e30 and tied rows in batches 0 and "
+            f"13: max|ddl| {err:.3e}, worst element {excess:.3g} of its "
+            f"tolerance ({rtol:.3g} relative, +1e-12), last position zero")
+        del xb, dl, dl_p, got
+    _, sm, ss = fused_logprob_cuda(small, stoks)
+    sg = torch.randn(33, generator=gen, device=dev)
+    got = fused_logprob_bwd_cuda(small, stoks, sm, torch.log(ss), sg)
+    want = fused_logprob_bwd_plain(small, stoks, sm, torch.log(ss), sg)
+    err = max_err(got, want)
+    excess = bwd_excess(torch, got, want, sg, stoks, 1e-6)
+    require(err <= 1e-5 and excess <= 1.0, f"fused_logprob_bwd [33, 257] "
+            f"error {err:.3e}, worst element {excess:.3g} of its tolerance")
+    log(f"  fused_logprob_bwd [33, 257] fp32 (scalar path) with +-1e30 and "
+        f"tied rows: max|ddl| {err:.3e} (tolerance 1e-5), worst element "
+        f"{excess:.3g} of 1e-6 relative")
+
+    log_s = torch.log(s)
+
+    def run_bwd():
+        return fused_logprob_bwd_cuda(logits, toks, m, log_s, g_out,
+                                      n_valid=79)
+    ms = cuda_ms(torch, run_bwd, 20)
+    plain_ms = cuda_ms(torch, lambda: fused_logprob_bwd_plain(
+        view.reshape(-1, V_LLAMA), toks.reshape(-1), m.reshape(-1),
+        log_s.reshape(-1), g_out.reshape(-1)), 3)
+    flat = view.reshape(-1, V_LLAMA).contiguous().requires_grad_()
+    ce = F.cross_entropy(flat, flat_toks, reduction="none")
+    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        ce, flat, g_out.reshape(-1), retain_graph=True), 20)
+    del flat, ce
+    b_ms, b_by = bound(view.numel() * 2 + logits.numel() * 2 + 4 * n_rows * 4,
+                       view.numel() * LOGPROB_BWD_OPS_PER_LOGIT, FP32_FLOPS)
+    records.append({
+        "name": "fused_logprob_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_logprob_bwd.cu",
+        "replaces": "src/repro/kernels/fused_logprob.py:111",
+        "launches": 0, "max_abs_err": bwd_err, "ms": ms,
+        "kernel_only_ms": kernel_only_ms(torch, run_bwd, 10,
+                                         "fused_logprob_bwd_kernel"),
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "shape": [16, 79, V_LLAMA],
+        "dtype": "bfloat16"})
     del logits, view
 
     # ---- flash_attention: fp32 on peaked attention, bf16, ragged, small
@@ -329,6 +446,22 @@ def phase_kernels(torch, dev):
         "library_ms": lib_ms, "shape": [B, S, H, K, hd],
         "dtype": "bfloat16"})
     del q, k, v, qt, kt, vt
+
+    # ---- the attention gradient: the flash forward's recompute backward
+    # against chunked_attention's, at the trainer's [16, 80] shape
+    for dtype, tol in ((torch.float32, 1e-4), (bf16, 3e-2)):
+        q, k, v = qkv(16, 80, 32, 8, 128, dtype, seed=11)
+        go = torch.randn(16, 80, 32, 128, generator=gen, device=dev).to(dtype)
+        grads = []
+        for fn in (dispatch.attention, chunked_attention):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            grads.append(torch.autograd.grad(fn(*leaves), leaves, go))
+        err = max(max_err(a, b) for a, b in zip(*grads))
+        require(err <= tol, f"attention gradient {dtype} error {err:.3e}")
+        log(f"  attention gradient [16, 80, 32, 8, 128] {str(dtype)[6:]}: "
+            f"max|d(dq, dk, dv)| {err:.3e} against chunked_attention's "
+            f"(tolerance {tol:g})")
+        del q, k, v, go, grads
 
     for r in records:
         ko = r["kernel_only_ms"]
@@ -446,9 +579,9 @@ def phase_serve(torch, dev):
     return params, cfg, launches
 
 
-def busy_share(torch, fn, n_tokens: int, wall_ms_per_token: float) -> None:
-    """Device-busy share of one profiled decode chunk, and its top device
-    operations."""
+def device_profile(torch, fn):
+    """Device time of one profiled call of ``fn`` (ms, summed over the
+    device operations) and its device operations, largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -459,13 +592,20 @@ def busy_share(torch, fn, n_tokens: int, wall_ms_per_token: float) -> None:
     dev_ops = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in dev_ops) / 1e3 / n_tokens
-    top = sorted(dev_ops, key=lambda e: -e.self_device_time_total)[:6]
+    busy = sum(e.self_device_time_total for e in dev_ops) / 1e3
+    return busy, sorted(dev_ops, key=lambda e: -e.self_device_time_total)
+
+
+def busy_share(torch, fn, n_tokens: int, wall_ms_per_token: float) -> None:
+    """Device-busy share of one profiled decode chunk, and its top device
+    operations."""
+    busy, ops = device_profile(torch, fn)
+    busy /= n_tokens
     log(f"  profiled chunk: device busy {busy:.2f} ms per token = "
         f"{100 * busy / wall_ms_per_token:.1f}% of the unprofiled "
         f"{wall_ms_per_token:.2f} ms; top device operations (ms per token): "
         + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n_tokens:.3f}"
-                    for e in top))
+                    for e in ops[:6]))
 
 
 def phase_long(torch, dev, params, cfg) -> None:
@@ -524,6 +664,249 @@ def phase_fp32(torch, dev) -> None:
     require(d.max().item() <= 1e-3, "fp32 behaviour vs reference log-probs")
 
 
+def fingerprint(torch, params):
+    """fp64 sums of every 16th element of each leaf: an optimizer step
+    changes nearly every element, so a step shows in them."""
+    return [x.reshape(-1)[::16].double().sum().item() for x in leaves(params)]
+
+
+def phase_train(torch, dev):
+    """Three async-schedule steps at full width, 8 layers; returns the
+    launch counts of the run."""
+    import collections
+
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.core.channels import CommType, CommunicationChannel, \
+        WeightsCommunicationChannel
+    from repro_torch.core.controller import SyncExecutorController
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor, TrainerExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.rl.data import ArithmeticTasks
+
+    cfg = LLAMA31_8B.replace(name=f"llama31-8b-{TRAIN_LAYERS}l",
+                             n_layers=TRAIN_LAYERS)
+    n_steps = 3
+    log(f"[6] train {cfg.name}: published widths, {cfg.n_layers} of 32 "
+        f"layers, bf16 params, fp32 Adam; {n_steps} steps of the async "
+        f"schedule, staleness 1; KL {KL_COEF} to a frozen reference")
+    torch.cuda.reset_peak_memory_stats()
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=0),
+                            n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+                            max_new=MAX_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=0, device=dev)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(init_params(cfg, seed=1, dtype=torch.bfloat16,
+                                device=dev))
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    trn = TrainerExecutor(cfg, dtype=torch.bfloat16, kl_coef=KL_COEF,
+                          seed=0, device=dev)
+    ctl = SyncExecutorController(
+        [gen, ref, rew, trn],
+        [WeightsCommunicationChannel("policy_model", trn, gen),
+         CommunicationChannel("completions", gen, ref, CommType.BROADCAST),
+         CommunicationChannel("completions_with_ref", ref, rew,
+                              CommType.GATHER),
+         CommunicationChannel("completions_with_reward", rew, trn,
+                              CommType.SCATTER)],
+        max_steps=n_steps, mode="async", staleness=1)
+    t0 = time.perf_counter()
+    ctl.init()
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(trn.get_model()))
+    log(f"  init: {n / 1e9:.3f} B params, trainer state "
+        f"{12 * n / 1e9:.1f} GB (bf16 params + grads, fp32 m + v), "
+        f"{time.perf_counter() - t0:.1f} s")
+    fp_init = fingerprint(torch, trn.get_model())
+
+    times = collections.defaultdict(dict)
+    seen = {}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key][ctl._tick] = time.perf_counter() - t
+            return out
+        return run
+
+    def sync_and_look(tick):
+        sync(tick)
+        if tick == n_steps - 1:
+            # the generator now holds version tick - 1, the trainer tick
+            seen["gen"] = fingerprint(torch, gen.params)
+            seen["trainer"] = fingerprint(torch, trn.get_model())
+    gen.step = timed("generate", gen.step)
+    trn.step = timed("train", trn.step)
+    sync = timed("sync", ctl._sync_weights)
+    ctl._sync_weights = sync_and_look
+
+    build.reset_launches()          # the train path's run starts here
+    history = ctl.run()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    for h in history:
+        st = h["step"]
+        sync_ms = times["sync"].get(st)
+        log(f"  step {st}: generator {times['generate'][st]:.3f} s, trainer "
+            f"step {times['train'][st] * 1e3:.1f} ms, weight sync "
+            + ("none (step 0)" if sync_ms is None else f"{sync_ms * 1e3:.3f} ms")
+            + f", loss {h['loss']:.5f}, grad_norm {h['grad_norm']:.4f}, "
+            f"mean_ratio {h['mean_ratio']:.4f}, weight_version "
+            f"{h['weight_version']}, mean_reward {h['mean_reward']:.3f}")
+        require(h["weight_version"] == max(0, st - 1),
+                f"step {st}: weight_version {h['weight_version']}")
+        require(all(math.isfinite(h[k]) for k in ("loss", "grad_norm")),
+                f"step {st}: loss or grad_norm not finite")
+    require(fingerprint(torch, trn.get_model()) != fp_init,
+            "the params did not move")
+    require(seen["gen"] != seen["trainer"],
+            f"the generator's version {n_steps - 2} equals the trainer's "
+            f"version {n_steps - 1}")
+    require(fingerprint(torch, gen.params) == seen["gen"],
+            "a trainer step changed the generator's snapshot")
+    log(f"  launches over the {n_steps} steps: {launches}")
+    want = {"fused_sample": n_steps * MAX_NEW,
+            "flash_attention": n_steps * 3 * cfg.n_layers,
+            "fused_logprob": 2 * n_steps, "fused_logprob_bwd": n_steps}
+    require(launches == want, f"launch counts {launches}, want {want} (per "
+            "train step: fused_logprob 1, fused_logprob_bwd 1, "
+            "flash_attention n_layers; per generator step: fused_sample "
+            "max_new, flash_attention n_layers; per reference step: "
+            "fused_logprob 1, flash_attention n_layers)")
+    log(f"  weight versions {[h['weight_version'] for h in history]}; the "
+        f"generator's version {n_steps - 2} differs from the trainer's "
+        f"version {n_steps - 1} and stayed as it was through step "
+        f"{n_steps - 1}; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # the first step also pays the backward's first-call set-up; the
+    # last one is the steady state
+    train_ms = times["train"][n_steps - 1] * 1e3
+    busy, ops = device_profile(torch, trn.step)
+    log(f"  profiled train step: device busy {busy:.1f} ms = "
+        f"{100 * busy / train_ms:.1f}% of the unprofiled step {n_steps - 1} "
+        f"({train_ms:.1f} ms); top device operations (ms): "
+        + ", ".join(f"{e.key.replace('void at::native::', '')[:110]} "
+                    f"{e.self_device_time_total / 1e3:.2f}"
+                    for e in ops[:8]))
+    del ctl, gen, ref, rew, trn
+    return launches
+
+
+class plain_kernels:
+    """Within the block, the dispatch layer's log-prob and attention are
+    the plain versions under plain autograd (the card's reference for the
+    train step); nothing in the port has such a switch."""
+
+    def __init__(self, dispatch, token_logprob, attention):
+        self.dispatch = dispatch
+        self.plain = (token_logprob, attention)
+
+    def __enter__(self):
+        self.saved = (self.dispatch.token_logprob, self.dispatch.attention)
+        self.dispatch.token_logprob, self.dispatch.attention = self.plain
+
+    def __exit__(self, *exc):
+        self.dispatch.token_logprob, self.dispatch.attention = self.saved
+
+
+def phase_train_numerics(torch, dev) -> None:
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.flash_attention import chunked_attention
+    from repro_torch.kernels.fused_logprob import fused_logprob_plain
+    from repro_torch.models import init_params
+    from repro_torch.rl.data import ArithmeticTasks
+    from repro_torch.train.optimizer import adam_init, global_norm
+    from repro_torch.train.trainstep import TrainState, make_loss_fn, \
+        make_train_step, value_and_grad
+
+    log("[7] train numerics at llama31-8b widths, 2 layers, fp32: kernels "
+        "against plain versions under autograd")
+    cfg = LLAMA31_8B.replace(name="llama31-8b-2l", n_layers=2)
+    params = init_params(cfg, seed=2, dtype=torch.float32, device=dev)
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=2), n_prompts=4,
+                            n_per_prompt=4, max_new=16, chunk=16,
+                            temperature=1.0, seed=2, device=dev)
+    gen.set_weights(params, version=0)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(init_params(cfg, seed=3, dtype=torch.float32,
+                                device=dev))
+    rew = RewardExecutor(n_per_prompt=4, leave_one_out=True)
+    ref.put_input("completions", gen.step())
+    rew.put_input("completions_with_ref", ref.step())
+    scored = rew.step()
+    batch = {k: scored[k] for k in ("tokens", "behavior_logp", "advantages",
+                                    "mask", "ref_logp")}
+    del gen, ref
+
+    def plain_logprob(logits, tokens, n_valid=None):
+        if n_valid is not None:
+            logits = logits[:, :n_valid]
+        return fused_logprob_plain(logits.reshape(-1, logits.shape[-1]),
+                                   tokens.reshape(-1))[0].reshape(
+                                       tokens.shape)
+    plain = plain_kernels(dispatch, plain_logprob, chunked_attention)
+
+    loss_fn = make_loss_fn(cfg, kl_coef=KL_COEF)
+    build.reset_launches()
+    (loss_k, _), g_k = value_and_grad(loss_fn, params, batch)
+    launches = dict(build.LAUNCHES)
+    with plain:
+        (loss_p, _), g_p = value_and_grad(loss_fn, params, batch)
+    require(launches == {"fused_logprob": 1, "fused_logprob_bwd": 1,
+                         "flash_attention": cfg.n_layers},
+            f"kernel-path launches {launches}")
+    gn_k, gn_p = global_norm(g_k).item(), global_norm(g_p).item()
+    g_rel = max((a - b).abs().max().item() / b.abs().max().clamp(
+        min=1e-30).item() for a, b in zip(leaves(g_k), leaves(g_p)))
+    del g_k, g_p
+    torch.cuda.empty_cache()
+
+    new = {}
+    metrics = {}
+    for path in ("kernels", "plain"):
+        state = TrainState(params, adam_init(params))
+        step = make_train_step(cfg, kl_coef=KL_COEF)   # the paper's lr
+        if path == "plain":
+            with plain:
+                out, metrics[path] = step(state, batch)
+        else:
+            out, metrics[path] = step(state, batch)
+        new[path] = out.params
+        del state, out
+        torch.cuda.empty_cache()
+    p_max = max(x.abs().max().item() for x in leaves(params))
+    dp = max((a - b).abs().max().item() for a, b in
+             zip(leaves(new["kernels"]), leaves(new["plain"])))
+    moved = max((a - b).abs().max().item() for a, b in
+                zip(leaves(new["kernels"]), leaves(params)))
+    rel = {
+        "loss": abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
+        "grad_norm": abs(gn_k - gn_p) / gn_p,
+        "max|dgrad| / max|grad| (worst leaf)": g_rel,
+        "step loss": abs(float(metrics["kernels"]["loss"])
+                         - float(metrics["plain"]["loss"]))
+        / abs(float(metrics["plain"]["loss"])),
+        "step grad_norm": abs(float(metrics["kernels"]["grad_norm"])
+                              - float(metrics["plain"]["grad_norm"]))
+        / float(metrics["plain"]["grad_norm"]),
+        "max|dparam| / max|param|": dp / p_max,
+    }
+    log(f"  loss {loss_k.item():.7f} vs {loss_p.item():.7f}, grad_norm "
+        f"{gn_k:.6f} vs {gn_p:.6f}, mean_reward {scored['mean_reward']:.3f}; "
+        f"the step moved params by up to {moved:.3e}")
+    log("  relative differences (tolerance 1e-4): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    for k, v in rel.items():
+        require(v <= 1e-4, f"train numerics: {k} {v:.3e} > 1e-4")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: no src/repro_torch beside chip_smoke.py",
@@ -551,13 +934,20 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_fp32(torch, dev)
+    torch.cuda.empty_cache()
+    train_launches = phase_train(torch, dev)
+    torch.cuda.empty_cache()
+    phase_train_numerics(torch, dev)
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
     require(not stray, f"imported {stray}")
     for r in records:
-        r["launches"] = launches.get(r["name"], 0)
-        require(r["launches"] > 0, f"{r['name']} never ran on the main path")
+        by_path = {"serve": launches.get(r["name"], 0),
+                   "train": train_launches.get(r["name"], 0)}
+        r["launches"] = sum(by_path.values())
+        r["launches_by_path"] = by_path
+        require(r["launches"] > 0, f"{r['name']} never ran on a main path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(smi)

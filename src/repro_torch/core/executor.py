@@ -1,20 +1,21 @@
-"""Executors (paper Sec. 5.1.1) of the serving path: generator, reward and
-frozen reference (the port of the JAX package's ``core/executor.py``).
+"""Executors (paper Sec. 5.1.1): generator, reward, frozen reference and
+trainer (the port of the JAX package's ``core/executor.py``).
 
 Each executor exposes the reference's port surface -- ``put_input`` /
 ``step`` / ``get_output`` -- so a controller wires them as it wires the
-JAX ones.  The trainer, weight staging and the engine hooks come with
-later slices.
+JAX ones.  The pinned-params and engine hooks of the generator come with
+the pool and engine slices (ROADMAP A7, A10).
 """
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import ddma
 from repro_torch.core.aipo import token_logprobs
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import forward_train
@@ -24,6 +25,8 @@ from repro_torch.rl import rewards as rl_rewards
 from repro_torch.rl.rollout import action_mask, finalize_rollout, \
     rollout_chunk, start_rollout
 from repro_torch.rl.scheduler import RolloutJob
+from repro_torch.train.trainstep import TrainState, init_train_state, \
+    make_train_step
 
 
 class Executor:
@@ -37,6 +40,7 @@ class Executor:
         self._port_lock = threading.RLock()
         self._outputs: Dict[str, Any] = {}
         self._inputs: Dict[str, Any] = {}
+        self._staged_weights: Dict[int, Any] = {}
 
     def init(self):
         pass
@@ -66,9 +70,47 @@ class Executor:
     def ping(self) -> str:
         return self.name
 
+    # ------------------------------------------- weight-fabric slot surface --
+    # ``stage_weights`` parks a versioned snapshot without applying it; the
+    # ``commit_weights`` call later switches the executor to it at a
+    # staleness-legal boundary.
+
+    def stage_weights(self, params, version: int):
+        """Park a published snapshot.  Slots are refcounted: several
+        channels staging one version commit it once each."""
+        with self._port_lock:
+            cur = self._staged_weights.get(version)
+            self._staged_weights[version] = \
+                (params, 1 if cur is None else cur[1] + 1)
+
+    def commit_weights(self, version: int):
+        """Apply a staged snapshot; release its slot once every stager's
+        commit arrived."""
+        with self._port_lock:
+            params, n = self._staged_weights[version]
+            if n <= 1:
+                self._staged_weights.pop(version)
+            else:
+                self._staged_weights[version] = (params, n - 1)
+        self.set_weights(params, version=version)
+
+    def staged_versions(self) -> List[int]:
+        """Versions staged but not yet committed."""
+        with self._port_lock:
+            return sorted(self._staged_weights)
+
+    def configure(self, **attrs):
+        """Set existing executor attributes by name."""
+        for k, v in attrs.items():
+            if not hasattr(self, k):
+                raise AttributeError(
+                    f"executor '{self.name}' has no attribute {k!r}")
+            setattr(self, k, v)
+
 
 class GeneratorExecutor(Executor):
-    """Policy inference: rollouts + behaviour log-probs.
+    """Policy inference: rollouts + behaviour log-probs (+ optional int8
+    fake-quantized weights).
 
     ``begin_batch`` / ``advance_chunk`` / ``emit_batch`` are the resumable
     hooks; ``step()`` runs them back to back.  Keys follow the reference's
@@ -84,15 +126,13 @@ class GeneratorExecutor(Executor):
                  chunk: int = 0, seed: int = 0, device: DeviceLike = None,
                  name: str = "generator"):
         super().__init__(name)
-        if quantize:
-            raise NotImplementedError(
-                "quantize=True needs the int8 matmul kernel (ROADMAP B6)")
         self.cfg = cfg
         self.tasks = tasks
         self.n_prompts = n_prompts
         self.n_per_prompt = n_per_prompt
         self.max_new = max_new
         self.temperature = temperature
+        self.quantize = quantize
         self.chunk = chunk
         self.device = resolve(device)
         self.key = prng.PRNGKey(seed)
@@ -100,10 +140,13 @@ class GeneratorExecutor(Executor):
         self.weight_version = -1        # version of self.params (-1 = unset)
 
     def set_weights(self, params, version: Optional[int] = None):
-        """Versions only move forward: an older delivery is dropped."""
+        """Receives the trainer's weights, through int8 when ``quantize``
+        (``ddma.quantize_dequant``, once per sync).  Versions only move
+        forward: an older delivery is dropped."""
         if version is not None and version < self.weight_version:
             return
-        self.params = params
+        self.params = ddma.quantize_dequant(params) if self.quantize \
+            else params
         if version is not None:
             self.weight_version = version
 
@@ -242,3 +285,65 @@ class RefPolicyExecutor(Executor):
         self.set_output("completions_with_ref", out)
         self.curr_step += 1
         return out
+
+
+class TrainerExecutor(Executor):
+    """Policy training: one AIPO update per step on scored completions.
+
+    ``dtype`` is the params' dtype (fp32 by default, as in the reference);
+    the Adam moments are fp32 whatever it is.  ``policy_model`` on the
+    output port is the params after the latest step: the optimizer builds
+    new tensors each step, so a snapshot taken from the port never
+    changes afterwards."""
+
+    role = "trainer"
+
+    def __init__(self, cfg, *, lr=1e-3, rho=4.0, clip_mode="aipo",
+                 kl_coef=0.0, seed=0, dtype=torch.float32,
+                 device: DeviceLike = None, name: str = "trainer"):
+        super().__init__(name)
+        self.cfg = cfg
+        self.state: Optional[TrainState] = None
+        self.seed = seed
+        self.dtype = dtype
+        self.device = resolve(device)
+        self._train_step = make_train_step(cfg, lr=lr, rho=rho,
+                                           clip_mode=clip_mode,
+                                           kl_coef=kl_coef)
+        self.metrics_history: List[Dict[str, float]] = []
+
+    def init(self):
+        self.state = init_train_state(self.cfg, self.seed, self.dtype,
+                                      device=self.device)
+        self.set_output("policy_model", self.state.params)
+
+    def get_model(self):
+        return self.state.params
+
+    def last_metrics(self) -> Dict[str, Any]:
+        """The most recent train-step metrics row."""
+        return dict(self.metrics_history[-1]) if self.metrics_history \
+            else {}
+
+    def recent_metrics(self, n: int):
+        """The last ``n`` metrics rows."""
+        return [dict(m) for m in self.metrics_history[-max(0, n):]]
+
+    def step(self):
+        scored = self.get_input("completions_with_reward")
+        batch = {k: scored[k] for k in ("tokens", "behavior_logp",
+                                        "advantages", "mask")}
+        if "ref_logp" in scored:
+            batch["ref_logp"] = scored["ref_logp"]
+        self.state, metrics = self._train_step(self.state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        metrics["mean_reward"] = scored.get("mean_reward", 0.0)
+        self.metrics_history.append(metrics)
+        self.set_output("policy_model", self.state.params)
+        self.curr_step += 1
+        return metrics
+
+    def save_checkpoint(self, path: str, step: int):
+        raise NotImplementedError(
+            "checkpoints come with the port of train/checkpoint.py "
+            "(ROADMAP A12)")

@@ -2,9 +2,10 @@
 
 Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface, which ``ctypes`` loads.
-A library is built on first use, one source after another, into
-``build/kernels/`` at the repository root, named by a hash of its sources
-and flags, so a changed source is rebuilt and an unchanged one is reused.
+A library is built on first use into ``build/kernels/`` at the repository
+root, named by a hash of its sources and flags, so a changed source is
+rebuilt and an unchanged one is reused.  ``build_all`` starts one ``nvcc``
+per source, all at once, and waits for them together.
 
 ``LAUNCHES[name]`` counts the successful launches of each kernel; every
 wrapper adds one where it launches, and nowhere else.
@@ -48,26 +49,43 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name in _LIBS:
-        return _LIBS[name]
-    out = BUILD_DIR / f"{name}-{_digest(name)}.so"
-    if not out.exists():
+def _out(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build_all(names) -> None:
+    """Build every named library that is not built yet, with one ``nvcc``
+    process per source running at the same time; raise if any fails."""
+    started = []
+    for name in names:
+        out = _out(name)
+        if name in _LIBS or out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started.append((name, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, proc, t0 in started:
+        _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            continue
         os.replace(tmp, out)
         BUILD_SECONDS[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = proc.stderr
-    lib = ctypes.CDLL(str(out))
-    _LIBS[name] = lib
-    return lib
+        BUILD_LOG[name] = err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _LIBS:
+        build_all([name])
+        _LIBS[name] = ctypes.CDLL(str(_out(name)))
+    return _LIBS[name]
 
 
 def c_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:

@@ -4,39 +4,80 @@ A CUDA tensor launches the hand-written kernel or raises; a CPU tensor
 takes the kernel's plain PyTorch version.  There is no mode knob and no
 size threshold: on the card the path always goes through the kernels.
 A call the kernels cannot take raises ``NotImplementedError`` naming the
-slice that brings it.  Inputs that need a gradient on the card raise too:
-the backward kernels come with the training slice.
+slice that brings it.
+
+``token_logprob`` and ``attention`` are differentiable, as the
+reference's custom VJPs are (``repro/kernels/dispatch.py``): the
+log-prob's backward is its own kernel on the card, the attention's
+backward recomputes through ``chunked_attention`` under autograd.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.flash_attention import chunked_attention, \
     flash_attention_cuda
-from repro_torch.kernels.fused_logprob import fused_logprob_cuda, \
-    fused_logprob_plain
+from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
+    fused_logprob_bwd_plain, fused_logprob_cuda, fused_logprob_plain
 from repro_torch.kernels.fused_sample import fused_sample_cuda, \
     fused_sample_plain
 
 
-def _forward_only(*tensors):
-    for t in tensors:
-        if t.is_cuda and t.requires_grad:
-            raise NotImplementedError("backward kernels: next slice")
+class _TokenLogprob(torch.autograd.Function):
+    """log softmax(base[:, :n])[token] for a 3-D ``base``.  The forward
+    saves the online stats (m, log s); the backward rebuilds the softmax
+    from them and returns the gradient of the whole ``base`` (zero past
+    row n), so scoring a prefix needs no scatter."""
+
+    @staticmethod
+    def forward(ctx, base, tokens, n):
+        view = base[:, :n]
+        if base.is_cuda:
+            logp, m, s = fused_logprob_cuda(view, tokens)
+        else:
+            V = base.shape[-1]
+            logp, m, s = (t.reshape(tokens.shape) for t in fused_logprob_plain(
+                view.reshape(-1, V), tokens.reshape(-1)))
+        ctx.n = n
+        ctx.save_for_backward(base, tokens, m, torch.log(s))
+        return logp
+
+    @staticmethod
+    def backward(ctx, g):
+        base, tokens, m, log_s = ctx.saved_tensors
+        n = ctx.n
+        if base.is_cuda:
+            return fused_logprob_bwd_cuda(base, tokens, m, log_s, g,
+                                          n_valid=n), None, None
+        V = base.shape[-1]
+        d = fused_logprob_bwd_plain(base[:, :n].reshape(-1, V),
+                                    tokens.reshape(-1), m.reshape(-1),
+                                    log_s.reshape(-1), g.reshape(-1))
+        full = torch.zeros_like(base)
+        full[:, :n] = d.reshape(base.shape[0], n, V)
+        return full, None, None
 
 
-def token_logprob(logits, tokens):
-    """log softmax(logits)[token] per position, streamed.
+def token_logprob(logits, tokens, n_valid=None):
+    """log softmax(logits)[token] per position, streamed, differentiable.
 
-    logits: [..., V] (fp32/bf16); tokens: [...] int -> [...] fp32.  On the
-    card a 2-D or 3-D input (such as the strided ``logits[:, :-1]``) is
-    read in place.
+    logits: [..., V] (fp32/bf16); tokens: [...] int -> [...] fp32.  With
+    3-D logits [B, T, V], ``n_valid`` scores only ``logits[:, :n_valid]``
+    (tokens [B, n_valid]): the trainer passes its whole logits and
+    ``T - 1``.  The kernels then read that prefix in place, and the
+    backward writes the gradient of the whole logits (zero past
+    ``n_valid``), so autograd scatters nothing.
     """
-    _forward_only(logits)
-    if logits.is_cuda:
-        return fused_logprob_cuda(logits, tokens)[0]
     V = logits.shape[-1]
-    lead = logits.shape[:-1]
-    out, _, _ = fused_logprob_plain(logits.reshape(-1, V), tokens.reshape(-1))
-    return out.reshape(lead)
+    if logits.dim() == 3:
+        base, n = logits, logits.shape[1] if n_valid is None else n_valid
+    elif n_valid is not None:
+        raise ValueError(f"n_valid needs 3-D logits, got {tuple(logits.shape)}")
+    else:
+        base = logits.reshape(1, -1, V)
+        n = base.shape[1]
+    out = _TokenLogprob.apply(base, tokens.reshape(base.shape[0], n), n)
+    return out.reshape(tokens.shape)
 
 
 def sample(logits, key, temperature: float):
@@ -44,12 +85,30 @@ def sample(logits, key, temperature: float):
 
     logits: [B, V]; key: a ``rl.prng`` key.  Returns (tokens [B] int32,
     log mu(token) [B] fp32) under the temperature-scaled distribution
-    (greedy argmax scored at T = 1 when ``temperature == 0``).
+    (greedy argmax scored at T = 1 when ``temperature == 0``).  Not
+    differentiable, as in the reference.
     """
-    _forward_only(logits)
     if logits.is_cuda:
         return fused_sample_cuda(logits, key, temperature)
     return fused_sample_plain(logits, key, temperature)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel forward; the backward recomputes through
+    ``chunked_attention`` under autograd, as the reference's
+    ``_flash_vjp_bwd`` does (the reference has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_cuda(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = chunked_attention(*leaves)
+        return torch.autograd.grad(out, leaves, g)
 
 
 def attention(q, k, v):
@@ -59,7 +118,6 @@ def attention(q, k, v):
     dense family passes: windowed, offset, cross and asymmetric-head
     attention come with the remaining families (ROADMAP A11).
     """
-    _forward_only(q, k, v)
     if (q.shape[1] != k.shape[1] or v.shape[-1] != q.shape[-1]
             or q.shape[2] % k.shape[2]):
         raise NotImplementedError(
@@ -67,5 +125,5 @@ def attention(q, k, v):
             f"{tuple(v.shape)}: only dense causal self-attention is ported "
             "(other shapes: ROADMAP A11)")
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v)
+        return _FlashAttention.apply(q, k, v)
     return chunked_attention(q, k, v)

@@ -57,12 +57,6 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     return params
 
 
-def layer(stacked: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked params subtree (views, no copies)."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
-
-
 def _attn_block(p, x, cfg):
     y, kv = attn.gqa_forward(p["attn"], norm(x, p["ln1"], cfg.norm), cfg)
     return x + y, kv
@@ -73,12 +67,21 @@ def _ffn_block(p, x, cfg):
     return x + ffnmod.mlp_forward(p["mlp"], h, cfg.act, bias=cfg.bias)
 
 
+def unstack(stacked: Params, n: int) -> list:
+    """The ``n`` per-layer subtrees of a stacked params subtree (views, no
+    copies), from one ``unbind`` per leaf.  Its backward stacks the
+    layers' gradients in one allocation; indexing one layer at a time
+    would zero-fill a whole stacked gradient per layer."""
+    per = {k: unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+           for k, v in stacked.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
 def _run_decoder_stack(stacked, x, cfg, collect_kv: bool = False):
     """Every layer in order; with ``collect_kv`` also each layer's rotated
     (k, v), for prefill to write into the cache."""
     kvs = []
-    for i in range(cfg.n_layers):
-        p = layer(stacked, i)
+    for p in unstack(stacked, cfg.n_layers):
         x, kv = _attn_block(p, x, cfg)
         x = _ffn_block(p, x, cfg)
         if collect_kv:

@@ -75,8 +75,7 @@ def decode_step(params, cfg: ArchConfig, cache: Cache, tokens):
     pos = cache["pos"]
     seg = cache["segments"][0]
     x = bb._embed(params, cfg, tokens)
-    for i in range(cfg.n_layers):
-        p = bb.layer(params["layers"], i)
+    for i, p in enumerate(bb.unstack(params["layers"], cfg.n_layers)):
         y = attn.gqa_decode(p["attn"], norm(x, p["ln1"], cfg.norm),
                             seg["k"][i], seg["v"][i], seg["slot_pos"], pos,
                             cfg)

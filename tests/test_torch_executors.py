@@ -3,7 +3,6 @@ against the JAX package, wired as the controller wires them."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from repro.configs.llama_paper import smoke
 from repro.core import executor as jex
@@ -48,8 +47,17 @@ def test_executors_match_jax():
         assert ((t["behavior_logp"] - t["ref_logp"]) * m).abs().max() < 1e-4
 
 
-def test_quantize_waits_for_the_int8_kernel():
-    with pytest.raises(NotImplementedError, match="B6"):
-        tex.GeneratorExecutor(tsmoke(), ArithmeticTasks(), n_prompts=1,
-                              n_per_prompt=1, max_new=1, quantize=True,
-                              device="cpu")
+def test_quantized_generator_matches_jax():
+    """``quantize=True`` fake-quantizes the weights through int8 once at
+    weight sync (``ddma.quantize_dequant``), as the reference does, with no
+    int8 kernel, and then generates as the JAX generator does."""
+    jp = jinit(smoke(), jax.random.PRNGKey(1), jnp.float32)
+    tp = convert.from_jax_numpy(jax.device_get(jp), device="cpu")
+    jouts = _pipeline(jex, smoke(), jp, JTasks(seed=2), quantize=True)
+    touts = _pipeline(tex, tsmoke(), tp, ArithmeticTasks(seed=2),
+                      quantize=True, device="cpu")
+    for j, t in zip(jouts, touts):
+        assert np.array_equal(t["tokens"].numpy(), np.asarray(j["tokens"]))
+        err = np.max(np.abs(t["behavior_logp"].numpy()
+                            - np.asarray(j["behavior_logp"])))
+        assert err < 1e-5
