@@ -6,12 +6,13 @@
 Each phase prints its own lines:
 
   [0] device   the card's name and power limit, torch and CUDA versions
-  [1] build    nvcc builds the four CUDA kernels from the repository's
+  [1] build    nvcc builds the five CUDA kernels from the repository's
                sources, one nvcc per source, all at once
   [2] kernels  each kernel against its plain PyTorch version on the card,
                then its time beside the plain version's, a PyTorch
                yardstick's and the least time the card could take; the
-               attention gradient against chunked_attention's
+               attention gradient against chunked_attention's; paged
+               attention also on an arena whose unread slots are NaN
   [3] serve    GeneratorExecutor -> RefPolicyExecutor -> RewardExecutor
                through their ports, two steps of full-depth bf16
                llama31-8b from a seeded random init; the kernels' launch
@@ -28,6 +29,17 @@ Each phase prints its own lines:
   [7] numerics llama31-8b widths with 2 layers in fp32: one train step
                through the kernels against the same step through the
                plain versions under autograd, within 1e-4 relative
+  [8] engine   (run right after [4], on its params) the continuous-
+               batching engine through GeneratorExecutor.engine_configure
+               (kv_layout="paged") / engine_enqueue / engine_round: three
+               batches of 48-token prompts, straggler budgets, rows
+               admitted mid-decode from the radix cache; the launch
+               counts of its rounds, radix hits, staleness and page
+               leaks asserted; the emitted batches scored by
+               RefPolicyExecutor and RewardExecutor; decode time and
+               device-busy share beside the dense layout's decode time;
+               then the same engine at 2 layers in fp32, its behaviour
+               log-probs within 1e-3 of the reference's
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -43,6 +55,7 @@ result.  Any failed check raises, so the script exits non-zero.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -78,8 +91,14 @@ KL_COEF = 0.1
 # floating-point operations of the log-prob backward per logit: two
 # subtractions, the exp, the one-hot compare, the difference and the scale
 LOGPROB_BWD_OPS_PER_LOGIT = 6
+# the engine phase: prompts of 48 tokens, so 3 of 4 siblings reuse two
+# radix-cached pages of 16; straggler budgets (in chunks) cycling over the
+# rows; three batches into the default pool of 2 x 16 rows, so rows are
+# admitted mid-decode at divergent cursors
+ENGINE_PROMPT, ENGINE_PAGE, ENGINE_BATCHES = 48, 16, 3
+ENGINE_BUDGETS = [1, 2, 4, 4]
 KERNELS = ("fused_sample", "fused_logprob", "fused_logprob_bwd",
-           "flash_attention")
+           "flash_attention", "paged_attention")
 
 
 def log(msg: str = "") -> None:
@@ -463,15 +482,159 @@ def phase_kernels(torch, dev):
             f"(tolerance {tol:g})")
         del q, k, v, go, grads
 
+    records.append(check_paged_attention(torch, dev))
+
     for r in records:
         ko = r["kernel_only_ms"]
-        log(f"  time {r['name']} {r['shape']} bf16: kernel {r['ms']:.4f} ms "
+        log(f"  time {r['name']} {r['shape']} {r['dtype']}: kernel {r['ms']:.4f} ms "
             f"per call ({'not measured' if ko is None else f'{ko:.4f} ms'}"
             f" of it in the kernel, profiler), plain {r['plain_ms']:.4f} ms,"
             f" library " + ("n/a" if r["library_ms"] is None
                             else f"{r['library_ms']:.4f} ms")
             + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return records
+
+
+def paged_problem(torch, dev, B, H, K, hd, P, mb, n_pages, pos, q_dtype,
+                  kv_dtype, seed, perm=True):
+    """q [B, H, hd], arenas [n_pages + 1, P, K, hd], a table whose pages
+    are a random permutation (or, with ``perm`` False, random ids as in
+    the reference suite's arena_problem) and whose last column is the
+    trash page, and the cursors ``pos``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(q_dtype)
+    ak, av = (torch.randn(n_pages + 1, P, K, hd, generator=g, device=dev)
+              .to(kv_dtype) for _ in range(2))
+    pages = torch.randperm(n_pages, generator=g, device=dev)[:B * mb] \
+        .reshape(B, mb) if perm else \
+        torch.randint(0, n_pages, (B, mb), generator=g, device=dev)
+    table = torch.cat([pages, torch.full((B, 1), n_pages, device=dev)],
+                      1).int()
+    return q, ak, av, table, torch.tensor(pos, dtype=torch.int32,
+                                          device=dev)
+
+
+def attended_slots(torch, arena, table, pos, window):
+    """[n_pages + 1, P] bool: the arena slots some row attends to (its
+    columns max(0, pos - window + 1) .. min(pos, mb P - 1)); and the
+    number of (row, column) pairs, the columns the work needs."""
+    P, mb = arena.shape[1], table.shape[1] - 1
+    need = torch.zeros(arena.shape[:2], dtype=torch.bool,
+                       device=table.device)
+    n_cols = 0
+    for r, p in enumerate(pos.tolist()):
+        lo = max(0, p - window + 1) if window else 0
+        cols = torch.arange(lo, min(p, mb * P - 1) + 1, device=table.device)
+        need[table[r, cols // P].long(), cols % P] = True
+        n_cols += cols.numel()
+    return need, n_cols
+
+
+def check_paged_attention(torch, dev):
+    """B5 against ``paged_attention_plain`` at the reference suite's
+    arena_problem, the engine's shape and a 2048-token context; windows
+    0, 6 and 100; then its time at the 2048-token shape.  Returns the
+    JSON record."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, \
+        paged_attention_plain
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = {
+        "arena_problem": (3, 4, 2, 16, 5, 4, 16, [3, 11, 19], False),
+        "arena_problem pos 0": (3, 4, 2, 16, 5, 4, 16, [0, 0, 0], False),
+        # 32 slots of prompt 48 + 64 new tokens at page 16; the last row a
+        # zombie at the clamp mb * P
+        "engine": (32, 32, 8, 128, 16, 7, 224,
+                   [48 + 5 * i % 64 for i in range(31)] + [112], True),
+        # 16 rows of up to 2048 tokens: ragged cursors with 0, P - 1, P
+        # and 2047, and 64 unmapped pages
+        "timing": (16, 32, 8, 128, 16, 128, 2112,
+                   [0, 15, 16, 2047]
+                   + [2047 - 13 * i for i in range(1, 13)], True),
+    }
+    worst = 0.0
+    for name, (*dims, pos, perm) in shapes.items():
+        for q_dtype, kv_dtype, tol in ((f32, f32, 2e-5), (bf16, f32, 2e-5),
+                                       (bf16, bf16, 3e-2)):
+            q, ak, av, table, pos_t = paged_problem(torch, dev, *dims, pos,
+                                                    q_dtype, kv_dtype, 10,
+                                                    perm)
+            for window in (0, 6, 100):
+                got = paged_attention_cuda(q, ak, av, table, pos_t,
+                                           window=window)
+                want = paged_attention_plain(q, ak, av, table, pos_t,
+                                             window=window)
+                require(got.dtype == kv_dtype and got.shape == q.shape,
+                        "paged_attention output")
+                err = max_err(got, want)
+                # poison every slot no row attends to; the kernel must not
+                # read one: it equals the plain version on the zeroed arena
+                need, _ = attended_slots(torch, ak, table, pos_t, window)
+                poisoned, zeroed = [], []
+                for a in (ak, av):
+                    pa, za = a.clone(), a.clone()
+                    pa[~need] = float("nan")
+                    za[~need] = 0.0
+                    poisoned.append(pa)
+                    zeroed.append(za)
+                got_p = paged_attention_cuda(q, *poisoned, table, pos_t,
+                                             window=window)
+                err_p = max_err(got_p, paged_attention_plain(
+                    q, *zeroed, table, pos_t, window=window))
+                require(err <= tol and err_p <= tol,
+                        f"paged_attention {name} q {q_dtype} arena "
+                        f"{kv_dtype} window {window}: error {err:.3e}, "
+                        f"on the poisoned arena {err_p:.3e}")
+                if kv_dtype == f32:
+                    worst = max(worst, err, err_p)
+                log(f"  paged_attention {name} {dims[:7]} q "
+                    f"{str(q_dtype)[6:]} arena {str(kv_dtype)[6:]} window "
+                    f"{window}: max|do| {err:.3e}, {err_p:.3e} with unread "
+                    f"slots NaN (tolerance {tol:g})")
+            del q, ak, av, poisoned, zeroed
+
+    def timed(name, kv_dtype, window=0):
+        *dims, pos, perm = shapes[name]
+        q, ak, av, table, pos_t = paged_problem(torch, dev, *dims, pos, bf16,
+                                                kv_dtype, 11, perm)
+
+        def run():
+            return paged_attention_cuda(q, ak, av, table, pos_t,
+                                        window=window)
+        B, H, K, hd = dims[0], dims[1], dims[2], dims[3]
+        _, n_cols = attended_slots(torch, ak, table, pos_t, window)
+        esize = ak.element_size()
+        n_bytes = (2 * n_cols * K * hd * esize + q.numel() * 2
+                   + B * H * hd * esize + table.numel() * 4 + B * 4)
+        flops = 4 * n_cols * H * hd          # q.k and p v, every head
+        b_ms, b_by = bound(n_bytes, flops, FP32_FLOPS)
+        rec = {"ms": cuda_ms(torch, run, 50),
+               "kernel_only_ms": kernel_only_ms(torch, run, 20,
+                                                "paged_attention_kernel"),
+               "plain_ms": cuda_ms(torch, lambda: paged_attention_plain(
+                   q, ak, av, table, pos_t, window=window), 5),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+        ko = rec["kernel_only_ms"]
+        log(f"  time paged_attention {name} arena {str(kv_dtype)[6:]} "
+            f"window {window}: {rec['ms']:.4f} ms per call ("
+            + ("not measured" if ko is None else f"{ko:.4f} ms")
+            + f" in the kernel), plain {rec['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB)")
+        return rec
+
+    main = timed("timing", f32)
+    timed("timing", bf16)
+    timed("timing", f32, window=100)
+    timed("engine", f32)
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:72",
+            "launches": 0, "max_abs_err": worst, "ms": main["ms"],
+            "kernel_only_ms": main["kernel_only_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "shape": list(shapes["timing"][:7]),
+            "dtype": "bfloat16 q, float32 arena"}
 
 
 def _pipeline_step(torch, gen, ref, rew):
@@ -637,6 +800,183 @@ def phase_long(torch, dev, params, cfg) -> None:
     log(f"  prefill [4, 2048]: {(t1 - t0) * 1e3:.1f} ms; decode "
         f"{(t2 - t1) * 1e3 / 16:.2f} ms per token (batch 4, cache 2064); "
         f"launches {launches}")
+
+
+class timed_decode:
+    """Within the block, the engine's ``rollout_rows_chunk`` is timed on
+    the host clock between synchronizes, call by call; the call numbered
+    ``profile_call`` runs under the profiler instead and its device time
+    is kept.  Nothing in the port has such a hook."""
+
+    def __init__(self, torch, engine_mod, profile_call=None):
+        self.torch, self.mod, self.profile_call = torch, engine_mod, \
+            profile_call
+        self.wall, self.profiled = [], None
+
+    def __enter__(self):
+        self.real = self.mod.rollout_rows_chunk
+
+        def run(*args, **kwargs):
+            torch = self.torch
+            if self.rounds == self.profile_call:
+                box = []
+                self.profiled = device_profile(
+                    torch, lambda: box.append(self.real(*args, **kwargs)))
+                return box[0]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = self.real(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.wall.append(time.perf_counter() - t)
+            return out
+        self.mod.rollout_rows_chunk = run
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.rollout_rows_chunk = self.real
+
+    @property
+    def rounds(self) -> int:
+        return len(self.wall) + (self.profiled is not None)
+
+
+def run_engine(torch, dev, params, cfg, layout, profile_call=None):
+    """ENGINE_BATCHES batches through the generator's engine hooks, as a
+    caller drives them.  Returns (emitted batches, engine stats, the
+    decode timer, the launch counts of the rounds, the generator)."""
+    from repro_torch.core.executor import GeneratorExecutor
+    from repro_torch.kernels import build
+    from repro_torch.rl import engine as engine_mod
+    from repro_torch.rl.data import ArithmeticTasks
+
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(prompt_len=ENGINE_PROMPT,
+                                                 seed=0),
+                            n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+                            max_new=MAX_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=0, device=dev)
+    gen.set_weights(params, version=0)
+    gen.engine_configure(kv_layout=layout, kv_page_size=ENGINE_PAGE,
+                         row_budgets=ENGINE_BUDGETS)
+    for b in range(ENGINE_BATCHES):
+        gen.engine_enqueue(b, bound=0)
+    items = []
+    with timed_decode(torch, engine_mod, profile_call) as timer:
+        build.reset_launches()          # the engine path's run starts here
+        for _ in range(50):
+            items += gen.engine_round(["completions"])
+            if len(items) == ENGINE_BATCHES:
+                break
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)  # ... and ends here
+    require(len(items) == ENGINE_BATCHES,
+            f"{layout} engine emitted {len(items)} of {ENGINE_BATCHES}")
+    outs = [it["snapshot"]["completions"] for it in items]
+    return outs, gen.engine_stats(), timer, launches, gen
+
+
+def score_engine(torch, cfg, params, outs):
+    """The emitted batches through RefPolicyExecutor and RewardExecutor;
+    returns |mu - ref| at every action position."""
+    from repro_torch.core.executor import RefPolicyExecutor, RewardExecutor
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(params)
+    rew = RewardExecutor(n_per_prompt=N_PER)
+    diffs = []
+    for out in outs:
+        ref.put_input("completions", out)
+        scored = ref.step()
+        rew.put_input("completions_with_ref", scored)
+        adv = rew.step()["advantages"]
+        want = torch.as_tensor(out["group_advantages"], device=adv.device)
+        require(torch.equal(adv, want.float()[:, None] * out["mask"]),
+                "reward advantages differ from the engine's group ones")
+        diffs.append(_check_outputs(torch, scored, cfg.vocab))
+    return torch.cat(diffs)
+
+
+def phase_engine(torch, dev, params, cfg):
+    """The continuous-batching engine, paged layout, at full depth; then
+    the same engine at 2 layers in fp32 against the reference, and the
+    dense layout's decode time on the same work.  Returns the launch
+    counts of the paged engine's rounds."""
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.models import init_params
+
+    log(f"[8] engine: {cfg.name} at full width ({cfg.n_layers} layers, "
+        f"bf16), kv_layout paged, page {ENGINE_PAGE}; {ENGINE_BATCHES} "
+        f"batches of {N_PROMPTS} prompts x {N_PER} samples, prompts of "
+        f"{ENGINE_PROMPT}, {MAX_NEW} new tokens in chunks of {CHUNK}, row "
+        f"budgets {ENGINE_BUDGETS} chunks, a pool of "
+        f"{2 * N_PROMPTS * N_PER} rows")
+    t0 = time.perf_counter()
+    outs, st, timer, launches, gen = run_engine(torch, dev, params, cfg,
+                                                "paged", profile_call=2)
+    wall = time.perf_counter() - t0
+    rounds = timer.rounds
+    want = {"paged_attention": cfg.n_layers * CHUNK * rounds,
+            "fused_sample": CHUNK * rounds,
+            "flash_attention": cfg.n_layers * st["radix_misses"]}
+    log(f"  {rounds} decode rounds in {wall:.2f} s; launches {launches}; "
+        f"stats: admitted {st['rows_admitted']}, harvested "
+        f"{st['rows_harvested']}, radix hits {st['radix_hits']} / misses "
+        f"{st['radix_misses']} ({st['prefix_tokens_reused']} prompt tokens "
+        f"reused), backpressure {st['admission_backpressure']}, staleness "
+        f"violations {st['staleness_violations']}, pages in use "
+        f"{st['pages_in_use']} of {st['pages_total']} (radix nodes "
+        f"{st['radix_nodes']})")
+    require(launches == want, f"engine launch counts {launches}, want {want}"
+            " (per decode round: paged_attention n_layers x chunk, "
+            "fused_sample chunk; per radix miss: flash_attention n_layers)")
+    require(st["radix_hits"] > 0, "no radix hit")
+    require(st["staleness_violations"] == 0, "staleness violations")
+    require(st["rows_harvested"] == ENGINE_BATCHES * N_PROMPTS * N_PER
+            and st["running"] == 0 and st["waiting"] == 0, "rows left")
+    require(st["pages_in_use"] == st["radix_nodes"],
+            "pages held past harvest besides the radix tree's")
+    gen.engine_abort()              # drops the radix; asserts no page leak
+    require(gen._engine.page_pool.pages_in_use == 0, "page leak")
+    per_tok = [w / CHUNK * 1e3 for w in timer.wall]
+    decode_ms = statistics.median(per_tok)
+    busy, ops = timer.profiled
+    busy /= CHUNK
+    log(f"  decode {decode_ms:.2f} ms per token (median of {len(per_tok)} "
+        f"unprofiled rounds, {min(per_tok):.2f}..{max(per_tok):.2f}; "
+        f"{2 * N_PROMPTS * N_PER} rows a step); profiled round: device "
+        f"busy {busy:.2f} ms per token = {100 * busy / decode_ms:.1f}%; top "
+        "device operations (ms per token): "
+        + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / CHUNK:.3f}"
+                    for e in ops[:6]))
+    d = score_engine(torch, cfg, params, outs)
+    log(f"  emitted batches scored by RefPolicyExecutor and RewardExecutor: "
+        f"|behavior_logp - ref_logp| at {d.numel()} actions (bf16, T=1): "
+        f"mean {d.mean().item():.4f}, max {d.max().item():.4f}")
+    del gen, outs
+
+    _, _, dense_timer, _, gen = run_engine(torch, dev, params, cfg, "dense")
+    dense_ms = statistics.median(w / CHUNK * 1e3 for w in dense_timer.wall)
+    log(f"  dense layout on the same work: decode {dense_ms:.2f} ms per "
+        f"token ({dense_timer.rounds} rounds) beside paged {decode_ms:.2f} "
+        "ms")
+    gen.engine_abort()
+    del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = LLAMA31_8B.replace(name="llama31-8b-2l", n_layers=2)
+    p2 = init_params(cfg2, seed=1, dtype=torch.float32, device=dev)
+    outs, st, _, _, gen = run_engine(torch, dev, p2, cfg2, "paged")
+    d = score_engine(torch, cfg2, p2, outs)
+    log(f"  fp32 2-layer engine (radix hits {st['radix_hits']}): "
+        f"|behavior_logp - ref_logp| at {d.numel()} actions: mean "
+        f"{d.mean().item():.2e}, max {d.max().item():.2e} (tolerance 1e-3)")
+    require(d.max().item() <= 1e-3, "fp32 engine mu vs reference")
+    gen.engine_abort()
+    del gen, p2, outs
+    # a generator and its engine refer to each other: only the cycle
+    # collector frees the generator's params and the engine's pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_fp32(torch, dev) -> None:
@@ -931,6 +1271,7 @@ def main() -> int:
     records = phase_kernels(torch, dev)
     params, cfg, launches = phase_serve(torch, dev)
     phase_long(torch, dev, params, cfg)
+    engine_launches = phase_engine(torch, dev, params, cfg)
     del params
     torch.cuda.empty_cache()
     phase_fp32(torch, dev)
@@ -944,7 +1285,8 @@ def main() -> int:
     require(not stray, f"imported {stray}")
     for r in records:
         by_path = {"serve": launches.get(r["name"], 0),
-                   "train": train_launches.get(r["name"], 0)}
+                   "train": train_launches.get(r["name"], 0),
+                   "engine": engine_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")

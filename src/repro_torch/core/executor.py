@@ -3,8 +3,9 @@ trainer (the port of the JAX package's ``core/executor.py``).
 
 Each executor exposes the reference's port surface -- ``put_input`` /
 ``step`` / ``get_output`` -- so a controller wires them as it wires the
-JAX ones.  The pinned-params and engine hooks of the generator come with
-the pool and engine slices (ROADMAP A7, A10).
+JAX ones.  The generator also carries the continuous-batching engine's
+hooks (``engine_*``); its pinned-params hooks come with the pool slice
+(ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.models import forward_train
 from repro_torch.rl import data as rl_data
 from repro_torch.rl import prng
 from repro_torch.rl import rewards as rl_rewards
+from repro_torch.rl.engine import RolloutEngine
 from repro_torch.rl.rollout import action_mask, finalize_rollout, \
     rollout_chunk, start_rollout
 from repro_torch.rl.scheduler import RolloutJob
@@ -138,6 +140,7 @@ class GeneratorExecutor(Executor):
         self.key = prng.PRNGKey(seed)
         self.params = None
         self.weight_version = -1        # version of self.params (-1 = unset)
+        self._engine = None             # lazy RolloutEngine (engine mode)
 
     def set_weights(self, params, version: Optional[int] = None):
         """Receives the trainer's weights, through int8 when ``quantize``
@@ -200,6 +203,59 @@ class GeneratorExecutor(Executor):
         out = self.emit_batch(job, state)
         self.curr_step += 1
         return out
+
+    # ------------------------------------- continuous-batching engine hooks --
+    #
+    # The engine (``repro_torch.rl.engine``) lives inside the executor: a
+    # caller drives ``engine_enqueue`` / ``engine_round`` instead of the
+    # begin/advance/emit chunk hooks, and rounds carry batch indices and
+    # finished batches, never KV caches.
+
+    def engine_configure(self, *, max_running_rows: int = 0,
+                         row_budgets=None, scorer: str = "numeric",
+                         leave_one_out: bool = False,
+                         kv_layout: str = "", kv_page_size: int = 0,
+                         kv_pages: int = 0):
+        """(Re)build the in-flight engine; a live engine's in-flight work
+        is aborted first.  A rebuild starts with an empty radix cache in
+        the paged layout."""
+        if self._engine is not None:
+            self._engine.abort()
+        self._engine = RolloutEngine(
+            self, max_running_rows=max_running_rows,
+            row_budgets=row_budgets, scorer=scorer, leave_one_out=leave_one_out,
+            kv_layout=kv_layout, kv_page_size=kv_page_size,
+            kv_pages=kv_pages)
+
+    def engine_enqueue(self, batch_index: int, bound: int = 0) -> int:
+        return self._engine.enqueue(batch_index, bound)
+
+    def engine_round(self, names):
+        """One engine tick; returns one item per emitted batch, shaped as
+        a sample-queue entry with the output-port snapshot ``names``."""
+        items = []
+        for e in self._engine.round():
+            self.set_output("completions", e["out"])
+            items.append({
+                "batch_index": e["batch_index"],
+                "snapshot": {n: self.get_output(n) for n in names},
+                "generator": self.name,
+                "bound": e["bound"],
+                "gen_busy_s": e["busy_s"],
+                "gen_idle_s": 0.0,
+                "_version": e["weight_version"],
+            })
+        return items
+
+    def engine_inflight(self):
+        return self._engine.inflight_batches()
+
+    def engine_abort(self) -> int:
+        return self._engine.abort() if self._engine is not None else 0
+
+    def engine_stats(self):
+        return self._engine.snapshot_stats() if self._engine is not None \
+            else {}
 
 
 class RewardExecutor(Executor):

@@ -10,6 +10,7 @@ slice that brings it.
 reference's custom VJPs are (``repro/kernels/dispatch.py``): the
 log-prob's backward is its own kernel on the card, the attention's
 backward recomputes through ``chunked_attention`` under autograd.
+``paged_attention`` is the engine's decode attention, forward only.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
     fused_logprob_bwd_plain, fused_logprob_cuda, fused_logprob_plain
 from repro_torch.kernels.fused_sample import fused_sample_cuda, \
     fused_sample_plain
+from repro_torch.kernels.paged_attention import paged_attention_cuda, \
+    paged_attention_plain
 
 
 class _TokenLogprob(torch.autograd.Function):
@@ -111,19 +114,43 @@ class _FlashAttention(torch.autograd.Function):
         return torch.autograd.grad(out, leaves, g)
 
 
-def attention(q, k, v):
+def attention(q, k, v, *, q_offset: int = 0):
     """Causal self-attention of a dense prefill or training segment.
 
-    q: [B, S, H, hd]; k/v: [B, S, K, hd] -> [B, S, H, hd].  Only what the
-    dense family passes: windowed, offset, cross and asymmetric-head
-    attention come with the remaining families (ROADMAP A11).
+    q: [B, Sq, H, hd]; k/v: [B, Sk, K, hd] -> [B, Sq, H, hd].  With
+    ``q_offset`` (a prefill continuation: queries at absolute positions
+    ``q_offset ..`` over a cached prefix and themselves) the call goes to
+    ``chunked_attention`` on either device, as the reference routes it
+    (its flash kernel takes no offset); otherwise the flash kernel on the
+    card.  Windowed, cross and asymmetric-head attention come with the
+    remaining families (ROADMAP A11).
     """
-    if (q.shape[1] != k.shape[1] or v.shape[-1] != q.shape[-1]
+    if (q_offset + q.shape[1] != k.shape[1] or v.shape[-1] != q.shape[-1]
             or q.shape[2] % k.shape[2]):
         raise NotImplementedError(
             f"attention q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-            f"{tuple(v.shape)}: only dense causal self-attention is ported "
-            "(other shapes: ROADMAP A11)")
+            f"{tuple(v.shape)}, q_offset {q_offset}: only dense causal "
+            "self-attention and its continuation are ported (other shapes: "
+            "ROADMAP A11)")
+    if q_offset:
+        return chunked_attention(q, k, v, q_offset=q_offset)
     if q.is_cuda:
         return _FlashAttention.apply(q, k, v)
     return chunked_attention(q, k, v)
+
+
+def paged_attention(q, arena_k, arena_v, page_table, pos, *,
+                    window: int = 0):
+    """Paged decode attention: one query per row against the row's page
+    table over a shared KV arena (``models/paging.py`` layout).
+
+    q: [B, H, hd]; arena_[kv]: [n_pages + 1, P, K, hd]; page_table:
+    [B, max_blocks + 1] int32; pos: [B] int32 -> [B, H, hd] in the
+    arena's dtype.  The CUDA kernel on the card, with no size threshold;
+    the gather version, bitwise equal to dense ``gqa_decode``, on the CPU.
+    """
+    if q.is_cuda:
+        return paged_attention_cuda(q, arena_k, arena_v, page_table, pos,
+                                    window=window)
+    return paged_attention_plain(q, arena_k, arena_v, page_table, pos,
+                                 window=window)

@@ -43,10 +43,12 @@ def _block_attend(q, k, v, row_pos, col_pos):
     return torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
 
 
-def chunked_attention(q, k, v, *, block_q: int = 512):
+def chunked_attention(q, k, v, *, block_q: int = 512, q_offset: int = 0):
     """Causal attention over query blocks: q: [B, Sq, H, hd], k/v:
     [B, Sk, K, hd] -> [B, Sq, H, hd]; live scores are
-    [B, K, g, block_q, Sk] rather than [B, H, S, S]."""
+    [B, K, g, block_q, Sk] rather than [B, H, S, S].  ``q_offset`` is the
+    absolute position of q[0] over keys at positions 0 .. Sk - 1 (a
+    prefill continuation over a cached prefix)."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     q5 = q.reshape(B, Sq, K, H // K, hd)
@@ -54,7 +56,7 @@ def chunked_attention(q, k, v, *, block_q: int = 512):
     outs = []
     for qs in range(0, Sq, block_q):
         qi = q5[:, qs:qs + block_q]
-        row_pos = qs + torch.arange(qi.shape[1], device=q.device)
+        row_pos = q_offset + qs + torch.arange(qi.shape[1], device=q.device)
         outs.append(_block_attend(qi, k, v, row_pos, col_pos))
     return torch.cat(outs, dim=1).reshape(B, Sq, H, v.shape[-1])
 

@@ -1,12 +1,19 @@
 """Serving path: KV cache, prefill, single-token decode (the port of the
-JAX package's ``models/serve.py``, dense family and dense ring layout).
+JAX package's ``models/serve.py``, dense family), and the engine's
+slot-pool helpers.
 
-The cache is ``{"pos": int, "segments": [{"k", "v", "slot_pos"}]}`` with
-k/v [L, B, Sc, K, hd] and slot_pos [Sc] (-1 = empty), as in the
-reference; the dense family without windows has one segment.  ``pos`` is
-a Python int, the scalar decode cursor.  Decode updates the cache in place
-and returns it.  The paged layout and per-row cursors come with the
-engine slice (ROADMAP A10).
+Two cache layouts, as in the reference:
+- dense: ``{"pos", "segments": [{"k", "v", "slot_pos"}]}`` with k/v
+  [L, B, Sc, K, hd] and slot_pos [Sc] (-1 = empty); the dense family
+  without windows has one segment;
+- paged: ``{"pos", "page_table", "segments": [{"k", "v"}]}`` with k/v
+  arenas [L, n_pages + 1, P, K, hd] shared by all rows (the last page is
+  the trash page) and page_table [B, max_blocks + 1] int32, every entry
+  starting on the trash page.
+
+``pos`` is a Python int, one cursor for every row, or a [B] int32
+tensor, one decode cursor per row (the engine's slot pool; the paged
+layout always has it).  Decode updates the cache in place and returns it.
 """
 from __future__ import annotations
 
@@ -18,19 +25,34 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import backbone as bb
 from repro_torch.models.common import norm
+from repro_torch.models.paging import paged_blocks
 
 Cache = Dict[str, Any]
 
 
 def init_cache(cfg: ArchConfig, B: int, cache_len: int,
-               dtype=torch.bfloat16, *, device, layout: str = "dense"
-               ) -> Cache:
+               dtype=torch.bfloat16, *, device, layout: str = "dense",
+               page_size: int = 0, n_pages: int = 0) -> Cache:
+    """A zeroed cache for ``B`` rows of ``cache_len`` positions.  The
+    paged layout holds ``n_pages`` allocatable pages of ``page_size``
+    slots plus the trash page, and a table of ``paged_blocks(cache_len,
+    page_size) + 1`` entries a row."""
     bb.check_dense(cfg)
-    if layout != "dense":
-        raise NotImplementedError(
-            f"kv_layout={layout!r}: the paged layout comes with the engine "
-            "slice (ROADMAP A10)")
     K, hd, L = cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    if layout == "paged":
+        assert page_size > 0 and n_pages > 0, (page_size, n_pages)
+        mb = paged_blocks(cache_len, page_size)
+        shape = (L, n_pages + 1, page_size, K, hd)
+        seg = {"k": torch.zeros(shape, dtype=dtype, device=device),
+               "v": torch.zeros(shape, dtype=dtype, device=device)}
+        # one table shared by every segment: block b of row r lives in
+        # physical page table[r, b] of each segment's arena; the last entry
+        # is pinned to the trash page (= n_pages)
+        return {"pos": 0, "segments": [seg],
+                "page_table": torch.full((B, mb + 1), n_pages,
+                                         dtype=torch.int32, device=device)}
+    if layout != "dense":
+        raise ValueError(f"kv layout {layout!r}: expected dense|paged")
     seg = {"k": torch.zeros((L, B, cache_len, K, hd), dtype=dtype,
                             device=device),
            "v": torch.zeros((L, B, cache_len, K, hd), dtype=dtype,
@@ -69,16 +91,109 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
     return bb._logits(params, cfg, x[:, -1]), cache
 
 
+def _extend_collect(params, cfg, x, pk, pv, q_offset: int):
+    """Prefill continuation: run the suffix embeds ``x`` (absolute
+    positions ``q_offset ..``) through the layers, attending over the
+    cached prefix KVs ``pk``/``pv`` [L, B, q_offset, K, hd] gathered from
+    the radix-shared pages, and collect the suffix KVs.  Returns (x, k,
+    v) with k/v stacked [L, B, S, K, hd]."""
+    ks, vs = [], []
+    for i, p in enumerate(bb.unstack(params["layers"], cfg.n_layers)):
+        y, (k, v) = attn.gqa_extend(p["attn"], norm(x, p["ln1"], cfg.norm),
+                                    pk[i], pv[i], cfg, q_offset=q_offset)
+        x = bb._ffn_block(p, x + y, cfg)
+        ks.append(k)
+        vs.append(v)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
 def decode_step(params, cfg: ArchConfig, cache: Cache, tokens):
     """tokens: [B, 1].  Returns (logits [B, V], cache) with the cache
-    advanced in place by one position."""
+    advanced in place by one position (each row's own cursor when ``pos``
+    is a tensor)."""
     pos = cache["pos"]
     seg = cache["segments"][0]
+    table = cache.get("page_table")
     x = bb._embed(params, cfg, tokens)
     for i, p in enumerate(bb.unstack(params["layers"], cfg.n_layers)):
-        y = attn.gqa_decode(p["attn"], norm(x, p["ln1"], cfg.norm),
-                            seg["k"][i], seg["v"][i], seg["slot_pos"], pos,
-                            cfg)
+        h = norm(x, p["ln1"], cfg.norm)
+        if table is not None:
+            y = attn.gqa_decode_paged(p["attn"], h, seg["k"][i], seg["v"][i],
+                                      table, pos, cfg)
+        else:
+            y = attn.gqa_decode(p["attn"], h, seg["k"][i], seg["v"][i],
+                                seg["slot_pos"], pos, cfg)
         x = bb._ffn_block(p, x + y, cfg)
     cache["pos"] = pos + 1
     return bb._logits(params, cfg, x[:, -1]), cache
+
+
+# ------------------------------------------------ engine slot-pool helpers -
+
+class SlotPool:
+    """Host-side occupancy tracking for the batch axis of a running
+    decode cache: which rows are live and which are free for admission.
+    Pure bookkeeping -- the device tensors never shrink; a freed slot is
+    simply overwritten by the next admission."""
+
+    def __init__(self, n_slots: int):
+        self.n_slots = n_slots
+        self._free = list(range(n_slots - 1, -1, -1))    # pop() -> slot 0
+        self._used: set = set()
+
+    def acquire(self):
+        """Claim a free slot index, or None when the pool is full."""
+        if not self._free:
+            return None
+        slot = self._free.pop()
+        self._used.add(slot)
+        return slot
+
+    def release(self, slot: int) -> None:
+        assert slot in self._used, f"slot {slot} not in use"
+        self._used.discard(slot)
+        self._free.append(slot)
+
+    @property
+    def used(self):
+        return frozenset(self._used)
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+
+def assert_engine_cache(cfg: ArchConfig, layout: str = "dense") -> None:
+    """Which caches the engine's per-row decode cursors support (the
+    reference's contract).  Both layouts need a dense-family GQA cache;
+    the dense layout also needs unwindowed rings (a windowed ring is
+    shorter than the sequence, so slots alias across rows), where the
+    paged layout's per-row tables admit windows."""
+    assert cfg.family in ("dense", "moe"), \
+        f"engine needs a dense-family KV cache, got family={cfg.family!r} " \
+        "(ssm/hybrid state caches are not paged KV; vlm needs mrope decode)"
+    assert cfg.attn_kind != "mla", \
+        "engine does not support MLA latent caches yet " \
+        "(paged follow-up: latent-shaped pages for ckv/krope)"
+    if layout == "paged":
+        return
+    assert not cfg.window, \
+        "engine needs unwindowed rings: a windowed segment wraps, which " \
+        "breaks the shared slot_pos across per-row cursors (use the paged " \
+        "layout -- per-row page tables admit windows)"
+
+
+def stitch_cache_row(cache: Cache, row_cache: Cache, slot: int) -> Cache:
+    """Graft a freshly prefilled B=1 dense cache into batch row ``slot`` of
+    a running per-row-cursor cache (prefill-into-slot admission), in
+    place.  ``cache["pos"]`` must be a [B] tensor of per-row cursors; the
+    donor's int ``pos`` becomes the admitted row's cursor.  ``slot_pos``
+    merges with ``maximum``: under the engine's no-wraparound invariant
+    both sides hold -1 or the slot's own index, so the union is exact."""
+    for seg, rseg in zip(cache["segments"], row_cache["segments"]):
+        for name in ("k", "v"):
+            seg[name][:, slot] = rseg[name][:, 0].to(seg[name].dtype)
+        torch.maximum(seg["slot_pos"], rseg["slot_pos"],
+                      out=seg["slot_pos"])
+    cache["pos"][slot] = row_cache["pos"]
+    return cache

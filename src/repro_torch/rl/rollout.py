@@ -1,9 +1,11 @@
-"""Rollout: prefill + chunked decode with partial-rollout resume (the port
-of the JAX package's ``rl/rollout.py``, dense ring cache).
+"""Rollout: prefill + chunked decode with partial-rollout resume, and the
+continuous-batching engine's slot pool (the port of the JAX package's
+``rl/rollout.py``).
 
 Behaviour log-probs mu(y_t | x, y_<t) -- under the sampling distribution,
 temperature included -- travel with the sample.  Decoding never waits on
-the card: the cursor is a Python int and the keys live on the host.
+the card: the cursor is a Python int (a [B] tensor on the card in the
+slot pool) and the keys live on the host.
 """
 from __future__ import annotations
 
@@ -13,7 +15,11 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import dispatch
-from repro_torch.models import decode_step, prefill
+from repro_torch.models import backbone as bb
+from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.models.paging import paged_blocks
+from repro_torch.models.serve import _extend_collect, assert_engine_cache, \
+    stitch_cache_row
 from repro_torch.rl import prng
 from repro_torch.rl.data import EOS, PAD
 
@@ -128,3 +134,153 @@ def action_mask(state: RolloutState) -> torch.Tensor:
     gen = torch.arange(T, device=state.tokens.device)[None, :] \
         >= state.prompt_len
     return (gen & (state.tokens != PAD)).float()
+
+
+# ------------------------------------------- continuous-batching slot pool -
+#
+# The engine (``repro_torch.rl.engine``) decodes a pool of rows at
+# divergent positions: ``cache["pos"]`` becomes a [R] int32 tensor of
+# per-row cursors, rows are admitted into freed slots by a B = 1 prefill
+# (``admit_row`` for the dense ring, ``admit_row_paged`` for the paged
+# arena), and finished rows keep ticking harmlessly until their slot is
+# reused: their cursor clamps onto the ring's spare slot, or onto the page
+# table's trailing trash entry.  Unlike the reference's pure functions,
+# these update the pool state in place and return it.
+
+@torch.no_grad()
+def start_row_pool(cfg, n_rows: int, total_len: int, prompt_len: int, *,
+                   device, kv_layout: str = "dense", kv_page_size: int = 0,
+                   kv_pages: int = 0) -> RolloutState:
+    """Empty slot-pool state: every row starts done (a free slot) with its
+    cursor at 0; rows get content only through an admission.  The KV
+    cache is fp32, as the reference's default.
+
+    ``kv_layout="paged"`` swaps the dense per-row ring (``total_len + 1``
+    slots, the last a spare for finished rows) for the paged arena:
+    ``kv_pages`` shared pages of ``kv_page_size`` slots (defaults: 16, and
+    enough pages for every row) and a page table a row, every table
+    starting on the trash page."""
+    assert_engine_cache(cfg, kv_layout)
+    if kv_layout == "paged":
+        page_size = int(kv_page_size) or 16
+        n_pages = int(kv_pages) or n_rows * paged_blocks(total_len, page_size)
+        cache = init_cache(cfg, n_rows, total_len, torch.float32,
+                           device=device, layout="paged",
+                           page_size=page_size, n_pages=n_pages)
+    else:
+        cache = init_cache(cfg, n_rows, total_len + 1, torch.float32,
+                           device=device)
+    cache["pos"] = torch.zeros(n_rows, dtype=torch.int32, device=device)
+    return RolloutState(
+        tokens=torch.zeros((n_rows, total_len), dtype=torch.int32,
+                           device=device),
+        behavior_logp=torch.zeros((n_rows, total_len), dtype=torch.float32,
+                                  device=device),
+        cache=cache,
+        last_logits=torch.zeros((n_rows, cfg.vocab), dtype=torch.float32,
+                                device=device),
+        done=torch.ones(n_rows, dtype=torch.bool, device=device),
+        prompt_len=prompt_len)
+
+
+@torch.no_grad()
+def admit_row(state: RolloutState, row: RolloutState, slot: int
+              ) -> RolloutState:
+    """Graft a freshly prefilled single-row state (``start_rollout`` on a
+    [1, Sp] prompt with ``cache_len = total_len + 1``) into pool row
+    ``slot`` of a dense pool, in place."""
+    state.tokens[slot] = row.tokens[0]
+    state.behavior_logp[slot] = row.behavior_logp[0]
+    state.last_logits[slot] = row.last_logits[0].to(state.last_logits.dtype)
+    stitch_cache_row(state.cache, row.cache, slot)
+    state.done[slot] = False
+    return state
+
+
+@torch.no_grad()
+def admit_row_paged(params, cfg, state: RolloutState, prompt, pages_row,
+                    slot: int, *, n_cached: int) -> RolloutState:
+    """Admit one prompt row into a paged pool, in place: prefill only the
+    suffix past the ``n_cached`` radix-cached prompt tokens, reading the
+    cached prefix KVs out of the shared pages.
+
+    prompt: [1, Sp] int; pages_row: [max_blocks + 1] int32 physical pages
+    of the row (the last entry the trash page), on the pool's device;
+    ``n_cached`` is block-aligned and < Sp.  The suffix KVs go only to the
+    row's fresh pages (blocks >= n_cached / P), never to a shared one.
+    With ``n_cached == 0`` this is a full prefill, whose logits and KVs
+    equal the dense ``start_rollout`` graft's bit for bit."""
+    Sp = prompt.shape[1]
+    cache = state.cache
+    seg = cache["segments"][0]
+    L, _, P, K, hd = seg["k"].shape
+    ncb = n_cached // P
+    assert n_cached == ncb * P and n_cached < Sp, (n_cached, P, Sp)
+    pre = pages_row[:ncb].long()
+    x = bb._embed(params, cfg, prompt[:, n_cached:])
+    x, ks, vs = _extend_collect(
+        params, cfg, x, seg["k"][:, pre].reshape(L, 1, n_cached, K, hd),
+        seg["v"][:, pre].reshape(L, 1, n_cached, K, hd), n_cached)
+    last_logits = bb._logits(params, cfg, x[:, -1])
+
+    pos_sfx = n_cached + torch.arange(Sp - n_cached, device=prompt.device)
+    pg = pages_row[pos_sfx // P].long()
+    off = pos_sfx % P
+    seg["k"][:, pg, off] = ks[:, 0].to(seg["k"].dtype)
+    seg["v"][:, pg, off] = vs[:, 0].to(seg["v"].dtype)
+    state.tokens[slot] = 0
+    state.tokens[slot, :Sp] = prompt[0]
+    state.behavior_logp[slot] = 0.0
+    cache["pos"][slot] = Sp
+    cache["page_table"][slot] = pages_row
+    state.last_logits[slot] = last_logits[0].to(state.last_logits.dtype)
+    state.done[slot] = False
+    return state
+
+
+@torch.no_grad()
+def release_row(state: RolloutState, slot: int) -> RolloutState:
+    """Remap a harvested row's page table to the trash page, in place, so
+    its zombie decode writes (the slot keeps ticking until readmitted)
+    never land in pages the allocator may hand to another row."""
+    trash = state.cache["segments"][0]["k"].shape[1] - 1
+    state.cache["page_table"][slot] = trash
+    return state
+
+
+@torch.no_grad()
+def rollout_rows_chunk(params, cfg, state: RolloutState, key, *,
+                       n_steps: int, temperature: float = 1.0
+                       ) -> RolloutState:
+    """``rollout_chunk`` with per-row cursors: each row samples and writes
+    at its own ``cache["pos"][r]``.  Done (or free) rows emit PAD and clamp
+    their cursor at ``total_len`` -- the ring's spare slot -- or, in a
+    paged pool, at ``max_blocks * page_size``, whose block index selects
+    the table's trailing trash entry.  The reference drops a token write
+    at a column >= ``total_len``; torch's ``index_put`` has no drop mode
+    (out of range it raises, or asserts on the device), so such a row
+    rewrites its last column with the value already there.  Updates the
+    state in place; nothing here waits on the card."""
+    B, T = state.tokens.shape
+    cache = state.cache
+    table = cache.get("page_table")
+    clamp = T if table is None else \
+        (table.shape[1] - 1) * cache["segments"][0]["k"].shape[2]
+    rows = torch.arange(B, device=state.tokens.device)
+    tokens, blp = state.tokens, state.behavior_logp
+    logits, done = state.last_logits, state.done
+    for k in prng.split(key, n_steps):
+        tok, lp = _sample(logits, k, temperature)
+        tok = torch.where(done, PAD, tok)
+        lp = torch.where(tok == PAD, 0.0, lp)
+        done = done | (tok == EOS)
+        col = cache["pos"]
+        keep = col < T
+        colc = torch.clamp(col, max=T - 1).long()
+        tokens[rows, colc] = torch.where(keep, tok, tokens[rows, colc])
+        blp[rows, colc] = torch.where(keep, lp, blp[rows, colc])
+        logits, cache = decode_step(params, cfg, cache, tok[:, None])
+        cache["pos"] = torch.clamp(cache["pos"], max=clamp)
+    return RolloutState(tokens=tokens, behavior_logp=blp, cache=cache,
+                        last_logits=logits, done=done,
+                        prompt_len=state.prompt_len)

@@ -186,3 +186,133 @@ def test_cuda_attention_grad(cuda, S, H, K, hd):
         results.append(torch.autograd.grad(fn(*leaves), leaves, go))
     for a, b in zip(*results):
         assert _err(a, b) < 1e-4
+
+
+# ------------------------------------------------------ paged attention ---
+
+def _paged_problem(dev, B, H, K, hd, P, mb, n_pages, pos, q_dtype, kv_dtype,
+                   seed, perm=True):
+    """q, arenas, a table (a random permutation of pages, or the reference
+    suite's random ids) whose last column is the trash page, and pos."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, H, hd, generator=g).to(q_dtype)
+    ak, av = (torch.randn(n_pages + 1, P, K, hd, generator=g).to(kv_dtype)
+              for _ in range(2))
+    pages = torch.randperm(n_pages, generator=g)[:B * mb].reshape(B, mb) \
+        if perm else torch.randint(0, n_pages, (B, mb), generator=g)
+    table = torch.cat([pages, torch.full((B, 1), n_pages)], 1).int()
+    return [t.to(dev) for t in (q, ak, av, table,
+                                torch.tensor(pos, dtype=torch.int32))]
+
+
+def _poisoned(ak, av, table, pos, window):
+    """(NaN-poisoned, zeroed) copies of the arenas: every slot no row
+    attends to -- pages past a row's cursor, below its window, and pages
+    no table maps -- holds NaN in the one and 0 in the other."""
+    P, mb = ak.shape[1], table.shape[1] - 1
+    need = torch.zeros(ak.shape[:2], dtype=torch.bool, device=ak.device)
+    for r, p in enumerate(pos.tolist()):
+        lo = max(0, p - window + 1) if window else 0
+        cols = torch.arange(lo, min(p, mb * P - 1) + 1, device=ak.device)
+        need[table[r, cols // P].long(), cols % P] = True
+    out = []
+    for fill in (float("nan"), 0.0):
+        pair = []
+        for a in (ak, av):
+            a = a.clone()
+            a[~need] = fill
+            pair.append(a)
+        out.append(pair)
+    return out
+
+
+# (B, H, K, hd, P, mb, n_pages, pos, perm): the reference suite's
+# arena_problem, the engine's shape (32 slots, prompt 48 + 64 new at page
+# 16, a zombie row at the clamp mb * P), and a 2048-token context
+PAGED_SHAPES = {
+    "arena": (3, 4, 2, 16, 5, 4, 16, [3, 11, 19], False),
+    "arena_pos0": (3, 4, 2, 16, 5, 4, 16, [0, 0, 0], False),
+    "engine": (32, 32, 8, 128, 16, 7, 224,
+               [48 + 5 * i % 64 for i in range(31)] + [112], True),
+    "long": (16, 32, 8, 128, 16, 128, 2112,
+             [0, 15, 16, 2047] + [2047 - 13 * i for i in range(1, 13)],
+             True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(PAGED_SHAPES))
+@pytest.mark.parametrize("window", [0, 6, 100])
+@pytest.mark.parametrize("q_dtype,kv_dtype,tol", [
+    (torch.float32, torch.float32, 2e-5), (torch.bfloat16, torch.float32, 2e-5),
+    (torch.bfloat16, torch.bfloat16, 3e-2)])
+def test_cuda_paged_attention(cuda, shape, window, q_dtype, kv_dtype, tol):
+    """Against the plain gather version: fp32 arena within 2e-5, bf16
+    arena within 3e-2 (the plain version rounds the probabilities to bf16
+    before the P V product, the kernel keeps them in fp32); and the kernel
+    on an arena whose unread slots are NaN equals the plain version on the
+    same arena with those slots zeroed."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, \
+        paged_attention_plain
+    *dims, pos, perm = PAGED_SHAPES[shape]
+    q, ak, av, table, pos = _paged_problem(cuda, *dims, pos, q_dtype,
+                                           kv_dtype, 10, perm)
+    got = paged_attention_cuda(q, ak, av, table, pos, window=window)
+    want = paged_attention_plain(q, ak, av, table, pos, window=window)
+    assert got.dtype == kv_dtype and got.shape == q.shape
+    assert _err(got, want) < tol
+    (pk, pv), (zk, zv) = _poisoned(ak, av, table, pos, window)
+    got = paged_attention_cuda(q, pk, pv, table, pos, window=window)
+    want = paged_attention_plain(q, zk, zv, table, pos, window=window)
+    assert torch.isfinite(got).all() and _err(got, want) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_refuses_other_shapes(cuda):
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    q, ak, av, table, pos = _paged_problem(cuda, 2, 4, 2, 16, 4, 2, 4,
+                                           [1, 2], torch.float32,
+                                           torch.float32, 0)
+    with pytest.raises(NotImplementedError):
+        paged_attention_cuda(q[..., :8].contiguous(), ak[..., :8].contiguous(),
+                             av[..., :8].contiguous(), table, pos)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention_cuda(q, ak, av, table.long(), pos)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_decode_matches_cpu(cuda):
+    """llama31-smoke at fp32, paged pool: a sampled chunk through the
+    card's kernels (paged_attention, fused_sample) against the same chunk
+    on the CPU's plain versions -- tokens equal, log-probs within 1e-4."""
+    from repro_torch.configs.llama_paper import smoke
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.rl import rollout
+    cfg = smoke()
+    params = init_params(cfg, 0, torch.float32, device="cpu")
+    pools = []
+    for dev in (torch.device("cpu"), cuda):
+        p = _to(params, dev)
+        pool = rollout.start_row_pool(cfg, 4, 24, 8, device=dev,
+                                      kv_layout="paged", kv_page_size=4)
+        for slot in (0, 2):
+            pr = (torch.arange(8, dtype=torch.int32) + 3 * slot + 5)[None]
+            table = torch.arange(6 * slot, 6 * slot + 7, dtype=torch.int32)
+            table[-1] = 24
+            pool = rollout.admit_row_paged(p, cfg, pool, pr.to(dev),
+                                           table.to(dev), slot, n_cached=0)
+        build.reset_launches()
+        pool = rollout.rollout_rows_chunk(p, cfg, pool, prng.PRNGKey(1),
+                                          n_steps=6)
+        pools.append(pool)
+    assert build.LAUNCHES["paged_attention"] == cfg.n_layers * 6
+    cpu, gpu = pools
+    assert torch.equal(cpu.tokens, gpu.tokens.cpu())
+    assert _err(cpu.behavior_logp, gpu.behavior_logp.cpu()) < 1e-4
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

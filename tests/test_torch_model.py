@@ -144,5 +144,5 @@ def test_other_families_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         init_params(tsmoke().replace(window=8), device="cpu")
     from repro_torch.models import init_cache
-    with pytest.raises(NotImplementedError, match="A10"):
-        init_cache(tsmoke(), 1, 8, device="cpu", layout="paged")
+    with pytest.raises(ValueError, match="dense|paged"):
+        init_cache(tsmoke(), 1, 8, device="cpu", layout="ring")
