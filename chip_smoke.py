@@ -6,7 +6,7 @@
 Each phase prints its own lines:
 
   [0] device   the card's name and power limit, torch and CUDA versions
-  [1] build    nvcc builds the five CUDA kernels from the repository's
+  [1] build    nvcc builds the six CUDA kernels from the repository's
                sources, one nvcc per source, all at once
   [2] kernels  each kernel against its plain PyTorch version on the card,
                then its time beside the plain version's, a PyTorch
@@ -17,6 +17,13 @@ Each phase prints its own lines:
                through their ports, two steps of full-depth bf16
                llama31-8b from a seeded random init; the kernels' launch
                counts over those two steps are asserted
+  [9] int8     (run right after [3], on its params) kernel B6 through
+               dispatch.int8_matmul: against its plain version at the
+               JAX suite's shapes, at M = 1 and ragged N, and at layer
+               0's wq, wk, w_gate and w_down quantized by
+               ddma.quantize_int8, at decode (16) and prefill (8192) M;
+               against the generator's own numerics, x times the
+               dequantized bf16 weight; then its time at w_gate
   [4] long     four 2048-id prompts: prefill and one 16-step decode chunk
   [5] fp32     llama31-8b widths with 2 layers in fp32: the behaviour and
                reference log-probs agree within 1e-3
@@ -97,8 +104,13 @@ LOGPROB_BWD_OPS_PER_LOGIT = 6
 # admitted mid-decode at divergent cursors
 ENGINE_PROMPT, ENGINE_PAGE, ENGINE_BATCHES = 48, 16, 3
 ENGINE_BUDGETS = [1, 2, 4, 4]
+# B6 against its plain version: |d| <= INT8_TOL max(1, |plain|).  Both
+# widen the same x and int8 values exactly, so every product is equal;
+# only the order of the fp32 sum differs (over K up to 14336, about 1e-6
+# relative to the outputs' size of 1 at these widths)
+INT8_TOL = 1e-4
 KERNELS = ("fused_sample", "fused_logprob", "fused_logprob_bwd",
-           "flash_attention", "paged_attention")
+           "flash_attention", "paged_attention", "int8_matmul")
 
 
 def log(msg: str = "") -> None:
@@ -137,17 +149,21 @@ def cuda_ms(torch, fn, iters: int) -> float:
 
 
 def kernel_only_ms(torch, fn, n: int, kernel: str):
-    """Device time of the kernels whose name holds ``kernel``, per call,
-    from torch.profiler; None when the profiler saw no device time."""
+    """Device time of one launch of the kernels whose name holds
+    ``kernel``, from torch.profiler over ``n`` calls; None when the
+    profiler saw no device time.  The profiler may record only some of
+    the launches in its window (2 of 3 long launches in one run), so the
+    time is divided by the launches it recorded, not by ``n``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if kernel in e.key)
-    return us / 1e3 / n if us > 0 else None
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    us = sum(e.self_device_time_total for e in hits)
+    count = sum(e.count for e in hits)
+    return us / 1e3 / count if us > 0 else None
 
 
 def bound(n_bytes: float, flops: float, peak_flops: float):
@@ -415,8 +431,13 @@ def phase_kernels(torch, dev):
     cases = [(main, torch.float32, 1.0, 1e-4, False),
              (main, torch.float32, 4.0, 1e-4, False),
              (main, bf16, 1.0, 3e-2, True),
+             (main, bf16, 4.0, 3e-2, True),
              ((1, 1000, 32, 8, 128), bf16, 1.0, 3e-2, True),
              ((2, 200, 8, 2, 64), torch.float32, 1.0, 1e-5, False)]
+    # the tensor-core kernel's head dims (one k-step at 16) and ragged S
+    cases += [((2, S, H, K, hd), bf16, 4.0, 3e-2, True)
+              for S, H, K, hd in ((128, 8, 2, 32), (100, 4, 4, 64),
+                                  (77, 8, 1, 16), (130, 4, 2, 128))]
     for shape in serve_shapes:
         cases += [(shape, torch.float32, 4.0, 1e-4, False),
                   (shape, bf16, 1.0, 3e-2, True)]
@@ -432,7 +453,7 @@ def phase_kernels(torch, dev):
         require((err_rel if rel else err) <= tol,
                 f"flash_attention {list(shape)} {dtype}: error {err:.3e}")
         if shape == main and dtype == bf16:
-            flash_err = err
+            flash_err = max(flash_err or 0.0, err)
         log(f"  flash_attention {list(shape)} {str(dtype)[6:]} q x{q_scale:g}:"
             f" max|do| "
             f"{err:.3e}, max|do|/max(1,|o|) {err_rel:.3e} "
@@ -460,7 +481,7 @@ def phase_kernels(torch, dev):
         "replaces": "src/repro/kernels/flash_attention.py:21",
         "launches": 0, "max_abs_err": flash_err, "ms": ms,
         "kernel_only_ms": kernel_only_ms(torch, run_flash, 3,
-                                         "flash_fwd_kernel"),
+                                         "flash_fwd_wgmma_kernel"),
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "shape": [B, S, H, K, hd],
         "dtype": "bfloat16"})
@@ -493,6 +514,145 @@ def phase_kernels(torch, dev):
                             else f"{r['library_ms']:.4f} ms")
             + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return records
+
+
+def rel_excess(got, want, tol: float) -> float:
+    """The largest |got - want| / (tol max(1, |want|)): at most 1 where
+    every element holds."""
+    d = (got.float() - want.float()).abs()
+    return (d / (tol * want.float().abs().clamp(min=1.0))).max().item()
+
+
+def phase_int8(torch, dev, params):
+    """Kernel B6 through ``dispatch.int8_matmul``, its only path.  Returns
+    (the JSON record, the launch counts of the path's run)."""
+    from repro_torch.core.ddma import dequantize_int8, quantize_int8
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.int8_matmul import int8_matmul_cuda, \
+        int8_matmul_plain
+    from repro_torch.kernels.ref import int8_matmul_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    log("[9] int8 matmul (B6) through dispatch.int8_matmul, on the serve "
+        "phase's layer-0 weights")
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    # ---- the JAX suite's shapes and N(0, 1) weights (tests/test_kernels.py)
+    # at its 1e-3; then M = 1 with N not a multiple of 16, and views whose
+    # rows are not 16-byte aligned (the kernel's byte-by-byte edge path),
+    # with weights at the model's init scale 1 / sqrt(K); fp32 and bf16 x
+    for M, K, N, view in ((64, 128, 96, False), (50, 70, 90, False),
+                          (8, 512, 8, False), (1, 4096, 1000, False),
+                          (1, 4096, 14336, False), (33, 300, 200, True)):
+        w_std = 1.0 if K <= 512 and not view else K ** -0.5
+        q, sc = quantize_int8(randn(K, N + 3 * view, dtype=f32) * w_std)
+        q, sc = q[:, 3 * view:], sc[:, 3 * view:]
+        for dtype in (f32, bf16):
+            x = randn(M, K + view, dtype=dtype)[:, view:]
+            got = int8_matmul_cuda(x, q, sc)
+            ex = rel_excess(got, int8_matmul_plain(x, q, sc), INT8_TOL)
+            err_ref = max_err(got, int8_matmul_ref(x, q, sc[0]))
+            require(ex <= 1.0 and err_ref <= 1e-3,
+                    f"int8_matmul [{M}, {K}] x [{K}, {N}] {dtype}: "
+                    f"{ex:.3g} of the tolerance, |d| to the oracle "
+                    f"{err_ref:.3e}")
+            log(f"  int8_matmul [{M}, {K}] x [{K}, {N}] {str(dtype)[6:]}"
+                f"{' unaligned views' if view else ''}: worst element "
+                f"{ex:.3g} of {INT8_TOL:g} max(1, |plain|); max|d| to the "
+                f"dequantize-first oracle {err_ref:.3e} (tolerance 1e-3)")
+
+    # ---- the path's run: layer 0's matrices at the published widths,
+    # quantized as GeneratorExecutor(quantize=True) would, at decode and
+    # prefill M
+    layers = params["layers"]
+    mats = {"wq": layers["attn"]["wq"][0], "wk": layers["attn"]["wk"][0],
+            "w_gate": layers["mlp"]["w_gate"][0],
+            "w_down": layers["mlp"]["w_down"][0]}
+    quant = {n: quantize_int8(w) for n, w in mats.items()}
+    xs = {(M, w.shape[0]): randn(M, w.shape[0]) for M in (16, 8192)
+          for w in mats.values()}
+    build.reset_launches()          # the int8 path's run starts here
+    outs = {(n, M): dispatch.int8_matmul(xs[M, mats[n].shape[0]], *quant[n])
+            for n in mats for M in (16, 8192)}
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    require(launches == {"int8_matmul": len(outs)},
+            f"int8 launches {launches}, want {len(outs)}")
+    worst = 0.0
+    for (n, M), got in outs.items():
+        x, (q, sc) = xs[M, mats[n].shape[0]], quant[n]
+        want = int8_matmul_plain(x, q, sc)
+        ex = rel_excess(got, want, INT8_TOL)
+        err = max_err(got, want)
+        worst = max(worst, err)
+        # the generator's numerics: quantize_dequant hands it the weight
+        # dequantized to bf16, and x @ w rounds the product to bf16.  bf16
+        # rounds a value by at most 2^-8 of itself, so the weights move the
+        # sum by at most 2^-8 sum_k |x w| and the output rounds by at most
+        # 2^-8 |y|: |d| <= 2^-8 (sum_k |x w| + |y|)
+        w_deq = dequantize_int8(q, sc, bf16)
+        y = (x @ w_deq).float()
+        bound_gen = 2.0 ** -8 * ((x.float().abs() @ w_deq.float().abs())
+                                 + y.abs())
+        ex_gen = ((got - y).abs() / bound_gen.clamp(min=1e-30)).max().item()
+        require(ex <= 1.0 and ex_gen <= 1.0,
+                f"int8_matmul {n} M={M}: {ex:.3g} of the tolerance to the "
+                f"plain version, {ex_gen:.3g} of the bound to x @ "
+                "dequantize_int8(q, s, bf16)")
+        log(f"  int8_matmul {n} [{M}, {q.shape[0]}] x {list(q.shape)} bf16:"
+            f" max|d| {err:.3e}, worst element {ex:.3g} of {INT8_TOL:g} "
+            f"max(1, |plain|); against x @ dequantize_int8(q, s, bf16) "
+            f"(the quantized generator's product) {ex_gen:.3g} of 2^-8 "
+            f"(sum|x w| + |y|) (mean|y| {y.abs().mean().item():.3f})")
+        del want, w_deq, y, bound_gen
+    del outs
+    torch.cuda.empty_cache()
+
+    # ---- time at w_gate [4096, 14336]: decode and prefill M, bf16 x; and
+    # decode M with fp32 x
+    q, sc = quant["w_gate"]
+    K, N = q.shape
+
+    def timed(M, dtype):
+        x = xs[M, K].to(dtype)
+        w_deq = dequantize_int8(q, sc, dtype)    # the yardstick's weight
+
+        def run():
+            return dispatch.int8_matmul(x, q, sc)
+        n = 50 if M == 16 else 10
+        b_ms, b_by = bound(K * N + x.numel() * x.element_size() + N * 4
+                           + M * N * 4, 2 * M * K * N,
+                           BF16_TENSOR_FLOPS if dtype == bf16 else FP32_FLOPS)
+        rec = {"ms": cuda_ms(torch, run, n),
+               "kernel_only_ms": kernel_only_ms(torch, run, n // 2,
+                                                "int8_matmul_"),
+               "plain_ms": cuda_ms(torch, lambda: int8_matmul_plain(
+                   x, q, sc), 3),
+               "library_ms": cuda_ms(torch, lambda: torch.matmul(x, w_deq), n),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "shape": [M, K, N], "dtype": str(dtype)[6:]}
+        ko = rec["kernel_only_ms"]
+        log(f"  time int8_matmul [{M}, {K}] x [{K}, {N}] {str(dtype)[6:]}: "
+            f"{rec['ms']:.4f} ms per call ("
+            + ("not measured" if ko is None else f"{ko:.4f} ms")
+            + f" in the kernel), plain {rec['plain_ms']:.4f} ms, library "
+            f"(torch.matmul on the weight dequantized to {str(dtype)[6:]}) "
+            f"{rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        return rec
+
+    decode = timed(16, bf16)
+    prefill = timed(8192, bf16)
+    decode_f32 = timed(16, f32)
+    del xs, quant
+    torch.cuda.empty_cache()
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+            "replaces": "src/repro/kernels/int8_matmul.py:18",
+            "launches": 0, "max_abs_err": worst, **decode,
+            "prefill": prefill, "decode_fp32": decode_f32}, launches
 
 
 def paged_problem(torch, dev, B, H, K, hd, P, mb, n_pages, pos, q_dtype,
@@ -1270,6 +1430,8 @@ def main() -> int:
     phase_build()
     records = phase_kernels(torch, dev)
     params, cfg, launches = phase_serve(torch, dev)
+    int8_record, int8_launches = phase_int8(torch, dev, params)
+    records.append(int8_record)
     phase_long(torch, dev, params, cfg)
     engine_launches = phase_engine(torch, dev, params, cfg)
     del params
@@ -1286,7 +1448,8 @@ def main() -> int:
     for r in records:
         by_path = {"serve": launches.get(r["name"], 0),
                    "train": train_launches.get(r["name"], 0),
-                   "engine": engine_launches.get(r["name"], 0)}
+                   "engine": engine_launches.get(r["name"], 0),
+                   "int8": int8_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")

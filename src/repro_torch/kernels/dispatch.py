@@ -11,6 +11,8 @@ reference's custom VJPs are (``repro/kernels/dispatch.py``): the
 log-prob's backward is its own kernel on the card, the attention's
 backward recomputes through ``chunked_attention`` under autograd.
 ``paged_attention`` is the engine's decode attention, forward only.
+``int8_matmul`` is the quantized product's dispatch surface, forward
+only; no model path calls it.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
     fused_logprob_bwd_plain, fused_logprob_cuda, fused_logprob_plain
 from repro_torch.kernels.fused_sample import fused_sample_cuda, \
     fused_sample_plain
+from repro_torch.kernels.int8_matmul import int8_matmul_cuda, \
+    int8_matmul_plain
 from repro_torch.kernels.paged_attention import paged_attention_cuda, \
     paged_attention_plain
 
@@ -154,3 +158,17 @@ def paged_attention(q, arena_k, arena_v, page_table, pos, *,
                                     window=window)
     return paged_attention_plain(q, arena_k, arena_v, page_table, pos,
                                  window=window)
+
+
+def int8_matmul(x, w_q, scale):
+    """Quantized matmul: x [M, K] (fp32 or bf16) times int8 w_q [K, N]
+    times the per-column scale ([N], or the [1, N] of ``quantize_int8``)
+    -> [M, N] fp32.  The CUDA kernel on the card, with no size threshold;
+    the plain version, fp32 product then scale, on the CPU.  (The
+    reference's dispatch surface for its int8 kernel: the generator's
+    quantization dequantizes once at weight sync through
+    ``ddma.quantize_dequant``, so only tests and ``chip_smoke.py`` call
+    this.)"""
+    if x.is_cuda:
+        return int8_matmul_cuda(x, w_q, scale)
+    return int8_matmul_plain(x, w_q, scale)

@@ -5,18 +5,25 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
 reference model's query-block attention (``repro/models/attention.py``),
 which the CPU path and the kernel's checks on the card use.
 
-CUDA kernel (``csrc/flash_attention.cu``): grid (B*H, ceil(S/64)); a block
-holds 64 query rows, four threads to a row, each thread a quarter of the
-head dim in registers.  It walks 32-key tiles of K and V, staged in fp32
-in shared memory, up to the diagonal, with the online softmax
-(m, l, acc) in fp32, masked scores at -1e30 and the denominator floored at
-1e-30 as in the reference.  It reads [B, S, H, hd] through strides (no
-head-major copy), reads kv head ``h // (H/K)``, and masks a ragged S
-itself.  At [4, 2048, 32, 8, 128] the work is about 137 GFLOP, so it is
-bound by operations: about 139 us at the H100's 989 TFLOP/s bf16 tensor
-rate.  This first kernel runs its products on the fp32 cores (67 TFLOP/s),
-so it cannot come near that bound; tensor-core tiles (mma/wgmma) are the
-next step.
+CUDA kernels (``csrc/flash_attention.cu``): grid (B*H, query blocks),
+heaviest query blocks first; each reads [B, S, H, hd] through strides
+(no head-major copy), reads kv head ``h // (H/K)``, walks the keys only
+up to the diagonal, masks a ragged S itself, and keeps the online
+softmax (m, l, acc) in fp32 with masked scores at -1e30 and the
+denominator floored at 1e-30, as the reference does.  At
+[4, 2048, 32, 8, 128] the work is about 137 GFLOP, so it is bound by
+operations: about 139 us at the H100's 989 TFLOP/s bf16 tensor rate.
+
+- bf16: FlashAttention-2's walk on Hopper's warpgroup products
+  (``wgmma``).  A block is three warpgroups of 64 query rows sharing
+  each 64-key tile of K and V, which ``cp.async`` double-buffers in
+  shared memory; q k^T and P V are ``wgmma`` with q, and P rounded to
+  bf16, as register operands (``chunked_attention`` rounds its
+  probabilities to bf16 before the PV product too) and K and V read by
+  descriptor.  Only a warpgroup's diagonal tile is masked.
+- fp32: the first, SIMT kernel on the fp32 cores (four threads to a
+  query row, 32-key tiles), kept because tensor cores in fp32 mean TF32
+  and the fp32 checks hold 1e-5 and 1e-4.
 """
 from __future__ import annotations
 

@@ -28,6 +28,12 @@ def flash_attention_ref(q, k, v):
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
+def int8_matmul_ref(x, w_q, scale, out_dtype=torch.float32):
+    """Dequantize-then-matmul oracle."""
+    w = w_q.float() * scale[None, :]
+    return (x.float() @ w).to(out_dtype)
+
+
 def fused_sample_ref(logits, key, temperature: float = 1.0):
     """Dense Gumbel-max oracle: the full [B, V] noise and log-softmax.
     Shares the counter-based noise, so tokens match bit for bit."""

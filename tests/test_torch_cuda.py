@@ -83,6 +83,27 @@ def test_cuda_flash_attention(cuda, S, H, K, hd, dtype, tol):
     assert err.max().item() < tol
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("layout", ["contiguous", "unaligned"])
+def test_cuda_flash_attention_bf16_peaked(cuda, hd, layout):
+    """The tensor-core kernel at S = 2048 on sharply peaked attention (q x
+    4, so |o| nears |v| and an error cannot hide under averaging), at
+    every head dim, within 3e-2 of max(1, |o|) as above.  "unaligned"
+    reads q, k and v as views one element into wider rows, so no row
+    starts on a 16-byte boundary and the kernel copies element by
+    element."""
+    g = torch.Generator().manual_seed(hd)
+    pad = layout == "unaligned"
+    q, k, v = (torch.randn(1, 2048, n, hd + pad, generator=g)
+               .to(torch.bfloat16).to(cuda)[..., pad:] for n in (8, 2, 2))
+    q = q * 4
+    got = flash_attention_cuda(q, k, v)
+    want = chunked_attention(q, k, v).float()
+    err = (got.float() - want).abs() / want.abs().clamp(min=1.0)
+    assert err.max().item() < 3e-2
+
+
 def _logits(shape, dtype, seed, extreme):
     x = torch.randn(*shape, generator=torch.Generator().manual_seed(seed)) * 4
     if extreme:
@@ -310,6 +331,40 @@ def test_cuda_engine_decode_matches_cpu(cuda):
     cpu, gpu = pools
     assert torch.equal(cpu.tokens, gpu.tokens.cpu())
     assert _err(cpu.behavior_logp, gpu.behavior_logp.cpu()) < 1e-4
+
+
+# ---------------------------------------------------------- int8 matmul ---
+
+# (M, K, N, view): the JAX suite's shapes, M = 1 with N not a multiple of
+# 16, a ragged tile in every dimension, and views one element (x) and
+# three bytes (w) into wider rows, which take the kernel's unaligned path
+INT8_SHAPES = [(64, 128, 96, False), (50, 70, 90, False), (8, 512, 8, False),
+               (1, 4096, 1000, False), (130, 1000, 300, False),
+               (33, 300, 200, True), (1, 70, 90, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,view", INT8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_matmul(cuda, M, K, N, view, dtype):
+    """dispatch.int8_matmul launches the kernel once and agrees with the
+    plain version within 1e-4 of max(1, |plain|): both widen the same x
+    and int8 values exactly, so only the order of the fp32 sum differs."""
+    from repro_torch.core import ddma
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.int8_matmul import int8_matmul_plain
+    g = torch.Generator().manual_seed(M + K + N)
+    q, s = ddma.quantize_int8(torch.randn(K, N + 3 * view, generator=g)
+                              / K ** 0.5)
+    q, s = q.to(cuda)[:, 3 * view:], s.to(cuda)[:, 3 * view:]
+    x = torch.randn(M, K + view, generator=g).to(dtype).to(cuda)[:, view:]
+    build.reset_launches()
+    got = dispatch.int8_matmul(x, q, s)
+    assert build.LAUNCHES["int8_matmul"] == 1
+    want = int8_matmul_plain(x, q, s)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    err = (got - want).abs() / want.abs().clamp(min=1.0)
+    assert err.max().item() < 1e-4
 
 
 def _to(tree, dev):
