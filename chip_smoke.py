@@ -12,7 +12,9 @@ Each phase prints its own lines:
                then its time beside the plain version's, a PyTorch
                yardstick's and the least time the card could take; the
                attention gradient against chunked_attention's; paged
-               attention also on an arena whose unread slots are NaN
+               attention also on an arena whose unread slots are NaN,
+               for all four (q, arena) dtype pairs and at the edges of
+               its context splits
   [3] serve    GeneratorExecutor -> RefPolicyExecutor -> RewardExecutor
                through their ports, two steps of full-depth bf16
                llama31-8b from a seeded random init; the kernels' launch
@@ -21,9 +23,11 @@ Each phase prints its own lines:
                dispatch.int8_matmul: against its plain version at the
                JAX suite's shapes, at M = 1 and ragged N, and at layer
                0's wq, wk, w_gate and w_down quantized by
-               ddma.quantize_int8, at decode (16) and prefill (8192) M;
+               ddma.quantize_int8, at decode (16) and prefill (8192) M,
+               and at its tile edges (M 1 to 129, ragged K and N);
                against the generator's own numerics, x times the
-               dequantized bf16 weight; then its time at w_gate
+               dequantized bf16 weight; then its time at w_gate beside
+               its time before the redesign
   [4] long     four 2048-id prompts: prefill and one 16-step decode chunk
   [5] fp32     llama31-8b widths with 2 layers in fp32: the behaviour and
                reference log-probs agree within 1e-3
@@ -109,6 +113,15 @@ ENGINE_BUDGETS = [1, 2, 4, 4]
 # only the order of the fp32 sum differs (over K up to 14336, about 1e-6
 # relative to the outputs' size of 1 at these widths)
 INT8_TOL = 1e-4
+# B5's and B6's times before their Hopper redesign (one block per row and
+# kv head; mma.sync tiles) at the shapes timed below, ms a call (kernel
+# only), from PERF.md's kernel table (H100 80GB HBM3, 700 W): printed
+# beside the redesigned kernels' times
+EARLIER_INT8 = {(16, "bfloat16"): (0.0900, 0.0435),
+             (8192, "bfloat16"): (4.0657, 4.0731),
+             (16, "float32"): (0.5026, 0.4280)}
+EARLIER_PAGED = {("timing", "float32", 0): (0.3452, 0.2977),
+              ("engine", "float32", 0): (0.0654, 0.0218)}
 KERNELS = ("fused_sample", "fused_logprob", "fused_logprob_bwd",
            "flash_attention", "paged_attention", "int8_matmul")
 
@@ -149,21 +162,23 @@ def cuda_ms(torch, fn, iters: int) -> float:
 
 
 def kernel_only_ms(torch, fn, n: int, kernel: str):
-    """Device time of one launch of the kernels whose name holds
-    ``kernel``, from torch.profiler over ``n`` calls; None when the
-    profiler saw no device time.  The profiler may record only some of
-    the launches in its window (2 of 3 long launches in one run), so the
-    time is divided by the launches it recorded, not by ``n``."""
+    """Device time of one call from torch.profiler over ``n`` calls: the
+    device time of every kernel the calls launched (a merge or split-K
+    pass included), divided by the launches the profiler recorded of
+    ``kernel``, the one kernel each call launches exactly once; None when
+    the profiler saw no device time.  The profiler may record only some
+    of the launches in its window (2 of 3 long launches in one run), so
+    the time is divided by the launches it recorded, not by ``n``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    us = sum(e.self_device_time_total for e in hits)
-    count = sum(e.count for e in hits)
-    return us / 1e3 / count if us > 0 else None
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    us = sum(e.self_device_time_total for e in events)
+    count = sum(e.count for e in events if kernel in e.key)
+    return us / 1e3 / count if us > 0 and count else None
 
 
 def bound(n_bytes: float, flops: float, peak_flops: float):
@@ -544,9 +559,16 @@ def phase_int8(torch, dev, params):
     # at its 1e-3; then M = 1 with N not a multiple of 16, and views whose
     # rows are not 16-byte aligned (the kernel's byte-by-byte edge path),
     # with weights at the model's init scale 1 / sqrt(K); fp32 and bf16 x
-    for M, K, N, view in ((64, 128, 96, False), (50, 70, 90, False),
+    # and the redesign's tile edges (tests/test_torch_cuda.py's
+    # test_cuda_int8_matmul_tile_edges): M around the decode kernel's 16
+    # rows and the wgmma kernel's 64- and 128-row tiles, K and N not
+    # multiples of its 64 x 128 tiles, K deep enough to split at M <= 16
+    edges = [(M, K, N, view) for M in (1, 15, 16, 17, 64, 65, 128, 129)
+             for K, N, view in ((1000, 300, False), (200, 130, True))]
+    for M, K, N, view in [(64, 128, 96, False), (50, 70, 90, False),
                           (8, 512, 8, False), (1, 4096, 1000, False),
-                          (1, 4096, 14336, False), (33, 300, 200, True)):
+                          (1, 4096, 14336, False), (33, 300, 200, True)] \
+            + edges:
         w_std = 1.0 if K <= 512 and not view else K ** -0.5
         q, sc = quantize_int8(randn(K, N + 3 * view, dtype=f32) * w_std)
         q, sc = q[:, 3 * view:], sc[:, 3 * view:]
@@ -559,6 +581,10 @@ def phase_int8(torch, dev, params):
                     f"int8_matmul [{M}, {K}] x [{K}, {N}] {dtype}: "
                     f"{ex:.3g} of the tolerance, |d| to the oracle "
                     f"{err_ref:.3e}")
+            counts = build.scratch("int8_matmul counters", x.device, 1,
+                                   torch.int32)
+            require(int(counts.abs().sum().item()) == 0,
+                    "int8_matmul left a split-K counter set")
             log(f"  int8_matmul [{M}, {K}] x [{K}, {N}] {str(dtype)[6:]}"
                 f"{' unaligned views' if view else ''}: worst element "
                 f"{ex:.3g} of {INT8_TOL:g} max(1, |plain|); max|d| to the "
@@ -623,9 +649,12 @@ def phase_int8(torch, dev, params):
         def run():
             return dispatch.int8_matmul(x, q, sc)
         n = 50 if M == 16 else 10
+        # fp32 x runs on the tensor cores as three exact bf16 parts
+        # (csrc/int8_matmul.cu), three times the bf16 operations
+        parts = 3 if dtype == f32 else 1
         b_ms, b_by = bound(K * N + x.numel() * x.element_size() + N * 4
-                           + M * N * 4, 2 * M * K * N,
-                           BF16_TENSOR_FLOPS if dtype == bf16 else FP32_FLOPS)
+                           + M * N * 4, parts * 2 * M * K * N,
+                           BF16_TENSOR_FLOPS)
         rec = {"ms": cuda_ms(torch, run, n),
                "kernel_only_ms": kernel_only_ms(torch, run, n // 2,
                                                 "int8_matmul_"),
@@ -635,10 +664,13 @@ def phase_int8(torch, dev, params):
                "bound_ms": b_ms, "bound_by": b_by,
                "shape": [M, K, N], "dtype": str(dtype)[6:]}
         ko = rec["kernel_only_ms"]
+        was_call, was_kernel = EARLIER_INT8[M, rec["dtype"]]
         log(f"  time int8_matmul [{M}, {K}] x [{K}, {N}] {str(dtype)[6:]}: "
             f"{rec['ms']:.4f} ms per call ("
             + ("not measured" if ko is None else f"{ko:.4f} ms")
-            + f" in the kernel), plain {rec['plain_ms']:.4f} ms, library "
+            + f" in the kernel; before the redesign {was_call} "
+            f"({was_kernel})), plain "
+            f"{rec['plain_ms']:.4f} ms, library "
             f"(torch.matmul on the weight dequantized to {str(dtype)[6:]}) "
             f"{rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         return rec
@@ -695,10 +727,17 @@ def check_paged_attention(torch, dev):
     arena_problem, the engine's shape and a 2048-token context; windows
     0, 6 and 100; then its time at the 2048-token shape.  Returns the
     JSON record."""
-    from repro_torch.kernels.paged_attention import paged_attention_cuda, \
-        paged_attention_plain
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import _sm_count, \
+        paged_attention_cuda, paged_attention_plain, split_plan
 
     bf16, f32 = torch.bfloat16, torch.float32
+    # the split kernel's edges at its own span on this card: contexts of
+    # span - 1, span and span + 1 columns and the same around two spans,
+    # the last column and the clamp (tests/test_torch_cuda.py's
+    # test_cuda_paged_attention_split_edges)
+    span, n_splits = split_plan(8, 8, 8, 16, _sm_count(dev))
+    require(n_splits > 2, f"the split-edge shape does not split ({span})")
     shapes = {
         "arena_problem": (3, 4, 2, 16, 5, 4, 16, [3, 11, 19], False),
         "arena_problem pos 0": (3, 4, 2, 16, 5, 4, 16, [0, 0, 0], False),
@@ -711,15 +750,22 @@ def check_paged_attention(torch, dev):
         "timing": (16, 32, 8, 128, 16, 128, 2112,
                    [0, 15, 16, 2047]
                    + [2047 - 13 * i for i in range(1, 13)], True),
+        "split edges": (8, 32, 8, 128, 16, 8, 68,
+                        [span - 2, span - 1, span, 2 * span - 2,
+                         2 * span - 1, 2 * span, 127, 128], True),
     }
     worst = 0.0
     for name, (*dims, pos, perm) in shapes.items():
+        # windows 0, 6 and 100; at the split edges also windows of one
+        # span and one more, which empty whole splits below the cursor
+        windows = (0, 6, 100) + ((span, span + 1) if name == "split edges"
+                                 else ())
         for q_dtype, kv_dtype, tol in ((f32, f32, 2e-5), (bf16, f32, 2e-5),
-                                       (bf16, bf16, 3e-2)):
+                                       (f32, bf16, 3e-2), (bf16, bf16, 3e-2)):
             q, ak, av, table, pos_t = paged_problem(torch, dev, *dims, pos,
                                                     q_dtype, kv_dtype, 10,
                                                     perm)
-            for window in (0, 6, 100):
+            for window in windows:
                 got = paged_attention_cuda(q, ak, av, table, pos_t,
                                            window=window)
                 want = paged_attention_plain(q, ak, av, table, pos_t,
@@ -741,6 +787,10 @@ def check_paged_attention(torch, dev):
                                              window=window)
                 err_p = max_err(got_p, paged_attention_plain(
                     q, *zeroed, table, pos_t, window=window))
+                counts = build.scratch("paged_attention counters", q.device,
+                                       1, torch.int32)
+                require(int(counts.abs().sum().item()) == 0,
+                        "paged_attention left a merge counter set")
                 require(err <= tol and err_p <= tol,
                         f"paged_attention {name} q {q_dtype} arena "
                         f"{kv_dtype} window {window}: error {err:.3e}, "
@@ -775,17 +825,21 @@ def check_paged_attention(torch, dev):
                    q, ak, av, table, pos_t, window=window), 5),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
         ko = rec["kernel_only_ms"]
+        was = EARLIER_PAGED.get((name, str(kv_dtype)[6:], window))
         log(f"  time paged_attention {name} arena {str(kv_dtype)[6:]} "
             f"window {window}: {rec['ms']:.4f} ms per call ("
             + ("not measured" if ko is None else f"{ko:.4f} ms")
-            + f" in the kernel), plain {rec['plain_ms']:.4f} ms, bound "
+            + " in the kernel"
+            + (f"; before the redesign {was[0]} ({was[1]})" if was else "")
+            + f"), plain {rec['plain_ms']:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB)")
         return rec
 
     main = timed("timing", f32)
     timed("timing", bf16)
     timed("timing", f32, window=100)
-    timed("engine", f32)
+    engine = timed("engine", f32)
+    timed("engine", bf16)
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:72",
@@ -794,7 +848,9 @@ def check_paged_attention(torch, dev):
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "shape": list(shapes["timing"][:7]),
-            "dtype": "bfloat16 q, float32 arena"}
+            "dtype": "bfloat16 q, float32 arena",
+            "engine": {k: engine[k] for k in ("ms", "kernel_only_ms",
+                                             "plain_ms", "bound_ms")}}
 
 
 def _pipeline_step(torch, gen, ref, rew):

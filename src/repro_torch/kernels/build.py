@@ -8,7 +8,10 @@ rebuilt and an unchanged one is reused.  ``build_all`` starts one ``nvcc``
 per source, all at once, and waits for them together.
 
 ``LAUNCHES[name]`` counts the successful launches of each kernel; every
-wrapper adds one where it launches, and nowhere else.
+wrapper adds one where it launches, and nowhere else.  ``scratch`` keeps
+the buffers of the kernels that merge across blocks: the counters the
+arriving blocks count in (the last block resets its counter) and the
+fp32 workspace of the partial results.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ LAUNCHES: "collections.Counter[str]" = collections.Counter()
 BUILD_SECONDS: dict = {}
 BUILD_LOG: dict = {}
 _LIBS: dict = {}
+_FUNCS: dict = {}
+_SCRATCH: dict = {}
 
 
 def nvcc() -> str:
@@ -90,11 +95,30 @@ def library(name: str) -> ctypes.CDLL:
 
 def c_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """``symbol`` from ``csrc/<name>.cu`` with its argument types set; it
-    returns the ``cudaError_t`` of its launch."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    returns the ``cudaError_t`` of its launch.  Configured once, then
+    served from a cache keyed by (library, symbol)."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCS[name, symbol] = fn
     return fn
+
+
+def scratch(key: str, device, n: int, dtype):
+    """A CUDA tensor of at least ``n`` elements of ``dtype``, kept under
+    ``key`` on ``device`` across calls: zeroed when made, then as the
+    last call left it.  The merge counters of the split kernels live
+    here (each kernel leaves its counters at zero again), and their fp32
+    workspaces.  Calls on one stream take turns with it, as the port's
+    calls do; two streams at once would need two."""
+    import torch
+    buf = _SCRATCH.get((key, device))
+    if buf is None or buf.numel() < n or buf.dtype != dtype:
+        buf = torch.zeros(max(n, 1024), dtype=dtype, device=device)
+        _SCRATCH[key, device] = buf
+    return buf
 
 
 def check(name: str, err: int) -> None:

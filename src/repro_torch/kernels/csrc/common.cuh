@@ -9,6 +9,19 @@
 #define NEG_INF_F (-1e30f)
 #define FULL_MASK 0xffffffffu
 
+// Sets a kernel's dynamic shared memory limit once a device, on its first
+// launch there: `done` is the caller's static bit set of devices done.
+template <typename F>
+static inline cudaError_t set_smem_once(F kernel, int bytes, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (done >> dev & 1ull)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done |= 1ull << dev;
+  return err;
+}
+
 // dtype codes passed by the Python wrappers
 enum { DT_F32 = 0, DT_BF16 = 1 };
 

@@ -360,8 +360,8 @@ static cudaError_t launch_wgmma(const void* q, const void* k, const void* v, voi
                                 int vec, cudaStream_t stream) {
   auto kernel = flash_fwd_wgmma_kernel<HD>;
   const int smem = FlashWg<HD>::SMEM;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static unsigned long long done = 0;
+  cudaError_t err = set_smem_once(kernel, smem, done);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)(B * H), (unsigned)((S + BQ_WG - 1) / BQ_WG));
   kernel<<<grid, WG_THREADS, smem, stream>>>(

@@ -87,6 +87,13 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// pins r in its register across the wgmma pipeline: no other instruction
+// that defines it is moved between a wgmma and its wait, which would make
+// ptxas serialize the wgmmas (CUTLASS's warpgroup_fence_operand)
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
 // d (+)= a b for a 64 x N tile; acc 0 overwrites d
 template <int N>
 struct Wgmma;

@@ -11,14 +11,16 @@ not part of the signature.
 product first, the scale last.  The dense oracle ``ref.int8_matmul_ref``
 dequantizes first, as the reference's does.
 
-CUDA kernel (``csrc/int8_matmul.cu``): one block per [BM, BN] output
-tile walks K in 64-deep tiles through a three-stage ``cp.async`` ring in
-shared memory, the weights kept as bytes there and converted at use;
-ragged M, N and K are masked in the kernel.  bf16 x runs on the tensor
-cores (``mma.sync`` m16n8k16, exact products since int8 -> bf16 is
-exact), a 16-row tile at decode M and a 128-row one above; fp32 x runs
-on the fp32 cores, since TF32 would round x.  At decode M it is bound by
-the weight bytes, at prefill M by the operations.
+CUDA kernels (``csrc/int8_matmul.cu``), every one masking ragged M, N
+and K itself and applying the scale once, after the last K tile; int8
+widens to bf16 exactly.  bf16 x above 16 rows (prefill, bound by the
+operations): 128 x 128 tiles on ``wgmma``, each weight tile widened once a
+block into shared memory.  Up to 16 rows (decode, bound by the weight
+bytes), bf16 or fp32 x: ``mma.sync`` over a 16-row tile with split-K over
+the blocks, planned here by ``gemv_splits`` from the card's resident-block
+count; the last block of a column tile sums the splits in order.  fp32 x
+runs there exactly as three bf16 parts (TF32 would round x).  fp32 x above
+16 rows runs on the fp32 cores.
 """
 from __future__ import annotations
 
@@ -48,8 +50,38 @@ def int8_matmul_plain(x, w_q, scale):
     return (x.float() @ w_q.float()) * s.float()
 
 
-_ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
-         + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
+         + (ctypes.c_longlong,) * 2 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+# the decode kernel's tile (csrc/int8_matmul.cu GV_BN, GV_BK) and the
+# fewest K tiles a split takes, so the partials stay small beside the
+# weight bytes
+GEMV_ROWS, GEMV_BN, GEMV_BK, MIN_SPLIT_TILES = 16, 128, 64, 4
+_SLOTS: dict = {}
+_SPLITS: dict = {}
+
+
+def gemv_splits(N: int, K: int, slots: int) -> int:
+    """The number of blocks that share each column tile's K at M <= 16:
+    as many as one wave of ``slots`` resident blocks holds, each split
+    owning at least MIN_SPLIT_TILES K tiles, and none empty."""
+    n_tiles, nk = -(-N // GEMV_BN), -(-K // GEMV_BK)
+    s = max(1, min(slots // n_tiles, nk // MIN_SPLIT_TILES))
+    return -(-nk // -(-nk // s)) if s > 1 else 1
+
+
+def _gemv_slots(device, dtype_code: int) -> int:
+    key = (device, dtype_code)
+    if key not in _SLOTS:
+        fn = build.c_function("int8_matmul", "int8_matmul_gemv_slots",
+                              (ctypes.c_int, ctypes.c_void_p))
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = fn(dtype_code, ctypes.addressof(out))
+        if err != 0 or out.value <= 0:
+            raise RuntimeError(f"int8_matmul: no resident-block count "
+                               f"(cudaError_t {err})")
+        _SLOTS[key] = out.value
+    return _SLOTS[key]
 
 
 def _vec(t) -> int:
@@ -79,9 +111,24 @@ def int8_matmul_cuda(x, w_q, scale):
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
+    code = _DTYPES[x.dtype]
+    splits, partial, count = 1, None, None
+    if M <= GEMV_ROWS:
+        key = (x.device, code, N, K)
+        splits = _SPLITS.get(key)
+        if splits is None:
+            splits = _SPLITS[key] = gemv_splits(N, K,
+                                                _gemv_slots(x.device, code))
+    if splits > 1:
+        # the splits' fp32 partials, summed by the kernel's last block
+        partial = build.scratch("int8_matmul partials", x.device,
+                                splits * M * N, torch.float32).data_ptr()
+        count = build.scratch("int8_matmul counters", x.device,
+                              -(-N // GEMV_BN), torch.int32).data_ptr()
     fn = build.c_function("int8_matmul", "int8_matmul_launch", _ARGS)
     err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-             _DTYPES[x.dtype], M, N, K, x.stride(0), w_q.stride(0), _vec(x),
-             _vec(w_q), torch.cuda.current_stream(x.device).cuda_stream)
+             partial, count, code, M, N, K, x.stride(0), w_q.stride(0),
+             _vec(x), _vec(w_q), splits,
+             torch.cuda.current_stream(x.device).cuda_stream)
     build.check("int8_matmul", err)
     return out

@@ -288,6 +288,66 @@ def test_cuda_paged_attention(cuda, shape, window, q_dtype, kv_dtype, tol):
     assert torch.isfinite(got).all() and _err(got, want) < tol
 
 
+PAIRS = [(torch.float32, torch.float32, 2e-5),
+         (torch.bfloat16, torch.float32, 2e-5),
+         (torch.float32, torch.bfloat16, 3e-2),
+         (torch.bfloat16, torch.bfloat16, 3e-2)]
+
+
+def _split_edges(span, S):
+    """Cursors whose contexts are span - 1, span and span + 1 columns, and
+    two spans -1, 0, +1; then the last column and the clamp S."""
+    return [span - 2, span - 1, span, 2 * span - 2, 2 * span - 1, 2 * span,
+            S - 1, S]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["none", 6, "span", "span+1", 100])
+@pytest.mark.parametrize("q_dtype,kv_dtype,tol", PAIRS)
+def test_cuda_paged_attention_split_edges(cuda, window, q_dtype, kv_dtype,
+                                          tol):
+    """At the split kernel's own span on this card: contexts one column
+    either side of a split's edge, windows that empty whole splits below
+    the cursor, on arenas whose unread slots are NaN, for all four
+    (q, arena) dtype pairs, against the plain version."""
+    from repro_torch.kernels.paged_attention import _sm_count, \
+        paged_attention_cuda, paged_attention_plain, split_plan
+    B, H, K, hd, P, mb = 8, 32, 8, 128, 16, 8
+    span, n_splits = split_plan(B, K, mb, P, _sm_count(cuda))
+    assert n_splits > 2, "the shape must split"
+    window = {"none": 0, "span": span, "span+1": span + 1}.get(window,
+                                                               window)
+    pos = _split_edges(span, mb * P)
+    q, ak, av, table, pos = _paged_problem(cuda, B, H, K, hd, P, mb,
+                                           B * mb + 4, pos, q_dtype,
+                                           kv_dtype, 12)
+    got = paged_attention_cuda(q, ak, av, table, pos, window=window)
+    want = paged_attention_plain(q, ak, av, table, pos, window=window)
+    assert got.dtype == kv_dtype and _err(got, want) < tol
+    (pk, pv), (zk, zv) = _poisoned(ak, av, table, pos, window)
+    got = paged_attention_cuda(q, pk, pv, table, pos, window=window)
+    want = paged_attention_plain(q, zk, zv, table, pos, window=window)
+    assert torch.isfinite(got).all() and _err(got, want) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_counters_return_to_zero(cuda):
+    """The merge counters are left at zero, so back-to-back calls on
+    other shapes agree with the plain version each time."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, \
+        paged_attention_plain
+    for shape in ("engine", "long", "engine"):
+        *dims, pos, perm = PAGED_SHAPES[shape]
+        args = _paged_problem(cuda, *dims, pos, torch.float32,
+                              torch.float32, 13, perm)
+        assert _err(paged_attention_cuda(*args, window=6),
+                    paged_attention_plain(*args, window=6)) < 2e-5
+        counts = build.scratch("paged_attention counters", args[0].device, 1,
+                               torch.int32)
+        assert int(counts.abs().sum().item()) == 0
+
+
 @pytest.mark.cuda
 def test_cuda_paged_attention_refuses_other_shapes(cuda):
     from repro_torch.kernels.paged_attention import paged_attention_cuda
@@ -365,6 +425,39 @@ def test_cuda_int8_matmul(cuda, M, K, N, view, dtype):
     assert got.dtype == torch.float32 and got.shape == (M, N)
     err = (got - want).abs() / want.abs().clamp(min=1.0)
     assert err.max().item() < 1e-4
+
+
+# B6's new tile edges: every M around the decode kernel's 16 rows and the
+# wgmma kernel's 64-row warpgroups and 128-row blocks; K and N not
+# multiples of the tiles (64 deep, 128 wide), K deep enough to split at
+# M <= 16; and views one element (x) and three bytes (w) into wider rows
+INT8_EDGE_M = [1, 15, 16, 17, 64, 65, 128, 129]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", INT8_EDGE_M)
+@pytest.mark.parametrize("K,N,view", [(1000, 300, False), (200, 130, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_matmul_tile_edges(cuda, M, K, N, view, dtype):
+    """Within 1e-4 of max(1, |plain|), one launch a call, and the split-K
+    counters left at zero."""
+    from repro_torch.core import ddma
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.int8_matmul import int8_matmul_plain
+    g = torch.Generator().manual_seed(M * 7 + K + N)
+    q, s = ddma.quantize_int8(torch.randn(K, N + 3 * view, generator=g)
+                              / K ** 0.5)
+    q, s = q.to(cuda)[:, 3 * view:], s.to(cuda)[:, 3 * view:]
+    x = torch.randn(M, K + view, generator=g).to(dtype).to(cuda)[:, view:]
+    build.reset_launches()
+    got = dispatch.int8_matmul(x, q, s)
+    assert build.LAUNCHES["int8_matmul"] == 1
+    want = int8_matmul_plain(x, q, s)
+    assert got.shape == (M, N) and torch.isfinite(got).all()
+    err = (got - want).abs() / want.abs().clamp(min=1.0)
+    assert err.max().item() < 1e-4
+    counts = build.scratch("int8_matmul counters", x.device, 1, torch.int32)
+    assert int(counts.abs().sum().item()) == 0
 
 
 def _to(tree, dev):
