@@ -10,7 +10,10 @@ Each phase prints its own lines:
                sources, one nvcc per source, all at once
   [2] kernels  each kernel against its plain PyTorch version on the card,
                then its time beside the plain version's, a PyTorch
-               yardstick's and the least time the card could take; the
+               yardstick's and the least time the card could take (the
+               sampler at the generator's 16 rows and the engine's 32,
+               with its instructions a logit from cuobjdump and the
+               time they take at the card's issue rate); the
                attention gradient against chunked_attention's; paged
                attention also on an arena whose unread slots are NaN,
                for all four (q, arena) dtype pairs and at the edges of
@@ -122,6 +125,11 @@ EARLIER_INT8 = {(16, "bfloat16"): (0.0900, 0.0435),
              (16, "float32"): (0.5026, 0.4280)}
 EARLIER_PAGED = {("timing", "float32", 0): (0.3452, 0.2977),
               ("engine", "float32", 0): (0.0654, 0.0218)}
+# B3's time before its redesign (one block per row), ms a call (kernel
+# only) at [16, 128256] bf16, from the same table
+EARLIER_SAMPLE = {16: (0.0880, 0.0533)}
+# warp instructions an SM issues a clock (four schedulers, one each)
+ISSUE_PER_SM_CLOCK = 4
 KERNELS = ("fused_sample", "fused_logprob", "fused_logprob_bwd",
            "flash_attention", "paged_attention", "int8_matmul")
 
@@ -223,6 +231,48 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    require(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def sass_loop_instructions(name: str, parts):
+    """(instructions, function): the static SASS instructions, NOPs left
+    out, of the longest loop (a backward branch back to its target) of
+    the first kernel in ``csrc/<name>.cu``'s built library whose mangled
+    name holds every string of ``parts``, from ``cuobjdump -sass``; None
+    where the toolkit has no cuobjdump or the listing does not parse."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(build._out(name))],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        return None
+    for text in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+        func = text.split("\n", 1)[0].strip()
+        if not all(p in func for p in parts):
+            continue
+        # (address, instruction without its predicate)
+        ins = [(int(a, 16), re.sub(r"^@!?\w+\s+", "", op.strip())) for a, op
+               in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", text)]
+        longest = 0
+        for addr, op in ins:
+            m = re.match(r"BRA\b.*?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                lo = int(m.group(1), 16)
+                longest = max(longest, sum(
+                    1 for a, o in ins if lo <= a <= addr
+                    and not o.startswith("NOP")))
+        return (longest, func) if longest else None
+    return None
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     log("[1] build (one nvcc per source, all at once)")
@@ -246,7 +296,7 @@ def phase_kernels(torch, dev):
     """Each kernel against its plain version; returns the JSON records."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import build, dispatch, fused_sample
     from repro_torch.kernels.flash_attention import chunked_attention, \
         flash_attention_cuda
     from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
@@ -271,7 +321,7 @@ def phase_kernels(torch, dev):
 
     key = prng.split(prng.PRNGKey(0), 3)[1]
     sample_err = 0.0
-    for B in (16, 64):
+    for B in (16, 32, 64):
         x = sample_logits(B)
         for T in (0.0, 0.7, 1.0):
             tok, lp = fused_sample_cuda(x, key, T)
@@ -288,23 +338,76 @@ def phase_kernels(torch, dev):
                 sample_err = max(sample_err, err)
             log(f"  fused_sample [{B}, {V_LLAMA}] bf16 T={T}: tokens equal, "
                 f"max|dlogp| {err:.3e}")
-    x = sample_logits(16)
+    counters = build.scratch("fused_sample counters", dev, 1, torch.int32)
+    require(int(counters.abs().sum().item()) == 0,
+            "fused_sample left a merge counter non-zero")
 
-    def run_sample():
-        return fused_sample_cuda(x, key, 1.0)
-    ms = cuda_ms(torch, run_sample, 50)
-    plain_ms = cuda_ms(torch, lambda: fused_sample_plain(x, key, 1.0), 3)
-    b_ms, b_by = bound(x.numel() * 2 + 16 * 8,
-                       x.numel() * SAMPLE_OPS_PER_LOGIT, FP32_FLOPS)
+    # the instructions a logit of the noisy bf16 instance's column loop,
+    # and the time they take at the card's issue rate
+    sass = sass_loop_instructions("fused_sample", (
+        "fused_sample_kernel", "__nv_bfloat16", "Li8E", "Lb1E"))
+    n_sm = build.sm_count(dev)
+    clock = max_sm_clock_mhz()
+    per_logit = None if sass is None else sass[0] / 8
+
+    def timed_sample(B):
+        x = sample_logits(B)
+
+        def run():
+            return fused_sample_cuda(x, key, 1.0)
+        b_ms, b_by = bound(x.numel() * 2 + B * 8,
+                           x.numel() * SAMPLE_OPS_PER_LOGIT, FP32_FLOPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):      # the host's side alone: the card keeps up
+            run()
+        host_ms = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        rec = {"ms": cuda_ms(torch, run, 50),
+               "kernel_only_ms": kernel_only_ms(torch, run, 20,
+                                                "fused_sample_kernel"),
+               "host_ms": host_ms,
+               "plain_ms": cuda_ms(torch, lambda: fused_sample_plain(
+                   x, key, 1.0), 3),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "splits": fused_sample.split_plan(B, V_LLAMA, n_sm)[1]}
+        # an estimate from the SASS count, for the log line only
+        issue_ms = None if per_logit is None else (
+            per_logit * x.numel() / 32 / (ISSUE_PER_SM_CLOCK * n_sm)
+            / (clock * 1e3))
+        ko = rec["kernel_only_ms"]
+        was = EARLIER_SAMPLE.get(B)
+        log(f"  time fused_sample [{B}, {V_LLAMA}] bf16, {rec['splits']} "
+            f"splits a row: {rec['ms']:.4f} ms per call ("
+            + ("not measured" if ko is None else f"{ko:.4f} ms")
+            + " in the kernel"
+            + (f"; before the redesign {was[0]} ({was[1]})" if was else "")
+            + f"), host {host_ms:.4f} ms a call back to back, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), issue "
+            + ("not measured" if issue_ms is None
+               else f"{issue_ms:.4f} ms"))
+        return rec
+
+    log("  fused_sample SASS: " + (
+        "not measured (no cuobjdump)" if sass is None else
+        f"{sass[0]} instructions in the column loop of {sass[1]}, "
+        f"{per_logit:.1f} a logit; issue time at {ISSUE_PER_SM_CLOCK} warp "
+        f"instructions a clock on each of {n_sm} SMs at {clock:.0f} MHz"))
+    main = timed_sample(16)
+    pool = timed_sample(32)
     records.append({
         "name": "fused_sample", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_sample.cu",
         "replaces": "src/repro/kernels/fused_sample.py:65",
-        "launches": 0, "max_abs_err": sample_err, "ms": ms,
-        "kernel_only_ms": kernel_only_ms(torch, run_sample, 20,
-                                         "fused_sample_kernel"),
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": [16, V_LLAMA], "dtype": "bfloat16"})
+        "launches": 0, "max_abs_err": sample_err, "ms": main["ms"],
+        "kernel_only_ms": main["kernel_only_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "shape": [16, V_LLAMA], "dtype": "bfloat16",
+        "sass_per_logit": per_logit, "host_ms": main["host_ms"],
+        "pool32": {k: pool[k] for k in ("ms", "kernel_only_ms", "host_ms",
+                                        "plain_ms", "bound_ms")}})
 
     # ---- fused_logprob: the reference scorer's strided view, read in place
     logits = (torch.randn(16, 80, V_LLAMA, generator=gen, device=dev)
@@ -728,15 +831,15 @@ def check_paged_attention(torch, dev):
     0, 6 and 100; then its time at the 2048-token shape.  Returns the
     JSON record."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.paged_attention import _sm_count, \
-        paged_attention_cuda, paged_attention_plain, split_plan
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, \
+        paged_attention_plain, split_plan
 
     bf16, f32 = torch.bfloat16, torch.float32
     # the split kernel's edges at its own span on this card: contexts of
     # span - 1, span and span + 1 columns and the same around two spans,
     # the last column and the clamp (tests/test_torch_cuda.py's
     # test_cuda_paged_attention_split_edges)
-    span, n_splits = split_plan(8, 8, 8, 16, _sm_count(dev))
+    span, n_splits = split_plan(8, 8, 8, 16, build.sm_count(dev))
     require(n_splits > 2, f"the split-edge shape does not split ({span})")
     shapes = {
         "arena_problem": (3, 4, 2, 16, 5, 4, 16, [3, 11, 19], False),

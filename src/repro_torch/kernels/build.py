@@ -35,6 +35,7 @@ BUILD_LOG: dict = {}
 _LIBS: dict = {}
 _FUNCS: dict = {}
 _SCRATCH: dict = {}
+_SMS: dict = {}
 
 
 def nvcc() -> str:
@@ -119,6 +120,15 @@ def scratch(key: str, device, n: int, dtype):
         buf = torch.zeros(max(n, 1024), dtype=dtype, device=device)
         _SCRATCH[key, device] = buf
     return buf
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device, read once a device."""
+    if device not in _SMS:
+        import torch
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 def check(name: str, err: int) -> None:

@@ -64,6 +64,26 @@ __device__ __forceinline__ MS ms_shfl_xor(MS a, int off) {
   return {__shfl_xor_sync(FULL_MASK, a.m, off), __shfl_xor_sync(FULL_MASK, a.s, off)};
 }
 
+// A split's side of a merge in one launch.  Every thread of the block
+// calls it once, after writing its part of the block's partial to global
+// memory, and gets the same answer: whether this block is the last of
+// the n blocks that count themselves in *counter.  The last one resets
+// the counter to zero for the next launch, and its threads then see
+// every other block's partial.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int n) {
+  __shared__ int is_last;
+  __threadfence();   // this block's partial, before it is counted
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    is_last = atomicAdd(counter, 1) == n - 1;
+    if (is_last) *counter = 0;   // every block has arrived
+  }
+  __syncthreads();
+  const bool last = is_last;
+  if (last) __threadfence();   // and the others' partials after it
+  return last;
+}
+
 // Block-wide merge of a value with an associative, commutative merge
 // whose identity is `identity`; every thread returns the result.
 // blockDim.x is a multiple of 32, at most 1024.  Lanes past the number of

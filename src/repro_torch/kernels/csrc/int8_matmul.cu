@@ -263,7 +263,6 @@ int8_matmul_gemv_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
   extern __shared__ __align__(16) unsigned char smem[];
   TX* xs = reinterpret_cast<TX*>(smem);
   int8_t* ws = reinterpret_cast<int8_t*>(smem + GV_STAGES * C::X_STAGE);
-  __shared__ int is_last;
 
   const int n0 = blockIdx.x * GV_BN, split = blockIdx.y, splits = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -368,15 +367,7 @@ int8_matmul_gemv_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
       const int row = g + 8 * h;
       if (row < M) store8(partial + ((int64_t)split * M + row) * N + col0, v[h], n_in, vec);
     }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    is_last = atomicAdd(&counters[blockIdx.x], 1) == splits - 1;
-    if (is_last) counters[blockIdx.x] = 0;   // every split has arrived
-  }
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
+  if (!last_to_arrive(&counters[blockIdx.x], splits)) return;
   // one column a thread, its rows' loads of two splits in flight at once
   const int col = n0 + threadIdx.x;
   if (col >= N) return;

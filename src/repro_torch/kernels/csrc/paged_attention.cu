@@ -78,7 +78,6 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ ak,
   __shared__ float alpha_s[GM];
   __shared__ float m_s[GM];
   __shared__ float l_s[GM];
-  __shared__ int is_last;
   unsigned char* kbuf = smem;               // buffer b's K at 2 b TILE
   unsigned char* vbuf = smem + C::TILE;     // and its V one TILE on
 
@@ -220,15 +219,7 @@ paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ ak,
     const int idx = tid + i * THREADS;
     if (idx < g * HD) wp[2 * g + idx] = acc[i];
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    is_last = atomicAdd(&counters[bk], 1) == s_hi - s_lo;
-    if (is_last) counters[bk] = 0;   // every non-empty split has arrived
-  }
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
+  if (!last_to_arrive(&counters[bk], s_hi - s_lo + 1)) return;   // the non-empty splits
   const float* wr = ws + (int64_t)bk * n_splits * stride;
 #pragma unroll
   for (int i = 0; i < C::ACC; ++i) {

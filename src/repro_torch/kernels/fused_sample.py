@@ -6,14 +6,18 @@ Replaces the TPU kernel ``repro/kernels/fused_sample.py::fused_sample``
 the absolute (row, col) position, so the CUDA kernel, the plain streamed
 version and the dense oracle draw identical tokens under one key.
 
-CUDA kernel (``csrc/fused_sample.cu``): one block per row; threads stride
-over the vocabulary with 16-byte loads and keep the online softmax
-(m, s), the best Gumbel score with its column, and the chosen scaled
-logit; a block reduction merges them, ties going to the lower column (the
-reference's global first argmax).  It reads each logit once, so it is
-bound by bytes: [16, 128256] bf16 is 4.1 MB, about 1.2 us at 3.35 TB/s,
-below a launch's own cost; one block per row leaves most SMs idle at
-B = 16, which does not matter at that size.
+CUDA kernel (``csrc/fused_sample.cu``): bound by instruction issue, not
+bytes.  [16, 128256] bf16 is 4.1 MB, about 1.2 us at 3.35 TB/s, but each
+logit costs about 78 instructions (the hash, two accurate logs for the
+noise, the softmax update, the running argmax), so one block per row
+kept 16 of an H100's 132 SMs issuing for 53 us.  The grid is therefore
+(row, split): ``split_plan`` cuts each row into spans, multiples of 8
+columns, so that the blocks fill the card; each split keeps the online
+softmax (m, s), the best Gumbel score with its column and its scaled
+logit, and the last split of a row to arrive (an atomic counter in
+``build.scratch``, which it resets) merges the row's partials in split
+order, in the same launch.  ``fused_sample_split_plain`` states that
+merge in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -32,8 +36,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def key_data_u32(key):
     """The two uint32 words of a key (an ``rl.prng`` key: int64 [2] holding
     32-bit values) as Python ints, which the hash and the kernel take."""
-    k0, k1 = key.reshape(-1)[:2].tolist()
-    return int(k0) & _M, int(k1) & _M
+    # one tolist of the whole key: a reshape and a slice first would add
+    # two tensor operations of host time to every sampling call
+    words = key.tolist() if key.dim() == 1 else key.reshape(-1).tolist()
+    return int(words[0]) & _M, int(words[1]) & _M
 
 
 def _mul32(x, c: int):
@@ -101,14 +107,84 @@ def fused_sample_plain(logits, key, temperature: float, block_v: int = 2048):
     return btok.int(), (blog - m) - torch.log(s)
 
 
+def fused_sample_split_plain(logits, key, temperature: float, span: int):
+    """``fused_sample_plain`` computed as the kernel splits it: split ``i``
+    owns the columns ``[i span, (i + 1) span)`` and keeps its (m_i, s_i),
+    m_i floored at -1e30 as the online max is, and its first best z_i
+    with that column and scaled logit x_i; then M = max m_i, s = the sum
+    of s_i exp(m_i - M) in split order, the token that of the first split
+    with the largest z (ties to the lower split), and the log-prob
+    (x - M) - log s.  For tests: it states the merge rule the kernel
+    follows, at any span.  Returns (tokens [B] int32, logprob [B] fp32)."""
+    B, V = logits.shape
+    dev = logits.device
+    k0, k1 = key_data_u32(key)
+    inv = 1.0 / temperature if temperature > 0.0 else 1.0
+    scaled = logits.float() * inv
+    rows = torch.arange(B, device=dev)[:, None]
+    parts = []
+    for c0 in range(0, V, span):
+        x = scaled[:, c0:c0 + span]
+        cols = torch.arange(c0, c0 + x.shape[1], device=dev)[None]
+        m = torch.clamp(x.amax(dim=-1), min=NEG_INF)
+        s = torch.exp(x - m[:, None]).sum(dim=-1)
+        z = x
+        if temperature > 0.0:
+            z = x + gumbel_noise(rows.expand_as(x), cols.expand_as(x), k0,
+                                 k1)
+        arg = torch.argmax(z, dim=-1, keepdim=True)
+        parts.append((m, s, z.gather(1, arg)[:, 0], c0 + arg[:, 0],
+                      x.gather(1, arg)[:, 0]))
+    M = torch.stack([m for m, *_ in parts]).amax(dim=0)
+    s = torch.zeros(B, device=dev)
+    best = torch.full((B,), float("-inf"), device=dev)
+    btok = torch.zeros(B, dtype=torch.int64, device=dev)
+    blog = torch.full((B,), NEG_INF, device=dev)
+    for m, si, z, col, x in parts:
+        s = s + si * torch.exp(m - M)
+        better = z > best      # strict: the earlier split keeps a tie
+        btok = torch.where(better, col, btok)
+        blog = torch.where(better, x, blog)
+        best = torch.where(better, z, best)
+    return btok.int(), (blog - M) - torch.log(s)
+
+
+# csrc/fused_sample.cu: a block's threads, and the most splits a row may
+# have (its merge gives each split one thread)
+THREADS = 256
+MAX_SPLITS = 256
+# spans are multiples of 8 columns, so 16-byte loads of bf16 stay aligned
+SPAN_ALIGN = 8
+# no split smaller than one pass of a block's 16-byte bf16 loads
+MIN_SPAN = 8 * THREADS
+# the blocks a call aims at, per SM
+BLOCKS_PER_SM = 2
+_PLANS: dict = {}
+
+
+def split_plan(B: int, V: int, n_sm: int):
+    """(span, n_splits): the columns a split owns, a multiple of
+    ``SPAN_ALIGN``, and the splits that cover a row of ``V`` columns, so
+    that the ``B * n_splits`` blocks come to at most ``BLOCKS_PER_SM *
+    n_sm`` (at least one split a row), no split is empty, and none is
+    below ``MIN_SPAN`` unless the row is.  The launcher refuses any other
+    plan."""
+    want = max(1, min(MAX_SPLITS, BLOCKS_PER_SM * n_sm // B,
+                      V // MIN_SPAN))
+    span = SPAN_ALIGN * -(-(-(-V // want)) // SPAN_ALIGN)
+    return span, -(-V // span)
+
+
 _ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_longlong, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
 
 
 def fused_sample_cuda(logits, key, temperature: float):
     """The CUDA kernel on a [B, V] CUDA tensor (fp32 or bf16, unit column
-    stride).  Returns (tokens [B] int32, logprob [B] fp32)."""
+    stride, any row stride), cut by ``split_plan``, cached per (device,
+    B, V).  Returns (tokens [B] int32, logprob [B] fp32)."""
     if not logits.is_cuda or logits.dim() != 2:
         raise ValueError("fused_sample_cuda takes a 2-D CUDA tensor, got "
                          f"{tuple(logits.shape)} on {logits.device}")
@@ -118,15 +194,29 @@ def fused_sample_cuda(logits, key, temperature: float):
         raise ValueError("fused_sample_cuda needs unit column stride")
     B, V = logits.shape
     k0, k1 = key_data_u32(key)
-    tok = torch.empty(B, dtype=torch.int32, device=logits.device)
-    lp = torch.empty(B, dtype=torch.float32, device=logits.device)
+    dev = logits.device
+    tok = torch.empty(B, dtype=torch.int32, device=dev)
+    lp = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return tok, lp
+    if V == 0:
+        raise ValueError("fused_sample_cuda: a row of no columns")
+    plan = _PLANS.get((dev, B, V))
+    if plan is None:
+        plan = _PLANS[dev, B, V] = split_plan(B, V, build.sm_count(dev))
+    span, n_splits = plan
+    ws = count = None
+    if n_splits > 1:
+        # each split's (m, s, z, col, x); the last of a row merges them
+        ws = build.scratch("fused_sample partials", dev, B * n_splits * 5,
+                           torch.float32).data_ptr()
+        count = build.scratch("fused_sample counters", dev, B,
+                              torch.int32).data_ptr()
     fn = build.c_function("fused_sample", "fused_sample_launch", _ARGS)
     noisy = temperature > 0.0
     err = fn(logits.data_ptr(), _DTYPES[logits.dtype], B, V, logits.stride(0),
-             k0, k1, 1.0 / temperature if noisy else 1.0, int(noisy),
-             tok.data_ptr(), lp.data_ptr(),
-             torch.cuda.current_stream(logits.device).cuda_stream)
+             k0, k1, 1.0 / temperature if noisy else 1.0, int(noisy), span,
+             n_splits, ws, count, tok.data_ptr(), lp.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
     build.check("fused_sample", err)
     return tok, lp

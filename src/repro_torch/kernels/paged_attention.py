@@ -123,7 +123,6 @@ def paged_attention_split_plain(q, arena_k, arena_v, page_table, pos, *,
 # the blocks a card should hold at once, per SM: enough splits that the
 # engine's 32 rows fill it
 BLOCKS_PER_SM = 8
-_SMS: dict = {}
 _PLANS: dict = {}
 
 
@@ -136,13 +135,6 @@ def split_plan(B: int, K: int, mb: int, P: int, n_sm: int):
     want = -(-BLOCKS_PER_SM * n_sm // (B * K))
     span = P * -(-(-(-S // want)) // P)
     return span, -(-S // span)
-
-
-def _sm_count(device) -> int:
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[device]
 
 
 _ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8
@@ -196,7 +188,8 @@ def paged_attention_cuda(q, arena_k, arena_v, page_table, pos, *,
     key = (q.device, B, K, mb, P)
     plan = _PLANS.get(key)
     if plan is None:
-        plan = _PLANS[key] = split_plan(B, K, mb, P, _sm_count(q.device))
+        plan = _PLANS[key] = split_plan(B, K, mb, P,
+                                        build.sm_count(q.device))
     span, n_splits = plan
     ws = count = None
     if n_splits > 1:

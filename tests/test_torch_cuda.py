@@ -9,7 +9,7 @@ without jax:
 import pytest
 import torch
 
-from repro_torch.kernels import fused_logprob, fused_sample
+from repro_torch.kernels import build, fused_logprob, fused_sample
 from repro_torch.kernels.flash_attention import chunked_attention, \
     flash_attention_cuda
 from repro_torch.rl import prng
@@ -48,6 +48,127 @@ def test_cuda_fused_sample(cuda, temperature, dtype, V):
     assert _err(lp, lp_p) < 1e-4
     if temperature == 0.0:
         assert tok[2].item() == 3       # ties go to the lower column
+
+
+def _sample_rows(B, V, dtype, seed, cuda, pad=0):
+    """Seeded [B, V] logits of randn x 3 on the card, read as a view into
+    rows ``pad`` columns wider.  From 16 rows on, the edge rows: one
+    dominating logit, a row of -1e30, a duplicate maximum (20.0 at
+    columns 3 and 99), a duplicate maximum on both sides of the planned
+    first split boundary (30.0), and a row of -inf."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, V + pad, generator=g) * 3
+    if B >= 16:
+        span, _ = fused_sample.split_plan(B, V, build.sm_count(cuda))
+        edge = min(span, V - 1)
+        x[0, min(5, V - 1)], x[1] = 1e30, -1e30
+        x[2, min(3, V - 1)] = x[2, min(99, V - 1)] = 20.0
+        if edge > 0:
+            x[3, edge - 1] = x[3, edge] = 30.0
+        x[4] = float("-inf")
+    return x.to(dtype).to(cuda)[:, :V]
+
+
+def _sample_equal(x, key):
+    """The kernel's tokens equal the plain version's at T = 0, 0.7 and 1,
+    its log-probs within 1e-4; returns the greedy tokens."""
+    for T in (0.0, 0.7, 1.0):
+        tok, lp = fused_sample.fused_sample_cuda(x, key, T)
+        tok_p, lp_p = fused_sample.fused_sample_plain(x, key, T)
+        bad = (tok != tok_p).nonzero().flatten().tolist()
+        assert not bad, (T, bad, tok[bad], tok_p[bad])
+        assert _err(lp, lp_p) < 1e-4
+        if T == 0.0:
+            greedy = tok
+    return greedy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [1, 7, 1000, 1001, 128256])
+@pytest.mark.parametrize("B", [1, 16, 32, 64, 200])
+def test_cuda_fused_sample_split_plan(cuda, B, V, dtype):
+    """The split kernel at its planned spans: tokens bit for bit, ties to
+    the lower column across a split boundary, the -inf row to column 0."""
+    x = _sample_rows(B, V, dtype, B + V, cuda)
+    greedy = _sample_equal(x, prng.split(prng.PRNGKey(B), 3)[1])
+    if B >= 16 and V > 99:
+        span, _ = fused_sample.split_plan(B, V, build.sm_count(cuda))
+        assert greedy[2].item() == 3 and greedy[4].item() == 0
+        assert greedy[3].item() == min(span, V - 1) - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [8, 1])     # 16-byte rows, and not
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [1000, 128256])
+def test_cuda_fused_sample_row_stride(cuda, V, dtype, pad):
+    x = _sample_rows(32, V, dtype, 5, cuda, pad=pad)
+    assert x.stride(0) == V + pad
+    _sample_equal(x, prng.split(prng.PRNGKey(9), 2)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,V", [(1, 4096), (1, 6145), (5, 128256),
+                                 (1, 128256), (1, 524296)])
+def test_cuda_fused_sample_planned_edges(cuda, B, V, dtype):
+    """The plan's edges, reached through ``split_plan`` (at 132 SMs): two
+    splits of 2048 columns, a ragged last split of an unaligned row, 52
+    and 62 splits a row, and the most splits a row may have (256) with a
+    last split of 16 columns; a duplicate maximum sits on both sides of
+    the last split boundary."""
+    span, n = fused_sample.split_plan(B, V, build.sm_count(cuda))
+    assert n > 1, "the shape must split"
+    edge = (n - 1) * span
+    x = _sample_rows(B, V, dtype, V, cuda)
+    x[B - 1, edge - 1] = x[B - 1, edge] = 50.0
+    greedy = _sample_equal(x, prng.split(prng.PRNGKey(4), 3)[2])
+    assert greedy[B - 1].item() == edge - 1
+
+
+@pytest.mark.cuda
+def test_cuda_fused_sample_counters_and_repeat(cuda):
+    """Two calls give the same bits, one launch each, and the merge
+    counters are back at zero after each."""
+    key = prng.split(prng.PRNGKey(2), 2)[1]
+    for B in (16, 32, 64, 16):
+        x = _sample_rows(B, 128256, torch.bfloat16, B, cuda)
+        build.reset_launches()
+        a = fused_sample.fused_sample_cuda(x, key, 1.0)
+        b = fused_sample.fused_sample_cuda(x, key, 1.0)
+        assert build.LAUNCHES["fused_sample"] == 2
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        counts = build.scratch("fused_sample counters", cuda, 1, torch.int32)
+        assert int(counts.abs().sum().item()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_sample_refuses_bad_spans(cuda):
+    """The launcher takes only plans ``split_plan`` can give: (span,
+    splits) that cover the row with no empty split, aligned spans, none
+    under MIN_SPAN when a row splits, at most MAX_SPLITS."""
+    B, V = 2, 4096
+    x = torch.zeros(B, V, device=cuda)
+    tok = torch.empty(B, dtype=torch.int32, device=cuda)
+    lp = torch.empty(B, device=cuda)
+    ws = build.scratch("fused_sample partials", cuda, B * 512 * 5,
+                       torch.float32)
+    count = build.scratch("fused_sample counters", cuda, B, torch.int32)
+    fn = build.c_function("fused_sample", "fused_sample_launch",
+                          fused_sample._ARGS)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def launch(span, n):
+        return fn(x.data_ptr(), 0, B, V, V, 0, 0, 1.0, 1, span, n,
+                  ws.data_ptr(), count.data_ptr(), tok.data_ptr(),
+                  lp.data_ptr(), stream)
+    assert launch(4096, 1) == 0 and launch(2048, 2) == 0
+    torch.cuda.synchronize()
+    # no split, empty last split, unaligned, under MIN_SPAN, 512 splits
+    for span, n in ((4096, 0), (4096, 2), (12, 342), (1024, 4), (8, 512)):
+        assert launch(span, n) != 0, (span, n)
+    assert int(count.abs().sum().item()) == 0
 
 
 @pytest.mark.cuda
@@ -310,10 +431,10 @@ def test_cuda_paged_attention_split_edges(cuda, window, q_dtype, kv_dtype,
     either side of a split's edge, windows that empty whole splits below
     the cursor, on arenas whose unread slots are NaN, for all four
     (q, arena) dtype pairs, against the plain version."""
-    from repro_torch.kernels.paged_attention import _sm_count, \
-        paged_attention_cuda, paged_attention_plain, split_plan
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, \
+        paged_attention_plain, split_plan
     B, H, K, hd, P, mb = 8, 32, 8, 128, 16, 8
-    span, n_splits = split_plan(B, K, mb, P, _sm_count(cuda))
+    span, n_splits = split_plan(B, K, mb, P, build.sm_count(cuda))
     assert n_splits > 2, "the shape must split"
     window = {"none": 0, "span": span, "span+1": span + 1}.get(window,
                                                                window)
