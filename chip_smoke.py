@@ -54,6 +54,26 @@ Each phase prints its own lines:
                device-busy share beside the dense layout's decode time;
                then the same engine at 2 layers in fp32, its behaviour
                log-probs within 1e-3 of the reference's
+  [10] pool    llama31-8b widths with 4 layers, bf16 params, fp32 Adam,
+               KL 0.1: the threaded AsyncExecutorController.  (a) a pool
+               of 1, chunk scheduling, 3 steps, bit-equal to
+               run_sequential of a controller built the same way (tokens,
+               metrics, versions); (b) an engine-mode pool of 2 on paged
+               KV (build_generator_pool, PoolConfig(engine=True,
+               kv_layout="paged")), 4 steps: batch order, versions,
+               alternating workers, pins, pages and launch counts
+               asserted; its stats (overlap_s, busy shares), peak memory
+               and the most weight versions alive at once printed; its
+               trace exported to build/pool_trace.json, validated and
+               summarized; the first call of each shape it gave a kernel
+               held against the plain version
+  [11] quickstart  quickstart.build("cuda", 20) on the threaded
+               controller: weight versions and launch counts asserted;
+               every kernel call of the run held against its plain
+               version on the same inputs; each step's loss, mean
+               log-prob and gradient norm held against the CPU port
+               re-scoring the card's own batch from the card's params,
+               within 1e-4 relative (+1e-6)
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -69,6 +89,7 @@ result.  Any failed check raises, so the script exits non-zero.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import math
@@ -111,6 +132,13 @@ LOGPROB_BWD_OPS_PER_LOGIT = 6
 # admitted mid-decode at divergent cursors
 ENGINE_PROMPT, ENGINE_PAGE, ENGINE_BATCHES = 48, 16, 3
 ENGINE_BUDGETS = [1, 2, 4, 4]
+# the pool phase keeps the published widths and cuts the depth to 4
+# layers (1.92 B params, 3.85 GB a bf16 weight version, 23.1 GB of
+# trainer state): in-process subscribers share each version's tensors,
+# and at bound 1 with 2 workers the fabric and channels may hold up to
+# 2 bound + workers + 4 = 8 versions, which at 8 layers (5.59 GB each)
+# would not fit beside the trainer on an 80 GB card
+POOL_LAYERS = 4
 # B6 against its plain version: |d| <= INT8_TOL max(1, |plain|).  Both
 # widen the same x and int8 values exactly, so every product is equal;
 # only the order of the fp32 sum differs (over K up to 14336, about 1e-6
@@ -396,6 +424,14 @@ def phase_kernels(torch, dev):
         f"instructions a clock on each of {n_sm} SMs at {clock:.0f} MHz"))
     main = timed_sample(16)
     pool = timed_sample(32)
+    # what the launch-count lock adds to every wrapper call, host clock
+    t0 = time.perf_counter()
+    for _ in range(100000):
+        with build._LAUNCH_LOCK:
+            pass
+    log(f"  the launch-count lock: "
+        f"{(time.perf_counter() - t0) / 100000 * 1e6:.3f} us a call, "
+        "taken and released with no other thread waiting (host clock)")
     records.append({
         "name": "fused_sample", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_sample.cu",
@@ -1566,6 +1602,454 @@ def phase_train_numerics(torch, dev) -> None:
         require(v <= 1e-4, f"train numerics: {k} {v:.3e} > 1e-4")
 
 
+class KernelCalls:
+    """Records the calls a main path makes to the kernel wrappers that
+    ``dispatch`` routes to -- copies of their inputs and outputs, from
+    whichever thread -- so that ``replay`` can hold each recorded call
+    against its plain version afterwards.  The wrappers count their own
+    launches; recording adds none.  ``per_shape`` keeps only the first
+    calls of each (wrapper, shapes, dtypes); None keeps every call."""
+
+    NAMES = ("fused_sample_cuda", "fused_logprob_cuda",
+             "fused_logprob_bwd_cuda", "flash_attention_cuda")
+
+    def __init__(self, torch, per_shape=None):
+        import threading
+        self.torch, self.per_shape = torch, per_shape
+        self.calls = {n: [] for n in self.NAMES}
+        self._seen = collections.Counter()
+        self._lock = threading.Lock()
+
+    def _copy(self, x):
+        if isinstance(x, self.torch.Tensor):
+            return x.detach().clone()
+        if isinstance(x, tuple):
+            return tuple(self._copy(t) for t in x)
+        return x
+
+    def _wrap(self, name, fn):
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            sig = (name,) + tuple((tuple(a.shape), a.dtype) for a in args
+                                  if isinstance(a, self.torch.Tensor))
+            with self._lock:
+                self._seen[sig] += 1
+                keep = self.per_shape is None or \
+                    self._seen[sig] <= self.per_shape
+            if keep:
+                self.calls[name].append(
+                    (self._copy(args), dict(kwargs), self._copy(out)))
+            return out
+        return recorded
+
+    def __enter__(self):
+        from repro_torch.kernels import dispatch
+        self._saved = {n: getattr(dispatch, n) for n in self.NAMES}
+        for n, fn in self._saved.items():
+            setattr(dispatch, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import dispatch
+        for n, fn in self._saved.items():
+            setattr(dispatch, n, fn)
+        return False
+
+    def replay(self, label: str) -> None:
+        """Every recorded call against its plain version on the same
+        inputs, at phase [2]'s tolerances for the dtype: B3 tokens equal
+        and log-probs within 1e-5 (fp32) or 1e-4 (bf16); B1 log-probs
+        within 1e-5 / 1e-4 and m equal; B2 every element within 1e-6 /
+        2^-7 relative of the plain gradient (bwd_excess), zero past
+        n_valid; B4 |do| / max(1, |o|) within 1e-5 / 3e-2."""
+        torch = self.torch
+        from repro_torch.kernels.flash_attention import chunked_attention
+        from repro_torch.kernels.fused_logprob import \
+            fused_logprob_bwd_plain, fused_logprob_plain
+        from repro_torch.kernels.fused_sample import fused_sample_plain
+
+        def fp32(t):
+            return t.dtype == torch.float32
+        worst = collections.defaultdict(float)
+        shapes = collections.defaultdict(set)
+        for (x, key, T), _, (tok, lp) in self.calls["fused_sample_cuda"]:
+            tok_p, lp_p = fused_sample_plain(x, key, T)
+            require(torch.equal(tok, tok_p), f"{label}: fused_sample "
+                    f"{list(x.shape)} tokens differ from the plain version "
+                    f"at rows {(tok != tok_p).nonzero().flatten().tolist()}")
+            err = max_err(lp, lp_p)
+            require(err <= (1e-5 if fp32(x) else 1e-4),
+                    f"{label}: fused_sample log-prob error {err:.3e}")
+            worst["fused_sample"] = max(worst["fused_sample"], err)
+            shapes["fused_sample"].add((tuple(x.shape), x.dtype))
+        for (view, toks), _, (lp, m, s) in self.calls["fused_logprob_cuda"]:
+            V = view.shape[-1]
+            lp_p, m_p, _ = fused_logprob_plain(view.reshape(-1, V),
+                                               toks.reshape(-1))
+            err = max_err(lp.reshape(-1), lp_p)
+            require(err <= (1e-5 if fp32(view) else 1e-4) and torch.equal(
+                m.reshape(-1), m_p), f"{label}: fused_logprob "
+                f"{list(view.shape)} error {err:.3e} or m differs")
+            worst["fused_logprob"] = max(worst["fused_logprob"], err)
+            shapes["fused_logprob"].add((tuple(view.shape), view.dtype))
+        for args, kw, d in self.calls["fused_logprob_bwd_cuda"]:
+            base, toks, m, log_s, g = args
+            n, V = kw.get("n_valid") or base.shape[1], base.shape[-1]
+            d_p = fused_logprob_bwd_plain(
+                base[:, :n].reshape(-1, V), toks.reshape(-1), m.reshape(-1),
+                log_s.reshape(-1), g.reshape(-1))
+            got = d[:, :n].reshape(-1, V)
+            excess = bwd_excess(torch, got, d_p, g.reshape(-1),
+                                toks.reshape(-1),
+                                1e-6 if fp32(base) else 2.0 ** -7)
+            require(excess <= 1.0 and bool((d[:, n:] == 0).all().item()),
+                    f"{label}: fused_logprob_bwd {list(base.shape)}: an "
+                    f"element is {excess:.3g} times its tolerance, or the "
+                    "rows past n_valid are not zero")
+            worst["fused_logprob_bwd"] = max(worst["fused_logprob_bwd"],
+                                             excess)
+            shapes["fused_logprob_bwd"].add((tuple(base.shape), base.dtype))
+        for (q, k, v), _, o in self.calls["flash_attention_cuda"]:
+            o_p = chunked_attention(q, k, v)
+            err = ((o.float() - o_p.float()).abs()
+                   / o_p.float().abs().clamp(min=1.0)).max().item()
+            require(err <= (1e-5 if fp32(q) else 3e-2), f"{label}: "
+                    f"flash_attention {list(q.shape)} error {err:.3e}")
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            shapes["flash_attention"].add((tuple(q.shape), q.dtype))
+        for n, calls in self.calls.items():
+            name = n[:-len("_cuda")]
+            require(calls, f"{label}: no call of {name} was recorded")
+            what = ("worst element / its tolerance"
+                    if name == "fused_logprob_bwd" else
+                    "max|do|/max(1,|o|)" if name == "flash_attention"
+                    else "max|dlogp|")
+            log(f"  {label}: {len(calls)} recorded {name} calls at "
+                + ", ".join(f"{list(s)} {str(t)[6:]}"
+                            for s, t in sorted(shapes[name], key=str))
+                + f" against the plain version: {what} {worst[name]:.3e}"
+                + (", tokens equal" if name == "fused_sample" else ""))
+
+
+def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16):
+    """Generator pool -> frozen reference -> reward -> trainer behind the
+    threaded controller, staleness 1, KL to a reference from another seed
+    (as in [6]); the trainer records the batch of each step it takes.
+    Returns (controller, generator handles, trainer, recorded batches)."""
+    from repro_torch.core import (CommType, CommunicationChannel,
+                                  ExecutorController, RefPolicyExecutor,
+                                  RewardExecutor, TrainerExecutor,
+                                  build_generator_pool)
+    from repro_torch.models import init_params
+    from repro_torch.rl.data import ArithmeticTasks
+
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(init_params(cfg, seed=1, dtype=torch.bfloat16,
+                                device=dev))
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    trn = TrainerExecutor(cfg, dtype=torch.bfloat16, kl_coef=KL_COEF,
+                          seed=0, device=dev)
+    gens, chans = build_generator_pool(
+        cfg, trn, lambda g: ArithmeticTasks(prompt_len=prompt_len, seed=g),
+        n_generators=n_gens, n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+        max_new=MAX_NEW, chunk=CHUNK, temperature=1.0, device=dev)
+    chans += [
+        CommunicationChannel("completions", gens[0], ref, CommType.BROADCAST),
+        CommunicationChannel("completions_with_ref", ref, rew,
+                             CommType.GATHER),
+        CommunicationChannel("completions_with_reward", rew, trn,
+                             CommType.SCATTER)]
+    ctl = ExecutorController(gens + [ref, rew, trn], chans, max_steps=steps,
+                             mode="async", staleness=1, timeout=900.0,
+                             pool=pool)
+    batches = []
+    step = trn.step
+
+    def recording_step():
+        batches.append(trn.get_input("completions_with_reward")["tokens"])
+        return step()
+    trn.step = recording_step
+    return ctl, gens, trn, batches
+
+
+def phase_pool(torch, dev):
+    """[10]: the threaded controller at the published widths, 4 layers.
+    (a) a pool of 1, chunk scheduling, against run_sequential of a
+    controller built the same way; (b) an engine-mode pool of 2 on paged
+    KV, traced.  Returns the launch counts of (b)."""
+    import threading
+
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.core import AsyncExecutorController, PoolConfig
+    from repro_torch.kernels import build
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.__main__ import summary_lines
+
+    cfg = LLAMA31_8B.replace(name=f"llama31-8b-{POOL_LAYERS}l",
+                             n_layers=POOL_LAYERS)
+    L = cfg.n_layers
+    steps_a, steps_b = 3, 4
+    # an executor and its handle refer to each other: only the cycle
+    # collector frees the earlier phases' trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[10] pool {cfg.name}: published widths, {L} of 32 layers, bf16 "
+        f"params, fp32 Adam, KL {KL_COEF}; the threaded "
+        "AsyncExecutorController, staleness 1, every thread on the "
+        "default stream; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before it")
+    tracer = obs_trace.enable("controller")
+    tracer.clear()
+
+    # (a) threaded pool of 1 against the sequential schedule, same seed
+    runs = {}
+    for mode in ("threaded", "sequential"):
+        ctl, gens, trn, batches = pool_controller(
+            torch, dev, cfg, n_gens=1, pool=PoolConfig(), steps=steps_a)
+        require(isinstance(ctl, AsyncExecutorController), type(ctl))
+        t0 = time.perf_counter()
+        if mode == "threaded":
+            build.reset_launches()      # the threaded run starts here
+            hist = ctl.run()
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)  # ... and ends here
+        else:
+            hist = ctl.run_sequential()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[mode] = (hist, [b.cpu() for b in batches], wall)
+        del ctl, gens, trn, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    (ht, bt, wt), (hs, bs, ws) = runs["threaded"], runs["sequential"]
+    chunk_s = [e[6] for e in tracer.events()
+               if e[2] == "X" and e[4] == "scheduler" and e[3] == "chunk"]
+    chunks = len(chunk_s)
+    for h in ht:
+        log(f"  (a) step {h['step']}: loss {h['loss']:.6f}, grad_norm "
+            f"{h['grad_norm']:.5f}, mean_ratio {h['mean_ratio']:.5f}, "
+            f"weight_version {h['weight_version']}")
+    keys = ("loss", "grad_norm", "mean_ratio", "mean_logp", "mean_reward")
+    diff = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+               for a, b in zip(ht, hs) for k in keys)
+    same_tokens = len(bt) == len(bs) == steps_a and all(
+        torch.equal(a, b) for a, b in zip(bt, bs))
+    bit_equal = same_tokens and all(
+        a[k] == b[k] for a, b in zip(ht, hs) for k in keys)
+    log(f"  (a) pool of 1, chunk scheduling, {steps_a} steps: threaded "
+        f"{wt:.2f} s, run_sequential {ws:.2f} s; tokens equal "
+        f"{same_tokens}, metrics bit-equal {bit_equal} (largest relative "
+        f"difference {diff:.3e}); launches {launches}; decode "
+        f"{1e3 * sum(chunk_s) / (chunks * CHUNK):.2f} ms per token over the "
+        f"threaded run's {chunks} chunks of {CHUNK} (host clock, "
+        f"{N_PROMPTS * N_PER} rows)")
+    require([h["weight_version"] for h in ht]
+            == [h["weight_version"] for h in hs]
+            == [max(0, n - 1) for n in range(steps_a)],
+            "pool-of-1 weight versions")
+    require(bit_equal, "the threaded pool of 1 differs from run_sequential")
+    want = {"fused_sample": CHUNK * chunks,
+            "flash_attention": 3 * L * steps_a,
+            "fused_logprob": 2 * steps_a, "fused_logprob_bwd": steps_a}
+    require(launches == want, f"(a) launch counts {launches}, want {want} "
+            "(per chunk: fused_sample chunk; per step: flash_attention "
+            "n_layers each for the prefill, the reference and the trainer, "
+            "fused_logprob for the reference and the trainer, "
+            "fused_logprob_bwd 1)")
+
+    # (b) an engine-mode pool of 2 on paged KV, traced
+    tracer.clear()
+    torch.cuda.reset_peak_memory_stats()
+    ctl, gens, trn, _ = pool_controller(
+        torch, dev, cfg, n_gens=2, steps=steps_b, prompt_len=ENGINE_PROMPT,
+        pool=PoolConfig(engine=True, kv_layout="paged",
+                        kv_page_size=ENGINE_PAGE))
+    most, done = [0], threading.Event()
+
+    def live_versions():
+        # versions a run keeps alive: queued in the weight channels,
+        # held by a generator, the trainer's own, the fabric's latest,
+        # and any pinned by a job (none in process)
+        while not done.wait(0.002):
+            vs = {ctl._tick}
+            for ch in ctl._live_weight_channels:
+                vs.update(ch.queued_versions())
+            vs.update(g.call("weight_version") for g in gens)
+            latest = ctl._fabric.latest()
+            if latest is not None:
+                vs.add(latest[0])
+            n = len(vs) + sum(g.call("pinned_count") for g in gens)
+            most[0] = max(most[0], n)
+    monitor = threading.Thread(target=live_versions, name="versions")
+    monitor.start()
+    t0 = time.perf_counter()
+    build.reset_launches()          # the pool path's run starts here
+    try:
+        with KernelCalls(torch, per_shape=1) as recorded:
+            hist = ctl.run()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)  # ... and ends here
+    finally:
+        done.set()
+        monitor.join()
+    wall = time.perf_counter() - t0
+    st = ctl.stats
+    events = tracer.events()
+    obs_trace.disable()
+    round_s = [e[6] for e in events
+               if e[2] == "X" and e[4] == "engine" and e[3] == "decode-round"]
+    rounds = len(round_s)
+    stats = [g.call("engine_stats") for g in gens]
+    misses = sum(e["radix_misses"] for e in stats)
+    for h in hist:
+        log(f"  (b) step {h['step']}: {h['generator']}, weight_version "
+            f"{h['weight_version']}, loss {h['loss']:.6f}, queue_depth "
+            f"{h['queue_depth']}, train_idle {h['train_idle_s']:.3f} s")
+    require([h["step"] for h in hist] == list(range(steps_b)),
+            "batches not consumed in index order")
+    require([h["weight_version"] for h in hist]
+            == [max(0, n - 1) for n in range(steps_b)],
+            f"weight versions {[h['weight_version'] for h in hist]}")
+    require(all(h["sample_staleness"] <= 1 for h in hist), "staleness")
+    require([h["generator"] for h in hist]
+            == [f"generator{n % 2}" for n in range(steps_b)],
+            "the generator field does not alternate")
+    require(all(math.isfinite(h["loss"]) for h in hist), "loss not finite")
+    for g, e in zip(gens, stats):
+        # in process a job keeps its params, so nothing pins (pins come
+        # with the process transports, ROADMAP A8): this holds by design
+        require(g.call("pinned_count") == 0, f"{g.name}: pinned params")
+        require(e["staleness_violations"] == 0 and e["running"] == 0
+                and e["waiting"] == 0, f"{g.name}: engine rows left")
+        pool_ = g.transport.executor._engine.page_pool
+        require(pool_.pages_in_use == 0, f"{g.name}: page leak")
+    want = {"fused_sample": CHUNK * rounds,
+            "paged_attention": L * CHUNK * rounds,
+            "flash_attention": L * (misses + 2 * steps_b),
+            "fused_logprob": 2 * steps_b, "fused_logprob_bwd": steps_b}
+    require(launches == want, f"(b) launch counts {launches}, want {want} "
+            "(per decode round: fused_sample chunk, paged_attention "
+            "n_layers x chunk; per radix miss: flash_attention n_layers; "
+            "per step: flash_attention n_layers each for the reference and "
+            "the trainer, fused_logprob for both, fused_logprob_bwd 1)")
+    log(f"  (b) engine pool of 2, paged KV, {steps_b} steps in {wall:.2f} s: "
+        f"{rounds} decode rounds, radix misses {misses}, hits "
+        f"{sum(e['radix_hits'] for e in stats)}; decode "
+        f"{1e3 * sum(round_s) / (rounds * CHUNK):.2f} ms per token over its "
+        f"rounds (host clock, two workers); launches {launches}")
+    log(f"  (b) stats: wall_s {st['wall_s']:.3f}, gen_busy_s "
+        f"{st['gen_busy_s']:.3f} ({100 * st['gen_busy_s'] / st['wall_s']:.1f}"
+        f"%), train_busy_s {st['train_busy_s']:.3f} "
+        f"({100 * st['train_busy_s'] / st['wall_s']:.1f}%), overlap_s "
+        f"{st['overlap_s']:.3f}, gen_idle_s {st['gen_idle_s']:.3f}, "
+        f"train_idle_s {st['train_idle_s']:.3f}, publish_s "
+        f"{st['publish_s']:.4f}, publish_wait_s {st['publish_wait_s']:.4f}")
+    log(f"  (b) peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; most weight "
+        f"versions alive at once {most[0]}")
+    path = ROOT / "build" / "pool_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    doc = obs_trace.export(str(path), events=events,
+                           metadata={"phase": "chip_smoke [10] (b)"})
+    problems = obs_trace.validate_chrome(doc)
+    log(f"  (b) trace: {len(events)} events exported to "
+        f"{path.relative_to(ROOT)}; validate_chrome: {problems}")
+    require(problems == [], "invalid Chrome trace")
+    for line in summary_lines(events):
+        log("  " + line)
+    del ctl, gens, trn
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the first call of each shape (b) gave a kernel, against its plain
+    # version on the same inputs
+    recorded.replay("(b)")
+    del recorded
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_quickstart(torch, dev):
+    """[11]: ``quickstart.build("cuda", 20)`` on the threaded controller.
+    Every kernel call of the run is recorded and held against its plain
+    version on the same inputs; each step's loss, teacher-forced mean
+    log-prob and gradient norm are held against the CPU port re-scoring
+    the card's own batch from the card's params of that step, through
+    the plain versions.  Returns the launch counts of the run."""
+    from repro_torch import quickstart
+    from repro_torch.kernels import build
+    from repro_torch.train.optimizer import global_norm, tree_map
+    from repro_torch.train.trainstep import make_loss_fn, value_and_grad
+
+    steps = 20
+    ctl = quickstart.build("cuda", steps)
+    log(f"[11] quickstart: {type(ctl).__name__}, {steps} steps, staleness "
+        f"{ctl.staleness}, the quickstart's ~1M-param policy on the card")
+    trn = ctl.trainer.transport.executor
+    seen = []
+    step = trn.step
+
+    def recording_step():
+        batch = trn.get_input("completions_with_reward")
+        seen.append((tree_map(lambda t: t.detach().cpu(), trn.state.params),
+                     {k: batch[k].cpu() for k in
+                      ("tokens", "behavior_logp", "advantages", "mask")}))
+        return step()
+    trn.step = recording_step
+    t0 = time.perf_counter()
+    build.reset_launches()          # the quickstart's run starts here
+    with KernelCalls(torch) as recorded:
+        hist = ctl.run()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    require([h["weight_version"] for h in hist]
+            == [max(0, n - 1) for n in range(steps)],
+            f"weight versions {[h['weight_version'] for h in hist]}")
+    L, gen = trn.cfg.n_layers, ctl.generator.transport.executor
+    want = {"fused_sample": steps * gen.max_new,
+            "flash_attention": 2 * L * steps,
+            "fused_logprob": steps, "fused_logprob_bwd": steps}
+    require(launches == want, f"quickstart launch counts {launches}, want "
+            f"{want} (per step: fused_sample max_new, flash_attention "
+            "n_layers for the prefill and for the trainer, fused_logprob "
+            "and fused_logprob_bwd 1)")
+    require({n: len(c) for n, c in recorded.calls.items()} == {
+        f"{n}_cuda": c for n, c in want.items()}, "recorded calls differ "
+        "from the launch counts")
+    st = ctl.stats
+    log(f"  {steps} steps in {wall:.2f} s (wall_s {st['wall_s']:.3f}, "
+        f"overlap_s {st['overlap_s']:.3f}, gen_busy_s {st['gen_busy_s']:.3f}"
+        f", train_busy_s {st['train_busy_s']:.3f}); weight versions "
+        f"{[h['weight_version'] for h in hist]}; rewards "
+        f"{[round(h['mean_reward'], 3) for h in hist]}; launches {launches}")
+    recorded.replay("every call")
+    # the CPU port on the card's own batch and params, through the plain
+    # versions: |card - cpu| <= 1e-4 |cpu| + 1e-6 for each metric (a step
+    # whose rewards are all equal has zero advantages, and its loss and
+    # gradient are 0 on both sides)
+    loss_fn = make_loss_fn(trn.cfg, rho=4.0, clip_mode="aipo")
+    worst = dict.fromkeys(("loss", "mean_logp", "grad_norm"), 0.0)
+    for h, (params, batch) in zip(hist, seen):
+        (_, metrics), grads = value_and_grad(loss_fn, params, batch)
+        cpu = {"loss": metrics["loss"], "mean_logp": metrics["mean_logp"],
+               "grad_norm": global_norm(grads)}
+        for k, v in cpu.items():
+            v = float(v)
+            worst[k] = max(worst[k],
+                           abs(h[k] - v) / (1e-4 * abs(v) + 1e-6))
+    zero = sum(1 for h in hist if h["grad_norm"] == 0.0)
+    log(f"  each step's metrics against the CPU port on the card's own "
+        f"batch and params (plain versions), worst |d| / (1e-4 |cpu| + "
+        f"1e-6): " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"; {zero} of {steps} steps have zero advantages and a zero "
+        "gradient")
+    require(len(seen) == steps and max(worst.values()) <= 1.0,
+            "quickstart metrics against the CPU port")
+    del ctl, trn, gen, seen, recorded
+    gc.collect()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: no src/repro_torch beside chip_smoke.py",
@@ -1600,6 +2084,9 @@ def main() -> int:
     train_launches = phase_train(torch, dev)
     torch.cuda.empty_cache()
     phase_train_numerics(torch, dev)
+    torch.cuda.empty_cache()
+    pool_launches = phase_pool(torch, dev)
+    quick_launches = phase_quickstart(torch, dev)
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
@@ -1608,7 +2095,9 @@ def main() -> int:
         by_path = {"serve": launches.get(r["name"], 0),
                    "train": train_launches.get(r["name"], 0),
                    "engine": engine_launches.get(r["name"], 0),
-                   "int8": int8_launches.get(r["name"], 0)}
+                   "int8": int8_launches.get(r["name"], 0),
+                   "pool": pool_launches.get(r["name"], 0),
+                   "quickstart": quick_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")

@@ -1,5 +1,5 @@
 """Communication channels (paper Sec. 5.1.2; the port of the JAX package's
-``core/channels.py`` without the fabric's staged weights, ROADMAP A8).
+``core/channels.py``).
 
 A channel is a named, directed link between an outbound and an inbound
 actor with a communication type:
@@ -13,7 +13,9 @@ Every hop goes through the inbound actor's transport: ``prepare`` stages
 the payload (the DDMA transfer for weights), and delivery lands through
 the handle's ``cast`` of ``set_weights`` / ``put_input``.  Weight
 payloads travel with their version so the generator can pin the version
-the bounded-staleness schedule prescribes.
+the bounded-staleness schedule prescribes.  A ``StagedWeights`` marker
+stands for a payload the weight fabric already staged actor-side; its
+delivery is the ``commit_weights`` slot flip.
 
 ``deliver`` / ``communicate`` are the sequential path; ``send`` /
 ``recv`` are queue-backed so the two ends can live on different threads,
@@ -24,10 +26,27 @@ from __future__ import annotations
 import enum
 import queue
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 from repro_torch.core.actors import ActorHandle, as_handle
 from repro_torch.core.offpolicy import Closed, StalenessBuffer
+
+
+class StagedWeights:
+    """Channel marker for a weight payload the fabric already *staged*
+    actor-side (``stage_weights``): delivery through the channel is a
+    ``commit_weights`` cast -- the staleness-legal slot flip -- instead
+    of the payload itself.  ``on_commit`` (if set) tells the fabric the
+    subscriber released a slot."""
+
+    __slots__ = ("version", "on_commit")
+
+    def __init__(self, version: int, on_commit=None):
+        self.version = version
+        self.on_commit = on_commit
+
+    def __repr__(self):
+        return f"<StagedWeights v{self.version}>"
 
 
 class CommType(enum.Enum):
@@ -66,7 +85,13 @@ class CommunicationChannel:
 
     def _hand_over(self, data, version: Optional[int]):
         if self.comm_type.is_weights:
-            self.inbound.cast("set_weights", data, version=version)
+            if isinstance(data, StagedWeights):
+                # the payload already lives in the actor's staged slot
+                self.inbound.cast("commit_weights", data.version)
+                if data.on_commit is not None:
+                    data.on_commit()
+            else:
+                self.inbound.cast("set_weights", data, version=version)
         else:
             self.inbound.cast("put_input", self.name, data)
 
@@ -87,9 +112,17 @@ class CommunicationChannel:
              timeout: Optional[float] = None):
         """Producer side: transfer, then enqueue (blocks when full).
         Raises ``Closed`` once the channel is closed."""
+        self.send_transferred(self._transfer(data), version=version,
+                              timeout=timeout)
+
+    def send_transferred(self, data, version: Optional[int] = None,
+                         timeout: Optional[float] = None):
+        """Enqueue an already-transferred payload: the weight fabric runs
+        one transfer and fans the result out to every same-target
+        channel."""
         try:
             self._q.push(0 if version is None else version,
-                         (version, self._transfer(data)), timeout=timeout)
+                         (version, data), timeout=timeout)
         except TimeoutError:
             raise TimeoutError(
                 f"channel '{self.name}' full for {timeout}s "
@@ -107,14 +140,17 @@ class CommunicationChannel:
         return version, data
 
     def drain(self) -> int:
-        """Discard every queued payload without delivering it.  Returns
-        the count."""
+        """Discard every queued payload without delivering it.  Staged
+        markers run their ``on_commit`` so the fabric's slot accounting
+        never waits on them.  Returns the count."""
         n = 0
         while True:
             try:
-                self._q.pop_wait(timeout=0)
+                _, (_, data) = self._q.pop_wait(timeout=0)
             except (TimeoutError, Closed):
                 return n
+            if isinstance(data, StagedWeights) and data.on_commit is not None:
+                data.on_commit()
             n += 1
 
     def close(self):
@@ -128,6 +164,20 @@ class CommunicationChannel:
 
     def pending(self) -> int:
         return len(self._q)
+
+    def queued_versions(self) -> List[int]:
+        """The versions of the queued payloads (a weight channel's
+        versions waiting for their worker's drain)."""
+        return self._q.versions()
+
+    def resize(self, capacity: int):
+        """Change the queue bound; only legal while nothing is queued (a
+        fresh buffer would drop the payloads)."""
+        if len(self._q):
+            raise RuntimeError(
+                f"cannot resize channel '{self.name}' with queued payloads")
+        self.capacity = max(0, capacity)
+        self._q = StalenessBuffer(delay=0, max_size=self.capacity)
 
 
 def WeightsCommunicationChannel(name, outbound, inbound,

@@ -3,9 +3,9 @@ trainer (the port of the JAX package's ``core/executor.py``).
 
 Each executor exposes the reference's port surface -- ``put_input`` /
 ``step`` / ``get_output`` -- so a controller wires them as it wires the
-JAX ones.  The generator also carries the continuous-batching engine's
-hooks (``engine_*``); its pinned-params hooks come with the pool slice
-(ROADMAP A7).
+JAX ones.  The generator also carries the chunk-stepping hooks the pool's
+``RolloutScheduler`` drives (with their pinned-params forms) and the
+continuous-batching engine's hooks (``engine_*``).
 """
 from __future__ import annotations
 
@@ -29,6 +29,18 @@ from repro_torch.rl.rollout import action_mask, finalize_rollout, \
 from repro_torch.rl.scheduler import RolloutJob
 from repro_torch.train.trainstep import TrainState, init_train_state, \
     make_train_step
+
+
+class PinnedParams:
+    """Marker standing in for ``RolloutJob.params`` when the admission-
+    time weight snapshot is *pinned* inside the generator
+    (``begin_batch_pinned``): the job carries a small reference instead of
+    the params; ``emit_batch`` releases the pin."""
+
+    __slots__ = ("key",)
+
+    def __init__(self, key: int):
+        self.key = key
 
 
 class Executor:
@@ -109,6 +121,12 @@ class Executor:
                     f"executor '{self.name}' has no attribute {k!r}")
             setattr(self, k, v)
 
+    def step_snapshot(self, names):
+        """``step()`` and an output-port snapshot in one endpoint (what
+        the pool's complete-batch worker pushes)."""
+        self.step()
+        return {n: self.get_output(n) for n in names}
+
 
 class GeneratorExecutor(Executor):
     """Policy inference: rollouts + behaviour log-probs (+ optional int8
@@ -140,6 +158,8 @@ class GeneratorExecutor(Executor):
         self.key = prng.PRNGKey(seed)
         self.params = None
         self.weight_version = -1        # version of self.params (-1 = unset)
+        self._pinned: Dict[int, Any] = {}    # admission snapshots by pin key
+        self._pin_seq = 0
         self._engine = None             # lazy RolloutEngine (engine mode)
 
     def set_weights(self, params, version: Optional[int] = None):
@@ -174,13 +194,64 @@ class GeneratorExecutor(Executor):
             max_new=self.max_new, chunk=chunk, n_chunks=n_chunks)
         return job, state
 
+    def begin_batch_pinned(self, batch_index: Optional[int] = None):
+        """``begin_batch`` with the params snapshot *pinned* executor-side
+        and replaced by a ``PinnedParams`` reference on the job.
+        ``emit_batch`` releases the pin; a job dropped before emit must be
+        handed to ``release_job`` (the scheduler's ``clear`` does)."""
+        job, state = self.begin_batch(batch_index)
+        self._pin_seq += 1
+        self._pinned[self._pin_seq] = job.params
+        job.params = PinnedParams(self._pin_seq)
+        return job, state
+
+    def _job_params(self, job):
+        return self._pinned[job.params.key] \
+            if isinstance(job.params, PinnedParams) else job.params
+
+    def repin_job(self, job):
+        """Re-snapshot an in-flight job's params on the current weights
+        (re-admission after a respawn, ROADMAP A9).  Versions only move
+        forward; the caller re-asserts the staleness bound."""
+        if self.params is None:
+            raise RuntimeError("repin before any weights were delivered")
+        if self.weight_version < job.weight_version:
+            raise RuntimeError(
+                f"current version {self.weight_version} is older than the "
+                f"job's admission version {job.weight_version}")
+        if isinstance(job.params, PinnedParams):
+            self._pinned.pop(job.params.key, None)
+            self._pin_seq += 1
+            self._pinned[self._pin_seq] = self.params
+            job.params = PinnedParams(self._pin_seq)
+        else:
+            job.params = self.params
+        job.weight_version = self.weight_version
+        return job
+
+    def release_job(self, job):
+        """Release the pinned params of a job dropped without emitting (a
+        no-op for unpinned jobs)."""
+        params = getattr(job, "params", None)
+        if isinstance(params, PinnedParams):
+            self._pinned.pop(params.key, None)
+
+    def pinned_count(self) -> int:
+        """Live ``PinnedParams`` snapshots (the leak probe)."""
+        return len(self._pinned)
+
     def advance_chunk(self, job, state):
         """One resumable ``rollout_chunk`` with the job's key discipline."""
         job.key, sub = prng.split(job.key)
-        state = rollout_chunk(job.params, self.cfg, state, sub,
+        state = rollout_chunk(self._job_params(job), self.cfg, state, sub,
                               n_steps=job.chunk, temperature=self.temperature)
         job.chunks_done += 1
         return state
+
+    def advance_chunk_rt(self, job, state):
+        """``advance_chunk`` returning the job beside the state: the form
+        ``ActorHandle.advance_chunk`` routes through."""
+        return job, self.advance_chunk(job, state)
 
     def emit_batch(self, job, state):
         """Finalize and publish the completed batch."""
@@ -193,8 +264,15 @@ class GeneratorExecutor(Executor):
             "answers": job.meta["answers"],
             "weight_version": job.weight_version,
         }
+        if isinstance(job.params, PinnedParams):
+            self._pinned.pop(job.params.key, None)
         self.set_output("completions", out)
         return out
+
+    def emit_batch_snapshot(self, job, state, names):
+        """``emit_batch`` and an output-port snapshot in one endpoint."""
+        self.emit_batch(job, state)
+        return {n: self.get_output(n) for n in names}
 
     def step(self):
         job, state = self.begin_batch()
@@ -223,7 +301,8 @@ class GeneratorExecutor(Executor):
             self._engine.abort()
         self._engine = RolloutEngine(
             self, max_running_rows=max_running_rows,
-            row_budgets=row_budgets, scorer=scorer, leave_one_out=leave_one_out,
+            row_budgets=row_budgets, scorer=scorer,
+            leave_one_out=leave_one_out,
             kv_layout=kv_layout, kv_page_size=kv_page_size,
             kv_pages=kv_pages)
 

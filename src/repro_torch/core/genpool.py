@@ -1,0 +1,691 @@
+"""Generator pool: multi-generator fan-in with partial-rollout chunk
+scheduling and adaptive staleness (the port of the JAX package's
+``core/genpool.py``, in-process actors, unsupervised).
+
+The paper's headline speed-up comes from overlapping generation with
+training (Fig. 2) and from partial rollouts that keep stragglers from
+stalling the sample queue (Sec. 4.2).  This module supplies both on top of
+the threaded controller:
+
+  * ``GeneratorPool`` -- N generator workers, one thread each, every
+    worker owning one ``GeneratorExecutor`` and its own versioned weight
+    channel(s), all fanning into the single bounded ``StalenessBuffer``
+    sample queue the reward/ref/trainer consumer drains.  Batch indices
+    are interleaved round-robin (worker ``i`` handles batches
+    ``i, i+N, i+2N, ...``), and each worker admits batch ``n`` only once
+    its executor holds weight version ``max(0, n - bound)`` -- so a pool
+    of size 1 at a fixed bound reproduces the sequential schedule
+    bit for bit, and a larger pool only adds wall-clock overlap.
+
+  * chunk scheduling -- inside each worker a ``RolloutScheduler`` drives
+    ``rollout_chunk`` over a work heap of resumable ``RolloutState``s
+    (parked in a thread-safe ``PartialRolloutCache``): finished batches
+    are pushed the moment they complete, incomplete ones requeue with
+    their KV cache and cursor, and up to ``max_inflight`` batches
+    pipeline inside one worker so a straggler never delays the admission
+    of its successors.  ``PoolConfig(engine=True)`` runs the
+    continuous-batching engine instead (``repro_torch.rl.engine``).
+
+  * ``AdaptiveStalenessController`` -- reads the queue depths and idle
+    times the consumer records into ``history`` and widens or narrows the
+    staleness bound online: a starved trainer buys throughput with a
+    wider bound; a backlogged queue narrows it back toward on-policy.
+
+Workers drive their generator through an ``ActorHandle``.  Every actor
+here is in process, so a worker computes on its own thread and the
+workers and the consumer share the GIL and, on a GPU, the device's
+default stream.  Supervision (respawn, fail-over of a lost worker's
+batches) comes with ROADMAP A9: until then a worker's exception stops
+the run, as the reference's unsupervised pool does.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import queue
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+from repro_torch.core.actors import spawn_actor
+from repro_torch.core.offpolicy import PartialRolloutCache, StalenessBuffer
+from repro_torch.obs import trace as obs_trace
+from repro_torch.rl.scheduler import RolloutScheduler
+
+
+def build_generator_pool(cfg, trainer, make_tasks, *, n_generators=1,
+                         generator_cls=None, name="generator", seed=0,
+                         weight_port="policy_model", transport=None,
+                         **gen_kwargs):
+    """The pool wiring convention, in one place: N generator actors
+    (worker ``g`` named ``{name}{g}`` and seeded ``seed + g``; a pool of
+    one keeps the bare ``name``) plus one versioned weight channel from
+    the trainer into each.  ``make_tasks(g)`` builds worker ``g``'s task
+    source.  ``transport`` is ``"inproc"`` (None reads
+    ``REPRO_TRANSPORT``; the process transports are ROADMAP A8).  Returns
+    ``(generator_handles, weight_channels)``; the caller declares data
+    channels outbound from ``generators[0]`` -- they serve the whole pool
+    through per-item snapshots.
+    """
+    from repro_torch.core.channels import WeightsCommunicationChannel
+    from repro_torch.core.executor import GeneratorExecutor
+    generator_cls = generator_cls or GeneratorExecutor
+    gens, chans = [], []
+    for g in range(n_generators):
+        gen = spawn_actor(
+            generator_cls, cfg, make_tasks(g), seed=seed + g,
+            name=name if n_generators == 1 else f"{name}{g}",
+            transport=transport, **gen_kwargs)
+        gens.append(gen)
+        chans.append(WeightsCommunicationChannel(weight_port, trainer, gen))
+    return gens, chans
+
+
+# ------------------------------------------------------- staleness bounds --
+
+class FixedStaleness:
+    """The static bound: ``bound()`` never moves, ``observe`` is a no-op."""
+
+    def __init__(self, bound: int):
+        self._bound = max(0, int(bound))
+        self.bound_history: List[int] = []
+
+    def bound(self) -> int:
+        return self._bound
+
+    @property
+    def max_bound(self) -> int:
+        return self._bound
+
+    def observe(self, **kwargs):
+        pass
+
+    def on_pool_resize(self, n_workers: int):
+        """Membership changed; a fixed bound stays fixed."""
+
+
+class AdaptiveStalenessController:
+    """Widens/narrows the staleness bound online from queue observations.
+
+    The consumer thread calls ``observe`` once per trained batch with the
+    sample-queue depth it saw and how long it waited (the same numbers it
+    records into ``history``).  Every ``window`` observations the bound is
+    re-decided:
+
+      * starved in >= ``widen_frac`` of the window (depth 0 *and* the
+        trainer measurably waited on generation) -> widen by one, up to
+        ``max_bound`` -- staler samples are the price of keeping the
+        trainer busy;
+      * starved in <= ``narrow_frac`` of the window (the queue had a
+        batch ready, or delivery was just-in-time) -> narrow by one, down
+        to ``min_bound`` -- the pool is keeping up, so tighten back
+        toward on-policy.
+
+    A just-in-time pipeline (queue drained to zero after every pop but
+    the trainer never waiting) therefore reads as *keeping up*, not
+    starved -- ``idle_eps_s`` is the wait below which the trainer counts
+    as fed.
+
+    Thread-safe: workers read ``bound()`` while the consumer observes.
+    ``bound_history`` logs the bound after every observation (what the
+    example prints and tests assert on).
+    """
+
+    def __init__(self, bound: int = 1, *, min_bound: int = 1,
+                 max_bound: int = 4, window: int = 4,
+                 widen_frac: float = 0.75, narrow_frac: float = 0.25,
+                 idle_eps_s: float = 1e-3):
+        if not 1 <= min_bound <= max_bound:
+            raise ValueError(f"need 1 <= min_bound <= max_bound, got "
+                             f"{min_bound}, {max_bound}")
+        if not 0.0 <= narrow_frac < widen_frac <= 1.0:
+            raise ValueError(f"need 0 <= narrow_frac < widen_frac <= 1, "
+                             f"got {narrow_frac}, {widen_frac}")
+        self.min_bound, self.max_bound = int(min_bound), int(max_bound)
+        self.window = max(1, int(window))
+        self.widen_frac, self.narrow_frac = widen_frac, narrow_frac
+        self.idle_eps_s = idle_eps_s
+        self._bound = min(self.max_bound, max(self.min_bound, int(bound)))
+        self._starved: collections.deque = collections.deque(
+            maxlen=self.window)
+        self._lock = threading.Lock()
+        self.bound_history: List[int] = []
+
+    def bound(self) -> int:
+        with self._lock:
+            return self._bound
+
+    def observe(self, *, queue_depth: int, train_idle_s: float = 0.0,
+                sample_staleness: int = 0, **_):
+        """One consumer-side observation; re-decides on a full window."""
+        with self._lock:
+            self._starved.append(1 if queue_depth <= 0
+                                 and train_idle_s > self.idle_eps_s else 0)
+            if len(self._starved) == self.window:
+                starved_frac = sum(self._starved) / self.window
+                if starved_frac >= self.widen_frac and \
+                        self._bound < self.max_bound:
+                    self._bound += 1
+                    self._starved.clear()
+                elif starved_frac <= self.narrow_frac and \
+                        self._bound > self.min_bound:
+                    self._bound -= 1
+                    self._starved.clear()
+            self.bound_history.append(self._bound)
+
+    def on_pool_resize(self, n_workers: int):
+        """Pool membership changed (runtime attach/detach): the starvation
+        window describes a pool that no longer exists, so drop it and
+        re-tune from fresh observations."""
+        with self._lock:
+            self._starved.clear()
+
+
+class _SnapshotEmitter:
+    """Scheduler collaborator over an ``ActorHandle`` that fuses harvest
+    and port snapshot into one endpoint: ``emit_batch`` returns the
+    ``{channel name: output}`` snapshot the worker pushes."""
+
+    def __init__(self, gen, names):
+        self._gen = gen
+        self._names = list(names)
+
+    def advance_chunk(self, job, state):
+        return self._gen.advance_chunk(job, state)
+
+    def emit_batch(self, job, state):
+        return self._gen.call("emit_batch_snapshot", job, state,
+                              self._names)
+
+
+# ----------------------------------------------------------- work mapping --
+
+class WorkAssignment:
+    """Thread-safe batch-index ownership for the pool.
+
+    Initialized round-robin -- worker ``i`` owns ``first+i, first+i+N,
+    ...`` -- which is exactly the schedule the static loops produce, so
+    pool-of-1 equivalence holds.  Runtime grow/shrink
+    (``add_worker`` / ``drain_worker`` + ``rebalance``) re-deals the
+    unstarted indices round-robin over the current members; a draining
+    worker finishes its in-flight jobs but receives nothing new.  Each
+    worker's queue stays sorted ascending: a queue head is its worker's
+    smallest unadmitted index and every smaller index is owned elsewhere,
+    so the bounded-staleness admission gate always eventually opens.
+
+    Workers exit only when ``all_done()`` (or they are retired and
+    drained): a worker that emptied its own queue parks briefly instead,
+    because a rebalance may deal indices onto it.
+    """
+
+    def __init__(self, names: List[str], first: int, last: int):
+        self._lock = threading.Lock()
+        n = len(names)
+        self._todo: Dict[str, collections.deque] = {
+            name: collections.deque(range(first + i, last, n))
+            for i, name in enumerate(names)}
+        self._active: Dict[str, set] = {name: set() for name in names}
+        self._retired: set = set()
+
+    # ------------------------------------------------------- worker surface --
+
+    def next_for(self, name: str) -> Optional[int]:
+        """Peek this worker's next index (None = personal queue empty)."""
+        with self._lock:
+            q = self._todo.get(name)
+            return q[0] if q else None
+
+    def start(self, name: str, n: int) -> bool:
+        """Atomically claim ``n`` for production.  False means a
+        concurrent rebalance or drain re-dealt it to another worker
+        between this worker's peek and now -- the caller drops it and
+        re-peeks, or two workers would produce it."""
+        with self._lock:
+            try:
+                self._todo[name].remove(n)
+            except ValueError:
+                return False
+            self._active[name].add(n)
+            return True
+
+    def finish(self, name: str, n: int):
+        with self._lock:
+            self._active[name].discard(n)
+
+    def all_done(self) -> bool:
+        with self._lock:
+            return not any(self._todo.values()) \
+                and not any(self._active.values())
+
+    def is_retired(self, name: str) -> bool:
+        with self._lock:
+            return name in self._retired
+
+    def idle(self, name: str) -> bool:
+        """Retired-and-drained: this worker's thread may exit early."""
+        with self._lock:
+            return name in self._retired and not self._todo.get(name) \
+                and not self._active.get(name)
+
+    # ---------------------------------------------------------- membership --
+
+    def survivors(self) -> List[str]:
+        with self._lock:
+            return self._survivors_locked()
+
+    def _survivors_locked(self) -> List[str]:
+        return [k for k in self._todo if k not in self._retired]
+
+    def _deal_locked(self, indices, names):
+        todo = self._todo                    # caller holds self._lock
+        for j, n in enumerate(sorted(indices)):
+            todo[names[j % len(names)]].append(n)
+        for k in names:
+            todo[k] = collections.deque(sorted(todo[k]))
+
+    def add_worker(self, name: str):
+        with self._lock:
+            self._todo.setdefault(name, collections.deque())
+            self._active.setdefault(name, set())
+            self._retired.discard(name)
+
+    def drain_worker(self, name: str) -> List[int]:
+        """Runtime shrink: stop feeding ``name`` (it finishes what it
+        already admitted), moving its queued indices to the others."""
+        with self._lock:
+            moved = list(self._todo.get(name, ()))
+            self._todo[name] = collections.deque()
+            self._retired.add(name)
+            survivors = self._survivors_locked()
+            if moved and not survivors:
+                raise RuntimeError(
+                    f"cannot drain '{name}': no other workers")
+            self._deal_locked(moved, survivors)
+            return moved
+
+    def rebalance(self):
+        """Re-deal every *unstarted* index round-robin (ascending) over
+        the current members (after a grow)."""
+        with self._lock:
+            names = self._survivors_locked()
+            pending = sorted(n for q in self._todo.values() for n in q)
+            for k in self._todo:
+                self._todo[k] = collections.deque()
+            self._deal_locked(pending, names)
+
+
+_RETIRED = object()        # _drain_one: detached mid-wait, give up cleanly
+
+
+# ---------------------------------------------------------------- the pool --
+
+@dataclass
+class PoolConfig:
+    """Per-pool knobs.
+
+    ``chunk_scheduling=False`` falls back to the monolithic
+    ``gen.step()`` per batch (the complete-batch baseline).
+    ``max_inflight`` bounds how many batches pipeline inside one worker's
+    scheduler heap.  ``chunk_delay(batch_index, chunk_idx) -> seconds``
+    injects straggler latency (tests and examples).  Executors that
+    override ``step()`` without providing the chunk-stepping hooks should
+    set ``chunk_scheduling=False``.
+    """
+    chunk_scheduling: bool = True
+    early_exit: bool = True
+    max_inflight: int = 2
+    chunk_delay: Optional[Callable[[int, int], float]] = None
+    # continuous-batching engine mode (repro_torch.rl.engine): row-granular
+    # admission into an in-flight slot pool instead of batch-granular
+    # chunk scheduling.  ``max_running_rows=0`` lets the engine size the
+    # pool (2x one batch); ``engine_row_budgets`` injects per-row decode
+    # budgets (stragglers).
+    engine: bool = False
+    max_running_rows: int = 0
+    engine_row_budgets: Optional[List[int]] = None
+    # paged KV cache (models/paging.py): ``kv_layout="paged"`` replaces
+    # the dense per-row ring with a shared page arena + per-row page
+    # tables and radix prefix reuse ("" means dense).  kv_page_size=0 ->
+    # 16; kv_pages=0 -> sized so every slot fits a full row.
+    kv_layout: str = ""
+    kv_page_size: int = 0
+    kv_pages: int = 0
+
+    def __post_init__(self):
+        # the delay hook lives in RolloutScheduler.step: a monolithic
+        # worker would silently ignore it
+        if self.chunk_delay is not None and not self.chunk_scheduling:
+            raise ValueError("chunk_delay requires chunk_scheduling=True")
+        if self.engine and self.chunk_delay is not None:
+            raise ValueError("engine mode takes no chunk_delay: its "
+                             "stragglers are engine_row_budgets")
+
+
+class GeneratorPool:
+    """N generator worker loops fanning into one sample queue.
+
+    Built by the async controller per ``run()``: the controller supplies
+    the generator *handles*, each generator's live weight channels, the
+    pool-outbound data channels (whose payloads travel by snapshot), the
+    shared sample queue, the staleness-bounds policy and its ``_await``
+    helper (deadline + stop-event slicing).  ``loops(first, last, stop)``
+    hands back one callable per worker for the controller to wrap in
+    guarded threads; each worker appends its busy intervals to
+    ``intervals`` (thread-safe list appends) for the overlap stats.
+    """
+
+    def __init__(self, generators, channels_by_gen: Dict[str, list],
+                 data_channels, sample_queue: StalenessBuffer, bounds, *,
+                 config: Optional[PoolConfig] = None, timeout: float = 600.0,
+                 await_fn=None):
+        if not generators:
+            raise ValueError("a generator pool needs at least one generator")
+        self.generators = list(generators)
+        self.channels_by_gen = channels_by_gen
+        self.data_channels = list(data_channels)
+        self.sample_queue = sample_queue
+        self.bounds = bounds
+        self.config = config or PoolConfig()
+        self.timeout = timeout
+        self._await = await_fn
+        self.assignment: Optional[WorkAssignment] = None
+        self._spawn_thread = None          # installed by the controller run
+        self._stop: Optional[threading.Event] = None
+        self.intervals: list = []          # (t0, t1) busy spans, all workers
+
+    def loops(self, first: int, last: int, stop: threading.Event):
+        """One (name, callable) per worker; worker ``i`` covers batches
+        ``first+i, first+i+N, ...`` below ``last`` (the ``WorkAssignment``
+        re-maps ownership on runtime attach/detach)."""
+        self.assignment = WorkAssignment(
+            [g.name for g in self.generators], first, last)
+        self._stop = stop
+        return [(gen.name, (lambda gen=gen: self._worker(gen, stop)))
+                for gen in self.generators]
+
+    # ---------------------------------------------------------- elasticity --
+
+    def attach(self, gen, channels):
+        """Runtime grow: adopt a weight-replayed generator handle mid-run
+        and start its worker thread.  The controller owns the surrounding
+        wiring (channel creation, fabric add); see
+        ``AsyncExecutorController.attach_generator``."""
+        if self.assignment is None or self._spawn_thread is None:
+            raise RuntimeError("attach requires a live run")
+        self.generators.append(gen)
+        self.channels_by_gen[gen.name] = list(channels)
+        self.assignment.add_worker(gen.name)
+        self.assignment.rebalance()
+        self._on_resize()
+        self._spawn_thread(
+            gen.name, lambda gen=gen: self._worker(gen, self._stop))
+
+    def detach(self, name_or_gen):
+        """Runtime shrink: stop assigning new batches to this worker; it
+        finishes its in-flight jobs, then its thread exits."""
+        name = name_or_gen if isinstance(name_or_gen, str) \
+            else name_or_gen.name
+        if self.assignment is None:
+            raise RuntimeError("detach requires a live run")
+        moved = self.assignment.drain_worker(name)
+        self._on_resize()
+        return moved
+
+    def _on_resize(self):
+        cb = getattr(self.bounds, "on_pool_resize", None)
+        if cb is not None:
+            cb(len(self.assignment.survivors()))
+
+    # ------------------------------------------------------- weight drains --
+
+    def _drain_one(self, gen, stop, what: str):
+        """Blocking: receive one (version, params) pair from each of this
+        worker's weight channels.  None means stopped by a peer;
+        ``_RETIRED`` means the worker was detached mid-wait -- the fabric
+        no longer publishes to its channels, so nothing will ever arrive
+        and it must re-check its (now empty) assignment instead."""
+        asn = self.assignment
+        for ch in self.channels_by_gen[gen.name]:
+            def recv_or_retire(t, c=ch):
+                if asn.is_retired(gen.name):
+                    return _RETIRED
+                return c.recv(timeout=t)
+            got = self._await(recv_or_retire, stop, what)
+            if got is None or got is _RETIRED:
+                return got
+        return True
+
+    def _poll_one(self, gen) -> bool:
+        """Non-blocking: drain one pair per channel if already queued."""
+        got = False
+        for ch in self.channels_by_gen[gen.name]:
+            try:
+                ch.recv(timeout=0)
+                got = True
+            except queue.Empty:
+                pass
+        return got
+
+    # -------------------------------------------------------- worker loops --
+
+    def _push(self, gen, stop, item) -> Optional[bool]:
+        version = item.pop("_version")
+        return self._await(
+            lambda t: self.sample_queue.push(version, item, timeout=t),
+            stop, f"room in sample queue for batch {item['batch_index']}")
+
+    @property
+    def _snapshot_names(self):
+        return [ch.name for ch in self.data_channels]
+
+    def _park(self, gen, stop) -> bool:
+        """This worker's queue is empty but the pool is not done: wait
+        briefly (a rebalance may deal indices here).  False -> exit."""
+        if self.assignment.all_done() or self.assignment.idle(gen.name):
+            return False
+        stop.wait(0.05)
+        return True
+
+    def _worker(self, gen, stop: threading.Event):
+        if self.config.engine and gen.engine_hooks:
+            self._worker_engine(gen, stop)
+        elif self.config.chunk_scheduling and gen.chunk_hooks:
+            self._worker_chunked(gen, stop)
+        else:
+            self._worker_monolithic(gen, stop)
+
+    def _worker_monolithic(self, gen, stop):
+        """Complete-batch baseline: one blocking ``gen.step()`` per batch,
+        pushed only when the whole batch finishes."""
+        asn = self.assignment
+        while not stop.is_set():
+            n = asn.next_for(gen.name)
+            if n is None:
+                if not self._park(gen, stop):
+                    return
+                continue
+            idle = 0.0
+            bound = self.bounds.bound()
+            retired = False
+            while gen.call("weight_version") < max(0, n - bound) and \
+                    not stop.is_set():
+                t0 = time.monotonic()
+                with obs_trace.span("weight-wait", "genpool",
+                                    worker=gen.name, batch=n):
+                    got = self._drain_one(gen, stop,
+                                          f"weights for batch {n}")
+                if got is None:
+                    return
+                if got is _RETIRED:
+                    retired = True
+                    break
+                idle += time.monotonic() - t0
+                bound = self.bounds.bound()
+            if stop.is_set():
+                return
+            if retired or not asn.start(gen.name, n):
+                continue         # re-dealt away (or detached) mid-wait
+            t0 = time.monotonic()
+            with obs_trace.span("generate", "genpool",
+                                worker=gen.name, batch=n):
+                gen.call("set_step", n)
+                snapshot = gen.call("step_snapshot", self._snapshot_names)
+            t1 = time.monotonic()
+            self.intervals.append((t0, t1))
+            item = {"batch_index": n, "snapshot": snapshot,
+                    "generator": gen.name, "bound": bound,
+                    "gen_busy_s": t1 - t0, "gen_idle_s": idle,
+                    "_version": gen.call("weight_version")}
+            if self._push(gen, stop, item) is None:
+                return
+            asn.finish(gen.name, n)
+
+    def _worker_chunked(self, gen, stop):
+        """Chunk-scheduled worker: admit batches the moment their pinned
+        weight version lands, pipeline up to ``max_inflight`` of them
+        through the scheduler heap, push each the moment it completes."""
+        cfg = self.config
+        asn = self.assignment
+        sched = RolloutScheduler(
+            _SnapshotEmitter(gen, self._snapshot_names),
+            PartialRolloutCache(), early_exit=cfg.early_exit,
+            chunk_delay=cfg.chunk_delay)
+        pending_idle = 0.0                  # weight-wait time -> next admit
+        while not stop.is_set():
+            n = asn.next_for(gen.name)
+            if n is None and sched.pending() == 0:
+                if not self._park(gen, stop):
+                    return
+                continue
+            if n is not None and sched.pending() < cfg.max_inflight:
+                bound = self.bounds.bound()
+                if gen.call("weight_version") >= max(0, n - bound):
+                    if not asn.start(gen.name, n):
+                        continue      # re-dealt away since the peek
+                    t0 = time.monotonic()
+                    with obs_trace.span("admit", "genpool",
+                                        worker=gen.name, batch=n):
+                        gen.call("set_step", n)
+                        job, state = gen.begin_batch(n)
+                        job.bound = bound
+                        job.meta["idle_s"] = pending_idle
+                        pending_idle = 0.0
+                        sched.admit(job, state)
+                    self.intervals.append((t0, time.monotonic()))
+                    continue
+                if sched.pending() == 0:
+                    # nothing in flight: block until the version lands
+                    t0 = time.monotonic()
+                    with obs_trace.span("weight-wait", "genpool",
+                                        worker=gen.name, batch=n):
+                        got = self._drain_one(gen, stop,
+                                              f"weights for batch {n}")
+                    if got is None:
+                        return
+                    pending_idle += time.monotonic() - t0
+                    continue
+                # in-flight work available: poll weights, don't block
+                self._poll_one(gen)
+            if sched.pending() == 0:
+                continue
+            t0 = time.monotonic()
+            done = sched.step()
+            self.intervals.append((t0, time.monotonic()))
+            if done is None:
+                continue
+            job, snapshot = done         # the emitter's port snapshot
+            item = {"batch_index": job.batch_index,
+                    "snapshot": snapshot,
+                    "generator": gen.name, "bound": job.bound,
+                    "gen_busy_s": job.busy_s,
+                    "gen_idle_s": job.meta.get("idle_s", 0.0),
+                    "_version": job.weight_version}
+            if self._push(gen, stop, item) is None:
+                return
+            asn.finish(gen.name, job.batch_index)
+
+    # --------------------------------------------------------- engine mode --
+
+    def _worker_engine(self, gen, stop):
+        """Continuous-batching worker: the engine lives inside the
+        generator (the ``engine_*`` executor endpoints), so this loop
+        only moves batch indices in and finished batches out.  Enqueue
+        batches the moment their staleness gate opens, then drive
+        ``engine_round`` -- each round admits waiting rows into freed
+        slots, decodes every live row one chunk and harvests finished
+        rows; batches emerge the moment their last group completes, in
+        any order (the consumer reorders by index)."""
+        cfg = self.config
+        gen.call("engine_configure",
+                 max_running_rows=cfg.max_running_rows,
+                 row_budgets=cfg.engine_row_budgets,
+                 kv_layout=cfg.kv_layout,
+                 kv_page_size=cfg.kv_page_size,
+                 kv_pages=cfg.kv_pages)
+        try:
+            self._engine_loop(gen, stop)
+        except BaseException:
+            # the loop's error is the one to report: drop the engine's
+            # rows and pages on the way out without masking it
+            with contextlib.suppress(Exception):
+                gen.call("engine_abort")
+            raise
+        # drop parked pool state and radix pages; the paged engine
+        # asserts that no page leaked
+        gen.call("engine_abort")
+
+    def _engine_loop(self, gen, stop):
+        cfg = self.config
+        asn = self.assignment
+        inflight: Dict[int, int] = {}     # batch index -> bound at enqueue
+        pending_idle = 0.0
+        while not stop.is_set():
+            n = asn.next_for(gen.name)
+            if n is None and not inflight:
+                if not self._park(gen, stop):
+                    return
+                continue
+            if n is not None and len(inflight) < cfg.max_inflight:
+                bound = self.bounds.bound()
+                if gen.call("weight_version") >= max(0, n - bound):
+                    if not asn.start(gen.name, n):
+                        continue      # re-dealt away since the peek
+                    t0 = time.monotonic()
+                    with obs_trace.span("enqueue", "genpool",
+                                        worker=gen.name, batch=n):
+                        gen.call("set_step", n)
+                        gen.call("engine_enqueue", n, bound)
+                    inflight[n] = bound
+                    self.intervals.append((t0, time.monotonic()))
+                    continue
+                if not inflight:
+                    # nothing decoding: block until the version lands
+                    t0 = time.monotonic()
+                    with obs_trace.span("weight-wait", "genpool",
+                                        worker=gen.name, batch=n):
+                        got = self._drain_one(
+                            gen, stop, f"weights for batch {n}")
+                    if got is None:
+                        return
+                    pending_idle += time.monotonic() - t0
+                    continue
+                # rows in flight: poll weights, don't block
+                self._poll_one(gen)
+            if not inflight:
+                continue
+            t0 = time.monotonic()
+            with obs_trace.span("engine-round", "genpool",
+                                worker=gen.name,
+                                inflight=len(inflight)):
+                items = gen.call("engine_round", self._snapshot_names)
+            self.intervals.append((t0, time.monotonic()))
+            for item in items:
+                item["gen_idle_s"] = pending_idle
+                pending_idle = 0.0
+                b = item["batch_index"]
+                if self._push(gen, stop, item) is None:
+                    return
+                asn.finish(gen.name, b)
+                inflight.pop(b, None)
+

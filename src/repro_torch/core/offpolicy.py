@@ -104,6 +104,11 @@ class StalenessBuffer:
         with self._cond:
             return self._closed
 
+    def versions(self) -> List[int]:
+        """The versions of the queued entries, in queue order."""
+        with self._cond:
+            return [v for v, _ in self._q]
+
     def __len__(self):
         with self._cond:
             return len(self._q)

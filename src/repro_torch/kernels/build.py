@@ -12,6 +12,10 @@ wrapper adds one where it launches, and nowhere else.  ``scratch`` keeps
 the buffers of the kernels that merge across blocks: the counters the
 arriving blocks count in (the last block resets its counter) and the
 fp32 workspace of the partial results.
+
+The threaded controller calls the kernels from several host threads at
+once, so the launch counts and the builds are taken under locks: a
+concurrent cold start runs one ``nvcc`` per source, and no count is lost.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -36,6 +41,9 @@ _LIBS: dict = {}
 _FUNCS: dict = {}
 _SCRATCH: dict = {}
 _SMS: dict = {}
+# re-entrant: library() builds through build_all() under the same lock
+_BUILD_LOCK = threading.RLock()
+_LAUNCH_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -61,7 +69,13 @@ def _out(name: str) -> Path:
 
 def build_all(names) -> None:
     """Build every named library that is not built yet, with one ``nvcc``
-    process per source running at the same time; raise if any fails."""
+    process per source running at the same time; raise if any fails.
+    Builds take turns: a second caller waits, then finds them built."""
+    with _BUILD_LOCK:
+        _build_all(names)
+
+
+def _build_all(names) -> None:
     started = []
     for name in names:
         out = _out(name)
@@ -88,10 +102,14 @@ def build_all(names) -> None:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name not in _LIBS:
-        build_all([name])
-        _LIBS[name] = ctypes.CDLL(str(_out(name)))
-    return _LIBS[name]
+    lib = _LIBS.get(name)
+    if lib is None:
+        with _BUILD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build_all([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(_out(name)))
+    return lib
 
 
 def c_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
@@ -100,10 +118,11 @@ def c_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     served from a cache keyed by (library, symbol)."""
     fn = _FUNCS.get((name, symbol))
     if fn is None:
-        fn = getattr(library(name), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _FUNCS[name, symbol] = fn
+        with _BUILD_LOCK:
+            fn = getattr(library(name), symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _FUNCS[name, symbol] = fn
     return fn
 
 
@@ -112,8 +131,11 @@ def scratch(key: str, device, n: int, dtype):
     ``key`` on ``device`` across calls: zeroed when made, then as the
     last call left it.  The merge counters of the split kernels live
     here (each kernel leaves its counters at zero again), and their fp32
-    workspaces.  Calls on one stream take turns with it, as the port's
-    calls do; two streams at once would need two."""
+    workspaces.  The port launches every kernel on the device's default
+    stream, from whichever host thread: kernels on one stream run one
+    after another, so they take turns with one buffer.  An executor on
+    a stream of its own would need a buffer for each stream, and event
+    waits on the tensors it hands across."""
     import torch
     buf = _SCRATCH.get((key, device))
     if buf is None or buf.numel() < n or buf.dtype != dtype:
@@ -136,8 +158,10 @@ def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")
-    LAUNCHES[name] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _LAUNCH_LOCK:
+        LAUNCHES.clear()

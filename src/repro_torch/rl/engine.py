@@ -27,9 +27,10 @@ importance ratio needs.
 
 The engine lives inside the ``GeneratorExecutor``.  The pool state stays
 on the executor's device; the host reads it once a round (``done``) and
-once a harvest (the harvested rows' tokens and log-probs).  The
-reference's trace spans and instants come back with the port of ``obs/``
-(ROADMAP A9).
+once a harvest (the harvested rows' tokens and log-probs).  Its trace
+spans and instants are the reference's (``repro_torch.obs``): admission,
+prefill into a slot, decode rounds, harvests, group completions, page
+gauges.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from repro_torch.core.offpolicy import PartialRolloutCache
 from repro_torch.models.paging import PagePool, RadixCache, paged_blocks, \
     plan_admission, release_plan
 from repro_torch.models.serve import SlotPool, assert_engine_cache
+from repro_torch.obs import trace as obs_trace
 from repro_torch.rl import data as rl_data
 from repro_torch.rl import prng
 from repro_torch.rl import rewards as rl_rewards
@@ -202,6 +204,7 @@ class RolloutEngine:
         assert batch_index not in self._batches, \
             f"batch {batch_index} already in flight"
         batch = ex.tasks.sample(ex.n_prompts, ex.n_per_prompt)
+        now = time.monotonic()
         n_rows = ex.n_prompts * ex.n_per_prompt
         for r in range(n_rows):
             g, s = divmod(r, ex.n_per_prompt)
@@ -211,13 +214,19 @@ class RolloutEngine:
                 answer=batch.answers[r], bound=bound,
                 max_chunks=self.row_budgets[self._row_seq
                                             % len(self.row_budgets)]
-                if self.row_budgets else self.n_chunks))
+                if self.row_budgets else self.n_chunks,
+                enqueue_t=now))
             self._row_seq += 1
         for g in range(ex.n_prompts):
             self.ledger.open_group(batch_index, g,
                                    batch.answers[g * ex.n_per_prompt])
-        self._batches[batch_index] = {"bound": bound, "groups_done": 0}
+        self._batches[batch_index] = {
+            "bound": bound, "groups_done": 0, "enqueue_t": now,
+            "first_harvest_t": None,
+        }
         self.stats["rows_enqueued"] += n_rows
+        obs_trace.instant("enqueue", "engine", batch=batch_index,
+                          rows=n_rows, bound=bound)
         return n_rows
 
     def _admit(self, state):
@@ -245,29 +254,47 @@ class RolloutEngine:
                 if plan is None:
                     self.waiting.appendleft(ticket)
                     self.stats["admission_backpressure"] += 1
+                    obs_trace.instant(
+                        "admission-backpressure", "engine",
+                        waiting=len(self.waiting),
+                        pages_in_use=self.page_pool.pages_in_use)
                     break
                 slot = self.slots.acquire()
                 if plan.n_cached:
                     self.stats["radix_hits"] += 1
                     self.stats["prefix_tokens_reused"] += plan.n_cached
+                    obs_trace.instant(
+                        "prefix-reuse", "engine", batch=ticket.batch_index,
+                        group=ticket.group, sib=ticket.sib, slot=slot,
+                        cached_tokens=plan.n_cached,
+                        prompt_tokens=len(ids))
                 else:
                     self.stats["radix_misses"] += 1
                 pages_row = torch.tensor(
                     plan.table + (self.page_pool.trash_page,),
                     dtype=torch.int32, device=ex.device)
-                state = admit_row_paged(ex.params, ex.cfg, state, prompt,
-                                        pages_row, slot,
-                                        n_cached=plan.n_cached)
+                with obs_trace.span("prefill-into-slot", "engine",
+                                    batch=ticket.batch_index,
+                                    group=ticket.group, sib=ticket.sib,
+                                    slot=slot, cached=plan.n_cached):
+                    state = admit_row_paged(ex.params, ex.cfg, state,
+                                            prompt, pages_row, slot,
+                                            n_cached=plan.n_cached)
                 self.radix.insert(ids, plan.table)
                 self._row_pages[slot] = plan
             else:
                 slot = self.slots.acquire()
-                row = start_rollout(ex.params, ex.cfg, prompt,
-                                    self.total_len,
-                                    cache_len=self.total_len + 1)
-                state = admit_row(state, row, slot)
+                with obs_trace.span("prefill-into-slot", "engine",
+                                    batch=ticket.batch_index,
+                                    group=ticket.group, sib=ticket.sib,
+                                    slot=slot):
+                    row = start_rollout(ex.params, ex.cfg, prompt,
+                                        self.total_len,
+                                        cache_len=self.total_len + 1)
+                    state = admit_row(state, row, slot)
             ticket.slot = slot
             ticket.weight_version = ex.weight_version
+            ticket.admit_t = time.monotonic()
             self.tickets[slot] = ticket
             self.stats["rows_admitted"] += 1
         return state
@@ -288,16 +315,25 @@ class RolloutEngine:
                                 kv_page_size=self.kv_page_size,
                                 kv_pages=self.kv_pages)
         self._rid = None
-        state = self._admit(state)
+        with obs_trace.span("admit", "engine", waiting=len(self.waiting),
+                            free=self.slots.free_count):
+            state = self._admit(state)
         emitted: List[dict] = []
         if self.tickets:
-            ex.key, sub = prng.split(ex.key)
-            state = rollout_rows_chunk(ex.params, ex.cfg, state, sub,
-                                       n_steps=self.chunk,
-                                       temperature=ex.temperature)
+            with obs_trace.span("decode-round", "engine",
+                                rows=len(self.tickets)):
+                ex.key, sub = prng.split(ex.key)
+                state = rollout_rows_chunk(ex.params, ex.cfg, state, sub,
+                                           n_steps=self.chunk,
+                                           temperature=ex.temperature)
             for t in self.tickets.values():
                 t.chunks_done += 1
             state, emitted = self._harvest(state)
+        if self.page_pool is not None:
+            obs_trace.instant("pages", "engine",
+                              pages_in_use=self.page_pool.pages_in_use,
+                              pages_total=self.page_pool.n_pages,
+                              radix_nodes=len(self.radix))
         self._rid = self.cache.put(state)
         self._busy_s += time.monotonic() - t0
         return emitted
@@ -315,26 +351,39 @@ class RolloutEngine:
             return state, []
         emitted = []
         keep = self.prompt_len + ex.max_new
-        tokens_np = state.tokens.cpu().numpy()
-        blp_np = state.behavior_logp.cpu().numpy()
-        for s in ready:
-            t = self.tickets.pop(s)
-            self.slots.release(s)
-            if self.page_pool is not None:
-                release_plan(self.page_pool, self._row_pages.pop(s))
-                state = release_row(state, s)
-            row = {
-                "tokens": tokens_np[s, :keep].copy(),
-                "logp": blp_np[s, :keep].copy(),
-                "version": t.weight_version,
-                "prompt_len": self.prompt_len,
-            }
-            self.stats["rows_harvested"] += 1
-            bk = self._batches[t.batch_index]
-            if self.ledger.add(t, row):
-                bk["groups_done"] += 1
-                if bk["groups_done"] == ex.n_prompts:
-                    emitted.append(self._emit(t.batch_index))
+        with obs_trace.span("harvest", "engine", rows=len(ready)):
+            tokens_np = state.tokens.cpu().numpy()
+            blp_np = state.behavior_logp.cpu().numpy()
+            for s in ready:
+                t = self.tickets.pop(s)
+                self.slots.release(s)
+                if self.page_pool is not None:
+                    release_plan(self.page_pool, self._row_pages.pop(s))
+                    state = release_row(state, s)
+                row = {
+                    "tokens": tokens_np[s, :keep].copy(),
+                    "logp": blp_np[s, :keep].copy(),
+                    "version": t.weight_version,
+                    "prompt_len": self.prompt_len,
+                    "queue_wait_s": t.admit_t - t.enqueue_t,
+                }
+                self.stats["rows_harvested"] += 1
+                obs_trace.instant("harvest-row", "engine",
+                                  batch=t.batch_index, group=t.group,
+                                  sib=t.sib, slot=s,
+                                  queue_wait_s=row["queue_wait_s"])
+                bk = self._batches[t.batch_index]
+                if bk["first_harvest_t"] is None:
+                    bk["first_harvest_t"] = time.monotonic()
+                    obs_trace.instant(
+                        "first-harvest", "engine", batch=t.batch_index,
+                        ttfh_s=bk["first_harvest_t"] - bk["enqueue_t"])
+                if self.ledger.add(t, row):
+                    bk["groups_done"] += 1
+                    obs_trace.instant("group-complete", "engine",
+                                      batch=t.batch_index, group=t.group)
+                    if bk["groups_done"] == ex.n_prompts:
+                        emitted.append(self._emit(t.batch_index))
         return state, emitted
 
     def _emit(self, batch_index: int) -> dict:
@@ -384,6 +433,8 @@ class RolloutEngine:
         busy = self._busy_s - self._busy_charged
         self._busy_charged = self._busy_s
         self.stats["batches_emitted"] += 1
+        obs_trace.instant("emit", "engine", batch=batch_index,
+                          version=out["weight_version"], floor=floor)
         return {"out": out, "batch_index": batch_index,
                 "weight_version": out["weight_version"],
                 "bound": bk["bound"], "busy_s": busy}
