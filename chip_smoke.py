@@ -74,6 +74,33 @@ Each phase prints its own lines:
                log-prob and gradient norm held against the CPU port
                re-scoring the card's own batch from the card's params,
                within 1e-4 relative (+1e-6)
+  [12] processes  the async loop with its actors in spawned children (own
+               interpreter, CUDA context and default stream), the reward
+               in this process; every child's launch counts, peak memory
+               and modules read through a ``probe`` endpoint.  (a)
+               ``proc`` at [10]'s 4 layers, a pool of 1 (chunk
+               scheduling, the child pinning each job's params): bit-equal
+               to [10] (a), its launch counts summed over the children
+               equal to [10] (a)'s; (b) an engine pool of 2 on paged KV at
+               2 layers, threaded in process and then over ``shm``, both
+               traced: decode ms a token per worker, the stats, each
+               weight hop's ms and GB/s, spawn seconds, peak memory per
+               process (CUDA and resident set), staged slots, the most
+               /dev/shm bytes the run held, each process's device
+               timeline (torch.profiler) and how much of the trainer's
+               device time fell into the generators' gaps, and none of
+               the run's /dev/shm segments left after
+               ``close_all_actors()``; (c) the quickstart with
+               ``REPRO_TRANSPORT=socket`` (self-hosted), bit-equal to [11]
+  [13] launcher  (i) ``python -m repro_torch.launch.train --arch
+               llama31-8b --smoke --steps 3 --transport shm
+               --n-generators 2 --kl-coef 0.1`` with the paged engine,
+               traced, as a process of its own: exit 0, 3 history rows,
+               spans from every child; (ii) meanwhile the launcher's
+               build_controller with the same flags in this process,
+               its children probed: B1-B5 launched in the children, the
+               first call of each shape each child gave a kernel held
+               against its plain version there
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -93,11 +120,13 @@ import collections
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -139,6 +168,10 @@ ENGINE_BUDGETS = [1, 2, 4, 4]
 # 2 bound + workers + 4 = 8 versions, which at 8 layers (5.59 GB each)
 # would not fit beside the trainer on an 80 GB card
 POOL_LAYERS = 4
+# [12] (b)'s depth: two generator children at 4 layers, each with up to
+# three 3.85 GB versions beside its KV, the trainer's 23.1 GB and the
+# controller's relayed versions would pass 75 GB of the card's 80
+PROC_LAYERS = 2
 # B6 against its plain version: |d| <= INT8_TOL max(1, |plain|).  Both
 # widen the same x and int8 values exactly, so every product is equal;
 # only the order of the fp32 sum differs (over K up to 14336, about 1e-6
@@ -1608,15 +1641,18 @@ class KernelCalls:
     whichever thread -- so that ``replay`` can hold each recorded call
     against its plain version afterwards.  The wrappers count their own
     launches; recording adds none.  ``per_shape`` keeps only the first
-    calls of each (wrapper, shapes, dtypes); None keeps every call."""
+    calls of each (wrapper, shapes, dtypes); None keeps every call.
+    ``names`` are the wrappers recorded: the dense paths' four, or with
+    ``ENGINE`` the paged decode's too."""
 
     NAMES = ("fused_sample_cuda", "fused_logprob_cuda",
              "fused_logprob_bwd_cuda", "flash_attention_cuda")
+    ENGINE = NAMES + ("paged_attention_cuda",)
 
-    def __init__(self, torch, per_shape=None):
+    def __init__(self, torch, per_shape=None, names=NAMES):
         import threading
-        self.torch, self.per_shape = torch, per_shape
-        self.calls = {n: [] for n in self.NAMES}
+        self.torch, self.per_shape, self.names = torch, per_shape, names
+        self.calls = {n: [] for n in names}
         self._seen = collections.Counter()
         self._lock = threading.Lock()
 
@@ -1644,7 +1680,7 @@ class KernelCalls:
 
     def __enter__(self):
         from repro_torch.kernels import dispatch
-        self._saved = {n: getattr(dispatch, n) for n in self.NAMES}
+        self._saved = {n: getattr(dispatch, n) for n in self.names}
         for n, fn in self._saved.items():
             setattr(dispatch, n, self._wrap(n, fn))
         return self
@@ -1655,18 +1691,23 @@ class KernelCalls:
             setattr(dispatch, n, fn)
         return False
 
-    def replay(self, label: str) -> None:
+    def replay(self, label: str, expect=None) -> list:
         """Every recorded call against its plain version on the same
         inputs, at phase [2]'s tolerances for the dtype: B3 tokens equal
         and log-probs within 1e-5 (fp32) or 1e-4 (bf16); B1 log-probs
         within 1e-5 / 1e-4 and m equal; B2 every element within 1e-6 /
         2^-7 relative of the plain gradient (bwd_excess), zero past
-        n_valid; B4 |do| / max(1, |o|) within 1e-5 / 3e-2."""
+        n_valid; B4 |do| / max(1, |o|) within 1e-5 / 3e-2; B5 max|do|
+        within 2e-5 on an fp32 arena, 3e-2 on bf16.  A wrapper in
+        ``expect`` (default: every recorded one) must have been called;
+        one outside it must not.  Returns the lines to log."""
         torch = self.torch
         from repro_torch.kernels.flash_attention import chunked_attention
         from repro_torch.kernels.fused_logprob import \
             fused_logprob_bwd_plain, fused_logprob_plain
         from repro_torch.kernels.fused_sample import fused_sample_plain
+        from repro_torch.kernels.paged_attention import \
+            paged_attention_plain
 
         def fp32(t):
             return t.dtype == torch.float32
@@ -1717,42 +1758,282 @@ class KernelCalls:
                     f"flash_attention {list(q.shape)} error {err:.3e}")
             worst["flash_attention"] = max(worst["flash_attention"], err)
             shapes["flash_attention"].add((tuple(q.shape), q.dtype))
+        for (q, ak, av, table, pos), kw, o in self.calls.get(
+                "paged_attention_cuda", ()):
+            err = max_err(o, paged_attention_plain(
+                q, ak, av, table, pos, window=kw.get("window", 0)))
+            require(err <= (2e-5 if fp32(ak) else 3e-2), f"{label}: "
+                    f"paged_attention q {list(q.shape)} arena "
+                    f"{list(ak.shape)} error {err:.3e}")
+            worst["paged_attention"] = max(worst["paged_attention"], err)
+            shapes["paged_attention"].add(
+                (tuple(q.shape) + tuple(ak.shape), ak.dtype))
+        expect = set(self.calls if expect is None else expect)
+        lines = []
         for n, calls in self.calls.items():
             name = n[:-len("_cuda")]
-            require(calls, f"{label}: no call of {name} was recorded")
+            require(bool(calls) == (n in expect),
+                    f"{label}: {len(calls)} calls of {name} recorded, "
+                    f"expected {'some' if n in expect else 'none'}")
+            if not calls:
+                continue
             what = ("worst element / its tolerance"
                     if name == "fused_logprob_bwd" else
                     "max|do|/max(1,|o|)" if name == "flash_attention"
+                    else "max|do|" if name == "paged_attention"
                     else "max|dlogp|")
-            log(f"  {label}: {len(calls)} recorded {name} calls at "
+            lines.append(
+                f"  {label}: {len(calls)} recorded {name} calls at "
                 + ", ".join(f"{list(s)} {str(t)[6:]}"
                             for s, t in sorted(shapes[name], key=str))
                 + f" against the plain version: {what} {worst[name]:.3e}"
                 + (", tokens equal" if name == "fused_sample" else ""))
+        return lines
 
 
-def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16):
+class RssPeak:
+    """This process's peak resident set since ``reset()``, sampled every
+    ``period`` seconds from /proc/self/statm on a thread of its own (the
+    chip machine's /proc keeps no VmHWM, and a spawned child's
+    ``getrusage`` peak starts from its parent's).  One per process:
+    ``RSS``."""
+
+    def __init__(self, period: float = 0.1):
+        self.period, self.peak, self._thread = period, 0, None
+
+    @staticmethod
+    def now():
+        try:
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * PAGE_BYTES
+        except (OSError, ValueError, IndexError):
+            return None
+
+    def _run(self):
+        while True:
+            now = self.now()
+            if now is None:
+                self.peak = None
+                return
+            if self.peak is not None:
+                self.peak = max(self.peak, now)
+            time.sleep(self.period)
+
+    def reset(self):
+        import threading
+        self.peak = self.now()
+        if self._thread is None and self.peak is not None:
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name="rss")
+            self._thread.start()
+
+    def gb(self):
+        """The peak since the reset in GB; None where /proc has no
+        statm."""
+        return self.peak / 1e9 if self.peak else None
+
+
+PAGE_BYTES = os.sysconf("SC_PAGE_SIZE")
+RSS = RssPeak()
+
+
+class DeviceTimeline:
+    """torch.profiler over CUDA activity only, in one process: while it
+    runs, the kernels this process puts on the card.  ``stop()`` returns
+    their merged [start, end) intervals in ns on the profiler's clock,
+    which is one clock for every process on the machine, with the number
+    of kernels and the seconds of its copies and memsets; None and the
+    error when the profiler could not run."""
+
+    def __init__(self):
+        self.prof = None
+
+    def start(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        try:
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+        except Exception as e:          # noqa: BLE001 - report, not fail
+            self.prof = f"{type(e).__name__}: {e}"
+        return self.prof is not None and not isinstance(self.prof, str)
+
+    def stop(self):
+        import torch
+        from torch.autograd import DeviceType
+        if not hasattr(self.prof, "stop"):
+            return None, self.prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        try:
+            with warnings.catch_warnings():
+                # torch warns that events of earlier cycles are cleared:
+                # there is one cycle
+                warnings.simplefilter("ignore", UserWarning)
+                self.prof.stop()
+            ops, copy_ns = [], 0
+            for e in self.prof.profiler.kineto_results.events():
+                if e.device_type() != DeviceType.CUDA \
+                        or e.end_ns() <= e.start_ns():
+                    continue
+                if e.name().startswith(("Memcpy", "Memset")):
+                    copy_ns += e.end_ns() - e.start_ns()
+                else:
+                    ops.append((e.start_ns(), e.end_ns()))
+        except Exception as e:          # noqa: BLE001 - report, not fail
+            return None, f"{type(e).__name__}: {e}", 0
+        finally:
+            self.prof = None
+        return merged(ops), len(ops), copy_ns / 1e9
+
+
+def merged(intervals) -> list:
+    """Sorted, overlapping [start, end) intervals merged into disjoint
+    ones."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def measure(intervals) -> float:
+    return float(sum(b - a for a, b in intervals))
+
+
+def probed_executor(kind, *args, ref_init=None, record=None, **kwargs):
+    """The executors of [10], [12] and [13], built where the actor lives
+    (in this process or in a spawned child): ``kind`` ("trainer",
+    "generator" or "reference") with endpoints more.  ``probe()``
+    reports the process's kernel launch counts, its pid, peak CUDA
+    memory and peak resident set, any ``jax`` or ``repro`` module it
+    imported, the batches the trainer took and the most params the
+    generator held pinned and staged at once; ``probe(reset=True)`` then
+    zeroes the counts and the peaks.  ``timeline(True)`` starts a
+    ``DeviceTimeline`` of the process, ``timeline(False)`` stops it and
+    returns its intervals.  With ``record`` (wrapper names) the process
+    records its kernel calls (``KernelCalls``, the first of each shape)
+    for its whole life, and ``replay(label)`` holds them against their
+    plain versions there and returns the lines.  A reference built with
+    ``ref_init=(seed, dtype, device)`` holds frozen weights of that
+    seed."""
+    import torch
+    from repro_torch.core import executor
+    from repro_torch.kernels import build
+    base = {"trainer": executor.TrainerExecutor,
+            "generator": executor.GeneratorExecutor,
+            "reference": executor.RefPolicyExecutor}[kind]
+
+    class Probed(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.batches, self.most_pinned, self.most_staged = [], 0, 0
+            self._timeline = DeviceTimeline()
+            self._calls = None
+            if record:
+                self._calls = KernelCalls(torch, per_shape=1, names=record)
+                self._calls.__enter__()
+
+        def probe(self, reset=False):
+            cuda = torch.cuda.is_initialized()
+            rss = RSS.gb()
+            out = {"pid": os.getpid(), "launches": dict(build.LAUNCHES),
+                   "stray": sorted(m for m in sys.modules
+                                   if m.split(".")[0] in ("jax", "repro")),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+                   if cuda else 0.0,
+                   "reserved_gb": torch.cuda.max_memory_reserved() / 1e9
+                   if cuda else 0.0,
+                   "rss_gb": rss,
+                   "batches": list(self.batches),
+                   "most_pinned": self.most_pinned,
+                   "most_staged": self.most_staged}
+            if reset:
+                build.reset_launches()
+                RSS.reset()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+            return out
+
+        def timeline(self, on):
+            return self._timeline.start() if on else self._timeline.stop()
+
+        def replay(self, label):
+            launched = {f"{n}_cuda" for n, c in build.LAUNCHES.items() if c}
+            return self._calls.replay(label, expect=launched
+                                      & set(self._calls.names))
+
+    if kind == "trainer":
+        def step(self):
+            self.batches.append(
+                self.get_input("completions_with_reward")["tokens"].cpu())
+            return base.step(self)
+        Probed.step = step
+    if kind == "generator":
+        def begin_batch_pinned(self, batch_index=None):
+            out = base.begin_batch_pinned(self, batch_index)
+            self.most_pinned = max(self.most_pinned, self.pinned_count())
+            return out
+
+        def stage_weights(self, params, version):
+            base.stage_weights(self, params, version)
+            self.most_staged = max(self.most_staged,
+                                   len(self.staged_versions()))
+        Probed.begin_batch_pinned = begin_batch_pinned
+        Probed.stage_weights = stage_weights
+    ex = Probed(*args, **kwargs)
+    if ref_init is not None:
+        from repro_torch.models import init_params
+        seed, dtype, device = ref_init
+        ex.set_weights(init_params(ex.cfg, seed=seed, dtype=dtype,
+                                   device=device))
+    return ex
+
+
+def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16,
+                    transport="inproc"):
     """Generator pool -> frozen reference -> reward -> trainer behind the
     threaded controller, staleness 1, KL to a reference from another seed
-    (as in [6]); the trainer records the batch of each step it takes.
-    Returns (controller, generator handles, trainer, recorded batches)."""
+    (as in [6]); the reward stays in this process, the other actors go
+    where ``transport`` puts them (``probed_executor``s).  Returns
+    (controller, generator handles, trainer, reference, seconds each
+    actor took to spawn)."""
+    import functools
+
     from repro_torch.core import (CommType, CommunicationChannel,
-                                  ExecutorController, RefPolicyExecutor,
-                                  RewardExecutor, TrainerExecutor,
-                                  build_generator_pool)
-    from repro_torch.models import init_params
+                                  ExecutorController, RewardExecutor,
+                                  build_generator_pool, spawn_actor)
     from repro_torch.rl.data import ArithmeticTasks
 
-    ref = RefPolicyExecutor(cfg)
-    ref.set_weights(init_params(cfg, seed=1, dtype=torch.bfloat16,
-                                device=dev))
+    spawn_s = {}
+    t0 = time.perf_counter()
+    ref = spawn_actor(probed_executor, "reference", cfg,
+                      ref_init=(1, torch.bfloat16, dev), transport=transport)
+    spawn_s[ref.name] = time.perf_counter() - t0
     rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
-    trn = TrainerExecutor(cfg, dtype=torch.bfloat16, kl_coef=KL_COEF,
-                          seed=0, device=dev)
+    t0 = time.perf_counter()
+    trn = spawn_actor(probed_executor, "trainer", cfg, dtype=torch.bfloat16,
+                      kl_coef=KL_COEF, seed=0, device=dev,
+                      transport=transport)
+    spawn_s[trn.name] = time.perf_counter() - t0
+    starts = []                 # the pool builds worker g's tasks just
+                                # before it spawns worker g
+
+    def make_tasks(g):
+        starts.append(time.perf_counter())
+        return ArithmeticTasks(prompt_len=prompt_len, seed=g)
     gens, chans = build_generator_pool(
-        cfg, trn, lambda g: ArithmeticTasks(prompt_len=prompt_len, seed=g),
-        n_generators=n_gens, n_prompts=N_PROMPTS, n_per_prompt=N_PER,
-        max_new=MAX_NEW, chunk=CHUNK, temperature=1.0, device=dev)
+        cfg, trn, make_tasks, n_generators=n_gens,
+        generator_cls=functools.partial(probed_executor, "generator"),
+        n_prompts=N_PROMPTS, n_per_prompt=N_PER, max_new=MAX_NEW,
+        chunk=CHUNK, temperature=1.0, device=dev, transport=transport)
+    starts.append(time.perf_counter())
+    for g, h in enumerate(gens):
+        spawn_s[h.name] = starts[g + 1] - starts[g]
     chans += [
         CommunicationChannel("completions", gens[0], ref, CommType.BROADCAST),
         CommunicationChannel("completions_with_ref", ref, rew,
@@ -1762,14 +2043,7 @@ def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16):
     ctl = ExecutorController(gens + [ref, rew, trn], chans, max_steps=steps,
                              mode="async", staleness=1, timeout=900.0,
                              pool=pool)
-    batches = []
-    step = trn.step
-
-    def recording_step():
-        batches.append(trn.get_input("completions_with_reward")["tokens"])
-        return step()
-    trn.step = recording_step
-    return ctl, gens, trn, batches
+    return ctl, gens, trn, ref, spawn_s
 
 
 def phase_pool(torch, dev):
@@ -1804,7 +2078,7 @@ def phase_pool(torch, dev):
     # (a) threaded pool of 1 against the sequential schedule, same seed
     runs = {}
     for mode in ("threaded", "sequential"):
-        ctl, gens, trn, batches = pool_controller(
+        ctl, gens, trn, ref, _ = pool_controller(
             torch, dev, cfg, n_gens=1, pool=PoolConfig(), steps=steps_a)
         require(isinstance(ctl, AsyncExecutorController), type(ctl))
         t0 = time.perf_counter()
@@ -1817,11 +2091,12 @@ def phase_pool(torch, dev):
             hist = ctl.run_sequential()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        runs[mode] = (hist, [b.cpu() for b in batches], wall)
-        del ctl, gens, trn, batches
+        runs[mode] = (hist, trn.call("probe")["batches"], wall)
+        del ctl, gens, trn, ref
         gc.collect()
         torch.cuda.empty_cache()
     (ht, bt, wt), (hs, bs, ws) = runs["threaded"], runs["sequential"]
+    runs_launches = launches
     chunk_s = [e[6] for e in tracer.events()
                if e[2] == "X" and e[4] == "scheduler" and e[3] == "chunk"]
     chunks = len(chunk_s)
@@ -1860,7 +2135,7 @@ def phase_pool(torch, dev):
     # (b) an engine-mode pool of 2 on paged KV, traced
     tracer.clear()
     torch.cuda.reset_peak_memory_stats()
-    ctl, gens, trn, _ = pool_controller(
+    ctl, gens, trn, ref, _ = pool_controller(
         torch, dev, cfg, n_gens=2, steps=steps_b, prompt_len=ENGINE_PROMPT,
         pool=PoolConfig(engine=True, kv_layout="paged",
                         kv_page_size=ENGINE_PAGE))
@@ -1885,7 +2160,8 @@ def phase_pool(torch, dev):
     t0 = time.perf_counter()
     build.reset_launches()          # the pool path's run starts here
     try:
-        with KernelCalls(torch, per_shape=1) as recorded:
+        with KernelCalls(torch, per_shape=1,
+                         names=KernelCalls.ENGINE) as recorded:
             hist = ctl.run()
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)  # ... and ends here
@@ -1916,8 +2192,8 @@ def phase_pool(torch, dev):
             "the generator field does not alternate")
     require(all(math.isfinite(h["loss"]) for h in hist), "loss not finite")
     for g, e in zip(gens, stats):
-        # in process a job keeps its params, so nothing pins (pins come
-        # with the process transports, ROADMAP A8): this holds by design
+        # in process a job keeps its params, so nothing pins (a remote
+        # generator pins, [12]): this holds by design
         require(g.call("pinned_count") == 0, f"{g.name}: pinned params")
         require(e["staleness_violations"] == 0 and e["running"] == 0
                 and e["waiting"] == 0, f"{g.name}: engine rows left")
@@ -1957,15 +2233,16 @@ def phase_pool(torch, dev):
     require(problems == [], "invalid Chrome trace")
     for line in summary_lines(events):
         log("  " + line)
-    del ctl, gens, trn
+    del ctl, gens, trn, ref
     gc.collect()
     torch.cuda.empty_cache()
     # the first call of each shape (b) gave a kernel, against its plain
     # version on the same inputs
-    recorded.replay("(b)")
+    for line in recorded.replay("(b)"):
+        log(line)
     del recorded
     torch.cuda.empty_cache()
-    return launches
+    return launches, (ht, bt, runs_launches)
 
 
 def phase_quickstart(torch, dev):
@@ -2022,7 +2299,8 @@ def phase_quickstart(torch, dev):
         f", train_busy_s {st['train_busy_s']:.3f}); weight versions "
         f"{[h['weight_version'] for h in hist]}; rewards "
         f"{[round(h['mean_reward'], 3) for h in hist]}; launches {launches}")
-    recorded.replay("every call")
+    for line in recorded.replay("every call"):
+        log(line)
     # the CPU port on the card's own batch and params, through the plain
     # versions: |card - cpu| <= 1e-4 |cpu| + 1e-6 for each metric (a step
     # whose rewards are all equal has zero advantages, and its loss and
@@ -2047,7 +2325,561 @@ def phase_quickstart(torch, dev):
             "quickstart metrics against the CPU port")
     del ctl, trn, gen, seen, recorded
     gc.collect()
-    return launches
+    return launches, hist
+
+
+class SmiMemory:
+    """The card's most used memory while the block ran, sampled every
+    ``period`` seconds on a thread of its own (nvidia-smi's
+    ``memory.used``)."""
+
+    def __init__(self, period: float = 0.5):
+        import threading
+        self.period, self.most_mib = period, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="smi")
+
+    def _run(self):
+        while True:
+            try:
+                used = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=memory.used",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=10).stdout.split()
+            except (OSError, subprocess.TimeoutExpired):
+                used = []
+            if used and used[0].isdigit():
+                self.most_mib = max(self.most_mib, int(used[0]))
+            if self._stop.wait(self.period):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        return False
+
+    def line(self) -> str:
+        return f"card memory.used peak {self.most_mib} MiB"
+
+
+class ShmSegments:
+    """The shared-memory segments this process creates while the block
+    runs (every segment of the shm transport is created and unlinked by
+    the controller's process): their names, and the most bytes they held
+    in /dev/shm at once."""
+
+    def __enter__(self):
+        from repro_torch.core import actors
+        self._actors, self.names = actors, []
+        self.live, self.peak = {}, 0
+        create, unlink = actors._shm_create, actors._shm_unlink
+
+        def created(size):
+            seg = create(size)
+            self.names.append(seg.name)
+            self.live[seg.name] = seg.size
+            self.peak = max(self.peak, sum(self.live.values()))
+            return seg
+
+        def unlinked(seg):
+            self.live.pop(seg.name, None)
+            return unlink(seg)
+        self._saved = (create, unlink)
+        actors._shm_create, actors._shm_unlink = created, unlinked
+        return self
+
+    def __exit__(self, *exc):
+        self._actors._shm_create, self._actors._shm_unlink = self._saved
+        return False
+
+    def left(self) -> list:
+        """The block's segments still in /dev/shm."""
+        return [n for n in self.names if os.path.exists(f"/dev/shm/{n}")]
+
+
+def spans(events, name, proc=None, actor=None):
+    """The complete spans called ``name`` (of ``proc``, on ``actor``)."""
+    return [e for e in events if e[2] == "X" and e[3] == name
+            and (proc is None or e[0] == proc)
+            and (actor is None or (e[7] or {}).get("actor") == actor)]
+
+
+def inside(events, outer, name):
+    """The spans called ``name`` on ``outer``'s process and thread that
+    lie inside ``outer``."""
+    t0, t1 = outer[5], outer[5] + outer[6]
+    return [e for e in spans(events, name, proc=outer[0])
+            if e[1] == outer[1] and e[5] >= t0 and e[5] + e[6] <= t1 + 1e-9]
+
+
+def weight_hops(events, trainer, gens):
+    """Per weight version, the bytes and seconds of each hop, from the
+    run's trace: trainer -> controller is the controller's
+    ``rpc:get_output`` on the trainer (the child serializes, the reply
+    crosses, the controller copies it to its card); controller ->
+    generator is the controller's ``cast:stage_weights`` (serialize into
+    the frame or slot, send) plus the generator's ``deserialize`` of that
+    message (to its card).  Returns (up, down) lists of (bytes, s)."""
+    up = []
+    for sp in spans(events, "rpc:get_output", proc="controller",
+                    actor=trainer):
+        got = [(d[7] or {}).get("bytes", 0)
+               for d in inside(events, sp, "deserialize")]
+        if got and max(got) > 1 << 20:
+            up.append((max(got), sp[6]))
+    down = []
+    for g in gens:
+        casts = spans(events, "cast:stage_weights", proc="controller",
+                      actor=g)
+        serves = spans(events, "serve:stage_weights", proc=g)
+        reads = spans(events, "deserialize", proc=g)
+        for c, sv in zip(casts, serves):
+            ser = inside(events, c, "serialize")
+            before = [d for d in reads if d[5] + d[6] <= sv[5] + 1e-6]
+            if ser and before:
+                down.append(((ser[0][7] or {}).get("bytes", 0),
+                             c[6] + before[-1][6]))
+    return up, down
+
+
+def hop_line(label, hops) -> str:
+    if not hops:
+        return f"{label}: none"
+    ms = [1e3 * s for _, s in hops]
+    gbs = [b / s / 1e9 for b, s in hops]
+    return (f"{label}: {len(hops)} x {hops[0][0] / 1e9:.3f} GB, "
+            f"{statistics.median(ms):.1f} ms median "
+            f"({min(ms):.1f}-{max(ms):.1f}), "
+            f"{statistics.median(gbs):.2f} GB/s median "
+            f"({min(gbs):.2f}-{max(gbs):.2f})")
+
+
+def decode_by_worker(events):
+    """Decode ms a token of each engine worker (process/thread), from its
+    ``engine/decode-round`` spans (host clock), with its round count."""
+    by = collections.defaultdict(list)
+    for e in spans(events, "decode-round"):
+        if e[4] == "engine":
+            by[f"{e[0]}/{e[1]}"].append(e[6])
+    return {k: (1e3 * sum(v) / (len(v) * CHUNK), len(v))
+            for k, v in sorted(by.items())}
+
+
+def summed(counts) -> dict:
+    out = collections.Counter()
+    for c in counts:
+        out.update(c)
+    return dict(out)
+
+
+def rss_line(probes, rss_here) -> str:
+    """The peak resident set of each probed process and of this one over
+    the run (sampled)."""
+    def gb(rss):
+        return "not measured" if rss is None else f"{rss:.2f}"
+    return ("peak resident set GB by process over the run: "
+            + ", ".join(f"{k} {gb(p['rss_gb'])}" for k, p in probes.items())
+            + f", controller {gb(rss_here)}")
+
+
+def device_overlap(timelines, started) -> str:
+    """What the processes' device timelines (``DeviceTimeline.stop()``
+    of each, by actor) show over the run: the share of it with no kernel
+    in flight, each process's kernel seconds, and how much of the
+    trainer's kernel time fell into the generators' gaps rather than
+    beside a generator's kernel (time-sliced or concurrent)."""
+    bad = {k: v[1] for k, v in timelines.items() if v[0] is None}
+    if bad or not all(started.values()):
+        return f"device timeline: not measured ({bad or started})"
+    everything = merged([iv for v, _, _ in timelines.values() for iv in v])
+    if not everything:
+        return "device timeline: not measured (no kernel seen)"
+    window = everything[-1][1] - everything[0][0]
+    out = (f"device timeline over {window / 1e9:.3f} s (first to last "
+           f"kernel, torch.profiler CUDA activity): no kernel in flight "
+           f"{100 * (1 - measure(everything) / window):.1f}% of it; kernel "
+           "s (kernels; copy and memset s) by process " + ", ".join(
+               f"{k} {measure(v) / 1e9:.3f} ({n}; {c:.3f})"
+               for k, (v, n, c) in timelines.items()))
+    gens = [k for k in timelines if k.startswith("generator")]
+    if gens and "trainer" in timelines:
+        g = merged([iv for k in gens for iv in timelines[k][0]])
+        t = timelines["trainer"][0]
+        both = measure(g) + measure(t) - measure(merged(g + t))
+        out += (f"; generators together busy {measure(g) / 1e9:.3f} s, "
+                f"idle {(window - measure(g)) / 1e9:.3f} s; of the "
+                f"trainer's {measure(t) / 1e9:.3f} s, "
+                f"{(measure(t) - both) / 1e9:.3f} s in the generators' "
+                f"gaps and {both / 1e9:.3f} s beside a generator's "
+                "kernel")
+    return out
+
+
+def phase_proc(torch, dev, pool_a, quick_hist):
+    """[12]: the async loop with its actors in spawned processes.  (a)
+    ``proc`` at [10]'s 4 layers, a pool of 1 (chunk scheduling), against
+    [10] (a) bit for bit; (b) an engine pool of 2 on paged KV at 2 layers,
+    threaded in process and then over ``shm``, traced; (c) the
+    quickstart with every actor on a self-hosted ``socket``, against
+    [11] bit for bit.  Returns the children's launch counts of (a) and
+    (b)."""
+    from repro_torch import quickstart
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.core import PoolConfig, close_all_actors
+    from repro_torch.kernels import build
+    from repro_torch.obs import trace as obs_trace
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("loss", "grad_norm", "mean_ratio", "mean_logp", "mean_reward")
+    tracer = obs_trace.enable("controller")
+    ha, ta, want_a = pool_a
+    cfg = LLAMA31_8B.replace(name=f"llama31-8b-{POOL_LAYERS}l",
+                             n_layers=POOL_LAYERS)
+    log(f"[12] processes: the async loop with the reference, the trainer "
+        f"and the generators each in a spawned child (own interpreter, "
+        f"CUDA context and default stream), the reward in this process; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated here "
+        "before it")
+
+    # (a) proc, a pool of 1, against [10] (a)
+    tracer.clear()
+    ctl, gens, trn, ref, spawn_s = pool_controller(
+        torch, dev, cfg, n_gens=1, pool=PoolConfig(), steps=len(ha),
+        transport="proc")
+    actors = gens + [ref, trn]
+    for h in actors:
+        h.call("probe", reset=True)
+    build.reset_launches()          # (a)'s run starts here
+    torch.cuda.reset_peak_memory_stats()
+    RSS.reset()
+    with SmiMemory() as smi:
+        t0 = time.perf_counter()
+        hist = ctl.run()
+        wall = time.perf_counter() - t0
+    probes = {h.name: h.call("probe") for h in actors}  # ... and ends here
+    parent = dict(build.LAUNCHES)
+    peak_here = torch.cuda.max_memory_allocated() / 1e9
+    reserved_here = torch.cuda.max_memory_reserved() / 1e9
+    rss_here = RSS.gb()
+    gen = gens[0]
+    pinned_after = gen.call("pinned_count")
+    # versions published after the generator's last admission stay
+    # staged, their commit markers queued in its channel
+    staged_after = (gen.call("staged_versions"),
+                    ctl._channels_by_gen[gen.name][0].queued_versions())
+    subs = ctl._fabric.subscriber_stats()
+    events = tracer.events()
+    close_all_actors()
+    del ctl, gens, trn, ref, gen, actors, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_a = summed(p["launches"] for p in probes.values())
+    tokens = probes["trainer"]["batches"]
+    same_tokens = len(tokens) == len(ta) and all(
+        torch.equal(a, b) for a, b in zip(tokens, ta))
+    bit_equal = same_tokens and all(
+        a[k] == b[k] for a, b in zip(hist, ha) for k in keys)
+    for h in hist:
+        log(f"  (a) step {h['step']}: loss {h['loss']:.6f}, grad_norm "
+            f"{h['grad_norm']:.5f}, mean_ratio {h['mean_ratio']:.5f}, "
+            f"weight_version {h['weight_version']}")
+    chunk_s = [e[6] for e in spans(events, "chunk") if e[4] == "scheduler"]
+    up, down = weight_hops(events, "trainer", ["generator"])
+    log(f"  (a) proc, pool of 1, chunk scheduling, {len(hist)} steps in "
+        f"{wall:.2f} s: tokens equal to [10] (a) {same_tokens}, metrics "
+        f"bit-equal {bit_equal}; versions "
+        f"{[h['weight_version'] for h in hist]}; decode "
+        f"{1e3 * sum(chunk_s) / (len(chunk_s) * CHUNK):.2f} ms a token over "
+        f"{len(chunk_s)} chunks (host clock, the job and its KV state "
+        "crossing the socket every chunk)")
+    log(f"  (a) spawn s: " + ", ".join(f"{k} {v:.2f}"
+                                      for k, v in spawn_s.items()))
+    log(f"  (a) {hop_line('trainer -> controller (socket pair)', up)}")
+    log(f"  (a) {hop_line('controller -> generator (socket pair)', down)}")
+    log(f"  (a) launches: " + ", ".join(
+        f"{k} {p['launches']}" for k, p in probes.items())
+        + f", this process {parent}")
+    log(f"  (a) peak GB allocated (reserved) by process: " + ", ".join(
+        f"{k} {p['peak_gb']:.2f} ({p['reserved_gb']:.2f})"
+        for k, p in probes.items()) + f", controller {peak_here:.2f} "
+        f"({reserved_here:.2f}); {smi.line()}")
+    log(f"  (a) {rss_line(probes, rss_here)}")
+    log(f"  (a) generator: most params pinned at once "
+        f"{probes['generator']['most_pinned']}, pinned_count() after "
+        f"{pinned_after}; most staged slots {probes['generator']['most_staged']}"
+        f", staged after the run {staged_after[0]} (commit markers queued "
+        f"{staged_after[1]}); fabric {subs}")
+    require([h["weight_version"] for h in hist] == [0, 0, 1],
+            "(a) weight versions")
+    require(bit_equal, "(a) the process-placed loop differs from [10] (a)")
+    require(launches_a == want_a and not parent, f"(a) launches {launches_a}"
+            f" in the children and {parent} here, want {want_a} there")
+    require(all(not p["stray"] for p in probes.values()),
+            f"a child imported {[p['stray'] for p in probes.values()]}")
+    require(probes["generator"]["most_pinned"] > 0 and pinned_after == 0,
+            "(a) the remote generator's pins")
+    require(probes["generator"]["most_staged"] > 0
+            and staged_after[0] == staged_after[1]
+            and all(r["published"] > 0 for r in subs.values()),
+            "(a) staged slots not used, or one neither committed nor queued")
+
+    # (b) an engine pool of 2 on paged KV at 2 layers: in process, then shm
+    cfg2 = LLAMA31_8B.replace(name=f"llama31-8b-{PROC_LAYERS}l",
+                              n_layers=PROC_LAYERS)
+    L, steps_b = PROC_LAYERS, 4
+    proc_launches = [launches_a]
+    for transport in ("inproc", "shm"):
+        tracer.clear()
+        remote = transport != "inproc"
+        with ShmSegments() as shm:
+            ctl, gens, trn, ref, spawn_s = pool_controller(
+                torch, dev, cfg2, n_gens=2, steps=steps_b,
+                prompt_len=ENGINE_PROMPT, transport=transport,
+                pool=PoolConfig(engine=True, kv_layout="paged",
+                                kv_page_size=ENGINE_PAGE))
+            actors = gens + [ref, trn]
+            for h in actors:
+                h.call("probe", reset=True)
+            # device timelines of every process that launches kernels:
+            # each child, or this process for the threaded run
+            timelines = {h.name: h for h in actors} if remote else \
+                {"controller": DeviceTimeline()}
+            started = {k: (t.call("timeline", True) if remote else t.start())
+                       for k, t in timelines.items()}
+            build.reset_launches()      # (b)'s run starts here
+            torch.cuda.reset_peak_memory_stats()
+            RSS.reset()
+            with SmiMemory() as smi:
+                t0 = time.perf_counter()
+                hist = ctl.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            timelines = {k: (t.call("timeline", False) if remote
+                             else t.stop()) for k, t in timelines.items()}
+            probes = {h.name: h.call("probe") for h in actors}  # ... ends
+            parent = dict(build.LAUNCHES)
+            peak_here = torch.cuda.max_memory_allocated() / 1e9
+            reserved_here = torch.cuda.max_memory_reserved() / 1e9
+            rss_here = RSS.gb()
+            stats = [g.call("engine_stats") for g in gens]
+            after = [(g.call("pinned_count"), g.call("staged_versions"),
+                      ctl._channels_by_gen[g.name][0].queued_versions())
+                     for g in gens]
+            live = len(shm.live)
+            st = ctl.stats
+            events = tracer.events()
+            close_all_actors()
+            # the in-process run's executors live while a handle does
+            del ctl, gens, trn, ref, actors, h
+            gc.collect()
+            torch.cuda.empty_cache()
+        left = shm.left()
+        launches = summed(p["launches"] for p in probes.values()) \
+            if remote else parent
+        rounds = len([e for e in spans(events, "decode-round")
+                      if e[4] == "engine"])
+        misses = sum(e["radix_misses"] for e in stats)
+        tag = f"(b) {transport}"
+        require([h["step"] for h in hist] == list(range(steps_b))
+                and [h["weight_version"] for h in hist]
+                == [max(0, n - 1) for n in range(steps_b)]
+                and [h["generator"] for h in hist]
+                == [f"generator{n % 2}" for n in range(steps_b)]
+                and all(math.isfinite(h["loss"]) for h in hist),
+                f"{tag}: order, versions, workers or losses")
+        require(all(e["staleness_violations"] == 0 and e["running"] == 0
+                    and e["waiting"] == 0 and e["pages_in_use"] == 0
+                    for e in stats), f"{tag}: engine rows or pages left")
+        want = {"fused_sample": CHUNK * rounds,
+                "paged_attention": L * CHUNK * rounds,
+                "flash_attention": L * (misses + 2 * steps_b),
+                "fused_logprob": 2 * steps_b, "fused_logprob_bwd": steps_b}
+        require(launches == want and (not remote or not parent),
+                f"{tag}: launches {launches} (here {parent}), want {want}")
+        decode = decode_by_worker(events)
+        log(f"  {tag}: {steps_b} steps in {wall:.2f} s; versions "
+            f"{[h['weight_version'] for h in hist]}; decode ms a token by "
+            "worker (host clock): " + ", ".join(
+                f"{k} {v:.2f} over {n} rounds" for k, (v, n) in
+                decode.items()) + f"; launches {launches}")
+        log(f"  {tag} stats: wall_s {st['wall_s']:.3f}, gen_busy_s "
+            f"{st['gen_busy_s']:.3f}, train_busy_s {st['train_busy_s']:.3f},"
+            f" overlap_s {st['overlap_s']:.3f}, train_idle_s "
+            f"{st['train_idle_s']:.3f}, publish_s {st['publish_s']:.4f}")
+        log(f"  {tag} {device_overlap(timelines, started)}")
+        log(f"  {tag} {rss_line(probes if remote else {}, rss_here)}; "
+            f"/dev/shm: {len(shm.names)} segments created, "
+            f"{shm.peak / 1e9:.3f} GB at most at once")
+        if remote:
+            up, down = weight_hops(events, "trainer",
+                                   ["generator0", "generator1"])
+            log(f"  {tag} {hop_line('trainer -> controller (socket pair, '
+                                    'inline)', up)}")
+            log(f"  {tag} {hop_line('controller -> generator (shm)', down)}")
+            log(f"  {tag} spawn s: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in spawn_s.items()))
+            log(f"  {tag} peak GB allocated (reserved) by process: "
+                + ", ".join(f"{k} {p['peak_gb']:.2f} ({p['reserved_gb']:.2f})"
+                            for k, p in probes.items())
+                + f", controller {peak_here:.2f} ({reserved_here:.2f}); "
+                + smi.line())
+            log(f"  {tag} most staged slots a generator held at once "
+                + ", ".join(f"{k} {probes[k]['most_staged']}"
+                            for k in ("generator0", "generator1"))
+                + f"; most pinned {[probes[k]['most_pinned'] for k in ('generator0', 'generator1')]}"
+                " (engine rows decode under the current params and pin "
+                "nothing); (pinned_count, staged, commit markers queued) "
+                f"after the run {after}; {live} of the run's shm segments "
+                f"live before close_all_actors, still in /dev/shm after "
+                f"it: {left}")
+            require(all(not p["stray"] for p in probes.values()),
+                    f"{tag}: a child imported jax or repro")
+            require(all(p == 0 and staged == queued
+                        for p, staged, queued in after),
+                    f"{tag}: pins left, or a staged slot neither committed "
+                    f"nor queued {after}")
+            require(all(probes[k]["most_staged"] > 0
+                        for k in ("generator0", "generator1")),
+                    f"{tag}: no staged slot used")
+            require(live and not left, f"{tag}: shm segments left {left}")
+            proc_launches.append(launches)
+        else:
+            log(f"  {tag}: weights shared by reference (no hop); peak "
+                f"{peak_here:.2f} GB allocated ({reserved_here:.2f} "
+                f"reserved) in one process; {smi.line()}")
+
+    # (c) the quickstart with its actors on self-hosted sockets
+    os.environ["REPRO_TRANSPORT"] = "socket"
+    try:
+        t0 = time.perf_counter()
+        ctl = quickstart.build("cuda", len(quick_hist))
+        spawn = time.perf_counter() - t0
+    finally:
+        del os.environ["REPRO_TRANSPORT"]
+    kinds = sorted(type(h.transport).__name__
+                   for h in ctl.executors.values())
+    t0 = time.perf_counter()
+    hist = ctl.run()
+    wall = time.perf_counter() - t0
+    close_all_actors()
+    del ctl
+    gc.collect()
+    equal = len(hist) == len(quick_hist) and all(
+        a[k] == b[k] for a, b in zip(hist, quick_hist)
+        for k in keys + ("weight_version",))
+    log(f"  (c) socket: the quickstart's {len(hist)} steps with {kinds} in "
+        f"{wall:.2f} s (+{spawn:.2f} s building); bit-equal to [11] "
+        f"in process: {equal}")
+    require(equal, "(c) the socket-placed quickstart differs from [11]")
+    obs_trace.disable()
+    return summed(proc_launches)
+
+
+LAUNCH_FLAGS = ["--arch", "llama31-8b", "--smoke", "--steps", "3",
+                "--transport", "shm", "--n-generators", "2", "--kl-coef",
+                "0.1", "--engine", "--rollout-chunk", "4", "--kv-layout",
+                "paged"]
+
+
+def phase_launch(torch) -> dict:
+    """[13]: the launcher with the trainer, two engine generators on
+    paged KV and the reference in ``shm`` children.  (i) ``python -m
+    repro_torch.launch.train`` as a user runs it, a process of its own:
+    exit 0, 3 history rows, spans from every child in its trace.  (ii)
+    meanwhile, in this process, the launcher's ``build_controller`` with
+    the same flags and ``probed_executor`` factories: the children count
+    their launches and record their kernel calls, which each child then
+    holds against the plain versions.  Returns (ii)'s children's launch
+    counts."""
+    import functools
+
+    from repro_torch.core import close_all_actors
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    out, trace = build_dir / "launch.json", build_dir / "launch_trace.json"
+    for f in (out, trace):
+        if f.exists():
+            f.unlink()
+    cmd = [sys.executable, "-m", "repro_torch.launch.train"] + LAUNCH_FLAGS \
+        + ["--trace", str(trace.relative_to(ROOT)),
+           "--out", str(out.relative_to(ROOT))]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log(f"[13] launcher: (i) {' '.join(cmd[1:])} as a process of its own; "
+        "(ii) meanwhile its build_controller with the same flags here, "
+        "the children probed")
+    t0 = time.perf_counter()
+    with open(build_dir / "launch.stdout", "w") as so, \
+            open(build_dir / "launch.stderr", "w") as se:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=so, stderr=se)
+        try:
+            # (ii) the same flags through the launcher's own wiring
+            args = train.parse_args(LAUNCH_FLAGS)
+            probe = {kind: functools.partial(probed_executor, kind,
+                                             record=KernelCalls.ENGINE)
+                     for kind in ("trainer", "generator", "reference")}
+            t1 = time.perf_counter()
+            ctl = train.build_controller(
+                train.config_for(args), args, trainer_cls=probe["trainer"],
+                generator_cls=probe["generator"],
+                ref_cls=probe["reference"])
+            spawn = time.perf_counter() - t1
+            actors = [h for h in ctl.executors.values() if h.remote]
+            for h in actors:
+                h.call("probe", reset=True)
+            build.reset_launches()      # (ii)'s run starts here
+            hist = ctl.run()
+            probes = {h.name: h.call("probe") for h in actors}  # ... ends
+            parent = dict(build.LAUNCHES)
+            replays = {h.name: h.call("replay", f"(ii) {h.name}")
+                       for h in actors}
+            close_all_actors()
+            del ctl, actors, h
+        finally:
+            rc = proc.wait(timeout=600)
+    wall = time.perf_counter() - t0
+    stdout = (build_dir / "launch.stdout").read_text()
+    log(f"  (i) exit {rc}; (i) and (ii) together {wall:.1f} s, (ii) "
+        f"spawned its children in {spawn:.1f} s")
+    if rc != 0:
+        log(stdout[-4000:])
+        log((build_dir / "launch.stderr").read_text()[-4000:])
+    require(rc == 0, "the launcher failed")
+    doc = json.loads(out.read_text())
+    events = json.loads(trace.read_text())["traceEvents"]
+    named = {e["pid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e["name"] == "process_name"}
+    spanned = {named.get(e["pid"]) for e in events if e.get("ph") == "X"}
+    children = {"trainer", "generator0", "generator1", "ref"}
+    log(f"  (i) {len(doc['history'])} history rows, versions "
+        f"{[h['weight_version'] for h in doc['history']]}; processes with "
+        f"spans in the trace {sorted(map(str, spanned))}")
+    for line in stdout.splitlines():
+        if line.startswith("stats:"):
+            log("  (i) " + line)
+    require(len(doc["history"]) == 3, "the launcher's history")
+    require(children <= spanned, f"spans only from {sorted(spanned)}")
+    launches = {k: p["launches"] for k, p in probes.items()}
+    log(f"  (ii) {len(hist)} history rows, versions "
+        f"{[h['weight_version'] for h in hist]}; launches " + ", ".join(
+            f"{k} {v}" for k, v in launches.items())
+        + f", this process {parent}")
+    for lines in replays.values():
+        for line in lines:
+            log(line)
+    require(len(hist) == 3 and set(probes) == children,
+            f"(ii): {len(hist)} rows, children {sorted(probes)}")
+    require(not parent, f"(ii): kernels launched here {parent}")
+    require(all(not p["stray"] for p in probes.values()),
+            "(ii): a child imported jax or repro")
+    return summed(launches.values())
 
 
 def main() -> int:
@@ -2085,8 +2917,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_numerics(torch, dev)
     torch.cuda.empty_cache()
-    pool_launches = phase_pool(torch, dev)
-    quick_launches = phase_quickstart(torch, dev)
+    pool_launches, pool_a = phase_pool(torch, dev)
+    quick_launches, quick_hist = phase_quickstart(torch, dev)
+    proc_launches = phase_proc(torch, dev, pool_a, quick_hist)
+    launch_launches = phase_launch(torch)
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
@@ -2097,10 +2931,15 @@ def main() -> int:
                    "engine": engine_launches.get(r["name"], 0),
                    "int8": int8_launches.get(r["name"], 0),
                    "pool": pool_launches.get(r["name"], 0),
-                   "quickstart": quick_launches.get(r["name"], 0)}
+                   "quickstart": quick_launches.get(r["name"], 0),
+                   "proc": proc_launches.get(r["name"], 0),
+                   "launch": launch_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")
+        if r["name"] != "int8_matmul":
+            require(by_path["proc"] > 0 and by_path["launch"] > 0,
+                    f"{r['name']} never ran in a child process")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(smi)

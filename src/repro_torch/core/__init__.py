@@ -1,19 +1,26 @@
 """Lazy exports, as the JAX package's ``repro.core`` gives them (lazy to
-avoid the aipo <-> executor <-> trainstep import cycles).  The process
-transports, supervision and the wire format are not ported yet (ROADMAP
-A8, A9)."""
+avoid the aipo <-> executor <-> trainstep import cycles).  Supervision is
+not ported yet (ROADMAP A9)."""
 _EXPORTS = {
     "aipo_loss": "repro_torch.core.aipo",
     "importance_weights": "repro_torch.core.aipo",
     "token_logprobs": "repro_torch.core.aipo",
     "ActorDied": "repro_torch.core.actors",
     "ActorHandle": "repro_torch.core.actors",
+    "DeviceSpec": "repro_torch.core.actors",
     "InprocTransport": "repro_torch.core.actors",
+    "ProcTransport": "repro_torch.core.actors",
     "RemoteActorError": "repro_torch.core.actors",
+    "ShmTransport": "repro_torch.core.actors",
+    "SocketTransport": "repro_torch.core.actors",
+    "Transport": "repro_torch.core.actors",
     "SpawnSpec": "repro_torch.core.actors",
     "as_handle": "repro_torch.core.actors",
     "close_all_actors": "repro_torch.core.actors",
+    "serve_actor_host": "repro_torch.core.actors",
     "spawn_actor": "repro_torch.core.actors",
+    "serialize": "repro_torch.core.wire",
+    "deserialize": "repro_torch.core.wire",
     "WeightFabric": "repro_torch.core.fabric",
     "CommType": "repro_torch.core.channels",
     "CommunicationChannel": "repro_torch.core.channels",

@@ -37,11 +37,13 @@ threading changes wall-clock overlap, never numerics.  Passing an
 ``AdaptiveStalenessController`` as ``adaptive`` lets the bound move
 online between its ``min_bound`` and ``max_bound``.
 
-On a GPU every thread launches on the device's default stream (no
-executor is given a stream of its own), so the workers' and the
-consumer's kernels run in launch order on one queue: threads overlap
-their host work (Python dispatch, under the GIL) with each other's
-device work, never two executors' kernels with each other.
+On a GPU every thread of this process launches on the device's default
+stream (no executor is given a stream of its own), so in-process
+executors' kernels run in launch order on one queue: threads overlap
+their host work (Python dispatch, under the GIL) with each other's device
+work, never two executors' kernels with each other.  An actor behind a
+process transport runs in its own child, with its own interpreter lock,
+CUDA context and default stream.
 
 ``history`` records, per trained step: the trainer metrics plus
 ``weight_version`` (of the batch's generator weights), ``trainer_version``,

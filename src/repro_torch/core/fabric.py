@@ -12,8 +12,8 @@ that data plane for the async controller:
     the transfer toward the subscriber's device (``Transport.prepare``,
     deduped per distinct (port, comm type, target device)) and the
     channel send, overlapped with ongoing generation;
-  * a subscriber behind a process boundary (ROADMAP A8) owns versioned
-    **slots**: ``stage_weights`` parks the snapshot actor-side without
+  * a subscriber behind a process transport (``proc``, ``shm``,
+    ``socket``) owns versioned **slots**: ``stage_weights`` parks the snapshot actor-side without
     applying it, and the channel carries only a ``StagedWeights`` marker
     whose delivery at the worker's next staleness-legal drain is the
     ``commit_weights`` slot flip.  Slot depth is bounded

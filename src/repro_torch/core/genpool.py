@@ -1,6 +1,6 @@
 """Generator pool: multi-generator fan-in with partial-rollout chunk
 scheduling and adaptive staleness (the port of the JAX package's
-``core/genpool.py``, in-process actors, unsupervised).
+``core/genpool.py``, unsupervised).
 
 The paper's headline speed-up comes from overlapping generation with
 training (Fig. 2) and from partial rollouts that keep stragglers from
@@ -31,12 +31,15 @@ the threaded controller:
     staleness bound online: a starved trainer buys throughput with a
     wider bound; a backlogged queue narrows it back toward on-policy.
 
-Workers drive their generator through an ``ActorHandle``.  Every actor
-here is in process, so a worker computes on its own thread and the
-workers and the consumer share the GIL and, on a GPU, the device's
-default stream.  Supervision (respawn, fail-over of a lost worker's
-batches) comes with ROADMAP A9: until then a worker's exception stops
-the run, as the reference's unsupervised pool does.
+Workers drive their generator through an ``ActorHandle``.  An
+in-process generator computes on its worker's thread, sharing the
+interpreter lock and, on a GPU, the default stream with the other workers
+and the consumer; a generator behind a process transport (``proc``,
+``shm``, ``socket``) computes in its own child, with its own lock, CUDA
+context and stream, and pins each job's params on its side.  Supervision
+(respawn, fail-over of a lost worker's batches) comes with ROADMAP A9:
+until then a worker's exception, ``ActorDied`` included, stops the run,
+as the reference's unsupervised pool does.
 """
 from __future__ import annotations
 
@@ -57,13 +60,19 @@ from repro_torch.rl.scheduler import RolloutScheduler
 def build_generator_pool(cfg, trainer, make_tasks, *, n_generators=1,
                          generator_cls=None, name="generator", seed=0,
                          weight_port="policy_model", transport=None,
-                         **gen_kwargs):
+                         device_spec=None, addresses=None,
+                         call_timeout=600.0, **gen_kwargs):
     """The pool wiring convention, in one place: N generator actors
     (worker ``g`` named ``{name}{g}`` and seeded ``seed + g``; a pool of
     one keeps the bare ``name``) plus one versioned weight channel from
     the trainer into each.  ``make_tasks(g)`` builds worker ``g``'s task
-    source.  ``transport`` is ``"inproc"`` (None reads
-    ``REPRO_TRANSPORT``; the process transports are ROADMAP A8).  Returns
+    source (in this process; what it returns must pickle for a remote
+    transport).  ``transport`` picks the placement of every generator
+    ("inproc", "proc", "shm" or "socket"; None reads
+    ``REPRO_TRANSPORT``).  ``device_spec`` gives each spawned generator
+    its cards: one ``DeviceSpec`` for all, or a callable ``g -> spec``;
+    ``addresses`` (socket transport) assigns worker ``g`` the ``g``-th
+    ``--listen`` host, self-hosting any worker beyond the list.  Returns
     ``(generator_handles, weight_channels)``; the caller declares data
     channels outbound from ``generators[0]`` -- they serve the whole pool
     through per-item snapshots.
@@ -73,10 +82,13 @@ def build_generator_pool(cfg, trainer, make_tasks, *, n_generators=1,
     generator_cls = generator_cls or GeneratorExecutor
     gens, chans = [], []
     for g in range(n_generators):
+        spec = device_spec(g) if callable(device_spec) else device_spec
+        addr = addresses[g] if addresses and g < len(addresses) else None
         gen = spawn_actor(
             generator_cls, cfg, make_tasks(g), seed=seed + g,
             name=name if n_generators == 1 else f"{name}{g}",
-            transport=transport, **gen_kwargs)
+            transport=transport, device_spec=spec, address=addr,
+            call_timeout=call_timeout, **gen_kwargs)
         gens.append(gen)
         chans.append(WeightsCommunicationChannel(weight_port, trainer, gen))
     return gens, chans

@@ -1,0 +1,317 @@
+"""RL training launcher on the PyTorch port (the twin of the JAX package's
+``repro.launch.train``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch llama31-8b --smoke --steps 3 --transport shm --n-generators 2
+
+Builds the paper's loop -- a generator pool, the rule-based reward, the
+AIPO trainer and, with ``--kl-coef``, a frozen reference -- behind the
+single controller, and runs it.  The executors run on ``--device``
+(default ``cuda``).
+
+``--transport proc`` hosts the trainer, every pool generator and the
+reference each in its own spawned child, with its own interpreter lock,
+CUDA context and stream; the reward stays in the controller process.
+``--transport shm`` is the same placement with weight- and batch-sized
+payloads moving over shared-memory rings.  ``--transport socket`` goes
+across hosts: run
+
+    python -m repro_torch.launch.train --listen 0.0.0.0:9001
+
+on each actor host, then point the controller at them with ``--connect
+host1:9001,host2:9001``: actors are assigned trainer first, then pool
+generators, then the reference, and any actor beyond the list self-hosts
+on localhost.  ``--child-devices N`` gives every spawned child the first
+N cards (``CUDA_VISIBLE_DEVICES``).
+
+Other families (ROADMAP A11), supervision and fault injection (A9), and
+checkpoints and submeshes (A12) are not ported: their flags raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+from repro_torch.core import (AdaptiveStalenessController, CommType,
+                              CommunicationChannel, DeviceSpec,
+                              ExecutorController, GeneratorExecutor,
+                              PoolConfig,
+                              RefPolicyExecutor, RewardExecutor,
+                              TrainerExecutor, WeightsCommunicationChannel,
+                              build_generator_pool, close_all_actors,
+                              serve_actor_host, spawn_actor)
+from repro_torch.kernels import build
+from repro_torch.obs import trace as obs_trace
+from repro_torch.rl.data import VOCAB_SIZE, ArithmeticTasks
+
+
+def _parse_addr(s: str):
+    host, _, port = s.strip().rpartition(":")
+    return (host or "0.0.0.0", int(port))
+
+
+def _refuse_unported(args):
+    if args.supervise or args.chaos:
+        raise NotImplementedError(
+            "--supervise and --chaos come with the port of "
+            "core/supervise.py (ROADMAP A9)")
+    if args.checkpoint_every:
+        raise NotImplementedError(
+            "--checkpoint-every comes with the port of train/checkpoint.py "
+            "(ROADMAP A12)")
+    if args.child_mesh:
+        raise NotImplementedError(
+            "--child-mesh comes with the port of the mesh-bound pieces "
+            "(ROADMAP A12)")
+
+
+def config_for(args):
+    """The model config: llama31-8b, or its smoke variant with
+    ``--smoke``."""
+    if args.arch != "llama31-8b":
+        raise NotImplementedError(
+            f"--arch {args.arch}: the port runs llama31-8b; the other "
+            "families come with ROADMAP A11")
+    from repro_torch.configs.llama_paper import LLAMA31_8B, smoke
+    cfg = smoke() if args.smoke else LLAMA31_8B
+    if cfg.vocab < VOCAB_SIZE:
+        raise ValueError("config vocab too small for the tokenizer")
+    return cfg
+
+
+def build_controller(cfg, args, *, trainer_cls=TrainerExecutor,
+                     generator_cls=GeneratorExecutor,
+                     ref_cls=RefPolicyExecutor):
+    """The executors and channels behind the controller ``args`` asks
+    for; remote actors are spawned here, each built by its factory
+    (picklable for a remote transport)."""
+    _refuse_unported(args)
+    n_gens = max(1, args.n_generators)
+    if (args.mode == "sync" or args.sequential) and n_gens != 1:
+        raise ValueError("--n-generators > 1 needs the threaded async loop")
+    spec = DeviceSpec(device_count=args.child_devices) \
+        if args.child_devices else None
+    # --connect addresses are taken trainer first, then generators, then
+    # the reference; actors beyond the list self-host on localhost
+    addrs = [_parse_addr(a) for a in args.connect.split(",")
+             if a.strip()] if args.connect else []
+    trn = spawn_actor(trainer_cls, cfg, lr=args.lr, rho=args.rho,
+                      clip_mode=args.clip_mode, kl_coef=args.kl_coef,
+                      seed=args.seed, device=args.device,
+                      transport=args.transport, device_spec=spec,
+                      address=addrs[0] if addrs else None)
+    gens, channels = build_generator_pool(
+        cfg, trn,
+        lambda g: ArithmeticTasks(prompt_len=args.prompt_len,
+                                  max_operand=args.max_operand, ops="+-",
+                                  seed=args.seed + g),
+        n_generators=n_gens, generator_cls=generator_cls, seed=args.seed,
+        n_prompts=args.n_prompts,
+        n_per_prompt=args.n_per_prompt, max_new=args.max_new,
+        temperature=args.temp, quantize=args.quantize_generator,
+        chunk=args.rollout_chunk, device=args.device,
+        transport=args.transport, device_spec=spec,
+        addresses=addrs[1:1 + n_gens])
+    rew = RewardExecutor(n_per_prompt=args.n_per_prompt,
+                         leave_one_out=args.rloo)
+    executors = gens + [rew, trn]
+    if args.kl_coef > 0:
+        # paper Sec. 6: KL regularization against a frozen reference
+        ref = spawn_actor(ref_cls, cfg, transport=args.transport,
+                          device_spec=spec,
+                          address=addrs[1 + n_gens]
+                          if len(addrs) > 1 + n_gens else None)
+        executors.insert(len(gens), ref)
+        channels += [
+            WeightsCommunicationChannel("policy_model", trn, ref),
+            CommunicationChannel("completions", gens[0], ref,
+                                 CommType.BROADCAST),
+            CommunicationChannel("completions_with_ref", ref, rew,
+                                 CommType.GATHER),
+        ]
+    else:
+        channels.append(CommunicationChannel("completions", gens[0], rew,
+                                             CommType.GATHER))
+    channels.append(CommunicationChannel("completions_with_reward", rew,
+                                         trn, CommType.SCATTER))
+    adaptive = None
+    if args.adaptive_staleness > 0:
+        if args.mode != "async" or args.sequential:
+            raise ValueError("--adaptive-staleness acts on the threaded "
+                             "async loop only")
+        if args.adaptive_staleness < args.staleness:
+            raise ValueError(
+                f"--adaptive-staleness ({args.adaptive_staleness}) is the "
+                f"max bound and must be >= --staleness ({args.staleness})")
+        adaptive = AdaptiveStalenessController(
+            bound=args.staleness, min_bound=1,
+            max_bound=args.adaptive_staleness)
+    pool = None
+    if args.engine:
+        if args.mode != "async" or args.sequential:
+            raise ValueError("--engine needs the threaded async loop")
+        if args.rollout_chunk <= 0:
+            raise ValueError("--engine decodes in rounds: set "
+                             "--rollout-chunk >= 1")
+        pool = PoolConfig(engine=True,
+                          max_running_rows=args.max_running_rows,
+                          kv_layout=args.kv_layout
+                          or os.environ.get("REPRO_KV_LAYOUT", ""),
+                          kv_page_size=args.kv_page_size,
+                          kv_pages=args.kv_pages)
+    return ExecutorController(
+        executors, channels, max_steps=args.steps, mode=args.mode,
+        staleness=args.staleness, adaptive=adaptive,
+        overlap_publish=not args.no_overlap_publish, pool=pool)
+
+
+def run(args) -> dict:
+    """Build and run the loop ``args`` describes; every remote actor is
+    closed before this returns.  The result holds the history, the run's
+    stats and the staleness histogram."""
+    if args.trace:
+        # before any actor spawns: children read the boot flag, and the
+        # environment covers anything started outside the boot path
+        os.environ.setdefault(obs_trace.ENV_FLAG, "1")
+        obs_trace.enable("controller")
+    cfg = config_for(args)
+    if torch.device(args.device).type == "cuda":
+        # one nvcc a source here, not one a source in every child
+        build.build_all(sorted(p.stem for p in build.CSRC.glob("*.cu")))
+    ctl = build_controller(cfg, args)
+    try:
+        history = ctl.run_sequential() if args.sequential and \
+            args.mode == "async" else ctl.run()
+    finally:
+        close_all_actors()               # join the remote executors
+    return {"history": history, "stats": ctl.stats,
+            "staleness_hist": dict(ctl.staleness_hist)}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama31-8b",
+                    help="model family; the port runs llama31-8b (the "
+                    "others come with ROADMAP A11)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced config (llama31-smoke)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the trainer and generators")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--mode", default="async", choices=["sync", "async"])
+    ap.add_argument("--staleness", type=int, default=1)
+    ap.add_argument("--clip-mode", default="aipo",
+                    choices=["aipo", "ppo", "none", "is_unclipped"])
+    ap.add_argument("--rho", type=float, default=4.0)
+    ap.add_argument("--kl-coef", type=float, default=0.0)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--n-prompts", type=int, default=8)
+    ap.add_argument("--n-per-prompt", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--max-operand", type=int, default=20)
+    ap.add_argument("--temp", type=float, default=1.0)
+    ap.add_argument("--rloo", action="store_true")
+    ap.add_argument("--quantize-generator", action="store_true")
+    ap.add_argument("--rollout-chunk", type=int, default=0)
+    ap.add_argument("--engine", action="store_true",
+                    help="continuous-batching rollout engine (needs "
+                    "--rollout-chunk)")
+    ap.add_argument("--max-running-rows", type=int, default=0,
+                    help="engine slot-pool size (0 = 2x one batch's rows)")
+    ap.add_argument("--kv-layout", default="",
+                    choices=["", "dense", "paged"],
+                    help="engine KV layout (default: $REPRO_KV_LAYOUT, "
+                    "then dense)")
+    ap.add_argument("--kv-page-size", type=int, default=0,
+                    help="tokens per KV page (0 = 16)")
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="KV arena pages shared by all rows (0 = every "
+                    "slot fits a full row)")
+    ap.add_argument("--n-generators", type=int, default=1,
+                    help="generator pool size (async mode)")
+    ap.add_argument("--transport", default=None,
+                    choices=["inproc", "proc", "shm", "socket"],
+                    help="actor placement (default: $REPRO_TRANSPORT or "
+                    "inproc)")
+    ap.add_argument("--listen", default="",
+                    help="actor-host mode: serve executors to a remote "
+                    "controller on HOST:PORT (port 0: any free port) and "
+                    "never train here")
+    ap.add_argument("--connect", default="",
+                    help="comma-separated HOST:PORT actor hosts for "
+                    "--transport socket, assigned trainer first, then "
+                    "pool generators, then the reference")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="with --listen: the first N cards serve this "
+                    "host's actors")
+    ap.add_argument("--child-devices", type=int, default=0,
+                    help="the first N cards for every spawned child actor")
+    ap.add_argument("--child-mesh", default="",
+                    help="a submesh for every child (ROADMAP A12)")
+    ap.add_argument("--no-overlap-publish", action="store_true",
+                    help="publish weights on the consumer thread instead "
+                    "of the weight fabric's background publisher")
+    ap.add_argument("--adaptive-staleness", type=int, default=0,
+                    help="if > 0, the max bound for the adaptive "
+                    "staleness controller")
+    ap.add_argument("--supervise", action="store_true",
+                    help="supervised run (ROADMAP A9)")
+    ap.add_argument("--chaos", default="",
+                    help="fault injection spec (ROADMAP A9)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="periodic checkpoints (ROADMAP A12)")
+    ap.add_argument("--trace", default="",
+                    help="export a Chrome-trace JSON of the run to this "
+                    "path: spans of the controller, pool workers, fabric "
+                    "and every child on one timeline")
+    ap.add_argument("--sequential", action="store_true",
+                    help="run the async schedule on one thread")
+    ap.add_argument("--out", default="",
+                    help="write the history, stats and staleness "
+                    "histogram as JSON to this path")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.listen:
+        # actor-host mode: this process serves one executor a connection
+        # until killed; its cards are fixed before torch touches CUDA
+        if args.host_devices:
+            DeviceSpec(device_count=args.host_devices).apply_env()
+        host, port = _parse_addr(args.listen)
+        serve_actor_host(host, port, ready=lambda p: print(
+            f"actor host listening on {host}:{p}", flush=True))
+        return None
+    out = run(args)
+    history, stats = out["history"], out["stats"]
+    for h in history:
+        print({k: (round(v, 4) if isinstance(v, float) else v)
+               for k, v in h.items()})
+    print("stats:", {k: round(v, 3) for k, v in stats.items()})
+    print("staleness_hist:", dict(sorted(out["staleness_hist"].items())))
+    if args.trace:
+        from repro_torch.obs.__main__ import summary_lines
+        events = obs_trace.tracer().events()
+        obs_trace.export(args.trace, events=events, metadata={
+            "mode": args.mode, "steps": args.steps,
+            "transport": args.transport or
+            os.environ.get("REPRO_TRANSPORT", "inproc"),
+            "n_generators": args.n_generators})
+        print(f"trace: wrote {args.trace}")
+        for line in summary_lines(events):
+            print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return out
+
+
+if __name__ == "__main__":
+    main()

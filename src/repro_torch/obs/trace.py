@@ -20,10 +20,11 @@ on one timeline*.  This module is that timeline:
     kernel or model module imports it).
   * **cross-process hooks** -- ``drain``/``absorb`` and the flow
     events (``flow_start``/``flow_end``) are how a process-backed actor
-    ships its buffered events back onto the parent's epoch.  The port's
-    actors are all in process for now (their events land in this
-    tracer directly); the hooks are kept so the process transports
-    (ROADMAP A8) use the same event format.
+    ships its buffered events back onto the parent's epoch: a child's
+    events ride its call replies as ``("__trace__", events)`` frames,
+    shifted by the clock offset its transport measured at spawn
+    (``core/actors.py``).  In-process actors' events land in this
+    tracer directly.
   * ``to_chrome``/``export`` -- Chrome trace-event / Perfetto JSON: one
     pid row per actor process, one tid row per thread, complete ("X")
     spans, instant ("i") events and flow ("s"/"f") arrows, with the

@@ -36,7 +36,8 @@ def build(device=None, steps: int = 20,
     cfg = smoke().replace(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
                           head_dim=32, d_ff=256, vocab=64)
     tasks = ArithmeticTasks(prompt_len=10, max_operand=9, ops="+")
-    # transport=None reads $REPRO_TRANSPORT (inproc is the only one here)
+    # transport=None reads $REPRO_TRANSPORT: REPRO_TRANSPORT=proc puts the
+    # generator and the trainer each in a spawned child
     generator = spawn_actor(GeneratorExecutor, cfg, tasks, n_prompts=8,
                             n_per_prompt=4, max_new=6, temperature=1.0,
                             device=device)

@@ -196,7 +196,9 @@ def test_staleness_bound_violation_raises():
 
 def test_executor_controller_modes():
     """mode="async" builds the threaded controller; the pieces of the
-    reference not ported yet raise, naming their ROADMAP item."""
+    reference not ported yet raise, naming their ROADMAP item, and an
+    unknown transport is refused (the process transports run: see
+    tests/test_torch_actors.py)."""
     cfg = micro(tsmoke())
     ctl = _port_ctl(cfg, 1, 1, seed=1)
     threaded = ExecutorController(list(ctl.executors.values()),
@@ -212,10 +214,8 @@ def test_executor_controller_modes():
         ExecutorController(*args, mode="sync", supervise=True)
     with pytest.raises(NotImplementedError, match="A12"):
         ExecutorController(*args, mode="sync", checkpoint_every=2)
-    for transport in ("proc", "shm", "socket"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            spawn_actor(tex.RewardExecutor, n_per_prompt=1,
-                        transport=transport)
+    with pytest.raises(ValueError, match="unknown transport"):
+        spawn_actor(tex.RewardExecutor, n_per_prompt=1, transport="rdma")
     with pytest.raises(ValueError, match="unique"):
         SyncExecutorController([tex.RewardExecutor(n_per_prompt=1)] * 2,
                                [], 1)

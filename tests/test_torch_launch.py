@@ -1,0 +1,184 @@
+"""The port's launcher (``repro_torch.launch.train``) on the CPU: with
+``--transport proc`` it trains what ``--transport inproc`` trains, bit for
+bit; from the same converted init it tracks the JAX package's
+``repro.launch.train --arch llama31-8b --smoke`` within 1e-4; the flags of
+pieces not ported yet raise naming their ROADMAP item; ``--listen`` serves
+actors to a ``--connect`` controller on localhost; ``--out`` and
+``--trace`` write their files.
+
+The bit-for-bit cases run torch on one CPU thread in every process (see
+``tests/test_torch_actors.py``)."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import close_all_actors
+from repro_torch.launch import train
+
+ROOT = Path(__file__).resolve().parents[1]
+KEYS = ("loss", "grad_norm", "mean_ratio", "mean_logp", "mean_reward",
+        "weight_version", "sample_staleness", "generator")
+SMOKE = ["--arch", "llama31-8b", "--smoke", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def _reap_actors():
+    yield
+    close_all_actors()
+
+
+@pytest.fixture
+def one_thread(monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def rows(history):
+    return [[h[k] for k in KEYS] for h in history]
+
+
+def test_proc_equals_inproc(one_thread):
+    argv = SMOKE + ["--steps", "3", "--kl-coef", "0.1", "--rollout-chunk",
+                    "4"]
+    hi = train.run(train.parse_args(argv + ["--transport", "inproc"]))
+    args = train.parse_args(argv + ["--transport", "proc"])
+    ctl = train.build_controller(train.config_for(args), args)
+    # the trainer, generator and reference run in children, the reward
+    # here
+    assert sorted(n for n, h in ctl.executors.items() if h.remote) == [
+        "generator", "ref", "trainer"]
+    hp = ctl.run()
+    assert rows(hp) == rows(hi["history"])
+    assert [h["weight_version"] for h in hp] == [0, 0, 1]
+
+
+def test_build_controller_takes_executor_factories():
+    from repro_torch.core import (GeneratorExecutor, RefPolicyExecutor,
+                                  TrainerExecutor)
+
+    class Trainer(TrainerExecutor):
+        pass
+
+    class Generator(GeneratorExecutor):
+        pass
+
+    class Ref(RefPolicyExecutor):
+        pass
+    args = train.parse_args(SMOKE + ["--steps", "1", "--kl-coef", "0.1",
+                                     "--transport", "inproc"])
+    ctl = train.build_controller(train.config_for(args), args,
+                                 trainer_cls=Trainer, generator_cls=Generator,
+                                 ref_cls=Ref)
+    built = {n: type(h.transport.executor)
+             for n, h in ctl.executors.items()}
+    assert (built["trainer"], built["generator"], built["ref"]) == (
+        Trainer, Generator, Ref)
+    assert [h["weight_version"] for h in ctl.run()] == [0]
+
+
+def test_tracks_the_jax_launcher():
+    import argparse
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.llama_paper import smoke as jsmoke
+    from repro.launch import train as jtrain
+    from repro.train.trainstep import init_train_state as jinit_state
+    from repro_torch import convert
+    from repro_torch.train.optimizer import adam_init
+    from repro_torch.train.trainstep import TrainState
+
+    args = train.parse_args(SMOKE + ["--steps", "3", "--transport",
+                                     "inproc"])
+    jargs = argparse.Namespace(**vars(args), max_restarts=3,
+                               checkpoint_path="checkpoints")
+    jcfg = jsmoke()
+    jh = jtrain.build_controller(jcfg, jargs).run()
+    jparams = jax.device_get(
+        jinit_state(jcfg, jax.random.PRNGKey(0), jnp.float32).params)
+    ctl = train.build_controller(train.config_for(args), args)
+    trn = ctl.trainer.transport.executor
+
+    def init_from_jax():
+        params = convert.from_jax_numpy(jparams, device="cpu")
+        trn.state = TrainState(params, adam_init(params))
+        trn.set_output("policy_model", params)
+    trn.init = init_from_jax
+    th = ctl.run()
+    assert len(jh) == len(th) == 3
+    for j, t in zip(jh, th):
+        for k in ("step", "weight_version", "sample_staleness",
+                  "mean_reward"):
+            assert t[k] == j[k], (t["step"], k)
+        for k in ("loss", "mean_logp", "mean_ratio", "grad_norm"):
+            assert abs(t[k] - j[k]) <= 1e-4 * max(1.0, abs(j[k])), \
+                (t["step"], k, t[k], j[k])
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--arch", "starcoder2-3b"], "A11"),
+    (["--supervise"], "A9"),
+    (["--chaos", "kill:generator@batch=1"], "A9"),
+    (["--checkpoint-every", "2"], "A12"),
+    (["--child-mesh", "1x2"], "A12"),
+])
+def test_unported_flags_raise(flags, item):
+    args = train.parse_args(["--smoke", "--device", "cpu"] + flags)
+    with pytest.raises(NotImplementedError, match=item):
+        train.build_controller(train.config_for(args), args)
+
+
+def test_listen_serves_a_connecting_controller(one_thread, tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    host = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--listen",
+         "127.0.0.1:0"], cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        text=True)
+    try:
+        line = host.stdout.readline()
+        assert line.startswith("actor host listening on 127.0.0.1:"), line
+        port = int(line.rsplit(":", 1)[1])
+        argv = SMOKE + ["--steps", "2"]
+        args = train.parse_args(argv + ["--transport", "socket", "--connect",
+                                        f"127.0.0.1:{port}"])
+        ctl = train.build_controller(train.config_for(args), args)
+        assert ctl.trainer.transport.address == ("127.0.0.1", port)
+        assert ctl.generator.transport._proc is not None  # self-hosted
+        hs = ctl.run()
+        close_all_actors()
+        hi = train.run(train.parse_args(argv + ["--transport", "inproc"]))
+        assert rows(hs) == rows(hi["history"])
+    finally:
+        host.kill()
+        host.wait(timeout=30)
+
+
+def test_main_writes_out_and_trace(tmp_path, capsys, monkeypatch):
+    from repro_torch.obs import trace as obs_trace
+    out, trace = tmp_path / "run.json", tmp_path / "trace.json"
+    monkeypatch.setenv(obs_trace.ENV_FLAG, "1")
+    was_on = obs_trace.enabled()
+    try:
+        train.main(SMOKE + ["--steps", "2", "--transport", "inproc",
+                            "--out", str(out), "--trace", str(trace)])
+    finally:
+        if not was_on:
+            obs_trace.disable()
+    doc = json.loads(out.read_text())
+    assert [h["step"] for h in doc["history"]] == [0, 1]
+    assert set(doc) == {"history", "stats", "staleness_hist"}
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" for e in events)
+    assert "trace: wrote" in capsys.readouterr().out
