@@ -101,6 +101,31 @@ Each phase prints its own lines:
                its children probed: B1-B5 launched in the children, the
                first call of each shape each child gave a kernel held
                against its plain version there
+  [14] supervise  llama31-8b widths at 2 layers, bf16 params, fp32 Adam,
+               KL 0.1, under a ``Supervisor``.  (a) [12] (b)'s engine pool
+               of 2 on paged KV in ``shm`` children, staleness 2, 6 steps,
+               ``kill:generator1@batch=3`` while generator1's engine
+               holds batch 1 (it stalls at version 0): steps in order,
+               generator1 respawned, batch 1 re-admitted and emitted by
+               the second life, staleness, engine stats and radix hits,
+               the respawned child's first call of each shape held
+               against the plain version, the corpse's segments gone,
+               the card's memory before the kill, once the corpse exited
+               and after the recovery, spawn, replay and recovery
+               seconds; (b) the generator and the trainer threaded here,
+               the frozen reference in a ``proc`` child killed at the
+               consumer's batch 2: bit-equal to the same controller's run
+               without the fault, the respawned reference replaying its
+               version-0 seed and running B1, the first kernel call of
+               each shape here and in the reference's second life held
+               against the plain version; (c) ``python -m
+               repro_torch.launch.train ... --supervise --chaos`` twice as
+               processes of their own (a mid-decode kill respawned; with
+               ``--max-restarts 0`` generator1 lost and its batches on
+               generator0); (d) ``repro_torch.train_arithmetic_rl --steps
+               50 --eval-every 25``, its last checkpoint restored bit-equal
+               to the trainer's params, the first kernel call of each
+               shape held against the plain version
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -1905,14 +1930,17 @@ def measure(intervals) -> float:
     return float(sum(b - a for a, b in intervals))
 
 
-def probed_executor(kind, *args, ref_init=None, record=None, **kwargs):
-    """The executors of [10], [12] and [13], built where the actor lives
+def probed_executor(kind, *args, ref_init=None, record=None, stall=None,
+                    **kwargs):
+    """The executors of [10] and [12]-[14], built where the actor lives
     (in this process or in a spawned child): ``kind`` ("trainer",
     "generator" or "reference") with endpoints more.  ``probe()``
-    reports the process's kernel launch counts, its pid, peak CUDA
-    memory and peak resident set, any ``jax`` or ``repro`` module it
-    imported, the batches the trainer took and the most params the
-    generator held pinned and staged at once; ``probe(reset=True)`` then
+    reports the process's kernel launch counts, its pid, peak and
+    current CUDA memory and peak resident set, any ``jax`` or ``repro``
+    module it imported, the kernels it compiled itself, the batches the
+    trainer took, the most params the generator held pinned and staged
+    at once, and the (version, fingerprint) of each weight delivery the
+    reference received after construction; ``probe(reset=True)`` then
     zeroes the counts and the peaks.  ``timeline(True)`` starts a
     ``DeviceTimeline`` of the process, ``timeline(False)`` stops it and
     returns its intervals.  With ``record`` (wrapper names) the process
@@ -1920,7 +1948,11 @@ def probed_executor(kind, *args, ref_init=None, record=None, **kwargs):
     for its whole life, and ``replay(label)`` holds them against their
     plain versions there and returns the lines.  A reference built with
     ``ref_init=(seed, dtype, device)`` holds frozen weights of that
-    seed."""
+    seed.  The trainer's probe gives the fingerprint of its version 0
+    (``first_print``).  The engine of the generator named ``stall``
+    decodes one round at version 0 and then stalls, decoding nothing,
+    until a newer version lands: its first batch is still in flight when
+    the next one is admitted."""
     import torch
     from repro_torch.core import executor
     from repro_torch.kernels import build
@@ -1932,6 +1964,7 @@ def probed_executor(kind, *args, ref_init=None, record=None, **kwargs):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             self.batches, self.most_pinned, self.most_staged = [], 0, 0
+            self.delivered = []
             self._timeline = DeviceTimeline()
             self._calls = None
             if record:
@@ -1948,9 +1981,16 @@ def probed_executor(kind, *args, ref_init=None, record=None, **kwargs):
                    if cuda else 0.0,
                    "reserved_gb": torch.cuda.max_memory_reserved() / 1e9
                    if cuda else 0.0,
+                   "reserved_now_gb": torch.cuda.memory_reserved() / 1e9
+                   if cuda else 0.0,
                    "rss_gb": rss,
                    "batches": list(self.batches),
                    "most_pinned": self.most_pinned,
+                   "delivered": list(self.delivered),
+                   # kernels this process compiled (nvcc) rather than
+                   # loaded from the parent's build
+                   "built": sorted(build.BUILD_SECONDS),
+                   "first_print": getattr(self, "first_print", None),
                    "most_staged": self.most_staged}
             if reset:
                 build.reset_launches()
@@ -1972,7 +2012,12 @@ def probed_executor(kind, *args, ref_init=None, record=None, **kwargs):
             self.batches.append(
                 self.get_input("completions_with_reward")["tokens"].cpu())
             return base.step(self)
+
+        def init(self):
+            base.init(self)
+            self.first_print = params_print(self.get_output("policy_model"))
         Probed.step = step
+        Probed.init = init
     if kind == "generator":
         def begin_batch_pinned(self, batch_index=None):
             out = base.begin_batch_pinned(self, batch_index)
@@ -1983,23 +2028,43 @@ def probed_executor(kind, *args, ref_init=None, record=None, **kwargs):
             base.stage_weights(self, params, version)
             self.most_staged = max(self.most_staged,
                                    len(self.staged_versions()))
+
+        def engine_round(self, names):
+            if self.name == stall and self.weight_version == 0:
+                self.rounds_at_v0 = getattr(self, "rounds_at_v0", 0) + 1
+                if self.rounds_at_v0 > 1:
+                    time.sleep(0.2)
+                    return []
+            return base.engine_round(self, names)
         Probed.begin_batch_pinned = begin_batch_pinned
         Probed.stage_weights = stage_weights
+        Probed.engine_round = engine_round
+    if kind == "reference":
+        def set_weights(self, params, version=None):
+            # (version, a fingerprint of the delivered params)
+            self.delivered.append(
+                (version, params_print(params)))
+            base.set_weights(self, params, version)
+        Probed.set_weights = set_weights
     ex = Probed(*args, **kwargs)
     if ref_init is not None:
         from repro_torch.models import init_params
         seed, dtype, device = ref_init
         ex.set_weights(init_params(ex.cfg, seed=seed, dtype=dtype,
                                    device=device))
+    ex.delivered = []               # the deliveries after construction
     return ex
 
 
 def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16,
-                    transport="inproc"):
+                    transport="inproc", staleness=1, supervise=None,
+                    record=None, stall=None):
     """Generator pool -> frozen reference -> reward -> trainer behind the
-    threaded controller, staleness 1, KL to a reference from another seed
-    (as in [6]); the reward stays in this process, the other actors go
-    where ``transport`` puts them (``probed_executor``s).  Returns
+    threaded controller, staleness 1 unless told, KL to a reference from
+    another seed (as in [6]); the reward stays in this process, the other
+    actors go where ``transport`` puts them (``probed_executor``s, the
+    generators recording the kernel calls of ``record``, the one named
+    ``stall`` stalling at version 0).  Returns
     (controller, generator handles, trainer, reference, seconds each
     actor took to spawn)."""
     import functools
@@ -2028,7 +2093,8 @@ def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16,
         return ArithmeticTasks(prompt_len=prompt_len, seed=g)
     gens, chans = build_generator_pool(
         cfg, trn, make_tasks, n_generators=n_gens,
-        generator_cls=functools.partial(probed_executor, "generator"),
+        generator_cls=functools.partial(probed_executor, "generator",
+                                        record=record, stall=stall),
         n_prompts=N_PROMPTS, n_per_prompt=N_PER, max_new=MAX_NEW,
         chunk=CHUNK, temperature=1.0, device=dev, transport=transport)
     starts.append(time.perf_counter())
@@ -2041,8 +2107,8 @@ def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16,
         CommunicationChannel("completions_with_reward", rew, trn,
                              CommType.SCATTER)]
     ctl = ExecutorController(gens + [ref, rew, trn], chans, max_steps=steps,
-                             mode="async", staleness=1, timeout=900.0,
-                             pool=pool)
+                             mode="async", staleness=staleness,
+                             timeout=900.0, pool=pool, supervise=supervise)
     return ctl, gens, trn, ref, spawn_s
 
 
@@ -2882,6 +2948,389 @@ def phase_launch(torch) -> dict:
     return summed(launches.values())
 
 
+SUPERVISE_LAYERS = 2        # [14]: every child holds its own weights,
+                            # as in [12] (b)
+SUPERVISE_FLAGS = ["--arch", "llama31-8b", "--smoke", "--steps", "6",
+                   "--transport", "proc", "--n-generators", "2",
+                   "--rollout-chunk", "2", "--supervise"]
+
+
+def params_print(params) -> float:
+    """A fingerprint of a weight version: the sum of its output head,
+    which every train step moves (the embedding's row 0 may not)."""
+    return float(params["lm_head"].float().sum())
+
+
+def card_used_gb(torch) -> float:
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 1e9
+
+
+def phase_supervise(torch, dev) -> dict:
+    """[14]: supervision at llama31-8b's widths, 2 layers.  (a) an shm
+    engine pool of 2 whose generator1 is killed at batch 3 with batch 1
+    in flight, respawned, and batch 1 re-admitted; (b) the frozen reference in a proc child killed at
+    the consumer's batch 2, bit-equal to the same controller's run
+    without the fault; (c) the launcher with --supervise --chaos as a
+    process of its own, respawning and then degrading; (d) the
+    train_arithmetic_rl twin with checkpoints.  Returns the launch
+    counts of (a), (b) and (d)."""
+    from repro_torch import train_arithmetic_rl
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.core import (FaultPlan, PoolConfig, Supervisor,
+                                  close_all_actors)
+    from repro_torch.kernels import build
+    from repro_torch.train.checkpoint import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LLAMA31_8B.replace(name=f"llama31-8b-{SUPERVISE_LAYERS}l",
+                             n_layers=SUPERVISE_LAYERS)
+    launches = []
+    log(f"[14] supervise: llama31-8b widths at {SUPERVISE_LAYERS} layers, "
+        f"bf16 params, fp32 Adam, KL {KL_COEF}; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated here "
+        "before it")
+
+    class Measured(FaultPlan):
+        """The fault plan, reading the card and the victim just before
+        each fault and the card just after it (the corpse joined)."""
+
+        def __init__(self, spec):
+            super().__init__(FaultPlan.parse(spec).faults)
+            self.before = {}
+
+        def _execute(self, fault, handle):
+            t = handle.transport
+            self.before[handle.name] = {
+                "used_gb": card_used_gb(torch),
+                "probe": handle.call("probe"),
+                "inflight": handle.call("engine_inflight")
+                if handle.role == "generator" else [],
+                "segments": list(t.segment_names())
+                if hasattr(t, "segment_names") else []}
+            super()._execute(fault, handle)
+            self.before[handle.name]["after_kill_gb"] = card_used_gb(torch)
+
+    class MeasuredSupervisor(Supervisor):
+        """Reads the card once a recovery returns."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.after = {}
+
+        def recover(self, handle, error):
+            out = super().recover(handle, error)
+            self.after[handle.name] = card_used_gb(torch)
+            return out
+
+    # (a) generator1 killed at the admission of batch 3 while its batch 1
+    # is in flight, in an shm engine pool of 2
+    t0 = time.perf_counter()
+    chaos = Measured("kill:generator1@batch=3")
+    sup = MeasuredSupervisor(chaos=chaos)
+    with ShmSegments() as shm:
+        ctl, gens, trn, ref, spawn_s = pool_controller(
+            torch, dev, cfg, n_gens=2, steps=6, prompt_len=ENGINE_PROMPT,
+            transport="shm", staleness=2, supervise=sup,
+            record=KernelCalls.ENGINE, stall="generator1",
+            pool=PoolConfig(engine=True, kv_layout="paged",
+                            kv_page_size=ENGINE_PAGE))
+        actors = gens + [ref, trn]
+        for h in actors:
+            h.call("probe", reset=True)
+        build.reset_launches()          # (a)'s run starts here
+        hist = ctl.run()
+        probes = {h.name: h.call("probe") for h in actors}  # ... ends
+        parent = dict(build.LAUNCHES)
+        stats = {g.name: g.call("engine_stats") for g in gens}
+        replay = gens[1].call("replay", "(a) generator1, second life")
+        events = sup.events()
+        close_all_actors()
+        del ctl, gens, trn, ref, actors, h
+        gc.collect()
+        torch.cuda.empty_cache()
+    wall_a = time.perf_counter() - t0
+    victim = chaos.before["generator1"]
+    first_life = victim["probe"]
+    respawned = [e for e in events if e["event"] == "respawned"]
+    readmitted = [e for e in events if e["event"] == "readmitted"]
+    corpse_left = [n for n in victim["segments"]
+                   if os.path.exists(f"/dev/shm/{n}")]
+    launches.append(summed([p["launches"] for p in probes.values()]
+                           + [first_life["launches"]]))
+    second = probes["generator1"]
+    for h in hist:
+        log(f"  (a) step {h['step']}: {h['generator']}, weight_version "
+            f"{h['weight_version']}, loss {h['loss']:.6f}")
+    e = respawned[0] if respawned else {}
+    nan = float("nan")
+    log(f"  (a) {len(hist)} steps in {wall_a:.1f} s (spawning included); "
+        f"spawn s " + ", ".join(f"{k} {v:.2f}" for k, v in spawn_s.items()))
+    log(f"  (a) generator1 (pid {first_life['pid']}) killed at the "
+        f"admission of batch 3 with batches {victim['inflight']} in its "
+        f"engine: respawned in {e.get('spawn_s', nan):.2f} s, init "
+        f"{e.get('init_s', nan):.3f} s; the replay of version "
+        f"{e.get('version')}, {e.get('replay_gb', nan):.3f} GB, took "
+        f"{e.get('replay_s', nan):.2f} s until the child answered "
+        f"({e.get('replay_gb', nan) / e.get('replay_s', nan):.2f} GB/s); "
+        f"recovery_s {e.get('recovery_s', nan):.2f}; readmitted "
+        f"{[r.get('batches') for r in readmitted]}")
+    log(f"  (a) card memory used: {victim['used_gb']:.2f} GB before the "
+        f"kill (the victim's caching allocator {first_life['reserved_now_gb']:.2f}"
+        f" GB), {victim['after_kill_gb']:.2f} GB once it exited, "
+        f"{sup.after.get('generator1', nan):.2f} GB after the "
+        f"recovery (the new child's {second['reserved_now_gb']:.2f} GB at "
+        "the end); " + nvidia_smi())
+    log(f"  (a) engine stats: " + "; ".join(
+        f"{k}: batches_emitted {v['batches_emitted']}, radix_hits "
+        f"{v['radix_hits']}, radix_misses {v['radix_misses']}, "
+        f"staleness_violations {v['staleness_violations']}"
+        for k, v in stats.items()))
+    log(f"  (a) launches: first life of generator1 "
+        f"{first_life['launches']}, then " + ", ".join(
+            f"{k} {p['launches']}" for k, p in probes.items())
+        + f", this process {parent}; events "
+        + str([(ev["event"], ev["actor"]) for ev in events]))
+    for line in replay:
+        log(line)
+    require([h["step"] for h in hist] == list(range(6)), "(a) step order")
+    require(chaos.unfired() == [], "(a) the fault did not fire")
+    require([r["actor"] for r in respawned] == ["generator1"]
+            and [r["actor"] for r in readmitted] == ["generator1"]
+            and respawned[0]["recovery_s"] > 0,
+            f"(a) respawned {respawned}, readmitted {readmitted}")
+    # the batch in flight at the kill is re-enqueued into the new engine
+    # and emitted by the second life (1 again, then 3 and 5)
+    require(victim["inflight"] == [1]
+            and readmitted[0]["batches"] == "[1]"
+            and hist[1]["generator"] == "generator1"
+            and stats["generator1"]["batches_emitted"] == 3,
+            f"(a) in flight at the kill {victim['inflight']}, readmitted "
+            f"{readmitted}, the second life's stats {stats['generator1']}")
+    require(max(h["sample_staleness"] for h in hist) <= 2,
+            "(a) staleness above 2")
+    require(all(v["staleness_violations"] == 0 and v["waiting"] == 0
+                and v["running"] == 0 for v in stats.values())
+            and stats["generator1"]["radix_hits"] > 0,
+            f"(a) engine stats {stats}")
+    require(all(second["launches"].get(k, 0) > 0 for k in
+                ("fused_sample", "flash_attention", "paged_attention")),
+            f"(a) generator1's second life launched {second['launches']}")
+    require(not parent, f"(a) kernels launched here {parent}")
+    require(not second["built"], f"(a) the respawned child ran nvcc for "
+            f"{second['built']}")
+    require(victim["segments"] and not corpse_left,
+            f"(a) the corpse's shm segments left: {corpse_left}")
+    require(victim["used_gb"] - victim["after_kill_gb"]
+            >= first_life["reserved_now_gb"] - 1.0,
+            "(a) the corpse's memory was not returned when it exited")
+    # after the recovery the card holds at most 1 GB more than before the
+    # kill, and the new child holds at least the version replayed into it
+    require(sup.after["generator1"] <= victim["used_gb"] + 1.0,
+            "(a) the card holds more than 1 GB above its level before "
+            "the kill after the recovery")
+    require(e.get("replay_gb", 0) > 0
+            and second["reserved_now_gb"] >= e["replay_gb"],
+            f"(a) the new child holds {second['reserved_now_gb']:.2f} GB, "
+            f"less than the {e.get('replay_gb')} GB replayed into it")
+    require(all(not p["stray"] for p in probes.values()),
+            "(a) a child imported jax or repro")
+    require(not shm.left(), f"(a) shm segments left {shm.left()}")
+
+    # (c) the launcher, twice, as processes of their own, while (b) and
+    # (d) run here
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    runs = {"respawn": ["--chaos", "kill:generator1@batch=3,chunk=1"],
+            "degrade": ["--max-restarts", "0", "--chaos",
+                        "kill:generator1@batch=3"]}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for k, extra in runs.items():
+        out = build_dir / f"supervise_{k}.json"
+        if out.exists():
+            out.unlink()
+        cmd = [sys.executable, "-m", "repro_torch.launch.train"] \
+            + SUPERVISE_FLAGS + extra + ["--out", str(out.relative_to(ROOT))]
+        so = open(build_dir / f"supervise_{k}.stdout", "w")
+        se = open(build_dir / f"supervise_{k}.stderr", "w")
+        procs[k] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=so,
+                                     stderr=se), so, se, out, cmd)
+
+    # (b) the reference killed at the consumer's batch 2, against the
+    # same controller's run without the fault; the fault run records its
+    # kernel calls here and in the reference's second life
+    keys = ("loss", "grad_norm", "mean_ratio", "mean_reward")
+    runs_b = {}
+    build.reset_launches()
+    for label in ("fault", "clean"):
+        fault = label == "fault"
+        plan = Measured("kill:ref@consume=2") if fault else None
+        t0 = time.perf_counter()
+        ctl, gens, trn, ref = ref_child_controller(
+            torch, dev, cfg, plan, record=KernelCalls.NAMES if fault else None)
+        ref.call("probe", reset=True)
+        if fault:
+            with KernelCalls(torch, per_shape=1) as rec_b:
+                hist = ctl.run()
+            here_b = dict(build.LAUNCHES)
+            replay_b = ref.call("replay", "(b) the reference, second life") \
+                + rec_b.replay("(b) in process, the fault run", expect={
+                    f"{n}_cuda" for n, c in here_b.items() if c})
+            del rec_b
+        else:
+            hist = ctl.run()
+        runs_b[label] = (hist, ref.call("probe"), trn.call("probe"),
+                         plan.before.get("ref") if plan else None,
+                         ctl.supervisor.events())
+        log(f"  (b) {label}: {len(hist)} steps in "
+            f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+                f"step {h['step']} loss {h['loss']:.6f} grad_norm "
+                f"{h['grad_norm']:.5f}" for h in hist))
+        close_all_actors()
+        del ctl, gens, trn, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    parent_b = dict(build.LAUNCHES)
+    (hf, pf, tf, victim_b, ev_b), (hc, pc, _, _, _) = \
+        runs_b["fault"], runs_b["clean"]
+    seed_print = tf["first_print"]
+    launches.append(summed([parent_b, pf["launches"], pc["launches"],
+                            victim_b["probe"]["launches"]]))
+    resp_b = [e for e in ev_b if e["event"] == "respawned"]
+    log(f"  (b) the reference respawned in "
+        f"{resp_b[0]['spawn_s'] if resp_b else float('nan'):.2f} s, "
+        f"recovery_s {resp_b[0]['recovery_s'] if resp_b else float('nan'):.2f}"
+        f", replayed version {resp_b[0].get('version') if resp_b else None}; "
+        f"its second life's deliveries {pf['delivered']} (the trainer's "
+        f"version-0 fingerprint {seed_print}); its launches "
+        f"{pf['launches']}, the first life's {victim_b['probe']['launches']}"
+        f", here {parent_b}")
+    for line in replay_b:
+        log(line)
+    require([e["actor"] for e in resp_b] == ["ref"], f"(b) respawned {resp_b}")
+    require(len(hf) == len(hc) == 4 and all(
+        a[k] == b[k] for a, b in zip(hf, hc) for k in keys),
+        "(b) the faulty run differs from the clean run")
+    require(pf["delivered"] and pf["delivered"][0] == (0, seed_print),
+            "(b) the respawned reference's first delivery is not the "
+            "version-0 seed")
+    require(pf["launches"].get("fused_logprob", 0) > 0,
+            "(b) B1 did not run in the reference's second life")
+    require(not pf["built"], f"(b) the respawned reference ran nvcc for "
+            f"{pf['built']}")
+
+    # (d) train_arithmetic_rl on the card, with checkpoints; every kernel
+    # call of the first of its shapes held against its plain version
+    ck = build_dir / "supervise_ckpt"
+    if ck.exists():
+        for f in ck.iterdir():
+            f.unlink()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with KernelCalls(torch, per_shape=1, names=KernelCalls.ENGINE) as rec_d:
+        out = train_arithmetic_rl.main(["--steps", "50", "--eval-every",
+                                        "25", "--device", str(dev),
+                                        "--checkpoint-path", str(ck)])
+    wall_d = time.perf_counter() - t0
+    launched_d = dict(build.LAUNCHES)
+    launches.append(launched_d)
+    replay_d = rec_d.replay("(d)", expect={f"{n}_cuda" for n, c in
+                                           launched_d.items() if c})
+    del rec_d
+    last = restore_checkpoint(str(ck / "trainer_49"), out["model"])
+    same = all(torch.equal(a, b) for a, b in
+               zip(leaves(last), leaves(out["model"])))
+    log(f"  (d) train_arithmetic_rl --steps 50 --eval-every 25: "
+        f"{wall_d:.1f} s; evals {out['evals']}; checkpoints "
+        f"{sorted(p.name for p in ck.iterdir())}; the last restored "
+        f"bit-equal to get_model: {same}; launches {launched_d}")
+    for line in replay_d:
+        log(line)
+    require(len(out["evals"]) == 2 and len(out["history"]) == 50,
+            "(d) eval lines or history")
+    require(same, "(d) the last checkpoint differs from the trainer's model")
+    require(all(math.isfinite(h["loss"]) for h in out["history"]),
+            "(d) a loss is not finite")
+
+    # (c) read the launcher runs
+    for k, (proc, so, se, path, cmd) in procs.items():
+        rc = proc.wait(timeout=600)
+        so.close()
+        se.close()
+        stdout = (build_dir / f"supervise_{k}.stdout").read_text()
+        if rc != 0:
+            log(stdout[-4000:])
+            log((build_dir / f"supervise_{k}.stderr").read_text()[-4000:])
+        require(rc == 0, f"(c) {k}: the launcher exited {rc}")
+        doc = json.loads(path.read_text())
+        evs = [(e["event"], e["actor"]) for e in doc["events"]]
+        producers = [h["generator"] for h in doc["history"]]
+        printed = [ln for ln in stdout.splitlines()
+                   if ln.startswith("supervisor:")]
+        log(f"  (c) {k}: {' '.join(cmd[3:])}: exit {rc}; producers "
+            f"{producers}; events {evs}")
+        for ln in printed:
+            log(f"  (c) {k} printed {ln}")
+        require([h["step"] for h in doc["history"]] == list(range(6))
+                and printed, f"(c) {k}: history or printed events")
+        if k == "respawn":
+            require(("respawned", "generator1") in evs
+                    and producers == [f"generator{n % 2}"
+                                      for n in range(6)],
+                    f"(c) {k}: {evs}, {producers}")
+        else:
+            require(("lost", "generator1") in evs and producers ==
+                    ["generator0", "generator1"] + ["generator0"] * 4
+                    and [e["n_workers"] for e in doc["events"]
+                         if e["event"] == "pool-resized"] == [1],
+                    f"(c) {k}: {evs}, {producers}")
+    log(f"  [14] {time.perf_counter() - t_phase:.1f} s")
+    return summed(launches)
+
+
+def ref_child_controller(torch, dev, cfg, plan, record=None):
+    """[14] (b)'s loop, the launcher's ``--kl-coef`` wiring: the generator
+    (chunk scheduling) and the trainer threaded here, the frozen
+    reference (seed 1) in a proc child with its weight channel, staleness
+    1, 4 steps, supervised with the fault plan ``plan``; the reference
+    records the kernel calls of ``record``."""
+    import functools
+
+    from repro_torch.core import (CommType, CommunicationChannel,
+                                  ExecutorController, RewardExecutor,
+                                  Supervisor, WeightsCommunicationChannel,
+                                  build_generator_pool, spawn_actor)
+    from repro_torch.rl.data import ArithmeticTasks
+
+    ref = spawn_actor(probed_executor, "reference", cfg,
+                      ref_init=(1, torch.bfloat16, dev), record=record,
+                      transport="proc")
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    trn = spawn_actor(probed_executor, "trainer", cfg, dtype=torch.bfloat16,
+                      kl_coef=KL_COEF, seed=0, device=dev,
+                      transport="inproc")
+    gens, chans = build_generator_pool(
+        cfg, trn, lambda g: ArithmeticTasks(prompt_len=16, seed=g),
+        n_generators=1,
+        generator_cls=functools.partial(probed_executor, "generator"),
+        n_prompts=N_PROMPTS, n_per_prompt=N_PER, max_new=MAX_NEW,
+        chunk=CHUNK, temperature=1.0, device=dev, transport="inproc")
+    chans += [
+        WeightsCommunicationChannel("policy_model", trn, ref),
+        CommunicationChannel("completions", gens[0], ref, CommType.BROADCAST),
+        CommunicationChannel("completions_with_ref", ref, rew,
+                             CommType.GATHER),
+        CommunicationChannel("completions_with_reward", rew, trn,
+                             CommType.SCATTER)]
+    ctl = ExecutorController(gens + [ref, rew, trn], chans, max_steps=4,
+                             mode="async", staleness=1, timeout=900.0,
+                             supervise=Supervisor(chaos=plan))
+    return ctl, gens, trn, ref
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: no src/repro_torch beside chip_smoke.py",
@@ -2921,6 +3370,7 @@ def main() -> int:
     quick_launches, quick_hist = phase_quickstart(torch, dev)
     proc_launches = phase_proc(torch, dev, pool_a, quick_hist)
     launch_launches = phase_launch(torch)
+    supervise_launches = phase_supervise(torch, dev)
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
@@ -2933,13 +3383,16 @@ def main() -> int:
                    "pool": pool_launches.get(r["name"], 0),
                    "quickstart": quick_launches.get(r["name"], 0),
                    "proc": proc_launches.get(r["name"], 0),
-                   "launch": launch_launches.get(r["name"], 0)}
+                   "launch": launch_launches.get(r["name"], 0),
+                   "supervise": supervise_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")
         if r["name"] != "int8_matmul":
             require(by_path["proc"] > 0 and by_path["launch"] > 0,
                     f"{r['name']} never ran in a child process")
+            require(by_path["supervise"] > 0,
+                    f"{r['name']} never ran in the supervised runs")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(smi)

@@ -1,6 +1,7 @@
 """Lazy exports, as the JAX package's ``repro.core`` gives them (lazy to
-avoid the aipo <-> executor <-> trainstep import cycles).  Supervision is
-not ported yet (ROADMAP A9)."""
+avoid the aipo <-> executor <-> trainstep import cycles): the executors,
+actors and transports, channels and weight fabric, controllers, the
+generator pool, and supervision with fault injection."""
 _EXPORTS = {
     "aipo_loss": "repro_torch.core.aipo",
     "importance_weights": "repro_torch.core.aipo",
@@ -42,6 +43,10 @@ _EXPORTS = {
     "RewardExecutor": "repro_torch.core.executor",
     "TrainerExecutor": "repro_torch.core.executor",
     "RefPolicyExecutor": "repro_torch.core.executor",
+    "Supervisor": "repro_torch.core.supervise",
+    "RestartPolicy": "repro_torch.core.supervise",
+    "FaultPlan": "repro_torch.core.supervise",
+    "Fault": "repro_torch.core.supervise",
 }
 
 

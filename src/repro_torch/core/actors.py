@@ -52,7 +52,8 @@ single-threaded), so ``cast("set_weights", ...)`` then
 ``spawn_actor(factory, *args, transport=..., **kwargs)`` builds an
 executor behind a handle; ``transport=None`` reads ``REPRO_TRANSPORT``
 (default ``inproc``).  The factory and its arguments must pickle for the
-remote transports.  Respawning a dead actor is supervision (ROADMAP A9).
+remote transports.  ``ActorHandle.respawn`` rebuilds a dead actor from
+that recorded spec in place (``repro_torch.core.supervise`` drives it).
 """
 from __future__ import annotations
 
@@ -726,6 +727,8 @@ class _RpcTransport(Transport):
         self._stash: collections.deque = collections.deque()
         self._closed = False
         self.call_timeout = call_timeout
+        self.on_death = None             # liveness hook: cb(ActorDied)
+        self._death_notified = False
         self._trace_offset = 0.0         # child clock -> our trace epoch
         _LIVE_TRANSPORTS.add(self)
 
@@ -761,9 +764,19 @@ class _RpcTransport(Transport):
         raise NotImplementedError
 
     def _died(self, what) -> ActorDied:
+        """Mark the peer gone and build the error; the ``on_death`` hook
+        fires once, on the first poll or receive that finds it gone."""
         self._closed = True
-        return ActorDied(
+        err = ActorDied(
             f"actor '{self.name}' {self._exit_desc()} during {what}")
+        cb, self.on_death = self.on_death, None
+        if cb is not None and not self._death_notified:
+            self._death_notified = True
+            try:
+                cb(err)
+            except Exception:                # pragma: no cover - diagnostics
+                _log.exception("on_death callback for '%s'", self.name)
+        return err
 
     def _decode_frame(self, frame, what):
         """One decoded frame: acks are internal, messages come back."""
@@ -1328,9 +1341,35 @@ class ActorHandle:
         self.transport.close()
 
     def respawn(self) -> "ActorHandle":
-        raise NotImplementedError(
-            "respawning an actor is supervision, which comes with the port "
-            "of core/supervise.py (ROADMAP A9)")
+        """Rebuild this actor from its recorded spawn spec, swapping the
+        fresh transport in place.
+
+        Identity is the handle object, so every structure holding it --
+        pools, weight channels, controller maps -- follows the respawn.
+        The old transport is closed first, which joins the dead process
+        (its CUDA context is gone before the new child allocates) and
+        unlinks the shm segments the parent made for it; the new executor
+        starts blank (``init`` and the weight replay are the supervisor's
+        job)."""
+        spec = getattr(self, "spawn_spec", None)
+        if spec is None:
+            raise RuntimeError(
+                f"actor '{self.name}' has no recorded spawn spec "
+                "(not created via spawn_actor?)")
+        try:
+            self.transport.close()
+        except Exception as e:               # pragma: no cover - diagnostics
+            _log.debug("closing dead transport for '%s': %r", self.name, e)
+        t = spec.build()
+        self.transport = t
+        d = t.describe()
+        self.name = d["name"]
+        self.role = d["role"]
+        self.chunk_hooks = d["chunk_hooks"]
+        self.engine_hooks = d["engine_hooks"]
+        self.staged_weights = d["staged_weights"]
+        self._pinned_hooks = d["pinned_hooks"]
+        return self
 
     # -- chunk-stepping collaborator surface (RolloutScheduler) -------------
     # The scheduler calls advance_chunk(job, state), which mutates the job
@@ -1402,8 +1441,8 @@ def _check_transport(transport: str) -> str:
 class SpawnSpec:
     """How an actor was built: the factory, its arguments, the transport,
     the child's devices and the socket address, recorded on the handle by
-    ``spawn_actor`` so the actor can be rebuilt identically (supervision,
-    ROADMAP A9)."""
+    ``spawn_actor`` so the actor can be rebuilt identically
+    (``ActorHandle.respawn``)."""
 
     factory: Any
     args: Tuple = ()

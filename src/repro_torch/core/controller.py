@@ -55,10 +55,14 @@ producing ``generator``, ``queue_depth`` and per-executor idle time;
 Shutdown is deterministic: worker and consumer threads are non-daemon,
 and on completion, error or timeout the controller closes the sample
 queue and channels so any blocked peer unwinds with ``Closed`` and joins;
-a worker's exception re-raises on the calling thread.  Supervision
-(``supervise=``, ROADMAP A9) and periodic checkpoints
-(``checkpoint_every``, A12) are not ported: setting either raises
-``NotImplementedError``.
+a worker's exception re-raises on the calling thread.
+
+``supervise=`` (``True``, a ``RestartPolicy`` or a ``Supervisor``) makes
+the threaded loop survive a dead generator or reference actor: the pool's
+workers recover their own generators (``repro_torch.core.genpool``), the
+consumer recovers the reference and retries the batch, and the trainer
+stays fail-fast, as in the reference.  ``checkpoint_every`` writes the
+trainer's params to ``checkpoint_path`` every that many steps.
 """
 from __future__ import annotations
 
@@ -68,13 +72,14 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-from repro_torch.core.actors import ActorHandle, as_handle
+from repro_torch.core.actors import ActorDied, ActorHandle, as_handle
 from repro_torch.core.channels import CommType, CommunicationChannel, \
     WeightsCommunicationChannel
 from repro_torch.core.fabric import WeightFabric, payload_key
 from repro_torch.core.genpool import AdaptiveStalenessController, \
     FixedStaleness, GeneratorPool, PoolConfig
 from repro_torch.core.offpolicy import Closed, StalenessBuffer
+from repro_torch.core.supervise import RESPAWNED, RestartPolicy, Supervisor
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import IntervalUnion, interval_overlap
@@ -219,21 +224,21 @@ class SyncExecutorController:
     def __init__(self, executor_group: List[ActorHandle],
                  communication_channels: List[CommunicationChannel],
                  max_steps: int, mode: str = "sync", staleness: int = 1,
-                 checkpoint_every: int = 0, timeout: float = 600.0,
+                 checkpoint_every: int = 0, checkpoint_path: str = "",
+                 timeout: float = 600.0,
                  pool: Optional[PoolConfig] = None,
                  adaptive: Optional[AdaptiveStalenessController] = None,
                  overlap_publish: bool = True,
                  supervise=None):
         if mode not in ("sync", "async"):
             raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
-        if supervise not in (None, False):
-            raise NotImplementedError(
-                "supervision comes with the port of core/supervise.py "
-                "(ROADMAP A9); pass supervise=None")
-        if checkpoint_every:
-            raise NotImplementedError(
-                "periodic checkpoints come with the port of "
-                "train/checkpoint.py (ROADMAP A12)")
+        # supervise: None/False = fail-fast; True = a Supervisor with the
+        # default RestartPolicy; a RestartPolicy or a Supervisor as given
+        if supervise is True:
+            supervise = Supervisor()
+        elif isinstance(supervise, RestartPolicy):
+            supervise = Supervisor(supervise)
+        self.supervisor: Optional[Supervisor] = supervise or None
         handles = [as_handle(e) for e in executor_group]
         names = [h.name for h in handles]
         if len(names) != len(set(names)):
@@ -246,6 +251,8 @@ class SyncExecutorController:
         self.mode = mode
         # sync mode is the on-policy baseline: weights delivered fresh
         self.staleness = max(1, staleness) if mode == "async" else 0
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_path = checkpoint_path
         self.timeout = timeout
         self.pool_config = pool
         self.adaptive = adaptive
@@ -297,7 +304,9 @@ class SyncExecutorController:
         """Push this tick's trainer weights as version ``tick`` and
         deliver what the StalenessBuffer releases: exactly version
         ``tick - staleness`` once tick >= staleness.  Idempotent per
-        (channel, tick)."""
+        (channel, tick), so a supervised retry of a failed pipeline stage
+        never pushes a version twice; a delivery lost with the inbound
+        actor is replayed by the supervisor from its recorded seed."""
         for ch in (channels if channels is not None
                    else self._weight_channels()):
             if self._pushed_tick.get(id(ch), -1) >= tick:
@@ -346,6 +355,16 @@ class SyncExecutorController:
             "controller.batch_s").observe(step_time)
         self.history.append(metrics)
 
+    def _maybe_checkpoint(self, step: int):
+        """Every ``checkpoint_every`` steps, each stage's
+        ``save_checkpoint`` (the trainer writes ``{name}_{step}``).  Pool
+        generators hold nothing to save and are skipped: their handles
+        belong to their workers, which may be respawning one."""
+        if self.checkpoint_every and (step + 1) % self.checkpoint_every == 0:
+            for h in self.executors.values():
+                if h.role != "generator":
+                    h.call("save_checkpoint", self.checkpoint_path, step)
+
     def init(self):
         if self._initialized:
             return
@@ -387,6 +406,7 @@ class SyncExecutorController:
             self._tick += 1
             wv = gen.call("weight_version") if gen is not None else step
             self._record(step, time.perf_counter() - t0, weight_version=wv)
+            self._maybe_checkpoint(step)
         wall = time.monotonic() - wall0
         self.stats = {"wall_s": wall, "gen_busy_s": wall,
                       "train_busy_s": wall, "overlap_s": 0.0,
@@ -452,6 +472,13 @@ class AsyncExecutorController(SyncExecutorController):
             self._live_weight_channels, overlap=self.overlap_publish,
             max_staged=2 * max_bound + n_gens + 4, timeout=self.timeout)
         self._pool: Optional[GeneratorPool] = None
+        if self.supervisor is not None:
+            self.supervisor.attach_fabric(self._fabric, self._bounds)
+            for gen in self.generators:
+                self.supervisor.register(
+                    gen, channels=self._channels_by_gen[gen.name])
+            # the fabric's publish loop is a chaos injection site too
+            self._fabric.chaos = self.supervisor.chaos
 
     # The sequential reference: identical schedule, identical numerics, one
     # thread, no overlap.  Used to verify the threaded path bit for bit.
@@ -464,14 +491,31 @@ class AsyncExecutorController(SyncExecutorController):
             return
         super().init()
         # init() delivers version 0 directly, so the fabric never sees
-        # it: seed its replay source for a generator attached before the
-        # first publish
+        # it: seed its replay source for a generator attached, or
+        # respawned, before the first publish
         payloads: Dict[tuple, object] = {}
         for ch in self._live_weight_channels:
             key = payload_key(ch)
             if key not in payloads:
                 payloads[key] = ch.outbound.call("get_output", ch.name)
         self._fabric.seed(0, payloads)
+        if self.supervisor is not None:
+            # non-generator weight consumers (the frozen reference) are
+            # replayed from their recorded version-0 seed, not from the
+            # fabric: only their first sync ever sticks
+            by_actor: Dict[str, list] = {}
+            for ch in self._aux_weight_channels:
+                if ch.inbound.role not in ("generator", "trainer"):
+                    by_actor.setdefault(ch.inbound.name, []).append(ch)
+            for chs in by_actor.values():
+                h = chs[0].inbound
+                if self.supervisor.covers(h):
+                    continue
+                key = payload_key(chs[0])     # the fabric's copy, if ours
+                seed = payloads[key] if key in payloads else \
+                    chs[0].outbound.call("get_output", chs[0].name)
+                self.supervisor.register(h, channels=chs,
+                                         seed_weights=(0, seed))
 
     def shutdown(self):
         """Close the sample queue, all channels and the weight fabric:
@@ -519,6 +563,7 @@ class AsyncExecutorController(SyncExecutorController):
         others = [h for h in self.executors.values()
                   if h not in self.generators]
         pool_chs = self._pool_data_channels()
+        chaos = self.supervisor.chaos if self.supervisor is not None else None
         pending: Dict[int, tuple] = {}       # out-of-order fan-in reorder
         for n in range(first, last):
             t0 = time.monotonic()
@@ -534,23 +579,38 @@ class AsyncExecutorController(SyncExecutorController):
             wait = time.monotonic() - t0
             version, item = pending.pop(n)
             depth = len(self._sample_queue) + len(pending)
+            if chaos is not None:
+                chaos.fire_any("consume", n)
             t0 = time.perf_counter()
             busy0 = time.monotonic()
-            for h in others:
-                h.call("set_step", n)
-            if n > 0:
-                # non-generator weight consumers get the same delayed
-                # delivery the sequential path gives them
-                self._sync_weights(n, channels=self._aux_weight_channels)
-            for ch in self._data_channels():
-                # one span per pipeline hop, named by the stage it feeds
-                # (reward / reference / trainer)
-                with obs_trace.span(ch.inbound.role, "controller", batch=n):
-                    if ch in pool_chs:
-                        ch.deliver(item["snapshot"][ch.name])
-                    else:
-                        ch.communicate()
-                    ch.inbound.call("step")
+            # the per-batch pipeline retries around a supervised actor's
+            # death: set_step is idempotent, _sync_weights guards its
+            # tick, and the scoring stages recompute the same outputs
+            # from the same inputs; the trainer's update is the last hop,
+            # so any failure recovered here happened before it
+            while True:
+                try:
+                    for h in others:
+                        h.call("set_step", n)
+                    if n > 0:
+                        # non-generator weight consumers get the same
+                        # delayed delivery the sequential path gives them
+                        self._sync_weights(
+                            n, channels=self._aux_weight_channels)
+                    for ch in self._data_channels():
+                        # one span per pipeline hop, named by the stage
+                        # it feeds (reward / reference / trainer)
+                        with obs_trace.span(ch.inbound.role, "controller",
+                                            batch=n):
+                            if ch in pool_chs:
+                                ch.deliver(item["snapshot"][ch.name])
+                            else:
+                                ch.communicate()
+                            ch.inbound.call("step")
+                    break
+                except (ActorDied, TimeoutError) as e:
+                    if not self._recover_consumer_actor(e):
+                        raise
             # weight publication goes to the fabric: snapshot the source
             # port *now* (the next trainer step must not leak into version
             # n+1), then let the publisher thread run the transfer
@@ -579,6 +639,23 @@ class AsyncExecutorController(SyncExecutorController):
                          queue_depth=depth, bound=item.get("bound"),
                          generator=item.get("generator"),
                          gen_idle_s=item["gen_idle_s"], train_idle_s=wait)
+            self._maybe_checkpoint(n)
+
+    def _recover_consumer_actor(self, error: BaseException) -> bool:
+        """A consumer-side pipeline hop failed: find the supervised
+        non-generator actor that died and recover it.  False (retrying is
+        hopeless) when unsupervised, when nothing covered died, or when
+        the restart budget is gone: the reward and reference stages are
+        essential, so a lost one fails the run."""
+        sup = self.supervisor
+        if sup is None or not isinstance(error, ActorDied):
+            return False
+        for h in self.executors.values():
+            if h.role in ("generator", "trainer"):
+                continue            # pool workers recover their own; the
+            if sup.covers(h) and not h.healthy():  # trainer is fail-fast
+                return sup.recover(h, error) == RESPAWNED
+        return False
 
     # ------------------------------------------------------ elastic resize --
 
@@ -605,6 +682,8 @@ class AsyncExecutorController(SyncExecutorController):
         self._live_weight_channels.append(ch)
         self.channels.append(ch)
         handle.call("init")
+        if self.supervisor is not None:
+            self.supervisor.register(handle, channels=[ch])
         # subscribe + replay the latest version so the newcomer is
         # admission-legal before the next publish
         self._fabric.add_subscriber(ch)
@@ -636,7 +715,7 @@ class AsyncExecutorController(SyncExecutorController):
             self.generators, self._channels_by_gen,
             self._pool_data_channels(), self._sample_queue, self._bounds,
             config=self.pool_config, timeout=self.timeout,
-            await_fn=self._await)
+            await_fn=self._await, supervisor=self.supervisor)
         self._pool = pool
 
         def guarded(fn, *args):

@@ -9,7 +9,9 @@ continuous-batching engine's hooks (``engine_*``).
 """
 from __future__ import annotations
 
+import os
 import threading
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -82,7 +84,18 @@ class Executor:
             return self._inputs.get(name, default)
 
     def ping(self) -> str:
+        """Health endpoint: a live actor answers with its name."""
         return self.name
+
+    def chaos_hang(self, seconds: float):
+        """Fault-injection endpoint (``FaultPlan`` "hang"): wedge this
+        actor's server loop so the caller's timeout fires and the
+        supervisor's hang-or-slow triage runs."""
+        time.sleep(float(seconds))
+
+    def save_checkpoint(self, path: str, step: int):
+        """Periodic checkpoint hook (``checkpoint_every``); only the
+        trainer has state worth saving."""
 
     # ------------------------------------------- weight-fabric slot surface --
     # ``stage_weights`` parks a versioned snapshot without applying it; the
@@ -211,7 +224,8 @@ class GeneratorExecutor(Executor):
 
     def repin_job(self, job):
         """Re-snapshot an in-flight job's params on the current weights
-        (re-admission after a respawn, ROADMAP A9).  Versions only move
+        (re-admission after a respawn, ``core/supervise.py``).  Versions
+        only move
         forward; the caller re-asserts the staleness bound."""
         if self.params is None:
             raise RuntimeError("repin before any weights were delivered")
@@ -479,6 +493,9 @@ class TrainerExecutor(Executor):
         return metrics
 
     def save_checkpoint(self, path: str, step: int):
-        raise NotImplementedError(
-            "checkpoints come with the port of train/checkpoint.py "
-            "(ROADMAP A12)")
+        """Write the params as ``{path}/{name}_{step}`` (``.npz`` and
+        ``.json``, the JAX package's checkpoint format)."""
+        from repro_torch.train.checkpoint import save_checkpoint
+        os.makedirs(path, exist_ok=True)
+        save_checkpoint(os.path.join(path, f"{self.name}_{step}"),
+                        self.state.params)

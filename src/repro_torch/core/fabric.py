@@ -35,6 +35,7 @@ them with generator busy spans to report ``publish_overlap_s``.
 from __future__ import annotations
 
 import collections
+import logging
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -43,6 +44,8 @@ from repro_torch.core.actors import ActorDied
 from repro_torch.core.channels import StagedWeights
 from repro_torch.core.offpolicy import Closed
 from repro_torch.obs import trace as obs_trace
+
+_log = logging.getLogger(__name__)
 
 #: exception classes that indicate ONE subscriber's transport failed --
 #: isolated per-channel so the shared publish loop keeps serving the
@@ -91,6 +94,11 @@ class WeightFabric:
         self.published: List[Tuple[int, float]] = []
         #: per-subscriber publish breakdown (see ``subscriber_stats``)
         self.sub_stats: Dict[str, Dict[str, float]] = {}
+        #: hook: cb(ch, exc) fired (outside the fabric lock) when a
+        #: subscriber's transport fails mid-publish and is detached
+        self.on_subscriber_down = None
+        #: optional FaultPlan fired per (subscriber, version) publication
+        self.chaos = None
 
     # -------------------------------------------------------------- publish --
 
@@ -158,6 +166,7 @@ class WeightFabric:
         with self._cond:
             self._busy_version = version
         transferred: Dict[tuple, Any] = {}
+        down: List[tuple] = []
         try:
             for ch in self.channels:
                 with self._cond:
@@ -171,6 +180,7 @@ class WeightFabric:
                     # ONE subscriber's transport failed: record it, free
                     # its slots, keep publishing to the healthy peers
                     self._mark_dead(ch, e)
+                    down.append((ch, e))
         finally:
             t1 = time.monotonic()
             # the controller reads these while the publisher thread is
@@ -186,9 +196,19 @@ class WeightFabric:
             obs_trace.complete("publish", "fabric",
                                t0 - obs_trace.epoch(),
                                t1 - obs_trace.epoch(), version=version)
+        cb = self.on_subscriber_down
+        if cb is not None:
+            for ch, e in down:               # outside the fabric lock
+                try:
+                    cb(ch, e)
+                except Exception as err:     # pragma: no cover - diagnostics
+                    _log.debug("on_subscriber_down for '%s': %r",
+                               ch.inbound.name, err)
 
     def _publish_one(self, ch, version, payloads, transferred):
         name = ch.inbound.name
+        if self.chaos is not None:
+            self.chaos.fire("publish", name, version)
         pkey = payload_key(ch)
         # one transfer per distinct (payload, comm type, target device),
         # fanned out to every same-target channel

@@ -1,6 +1,6 @@
 """Generator pool: multi-generator fan-in with partial-rollout chunk
-scheduling and adaptive staleness (the port of the JAX package's
-``core/genpool.py``, unsupervised).
+scheduling, adaptive staleness and supervised recovery (the port of the
+JAX package's ``core/genpool.py``).
 
 The paper's headline speed-up comes from overlapping generation with
 training (Fig. 2) and from partial rollouts that keep stragglers from
@@ -36,10 +36,15 @@ in-process generator computes on its worker's thread, sharing the
 interpreter lock and, on a GPU, the default stream with the other workers
 and the consumer; a generator behind a process transport (``proc``,
 ``shm``, ``socket``) computes in its own child, with its own lock, CUDA
-context and stream, and pins each job's params on its side.  Supervision
-(respawn, fail-over of a lost worker's batches) comes with ROADMAP A9:
-until then a worker's exception, ``ActorDied`` included, stops the run,
-as the reference's unsupervised pool does.
+context and stream, and pins each job's params on its side.
+
+Unsupervised, a worker's exception -- ``ActorDied`` included -- stops the
+run.  With a ``Supervisor`` (``repro_torch.core.supervise``) a worker
+whose generator died or hung hands it to ``Supervisor.recover``: a
+respawned generator gets the latest weights replayed, the worker re-pins
+its in-flight jobs (the engine re-enqueues its batches) and retries the
+batch it was on; a generator declared lost has its unfinished batches
+failed over to the surviving workers (``WorkAssignment.fail_over``).
 """
 from __future__ import annotations
 
@@ -51,8 +56,9 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
-from repro_torch.core.actors import spawn_actor
+from repro_torch.core.actors import ActorDied, spawn_actor
 from repro_torch.core.offpolicy import PartialRolloutCache, StalenessBuffer
+from repro_torch.core.supervise import LOST, RESPAWNED
 from repro_torch.obs import trace as obs_trace
 from repro_torch.rl.scheduler import RolloutScheduler
 
@@ -187,7 +193,8 @@ class AdaptiveStalenessController:
             self.bound_history.append(self._bound)
 
     def on_pool_resize(self, n_workers: int):
-        """Pool membership changed (runtime attach/detach): the starvation
+        """Pool membership changed (a worker lost, runtime attach/detach):
+        the starvation
         window describes a pool that no longer exists, so drop it and
         re-tune from fresh observations."""
         with self._lock:
@@ -199,11 +206,17 @@ class _SnapshotEmitter:
     and port snapshot into one endpoint: ``emit_batch`` returns the
     ``{channel name: output}`` snapshot the worker pushes."""
 
-    def __init__(self, gen, names):
+    def __init__(self, gen, names, chaos=None):
         self._gen = gen
         self._names = list(names)
+        self._chaos = chaos
 
     def advance_chunk(self, job, state):
+        if self._chaos is not None:
+            # mid-decode injection point: "batch=N,chunk=C" faults fire
+            # here, right before chunk C of batch N advances
+            self._chaos.fire("batch", self._gen.name, job.batch_index,
+                             job.chunks_done)
         return self._gen.advance_chunk(job, state)
 
     def emit_batch(self, job, state):
@@ -218,17 +231,21 @@ class WorkAssignment:
 
     Initialized round-robin -- worker ``i`` owns ``first+i, first+i+N,
     ...`` -- which is exactly the schedule the static loops produce, so
-    pool-of-1 equivalence holds.  Runtime grow/shrink
-    (``add_worker`` / ``drain_worker`` + ``rebalance``) re-deals the
-    unstarted indices round-robin over the current members; a draining
-    worker finishes its in-flight jobs but receives nothing new.  Each
-    worker's queue stays sorted ascending: a queue head is its worker's
-    smallest unadmitted index and every smaller index is owned elsewhere,
-    so the bounded-staleness admission gate always eventually opens.
+    pool-of-1 equivalence holds.  Membership changes re-deal indices:
 
-    Workers exit only when ``all_done()`` (or they are retired and
+      * ``fail_over(name)`` -- a worker was declared lost: its queued
+        *and* in-flight (started, unfinished) indices go to the survivors;
+      * ``add_worker`` / ``drain_worker`` + ``rebalance`` -- runtime
+        grow/shrink: unstarted indices re-dealt round-robin over the
+        current members; a draining worker finishes its in-flight jobs
+        but receives nothing new.
+
+    Each worker's queue stays sorted ascending: a queue head is its
+    worker's smallest unadmitted index and every smaller index is owned
+    elsewhere, so the bounded-staleness admission gate always eventually
+    opens.  Workers exit only when ``all_done()`` (or they are retired and
     drained): a worker that emptied its own queue parks briefly instead,
-    because a rebalance may deal indices onto it.
+    because a peer's loss or a rebalance may deal indices onto it.
     """
 
     def __init__(self, names: List[str], first: int, last: int):
@@ -260,6 +277,15 @@ class WorkAssignment:
                 return False
             self._active[name].add(n)
             return True
+
+    def requeue(self, name: str, n: int):
+        """Un-claim ``n`` (its production died before completing but the
+        worker respawned): back into this worker's queue for a retry."""
+        with self._lock:
+            self._active[name].discard(n)
+            q = self._todo[name]
+            q.append(n)
+            self._todo[name] = collections.deque(sorted(q))
 
     def finish(self, name: str, n: int):
         with self._lock:
@@ -295,6 +321,23 @@ class WorkAssignment:
             todo[names[j % len(names)]].append(n)
         for k in names:
             todo[k] = collections.deque(sorted(todo[k]))
+
+    def fail_over(self, name: str) -> List[int]:
+        """Redistribute a lost worker's unfinished indices over the
+        survivors; raises ``RuntimeError`` when none remain (the caller
+        falls back to fail-fast)."""
+        with self._lock:
+            moved = sorted(set(self._todo.get(name, ())) |
+                           self._active.get(name, set()))
+            survivors = [k for k in self._survivors_locked() if k != name]
+            if not survivors:
+                raise RuntimeError(
+                    f"no surviving workers to take over for '{name}'")
+            self._todo[name] = collections.deque()
+            self._active[name] = set()
+            self._retired.add(name)
+            self._deal_locked(moved, survivors)
+            return moved
 
     def add_worker(self, name: str):
         with self._lock:
@@ -381,16 +424,17 @@ class GeneratorPool:
     the generator *handles*, each generator's live weight channels, the
     pool-outbound data channels (whose payloads travel by snapshot), the
     shared sample queue, the staleness-bounds policy and its ``_await``
-    helper (deadline + stop-event slicing).  ``loops(first, last, stop)``
-    hands back one callable per worker for the controller to wrap in
-    guarded threads; each worker appends its busy intervals to
-    ``intervals`` (thread-safe list appends) for the overlap stats.
+    helper (deadline + stop-event slicing) and, when supervised, the
+    ``Supervisor``.  ``loops(first, last, stop)`` hands back one callable
+    per worker for the controller to wrap in guarded threads; each worker
+    appends its busy intervals to ``intervals`` (thread-safe list
+    appends) for the overlap stats.
     """
 
     def __init__(self, generators, channels_by_gen: Dict[str, list],
                  data_channels, sample_queue: StalenessBuffer, bounds, *,
                  config: Optional[PoolConfig] = None, timeout: float = 600.0,
-                 await_fn=None):
+                 await_fn=None, supervisor=None):
         if not generators:
             raise ValueError("a generator pool needs at least one generator")
         self.generators = list(generators)
@@ -401,6 +445,8 @@ class GeneratorPool:
         self.config = config or PoolConfig()
         self.timeout = timeout
         self._await = await_fn
+        self.supervisor = supervisor
+        self.chaos = supervisor.chaos if supervisor is not None else None
         self.assignment: Optional[WorkAssignment] = None
         self._spawn_thread = None          # installed by the controller run
         self._stop: Optional[threading.Event] = None
@@ -409,7 +455,7 @@ class GeneratorPool:
     def loops(self, first: int, last: int, stop: threading.Event):
         """One (name, callable) per worker; worker ``i`` covers batches
         ``first+i, first+i+N, ...`` below ``last`` (the ``WorkAssignment``
-        re-maps ownership on runtime attach/detach)."""
+        re-maps ownership on worker loss or runtime attach/detach)."""
         self.assignment = WorkAssignment(
             [g.name for g in self.generators], first, last)
         self._stop = stop
@@ -445,9 +491,13 @@ class GeneratorPool:
         return moved
 
     def _on_resize(self):
+        n = len(self.assignment.survivors())
+        if self.supervisor is not None:
+            self.supervisor.on_pool_resize(n)   # logs, then tells bounds
+            return
         cb = getattr(self.bounds, "on_pool_resize", None)
         if cb is not None:
-            cb(len(self.assignment.survivors()))
+            cb(n)
 
     # ------------------------------------------------------- weight drains --
 
@@ -491,9 +541,49 @@ class GeneratorPool:
     def _snapshot_names(self):
         return [ch.name for ch in self.data_channels]
 
+    def _fire_chaos(self, point, gen, index, chunk=None):
+        if self.chaos is not None:
+            self.chaos.fire(point, gen.name, index, chunk)
+
+    def _recover(self, gen, sched, error) -> bool:
+        """A generator RPC raised: hand the generator to the supervisor.
+
+        True -> respawned (in-flight jobs re-pinned; retry the schedule).
+        False -> lost; this worker's batches were failed over to the
+        survivors and its thread should exit.  Re-raises when the pool
+        is unsupervised, the supervisor declines (a timeout on a
+        responsive actor), or nobody is left to degrade to."""
+        sup = self.supervisor
+        if sup is None or not sup.covers(gen):
+            raise error
+        outcome = sup.recover(gen, error)    # may re-raise `error`
+        if outcome == RESPAWNED:
+            for job in (sched.inflight() if sched is not None else ()):
+                # the pinned params died with the process: take a fresh
+                # pin under the replayed version, and check -- not
+                # assume -- that the staleness bound still holds
+                job2 = gen.call("repin_job", job)
+                if job2 is not job:
+                    job.__dict__.update(job2.__dict__)
+                lag = job.batch_index - job.weight_version
+                if not 0 <= lag <= job.bound:
+                    raise RuntimeError(
+                        f"re-admission of batch {job.batch_index} breaks "
+                        f"the staleness bound: replayed version "
+                        f"{job.weight_version}, bound {job.bound}")
+            return True
+        if outcome != LOST:
+            raise RuntimeError(f"unknown recovery outcome {outcome!r}")
+        if sched is not None:
+            sched.clear()                    # states die; survivors redo
+        self.assignment.fail_over(gen.name)  # raises when nobody is left
+        self._on_resize()
+        return False
+
     def _park(self, gen, stop) -> bool:
         """This worker's queue is empty but the pool is not done: wait
-        briefly (a rebalance may deal indices here).  False -> exit."""
+        briefly (a peer's loss or a rebalance may deal indices here).
+        False -> exit."""
         if self.assignment.all_done() or self.assignment.idle(gen.name):
             return False
         stop.wait(0.05)
@@ -511,47 +601,59 @@ class GeneratorPool:
         """Complete-batch baseline: one blocking ``gen.step()`` per batch,
         pushed only when the whole batch finishes."""
         asn = self.assignment
-        while not stop.is_set():
-            n = asn.next_for(gen.name)
-            if n is None:
-                if not self._park(gen, stop):
-                    return
-                continue
-            idle = 0.0
-            bound = self.bounds.bound()
-            retired = False
-            while gen.call("weight_version") < max(0, n - bound) and \
-                    not stop.is_set():
-                t0 = time.monotonic()
-                with obs_trace.span("weight-wait", "genpool",
-                                    worker=gen.name, batch=n):
-                    got = self._drain_one(gen, stop,
-                                          f"weights for batch {n}")
-                if got is None:
-                    return
-                if got is _RETIRED:
-                    retired = True
-                    break
-                idle += time.monotonic() - t0
+        claimed = None           # started, not finished: requeued if the
+        while not stop.is_set():  # generator dies and is respawned
+            try:
+                n = asn.next_for(gen.name)
+                if n is None:
+                    if not self._park(gen, stop):
+                        return
+                    continue
+                idle = 0.0
                 bound = self.bounds.bound()
-            if stop.is_set():
-                return
-            if retired or not asn.start(gen.name, n):
-                continue         # re-dealt away (or detached) mid-wait
-            t0 = time.monotonic()
-            with obs_trace.span("generate", "genpool",
-                                worker=gen.name, batch=n):
-                gen.call("set_step", n)
-                snapshot = gen.call("step_snapshot", self._snapshot_names)
-            t1 = time.monotonic()
-            self.intervals.append((t0, t1))
-            item = {"batch_index": n, "snapshot": snapshot,
-                    "generator": gen.name, "bound": bound,
-                    "gen_busy_s": t1 - t0, "gen_idle_s": idle,
-                    "_version": gen.call("weight_version")}
-            if self._push(gen, stop, item) is None:
-                return
-            asn.finish(gen.name, n)
+                retired = False
+                while gen.call("weight_version") < max(0, n - bound) and \
+                        not stop.is_set():
+                    t0 = time.monotonic()
+                    with obs_trace.span("weight-wait", "genpool",
+                                        worker=gen.name, batch=n):
+                        got = self._drain_one(gen, stop,
+                                              f"weights for batch {n}")
+                    if got is None:
+                        return
+                    if got is _RETIRED:
+                        retired = True
+                        break
+                    idle += time.monotonic() - t0
+                    bound = self.bounds.bound()
+                if stop.is_set():
+                    return
+                if retired or not asn.start(gen.name, n):
+                    continue     # re-dealt away (or detached) mid-wait
+                claimed = n
+                self._fire_chaos("batch", gen, n)
+                t0 = time.monotonic()
+                with obs_trace.span("generate", "genpool",
+                                    worker=gen.name, batch=n):
+                    gen.call("set_step", n)
+                    snapshot = gen.call("step_snapshot",
+                                        self._snapshot_names)
+                t1 = time.monotonic()
+                self.intervals.append((t0, t1))
+                item = {"batch_index": n, "snapshot": snapshot,
+                        "generator": gen.name, "bound": bound,
+                        "gen_busy_s": t1 - t0, "gen_idle_s": idle,
+                        "_version": gen.call("weight_version")}
+                if self._push(gen, stop, item) is None:
+                    return
+                asn.finish(gen.name, n)
+                claimed = None
+            except (ActorDied, TimeoutError) as e:
+                if not self._recover(gen, None, e):
+                    return
+                if claimed is not None:
+                    asn.requeue(gen.name, claimed)   # respawned: retry it
+                    claimed = None
 
     def _worker_chunked(self, gen, stop):
         """Chunk-scheduled worker: admit batches the moment their pinned
@@ -560,64 +662,84 @@ class GeneratorPool:
         cfg = self.config
         asn = self.assignment
         sched = RolloutScheduler(
-            _SnapshotEmitter(gen, self._snapshot_names),
+            _SnapshotEmitter(gen, self._snapshot_names, self.chaos),
             PartialRolloutCache(), early_exit=cfg.early_exit,
             chunk_delay=cfg.chunk_delay)
         pending_idle = 0.0                  # weight-wait time -> next admit
+        claimed = None                      # started but not yet in sched
         while not stop.is_set():
-            n = asn.next_for(gen.name)
-            if n is None and sched.pending() == 0:
-                if not self._park(gen, stop):
-                    return
-                continue
-            if n is not None and sched.pending() < cfg.max_inflight:
-                bound = self.bounds.bound()
-                if gen.call("weight_version") >= max(0, n - bound):
-                    if not asn.start(gen.name, n):
-                        continue      # re-dealt away since the peek
-                    t0 = time.monotonic()
-                    with obs_trace.span("admit", "genpool",
-                                        worker=gen.name, batch=n):
-                        gen.call("set_step", n)
-                        job, state = gen.begin_batch(n)
-                        job.bound = bound
-                        job.meta["idle_s"] = pending_idle
-                        pending_idle = 0.0
-                        sched.admit(job, state)
-                    self.intervals.append((t0, time.monotonic()))
-                    continue
-                if sched.pending() == 0:
-                    # nothing in flight: block until the version lands
-                    t0 = time.monotonic()
-                    with obs_trace.span("weight-wait", "genpool",
-                                        worker=gen.name, batch=n):
-                        got = self._drain_one(gen, stop,
-                                              f"weights for batch {n}")
-                    if got is None:
+            try:
+                n = asn.next_for(gen.name)
+                if n is None and sched.pending() == 0:
+                    if not self._park(gen, stop):
                         return
-                    pending_idle += time.monotonic() - t0
                     continue
-                # in-flight work available: poll weights, don't block
-                self._poll_one(gen)
-            if sched.pending() == 0:
-                continue
-            t0 = time.monotonic()
-            done = sched.step()
-            self.intervals.append((t0, time.monotonic()))
-            if done is None:
-                continue
-            job, snapshot = done         # the emitter's port snapshot
-            item = {"batch_index": job.batch_index,
-                    "snapshot": snapshot,
-                    "generator": gen.name, "bound": job.bound,
-                    "gen_busy_s": job.busy_s,
-                    "gen_idle_s": job.meta.get("idle_s", 0.0),
-                    "_version": job.weight_version}
-            if self._push(gen, stop, item) is None:
-                return
-            asn.finish(gen.name, job.batch_index)
+                if n is not None and sched.pending() < cfg.max_inflight:
+                    bound = self.bounds.bound()
+                    if gen.call("weight_version") >= max(0, n - bound):
+                        if not asn.start(gen.name, n):
+                            continue      # re-dealt away since the peek
+                        claimed = n
+                        self._fire_chaos("batch", gen, n)
+                        t0 = time.monotonic()
+                        with obs_trace.span("admit", "genpool",
+                                            worker=gen.name, batch=n):
+                            gen.call("set_step", n)
+                            job, state = gen.begin_batch(n)
+                            job.bound = bound
+                            job.meta["idle_s"] = pending_idle
+                            pending_idle = 0.0
+                            sched.admit(job, state)
+                        claimed = None    # now visible via sched.inflight
+                        self.intervals.append((t0, time.monotonic()))
+                        continue
+                    if sched.pending() == 0:
+                        # nothing in flight: block until the version lands
+                        t0 = time.monotonic()
+                        with obs_trace.span("weight-wait", "genpool",
+                                            worker=gen.name, batch=n):
+                            got = self._drain_one(gen, stop,
+                                                  f"weights for batch {n}")
+                        if got is None:
+                            return
+                        pending_idle += time.monotonic() - t0
+                        continue
+                    # in-flight work available: poll weights, don't block
+                    self._poll_one(gen)
+                if sched.pending() == 0:
+                    continue
+                t0 = time.monotonic()
+                done = sched.step()
+                self.intervals.append((t0, time.monotonic()))
+                if done is None:
+                    continue
+                job, snapshot = done         # the emitter's port snapshot
+                item = {"batch_index": job.batch_index,
+                        "snapshot": snapshot,
+                        "generator": gen.name, "bound": job.bound,
+                        "gen_busy_s": job.busy_s,
+                        "gen_idle_s": job.meta.get("idle_s", 0.0),
+                        "_version": job.weight_version}
+                if self._push(gen, stop, item) is None:
+                    return
+                asn.finish(gen.name, job.batch_index)
+            except (ActorDied, TimeoutError) as e:
+                if not self._recover(gen, sched, e):
+                    return
+                if claimed is not None:
+                    asn.requeue(gen.name, claimed)   # died before admit
+                    claimed = None
 
     # --------------------------------------------------------- engine mode --
+
+    def _engine_configure(self, gen):
+        cfg = self.config
+        gen.call("engine_configure",
+                 max_running_rows=cfg.max_running_rows,
+                 row_budgets=cfg.engine_row_budgets,
+                 kv_layout=cfg.kv_layout,
+                 kv_page_size=cfg.kv_page_size,
+                 kv_pages=cfg.kv_pages)
 
     def _worker_engine(self, gen, stop):
         """Continuous-batching worker: the engine lives inside the
@@ -627,77 +749,104 @@ class GeneratorPool:
         ``engine_round`` -- each round admits waiting rows into freed
         slots, decodes every live row one chunk and harvests finished
         rows; batches emerge the moment their last group completes, in
-        any order (the consumer reorders by index)."""
-        cfg = self.config
-        gen.call("engine_configure",
-                 max_running_rows=cfg.max_running_rows,
-                 row_budgets=cfg.engine_row_budgets,
-                 kv_layout=cfg.kv_layout,
-                 kv_page_size=cfg.kv_page_size,
-                 kv_pages=cfg.kv_pages)
+        any order (the consumer reorders by index).
+
+        Recovery: the engine -- slots, radix cache, parked rows -- dies
+        with a killed process.  The supervisor's respawn replays the
+        weights and then calls the re-admission hook registered here,
+        which rebuilds the engine and re-enqueues every enqueued but
+        unemitted batch as fresh rows under the replayed (newest
+        staleness-legal) version; their decoded tokens are lost."""
+        inflight: Dict[int, int] = {}     # batch index -> bound at enqueue
+        self._engine_configure(gen)
+        if self.supervisor is not None and self.supervisor.covers(gen):
+            def readmit(gen=gen, inflight=inflight):
+                self._engine_configure(gen)
+                for b in sorted(inflight):
+                    gen.call("engine_enqueue", b, inflight[b])
+                if gen.call("engine_inflight") != sorted(inflight):
+                    raise RuntimeError(
+                        f"'{gen.name}': the rebuilt engine holds "
+                        f"{gen.call('engine_inflight')}, not the "
+                        f"re-enqueued batches {sorted(inflight)}")
+                return sorted(inflight)
+            self.supervisor.set_readmit(gen.name, readmit)
         try:
-            self._engine_loop(gen, stop)
+            self._engine_loop(gen, stop, inflight)
         except BaseException:
             # the loop's error is the one to report: drop the engine's
             # rows and pages on the way out without masking it
             with contextlib.suppress(Exception):
                 gen.call("engine_abort")
             raise
-        # drop parked pool state and radix pages; the paged engine
-        # asserts that no page leaked
-        gen.call("engine_abort")
+        # drop parked pool state and radix pages (the paged engine
+        # asserts that no page leaked); a lost generator has no engine
+        if not self.assignment.is_retired(gen.name) or gen.healthy():
+            gen.call("engine_abort")
 
-    def _engine_loop(self, gen, stop):
+    def _engine_loop(self, gen, stop, inflight: Dict[int, int]):
         cfg = self.config
         asn = self.assignment
-        inflight: Dict[int, int] = {}     # batch index -> bound at enqueue
         pending_idle = 0.0
+        claimed = None
         while not stop.is_set():
-            n = asn.next_for(gen.name)
-            if n is None and not inflight:
-                if not self._park(gen, stop):
-                    return
-                continue
-            if n is not None and len(inflight) < cfg.max_inflight:
-                bound = self.bounds.bound()
-                if gen.call("weight_version") >= max(0, n - bound):
-                    if not asn.start(gen.name, n):
-                        continue      # re-dealt away since the peek
-                    t0 = time.monotonic()
-                    with obs_trace.span("enqueue", "genpool",
-                                        worker=gen.name, batch=n):
-                        gen.call("set_step", n)
-                        gen.call("engine_enqueue", n, bound)
-                    inflight[n] = bound
-                    self.intervals.append((t0, time.monotonic()))
-                    continue
-                if not inflight:
-                    # nothing decoding: block until the version lands
-                    t0 = time.monotonic()
-                    with obs_trace.span("weight-wait", "genpool",
-                                        worker=gen.name, batch=n):
-                        got = self._drain_one(
-                            gen, stop, f"weights for batch {n}")
-                    if got is None:
+            try:
+                n = asn.next_for(gen.name)
+                if n is None and not inflight:
+                    if not self._park(gen, stop):
                         return
-                    pending_idle += time.monotonic() - t0
                     continue
-                # rows in flight: poll weights, don't block
-                self._poll_one(gen)
-            if not inflight:
-                continue
-            t0 = time.monotonic()
-            with obs_trace.span("engine-round", "genpool",
-                                worker=gen.name,
-                                inflight=len(inflight)):
-                items = gen.call("engine_round", self._snapshot_names)
-            self.intervals.append((t0, time.monotonic()))
-            for item in items:
-                item["gen_idle_s"] = pending_idle
-                pending_idle = 0.0
-                b = item["batch_index"]
-                if self._push(gen, stop, item) is None:
+                if n is not None and len(inflight) < cfg.max_inflight:
+                    bound = self.bounds.bound()
+                    if gen.call("weight_version") >= max(0, n - bound):
+                        if not asn.start(gen.name, n):
+                            continue      # re-dealt away since the peek
+                        claimed = n
+                        self._fire_chaos("batch", gen, n)
+                        t0 = time.monotonic()
+                        with obs_trace.span("enqueue", "genpool",
+                                            worker=gen.name, batch=n):
+                            gen.call("set_step", n)
+                            gen.call("engine_enqueue", n, bound)
+                        inflight[n] = bound
+                        claimed = None
+                        self.intervals.append((t0, time.monotonic()))
+                        continue
+                    if not inflight:
+                        # nothing decoding: block until the version lands
+                        t0 = time.monotonic()
+                        with obs_trace.span("weight-wait", "genpool",
+                                            worker=gen.name, batch=n):
+                            got = self._drain_one(
+                                gen, stop, f"weights for batch {n}")
+                        if got is None:
+                            return
+                        pending_idle += time.monotonic() - t0
+                        continue
+                    # rows in flight: poll weights, don't block
+                    self._poll_one(gen)
+                if not inflight:
+                    continue
+                t0 = time.monotonic()
+                with obs_trace.span("engine-round", "genpool",
+                                    worker=gen.name,
+                                    inflight=len(inflight)):
+                    items = gen.call("engine_round", self._snapshot_names)
+                self.intervals.append((t0, time.monotonic()))
+                for item in items:
+                    item["gen_idle_s"] = pending_idle
+                    pending_idle = 0.0
+                    b = item["batch_index"]
+                    if self._push(gen, stop, item) is None:
+                        return
+                    asn.finish(gen.name, b)
+                    inflight.pop(b, None)
+            except (ActorDied, TimeoutError) as e:
+                if not self._recover(gen, None, e):
+                    inflight.clear()          # failed over to survivors
                     return
-                asn.finish(gen.name, b)
-                inflight.pop(b, None)
-
+                # respawned: the supervisor's readmit hook already
+                # rebuilt the engine and re-enqueued `inflight`
+                if claimed is not None:
+                    asn.requeue(gen.name, claimed)  # died before enqueue
+                    claimed = None

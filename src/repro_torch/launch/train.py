@@ -24,8 +24,19 @@ generators, then the reference, and any actor beyond the list self-hosts
 on localhost.  ``--child-devices N`` gives every spawned child the first
 N cards (``CUDA_VISIBLE_DEVICES``).
 
-Other families (ROADMAP A11), supervision and fault injection (A9), and
-checkpoints and submeshes (A12) are not ported: their flags raise
+``--supervise`` respawns a dead generator or reference from its spawn
+spec with the latest weights replayed, up to ``--max-restarts`` times an
+actor, then degrades the pool to the survivors; ``--chaos SPEC`` (or
+``REPRO_CHAOS`` with ``--supervise``) injects scripted faults, e.g.
+
+    python -m repro_torch.launch.train --arch llama31-8b --smoke \
+        --steps 6 --transport proc --n-generators 2 --rollout-chunk 2 \
+        --supervise --chaos "kill:generator1@batch=3,chunk=1"
+
+and the supervisor's events are printed after the run.
+``--checkpoint-every N`` writes the trainer's params to
+``--checkpoint-path`` every N steps.  Other families (ROADMAP A11) and
+submeshes (A12) are not ported: their flags raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -38,9 +49,10 @@ import torch
 
 from repro_torch.core import (AdaptiveStalenessController, CommType,
                               CommunicationChannel, DeviceSpec,
-                              ExecutorController, GeneratorExecutor,
-                              PoolConfig,
-                              RefPolicyExecutor, RewardExecutor,
+                              ExecutorController, FaultPlan,
+                              GeneratorExecutor, PoolConfig,
+                              RefPolicyExecutor, RestartPolicy,
+                              RewardExecutor, Supervisor,
                               TrainerExecutor, WeightsCommunicationChannel,
                               build_generator_pool, close_all_actors,
                               serve_actor_host, spawn_actor)
@@ -55,14 +67,6 @@ def _parse_addr(s: str):
 
 
 def _refuse_unported(args):
-    if args.supervise or args.chaos:
-        raise NotImplementedError(
-            "--supervise and --chaos come with the port of "
-            "core/supervise.py (ROADMAP A9)")
-    if args.checkpoint_every:
-        raise NotImplementedError(
-            "--checkpoint-every comes with the port of train/checkpoint.py "
-            "(ROADMAP A12)")
     if args.child_mesh:
         raise NotImplementedError(
             "--child-mesh comes with the port of the mesh-bound pieces "
@@ -163,16 +167,25 @@ def build_controller(cfg, args, *, trainer_cls=TrainerExecutor,
                           or os.environ.get("REPRO_KV_LAYOUT", ""),
                           kv_page_size=args.kv_page_size,
                           kv_pages=args.kv_pages)
+    supervise = None
+    if args.supervise or args.chaos:
+        chaos = FaultPlan.parse(args.chaos) if args.chaos \
+            else FaultPlan.from_env()
+        supervise = Supervisor(
+            RestartPolicy(max_restarts=args.max_restarts), chaos=chaos)
     return ExecutorController(
         executors, channels, max_steps=args.steps, mode=args.mode,
-        staleness=args.staleness, adaptive=adaptive,
-        overlap_publish=not args.no_overlap_publish, pool=pool)
+        staleness=args.staleness, checkpoint_every=args.checkpoint_every,
+        checkpoint_path=args.checkpoint_path, adaptive=adaptive,
+        overlap_publish=not args.no_overlap_publish, pool=pool,
+        supervise=supervise)
 
 
 def run(args) -> dict:
     """Build and run the loop ``args`` describes; every remote actor is
     closed before this returns.  The result holds the history, the run's
-    stats and the staleness histogram."""
+    stats and the staleness histogram, and for a supervised run the
+    supervisor's events."""
     if args.trace:
         # before any actor spawns: children read the boot flag, and the
         # environment covers anything started outside the boot path
@@ -188,8 +201,11 @@ def run(args) -> dict:
             args.mode == "async" else ctl.run()
     finally:
         close_all_actors()               # join the remote executors
-    return {"history": history, "stats": ctl.stats,
-            "staleness_hist": dict(ctl.staleness_hist)}
+    out = {"history": history, "stats": ctl.stats,
+           "staleness_hist": dict(ctl.staleness_hist)}
+    if ctl.supervisor is not None:
+        out["events"] = ctl.supervisor.events()
+    return out
 
 
 def parse_args(argv=None):
@@ -260,12 +276,24 @@ def parse_args(argv=None):
                     help="if > 0, the max bound for the adaptive "
                     "staleness controller")
     ap.add_argument("--supervise", action="store_true",
-                    help="supervised run (ROADMAP A9)")
+                    help="supervised run: a dead generator or reference is "
+                    "respawned from its spawn spec with the latest weights "
+                    "replayed, within a restart budget with capped "
+                    "backoff; past the budget the pool degrades to the "
+                    "survivors (default: fail fast on the first ActorDied)")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="restart budget of each actor with --supervise")
     ap.add_argument("--chaos", default="",
-                    help="fault injection spec (ROADMAP A9)")
+                    help="deterministic fault injection (implies "
+                    "--supervise), e.g. 'kill:generator1@batch=2;"
+                    "hang:generator0@batch=4:30'; with --supervise alone "
+                    "$REPRO_CHAOS is read")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="periodic checkpoints (ROADMAP A12)")
+                    help="write the trainer's params every N steps")
+    ap.add_argument("--checkpoint-path", default="checkpoints",
+                    help="directory of --checkpoint-every's files "
+                    "({name}_{step}.npz and .json)")
     ap.add_argument("--trace", default="",
                     help="export a Chrome-trace JSON of the run to this "
                     "path: spans of the controller, pool workers, fabric "
@@ -296,6 +324,9 @@ def main(argv=None):
                for k, v in h.items()})
     print("stats:", {k: round(v, 3) for k, v in stats.items()})
     print("staleness_hist:", dict(sorted(out["staleness_hist"].items())))
+    for e in out.get("events", ()):
+        print("supervisor:", {k: (round(v, 4) if isinstance(v, float)
+                                  else v) for k, v in e.items()})
     if args.trace:
         from repro_torch.obs.__main__ import summary_lines
         events = obs_trace.tracer().events()

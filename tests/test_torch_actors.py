@@ -247,8 +247,11 @@ def test_unknown_transport_and_respawn_raise():
         spawn_actor(EchoExecutor, transport="carrier-pigeon")
     h = spawn_actor(EchoExecutor, transport="inproc")
     assert not h.remote
-    with pytest.raises(NotImplementedError, match="A9"):
-        h.respawn()
+    # a handle with a recorded spawn spec respawns (core/supervise.py
+    # drives it); one made around a bare executor has no spec and raises
+    assert h.respawn() is h and h.call("ping") == "echo"
+    with pytest.raises(RuntimeError, match="spawn spec"):
+        actors.as_handle(EchoExecutor("bare")).respawn()
 
 
 # ------------------------------------------ the controller over a child --

@@ -195,8 +195,9 @@ def test_staleness_bound_violation_raises():
 
 
 def test_executor_controller_modes():
-    """mode="async" builds the threaded controller; the pieces of the
-    reference not ported yet raise, naming their ROADMAP item, and an
+    """mode="async" builds the threaded controller; ``supervise`` takes
+    True, a ``RestartPolicy`` or a ``Supervisor`` (see
+    tests/test_torch_supervision.py), ``checkpoint_every`` is kept, and an
     unknown transport is refused (the process transports run: see
     tests/test_torch_actors.py)."""
     cfg = micro(tsmoke())
@@ -210,10 +211,19 @@ def test_executor_controller_modes():
     args = ([tex.RewardExecutor(n_per_prompt=1)], [], 1)
     with pytest.raises(ValueError, match="generator and a trainer"):
         ExecutorController(*args, mode="async")
-    with pytest.raises(NotImplementedError, match="A9"):
-        ExecutorController(*args, mode="sync", supervise=True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ExecutorController(*args, mode="sync", checkpoint_every=2)
+    from repro_torch.core import RestartPolicy, Supervisor
+    assert isinstance(ExecutorController(*args, mode="sync", supervise=True)
+                      .supervisor, Supervisor)
+    policy = RestartPolicy(max_restarts=1)
+    assert ExecutorController(*args, mode="sync", supervise=policy) \
+        .supervisor.policy is policy
+    sup = Supervisor()
+    assert ExecutorController(*args, mode="sync", supervise=sup) \
+        .supervisor is sup
+    assert ExecutorController(*args, mode="sync").supervisor is None
+    ck = ExecutorController(*args, mode="sync", checkpoint_every=2,
+                            checkpoint_path="ck")
+    assert (ck.checkpoint_every, ck.checkpoint_path) == (2, "ck")
     with pytest.raises(ValueError, match="unknown transport"):
         spawn_actor(tex.RewardExecutor, n_per_prompt=1, transport="rdma")
     with pytest.raises(ValueError, match="unique"):
@@ -251,15 +261,16 @@ def test_weight_snapshots_are_isolated():
                zip(held, tree_leaves(trn.get_model())))
 
 
-def test_trainer_executor_surface():
+def test_trainer_executor_surface(tmp_path):
     cfg = micro(tsmoke())
     trn = tex.TrainerExecutor(cfg, device="cpu")
     assert trn.dtype == torch.float32 and trn.role == "trainer"
     trn.init()
     assert trn.get_output("policy_model") is trn.get_model()
     assert trn.last_metrics() == {} and trn.recent_metrics(3) == []
-    with pytest.raises(NotImplementedError, match="A12"):
-        trn.save_checkpoint("unused", 0)
+    trn.save_checkpoint(str(tmp_path / "ck"), 0)      # {path}/{name}_{step}
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "trainer_0.json", "trainer_0.npz"]
 
 
 # ------------------------------------------------------ weights and int8 --

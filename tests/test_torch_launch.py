@@ -2,7 +2,10 @@
 ``--transport proc`` it trains what ``--transport inproc`` trains, bit for
 bit; from the same converted init it tracks the JAX package's
 ``repro.launch.train --arch llama31-8b --smoke`` within 1e-4; the flags of
-pieces not ported yet raise naming their ROADMAP item; ``--listen`` serves
+pieces not ported yet raise naming their ROADMAP item; ``--supervise``,
+``--max-restarts``, ``--chaos`` (and ``REPRO_CHAOS``) build the supervisor,
+a chaos kill is respawned or, with no restarts left, degrades the pool;
+``--checkpoint-every`` writes the trainer's files; ``--listen`` serves
 actors to a ``--connect`` controller on localhost; ``--out`` and
 ``--trace`` write their files.
 
@@ -101,8 +104,8 @@ def test_tracks_the_jax_launcher():
 
     args = train.parse_args(SMOKE + ["--steps", "3", "--transport",
                                      "inproc"])
-    jargs = argparse.Namespace(**vars(args), max_restarts=3,
-                               checkpoint_path="checkpoints")
+    # the port's flags are the JAX launcher's: its namespace serves both
+    jargs = argparse.Namespace(**vars(args))
     jcfg = jsmoke()
     jh = jtrain.build_controller(jcfg, jargs).run()
     jparams = jax.device_get(
@@ -128,15 +131,82 @@ def test_tracks_the_jax_launcher():
 
 @pytest.mark.parametrize("flags,item", [
     (["--arch", "starcoder2-3b"], "A11"),
-    (["--supervise"], "A9"),
-    (["--chaos", "kill:generator@batch=1"], "A9"),
-    (["--checkpoint-every", "2"], "A12"),
     (["--child-mesh", "1x2"], "A12"),
 ])
 def test_unported_flags_raise(flags, item):
     args = train.parse_args(["--smoke", "--device", "cpu"] + flags)
     with pytest.raises(NotImplementedError, match=item):
         train.build_controller(train.config_for(args), args)
+
+
+@pytest.mark.parametrize("flags,faults,restarts", [
+    (["--supervise"], [], 3),
+    (["--supervise", "--max-restarts", "0"], [], 0),
+    (["--chaos", "kill:generator@batch=1"],
+     [("kill", "generator", "batch", 1, None)], 3),
+    (["--supervise", "--chaos", "hang:generator@batch=2:5;"
+      "kill:ref@consume=1"],
+     [("hang", "generator", "batch", 2, None),
+      ("kill", "ref", "consume", 1, None)], 3),
+])
+def test_supervision_flags_build_a_supervisor(flags, faults, restarts):
+    args = train.parse_args(SMOKE + ["--transport", "inproc"] + flags)
+    ctl = train.build_controller(train.config_for(args), args)
+    sup = ctl.supervisor
+    assert sup is not None and sup.policy.max_restarts == restarts
+    got = [(f.action, f.actor, f.point, f.index, f.chunk)
+           for f in sup.chaos.faults] if sup.chaos is not None else []
+    assert got == faults
+    assert sup.covers(ctl.generator)
+
+
+def test_supervise_reads_repro_chaos(monkeypatch):
+    monkeypatch.setenv("REPRO_CHAOS", "kill:generator1@batch=3")
+    args = train.parse_args(SMOKE + ["--transport", "inproc", "--supervise"])
+    ctl = train.build_controller(train.config_for(args), args)
+    assert [(f.actor, f.index) for f in ctl.supervisor.chaos.faults] == \
+        [("generator1", 3)]
+    args = train.parse_args(SMOKE + ["--transport", "inproc"])
+    assert train.build_controller(train.config_for(args),
+                                  args).supervisor is None
+
+
+def test_checkpoint_every_writes_the_trainer(tmp_path):
+    ck = tmp_path / "ck"
+    out = train.run(train.parse_args(
+        SMOKE + ["--steps", "4", "--transport", "inproc",
+                 "--checkpoint-every", "2", "--checkpoint-path", str(ck)]))
+    assert [h["step"] for h in out["history"]] == [0, 1, 2, 3]
+    assert sorted(p.name for p in ck.iterdir()) == [
+        f"trainer_{n}.{ext}" for n in (1, 3) for ext in ("json", "npz")]
+    assert "events" not in out
+
+
+@pytest.mark.parametrize("chaos,restarts", [
+    ("kill:generator1@batch=3,chunk=1", 3),
+    ("kill:generator1@batch=3", 0)])
+def test_chaos_run_recovers_or_degrades(chaos, restarts, capsys):
+    """The chip script's [14] (c) on the CPU: a mid-decode kill under the
+    chunk scheduler is respawned; with no restarts left the victim is
+    lost and its batches 3 and 5 go to generator0."""
+    out = train.main(SMOKE + [
+        "--steps", "6", "--transport", "proc", "--n-generators", "2",
+        "--rollout-chunk", "2", "--supervise", "--max-restarts",
+        str(restarts), "--chaos", chaos])
+    printed = capsys.readouterr().out
+    assert [h["step"] for h in out["history"]] == list(range(6))
+    kinds = [(e["event"], e["actor"]) for e in out["events"]]
+    assert "supervisor: {" in printed and "'generator1'" in printed
+    producers = [h["generator"] for h in out["history"]]
+    if restarts:
+        assert ("respawned", "generator1") in kinds
+        assert producers == [f"generator{n % 2}" for n in range(6)]
+    else:
+        assert ("lost", "generator1") in kinds
+        assert producers == ["generator0", "generator1"] + \
+            ["generator0"] * 4
+        assert [e["n_workers"] for e in out["events"]
+                if e["event"] == "pool-resized"] == [1]
 
 
 def test_listen_serves_a_connecting_controller(one_thread, tmp_path):
