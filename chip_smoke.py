@@ -82,8 +82,8 @@ Each phase prints its own lines:
                scheduling, the child pinning each job's params): bit-equal
                to [10] (a), its launch counts summed over the children
                equal to [10] (a)'s; (b) an engine pool of 2 on paged KV at
-               2 layers, threaded in process and then over ``shm``, both
-               traced: decode ms a token per worker, the stats, each
+               2 layers, 3 steps, threaded in process and then over
+               ``shm``, both traced: decode ms a token per worker, the stats, each
                weight hop's ms and GB/s, spawn seconds, peak memory per
                process (CUDA and resident set), staged slots, the most
                /dev/shm bytes the run held, each process's device
@@ -103,7 +103,7 @@ Each phase prints its own lines:
                against its plain version there
   [14] supervise  llama31-8b widths at 2 layers, bf16 params, fp32 Adam,
                KL 0.1, under a ``Supervisor``.  (a) [12] (b)'s engine pool
-               of 2 on paged KV in ``shm`` children, staleness 2, 6 steps,
+               of 2 on paged KV in ``shm`` children, staleness 2, 4 steps,
                ``kill:generator1@batch=3`` while generator1's engine
                holds batch 1 (it stalls at version 0): steps in order,
                generator1 respawned, batch 1 re-admitted and emitted by
@@ -126,6 +126,27 @@ Each phase prints its own lines:
                50 --eval-every 25``, its last checkpoint restored bit-equal
                to the trainer's params, the first kernel call of each
                shape held against the plain version
+  [15] windowed  the windowed dense family.  (a) starcoder2-3b at full
+               width and depth, bf16, prompts of 4160 ids past its
+               4096-token window: a batch rollout scored by the
+               reference (windowed prefill and scoring through
+               chunked_attention, as the reference routes them; the
+               rings wrap), prefill and decode times, the plain
+               attention's share of the prefill, the device-busy share
+               and peak memory; then the paged engine, rows joining
+               mid-decode, paged_attention with window 4096 every step;
+               (b) two steps of the async loop at full width and depth,
+               sequences inside the window (merged segments: flash and
+               the log-prob backward); (c) 2 layers in fp32: decode
+               through the wrapped ring against the windowed forward
+               (2e-3) and the paged engine's behaviour log-probs against
+               the reference's (1e-3); (d) command-r-35b, deepseek-67b and
+               nemotron-4-340b at their published widths cut to 2
+               layers: a batch rollout and a paged engine round each
+               (fused_sample at V 256000, paged_attention at hd 192).
+               Every kernel call of (b)-(d), and the first of each shape
+               of (a), is held against its plain version ([2] times B3
+               at [16, 49152] and at V 256000, and B5 at hd 192)
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -398,8 +419,8 @@ def phase_kernels(torch, dev):
     records = []
 
     # ---- fused_sample: tokens equal, log-prob within 1e-4
-    def sample_logits(B):
-        x = torch.randn(B, V_LLAMA, generator=gen, device=dev) * 3
+    def sample_logits(B, V=V_LLAMA):
+        x = torch.randn(B, V, generator=gen, device=dev) * 3
         x[0, 5] = 1e30              # one dominating logit
         x[1] = -1e30                # a row of tiny logits
         x[2, 3] = x[2, 99] = 40.0   # a duplicate maximum
@@ -436,8 +457,8 @@ def phase_kernels(torch, dev):
     clock = max_sm_clock_mhz()
     per_logit = None if sass is None else sass[0] / 8
 
-    def timed_sample(B):
-        x = sample_logits(B)
+    def timed_sample(B, V=V_LLAMA):
+        x = sample_logits(B, V)
 
         def run():
             return fused_sample_cuda(x, key, 1.0)
@@ -456,14 +477,14 @@ def phase_kernels(torch, dev):
                "plain_ms": cuda_ms(torch, lambda: fused_sample_plain(
                    x, key, 1.0), 3),
                "bound_ms": b_ms, "bound_by": b_by,
-               "splits": fused_sample.split_plan(B, V_LLAMA, n_sm)[1]}
+               "splits": fused_sample.split_plan(B, V, n_sm)[1]}
         # an estimate from the SASS count, for the log line only
         issue_ms = None if per_logit is None else (
             per_logit * x.numel() / 32 / (ISSUE_PER_SM_CLOCK * n_sm)
             / (clock * 1e3))
         ko = rec["kernel_only_ms"]
-        was = EARLIER_SAMPLE.get(B)
-        log(f"  time fused_sample [{B}, {V_LLAMA}] bf16, {rec['splits']} "
+        was = EARLIER_SAMPLE.get(B) if V == V_LLAMA else None
+        log(f"  time fused_sample [{B}, {V}] bf16, {rec['splits']} "
             f"splits a row: {rec['ms']:.4f} ms per call ("
             + ("not measured" if ko is None else f"{ko:.4f} ms")
             + " in the kernel"
@@ -482,6 +503,10 @@ def phase_kernels(torch, dev):
         f"instructions a clock on each of {n_sm} SMs at {clock:.0f} MHz"))
     main = timed_sample(16)
     pool = timed_sample(32)
+    # the windowed archs' vocabularies ([15]): starcoder2-3b's at the
+    # generator's 16 rows, command-r's and nemotron's at 4 and 16
+    vocabs = {f"{B}x{V}": timed_sample(B, V)
+              for B, V in ((16, 49152), (4, 256000), (16, 256000))}
     # what the launch-count lock adds to every wrapper call, host clock
     t0 = time.perf_counter()
     for _ in range(100000):
@@ -501,7 +526,11 @@ def phase_kernels(torch, dev):
         "shape": [16, V_LLAMA], "dtype": "bfloat16",
         "sass_per_logit": per_logit, "host_ms": main["host_ms"],
         "pool32": {k: pool[k] for k in ("ms", "kernel_only_ms", "host_ms",
-                                        "plain_ms", "bound_ms")}})
+                                        "plain_ms", "bound_ms")},
+        "vocabularies": {n: {k: r[k] for k in ("ms", "kernel_only_ms",
+                                               "plain_ms", "bound_ms",
+                                               "splits")}
+                         for n, r in vocabs.items()}})
 
     # ---- fused_logprob: the reference scorer's strided view, read in place
     logits = (torch.randn(16, 80, V_LLAMA, generator=gen, device=dev)
@@ -950,6 +979,12 @@ def check_paged_attention(torch, dev):
         "split edges": (8, 32, 8, 128, 16, 8, 68,
                         [span - 2, span - 1, span, 2 * span - 2,
                          2 * span - 1, 2 * span, 127, 128], True),
+        # head dim 192 (nemotron-4-340b) at the 2048-token shape, and at
+        # nemotron's own heads, 96 on 8 kv heads (g = 12)
+        "timing hd192": (16, 32, 8, 192, 16, 128, 2112,
+                         [0, 15, 16, 2047]
+                         + [2047 - 13 * i for i in range(1, 13)], True),
+        "nemotron": (4, 96, 8, 192, 16, 8, 40, [0, 17, 64, 128], True),
     }
     worst = 0.0
     for name, (*dims, pos, perm) in shapes.items():
@@ -1035,6 +1070,8 @@ def check_paged_attention(torch, dev):
     main = timed("timing", f32)
     timed("timing", bf16)
     timed("timing", f32, window=100)
+    hd192 = timed("timing hd192", f32)
+    timed("timing hd192", bf16)
     engine = timed("engine", f32)
     timed("engine", bf16)
     return {"name": "paged_attention", "route": "cuda",
@@ -1047,7 +1084,9 @@ def check_paged_attention(torch, dev):
             "shape": list(shapes["timing"][:7]),
             "dtype": "bfloat16 q, float32 arena",
             "engine": {k: engine[k] for k in ("ms", "kernel_only_ms",
-                                             "plain_ms", "bound_ms")}}
+                                             "plain_ms", "bound_ms")},
+            "hd192": {k: hd192[k] for k in ("ms", "kernel_only_ms",
+                                            "plain_ms", "bound_ms")}}
 
 
 def _pipeline_step(torch, gen, ref, rew):
@@ -2373,22 +2412,28 @@ def phase_quickstart(torch, dev):
     # gradient are 0 on both sides)
     loss_fn = make_loss_fn(trn.cfg, rho=4.0, clip_mode="aipo")
     worst = dict.fromkeys(("loss", "mean_logp", "grad_norm"), 0.0)
-    for h, (params, batch) in zip(hist, seen):
+    at = {}                         # metric -> (step, card, cpu) of its worst
+    for n, (h, (params, batch)) in enumerate(zip(hist, seen)):
         (_, metrics), grads = value_and_grad(loss_fn, params, batch)
         cpu = {"loss": metrics["loss"], "mean_logp": metrics["mean_logp"],
                "grad_norm": global_norm(grads)}
         for k, v in cpu.items():
             v = float(v)
-            worst[k] = max(worst[k],
-                           abs(h[k] - v) / (1e-4 * abs(v) + 1e-6))
+            r = abs(h[k] - v) / (1e-4 * abs(v) + 1e-6)
+            if r != r:              # a NaN on either side fails the check
+                r = float("inf")
+            if r >= worst[k]:
+                worst[k], at[k] = r, (n, h[k], v)
     zero = sum(1 for h in hist if h["grad_norm"] == 0.0)
     log(f"  each step's metrics against the CPU port on the card's own "
         f"batch and params (plain versions), worst |d| / (1e-4 |cpu| + "
         f"1e-6): " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
         + f"; {zero} of {steps} steps have zero advantages and a zero "
-        "gradient")
+        "gradient; at (step, card, cpu): " + ", ".join(
+            f"{k} ({n}, {c!r}, {v!r})" for k, (n, c, v) in at.items()))
     require(len(seen) == steps and max(worst.values()) <= 1.0,
-            "quickstart metrics against the CPU port")
+            f"quickstart metrics against the CPU port: {len(seen)} steps "
+            f"recorded of {steps}; worst {worst} at (step, card, cpu) {at}")
     del ctl, trn, gen, seen, recorded
     gc.collect()
     return launches, hist
@@ -2697,7 +2742,7 @@ def phase_proc(torch, dev, pool_a, quick_hist):
     # (b) an engine pool of 2 on paged KV at 2 layers: in process, then shm
     cfg2 = LLAMA31_8B.replace(name=f"llama31-8b-{PROC_LAYERS}l",
                               n_layers=PROC_LAYERS)
-    L, steps_b = PROC_LAYERS, 4
+    L, steps_b = PROC_LAYERS, 3
     proc_launches = [launches_a]
     for transport in ("inproc", "shm"):
         tracer.clear()
@@ -3032,7 +3077,7 @@ def phase_supervise(torch, dev) -> dict:
     sup = MeasuredSupervisor(chaos=chaos)
     with ShmSegments() as shm:
         ctl, gens, trn, ref, spawn_s = pool_controller(
-            torch, dev, cfg, n_gens=2, steps=6, prompt_len=ENGINE_PROMPT,
+            torch, dev, cfg, n_gens=2, steps=4, prompt_len=ENGINE_PROMPT,
             transport="shm", staleness=2, supervise=sup,
             record=KernelCalls.ENGINE, stall="generator1",
             pool=PoolConfig(engine=True, kv_layout="paged",
@@ -3095,18 +3140,18 @@ def phase_supervise(torch, dev) -> dict:
         + str([(ev["event"], ev["actor"]) for ev in events]))
     for line in replay:
         log(line)
-    require([h["step"] for h in hist] == list(range(6)), "(a) step order")
+    require([h["step"] for h in hist] == list(range(4)), "(a) step order")
     require(chaos.unfired() == [], "(a) the fault did not fire")
     require([r["actor"] for r in respawned] == ["generator1"]
             and [r["actor"] for r in readmitted] == ["generator1"]
             and respawned[0]["recovery_s"] > 0,
             f"(a) respawned {respawned}, readmitted {readmitted}")
     # the batch in flight at the kill is re-enqueued into the new engine
-    # and emitted by the second life (1 again, then 3 and 5)
+    # and emitted by the second life (1 again, then 3)
     require(victim["inflight"] == [1]
             and readmitted[0]["batches"] == "[1]"
             and hist[1]["generator"] == "generator1"
-            and stats["generator1"]["batches_emitted"] == 3,
+            and stats["generator1"]["batches_emitted"] == 2,
             f"(a) in flight at the kill {victim['inflight']}, readmitted "
             f"{readmitted}, the second life's stats {stats['generator1']}")
     require(max(h["sample_staleness"] for h in hist) <= 2,
@@ -3211,7 +3256,7 @@ def phase_supervise(torch, dev) -> dict:
     for line in replay_b:
         log(line)
     require([e["actor"] for e in resp_b] == ["ref"], f"(b) respawned {resp_b}")
-    require(len(hf) == len(hc) == 4 and all(
+    require(len(hf) == len(hc) == 3 and all(
         a[k] == b[k] for a, b in zip(hf, hc) for k in keys),
         "(b) the faulty run differs from the clean run")
     require(pf["delivered"] and pf["delivered"][0] == (0, seed_print),
@@ -3295,7 +3340,7 @@ def ref_child_controller(torch, dev, cfg, plan, record=None):
     """[14] (b)'s loop, the launcher's ``--kl-coef`` wiring: the generator
     (chunk scheduling) and the trainer threaded here, the frozen
     reference (seed 1) in a proc child with its weight channel, staleness
-    1, 4 steps, supervised with the fault plan ``plan``; the reference
+    1, 3 steps, supervised with the fault plan ``plan``; the reference
     records the kernel calls of ``record``."""
     import functools
 
@@ -3325,10 +3370,464 @@ def ref_child_controller(torch, dev, cfg, plan, record=None):
                              CommType.GATHER),
         CommunicationChannel("completions_with_reward", rew, trn,
                              CommType.SCATTER)]
-    ctl = ExecutorController(gens + [ref, rew, trn], chans, max_steps=4,
+    ctl = ExecutorController(gens + [ref, rew, trn], chans, max_steps=3,
                              mode="async", staleness=1, timeout=900.0,
                              supervise=Supervisor(chaos=plan))
     return ctl, gens, trn, ref
+
+
+# ---------------------------------------------------- [15] windowed family --
+
+# [15]: starcoder2-3b serves prompts past its native 4096-token window
+WINDOW_ARCH = "starcoder2-3b"
+WINDOW_PROMPT = 4160
+# the paged engine's pool in (a): 2 batches of 16 rows through 16 slots, so
+# rows join mid-decode
+WINDOW_ENGINE_ROWS = 16
+# (d): the windowed archs with beyond-paper windows, at their published
+# widths and 2 layers each (none fits one card at full depth)
+WINDOW_OTHERS = ("command-r-35b", "deepseek-67b", "nemotron-4-340b")
+OTHER_LAYERS = 2
+OTHER_PROMPT, OTHER_NEW = 64, 16
+
+
+def cut_line(cfg_full, cfg_cut) -> str:
+    """The params and bf16 bytes of a config at its published depth and
+    at the depth it was cut to."""
+    from repro_torch.configs import param_count
+    full, cut = param_count(cfg_full)[0], param_count(cfg_cut)[0]
+    return (f"{cfg_full.n_layers} layers {full / 1e9:.2f} B params "
+            f"({2 * full / 1e9:.1f} GB bf16) cut to {cfg_cut.n_layers}: "
+            f"{cut / 1e9:.2f} B ({2 * cut / 1e9:.1f} GB)")
+
+
+def windowed_serve(torch, dev, calls):
+    """[15] (a): starcoder2-3b at full width and depth, bf16, prompts of
+    WINDOW_PROMPT ids: batch rollouts scored by the reference, then the
+    paged engine.  Returns the launch counts of its runs."""
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import chunked_attention
+    from repro_torch.models import init_params
+    from repro_torch.rl import engine as engine_mod
+    from repro_torch.rl.data import ArithmeticTasks
+
+    cfg = configs.get_config(WINDOW_ARCH)
+    W, L = cfg.window, cfg.n_layers
+    B = N_PROMPTS * N_PER
+    log(f"  (a) serve {cfg.name} at full width and depth ({L} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd},"
+        f" V {cfg.vocab}, window {W}), bf16; {N_PROMPTS} prompts x {N_PER}"
+        f" samples of {WINDOW_PROMPT} ids, {MAX_NEW} new tokens in chunks "
+        f"of {CHUNK}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    log(f"  init: {n / 1e9:.3f} B params, {2 * n / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s")
+    tasks = ArithmeticTasks(prompt_len=WINDOW_PROMPT, seed=0)
+    gen = GeneratorExecutor(cfg, tasks, n_prompts=N_PROMPTS,
+                            n_per_prompt=N_PER, max_new=MAX_NEW,
+                            chunk=CHUNK, temperature=1.0, seed=0,
+                            device=dev)
+    gen.set_weights(params, version=0)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(params)
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    total = collections.Counter()
+
+    # one batch through the generator's own hooks (what ``step`` and the
+    # pool run), timed apart: the prefill wraps the rings, every decode
+    # chunk wraps them further; the last chunk runs under the profiler
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()          # the batch rollout's run starts here
+    t0 = time.perf_counter()
+    job, state = gen.begin_batch()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    ring = state.cache["segments"][0]
+    sp = ring["slot_pos"]
+    require(len(state.cache["segments"]) == 1 and ring["k"].shape[2] == W,
+            f"ring of {ring['k'].shape[2]} slots, want {W}")
+    require(sp.min().item() == WINDOW_PROMPT - W
+            and sp.max().item() == WINDOW_PROMPT - 1
+            and sp[0].item() == W, "the prefilled ring does not hold the "
+            "last W positions at pos % W")
+    walls, box = [], []
+    for c in range(job.n_chunks - 1):
+        t0 = time.perf_counter()
+        state = gen.advance_chunk(job, state)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    decode_ms = statistics.median(walls) * 1e3 / CHUNK
+    busy_share(torch, lambda: box.append(gen.advance_chunk(job, state)),
+               CHUNK, decode_ms)
+    state = box[0]
+    end = WINDOW_PROMPT + MAX_NEW
+    require(sp[(end - 1) % W].item() == end - 1 and sp.min().item() == end - W,
+            "decode did not wrap the rings")
+    out = gen.emit_batch(job, state)
+    t0 = time.perf_counter()
+    ref.put_input("completions", out)
+    ref.step()
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    rew.put_input("completions_with_ref", ref.get_output("completions_with_ref"))
+    out = rew.step()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    total.update(launches)
+    want = {"fused_sample": MAX_NEW, "fused_logprob": 1}
+    require(launches == want, f"windowed rollout launch counts {launches}, "
+            f"want {want} (windowed prefill and the reference's windowed "
+            "forward go to chunked_attention, as the reference routes "
+            "them)")
+    d = _check_outputs(torch, out, cfg.vocab)
+    # the plain windowed attention's share of the prefill: the layers'
+    # chunked_attention at the prefill's shapes, timed alone
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(B, WINDOW_PROMPT, cfg.n_heads, cfg.hd, generator=g,
+                    device=dev).to(torch.bfloat16)
+    k = torch.randn(B, WINDOW_PROMPT, cfg.n_kv_heads, cfg.hd, generator=g,
+                    device=dev).to(torch.bfloat16)
+    attn_ms = cuda_ms(torch, lambda: chunked_attention(q, k, k, window=W),
+                      2)
+    del q, k
+    log(f"  prefill [{B}, {WINDOW_PROMPT}]: {prefill_ms:.1f} ms, of which "
+        f"the plain windowed chunked_attention takes about {L} x "
+        f"{attn_ms:.1f} = {L * attn_ms:.1f} ms "
+        f"({100 * L * attn_ms / prefill_ms:.1f}%); decode {decode_ms:.2f} "
+        f"ms per token (batch {B}, median of {len(walls)} unprofiled "
+        f"chunks; rings of {W} slots wrapped: slot 0 holds position "
+        f"{sp[0].item()}); reference {t_ref * 1e3:.1f} ms over [{B}, "
+        f"{end}] (windowed); |behavior_logp - ref_logp| at {d.numel()} "
+        f"actions (bf16): mean {d.mean().item():.4f}, max "
+        f"{d.max().item():.4f}; launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del job, state, ring, sp, out, box
+
+    # the paged engine: 2 batches through WINDOW_ENGINE_ROWS slots
+    torch.cuda.reset_peak_memory_stats()
+    gen.engine_configure(kv_layout="paged", kv_page_size=ENGINE_PAGE,
+                         max_running_rows=WINDOW_ENGINE_ROWS,
+                         row_budgets=ENGINE_BUDGETS)
+    for b in range(2):
+        gen.engine_enqueue(b, bound=0)
+    items = []
+    t0 = time.perf_counter()
+    with timed_decode(torch, engine_mod) as timer:
+        build.reset_launches()      # the engine's run starts here
+        for _ in range(40):
+            items += gen.engine_round(["completions"])
+            if len(items) == 2:
+                break
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    total.update(launches)
+    st = gen.engine_stats()
+    rounds = timer.rounds
+    want = {"paged_attention": L * CHUNK * rounds,
+            "fused_sample": CHUNK * rounds}
+    require(len(items) == 2 and launches == want,
+            f"windowed engine: {len(items)} batches, launches {launches}, "
+            f"want {want} (radix misses prefill through chunked_attention)")
+    require(st["rows_admitted"] == 2 * B and st["radix_hits"] > 0
+            and st["staleness_violations"] == 0 and st["running"] == 0
+            and rounds > max(ENGINE_BUDGETS), f"engine stats {st}, "
+            f"{rounds} rounds")
+    decode = statistics.median(w / CHUNK * 1e3 for w in timer.wall)
+    log(f"  paged engine (page {ENGINE_PAGE}, {WINDOW_ENGINE_ROWS} slots, "
+        f"2 batches, budgets {ENGINE_BUDGETS}): {rounds} rounds in "
+        f"{wall:.2f} s, decode {decode:.2f} ms per token (median); "
+        f"admitted {st['rows_admitted']}, radix hits {st['radix_hits']} / "
+        f"misses {st['radix_misses']}, pages in use {st['pages_in_use']} of"
+        f" {st['pages_total']}; launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    windows = {kw.get("window") for _, kw, _ in
+               calls.calls["paged_attention_cuda"]}
+    require(windows == {W}, f"paged_attention windows {windows}, want {W}")
+    d = score_engine(torch, cfg, params, [items[0]["snapshot"]
+                                          ["completions"]])
+    log(f"  the first engine batch scored: |behavior_logp - ref_logp| at "
+        f"{d.numel()} actions (bf16): mean {d.mean().item():.4f}, max "
+        f"{d.max().item():.4f}")
+    gen.engine_abort()
+    del gen, ref, rew, items, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def windowed_train(torch, dev):
+    """[15] (b): two steps of the sequential async loop for starcoder2-3b
+    at full width; sequences inside the window, so the segments merge and
+    the trainer and the reference run B4, B1 and B2.  Returns the launch
+    counts."""
+    from repro_torch import configs
+    from repro_torch.core.channels import CommType, CommunicationChannel, \
+        WeightsCommunicationChannel
+    from repro_torch.core.controller import SyncExecutorController
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor, TrainerExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.rl.data import ArithmeticTasks
+
+    cfg = configs.get_config(WINDOW_ARCH)
+    n_steps = 2
+    torch.cuda.reset_peak_memory_stats()
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=0),
+                            n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+                            max_new=MAX_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=0, device=dev)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(init_params(cfg, seed=1, dtype=torch.bfloat16,
+                                device=dev))
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    trn = TrainerExecutor(cfg, dtype=torch.bfloat16, kl_coef=KL_COEF,
+                          seed=0, device=dev)
+    ctl = SyncExecutorController(
+        [gen, ref, rew, trn],
+        [WeightsCommunicationChannel("policy_model", trn, gen),
+         CommunicationChannel("completions", gen, ref, CommType.BROADCAST),
+         CommunicationChannel("completions_with_ref", ref, rew,
+                              CommType.GATHER),
+         CommunicationChannel("completions_with_reward", rew, trn,
+                              CommType.SCATTER)],
+        max_steps=n_steps, mode="async", staleness=1)
+    ctl.init()
+    n = sum(t.numel() for t in leaves(trn.get_model()))
+    seq = gen.tasks.prompt_len + MAX_NEW
+    log(f"  (b) train {cfg.name} at full width and depth ({cfg.n_layers} "
+        f"layers): {n / 1e9:.3f} B params, trainer state {12 * n / 1e9:.1f}"
+        f" GB; {n_steps} steps of the async schedule, staleness 1, KL "
+        f"{KL_COEF}; sequences of {seq} <= window {cfg.window}")
+    fp_init = fingerprint(torch, trn.get_model())
+    t0 = time.perf_counter()
+    build.reset_launches()          # the train path's run starts here
+    history = ctl.run()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    for h in history:
+        log(f"  step {h['step']}: loss {h['loss']:.5f}, grad_norm "
+            f"{h['grad_norm']:.4f}, weight_version {h['weight_version']}")
+        require(h["weight_version"] == max(0, h["step"] - 1)
+                and math.isfinite(h["loss"])
+                and math.isfinite(h["grad_norm"]), f"step {h}")
+    require(fingerprint(torch, trn.get_model()) != fp_init,
+            "the params did not move")
+    L = cfg.n_layers
+    want = {"fused_sample": n_steps * MAX_NEW,
+            "flash_attention": n_steps * 2 * L,
+            "fused_logprob": 2 * n_steps, "fused_logprob_bwd": n_steps}
+    require(launches == want, f"windowed train launch counts {launches}, "
+            f"want {want} (per step: the reference's and the trainer's "
+            "merged forward through flash_attention; the generator's "
+            "windowed prefill through chunked_attention)")
+    log(f"  {n_steps} steps in {wall:.1f} s; launches {launches}; peak "
+        f"memory allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del ctl, gen, ref, rew, trn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def windowed_numerics(torch, dev):
+    """[15] (c): starcoder2-3b widths, 2 layers, fp32, window 4096:
+    decode through the wrapped ring against the teacher-forced windowed
+    forward_train (2e-3), then the paged engine's behaviour log-probs
+    against the reference's (1e-3).  Returns the engine's launch
+    counts."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import decode_step, forward_train, \
+        init_params, prefill
+    from repro_torch.rl.data import ArithmeticTasks
+
+    full = configs.get_config(WINDOW_ARCH)
+    cfg = full.replace(name=f"{full.name}-2l", n_layers=2)
+    W = cfg.window
+    params = init_params(cfg, seed=5, dtype=torch.float32, device=dev)
+    S, n = W + 6, 8
+    ids = np.random.default_rng(5).integers(0, cfg.vocab, (2, S + n))
+    toks = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        full_logits, _ = forward_train(params, cfg, {"tokens": toks})
+        _, cache = prefill(params, cfg, {"tokens": toks[:, :S]},
+                           cache_len=S + n, dtype=torch.float32)
+        require(cache["segments"][0]["k"].shape[2] == W, "ring size")
+        err = 0.0
+        for i in range(n):
+            lg, cache = decode_step(params, cfg, cache, toks[:, S + i:S + i + 1])
+            err = max(err, max_err(lg, full_logits[:, S + i]))
+    del full_logits
+    log(f"  (c) {cfg.name} fp32, window {W}: decode of {n} tokens through "
+        f"the wrapped ring after a {S}-token prefill against the "
+        f"teacher-forced windowed forward_train: max|dlogits| {err:.3e} "
+        "(tolerance 2e-3)")
+    require(err <= 2e-3, "ring decode against the windowed forward")
+
+    # one prompt x 4 samples: the reference's fp32 logits of [4, 4224,
+    # 49152] take 3.3 GB, and every kernel call is recorded
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(prompt_len=WINDOW_PROMPT,
+                                                 seed=5),
+                            n_prompts=1, n_per_prompt=N_PER,
+                            max_new=MAX_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=5, device=dev)
+    gen.set_weights(params, version=0)
+    gen.engine_configure(kv_layout="paged", kv_page_size=ENGINE_PAGE,
+                         row_budgets=ENGINE_BUDGETS)
+    gen.engine_enqueue(0, bound=0)
+    items = []
+    build.reset_launches()          # the engine's run starts here
+    for _ in range(40):
+        items += gen.engine_round(["completions"])
+        if items:
+            break
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    require(len(items) == 1 and launches.get("paged_attention", 0) > 0,
+            f"fp32 windowed engine: {len(items)} batches, {launches}")
+    d = score_engine(torch, cfg, params, [items[0]["snapshot"]
+                                          ["completions"]])
+    log(f"  fp32 paged engine, prompts of {WINDOW_PROMPT}: "
+        f"|behavior_logp - ref_logp| at {d.numel()} actions: max "
+        f"{d.max().item():.2e} (tolerance 1e-3); launches {launches}")
+    require(d.max().item() <= 1e-3, "fp32 windowed engine mu vs reference")
+    gen.engine_abort()
+    del gen, params, items
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def windowed_others(torch, dev):
+    """[15] (d): command-r-35b, deepseek-67b and nemotron-4-340b at their
+    published widths, 2 layers, bf16: one batch rollout and one paged
+    engine round each; the reference scores command-r's and deepseek's
+    rollouts.  Returns the launch counts."""
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.rl.data import ArithmeticTasks
+
+    total = collections.Counter()
+    for arch in WINDOW_OTHERS:
+        full = configs.get_config(arch)
+        cfg = full.replace(name=f"{arch}-{OTHER_LAYERS}l",
+                           n_layers=OTHER_LAYERS)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=7, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        gen = GeneratorExecutor(cfg, ArithmeticTasks(prompt_len=OTHER_PROMPT,
+                                                     seed=7),
+                                n_prompts=1, n_per_prompt=4,
+                                max_new=OTHER_NEW, chunk=OTHER_NEW,
+                                temperature=1.0, seed=7, device=dev)
+        gen.set_weights(params, version=0)
+        # flash_attention takes hd <= 128, so nemotron's (192) merged
+        # forward has no kernel on the card (ROADMAP queue C)
+        score = cfg.hd != 192
+        build.reset_launches()      # this arch's run starts here
+        out = gen.step()
+        if score:
+            ref = RefPolicyExecutor(cfg)
+            ref.set_weights(params)
+            ref.put_input("completions", out)
+            out = ref.step()
+        gen.engine_configure(kv_layout="paged", kv_page_size=ENGINE_PAGE)
+        gen.engine_enqueue(0, bound=0)
+        items = gen.engine_round(["completions"])
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)  # ... and ends here
+        total.update(launches)
+        want = {"fused_sample": 2 * OTHER_NEW,
+                "paged_attention": OTHER_LAYERS * OTHER_NEW}
+        if score:
+            want.update(fused_logprob=1, flash_attention=OTHER_LAYERS)
+        require(len(items) == 1 and launches == want,
+                f"{cfg.name}: {len(items)} batches, launches {launches}, "
+                f"want {want}")
+        tokens = out["tokens"]
+        require(tokens.min().item() >= 0 and tokens.max().item() < cfg.vocab
+                and torch.isfinite(out["behavior_logp"]).all().item(),
+                f"{cfg.name} rollout outputs")
+        if score:
+            d = _check_outputs(torch, out, cfg.vocab)
+            scored = f"|mu - ref| max {d.max().item():.4f} (bf16)"
+        else:
+            scored = "not scored (B4 at hd 192 is not ported)"
+        log(f"  (d) {arch}: {cut_line(full, cfg)}; hd {cfg.hd}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads, V {cfg.vocab}"
+            + (", tied head" if cfg.tie_embeddings else "")
+            + f", act {cfg.act}; init {t_init:.1f} s; rollout [4, "
+            f"{OTHER_PROMPT} + {OTHER_NEW}] and one engine round: "
+            f"launches {launches}; {scored}")
+        gen.engine_abort()
+        del gen, params, out, items
+        if score:
+            del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_windowed(torch, dev):
+    """[15]: the windowed dense family.  Returns the launch counts of its
+    main-path runs."""
+    log(f"[15] windowed: {WINDOW_ARCH} past its window, and "
+        f"{', '.join(WINDOW_OTHERS)} at {OTHER_LAYERS} layers; "
+        f"{nvidia_smi()}")
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    with KernelCalls(torch, per_shape=1, names=KernelCalls.ENGINE) as calls:
+        launches.update(windowed_serve(torch, dev, calls))
+    for line in calls.replay("[15] (a)", expect=(
+            "fused_sample_cuda", "fused_logprob_cuda",
+            "paged_attention_cuda")):
+        log(line)
+    del calls
+    with KernelCalls(torch, per_shape=1) as calls:
+        launches.update(windowed_train(torch, dev))
+    for line in calls.replay("[15] (b)"):
+        log(line)
+    del calls
+    with KernelCalls(torch, names=KernelCalls.ENGINE) as calls:
+        launches.update(windowed_numerics(torch, dev))
+    for line in calls.replay("[15] (c)", expect=(
+            "fused_sample_cuda", "fused_logprob_cuda",
+            "paged_attention_cuda")):
+        log(line)
+    del calls
+    with KernelCalls(torch, names=KernelCalls.ENGINE) as calls:
+        launches.update(windowed_others(torch, dev))
+    for line in calls.replay("[15] (d)", expect=(
+            "fused_sample_cuda", "fused_logprob_cuda",
+            "flash_attention_cuda", "paged_attention_cuda")):
+        log(line)
+    shapes = {tuple(args[0].shape) for args, _, _ in
+              calls.calls["paged_attention_cuda"]}
+    require(any(s[-1] == 192 for s in shapes), "B5 never ran at hd 192")
+    V = {args[0].shape[-1] for args, _, _ in
+         calls.calls["fused_sample_cuda"]}
+    require(256000 in V, "B3 never ran at V 256000")
+    del calls
+    launches = dict(launches)
+    for name in KERNELS[:5]:
+        require(launches.get(name, 0) > 0, f"{name} never ran in [15]")
+    log(f"  [15] launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -3351,8 +3850,16 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"[0] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    marks = [time.perf_counter()]
+
+    def mark(label):
+        """The seconds since the previous mark, on a line of their own."""
+        marks.append(time.perf_counter())
+        log(f"  {label}: {marks[-1] - marks[-2]:.1f} s")
+
     phase_build()
     records = phase_kernels(torch, dev)
+    mark("[1]-[2]")
     params, cfg, launches = phase_serve(torch, dev)
     int8_record, int8_launches = phase_int8(torch, dev, params)
     records.append(int8_record)
@@ -3360,17 +3867,27 @@ def main() -> int:
     engine_launches = phase_engine(torch, dev, params, cfg)
     del params
     torch.cuda.empty_cache()
+    mark("[3], [9], [4], [8]")
     phase_fp32(torch, dev)
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, dev)
     torch.cuda.empty_cache()
     phase_train_numerics(torch, dev)
     torch.cuda.empty_cache()
+    mark("[5]-[7]")
     pool_launches, pool_a = phase_pool(torch, dev)
     quick_launches, quick_hist = phase_quickstart(torch, dev)
+    mark("[10]-[11]")
     proc_launches = phase_proc(torch, dev, pool_a, quick_hist)
+    mark("[12]")
     launch_launches = phase_launch(torch)
+    mark("[13]")
     supervise_launches = phase_supervise(torch, dev)
+    mark("[14]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    windowed_launches = phase_windowed(torch, dev)
+    mark("[15]")
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
@@ -3384,7 +3901,8 @@ def main() -> int:
                    "quickstart": quick_launches.get(r["name"], 0),
                    "proc": proc_launches.get(r["name"], 0),
                    "launch": launch_launches.get(r["name"], 0),
-                   "supervise": supervise_launches.get(r["name"], 0)}
+                   "supervise": supervise_launches.get(r["name"], 0),
+                   "windowed": windowed_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")
@@ -3393,6 +3911,8 @@ def main() -> int:
                     f"{r['name']} never ran in a child process")
             require(by_path["supervise"] > 0,
                     f"{r['name']} never ran in the supervised runs")
+            require(by_path["windowed"] > 0,
+                    f"{r['name']} never ran on the windowed path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(smi)

@@ -1088,22 +1088,27 @@ class ShmTransport(ProcTransport):
     """``ProcTransport`` with a shared-memory data plane.
 
     Control messages stay on the socket; a payload whose serialized size
-    reaches ``REPRO_SHM_THRESHOLD`` bytes is written into a shm ring slot
-    instead and only ``(slot, segment, nbytes)`` crosses.  The parent ->
-    child ring (``REPRO_SHM_SLOTS`` slots) grows its slots to fit
-    (weights); the child -> parent ring is half as many fixed segments of
-    ``REPRO_SHM_SLOT_BYTES`` (batches), and a larger reply (a trainer's
-    weights) goes inline.  Every segment is created and unlinked by the
-    parent."""
+    reaches ``threshold`` bytes is written into a shm ring slot instead
+    and only ``(slot, segment, nbytes)`` crosses.  The parent -> child
+    ring (``slots`` slots) grows its slots to fit (weights); the child ->
+    parent ring is half as many fixed segments of ``slot_bytes``
+    (batches), and a larger reply (a trainer's weights) goes inline.  An
+    argument left at None reads ``REPRO_SHM_THRESHOLD``,
+    ``REPRO_SHM_SLOTS`` or ``REPRO_SHM_SLOT_BYTES``, then the default.
+    Every segment is created and unlinked by the parent."""
 
     def __init__(self, factory, args=(), kwargs=None, *,
                  spawn_timeout: float = 180.0, call_timeout: float = 600.0,
-                 device_spec: Optional[DeviceSpec] = None):
-        self._threshold = int(os.environ.get("REPRO_SHM_THRESHOLD",
-                                             SHM_THRESHOLD_DEFAULT))
-        n_slots = int(os.environ.get("REPRO_SHM_SLOTS", SHM_SLOTS_DEFAULT))
-        child_bytes = int(os.environ.get("REPRO_SHM_SLOT_BYTES",
-                                         SHM_SLOT_BYTES_DEFAULT))
+                 device_spec: Optional[DeviceSpec] = None,
+                 threshold: Optional[int] = None,
+                 slots: Optional[int] = None,
+                 slot_bytes: Optional[int] = None):
+        self._threshold = threshold if threshold is not None else int(
+            os.environ.get("REPRO_SHM_THRESHOLD", SHM_THRESHOLD_DEFAULT))
+        n_slots = slots if slots is not None else int(
+            os.environ.get("REPRO_SHM_SLOTS", SHM_SLOTS_DEFAULT))
+        child_bytes = slot_bytes if slot_bytes is not None else int(
+            os.environ.get("REPRO_SHM_SLOT_BYTES", SHM_SLOT_BYTES_DEFAULT))
         # the child's segments exist before the child does; it only
         # attaches, so the unlink duty stays here
         self._child_tx_segs = [_shm_create(child_bytes)

@@ -304,7 +304,8 @@ class GeneratorExecutor(Executor):
     # finished batches, never KV caches.
 
     def engine_configure(self, *, max_running_rows: int = 0,
-                         row_budgets=None, scorer: str = "numeric",
+                         row_budgets=None, round_delay_s: float = 0.0,
+                         scorer: str = "numeric",
                          leave_one_out: bool = False,
                          kv_layout: str = "", kv_page_size: int = 0,
                          kv_pages: int = 0):
@@ -315,8 +316,8 @@ class GeneratorExecutor(Executor):
             self._engine.abort()
         self._engine = RolloutEngine(
             self, max_running_rows=max_running_rows,
-            row_budgets=row_budgets, scorer=scorer,
-            leave_one_out=leave_one_out,
+            row_budgets=row_budgets, round_delay_s=round_delay_s,
+            scorer=scorer, leave_one_out=leave_one_out,
             kv_layout=kv_layout, kv_page_size=kv_page_size,
             kv_pages=kv_pages)
 

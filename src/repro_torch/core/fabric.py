@@ -332,6 +332,11 @@ class WeightFabric:
         self._mark_dead(ch, error if error is not None
                         else Detached(f"'{ch.inbound.name}' detached"))
 
+    def subscriber_error(self, ch) -> Optional[BaseException]:
+        """Why ``ch`` is detached (None while it is being published to)."""
+        with self._cond:
+            return self._dead.get(id(ch))
+
     def dead_subscribers(self) -> List:
         with self._cond:
             return [ch for ch in self.channels if id(ch) in self._dead]

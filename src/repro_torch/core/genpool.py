@@ -395,13 +395,16 @@ class PoolConfig:
     # admission into an in-flight slot pool instead of batch-granular
     # chunk scheduling.  ``max_running_rows=0`` lets the engine size the
     # pool (2x one batch); ``engine_row_budgets`` injects per-row decode
-    # budgets (stragglers).
+    # budgets (stragglers); ``engine_round_delay_s`` sleeps per decode
+    # round.
     engine: bool = False
     max_running_rows: int = 0
     engine_row_budgets: Optional[List[int]] = None
+    engine_round_delay_s: float = 0.0
     # paged KV cache (models/paging.py): ``kv_layout="paged"`` replaces
     # the dense per-row ring with a shared page arena + per-row page
-    # tables and radix prefix reuse ("" means dense).  kv_page_size=0 ->
+    # tables and radix prefix reuse ("" defers to $REPRO_KV_LAYOUT, then
+    # dense).  kv_page_size=0 ->
     # 16; kv_pages=0 -> sized so every slot fits a full row.
     kv_layout: str = ""
     kv_page_size: int = 0
@@ -413,8 +416,8 @@ class PoolConfig:
         if self.chunk_delay is not None and not self.chunk_scheduling:
             raise ValueError("chunk_delay requires chunk_scheduling=True")
         if self.engine and self.chunk_delay is not None:
-            raise ValueError("engine mode takes no chunk_delay: its "
-                             "stragglers are engine_row_budgets")
+            raise ValueError("engine mode takes no chunk_delay: it paces "
+                             "rounds via engine_round_delay_s")
 
 
 class GeneratorPool:
@@ -737,6 +740,7 @@ class GeneratorPool:
         gen.call("engine_configure",
                  max_running_rows=cfg.max_running_rows,
                  row_budgets=cfg.engine_row_budgets,
+                 round_delay_s=cfg.engine_round_delay_s,
                  kv_layout=cfg.kv_layout,
                  kv_page_size=cfg.kv_page_size,
                  kv_pages=cfg.kv_pages)

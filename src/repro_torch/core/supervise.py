@@ -68,8 +68,6 @@ _log = logging.getLogger(__name__)
 RESPAWNED = "respawned"
 LOST = "lost"
 
-_MONITOR_POLL_S = 0.2       # the monitor thread's poll period
-
 
 @dataclass(frozen=True)
 class RestartPolicy:
@@ -247,10 +245,17 @@ class Supervisor:
     workers recovering two different actors never serialize on each
     other's child spawns."""
 
-    def __init__(self, policy: Optional[RestartPolicy] = None, *,
-                 chaos: Optional[FaultPlan] = None):
-        self.policy = policy if policy is not None else RestartPolicy()
+    def __init__(self, policies=None, *, default: Optional[RestartPolicy]
+                 = None, chaos: Optional[FaultPlan] = None,
+                 monitor_poll_s: float = 0.2):
+        # ``policies``: {role: RestartPolicy}, roles not named fall back
+        # to ``default``; a bare RestartPolicy is the default for every role
+        if isinstance(policies, RestartPolicy):
+            default, policies = policies, None
+        self.policies: Dict[str, RestartPolicy] = dict(policies or {})
+        self.default = default if default is not None else RestartPolicy()
         self.chaos = chaos
+        self.monitor_poll_s = monitor_poll_s
         self._lock = threading.Lock()
         self._members: Dict[str, _Member] = {}
         self._fabric = None
@@ -315,6 +320,9 @@ class Supervisor:
             m = self._members.get(name)
             return m.restarts if m is not None else 0
 
+    def policy_for(self, role: str) -> RestartPolicy:
+        return self.policies.get(role, self.default)
+
     # ------------------------------------------------------------- events --
 
     def _note(self, kind: str, name: str, **extra):
@@ -351,7 +359,7 @@ class Supervisor:
             member = self._members.get(handle.name)
         if member is None:
             raise error
-        policy = self.policy
+        policy = self.policy_for(handle.role)
         if isinstance(error, TimeoutError) and not isinstance(error,
                                                               ActorDied):
             if self._responsive(handle, policy.hang_ping_s):
@@ -502,7 +510,7 @@ class Supervisor:
 
     def _monitor_loop(self):
         seen: set = set()
-        while not self._stop.wait(_MONITOR_POLL_S):
+        while not self._stop.wait(self.monitor_poll_s):
             with self._lock:
                 members = list(self._members.values())
             for m in members:

@@ -23,7 +23,9 @@
 // fp32 P V sums of its (head, dim) pairs (V's columns past the tile's end
 // are zero-filled).  Masked lanes score -1e30 and their p is re-zeroed
 // under the mask; the denominator is floored at 1e-30, as in the
-// reference.
+// reference.  HD is 16, 32, 64, 128 or 192: each is a whole number of
+// 16-byte chunks a column in either dtype, which is all the staging and
+// the (head, dim) split of the P V sums need.
 //
 // Merge: a row whose valid columns lie in one split writes its output
 // from that block.  Otherwise each non-empty split writes (m, l, acc) to
@@ -300,6 +302,9 @@ static cudaError_t launch_hd(const void* q, const void* ak, const void* av, cons
     PA_CASE(32)
     PA_CASE(64)
     PA_CASE(128)
+    // nemotron-4-340b: 24 chunks a bf16 column (48 fp32), not a power of
+    // two; the layout above takes any HD that is a multiple of 16 bytes
+    PA_CASE(192)
     default: return cudaErrorInvalidValue;
   }
 #undef PA_CASE

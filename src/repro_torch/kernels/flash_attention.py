@@ -38,33 +38,48 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
 
-def _block_attend(q, k, v, row_pos, col_pos):
+def _block_attend(q, k, v, row_pos, col_pos, window: int = 0):
     """q: [B, bq, K, g, hd]; k/v: [B, Sk, K, hd]; causal by absolute
-    positions.  Scores and softmax in fp32, probs cast to v's dtype before
-    the PV product, as the reference does."""
+    positions, and with ``window`` a key more than ``window - 1``
+    positions behind its query is masked too.  Scores and softmax in
+    fp32, probs cast to v's dtype before the PV product, as the reference
+    does."""
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
     mask = col_pos[None, :] <= row_pos[:, None]
+    if window:
+        mask &= col_pos[None, :] > row_pos[:, None] - window
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
 
 
-def chunked_attention(q, k, v, *, block_q: int = 512, q_offset: int = 0):
+def chunked_attention(q, k, v, *, window: int = 0, block_q: int = 512,
+                      q_offset: int = 0):
     """Causal attention over query blocks: q: [B, Sq, H, hd], k/v:
     [B, Sk, K, hd] -> [B, Sq, H, hd]; live scores are
     [B, K, g, block_q, Sk] rather than [B, H, S, S].  ``q_offset`` is the
     absolute position of q[0] over keys at positions 0 .. Sk - 1 (a
-    prefill continuation over a cached prefix)."""
+    prefill continuation over a cached prefix).
+
+    With a sliding ``window`` and ``Sk > window + block_q``, each query
+    block reads only a ``window + block_q`` span of keys, the reference's
+    slice (its start clipped to [0, Sk - span]), so the work is
+    O(Sq * window)."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     q5 = q.reshape(B, Sq, K, H // K, hd)
     col_pos = torch.arange(Sk, device=q.device)
+    block_q = min(block_q, Sq)
+    span = window + block_q if window and Sk > window + block_q else Sk
     outs = []
     for qs in range(0, Sq, block_q):
         qi = q5[:, qs:qs + block_q]
         row_pos = q_offset + qs + torch.arange(qi.shape[1], device=q.device)
-        outs.append(_block_attend(qi, k, v, row_pos, col_pos))
+        start = min(max(q_offset + qs + block_q - span, 0), Sk - span)
+        outs.append(_block_attend(qi, k[:, start:start + span],
+                                  v[:, start:start + span], row_pos,
+                                  col_pos[start:start + span], window))
     return torch.cat(outs, dim=1).reshape(B, Sq, H, v.shape[-1])
 
 

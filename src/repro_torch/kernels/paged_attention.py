@@ -44,7 +44,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.online import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)    # 192: nemotron-4-340b
 MAX_GROUP = 16          # query heads per kv head the kernel holds
 
 

@@ -35,9 +35,11 @@ actor, then degrades the pool to the survivors; ``--chaos SPEC`` (or
 
 and the supervisor's events are printed after the run.
 ``--checkpoint-every N`` writes the trainer's params to
-``--checkpoint-path`` every N steps.  Other families (ROADMAP A11) and
-submeshes (A12) are not ported: their flags raise
-``NotImplementedError``.
+``--checkpoint-path`` every N steps.  ``--arch`` names a config of the
+registry (``repro_torch.configs.list_archs()``: the windowed dense archs,
+default ``starcoder2-3b`` as in the reference) or ``llama31-8b``; the
+registry's other families (ROADMAP A11) are not ported.  Submeshes (A12)
+are not ported either: ``--child-mesh`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ import os
 
 import torch
 
+from repro_torch import configs
 from repro_torch.core import (AdaptiveStalenessController, CommType,
                               CommunicationChannel, DeviceSpec,
                               ExecutorController, FaultPlan,
@@ -74,14 +77,15 @@ def _refuse_unported(args):
 
 
 def config_for(args):
-    """The model config: llama31-8b, or its smoke variant with
-    ``--smoke``."""
-    if args.arch != "llama31-8b":
-        raise NotImplementedError(
-            f"--arch {args.arch}: the port runs llama31-8b; the other "
-            "families come with ROADMAP A11")
-    from repro_torch.configs.llama_paper import LLAMA31_8B, smoke
-    cfg = smoke() if args.smoke else LLAMA31_8B
+    """The model config of ``--arch``, or its smoke variant with
+    ``--smoke``, from the registry as the reference reads it (llama31-8b
+    from ``configs.llama_paper``)."""
+    if args.arch == "llama31-8b":
+        from repro_torch.configs.llama_paper import LLAMA31_8B, smoke
+        cfg = smoke() if args.smoke else LLAMA31_8B
+    else:
+        cfg = (configs.get_smoke(args.arch) if args.smoke
+               else configs.get_config(args.arch))
     if cfg.vocab < VOCAB_SIZE:
         raise ValueError("config vocab too small for the tokenizer")
     return cfg
@@ -210,11 +214,12 @@ def run(args) -> dict:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="llama31-8b",
-                    help="model family; the port runs llama31-8b (the "
-                    "others come with ROADMAP A11)")
+    ap.add_argument("--arch", default="starcoder2-3b",
+                    choices=configs.list_archs() + ["llama31-8b"],
+                    help="model config; the registry's other archs come "
+                    "with ROADMAP A11")
     ap.add_argument("--smoke", action="store_true",
-                    help="the reduced config (llama31-smoke)")
+                    help="the arch's reduced config")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the trainer and generators")
     ap.add_argument("--steps", type=int, default=50)

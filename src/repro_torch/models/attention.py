@@ -6,8 +6,10 @@ Full-sequence attention (train/prefill) goes through
 ``chunked_attention`` on the CPU and for prefill continuations.  Dense
 one-token decode, with one cursor or one per row, is plain torch, as the
 reference leaves it to XLA; paged decode goes through
-``kernels.dispatch.paged_attention``.  Sliding windows, M-RoPE and MLA
-come with later slices.
+``kernels.dispatch.paged_attention``.  Every variant takes a sliding
+``window`` (0 = full attention); a windowed ring cache holds its
+positions out of order, so ``slot_pos`` is the only record of which
+position a slot holds.  M-RoPE and MLA come with later slices.
 """
 from __future__ import annotations
 
@@ -52,26 +54,30 @@ def _rope(cfg):
     return cfg.rope_kind == "rope"
 
 
-def gqa_forward(p, x, cfg):
-    """Full-sequence causal GQA.  Returns (y, (k, v)) so prefill can build
-    the KV cache; keys are returned already rotated."""
+def gqa_forward(p, x, cfg, *, window: int = 0):
+    """Full-sequence causal GQA, over a sliding ``window`` when it is not
+    0.  Returns (y, (k, v)) so prefill can build the KV cache; keys are
+    returned already rotated."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     if _rope(cfg):
         positions = torch.arange(S, device=x.device).expand(B, S)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    y = dispatch.attention(q, k, v)
+    y = dispatch.attention(q, k, v, window=window)
     return y.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
-def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg):
+def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg, *,
+               window: int = 0):
     """One-token decode.  x: [B, 1, D]; cache_[kv]: [B, Sc, K, hd];
     cache_pos: [Sc] absolute position per slot (-1 = empty); pos: an int
     (one cursor for every row) or a [B] int tensor (one decode cursor per
     row, the continuous-batching engine's slot pool).
 
-    The new rotated KV goes to slot ``pos % Sc`` (a ring).  With per-row
+    The new rotated KV goes to slot ``pos % Sc`` (a ring); with a
+    ``window`` a slot more than ``window - 1`` positions behind the
+    cursor is masked.  With per-row
     ``pos`` each row writes its own slot and masks against its own
     cursor; the rows share one ``cache_pos``, which is consistent only
     while the ring never wraps (Sc > max pos): slot ``s`` then holds
@@ -107,6 +113,8 @@ def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg):
         # all write value s at index s, so the order is irrelevant
         cache_pos[slot] = pos.to(cache_pos.dtype)
         mask = (cache_pos[None, :] <= posb) & (cache_pos >= 0)[None, :]
+        if window:
+            mask &= cache_pos[None, :] > posb - window
         mask = mask[:, None, None, None, :]
     else:
         slot = pos % Sc
@@ -114,6 +122,8 @@ def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg):
         cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
         cache_pos[slot] = pos
         mask = (cache_pos <= pos) & (cache_pos >= 0)
+        if window:
+            mask &= cache_pos > pos - window
 
     qh = q.reshape(B, 1, K, H // K, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qh.float(),
@@ -124,7 +134,8 @@ def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg):
     return y.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
 
 
-def gqa_decode_paged(p, x, arena_k, arena_v, page_table, pos, cfg):
+def gqa_decode_paged(p, x, arena_k, arena_v, page_table, pos, cfg, *,
+                     window: int = 0):
     """One-token decode against a paged KV arena (``models/paging.py``).
 
     x: [B, 1, D]; arena_[kv]: [n_pages + 1, P, K, hd] (the last page is
@@ -139,8 +150,8 @@ def gqa_decode_paged(p, x, arena_k, arena_v, page_table, pos, cfg):
     (radix-shared pages hold only the block-aligned prompt prefix, below
     every decode cursor); zombie rows may collide on the trash page, which
     no live row reads.  Attention goes through
-    ``dispatch.paged_attention``, whose CPU route is the dense
-    ``gqa_decode`` arithmetic.  Returns y [B, 1, D].
+    ``dispatch.paged_attention`` with ``window``, whose CPU route is the
+    dense ``gqa_decode`` arithmetic.  Returns y [B, 1, D].
     """
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.hd
@@ -156,11 +167,13 @@ def gqa_decode_paged(p, x, arena_k, arena_v, page_table, pos, cfg):
     off = (pos % P).long()
     arena_k[pg, off] = k[:, 0].to(arena_k.dtype)
     arena_v[pg, off] = v[:, 0].to(arena_v.dtype)
-    y = dispatch.paged_attention(q[:, 0], arena_k, arena_v, page_table, pos)
+    y = dispatch.paged_attention(q[:, 0], arena_k, arena_v, page_table, pos,
+                                 window=window)
     return y.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
 
 
-def gqa_extend(p, x, prefix_k, prefix_v, cfg, *, q_offset: int):
+def gqa_extend(p, x, prefix_k, prefix_v, cfg, *, q_offset: int,
+               window: int = 0):
     """Prefill continuation over a cached prefix (radix-hit admission).
 
     x: [B, S, D] embeds of the suffix tokens (absolute positions
@@ -169,7 +182,7 @@ def gqa_extend(p, x, prefix_k, prefix_v, cfg, *, q_offset: int):
     attention is independent of the others and the cached prefix KVs are
     what a full prefill produced, so the suffix KVs and logits equal a
     prefill from token 0.  With ``q_offset == 0`` it is the full prefill
-    (the flash kernel on the card).  Returns (y, (k, v)) with k/v the
+    (the flash kernel on the card when ``window`` is 0).  Returns (y, (k, v)) with k/v the
     suffix KVs only.
     """
     B, S, _ = x.shape
@@ -180,5 +193,5 @@ def gqa_extend(p, x, prefix_k, prefix_v, cfg, *, q_offset: int):
         k = apply_rope(k, positions, cfg.rope_theta)
     cat_k = torch.cat([prefix_k.to(k.dtype), k], dim=1)
     cat_v = torch.cat([prefix_v.to(v.dtype), v], dim=1)
-    y = dispatch.attention(q, cat_k, cat_v, q_offset=q_offset)
+    y = dispatch.attention(q, cat_k, cat_v, window=window, q_offset=q_offset)
     return y.reshape(B, S, -1) @ p["wo"], (k, v)

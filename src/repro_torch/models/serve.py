@@ -4,12 +4,14 @@ slot-pool helpers.
 
 Two cache layouts, as in the reference:
 - dense: ``{"pos", "segments": [{"k", "v", "slot_pos"}]}`` with k/v
-  [L, B, Sc, K, hd] and slot_pos [Sc] (-1 = empty); the dense family
-  without windows has one segment;
+  [L_seg, B, Sc, K, hd] and slot_pos [Sc] (-1 = empty), one segment per
+  run of layers of one window (``segment_layout``), each a ring of
+  ``min(cache_len, window)`` slots; a ring that wraps holds its
+  positions out of order, and ``slot_pos`` records them;
 - paged: ``{"pos", "page_table", "segments": [{"k", "v"}]}`` with k/v
-  arenas [L, n_pages + 1, P, K, hd] shared by all rows (the last page is
-  the trash page) and page_table [B, max_blocks + 1] int32, every entry
-  starting on the trash page.
+  arenas [L_seg, n_pages + 1, P, K, hd] shared by all rows (the last
+  page is the trash page) and one page_table [B, max_blocks + 1] int32
+  for every segment, every entry starting on the trash page.
 
 ``pos`` is a Python int, one cursor for every row, or a [B] int32
 tensor, one decode cursor per row (the engine's slot pool; the paged
@@ -30,36 +32,58 @@ from repro_torch.models.paging import paged_blocks
 Cache = Dict[str, Any]
 
 
+def _seg_cache_len(cache_len: int, window: int) -> int:
+    return min(cache_len, window) if window else cache_len
+
+
+def attn_segments(cfg: ArchConfig, n_layers: int, offset: int = 0):
+    return bb._segment_windows(cfg, n_layers, offset)
+
+
+def segment_layout(cfg: ArchConfig):
+    """Cache segment layout [(n_layers, window), ...] in the order prefill
+    and decode walk the layer stack."""
+    return [(j - i, w) for (i, j, w) in attn_segments(cfg, cfg.n_layers)]
+
+
 def init_cache(cfg: ArchConfig, B: int, cache_len: int,
                dtype=torch.bfloat16, *, device, layout: str = "dense",
                page_size: int = 0, n_pages: int = 0) -> Cache:
-    """A zeroed cache for ``B`` rows of ``cache_len`` positions.  The
-    paged layout holds ``n_pages`` allocatable pages of ``page_size``
-    slots plus the trash page, and a table of ``paged_blocks(cache_len,
-    page_size) + 1`` entries a row."""
+    """A zeroed cache for ``B`` rows of ``cache_len`` positions: one dense
+    ring of ``min(cache_len, window)`` slots a segment.  The paged layout
+    holds, for each segment, ``n_pages`` allocatable pages of
+    ``page_size`` slots plus the trash page, and one table of
+    ``paged_blocks(cache_len, page_size) + 1`` entries a row."""
     bb.check_dense(cfg)
-    K, hd, L = cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    K, hd = cfg.n_kv_heads, cfg.hd
     if layout == "paged":
         assert page_size > 0 and n_pages > 0, (page_size, n_pages)
         mb = paged_blocks(cache_len, page_size)
-        shape = (L, n_pages + 1, page_size, K, hd)
-        seg = {"k": torch.zeros(shape, dtype=dtype, device=device),
-               "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+        def seg(n):
+            shape = (n, n_pages + 1, page_size, K, hd)
+            return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)}
         # one table shared by every segment: block b of row r lives in
         # physical page table[r, b] of each segment's arena; the last entry
         # is pinned to the trash page (= n_pages)
-        return {"pos": 0, "segments": [seg],
+        return {"pos": 0,
+                "segments": [seg(n) for n, _ in segment_layout(cfg)],
                 "page_table": torch.full((B, mb + 1), n_pages,
                                          dtype=torch.int32, device=device)}
     if layout != "dense":
         raise ValueError(f"kv layout {layout!r}: expected dense|paged")
-    seg = {"k": torch.zeros((L, B, cache_len, K, hd), dtype=dtype,
-                            device=device),
-           "v": torch.zeros((L, B, cache_len, K, hd), dtype=dtype,
-                            device=device),
-           "slot_pos": torch.full((cache_len,), -1, dtype=torch.int32,
-                                  device=device)}
-    return {"pos": 0, "segments": [seg]}
+
+    def ring(n, Sc):
+        return {"k": torch.zeros((n, B, Sc, K, hd), dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((n, B, Sc, K, hd), dtype=dtype,
+                                 device=device),
+                "slot_pos": torch.full((Sc,), -1, dtype=torch.int32,
+                                       device=device)}
+    return {"pos": 0,
+            "segments": [ring(n, _seg_cache_len(cache_len, w))
+                         for n, w in segment_layout(cfg)]}
 
 
 def _write_seg(seg, kvs, start: int):
@@ -83,47 +107,58 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
     B, S = tokens.shape
     x = bb._embed(params, cfg, tokens)
     cache = init_cache(cfg, B, cache_len, dtype, device=x.device)
-    x, kvs = bb._run_decoder_stack(params["layers"], x, cfg, collect_kv=True)
-    stacked = (torch.stack([k for k, _ in kvs]),
-               torch.stack([v for _, v in kvs]))
-    _write_seg(cache["segments"][0], stacked, start=0)
+    x, kv_segs = bb._run_decoder_stack(params["layers"], x, cfg,
+                                       collect_kv=True)
+    for seg, kvs in zip(cache["segments"], kv_segs):
+        _write_seg(seg, kvs, start=0)
     cache["pos"] = S
     return bb._logits(params, cfg, x[:, -1]), cache
 
 
-def _extend_collect(params, cfg, x, pk, pv, q_offset: int):
+def _extend_collect(params, cfg, x, prefix_kvs, q_offset: int):
     """Prefill continuation: run the suffix embeds ``x`` (absolute
     positions ``q_offset ..``) through the layers, attending over the
-    cached prefix KVs ``pk``/``pv`` [L, B, q_offset, K, hd] gathered from
-    the radix-shared pages, and collect the suffix KVs.  Returns (x, k,
-    v) with k/v stacked [L, B, S, K, hd]."""
-    ks, vs = [], []
-    for i, p in enumerate(bb.unstack(params["layers"], cfg.n_layers)):
-        y, (k, v) = attn.gqa_extend(p["attn"], norm(x, p["ln1"], cfg.norm),
-                                    pk[i], pv[i], cfg, q_offset=q_offset)
-        x = bb._ffn_block(p, x + y, cfg)
-        ks.append(k)
-        vs.append(v)
-    return x, torch.stack(ks), torch.stack(vs)
+    cached prefix KVs gathered from the radix-shared pages, and collect
+    the suffix KVs.  ``prefix_kvs``: one (k, v) pair a cache segment, each
+    [L_seg, B, q_offset, K, hd].  Returns (x, kv_segs) with one (k, v)
+    pair a segment, stacked [L_seg, B, S, K, hd]."""
+    layers = bb.unstack(params["layers"], cfg.n_layers)
+    kv_segs = []
+    for (i, j, w), (pk, pv) in zip(attn_segments(cfg, cfg.n_layers),
+                                   prefix_kvs):
+        ks, vs = [], []
+        for li, p in enumerate(layers[i:j]):
+            y, (k, v) = attn.gqa_extend(
+                p["attn"], norm(x, p["ln1"], cfg.norm), pk[li], pv[li], cfg,
+                q_offset=q_offset, window=w)
+            x = bb._ffn_block(p, x + y, cfg)
+            ks.append(k)
+            vs.append(v)
+        kv_segs.append((torch.stack(ks), torch.stack(vs)))
+    return x, kv_segs
 
 
 def decode_step(params, cfg: ArchConfig, cache: Cache, tokens):
     """tokens: [B, 1].  Returns (logits [B, V], cache) with the cache
     advanced in place by one position (each row's own cursor when ``pos``
-    is a tensor)."""
+    is a tensor), segment by segment."""
     pos = cache["pos"]
-    seg = cache["segments"][0]
     table = cache.get("page_table")
     x = bb._embed(params, cfg, tokens)
-    for i, p in enumerate(bb.unstack(params["layers"], cfg.n_layers)):
-        h = norm(x, p["ln1"], cfg.norm)
-        if table is not None:
-            y = attn.gqa_decode_paged(p["attn"], h, seg["k"][i], seg["v"][i],
-                                      table, pos, cfg)
-        else:
-            y = attn.gqa_decode(p["attn"], h, seg["k"][i], seg["v"][i],
-                                seg["slot_pos"], pos, cfg)
-        x = bb._ffn_block(p, x + y, cfg)
+    layers = bb.unstack(params["layers"], cfg.n_layers)
+    for (i, j, w), seg in zip(attn_segments(cfg, cfg.n_layers),
+                              cache["segments"]):
+        for li, p in enumerate(layers[i:j]):
+            h = norm(x, p["ln1"], cfg.norm)
+            if table is not None:
+                y = attn.gqa_decode_paged(p["attn"], h, seg["k"][li],
+                                          seg["v"][li], table, pos, cfg,
+                                          window=w)
+            else:
+                y = attn.gqa_decode(p["attn"], h, seg["k"][li],
+                                    seg["v"][li], seg["slot_pos"], pos, cfg,
+                                    window=w)
+            x = bb._ffn_block(p, x + y, cfg)
     cache["pos"] = pos + 1
     return bb._logits(params, cfg, x[:, -1]), cache
 
@@ -166,9 +201,9 @@ class SlotPool:
 def assert_engine_cache(cfg: ArchConfig, layout: str = "dense") -> None:
     """Which caches the engine's per-row decode cursors support (the
     reference's contract).  Both layouts need a dense-family GQA cache;
-    the dense layout also needs unwindowed rings (a windowed ring is
-    shorter than the sequence, so slots alias across rows), where the
-    paged layout's per-row tables admit windows."""
+    the dense layout also needs unwindowed rings (a windowed ring wraps,
+    so slots alias across rows' cursors), where the paged layout's
+    per-row tables admit windows: masking enforces them."""
     assert cfg.family in ("dense", "moe"), \
         f"engine needs a dense-family KV cache, got family={cfg.family!r} " \
         "(ssm/hybrid state caches are not paged KV; vlm needs mrope decode)"
@@ -177,10 +212,11 @@ def assert_engine_cache(cfg: ArchConfig, layout: str = "dense") -> None:
         "(paged follow-up: latent-shaped pages for ckv/krope)"
     if layout == "paged":
         return
-    assert not cfg.window, \
-        "engine needs unwindowed rings: a windowed segment wraps, which " \
-        "breaks the shared slot_pos across per-row cursors (use the paged " \
-        "layout -- per-row page tables admit windows)"
+    for (_, w) in segment_layout(cfg):
+        assert not w, \
+            "engine needs unwindowed rings: a windowed segment wraps, " \
+            "which breaks the shared slot_pos across per-row cursors " \
+            "(use the paged layout -- per-row page tables admit windows)"
 
 
 def stitch_cache_row(cache: Cache, row_cache: Cache, slot: int) -> Cache:

@@ -34,6 +34,7 @@ gauges.
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -124,6 +125,10 @@ class GroupLedger:
     def open_groups(self) -> int:
         return len(self._open)
 
+    @property
+    def complete_groups(self) -> int:
+        return len(self._complete)
+
 
 class RolloutEngine:
     """The in-flight pool: ``enqueue`` feeds prompt rows into ``waiting``;
@@ -134,19 +139,22 @@ class RolloutEngine:
     ``row_budgets`` injects per-row decode budgets (stragglers): enqueued
     row number ``i`` (a global counter, so the pattern cycles across
     batches) gets ``row_budgets[i % len]`` chunks instead of the uniform
-    ``ceil(max_new / chunk)``.  ``kv_layout`` is ``"dense"`` (the default)
-    or ``"paged"``.
+    ``ceil(max_new / chunk)``.  ``round_delay_s`` sleeps once per decode
+    round (injected decode latency).  ``kv_layout`` is ``"dense"`` or
+    ``"paged"``; ``""`` defers to ``$REPRO_KV_LAYOUT``, then dense.
     """
 
     def __init__(self, executor, *, max_running_rows: int = 0,
                  row_budgets: Optional[List[int]] = None,
-                 scorer: str = "numeric",
+                 round_delay_s: float = 0.0, scorer: str = "numeric",
                  leave_one_out: bool = False, kv_layout: str = "",
                  kv_page_size: int = 0, kv_pages: int = 0):
         ex = executor
         assert ex.chunk and ex.chunk > 0, \
             "engine needs chunk scheduling: set chunk >= 1"
-        self.kv_layout = (kv_layout or "dense").strip().lower()
+        self.kv_layout = (kv_layout
+                          or os.environ.get("REPRO_KV_LAYOUT", "")
+                          or "dense").strip().lower()
         assert self.kv_layout in ("dense", "paged"), \
             f"kv_layout={self.kv_layout!r}: expected dense|paged"
         assert_engine_cache(ex.cfg, self.kv_layout)
@@ -159,6 +167,7 @@ class RolloutEngine:
             2 * ex.n_prompts * ex.n_per_prompt
         self.row_budgets = [int(b) for b in row_budgets] if row_budgets \
             else None
+        self.round_delay_s = float(round_delay_s)
         self.kv_page_size = int(kv_page_size) or 16
         self._max_blocks = paged_blocks(self.total_len, self.kv_page_size)
         # default arena: every slot can hold a full row (no backpressure);
@@ -320,6 +329,8 @@ class RolloutEngine:
             state = self._admit(state)
         emitted: List[dict] = []
         if self.tickets:
+            if self.round_delay_s:
+                time.sleep(self.round_delay_s)   # injected decode latency
             with obs_trace.span("decode-round", "engine",
                                 rows=len(self.tickets)):
                 ex.key, sub = prng.split(ex.key)

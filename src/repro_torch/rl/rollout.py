@@ -212,22 +212,26 @@ def admit_row_paged(params, cfg, state: RolloutState, prompt, pages_row,
     equal the dense ``start_rollout`` graft's bit for bit."""
     Sp = prompt.shape[1]
     cache = state.cache
-    seg = cache["segments"][0]
-    L, _, P, K, hd = seg["k"].shape
+    P = cache["segments"][0]["k"].shape[2]
     ncb = n_cached // P
     assert n_cached == ncb * P and n_cached < Sp, (n_cached, P, Sp)
     pre = pages_row[:ncb].long()
+    prefix_kvs = []
+    for seg in cache["segments"]:
+        L, tail = seg["k"].shape[0], seg["k"].shape[3:]
+        prefix_kvs.append(
+            (seg["k"][:, pre].reshape(L, 1, n_cached, *tail),
+             seg["v"][:, pre].reshape(L, 1, n_cached, *tail)))
     x = bb._embed(params, cfg, prompt[:, n_cached:])
-    x, ks, vs = _extend_collect(
-        params, cfg, x, seg["k"][:, pre].reshape(L, 1, n_cached, K, hd),
-        seg["v"][:, pre].reshape(L, 1, n_cached, K, hd), n_cached)
+    x, kv_segs = _extend_collect(params, cfg, x, prefix_kvs, n_cached)
     last_logits = bb._logits(params, cfg, x[:, -1])
 
     pos_sfx = n_cached + torch.arange(Sp - n_cached, device=prompt.device)
     pg = pages_row[pos_sfx // P].long()
     off = pos_sfx % P
-    seg["k"][:, pg, off] = ks[:, 0].to(seg["k"].dtype)
-    seg["v"][:, pg, off] = vs[:, 0].to(seg["v"].dtype)
+    for seg, (ks, vs) in zip(cache["segments"], kv_segs):
+        seg["k"][:, pg, off] = ks[:, 0].to(seg["k"].dtype)
+        seg["v"][:, pg, off] = vs[:, 0].to(seg["v"].dtype)
     state.tokens[slot] = 0
     state.tokens[slot, :Sp] = prompt[0]
     state.behavior_logp[slot] = 0.0
@@ -242,7 +246,8 @@ def admit_row_paged(params, cfg, state: RolloutState, prompt, pages_row,
 def release_row(state: RolloutState, slot: int) -> RolloutState:
     """Remap a harvested row's page table to the trash page, in place, so
     its zombie decode writes (the slot keeps ticking until readmitted)
-    never land in pages the allocator may hand to another row."""
+    never land in pages the allocator may hand to another row.  Every
+    segment's arena has the same pages, so one table serves them all."""
     trash = state.cache["segments"][0]["k"].shape[1] - 1
     state.cache["page_table"][slot] = trash
     return state

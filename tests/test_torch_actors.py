@@ -501,3 +501,36 @@ def test_close_all_actors_unlinks_leaked_segments():
     assert os.path.exists(f"/dev/shm/{seg.name}")
     close_all_actors()
     assert not os.path.exists(f"/dev/shm/{seg.name}")
+
+
+def _shm_layout(actors_mod, reward_cls, **kw):
+    """The rings an ``ShmTransport`` builds: its threshold, parent ->
+    child slots, the child -> parent segments and their bytes, and one
+    call through it."""
+    t = actors_mod.ShmTransport(reward_cls, kwargs={"n_per_prompt": 1},
+                                spawn_timeout=60.0, call_timeout=60.0, **kw)
+    try:
+        return (t._threshold, len(t._tx_ring._slots),
+                len(t._child_tx_segs), t._child_tx_segs[0].size >= 1 << 16
+                and t._child_tx_segs[0].size < 1 << 17,
+                actors_mod.ActorHandle(t).call("ping"))
+    finally:
+        t.close()
+
+
+def test_shm_transport_explicit_arguments_win_over_env_as_jax(monkeypatch):
+    """``ShmTransport(threshold=, slots=, slot_bytes=)``, after the
+    reference's signature: each explicit argument wins over its
+    environment variable, and the rings come out as the JAX package
+    builds them from the same arguments."""
+    from repro.core import actors as jactors
+    from repro.core.executor import RewardExecutor as JReward
+    monkeypatch.setenv("REPRO_SHM_THRESHOLD", "999999")
+    monkeypatch.setenv("REPRO_SHM_SLOTS", "8")
+    monkeypatch.setenv("REPRO_SHM_SLOT_BYTES", str(1 << 20))
+    kw = dict(threshold=4096, slots=2, slot_bytes=1 << 16)
+    got = _shm_layout(actors, RewardExecutor, **kw)
+    assert got == _shm_layout(jactors, JReward, **kw)
+    assert got == (4096, 2, 2, True, "reward")
+    env = _shm_layout(actors, RewardExecutor)        # the variables again
+    assert env[:3] == (999999, 8, 4)

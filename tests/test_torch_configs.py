@@ -1,0 +1,59 @@
+"""The port's config registry (``repro_torch.configs``) against the JAX
+package's: every ported config and its smoke variant equal their JAX
+twins field by field, ``list_archs`` is the ported subset in the
+reference's order, and an arch whose family is not ported raises with
+its ROADMAP item."""
+import dataclasses
+
+import pytest
+
+from repro import configs as jconfigs
+from repro.configs import llama_paper as jllama
+from repro_torch import configs
+from repro_torch.configs import llama_paper as llama
+
+WINDOWED = ["starcoder2-3b", "command-r-35b", "deepseek-67b",
+            "nemotron-4-340b"]
+
+
+def _fields(cfg):
+    return [(f.name, getattr(cfg, f.name)) for f in dataclasses.fields(cfg)]
+
+
+@pytest.mark.parametrize("arch", WINDOWED)
+@pytest.mark.parametrize("which", ["get_config", "get_smoke"])
+def test_windowed_configs_equal_jax(arch, which):
+    cfg = getattr(configs, which)(arch)
+    want = getattr(jconfigs, which)(arch)
+    assert _fields(cfg) == _fields(want)
+    assert cfg.window and cfg.family == "dense"
+    assert configs.param_count(cfg) == jconfigs.param_count(want)
+
+
+@pytest.mark.parametrize("name", ["LLAMA31_8B", "LLAMA31_70B",
+                                  "LLAMA31_405B", "smoke"])
+def test_llama_paper_configs_equal_jax(name):
+    cfg, want = getattr(llama, name), getattr(jllama, name)
+    if name == "smoke":
+        cfg, want = cfg(), want()
+    assert _fields(cfg) == _fields(want)
+
+
+def test_list_archs_is_the_ported_subset_in_reference_order():
+    ref = jconfigs.list_archs()
+    got = configs.list_archs()
+    assert sorted(got) == sorted(WINDOWED)
+    assert got == [a for a in ref if a in got]
+    assert sorted(got + list(configs.UNPORTED)) == sorted(ref)
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("llama4-scout-17b-a16e", "A11.2"), ("deepseek-v3-671b", "A11.3"),
+    ("qwen2-vl-7b", "A11.4"), ("zamba2-7b", "A11.5"),
+    ("xlstm-350m", "A11.6"), ("seamless-m4t-medium", "A11.7"),
+])
+def test_unported_arch_names_its_roadmap_item(arch, item):
+    assert arch in jconfigs.list_archs()
+    for fn in (configs.get_config, configs.get_smoke):
+        with pytest.raises(NotImplementedError, match=item):
+            fn(arch)

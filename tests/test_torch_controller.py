@@ -216,7 +216,7 @@ def test_executor_controller_modes():
                       .supervisor, Supervisor)
     policy = RestartPolicy(max_restarts=1)
     assert ExecutorController(*args, mode="sync", supervise=policy) \
-        .supervisor.policy is policy
+        .supervisor.default is policy
     sup = Supervisor()
     assert ExecutorController(*args, mode="sync", supervise=sup) \
         .supervisor is sup

@@ -85,7 +85,7 @@ def _sample_equal(x, key):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("V", [1, 7, 1000, 1001, 128256])
+@pytest.mark.parametrize("V", [1, 7, 1000, 1001, 49152, 128256, 256000])
 @pytest.mark.parametrize("B", [1, 16, 32, 64, 200])
 def test_cuda_fused_sample_split_plan(cuda, B, V, dtype):
     """The split kernel at its planned spans: tokens bit for bit, ties to
@@ -370,7 +370,8 @@ def _poisoned(ak, av, table, pos, window):
 
 # (B, H, K, hd, P, mb, n_pages, pos, perm): the reference suite's
 # arena_problem, the engine's shape (32 slots, prompt 48 + 64 new at page
-# 16, a zombie row at the clamp mb * P), and a 2048-token context
+# 16, a zombie row at the clamp mb * P), a 2048-token context, at head
+# dim 192 too, and nemotron-4-340b's heads (96 / 8, hd 192: g = 12)
 PAGED_SHAPES = {
     "arena": (3, 4, 2, 16, 5, 4, 16, [3, 11, 19], False),
     "arena_pos0": (3, 4, 2, 16, 5, 4, 16, [0, 0, 0], False),
@@ -379,6 +380,10 @@ PAGED_SHAPES = {
     "long": (16, 32, 8, 128, 16, 128, 2112,
              [0, 15, 16, 2047] + [2047 - 13 * i for i in range(1, 13)],
              True),
+    "long_hd192": (16, 32, 8, 192, 16, 128, 2112,
+                   [0, 15, 16, 2047] + [2047 - 13 * i for i in range(1, 13)],
+                   True),
+    "nemotron": (4, 96, 8, 192, 16, 8, 40, [0, 17, 64, 128], True),
 }
 
 
@@ -452,6 +457,29 @@ def test_cuda_paged_attention_split_edges(cuda, window, q_dtype, kv_dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype,tol", PAIRS)
+def test_cuda_paged_attention_starcoder2_window(cuda, q_dtype, kv_dtype,
+                                                tol):
+    """starcoder2-3b's decode in the windowed engine: 24 query heads on 2
+    kv heads (g = 12), hd 128, window 4096 over a table of 264 pages of
+    16 (prompts of 4160 + 64 new tokens), cursors below, at and past the
+    window, on arenas whose unread slots are NaN."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, \
+        paged_attention_plain
+    pos = [100, 4095, 4096, 4160, 4200, 4223]
+    q, ak, av, table, pos = _paged_problem(cuda, 6, 24, 2, 128, 16, 264,
+                                           6 * 264 + 4, pos, q_dtype,
+                                           kv_dtype, 14)
+    got = paged_attention_cuda(q, ak, av, table, pos, window=4096)
+    want = paged_attention_plain(q, ak, av, table, pos, window=4096)
+    assert got.dtype == kv_dtype and _err(got, want) < tol
+    (pk, pv), (zk, zv) = _poisoned(ak, av, table, pos, 4096)
+    got = paged_attention_cuda(q, pk, pv, table, pos, window=4096)
+    want = paged_attention_plain(q, zk, zv, table, pos, window=4096)
+    assert torch.isfinite(got).all() and _err(got, want) < tol
+
+
+@pytest.mark.cuda
 def test_cuda_paged_attention_counters_return_to_zero(cuda):
     """The merge counters are left at zero, so back-to-back calls on
     other shapes agree with the plain version each time."""
@@ -478,6 +506,12 @@ def test_cuda_paged_attention_refuses_other_shapes(cuda):
     with pytest.raises(NotImplementedError):
         paged_attention_cuda(q[..., :8].contiguous(), ak[..., :8].contiguous(),
                              av[..., :8].contiguous(), table, pos)
+    # a head dim outside the kernel's set raises, with no plain fallback
+    q, ak, av, table, pos = _paged_problem(cuda, 2, 4, 2, 96, 4, 2, 4,
+                                           [1, 2], torch.float32,
+                                           torch.float32, 0)
+    with pytest.raises(NotImplementedError, match="hd 96"):
+        paged_attention_cuda(q, ak, av, table, pos)
     with pytest.raises(ValueError, match="int32"):
         paged_attention_cuda(q, ak, av, table.long(), pos)
 

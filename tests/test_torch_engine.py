@@ -201,3 +201,82 @@ def test_engine_paged_small_arena_backpressures_and_completes(params):
     assert outs[0]["tokens"].shape == (4, 12)
     gen.engine_abort()
     assert gen.engine_stats()["pages_in_use"] == 0
+
+
+# ------------------------------------- the reference's knobs and ledger API --
+
+@pytest.mark.parametrize("env_layout", ["paged", "dense"])
+def test_kv_layout_defers_to_the_environment_as_jax(params, monkeypatch,
+                                                    env_layout):
+    """``kv_layout=""`` reads ``REPRO_KV_LAYOUT`` in both packages, so
+    under the variable both engines run the same layout and emit the same
+    batches."""
+    monkeypatch.setenv("REPRO_KV_LAYOUT", env_layout)
+    gens = [_generator("micro", params, "", side) for side in (True, False)]
+    assert [g._engine.kv_layout for g in gens] == [env_layout] * 2
+    assert [g._engine.page_pool is not None for g in gens] == \
+        [env_layout == "paged"] * 2
+    touts, _ = _drain(gens[0], 2)
+    jouts, _ = _drain(gens[1], 2)
+    for t, j in zip(touts, jouts):
+        assert np.array_equal(t["tokens"].numpy(), np.asarray(j["tokens"]))
+        assert np.array_equal(t["row_versions"], np.asarray(j["row_versions"]))
+
+
+def test_round_delay_paces_every_decode_round_as_jax(params):
+    """``engine_configure(round_delay_s=)`` sleeps once per decode round in
+    both packages: the same rounds, each at least the delay, and the same
+    batches in the same order."""
+    import time
+    delay, runs = 0.05, []
+    for side in (True, False):
+        gen = _generator("micro", params, "paged", side)
+        gen.engine_configure(round_delay_s=delay, kv_layout="paged",
+                             **SETUPS["micro"][2])
+        assert gen._engine.round_delay_s == delay
+        t0 = time.monotonic()
+        outs, rounds = _drain(gen, 2)
+        runs.append((outs, rounds, time.monotonic() - t0))
+    (touts, trounds, tsec), (jouts, jrounds, _) = runs
+    assert trounds == jrounds and tsec >= trounds * delay
+    for t, j in zip(touts, jouts):
+        assert np.array_equal(t["tokens"].numpy(), np.asarray(j["tokens"]))
+
+
+def _ledger_script(GroupLedger, RowJob):
+    """``tests/test_engine.py::
+    test_ledger_invalidate_and_reopen_after_killed_worker``: the open and
+    complete group counts after each step."""
+    def ticket(g, s):
+        return RowJob(batch_index=0, group=g, sib=s, prompt=None,
+                      answer="0")
+    row = {"tokens": np.asarray([2], np.int32), "logp": None, "version": 0,
+           "prompt_len": 0, "queue_wait_s": 0.0}
+    led = GroupLedger(2)
+    log = []
+    for g in range(2):
+        led.open_group(0, g, "0")
+    for g, s in ((0, 0), (0, 1), (1, 0)):
+        log.append((led.add(ticket(g, s), row), led.open_groups,
+                    led.complete_groups))
+    log.append((led.invalidate_batch(0), led.open_groups,
+                led.complete_groups))
+    for g in range(2):
+        led.open_group(0, g, "0")
+    for g in range(2):
+        for s in range(2):
+            log.append((led.add(ticket(g, s), row), led.open_groups,
+                        led.complete_groups))
+    log.append((len(led.pop_batch(0, 2)), led.open_groups,
+                led.complete_groups))
+    return log
+
+
+def test_ledger_complete_groups_equals_jax():
+    from repro.rl.engine import GroupLedger as JLedger
+    from repro.rl.scheduler import RowJob as JRowJob
+    from repro_torch.rl.engine import GroupLedger
+    from repro_torch.rl.scheduler import RowJob
+    got = _ledger_script(GroupLedger, RowJob)
+    assert got == _ledger_script(JLedger, JRowJob)
+    assert got[2] == (False, 1, 1) and got[3] == (3, 0, 0)

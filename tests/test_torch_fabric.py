@@ -187,3 +187,49 @@ def test_detach_and_reattach_replay_latest():
     fab.publish(2, {payload_key(ch_a): {"w": torch.ones(2) * 2}})
     assert ch_a.pending() == 1 and ch_b.pending() == 1
     assert fab.dead_subscribers() == [ch_a]
+
+
+def _subscriber_error_script(actors, channels, executor, fabric, zeros):
+    """Two subscribers, one detached with a given error and one detached
+    bare: ``subscriber_error`` is None for a live channel, the error for
+    the first, a ``Detached`` naming the channel for the second."""
+    class Sink(executor.Executor):
+        def set_weights(self, params, version=None):
+            self.params = params
+
+    src = actors.as_handle(Sink("trainer"))
+    chs = [channels.WeightsCommunicationChannel("policy_model", src,
+                                                actors.as_handle(Sink(n)))
+           for n in ("a", "b")]
+    fab = fabric.WeightFabric(chs, overlap=False)
+    try:
+        fab.publish(1, {fabric.payload_key(chs[0]): {"w": zeros(2)}})
+        log = [fab.subscriber_error(ch) for ch in chs]
+        err = RuntimeError("worker lost")
+        fab.detach(chs[0], err)
+        fab.detach(chs[1])
+        e0, e1 = (fab.subscriber_error(ch) for ch in chs)
+        log += [e0 is err, type(e1).__name__, str(e1),
+                fab.dead_subscribers() == chs]
+        fab.detach(chs[0], RuntimeError("again"))      # idempotent
+        log.append(fab.subscriber_error(chs[0]) is err)
+    finally:
+        fab.close()
+    return log
+
+
+def test_subscriber_error_equals_jax():
+    """``WeightFabric.subscriber_error``, after ``tests/test_fabric.py``:
+    why a subscriber is detached, the same in both packages."""
+    import numpy as np
+    from repro.core import actors as jactors
+    from repro.core import channels as jchannels
+    from repro.core import executor as jexecutor
+    from repro.core import fabric as jfabric
+    from repro_torch.core import actors, channels, executor, fabric
+    got = _subscriber_error_script(actors, channels, executor, fabric,
+                                   torch.zeros)
+    want = _subscriber_error_script(jactors, jchannels, jexecutor, jfabric,
+                                    np.zeros)
+    assert got == want
+    assert got[:3] == [None, None, True] and got[3] == "Detached"

@@ -450,3 +450,40 @@ def test_pinned_jobs_release_on_emit_and_clear():
     assert job2.weight_version == 1 and gen.pinned_count() == 1
     gen.release_job(job2)
     assert gen.pinned_count() == 0
+
+
+def test_pool_config_fields_equal_jax():
+    """``PoolConfig`` has the reference's fields and defaults, in order,
+    ``engine_round_delay_s`` included."""
+    import dataclasses
+    from repro.core.genpool import PoolConfig as JPoolConfig
+    assert [(f.name, f.default) for f in dataclasses.fields(PoolConfig)] \
+        == [(f.name, f.default) for f in dataclasses.fields(JPoolConfig)]
+
+
+def test_engine_pool_round_delay_and_layout_from_env(monkeypatch):
+    """An engine pool with ``kv_layout=""`` runs the layout
+    ``REPRO_KV_LAYOUT`` names, and ``engine_round_delay_s`` reaches every
+    worker's engine, which sleeps it once per decode round; the paced
+    paged run trains on the batches of the unpaced dense one (lr 0 and a
+    bound past the run, as in ``test_engine_pool_paged_equals_dense``)."""
+    import time
+    cfg = smoke().replace(n_layers=2, vocab=64)
+    out = {}
+    for layout, delay in (("", 0.05), ("dense", 0.0)):
+        monkeypatch.setenv("REPRO_KV_LAYOUT", "paged")
+        ctl = build_pool(n_gens=2, staleness=8, max_steps=4, lr=0.0,
+                         cfg=cfg, prompt_len=16, n_prompts=2, chunk=2,
+                         pool=PoolConfig(engine=True, kv_layout=layout,
+                                         kv_page_size=4, max_inflight=3,
+                                         engine_round_delay_s=delay))
+        t0 = time.monotonic()
+        hist = ctl.run()
+        wall = time.monotonic() - t0
+        engines = [g.transport.executor._engine for g in ctl.generators]
+        assert [e.kv_layout for e in engines] == [layout or "paged"] * 2
+        assert [e.round_delay_s for e in engines] == [delay] * 2
+        # each worker decoded at least 2 rounds (max_new 4, chunk 2)
+        assert wall >= 2 * delay
+        out[layout] = rows(hist)
+    assert out[""] == out["dense"]

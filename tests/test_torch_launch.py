@@ -20,6 +20,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import close_all_actors
 from repro_torch.launch import train
 
@@ -130,13 +131,41 @@ def test_tracks_the_jax_launcher():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "starcoder2-3b"], "A11"),
+    (["--arch", "zamba2-7b"], "A11"),
     (["--child-mesh", "1x2"], "A12"),
 ])
 def test_unported_flags_raise(flags, item):
+    if flags[0] == "--arch":
+        # the parser takes only the archs the port runs; the registry
+        # names the ROADMAP item of the others
+        with pytest.raises(SystemExit):
+            train.parse_args(["--smoke", "--device", "cpu"] + flags)
+        with pytest.raises(NotImplementedError, match=item):
+            configs.get_smoke(flags[1])
+        return
     args = train.parse_args(["--smoke", "--device", "cpu"] + flags)
     with pytest.raises(NotImplementedError, match=item):
         train.build_controller(train.config_for(args), args)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "command-r-35b",
+                                  "deepseek-67b", "nemotron-4-340b",
+                                  "llama31-8b"])
+def test_arch_flag_reads_the_registry_as_jax(arch):
+    """``--arch A --smoke`` gives the JAX package's smoke config of A, and
+    ``--arch A`` its full config, as ``repro.launch.train`` reads them;
+    the default arch is the reference's, starcoder2-3b."""
+    import dataclasses
+    from repro import configs as jconfigs
+    from repro.configs import llama_paper as jllama
+    if arch == "llama31-8b":
+        jsmoke, jfull = jllama.smoke(), jllama.LLAMA31_8B
+    else:
+        jsmoke, jfull = jconfigs.get_smoke(arch), jconfigs.get_config(arch)
+    for argv, want in ((["--smoke"], jsmoke), ([], jfull)):
+        cfg = train.config_for(train.parse_args(["--arch", arch] + argv))
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    assert train.parse_args([]).arch == "starcoder2-3b"
 
 
 @pytest.mark.parametrize("flags,faults,restarts", [
@@ -153,7 +182,7 @@ def test_supervision_flags_build_a_supervisor(flags, faults, restarts):
     args = train.parse_args(SMOKE + ["--transport", "inproc"] + flags)
     ctl = train.build_controller(train.config_for(args), args)
     sup = ctl.supervisor
-    assert sup is not None and sup.policy.max_restarts == restarts
+    assert sup is not None and sup.default.max_restarts == restarts
     got = [(f.action, f.actor, f.point, f.index, f.chunk)
            for f in sup.chaos.faults] if sup.chaos is not None else []
     assert got == faults

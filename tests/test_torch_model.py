@@ -141,8 +141,9 @@ def test_other_families_raise():
     from repro_torch.models import init_params
     with pytest.raises(NotImplementedError, match="A11"):
         init_params(tsmoke().replace(family="moe"), device="cpu")
+    assert init_params(tsmoke().replace(window=8), device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
-        init_params(tsmoke().replace(window=8), device="cpu")
+        init_params(tsmoke().replace(family="hybrid"), device="cpu")
     from repro_torch.models import init_cache
     with pytest.raises(ValueError, match="dense|paged"):
         init_cache(tsmoke(), 1, 8, device="cpu", layout="ring")

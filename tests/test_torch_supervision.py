@@ -554,3 +554,72 @@ def test_fabric_publish_fault_detaches_and_reports():
         assert [chs[0].recv(timeout=15.0)[0] for _ in range(2)] == [1, 2]
     finally:
         fab.close()
+
+
+# -------------------------------------------------- per-role restart policy --
+
+class GenEcho(EchoExecutor):
+    """An RPC target in the generator role."""
+
+    role = "generator"
+
+
+def _jax_gen_echo():
+    from repro.core.executor import Executor as JExecutor
+
+    class JGenEcho(JExecutor):
+        role = "generator"
+    return JGenEcho
+
+
+class JGenEcho:
+    """Picklable factory of the JAX package's generator-role echo
+    executor (the class itself is made on import of the JAX package)."""
+
+    def __new__(cls, name):
+        return _jax_gen_echo()(name)
+
+
+def _per_role_budget(sup_mod, actors_mod, factory):
+    """A generator child under ``{"generator": max_restarts=1}`` is
+    killed twice: the first death respawns it, the second finds the
+    budget spent.  Returns what the supervisor reported."""
+    pol = sup_mod.RestartPolicy(max_restarts=1, backoff_s=0.0)
+    sup = sup_mod.Supervisor({"generator": pol},
+                             default=sup_mod.RestartPolicy(max_restarts=5))
+    out = [sup.policy_for("generator") == pol,
+           sup.policy_for("ref").max_restarts, sup.monitor_poll_s]
+    h = actors_mod.spawn_actor(factory, "gen", transport="proc",
+                               call_timeout=TIMEOUT)
+    try:
+        sup.register(h)
+        for _ in range(2):
+            h.transport._proc.kill()
+            with pytest.raises(actors_mod.ActorDied):
+                h.call("ping", timeout=30.0)
+            out.append(sup.recover(h, actors_mod.ActorDied("killed")))
+        out += [sup.restarts("gen"), sup.is_lost("gen"),
+                [e["event"] for e in sup.events()
+                 if e["event"] in ("respawned", "lost")]]
+    finally:
+        h.close()
+    return out
+
+
+def test_per_role_policies_budget_equals_jax():
+    """``Supervisor({"generator": RestartPolicy(max_restarts=1)}, default=
+    ...)``: ``policy_for`` gives the role its own budget and every other
+    role the default; the generator recovers once, then is lost, as in
+    the JAX package.  A bare ``RestartPolicy`` is still the default."""
+    from repro.core import actors as jactors
+    from repro.core import supervise as jsup
+    from repro_torch.core import actors, supervise
+    got = _per_role_budget(supervise, actors, GenEcho)
+    want = _per_role_budget(jsup, jactors, JGenEcho)
+    assert got == want
+    assert got[:3] == [True, 5, 0.2]
+    assert got[3:] == [RESPAWNED, "lost", 1, True, ["respawned", "lost"]]
+    pol = RestartPolicy(max_restarts=2)
+    assert Supervisor(pol).policy_for("generator") is pol
+    assert Supervisor(pol).default is pol
+    assert Supervisor(monitor_poll_s=0.05).monitor_poll_s == 0.05
