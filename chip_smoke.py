@@ -142,11 +142,33 @@ Each phase prints its own lines:
                (2e-3) and the paged engine's behaviour log-probs against
                the reference's (1e-3); (d) command-r-35b, deepseek-67b and
                nemotron-4-340b at their published widths cut to 2
-               layers: a batch rollout and a paged engine round each
-               (fused_sample at V 256000, paged_attention at hd 192).
-               Every kernel call of (b)-(d), and the first of each shape
-               of (a), is held against its plain version ([2] times B3
-               at [16, 49152] and at V 256000, and B5 at hd 192)
+               layers: a batch rollout scored by the reference and a
+               paged engine round each (fused_sample at V 256000,
+               paged_attention at hd 192, flash_attention at hd 192 in
+               nemotron's scoring).  Every kernel call of (b)-(d), and
+               the first of each shape of (a), is held against its plain
+               version ([2] times B3 at [16, 49152] and at V 256000, and
+               B4 and B5 at hd 192)
+  [16] moe     the MoE family, llama4-scout-17b-a16e at its published
+               widths (d 5120, 40/8 heads, 16 experts of d 8192, top-1
+               sigmoid, a shared expert, V 202048).  (a) 4 layers, one
+               iRoPE period (layers 0-2 windowed at 8192, layer 3
+               global), bf16: a batch rollout of 4 x 4 prompts of 256
+               ids, 32 new tokens, scored by the reference; prefill and
+               decode times, the device-busy share and the MoE FFN's
+               share of a profiled decode chunk, the prefill choices
+               capacity drops, peak memory; then the paged engine, rows
+               joining mid-decode; (b) two steps of the async loop at 1
+               layer (4.27 B params), the MoE aux in the loss, KL 0.1
+               against a reference fed the trainer's weights, so the
+               router and the experts move; (c) the smoke config in
+               fp32: decode through wrapped rings against the windowed
+               forward (2e-3), the paged engine's behaviour log-probs
+               against the reference's (1e-3), and moe_forward on the
+               card against the CPU (routing and drops equal, y within
+               1e-5).  The first kernel call of each shape of (a) and
+               every call of (b) and (c) are held against the plain
+               versions ([2] times B3 and B1 at V 202048)
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -189,6 +211,10 @@ SAMPLE_OPS_PER_LOGIT = 10
 LOGPROB_OPS_PER_LOGIT = 4
 
 V_LLAMA = 128256
+# llama4-scout-17b-a16e's vocabulary ([16])
+V_SCOUT = 202048
+# flash attention's hd-192 timing shape (nemotron-4-340b's head dim)
+HD192 = (4, 2048, 16, 8, 192)
 # the serve and train phases' generator: 4 prompts x 4 samples, 64 new
 # tokens decoded in chunks of 16
 N_PROMPTS, N_PER, MAX_NEW, CHUNK = 4, 4, 64, 16
@@ -399,6 +425,53 @@ def phase_build() -> None:
     log(f"  build total {time.perf_counter() - t0:.1f} s")
 
 
+def timed_logprob_scout(torch, dev, gen):
+    """B1 at [16]'s reference-scoring shape, the [16, 287, 202048] view of
+    [16, 288] bf16 logits: held against the plain version and timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused_logprob import fused_logprob_cuda, \
+        fused_logprob_plain
+    logits = (torch.randn(16, 288, V_SCOUT, generator=gen, device=dev)
+              * 2).to(torch.bfloat16)
+    view = logits[:, :-1]
+    toks = torch.randint(0, V_SCOUT, (16, 287), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lp, m, _ = fused_logprob_cuda(view, toks)
+    lp_p, m_p, _ = fused_logprob_plain(view.reshape(-1, V_SCOUT),
+                                       toks.reshape(-1))
+    err = max_err(lp.reshape(-1), lp_p)
+    require(err <= 1e-4 and torch.equal(m.reshape(-1), m_p),
+            f"fused_logprob [16, 287, {V_SCOUT}] error {err:.3e}")
+    del lp_p, m_p
+
+    def run():
+        return fused_logprob_cuda(view, toks)
+    flat = view.reshape(-1, V_SCOUT).contiguous()
+    flat_toks = toks.reshape(-1).long()
+    n_rows = toks.numel()
+    b_ms, b_by = bound(view.numel() * 2 + n_rows * 4 + 3 * n_rows * 4,
+                       view.numel() * LOGPROB_OPS_PER_LOGIT, FP32_FLOPS)
+    rec = {"shape": [16, 287, V_SCOUT], "max_abs_err": err,
+           "ms": cuda_ms(torch, run, 10),
+           "kernel_only_ms": kernel_only_ms(torch, run, 5,
+                                            "fused_logprob_kernel"),
+           "plain_ms": cuda_ms(torch, lambda: fused_logprob_plain(
+               view.reshape(-1, V_SCOUT), toks.reshape(-1)), 2),
+           "library_ms": cuda_ms(torch, lambda: F.cross_entropy(
+               flat, flat_toks, reduction="none"), 10),
+           "bound_ms": b_ms, "bound_by": b_by}
+    ko = rec["kernel_only_ms"]
+    log(f"  fused_logprob [16, 287, {V_SCOUT}] strided view bf16: max|dlogp| "
+        f"{err:.3e}, m equal; {rec['ms']:.4f} ms per call ("
+        + ("not measured" if ko is None else f"{ko:.4f} ms")
+        + f" in the kernel), plain {rec['plain_ms']:.4f} ms, library "
+        f"(F.cross_entropy) {rec['library_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    del logits, view, flat
+    return rec
+
+
 def phase_kernels(torch, dev):
     """Each kernel against its plain version; returns the JSON records."""
     import torch.nn.functional as F
@@ -504,9 +577,11 @@ def phase_kernels(torch, dev):
     main = timed_sample(16)
     pool = timed_sample(32)
     # the windowed archs' vocabularies ([15]): starcoder2-3b's at the
-    # generator's 16 rows, command-r's and nemotron's at 4 and 16
+    # generator's 16 rows, command-r's and nemotron's at 4 and 16; and
+    # llama4-scout's ([16]) at 16
     vocabs = {f"{B}x{V}": timed_sample(B, V)
-              for B, V in ((16, 49152), (4, 256000), (16, 256000))}
+              for B, V in ((16, 49152), (4, 256000), (16, 256000),
+                           (16, V_SCOUT))}
     # what the launch-count lock adds to every wrapper call, host clock
     t0 = time.perf_counter()
     for _ in range(100000):
@@ -579,6 +654,7 @@ def phase_kernels(torch, dev):
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "shape": [16, 79, V_LLAMA],
         "dtype": "bfloat16"})
+    records[-1]["scout"] = timed_logprob_scout(torch, dev, gen)
 
     # ---- fused_logprob_bwd: the trainer's strided view, with the gradient
     # of the whole [16, 80, V] written (zeros in the last position).  The
@@ -682,6 +758,15 @@ def phase_kernels(torch, dev):
     for shape in serve_shapes:
         cases += [(shape, torch.float32, 4.0, 1e-4, False),
                   (shape, bf16, 1.0, 3e-2, True)]
+    # hd 192 (nemotron-4-340b) at its timing shape and ragged: fp32 within
+    # 1e-5 of max(1, |o|), and peaked (q x 4) within hd 128's 1e-4 at the
+    # main shape; bf16 within 3e-2; and llama4-scout's g = 5 (40 / 8 heads)
+    cases += [(HD192, torch.float32, 1.0, 1e-5, True),
+              (HD192, torch.float32, 4.0, 1e-4, False),
+              (HD192, bf16, 4.0, 3e-2, True),
+              ((2, 130, 10, 2, 192), torch.float32, 1.0, 1e-5, True),
+              ((2, 130, 10, 2, 192), bf16, 4.0, 3e-2, True),
+              ((2, 300, 40, 8, 128), bf16, 4.0, 3e-2, True)]
     for shape, dtype, q_scale, tol, rel in cases:
         q, k, v = qkv(*shape, dtype, seed=sum(shape))
         q = q * q_scale
@@ -726,6 +811,31 @@ def phase_kernels(torch, dev):
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "shape": [B, S, H, K, hd],
         "dtype": "bfloat16"})
+    del q, k, v, qt, kt, vt
+
+    # hd 192: two warpgroups a block (see csrc/flash_attention.cu)
+    B, S, H, K, hd = HD192
+    q, k, v = qkv(B, S, H, K, hd, bf16, seed=8)
+
+    def run_flash():
+        return flash_attention_cuda(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2) * 2,
+                       4 * B * H * hd * S * (S + 1) / 2, BF16_TENSOR_FLOPS)
+    records[-1]["hd192"] = {
+        "shape": list(HD192), "ms": cuda_ms(torch, run_flash, 10),
+        "kernel_only_ms": kernel_only_ms(torch, run_flash, 3,
+                                         "flash_fwd_wgmma_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: chunked_attention(q, k, v), 3),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+        "bound_ms": b_ms, "bound_by": b_by}
+    h = records[-1]["hd192"]
+    ko = h["kernel_only_ms"]
+    log(f"  time flash_attention {list(HD192)} bf16: {h['ms']:.4f} ms per "
+        f"call ({'not measured' if ko is None else f'{ko:.4f} ms'} in the "
+        f"kernel), plain {h['plain_ms']:.4f} ms, library (SDPA) "
+        f"{h['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     del q, k, v, qt, kt, vt
 
     # ---- the attention gradient: the flash forward's recompute backward
@@ -985,6 +1095,10 @@ def check_paged_attention(torch, dev):
                          [0, 15, 16, 2047]
                          + [2047 - 13 * i for i in range(1, 13)], True),
         "nemotron": (4, 96, 8, 192, 16, 8, 40, [0, 17, 64, 128], True),
+        # llama4-scout's heads, 40 on 8 kv heads (g = 5), at [16] (a)'s
+        # engine: 16 rows of a 256-id prompt and up to 32 new tokens
+        "scout": (16, 40, 8, 128, 16, 19, 320,
+                  [256 + 2 * i for i in range(15)] + [288], True),
     }
     worst = 0.0
     for name, (*dims, pos, perm) in shapes.items():
@@ -1074,6 +1188,7 @@ def check_paged_attention(torch, dev):
     timed("timing hd192", bf16)
     engine = timed("engine", f32)
     timed("engine", bf16)
+    scout = timed("scout", f32)
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:72",
@@ -1086,6 +1201,8 @@ def check_paged_attention(torch, dev):
             "engine": {k: engine[k] for k in ("ms", "kernel_only_ms",
                                              "plain_ms", "bound_ms")},
             "hd192": {k: hd192[k] for k in ("ms", "kernel_only_ms",
+                                            "plain_ms", "bound_ms")},
+            "scout": {k: scout[k] for k in ("ms", "kernel_only_ms",
                                             "plain_ms", "bound_ms")}}
 
 
@@ -1707,31 +1824,52 @@ class KernelCalls:
     launches; recording adds none.  ``per_shape`` keeps only the first
     calls of each (wrapper, shapes, dtypes); None keeps every call.
     ``names`` are the wrappers recorded: the dense paths' four, or with
-    ``ENGINE`` the paged decode's too."""
+    ``ENGINE`` the paged decode's too.  With ``host`` the copies wait in
+    host memory and go back to the card one call at a time in ``replay``
+    (a path that leaves no room on the card for them)."""
 
     NAMES = ("fused_sample_cuda", "fused_logprob_cuda",
              "fused_logprob_bwd_cuda", "flash_attention_cuda")
     ENGINE = NAMES + ("paged_attention_cuda",)
 
-    def __init__(self, torch, per_shape=None, names=NAMES):
+    def __init__(self, torch, per_shape=None, names=NAMES, host=False):
         import threading
         self.torch, self.per_shape, self.names = torch, per_shape, names
+        self.host, self.device = host, None
         self.calls = {n: [] for n in names}
         self._seen = collections.Counter()
         self._lock = threading.Lock()
 
     def _copy(self, x):
         if isinstance(x, self.torch.Tensor):
-            return x.detach().clone()
+            if not self.host:
+                return x.detach().clone()
+            self.device = x.device
+            return x.detach().to("cpu", copy=True)
         if isinstance(x, tuple):
             return tuple(self._copy(t) for t in x)
         return x
+
+    def _back(self, x):
+        if isinstance(x, self.torch.Tensor):
+            return x.to(self.device)
+        if isinstance(x, tuple):
+            return tuple(self._back(t) for t in x)
+        return x
+
+    def _iter(self, name):
+        """The recorded calls of ``name``, on the card."""
+        for args, kw, out in self.calls.get(name, ()):
+            if self.host:
+                args, out = self._back(args), self._back(out)
+            yield args, kw, out
 
     def _wrap(self, name, fn):
         def recorded(*args, **kwargs):
             out = fn(*args, **kwargs)
             sig = (name,) + tuple((tuple(a.shape), a.dtype) for a in args
-                                  if isinstance(a, self.torch.Tensor))
+                                  if isinstance(a, self.torch.Tensor)) \
+                + tuple(sorted(kwargs.items()))
             with self._lock:
                 self._seen[sig] += 1
                 keep = self.per_shape is None or \
@@ -1777,7 +1915,7 @@ class KernelCalls:
             return t.dtype == torch.float32
         worst = collections.defaultdict(float)
         shapes = collections.defaultdict(set)
-        for (x, key, T), _, (tok, lp) in self.calls["fused_sample_cuda"]:
+        for (x, key, T), _, (tok, lp) in self._iter("fused_sample_cuda"):
             tok_p, lp_p = fused_sample_plain(x, key, T)
             require(torch.equal(tok, tok_p), f"{label}: fused_sample "
                     f"{list(x.shape)} tokens differ from the plain version "
@@ -1787,7 +1925,7 @@ class KernelCalls:
                     f"{label}: fused_sample log-prob error {err:.3e}")
             worst["fused_sample"] = max(worst["fused_sample"], err)
             shapes["fused_sample"].add((tuple(x.shape), x.dtype))
-        for (view, toks), _, (lp, m, s) in self.calls["fused_logprob_cuda"]:
+        for (view, toks), _, (lp, m, s) in self._iter("fused_logprob_cuda"):
             V = view.shape[-1]
             lp_p, m_p, _ = fused_logprob_plain(view.reshape(-1, V),
                                                toks.reshape(-1))
@@ -1797,7 +1935,7 @@ class KernelCalls:
                 f"{list(view.shape)} error {err:.3e} or m differs")
             worst["fused_logprob"] = max(worst["fused_logprob"], err)
             shapes["fused_logprob"].add((tuple(view.shape), view.dtype))
-        for args, kw, d in self.calls["fused_logprob_bwd_cuda"]:
+        for args, kw, d in self._iter("fused_logprob_bwd_cuda"):
             base, toks, m, log_s, g = args
             n, V = kw.get("n_valid") or base.shape[1], base.shape[-1]
             d_p = fused_logprob_bwd_plain(
@@ -1814,7 +1952,7 @@ class KernelCalls:
             worst["fused_logprob_bwd"] = max(worst["fused_logprob_bwd"],
                                              excess)
             shapes["fused_logprob_bwd"].add((tuple(base.shape), base.dtype))
-        for (q, k, v), _, o in self.calls["flash_attention_cuda"]:
+        for (q, k, v), _, o in self._iter("flash_attention_cuda"):
             o_p = chunked_attention(q, k, v)
             err = ((o.float() - o_p.float()).abs()
                    / o_p.float().abs().clamp(min=1.0)).max().item()
@@ -1822,8 +1960,8 @@ class KernelCalls:
                     f"flash_attention {list(q.shape)} error {err:.3e}")
             worst["flash_attention"] = max(worst["flash_attention"], err)
             shapes["flash_attention"].add((tuple(q.shape), q.dtype))
-        for (q, ak, av, table, pos), kw, o in self.calls.get(
-                "paged_attention_cuda", ()):
+        for (q, ak, av, table, pos), kw, o in self._iter(
+                "paged_attention_cuda"):
             err = max_err(o, paged_attention_plain(
                 q, ak, av, table, pos, window=kw.get("window", 0)))
             require(err <= (2e-5 if fp32(ak) else 3e-2), f"{label}: "
@@ -3712,8 +3850,8 @@ def windowed_numerics(torch, dev):
 def windowed_others(torch, dev):
     """[15] (d): command-r-35b, deepseek-67b and nemotron-4-340b at their
     published widths, 2 layers, bf16: one batch rollout and one paged
-    engine round each; the reference scores command-r's and deepseek's
-    rollouts.  Returns the launch counts."""
+    engine round each; the reference scores every rollout (nemotron's
+    merged forward runs B4 at hd 192).  Returns the launch counts."""
     from repro_torch import configs
     from repro_torch.core.executor import GeneratorExecutor, \
         RefPolicyExecutor
@@ -3736,16 +3874,12 @@ def windowed_others(torch, dev):
                                 max_new=OTHER_NEW, chunk=OTHER_NEW,
                                 temperature=1.0, seed=7, device=dev)
         gen.set_weights(params, version=0)
-        # flash_attention takes hd <= 128, so nemotron's (192) merged
-        # forward has no kernel on the card (ROADMAP queue C)
-        score = cfg.hd != 192
         build.reset_launches()      # this arch's run starts here
         out = gen.step()
-        if score:
-            ref = RefPolicyExecutor(cfg)
-            ref.set_weights(params)
-            ref.put_input("completions", out)
-            out = ref.step()
+        ref = RefPolicyExecutor(cfg)
+        ref.set_weights(params)
+        ref.put_input("completions", out)
+        out = ref.step()
         gen.engine_configure(kv_layout="paged", kv_page_size=ENGINE_PAGE)
         gen.engine_enqueue(0, bound=0)
         items = gen.engine_round(["completions"])
@@ -3753,21 +3887,13 @@ def windowed_others(torch, dev):
         launches = dict(build.LAUNCHES)  # ... and ends here
         total.update(launches)
         want = {"fused_sample": 2 * OTHER_NEW,
-                "paged_attention": OTHER_LAYERS * OTHER_NEW}
-        if score:
-            want.update(fused_logprob=1, flash_attention=OTHER_LAYERS)
+                "paged_attention": OTHER_LAYERS * OTHER_NEW,
+                "fused_logprob": 1, "flash_attention": OTHER_LAYERS}
         require(len(items) == 1 and launches == want,
                 f"{cfg.name}: {len(items)} batches, launches {launches}, "
                 f"want {want}")
-        tokens = out["tokens"]
-        require(tokens.min().item() >= 0 and tokens.max().item() < cfg.vocab
-                and torch.isfinite(out["behavior_logp"]).all().item(),
-                f"{cfg.name} rollout outputs")
-        if score:
-            d = _check_outputs(torch, out, cfg.vocab)
-            scored = f"|mu - ref| max {d.max().item():.4f} (bf16)"
-        else:
-            scored = "not scored (B4 at hd 192 is not ported)"
+        d = _check_outputs(torch, out, cfg.vocab)
+        scored = f"|mu - ref| max {d.max().item():.4f} (bf16)"
         log(f"  (d) {arch}: {cut_line(full, cfg)}; hd {cfg.hd}, "
             f"{cfg.n_heads}/{cfg.n_kv_heads} heads, V {cfg.vocab}"
             + (", tied head" if cfg.tie_embeddings else "")
@@ -3775,9 +3901,7 @@ def windowed_others(torch, dev):
             f"{OTHER_PROMPT} + {OTHER_NEW}] and one engine round: "
             f"launches {launches}; {scored}")
         gen.engine_abort()
-        del gen, params, out, items
-        if score:
-            del ref
+        del gen, ref, params, out, items
         gc.collect()
         torch.cuda.empty_cache()
     return total
@@ -3819,6 +3943,9 @@ def phase_windowed(torch, dev):
     shapes = {tuple(args[0].shape) for args, _, _ in
               calls.calls["paged_attention_cuda"]}
     require(any(s[-1] == 192 for s in shapes), "B5 never ran at hd 192")
+    shapes = {tuple(args[0].shape) for args, _, _ in
+              calls.calls["flash_attention_cuda"]}
+    require(any(s[-1] == 192 for s in shapes), "B4 never ran at hd 192")
     V = {args[0].shape[-1] for args, _, _ in
          calls.calls["fused_sample_cuda"]}
     require(256000 in V, "B3 never ran at V 256000")
@@ -3827,6 +3954,496 @@ def phase_windowed(torch, dev):
     for name in KERNELS[:5]:
         require(launches.get(name, 0) > 0, f"{name} never ran in [15]")
     log(f"  [15] launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------- [16] MoE family --
+
+# [16]: llama4-scout-17b-a16e at its published widths
+MOE_ARCH = "llama4-scout-17b-a16e"
+# (a): one iRoPE period, layers 0-2 windowed at 8192 and layer 3 global
+MOE_LAYERS = 4
+MOE_PROMPT, MOE_NEW = 256, 32
+# (b): one layer, 4.27 B params, 51.2 GB of bf16 params and grads and
+# fp32 Adam moments
+MOE_TRAIN_LAYERS = 1
+# (c): prompts past the smoke config's 64-token window
+MOE_SMOKE_PROMPT = 80
+
+
+def flash_layers(cfg, seq_len: int = 0) -> int:
+    """The layers whose attention goes to the flash kernel: unwindowed
+    ones, and with ``seq_len`` (a merged forward) those whose window is
+    no shorter than the sequence."""
+    from repro_torch.models import backbone as bb
+    return sum(j - i for _, n, off in bb.layer_stacks(cfg)
+               for i, j, w in bb._segment_windows(cfg, n, off, seq_len)
+               if not w)
+
+
+def moe_profile(torch, fn):
+    """One profiled call of ``fn``, every MoE FFN call (router, dispatch,
+    expert products, combine, shared expert) inside a ``moe_ffn`` range.
+    Returns (device busy ms, the MoE FFN's device ms, device operations
+    largest first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import ffn
+    real = ffn.moe_forward
+
+    def ranged(*args, **kwargs):
+        with record_function("moe_ffn"):
+            return real(*args, **kwargs)
+    ffn.moe_forward = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        ffn.moe_forward = real
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0 and e.key != "moe_ffn"]
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    moe = sum(e.device_time_total for e in prof.events()
+              if e.name == "moe_ffn"
+              and e.device_type == DeviceType.CPU) / 1e3
+    return busy, moe, sorted(ops, key=lambda e: -e.self_device_time_total)
+
+
+def moe_serve(torch, dev, calls):
+    """[16] (a): llama4-scout at full width, MOE_LAYERS layers, bf16: a
+    batch rollout scored by the reference, then the paged engine.
+    Returns the launch counts of its runs."""
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import ffn, init_params
+    from repro_torch.rl import engine as engine_mod
+    from repro_torch.rl.data import ArithmeticTasks
+
+    full = configs.get_config(MOE_ARCH)
+    cfg = full.replace(name=f"{MOE_ARCH}-{MOE_LAYERS}l", n_layers=MOE_LAYERS)
+    m, L, W = cfg.moe, cfg.n_layers, cfg.window
+    n_global = flash_layers(cfg)
+    B = N_PROMPTS * N_PER
+    C = max(int(MOE_PROMPT * m.top_k / m.n_experts * m.capacity_factor), 1)
+    log(f"  (a) serve {MOE_ARCH} at full width (d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, "
+        f"{m.n_experts} experts of d {m.d_expert}, top-{m.top_k} "
+        f"{m.router}, {m.n_shared} shared, V {cfg.vocab}, window {W} in "
+        f"{cfg.window_pattern - 1} of every {cfg.window_pattern} layers): "
+        f"{cut_line(full, cfg)}; bf16; {N_PROMPTS} prompts x {N_PER} "
+        f"samples of {MOE_PROMPT} ids, {MOE_NEW} new tokens in chunks of "
+        f"{CHUNK}; prefill capacity {C} a group and expert")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    log(f"  init: {n / 1e9:.3f} B params, {2 * n / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s, peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (each expert "
+        "leaf drawn in fp32 before the cast)")
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(prompt_len=MOE_PROMPT,
+                                                 seed=0),
+                            n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+                            max_new=MOE_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=0, device=dev)
+    gen.set_weights(params, version=0)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(params)
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    total = collections.Counter()
+
+    # one batch through the generator's own hooks, timed apart: a first
+    # prefill (the new shapes' first launches), whose dispatch masks give
+    # the share capacity drops, then the timed one that decodes
+    valid = []
+    real_dispatch = ffn._dispatch_group
+
+    def kept(*args, **kwargs):
+        out = real_dispatch(*args, **kwargs)
+        valid.append(out[2])
+        return out
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()          # the batch rollout's run starts here
+    ffn._dispatch_group = kept
+    try:
+        t0 = time.perf_counter()
+        job, state = gen.begin_batch()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ffn._dispatch_group = real_dispatch
+    require(len(valid) == L and all(v.shape == (B, MOE_PROMPT)
+                                    for v in valid),
+            f"prefill dispatches {[tuple(v.shape) for v in valid]}")
+    dropped = [1.0 - v.float().mean().item() for v in valid]
+    del valid, job, state
+    t0 = time.perf_counter()
+    job, state = gen.begin_batch()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    state = gen.advance_chunk(job, state)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / CHUNK
+    box = []
+    busy, moe_ms, ops = moe_profile(
+        torch, lambda: box.append(gen.advance_chunk(job, state)))
+    state = box[0]
+    out = gen.emit_batch(job, state)
+    t0 = time.perf_counter()
+    ref.put_input("completions", out)
+    ref.step()
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    rew.put_input("completions_with_ref", ref.get_output("completions_with_ref"))
+    out = rew.step()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    total.update(launches)
+    want = {"fused_sample": MOE_NEW, "fused_logprob": 1,
+            "flash_attention": 2 * n_global
+            + flash_layers(cfg, MOE_PROMPT + MOE_NEW)}
+    require(launches == want, f"moe rollout launch counts {launches}, "
+            f"want {want} (each of two prefills: flash_attention in the "
+            "global layer only, the windowed layers through "
+            "chunked_attention; the "
+            "reference's merged forward: flash_attention in every layer)")
+    d = _check_outputs(torch, out, cfg.vocab)
+    log(f"  prefill [{B}, {MOE_PROMPT}]: {prefill_ms:.1f} ms (the first "
+        f"{first_ms:.1f} ms); capacity "
+        f"dropped {', '.join(f'{100 * x:.2f}' for x in dropped)}% of the "
+        f"prefill's choices in layers 0-{L - 1}; decode {decode_ms:.2f} ms "
+        f"per token (batch {B}, one unprofiled chunk); reference "
+        f"{t_ref * 1e3:.1f} ms over [{B}, {MOE_PROMPT + MOE_NEW}]; "
+        f"|behavior_logp - ref_logp| at {d.numel()} actions (bf16): mean "
+        f"{d.mean().item():.4f}, max {d.max().item():.4f}; launches "
+        f"{launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    busy /= CHUNK
+    log(f"  profiled chunk: device busy {busy:.2f} ms per token = "
+        f"{100 * busy / decode_ms:.1f}% of the unprofiled {decode_ms:.2f} "
+        f"ms; the MoE FFN (router, dispatch, expert products, combine, "
+        f"shared expert) {moe_ms / CHUNK:.2f} ms per token = "
+        + (f"{100 * moe_ms / CHUNK / busy:.1f}%" if busy else "not measured")
+        + " of the device time; top device operations (ms per token): "
+        + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / CHUNK:.3f}"
+                    for e in ops[:6]))
+    del job, state, out, box
+
+    # the paged engine: 2 batches through B slots, rows joining mid-decode
+    torch.cuda.reset_peak_memory_stats()
+    gen.engine_configure(kv_layout="paged", kv_page_size=ENGINE_PAGE,
+                         max_running_rows=B, row_budgets=ENGINE_BUDGETS)
+    for b in range(2):
+        gen.engine_enqueue(b, bound=0)
+    items = []
+    t0 = time.perf_counter()
+    with timed_decode(torch, engine_mod) as timer:
+        build.reset_launches()      # the engine's run starts here
+        for _ in range(40):
+            items += gen.engine_round(["completions"])
+            if len(items) == 2:
+                break
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    total.update(launches)
+    st = gen.engine_stats()
+    rounds = timer.rounds
+    want = {"paged_attention": L * CHUNK * rounds,
+            "fused_sample": CHUNK * rounds,
+            "flash_attention": n_global * st["radix_misses"]}
+    require(len(items) == 2 and launches == want,
+            f"moe engine: {len(items)} batches, launches {launches}, want "
+            f"{want} (a radix miss prefills its global layer through "
+            "flash_attention, a hit's suffix and the windowed layers "
+            "through chunked_attention)")
+    require(st["rows_admitted"] == 2 * B and st["radix_hits"] > 0
+            and st["staleness_violations"] == 0 and st["running"] == 0,
+            f"engine stats {st}")
+    decode = statistics.median(w / CHUNK * 1e3 for w in timer.wall)
+    log(f"  paged engine (page {ENGINE_PAGE}, {B} slots, 2 batches, "
+        f"budgets {ENGINE_BUDGETS}): {rounds} rounds in {wall:.2f} s, "
+        f"decode {decode:.2f} ms per token (median); admitted "
+        f"{st['rows_admitted']}, radix hits {st['radix_hits']} / misses "
+        f"{st['radix_misses']}; launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    windows = {kw.get("window") for _, kw, _ in
+               calls.calls["paged_attention_cuda"]}
+    require(windows == {W, 0}, f"paged_attention windows {windows}, want "
+            f"{W} and 0")
+    d = score_engine(torch, cfg, params, [items[0]["snapshot"]
+                                          ["completions"]])
+    log(f"  the first engine batch scored: |behavior_logp - ref_logp| at "
+        f"{d.numel()} actions (bf16): mean {d.mean().item():.4f}, max "
+        f"{d.max().item():.4f}")
+    gen.engine_abort()
+    del gen, ref, rew, items, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def moe_train(torch, dev):
+    """[16] (b): two steps of the sequential async loop at full width and
+    MOE_TRAIN_LAYERS layer, sequences inside the window (merged segments:
+    B4, B1 and B2), the MoE aux in the loss.  KL 0.1 against a reference
+    that takes the trainer's weights through a weights channel of its
+    own, as the launcher wires it, so it shares the generator's version
+    and adds no copy.  Returns the launch counts."""
+    from repro_torch import configs
+    from repro_torch.core.channels import CommType, CommunicationChannel, \
+        WeightsCommunicationChannel
+    from repro_torch.core.controller import SyncExecutorController
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor, TrainerExecutor
+    from repro_torch.kernels import build
+    from repro_torch.rl.data import ArithmeticTasks
+
+    full = configs.get_config(MOE_ARCH)
+    cfg = full.replace(name=f"{MOE_ARCH}-{MOE_TRAIN_LAYERS}l",
+                       n_layers=MOE_TRAIN_LAYERS)
+    n_steps = 2
+    torch.cuda.reset_peak_memory_stats()
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=0),
+                            n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+                            max_new=MAX_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=0, device=dev)
+    ref = RefPolicyExecutor(cfg)
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    trn = TrainerExecutor(cfg, dtype=torch.bfloat16, kl_coef=KL_COEF,
+                          seed=0, device=dev)
+    ctl = SyncExecutorController(
+        [gen, ref, rew, trn],
+        [WeightsCommunicationChannel("policy_model", trn, gen),
+         WeightsCommunicationChannel("policy_model", trn, ref),
+         CommunicationChannel("completions", gen, ref, CommType.BROADCAST),
+         CommunicationChannel("completions_with_ref", ref, rew,
+                              CommType.GATHER),
+         CommunicationChannel("completions_with_reward", rew, trn,
+                              CommType.SCATTER)],
+        max_steps=n_steps, mode="async", staleness=1)
+    ctl.init()
+    params = trn.get_model()
+    n = sum(t.numel() for t in leaves(params))
+    big = max(t.numel() for t in leaves(params))
+    seq = gen.tasks.prompt_len + MAX_NEW
+    log(f"  (b) train {MOE_ARCH} at full width, {MOE_TRAIN_LAYERS} of "
+        f"{full.n_layers} layers: {n / 1e9:.3f} B params; reckoned peak "
+        f"{12 * n / 1e9:.1f} GB of trainer state + {2 * n / 1e9:.1f} GB "
+        f"for the version the generator and the reference share + "
+        f"{2 * n / 1e9:.1f} GB for the version Adam builds + "
+        f"{3 * 4 * big / 1e9:.1f} GB of Adam's fp32 temporaries on the "
+        f"largest leaf = {(16 * n + 12 * big) / 1e9:.1f} GB; {n_steps} "
+        f"steps of the async schedule, staleness 1, KL {KL_COEF}; "
+        f"sequences of {seq} <= window {cfg.window}")
+    moe = params["moe_layers"]["moe"]
+    router0 = moe["w_router"].clone()
+    experts0 = {k: fingerprint(torch, {k: moe[k]})
+                for k in ("w_gate", "w_up", "w_down")}
+    del params, moe
+    t0 = time.perf_counter()
+    build.reset_launches()          # the train path's run starts here
+    history = ctl.run()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    for h in history:
+        log(f"  step {h['step']}: loss {h['loss']:.5f}, moe_aux "
+            f"{h['moe_aux']:.6f}, grad_norm {h['grad_norm']:.4f}, "
+            f"weight_version {h['weight_version']}")
+        require(h["weight_version"] == max(0, h["step"] - 1)
+                and math.isfinite(h["loss"]) and h["moe_aux"] > 0
+                and math.isfinite(h["grad_norm"]), f"step {h}")
+    moe = trn.get_model()["moe_layers"]["moe"]
+    moved = [k for k in experts0
+             if fingerprint(torch, {k: moe[k]}) != experts0[k]]
+    router_moved = (moe["w_router"] - router0).abs().max().item()
+    require(router_moved > 0 and moe["w_router"].dtype == torch.float32,
+            "the router did not move, or is not fp32")
+    require(moved, "no expert leaf moved")
+    want = {k: v for k, v in (
+        ("fused_sample", n_steps * MAX_NEW),
+        ("flash_attention", n_steps * 2 * flash_layers(cfg, seq)),
+        ("fused_logprob", 2 * n_steps), ("fused_logprob_bwd", n_steps)) if v}
+    require(launches == want, f"moe train launch counts {launches}, want "
+            f"{want} (per step: the reference's and the trainer's merged "
+            "forward through flash_attention; the generator's windowed "
+            "prefill through chunked_attention)")
+    log(f"  {n_steps} steps in {wall:.1f} s; router moved by up to "
+        f"{router_moved:.3e}, expert leaves moved: {moved}; launches "
+        f"{launches}; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del ctl, gen, ref, rew, trn, moe, router0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_numerics(torch, dev):
+    """[16] (c): the smoke config (window 64 every other layer), fp32:
+    decode through the wrapped ring against the windowed forward_train
+    (2e-3), the paged engine's behaviour log-probs against the
+    reference's (1e-3), and moe_forward on the card against the same
+    call on the CPU with capacity factor 1 (routing, dest, valid and
+    order equal; y within 1e-5 of max(1, max|y|)).  Returns the launch
+    counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import decode_step, ffn, forward_train, \
+        init_params, prefill
+    from repro_torch.rl.data import ArithmeticTasks
+
+    cfg = configs.get_smoke(MOE_ARCH)
+    W = cfg.window
+    params = init_params(cfg, seed=5, dtype=torch.float32, device=dev)
+    S, n = MOE_SMOKE_PROMPT, 8
+    ids = np.random.default_rng(5).integers(0, cfg.vocab, (2, S + n))
+    toks = torch.as_tensor(ids, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        full_logits, _ = forward_train(params, cfg, {"tokens": toks})
+        _, cache = prefill(params, cfg, {"tokens": toks[:, :S]},
+                           cache_len=S + n, dtype=torch.float32)
+        require(cache["segments"][0]["k"].shape[2] == W, "ring size")
+        err = 0.0
+        for i in range(n):
+            lg, cache = decode_step(params, cfg, cache,
+                                    toks[:, S + i:S + i + 1])
+            err = max(err, max_err(lg, full_logits[:, S + i]))
+    sp = cache["segments"][0]["slot_pos"]
+    require(sp.min().item() == S + n - W, "decode did not wrap the ring")
+    log(f"  (c) {cfg.name} smoke fp32 ({cfg.moe.n_experts} experts, "
+        f"window {W} every other layer): decode of {n} tokens through the "
+        f"wrapped ring after a {S}-token prefill against the "
+        f"teacher-forced windowed forward_train: max|dlogits| {err:.3e} "
+        "(tolerance 2e-3)")
+    require(err <= 2e-3, "ring decode against the windowed forward")
+    del full_logits, cache
+
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(prompt_len=S, seed=5),
+                            n_prompts=1, n_per_prompt=N_PER,
+                            max_new=MAX_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=5, device=dev)
+    gen.set_weights(params, version=0)
+    gen.engine_configure(kv_layout="paged", kv_page_size=ENGINE_PAGE,
+                         row_budgets=ENGINE_BUDGETS)
+    gen.engine_enqueue(0, bound=0)
+    items = []
+    build.reset_launches()          # the engine's run starts here
+    for _ in range(40):
+        items += gen.engine_round(["completions"])
+        if items:
+            break
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    require(len(items) == 1 and launches.get("paged_attention", 0) > 0,
+            f"fp32 moe engine: {len(items)} batches, {launches}")
+    d = score_engine(torch, cfg, params, [items[0]["snapshot"]
+                                          ["completions"]])
+    log(f"  fp32 paged engine, prompts of {S}: |behavior_logp - ref_logp| "
+        f"at {d.numel()} actions: max {d.max().item():.2e} (tolerance "
+        f"1e-3); launches {launches}")
+    require(d.max().item() <= 1e-3, "fp32 moe engine mu vs reference")
+    gen.engine_abort()
+    del gen, items
+
+    # the same MoE layer on the card and on the CPU, with drops
+    mcfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
+    m = mcfg.moe
+    layer = bb.unstack(params["moe_layers"], cfg.n_layers)[0]["moe"]
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (4, S, cfg.d_model)), dtype=torch.float32)
+    Cm = max(int(S * m.top_k / m.n_experts * m.capacity_factor), 1)
+
+    def run(where):
+        p = {k: (v.to(where) if torch.is_tensor(v)
+                 else {n_: t.to(where) for n_, t in v.items()})
+             for k, v in layer.items()}
+        xd = x.to(where)
+        _, _, idx = ffn._route(p, xd, m)
+        buf, dest, valid, order = ffn._dispatch_group(xd, idx, m.n_experts,
+                                                      Cm)
+        y, aux = ffn.moe_forward(p, xd, mcfg)
+        return [t.cpu() for t in (idx, buf, dest, valid, order, y)] \
+            + [float(aux)]
+    card, cpu = run(dev), run(torch.device("cpu"))
+    for name, a, b in zip(("routing", "buffer", "dest", "valid", "order"),
+                          card, cpu):
+        require(torch.equal(a, b) if name != "buffer"
+                else max_err(a, b) == 0.0,
+                f"moe_forward on the card: {name} differs from the CPU's")
+    scale = max(1.0, cpu[5].abs().max().item())
+    y_err = max_err(card[5], cpu[5]) / scale
+    require(y_err <= 1e-5 and abs(card[6] - cpu[6]) <= 1e-6,
+            f"moe_forward card vs CPU: y {y_err:.3e} of max|y|, aux "
+            f"{abs(card[6] - cpu[6]):.3e}")
+    log(f"  moe_forward [4, {S}, {cfg.d_model}] fp32, capacity {Cm} "
+        f"({100 * (1 - cpu[3].float().mean().item()):.1f}% of choices "
+        f"dropped): the card's routing, buffer, dest, valid and order "
+        f"equal the CPU's; y {y_err:.3e} of max|y| {scale:.1f}, aux "
+        f"{abs(card[6] - cpu[6]):.1e}")
+    del params, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe(torch, dev):
+    """[16]: the MoE family.  Returns the launch counts of its main-path
+    runs."""
+    log(f"[16] moe: {MOE_ARCH} at full width, {MOE_LAYERS} layers served "
+        f"and {MOE_TRAIN_LAYERS} trained, its smoke config in fp32; "
+        f"{nvidia_smi()}")
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    with KernelCalls(torch, per_shape=1, names=KernelCalls.ENGINE) as calls:
+        launches.update(moe_serve(torch, dev, calls))
+    for line in calls.replay("[16] (a)", expect=(
+            "fused_sample_cuda", "fused_logprob_cuda",
+            "flash_attention_cuda", "paged_attention_cuda")):
+        log(line)
+    V = {args[0].shape[-1] for args, _, _ in calls.calls["fused_sample_cuda"]}
+    heads = {args[0].shape[2:4] for args, _, _ in
+             calls.calls["flash_attention_cuda"]}
+    paged = {args[0].shape[1:] for args, _, _ in
+             calls.calls["paged_attention_cuda"]}
+    from repro_torch import configs
+    cfg = configs.get_config(MOE_ARCH)
+    want = (cfg.n_heads, cfg.hd)
+    require(V == {cfg.vocab} and heads == {want} and paged == {want},
+            f"[16] (a) shapes: V {V}, flash heads {heads}, paged {paged}")
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    with KernelCalls(torch, host=True) as calls:
+        launches.update(moe_train(torch, dev))
+    for line in calls.replay("[16] (b)"):
+        log(line)
+    del calls
+    with KernelCalls(torch, names=KernelCalls.ENGINE) as calls:
+        launches.update(moe_numerics(torch, dev))
+    for line in calls.replay("[16] (c)", expect=(
+            "fused_sample_cuda", "fused_logprob_cuda",
+            "flash_attention_cuda", "paged_attention_cuda")):
+        log(line)
+    del calls
+    launches = dict(launches)
+    for name in KERNELS[:5]:
+        require(launches.get(name, 0) > 0, f"{name} never ran in [16]")
+    log(f"  [16] launches {launches}; {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3888,6 +4505,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     windowed_launches = phase_windowed(torch, dev)
     mark("[15]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches = phase_moe(torch, dev)
+    mark("[16]")
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
@@ -3902,7 +4523,8 @@ def main() -> int:
                    "proc": proc_launches.get(r["name"], 0),
                    "launch": launch_launches.get(r["name"], 0),
                    "supervise": supervise_launches.get(r["name"], 0),
-                   "windowed": windowed_launches.get(r["name"], 0)}
+                   "windowed": windowed_launches.get(r["name"], 0),
+                   "moe": moe_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")
@@ -3913,6 +4535,8 @@ def main() -> int:
                     f"{r['name']} never ran in the supervised runs")
             require(by_path["windowed"] > 0,
                     f"{r['name']} never ran on the windowed path")
+            require(by_path["moe"] > 0,
+                    f"{r['name']} never ran on the MoE path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(smi)

@@ -18,12 +18,12 @@ _MODULES = {
     "nemotron-4-340b":        "repro_torch.configs.nemotron_4_340b",
     "deepseek-67b":           "repro_torch.configs.deepseek_67b",
     "command-r-35b":          "repro_torch.configs.command_r_35b",
+    "llama4-scout-17b-a16e":  "repro_torch.configs.llama4_scout_17b_a16e",
     "starcoder2-3b":          "repro_torch.configs.starcoder2_3b",
 }
 
 # the reference registry's other archs: the ROADMAP item that ports each
 UNPORTED = {
-    "llama4-scout-17b-a16e":  "A11.2 (MoE)",
     "deepseek-v3-671b":       "A11.3 (MLA + MTP)",
     "qwen2-vl-7b":            "A11.4 (VLM)",
     "zamba2-7b":              "A11.5 (hybrid)",

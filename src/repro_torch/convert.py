@@ -33,15 +33,17 @@ def _leaf_to_torch(a, dtype, device):
 def from_jax_numpy(tree: Any, dtype: Optional[torch.dtype] = None,
                    device: DeviceLike = None) -> Any:
     """Nested dicts/lists of numpy arrays -> the same structure of tensors.
-    ``dtype`` casts floating leaves (None keeps each leaf's own type)."""
+    ``dtype`` casts floating leaves (None keeps each leaf's own type),
+    except a MoE router (``w_router``), which stays fp32 in a tree of any
+    dtype as the reference keeps it."""
     dev = resolve(device)
 
-    def go(x):
+    def go(x, key=None):
         if isinstance(x, dict):
-            return {k: go(v) for k, v in x.items()}
+            return {k: go(v, k) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(go(v) for v in x)
-        return _leaf_to_torch(x, dtype, dev)
+        return _leaf_to_torch(x, None if key == "w_router" else dtype, dev)
     return go(tree)
 
 

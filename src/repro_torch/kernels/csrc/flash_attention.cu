@@ -11,7 +11,8 @@
 //
 // bf16 (flash_fwd_wgmma_kernel): FlashAttention-2's walk on Hopper's
 // warpgroup products.  A block is NWG = 3 warpgroups of 64 query rows
-// each (192 rows), which share every K and V tile: a tile read from L2
+// each (192 rows; 2 and 128 at hd 192, see FlashWg), which share every
+// K and V tile: a tile read from L2
 // serves three times the rows it would serve one warpgroup alone, and
 // the K/V bytes re-read from L2, not the tensor instruction, set the
 // time at the main shape (the same walk on mma.sync, or with one
@@ -35,16 +36,20 @@
 // row; thread `part` of a row owns the head dims {c*16 + part*4 + e}, so
 // its q slice and output accumulator live in registers and its
 // shared-memory reads are float4 without bank conflicts.  The block walks
-// BK = 32-key tiles of K and V (in fp32 in shared memory, 32 KB at
-// hd = 128) up to the diagonal; each row's score is the four partial dots
+// BK = 32-key tiles of K and V (in fp32 in dynamic shared memory, 32 KB at
+// hd = 128, 48 KB at hd = 192, the most a block may take without opting
+// in) up to the diagonal; each row's score is the four partial dots
 // merged by two xor shuffles.
 constexpr int BQ = 64, BK = 32, TPR = 4, THREADS = BQ * TPR;
 
-// Two blocks to an SM: the bound caps registers at 128 a thread.  At
-// hd = 128 ptxas then spills 176 bytes a thread to local memory (the
-// build log's ptxas -v lines say so).
+// Two blocks to an SM up to hd = 128: the bound caps registers at 128 a
+// thread, and at hd = 128 ptxas then spills 176 bytes a thread to local
+// memory (the build log's ptxas -v lines say so).  At hd = 192 a thread's
+// q slice, accumulator and 32 scores alone take 128 registers, so that
+// instance runs one block an SM under a 255-register cap instead of
+// spilling.
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, HD > 128 ? 1 : 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int S, int H, int KH,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
@@ -52,8 +57,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  int64_t o_ss, int64_t o_sh, float scale) {
   constexpr int DPT = HD / TPR;       // head dims per thread
   constexpr int NC = HD / 16;         // float4 chunks per thread
-  __shared__ __align__(16) float ks[BK][HD];
-  __shared__ __align__(16) float vs[BK][HD];
+  extern __shared__ __align__(16) float f32_smem[];
+  float(*ks)[HD] = reinterpret_cast<float(*)[HD]>(f32_smem);
+  float(*vs)[HD] = reinterpret_cast<float(*)[HD]>(f32_smem + BK * HD);
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / KH);
@@ -136,7 +142,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---- bf16, wgmma.  MK keys a tile; a warpgroup owns 64 query rows.
-constexpr int MK = 64, NWG = 3, WG_THREADS = 128 * NWG, BQ_WG = 64 * NWG;
+constexpr int MK = 64;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // the bf16 pair at p[0], p[1] (zeros past S)
@@ -162,8 +168,18 @@ __device__ __forceinline__ void store_pair(uint16_t* p, float lo, float hi, bool
 // 8-dim groups 128 bytes apart along K) and for P V the same bytes are an
 // MN-major B (8-dim groups 128 apart along N, 8-key groups HD * 16 apart
 // along K).
+//
+// NWG warpgroups a block.  Three up to hd = 128: 384 threads, so the
+// bound caps a thread at 168 registers.  At hd = 192 a thread holds q's
+// fragments (48 registers), the P V accumulator (96) and a tile's scores
+// (32), 176 before any address, so that instance runs two warpgroups (256
+// threads, a 255-register cap) and shares each K/V tile over 128 rows
+// instead of 192.
 template <int HD>
 struct FlashWg {
+  static constexpr int NWG = HD > 128 ? 2 : 3;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int BQ = 64 * NWG;             // query rows a block
   static constexpr int TILE = MK * HD;            // bf16 a tile
   static constexpr int SMEM = 2 * 2 * TILE * 2;   // K and V, two buffers; bytes
   static constexpr uint32_t GROUP = HD * 16;      // bytes between 8-key groups
@@ -175,7 +191,7 @@ template <int HD>
 __device__ __forceinline__ void load_kv_core(uint16_t* s, const uint16_t* g, int64_t ld,
                                              int valid, bool vec) {
   constexpr int CPR = HD / 8;
-  for (int i = threadIdx.x; i < MK * CPR; i += WG_THREADS) {
+  for (int i = threadIdx.x; i < MK * CPR; i += FlashWg<HD>::THREADS) {
     // eight consecutive threads fill one 128-byte core matrix
     const int r = i % 8 + i / (8 * CPR) * 8, c = i / 8 % CPR;
     uint16_t* dst = s + r / 8 * (HD * 8) + c * 64 + r % 8 * 8;
@@ -192,7 +208,7 @@ __device__ __forceinline__ void load_kv_core(uint16_t* s, const uint16_t* g, int
 }
 
 template <int HD>
-__global__ void __launch_bounds__(WG_THREADS)
+__global__ void __launch_bounds__(FlashWg<HD>::THREADS)
 flash_fwd_wgmma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                        const uint16_t* __restrict__ v, uint16_t* __restrict__ o, int S, int H,
                        int KH, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
@@ -208,14 +224,14 @@ flash_fwd_wgmma_kernel(const uint16_t* __restrict__ q, const uint16_t* __restric
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / KH);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ_WG;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F::BQ;
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = q0 + 64 * wg;                     // this warpgroup's first row
   const int ra = row0 + warp * 16 + g, rb = ra + 8;  // this thread's two rows
   // the key tiles this warpgroup needs, and the block's
   const int my_tiles = row0 < S ? (min(S, row0 + 64) + MK - 1) / MK : 0;
-  const int n_tiles = (min(S, q0 + BQ_WG) + MK - 1) / MK;
+  const int n_tiles = (min(S, q0 + F::BQ) + MK - 1) / MK;
 
   // q as A fragments, in registers for the whole walk
   uint32_t qf[KD][4];
@@ -363,8 +379,8 @@ static cudaError_t launch_wgmma(const void* q, const void* k, const void* v, voi
   static unsigned long long done = 0;
   cudaError_t err = set_smem_once(kernel, smem, done);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)(B * H), (unsigned)((S + BQ_WG - 1) / BQ_WG));
-  kernel<<<grid, WG_THREADS, smem, stream>>>(
+  dim3 grid((unsigned)(B * H), (unsigned)((S + FlashWg<HD>::BQ - 1) / FlashWg<HD>::BQ));
+  kernel<<<grid, FlashWg<HD>::THREADS, smem, stream>>>(
       (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v, (uint16_t*)o, S, H, KH,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
       scale * LOG2E, vec);
@@ -377,7 +393,9 @@ static cudaError_t launch(const void* q, const void* k, const void* v, void* o, 
                           int H, int KH, const long long* st, float scale,
                           cudaStream_t stream) {
   dim3 grid((unsigned)(B * H), (unsigned)((S + BQ - 1) / BQ));
-  flash_fwd_kernel<T, HD><<<grid, THREADS, 0, stream>>>(
+  constexpr int smem = 2 * BK * HD * (int)sizeof(float);   // at most 48 KB
+  static_assert(smem <= 48 * 1024, "fp32 K/V tiles above the default limit");
+  flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, KH, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
   return cudaGetLastError();
@@ -391,6 +409,7 @@ static cudaError_t launch_f32(const void* q, const void* k, const void* v, void*
     case 32: return launch<float, 32>(q, k, v, o, B, S, H, KH, st, scale, stream);
     case 64: return launch<float, 64>(q, k, v, o, B, S, H, KH, st, scale, stream);
     case 128: return launch<float, 128>(q, k, v, o, B, S, H, KH, st, scale, stream);
+    case 192: return launch<float, 192>(q, k, v, o, B, S, H, KH, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -407,6 +426,7 @@ static cudaError_t launch_bf16(const void* q, const void* k, const void* v, void
     case 32: return launch_wgmma<32>(q, k, v, o, B, S, H, KH, st, scale, vec, stream);
     case 64: return launch_wgmma<64>(q, k, v, o, B, S, H, KH, st, scale, vec, stream);
     case 128: return launch_wgmma<128>(q, k, v, o, B, S, H, KH, st, scale, vec, stream);
+    case 192: return launch_wgmma<192>(q, k, v, o, B, S, H, KH, st, scale, vec, stream);
     default: return cudaErrorInvalidValue;
   }
 }

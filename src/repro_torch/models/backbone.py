@@ -1,11 +1,14 @@
-"""Backbone: dense-family model assembly (the port of the JAX package's
-``models/backbone.py``).
+"""Backbone: dense- and MoE-family model assembly (the port of the JAX
+package's ``models/backbone.py``).
 
 Params are nested dicts of tensors in the reference pytree's key layout,
 layers stacked on a leading axis, so ``convert`` maps one onto the other
-key for key.  The layer stack is a Python loop where the reference scans,
-walked in segments of one window size each (``_segment_windows``).  The
-other families come with ROADMAP A11.
+key for key.  A dense model has one stack, ``layers``; a MoE model has
+``dense_layers`` (its ``first_k_dense`` leading layers, when set) and
+``moe_layers`` (``layer_stacks``).  Each stack is a Python loop where the
+reference scans, walked in segments of one window size each
+(``_segment_windows``).  The other families come with ROADMAP
+A11.3-A11.7.
 """
 from __future__ import annotations
 
@@ -21,36 +24,67 @@ from repro_torch.models.common import dense_init, norm
 
 Params = Dict[str, Any]
 
+# what is not ported yet, by family or attention kind: its ROADMAP item
+_UNPORTED = {"mla": "A11.3 (MLA + MTP)", "vlm": "A11.4 (VLM)",
+             "hybrid": "A11.5 (hybrid)", "ssm": "A11.6 (SSM)",
+             "audio": "A11.7 (audio encoder-decoder)"}
 
-def check_dense(cfg: ArchConfig) -> None:
-    """The port runs the dense GQA family, with or without windows."""
-    if cfg.family != "dense" or cfg.attn_kind != "gqa":
-        raise NotImplementedError(
-            f"family={cfg.family!r}, attn_kind={cfg.attn_kind!r}: only the "
-            "dense GQA family is ported (others: ROADMAP A11)")
+
+def check_family(cfg: ArchConfig) -> None:
+    """The port runs the dense and MoE families with GQA attention, with
+    or without windows."""
+    if cfg.family in ("dense", "moe") and cfg.attn_kind == "gqa" \
+            and not cfg.mtp:
+        return
+    item = _UNPORTED["mla"] if cfg.attn_kind == "mla" or cfg.mtp \
+        else _UNPORTED.get(cfg.family, "A11")
+    raise NotImplementedError(
+        f"family={cfg.family!r}, attn_kind={cfg.attn_kind!r}, "
+        f"mtp={cfg.mtp}: the port runs the dense and MoE families with GQA "
+        f"attention; this one comes with ROADMAP {item}")
+
+
+def layer_stacks(cfg: ArchConfig) -> list:
+    """The layer stacks in the order every path walks them, as
+    ``(params key, n_layers, index of the stack's first layer)``."""
+    if cfg.family == "moe":
+        fkd = cfg.moe.first_k_dense
+        return ([("dense_layers", fkd, 0)] if fkd else []) \
+            + [("moe_layers", cfg.n_layers - fkd, fkd)]
+    return [("layers", cfg.n_layers, 0)]
+
+
+def _layer_params(gen, cfg, n, dtype, dev, *, moe: bool) -> Params:
+    D = cfg.d_model
+    p = {"ln1": torch.ones((n, D), dtype=dtype, device=dev),
+         "attn": attn.gqa_params(gen, cfg, n, dtype, dev),
+         "ln2": torch.ones((n, D), dtype=dtype, device=dev)}
+    if moe:
+        p["moe"] = ffnmod.moe_params(gen, cfg, n, dtype, dev)
+    else:
+        p["mlp"] = ffnmod.mlp_params(gen, n, D, cfg.d_ff, cfg.act, dtype,
+                                     dev, bias=cfg.bias)
+    return p
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
                 device: DeviceLike = None) -> Params:
     """Random params drawn from a ``torch.Generator`` seeded with ``seed``
-    on ``device``, with the reference's shapes and scales."""
-    check_dense(cfg)
+    on ``device``, with the reference's shapes and scales (a MoE router
+    stays fp32 whatever ``dtype`` is, as in the reference)."""
+    check_family(cfg)
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    D, L = cfg.d_model, cfg.n_layers
+    D = cfg.d_model
     params: Params = {
         "embed": dense_init(gen, (cfg.vocab, D), dtype, dev),
         "final_norm": torch.ones(D, dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (D, cfg.vocab), dtype, dev)
-    params["layers"] = {
-        "ln1": torch.ones((L, D), dtype=dtype, device=dev),
-        "attn": attn.gqa_params(gen, cfg, L, dtype, dev),
-        "ln2": torch.ones((L, D), dtype=dtype, device=dev),
-        "mlp": ffnmod.mlp_params(gen, L, D, cfg.d_ff, cfg.act, dtype, dev,
-                                 bias=cfg.bias),
-    }
+    for key, n, _ in layer_stacks(cfg):
+        params[key] = _layer_params(gen, cfg, n, dtype, dev,
+                                    moe=key == "moe_layers")
     return params
 
 
@@ -96,8 +130,12 @@ def _attn_block(p, x, cfg, *, window=0):
 
 
 def _ffn_block(p, x, cfg):
+    """The FFN half of a layer: (x + ffn(norm(x)), the MoE aux loss)."""
     h = norm(x, p["ln2"], cfg.norm)
-    return x + ffnmod.mlp_forward(p["mlp"], h, cfg.act, bias=cfg.bias)
+    if "moe" in p:
+        y, aux = ffnmod.moe_forward(p["moe"], h, cfg)
+        return x + y, aux
+    return x + ffnmod.mlp_forward(p["mlp"], h, cfg.act, bias=cfg.bias), 0.0
 
 
 def unstack(stacked: Params, n: int) -> list:
@@ -110,25 +148,29 @@ def unstack(stacked: Params, n: int) -> list:
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
-def _run_decoder_stack(stacked, x, cfg, collect_kv: bool = False,
-                       seq_len: int = 0):
-    """Every layer in order, segment by segment of one window each; with
-    ``collect_kv`` also each segment's rotated (k, v), stacked
-    [L_seg, B, S, K, hd], for prefill to write into the cache.
-    ``seq_len`` merges windows no shorter than the sequence (training)."""
-    layers = unstack(stacked, cfg.n_layers)
+def _run_decoder_stack(stacked, x, cfg, n_layers: int, offset: int = 0,
+                       collect_kv: bool = False, seq_len: int = 0):
+    """The ``n_layers`` layers of one stack in order (global layer indices
+    from ``offset``, which set the windows), segment by segment of one
+    window each.  Returns (x, the summed MoE aux, kv_segs): with
+    ``collect_kv`` each segment's rotated (k, v), stacked [L_seg, B, S,
+    K, hd], for prefill to write into the cache.  ``seq_len`` merges
+    windows no shorter than the sequence (training)."""
+    layers = unstack(stacked, n_layers)
+    aux = 0.0
     kv_segs = []
-    for i, j, w in _segment_windows(cfg, cfg.n_layers, 0, seq_len):
+    for i, j, w in _segment_windows(cfg, n_layers, offset, seq_len):
         kvs = []
         for p in layers[i:j]:
             x, kv = _attn_block(p, x, cfg, window=w)
-            x = _ffn_block(p, x, cfg)
+            x, a = _ffn_block(p, x, cfg)
+            aux = aux + a
             if collect_kv:
                 kvs.append(kv)
         if collect_kv:
             kv_segs.append((torch.stack([k for k, _ in kvs]),
                             torch.stack([v for _, v in kvs])))
-    return x, kv_segs
+    return x, aux, kv_segs
 
 
 def _embed(params, cfg, tokens):
@@ -143,9 +185,13 @@ def _logits(params, cfg, x):
 
 
 def forward_train(params: Params, cfg: ArchConfig, batch) -> tuple:
-    """Teacher-forced forward.  Returns (logits [B, S, V], aux)."""
-    check_dense(cfg)
+    """Teacher-forced forward.  Returns (logits [B, S, V], aux) with the
+    MoE layers' summed load-balance loss in ``aux["moe_aux"]``."""
+    check_family(cfg)
     x = _embed(params, cfg, batch["tokens"])
-    x, _ = _run_decoder_stack(params["layers"], x, cfg,
-                              seq_len=x.shape[1])
-    return _logits(params, cfg, x), {"moe_aux": 0.0}
+    aux = 0.0
+    for key, n, off in layer_stacks(cfg):
+        x, a, _ = _run_decoder_stack(params[key], x, cfg, n, off,
+                                     seq_len=x.shape[1])
+        aux = aux + a
+    return _logits(params, cfg, x), {"moe_aux": aux}

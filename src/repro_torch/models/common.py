@@ -57,11 +57,15 @@ def apply_rope(x, positions, theta: float):
 # ------------------------------------------------------------------ init ---
 
 def dense_init(gen: torch.Generator, shape, dtype, device,
-               scale: float = 1.0):
+               scale: float = 1.0, fan_in: int = 0):
     """Normal(0, scale / sqrt(fan_in)) from an explicit generator, drawn in
-    fp32 and cast.  (The reference draws from a JAX key, so the two inits
-    differ; the tests carry the JAX params over with ``convert``.)"""
-    fan_in = shape[-2] if len(shape) >= 2 else 1
+    fp32 and cast.  ``fan_in`` defaults to ``shape[-2]``, which for a
+    stacked [L, d_in, d_out] leaf is the reference's ``shape[0]`` of the
+    per-layer leaf; a stacked leaf of more dims passes the reference's
+    per-layer ``shape[0]`` itself.  (The reference draws from a JAX key,
+    so the two inits differ; the tests carry the JAX params over with
+    ``convert``.)"""
+    fan_in = fan_in or (shape[-2] if len(shape) >= 2 else 1)
     std = scale / np.sqrt(fan_in)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (w * std).to(dtype)

@@ -1,11 +1,12 @@
 """Serving path: KV cache, prefill, single-token decode (the port of the
-JAX package's ``models/serve.py``, dense family), and the engine's
-slot-pool helpers.
+JAX package's ``models/serve.py``, dense and MoE families), and the
+engine's slot-pool helpers.
 
 Two cache layouts, as in the reference:
 - dense: ``{"pos", "segments": [{"k", "v", "slot_pos"}]}`` with k/v
   [L_seg, B, Sc, K, hd] and slot_pos [Sc] (-1 = empty), one segment per
-  run of layers of one window (``segment_layout``), each a ring of
+  run of layers of one window within one layer stack (``segment_layout``:
+  the stacks of ``backbone.layer_stacks`` in order), each a ring of
   ``min(cache_len, window)`` slots; a ring that wraps holds its
   positions out of order, and ``slot_pos`` records them;
 - paged: ``{"pos", "page_table", "segments": [{"k", "v"}]}`` with k/v
@@ -40,10 +41,23 @@ def attn_segments(cfg: ArchConfig, n_layers: int, offset: int = 0):
     return bb._segment_windows(cfg, n_layers, offset)
 
 
+def stack_segments(params, cfg: ArchConfig):
+    """Every cache segment's layers in the order prefill and decode walk
+    them, as ``(per-layer params, window)``, one pair a segment: the
+    stacks of ``backbone.layer_stacks``, each cut into runs of one
+    window."""
+    out = []
+    for key, n, off in bb.layer_stacks(cfg):
+        layers = bb.unstack(params[key], n)
+        out += [(layers[i:j], w) for (i, j, w) in attn_segments(cfg, n, off)]
+    return out
+
+
 def segment_layout(cfg: ArchConfig):
     """Cache segment layout [(n_layers, window), ...] in the order prefill
-    and decode walk the layer stack."""
-    return [(j - i, w) for (i, j, w) in attn_segments(cfg, cfg.n_layers)]
+    and decode walk the layer stacks."""
+    return [(j - i, w) for _, n, off in bb.layer_stacks(cfg)
+            for (i, j, w) in attn_segments(cfg, n, off)]
 
 
 def init_cache(cfg: ArchConfig, B: int, cache_len: int,
@@ -54,7 +68,7 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int,
     holds, for each segment, ``n_pages`` allocatable pages of
     ``page_size`` slots plus the trash page, and one table of
     ``paged_blocks(cache_len, page_size) + 1`` entries a row."""
-    bb.check_dense(cfg)
+    bb.check_family(cfg)
     K, hd = cfg.n_kv_heads, cfg.hd
     if layout == "paged":
         assert page_size > 0 and n_pages > 0, (page_size, n_pages)
@@ -107,8 +121,11 @@ def prefill(params, cfg: ArchConfig, batch, cache_len: int,
     B, S = tokens.shape
     x = bb._embed(params, cfg, tokens)
     cache = init_cache(cfg, B, cache_len, dtype, device=x.device)
-    x, kv_segs = bb._run_decoder_stack(params["layers"], x, cfg,
-                                       collect_kv=True)
+    kv_segs = []
+    for key, n, off in bb.layer_stacks(cfg):
+        x, _, kvs = bb._run_decoder_stack(params[key], x, cfg, n, off,
+                                          collect_kv=True)
+        kv_segs += kvs
     for seg, kvs in zip(cache["segments"], kv_segs):
         _write_seg(seg, kvs, start=0)
     cache["pos"] = S
@@ -122,16 +139,15 @@ def _extend_collect(params, cfg, x, prefix_kvs, q_offset: int):
     the suffix KVs.  ``prefix_kvs``: one (k, v) pair a cache segment, each
     [L_seg, B, q_offset, K, hd].  Returns (x, kv_segs) with one (k, v)
     pair a segment, stacked [L_seg, B, S, K, hd]."""
-    layers = bb.unstack(params["layers"], cfg.n_layers)
     kv_segs = []
-    for (i, j, w), (pk, pv) in zip(attn_segments(cfg, cfg.n_layers),
-                                   prefix_kvs):
+    for (layers, w), (pk, pv) in zip(stack_segments(params, cfg),
+                                     prefix_kvs):
         ks, vs = [], []
-        for li, p in enumerate(layers[i:j]):
+        for li, p in enumerate(layers):
             y, (k, v) = attn.gqa_extend(
                 p["attn"], norm(x, p["ln1"], cfg.norm), pk[li], pv[li], cfg,
                 q_offset=q_offset, window=w)
-            x = bb._ffn_block(p, x + y, cfg)
+            x, _ = bb._ffn_block(p, x + y, cfg)
             ks.append(k)
             vs.append(v)
         kv_segs.append((torch.stack(ks), torch.stack(vs)))
@@ -145,10 +161,9 @@ def decode_step(params, cfg: ArchConfig, cache: Cache, tokens):
     pos = cache["pos"]
     table = cache.get("page_table")
     x = bb._embed(params, cfg, tokens)
-    layers = bb.unstack(params["layers"], cfg.n_layers)
-    for (i, j, w), seg in zip(attn_segments(cfg, cfg.n_layers),
-                              cache["segments"]):
-        for li, p in enumerate(layers[i:j]):
+    for (layers, w), seg in zip(stack_segments(params, cfg),
+                                cache["segments"]):
+        for li, p in enumerate(layers):
             h = norm(x, p["ln1"], cfg.norm)
             if table is not None:
                 y = attn.gqa_decode_paged(p["attn"], h, seg["k"][li],
@@ -158,7 +173,7 @@ def decode_step(params, cfg: ArchConfig, cache: Cache, tokens):
                 y = attn.gqa_decode(p["attn"], h, seg["k"][li],
                                     seg["v"][li], seg["slot_pos"], pos, cfg,
                                     window=w)
-            x = bb._ffn_block(p, x + y, cfg)
+            x, _ = bb._ffn_block(p, x + y, cfg)
     cache["pos"] = pos + 1
     return bb._logits(params, cfg, x[:, -1]), cache
 

@@ -70,6 +70,8 @@ def make_loss_fn(cfg, *, rho=4.0, clip_mode="aipo", kl_coef=0.0,
             mtp_loss = -(lp * m).sum() / torch.clamp(m.sum(), min=1.0)
             loss = loss + mtp_weight * mtp_loss
             metrics = dict(metrics, mtp_loss=mtp_loss.detach())
+        if torch.is_tensor(moe_aux):
+            moe_aux = moe_aux.detach()
         metrics = dict(metrics, moe_aux=moe_aux, total_loss=loss.detach())
         return loss, metrics
     return loss_fn

@@ -187,7 +187,8 @@ def test_cuda_fused_logprob_strided(cuda, dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,H,K,hd", [(128, 8, 2, 32), (100, 4, 4, 64),
-                                      (77, 8, 1, 16), (130, 4, 2, 128)])
+                                      (77, 8, 1, 16), (130, 4, 2, 128),
+                                      (200, 10, 2, 192)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3e-2)])
 def test_cuda_flash_attention(cuda, S, H, K, hd, dtype, tol):
@@ -205,7 +206,7 @@ def test_cuda_flash_attention(cuda, S, H, K, hd, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 192])
 @pytest.mark.parametrize("layout", ["contiguous", "unaligned"])
 def test_cuda_flash_attention_bf16_peaked(cuda, hd, layout):
     """The tensor-core kernel at S = 2048 on sharply peaked attention (q x

@@ -129,6 +129,7 @@ def test_token_logprob_extreme_rows_and_batched():
     (1, 64, 4, 4, 64),     # MHA (K == H)
     (2, 256, 8, 1, 16),    # MQA
     (1, 100, 4, 2, 32),    # ragged S
+    (1, 128, 10, 2, 192),  # hd 192 (nemotron-4-340b), g = 5 (llama4-scout)
 ])
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_flash_plain_matches_kernel(B, S, H, K, hd, dtype, tol):

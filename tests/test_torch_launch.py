@@ -150,7 +150,7 @@ def test_unported_flags_raise(flags, item):
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "command-r-35b",
                                   "deepseek-67b", "nemotron-4-340b",
-                                  "llama31-8b"])
+                                  "llama4-scout-17b-a16e", "llama31-8b"])
 def test_arch_flag_reads_the_registry_as_jax(arch):
     """``--arch A --smoke`` gives the JAX package's smoke config of A, and
     ``--arch A`` its full config, as ``repro.launch.train`` reads them;
