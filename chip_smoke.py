@@ -82,7 +82,7 @@ Each phase prints its own lines:
                scheduling, the child pinning each job's params): bit-equal
                to [10] (a), its launch counts summed over the children
                equal to [10] (a)'s; (b) an engine pool of 2 on paged KV at
-               2 layers, 3 steps, threaded in process and then over
+               1 layer, 3 steps, threaded in process and then over
                ``shm``, both traced: decode ms a token per worker, the stats, each
                weight hop's ms and GB/s, spawn seconds, peak memory per
                process (CUDA and resident set), staged slots, the most
@@ -101,7 +101,7 @@ Each phase prints its own lines:
                its children probed: B1-B5 launched in the children, the
                first call of each shape each child gave a kernel held
                against its plain version there
-  [14] supervise  llama31-8b widths at 2 layers, bf16 params, fp32 Adam,
+  [14] supervise  llama31-8b widths at 1 layer, bf16 params, fp32 Adam,
                KL 0.1, under a ``Supervisor``.  (a) [12] (b)'s engine pool
                of 2 on paged KV in ``shm`` children, staleness 2, 4 steps,
                ``kill:generator1@batch=3`` while generator1's engine
@@ -169,6 +169,30 @@ Each phase prints its own lines:
                1e-5).  The first kernel call of each shape of (a) and
                every call of (b) and (c) are held against the plain
                versions ([2] times B3 and B1 at V 202048)
+  [17] mla     the MLA + MTP family, deepseek-v3-671b at its published
+               widths (d 7168, 128 heads, q rank 1536, kv rank 512, qk
+               128+64, v 128, 3 dense layers of d_ff 18432, then 256
+               experts of d 2048, top-8 sigmoid, a shared expert, an MTP
+               head, V 129280).  (a) 4 layers, the 3 dense and the first
+               MoE, bf16: a batch rollout of 4 x 4 prompts of 256 ids, 32
+               new tokens, scored by the reference; prefill (expanded
+               MLA through chunked_attention, as the reference routes
+               asymmetric heads) with the plain attention's and the MoE
+               FFN's shares, decode (absorbed MLA over the latent cache)
+               with the device-busy and MoE FFN shares, the capacity
+               drops, the latent cache's bytes against an expanded K/V
+               cache's, peak memory; (b) two steps of the async loop at
+               2 layers and 16 experts, MTP loss and MoE aux in the loss,
+               KL 0.1 against a reference fed the trainer's weights:
+               every MLA matrix, mtp.proj and the MTP block move; (c) the
+               smoke config in fp32: prefill + decode against the
+               forward, the absorbed decode against the expanded
+               forward, mtp_logits on the card against the CPU (1e-3
+               each), and a batch rollout's mu against the reference's
+               log-probs (1e-3).  B1, B2 and B3 must launch and B4 and
+               B5 must not; the first kernel call of each shape of (a)
+               and every call of (b) and (c) are held against the plain
+               versions ([2] times B1, B2 and B3 at V 129280)
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -211,8 +235,9 @@ SAMPLE_OPS_PER_LOGIT = 10
 LOGPROB_OPS_PER_LOGIT = 4
 
 V_LLAMA = 128256
-# llama4-scout-17b-a16e's vocabulary ([16])
+# llama4-scout-17b-a16e's vocabulary ([16]) and deepseek-v3-671b's ([17])
 V_SCOUT = 202048
+V_DSV3 = 129280
 # flash attention's hd-192 timing shape (nemotron-4-340b's head dim)
 HD192 = (4, 2048, 16, 8, 192)
 # the serve and train phases' generator: 4 prompts x 4 samples, 64 new
@@ -242,8 +267,10 @@ ENGINE_BUDGETS = [1, 2, 4, 4]
 POOL_LAYERS = 4
 # [12] (b)'s depth: two generator children at 4 layers, each with up to
 # three 3.85 GB versions beside its KV, the trainer's 23.1 GB and the
-# controller's relayed versions would pass 75 GB of the card's 80
-PROC_LAYERS = 2
+# controller's relayed versions would pass 75 GB of the card's 80; the
+# run is paced by weight hops (the vocabulary's embedding and head are
+# 2.10 GB of a version), so one layer keeps the script's time in hand
+PROC_LAYERS = 1
 # B6 against its plain version: |d| <= INT8_TOL max(1, |plain|).  Both
 # widen the same x and int8 values exactly, so every product is equal;
 # only the order of the fp32 sum differs (over K up to 14336, about 1e-6
@@ -425,50 +452,108 @@ def phase_build() -> None:
     log(f"  build total {time.perf_counter() - t0:.1f} s")
 
 
-def timed_logprob_scout(torch, dev, gen):
-    """B1 at [16]'s reference-scoring shape, the [16, 287, 202048] view of
-    [16, 288] bf16 logits: held against the plain version and timed."""
+def timed_logprob_at(torch, dev, gen, V):
+    """B1 at the reference-scoring shape of [16] (V 202048) or [17] (V
+    129280), the [16, 287, V] view of [16, 288] bf16 logits: held against
+    the plain version and timed."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.fused_logprob import fused_logprob_cuda, \
         fused_logprob_plain
-    logits = (torch.randn(16, 288, V_SCOUT, generator=gen, device=dev)
+    logits = (torch.randn(16, 288, V, generator=gen, device=dev)
               * 2).to(torch.bfloat16)
     view = logits[:, :-1]
-    toks = torch.randint(0, V_SCOUT, (16, 287), generator=gen, device=dev,
+    toks = torch.randint(0, V, (16, 287), generator=gen, device=dev,
                          dtype=torch.int32)
     lp, m, _ = fused_logprob_cuda(view, toks)
-    lp_p, m_p, _ = fused_logprob_plain(view.reshape(-1, V_SCOUT),
+    lp_p, m_p, _ = fused_logprob_plain(view.reshape(-1, V),
                                        toks.reshape(-1))
     err = max_err(lp.reshape(-1), lp_p)
     require(err <= 1e-4 and torch.equal(m.reshape(-1), m_p),
-            f"fused_logprob [16, 287, {V_SCOUT}] error {err:.3e}")
+            f"fused_logprob [16, 287, {V}] error {err:.3e}")
     del lp_p, m_p
 
     def run():
         return fused_logprob_cuda(view, toks)
-    flat = view.reshape(-1, V_SCOUT).contiguous()
+    flat = view.reshape(-1, V).contiguous()
     flat_toks = toks.reshape(-1).long()
     n_rows = toks.numel()
     b_ms, b_by = bound(view.numel() * 2 + n_rows * 4 + 3 * n_rows * 4,
                        view.numel() * LOGPROB_OPS_PER_LOGIT, FP32_FLOPS)
-    rec = {"shape": [16, 287, V_SCOUT], "max_abs_err": err,
+    rec = {"shape": [16, 287, V], "max_abs_err": err,
            "ms": cuda_ms(torch, run, 10),
            "kernel_only_ms": kernel_only_ms(torch, run, 5,
                                             "fused_logprob_kernel"),
            "plain_ms": cuda_ms(torch, lambda: fused_logprob_plain(
-               view.reshape(-1, V_SCOUT), toks.reshape(-1)), 2),
+               view.reshape(-1, V), toks.reshape(-1)), 2),
            "library_ms": cuda_ms(torch, lambda: F.cross_entropy(
                flat, flat_toks, reduction="none"), 10),
            "bound_ms": b_ms, "bound_by": b_by}
     ko = rec["kernel_only_ms"]
-    log(f"  fused_logprob [16, 287, {V_SCOUT}] strided view bf16: max|dlogp| "
+    log(f"  fused_logprob [16, 287, {V}] strided view bf16: max|dlogp| "
         f"{err:.3e}, m equal; {rec['ms']:.4f} ms per call ("
         + ("not measured" if ko is None else f"{ko:.4f} ms")
         + f" in the kernel), plain {rec['plain_ms']:.4f} ms, library "
         f"(F.cross_entropy) {rec['library_ms']:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by})")
     del logits, view, flat
+    return rec
+
+
+def timed_logprob_bwd_at(torch, dev, gen, V):
+    """B2 at [17] (b)'s trainer shape: the gradient of [16, 80, V] bf16
+    logits from their [16, 79, V] view (n_valid 79), held against the
+    plain version and timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
+        fused_logprob_bwd_plain, fused_logprob_cuda
+    logits = (torch.randn(16, 80, V, generator=gen, device=dev)
+              * 2).to(torch.bfloat16)
+    view = logits[:, :-1]
+    toks = torch.randint(0, V, (16, 79), generator=gen, device=dev,
+                         dtype=torch.int32)
+    g_out = torch.randn(16, 79, generator=gen, device=dev)
+    _, m, s = fused_logprob_cuda(view, toks)
+    log_s = torch.log(s)
+
+    def run():
+        return fused_logprob_bwd_cuda(logits, toks, m, log_s, g_out,
+                                      n_valid=79)
+
+    def plain():
+        return fused_logprob_bwd_plain(
+            view.reshape(-1, V), toks.reshape(-1), m.reshape(-1),
+            log_s.reshape(-1), g_out.reshape(-1))
+    got, want = run()[:, :-1].reshape(-1, V), plain()
+    err = max_err(got, want)
+    excess = bwd_excess(torch, got, want, g_out.reshape(-1),
+                        toks.reshape(-1), 2.0 ** -7)
+    require(excess <= 1.0, f"fused_logprob_bwd [16, 79, {V}]: an element "
+            f"is {excess:.3g} times its tolerance")
+    del got, want
+    flat = view.reshape(-1, V).contiguous().requires_grad_()
+    ce = F.cross_entropy(flat, toks.reshape(-1).long(), reduction="none")
+    n_rows = toks.numel()
+    b_ms, b_by = bound(view.numel() * 2 + logits.numel() * 2 + 4 * n_rows * 4,
+                       view.numel() * LOGPROB_BWD_OPS_PER_LOGIT, FP32_FLOPS)
+    rec = {"shape": [16, 79, V], "max_abs_err": err,
+           "ms": cuda_ms(torch, run, 10),
+           "kernel_only_ms": kernel_only_ms(torch, run, 5,
+                                            "fused_logprob_bwd_kernel"),
+           "plain_ms": cuda_ms(torch, plain, 2),
+           "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+               ce, flat, g_out.reshape(-1), retain_graph=True), 10),
+           "bound_ms": b_ms, "bound_by": b_by}
+    ko = rec["kernel_only_ms"]
+    log(f"  fused_logprob_bwd [16, 79, {V}] strided view bf16: max|ddl| "
+        f"{err:.3e}, worst element {excess:.3g} of its tolerance; "
+        f"{rec['ms']:.4f} ms per call ("
+        + ("not measured" if ko is None else f"{ko:.4f} ms")
+        + f" in the kernel), plain {rec['plain_ms']:.4f} ms, library "
+        f"(backward of F.cross_entropy) {rec['library_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    del logits, view, flat, ce
     return rec
 
 
@@ -578,10 +663,10 @@ def phase_kernels(torch, dev):
     pool = timed_sample(32)
     # the windowed archs' vocabularies ([15]): starcoder2-3b's at the
     # generator's 16 rows, command-r's and nemotron's at 4 and 16; and
-    # llama4-scout's ([16]) at 16
+    # llama4-scout's ([16]) and deepseek-v3's ([17]) at 16
     vocabs = {f"{B}x{V}": timed_sample(B, V)
               for B, V in ((16, 49152), (4, 256000), (16, 256000),
-                           (16, V_SCOUT))}
+                           (16, V_SCOUT), (16, V_DSV3))}
     # what the launch-count lock adds to every wrapper call, host clock
     t0 = time.perf_counter()
     for _ in range(100000):
@@ -654,7 +739,8 @@ def phase_kernels(torch, dev):
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "shape": [16, 79, V_LLAMA],
         "dtype": "bfloat16"})
-    records[-1]["scout"] = timed_logprob_scout(torch, dev, gen)
+    records[-1]["scout"] = timed_logprob_at(torch, dev, gen, V_SCOUT)
+    records[-1]["deepseek_v3"] = timed_logprob_at(torch, dev, gen, V_DSV3)
 
     # ---- fused_logprob_bwd: the trainer's strided view, with the gradient
     # of the whole [16, 80, V] written (zeros in the last position).  The
@@ -729,6 +815,7 @@ def phase_kernels(torch, dev):
         "library_ms": lib_ms, "shape": [16, 79, V_LLAMA],
         "dtype": "bfloat16"})
     del logits, view
+    records[-1]["deepseek_v3"] = timed_logprob_bwd_at(torch, dev, gen, V_DSV3)
 
     # ---- flash_attention: fp32 on peaked attention, bf16, ragged, small
     def qkv(B, S, H, K, hd, dtype, seed):
@@ -2771,7 +2858,7 @@ def device_overlap(timelines, started) -> str:
 def phase_proc(torch, dev, pool_a, quick_hist):
     """[12]: the async loop with its actors in spawned processes.  (a)
     ``proc`` at [10]'s 4 layers, a pool of 1 (chunk scheduling), against
-    [10] (a) bit for bit; (b) an engine pool of 2 on paged KV at 2 layers,
+    [10] (a) bit for bit; (b) an engine pool of 2 on paged KV at 1 layer,
     threaded in process and then over ``shm``, traced; (c) the
     quickstart with every actor on a self-hosted ``socket``, against
     [11] bit for bit.  Returns the children's launch counts of (a) and
@@ -2877,7 +2964,8 @@ def phase_proc(torch, dev, pool_a, quick_hist):
             and all(r["published"] > 0 for r in subs.values()),
             "(a) staged slots not used, or one neither committed nor queued")
 
-    # (b) an engine pool of 2 on paged KV at 2 layers: in process, then shm
+    # (b) an engine pool of 2 on paged KV at PROC_LAYERS: in process, then
+    # shm
     cfg2 = LLAMA31_8B.replace(name=f"llama31-8b-{PROC_LAYERS}l",
                               n_layers=PROC_LAYERS)
     L, steps_b = PROC_LAYERS, 3
@@ -3131,8 +3219,8 @@ def phase_launch(torch) -> dict:
     return summed(launches.values())
 
 
-SUPERVISE_LAYERS = 2        # [14]: every child holds its own weights,
-                            # as in [12] (b)
+SUPERVISE_LAYERS = 1        # [14]: every child holds its own weights,
+                            # as in [12] (b), and hops pace the run
 SUPERVISE_FLAGS = ["--arch", "llama31-8b", "--smoke", "--steps", "6",
                    "--transport", "proc", "--n-generators", "2",
                    "--rollout-chunk", "2", "--supervise"]
@@ -3150,8 +3238,8 @@ def card_used_gb(torch) -> float:
 
 
 def phase_supervise(torch, dev) -> dict:
-    """[14]: supervision at llama31-8b's widths, 2 layers.  (a) an shm
-    engine pool of 2 whose generator1 is killed at batch 3 with batch 1
+    """[14]: supervision at llama31-8b's widths, SUPERVISE_LAYERS deep.
+    (a) an shm engine pool of 2 whose generator1 is killed at batch 3 with batch 1
     in flight, respawned, and batch 1 re-admitted; (b) the frozen reference in a proc child killed at
     the consumer's batch 2, bit-equal to the same controller's run
     without the fault; (c) the launcher with --supervise --chaos as a
@@ -4447,6 +4535,439 @@ def phase_moe(torch, dev):
     return launches
 
 
+# ------------------------------------------------ [17] MLA + MTP family --
+
+# [17]: deepseek-v3-671b at its published widths
+MLA_ARCH = "deepseek-v3-671b"
+# (a): the 3 leading dense layers and the first MoE layer, so both stacks
+# and both FFN kinds run: 15.8 B params, 31.6 GB in bf16
+MLA_LAYERS = 4
+MLA_PROMPT, MLA_NEW = 256, 32
+# (b): 2 layers (first_k_dense 1) and 16 of the 256 experts, top-8 kept:
+# one full MoE layer is 11.5 B params, 138 GB of trainer state at 12
+# bytes a param, and the reference builds no config without a MoE layer
+MLA_TRAIN_LAYERS, MLA_TRAIN_EXPERTS = 2, 16
+# (c): the smoke config's prompts and decoded tokens
+MLA_SMOKE_PROMPT, MLA_SMOKE_NEW = 48, 8
+
+
+def mla_serve(torch, dev):
+    """[17] (a): deepseek-v3-671b at full width, MLA_LAYERS layers, bf16:
+    a batch rollout (prefill in the expanded form through the plain
+    chunked_attention, decode in the absorbed form over the latent
+    cache) scored by the reference.  The engine refuses MLA, as the
+    reference's does.  Returns the launch counts of the run."""
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import chunked_attention
+    from repro_torch.models import ffn, init_params
+    from repro_torch.rl.data import ArithmeticTasks
+
+    full = configs.get_config(MLA_ARCH)
+    cfg = full.replace(name=f"{MLA_ARCH}-{MLA_LAYERS}l", n_layers=MLA_LAYERS)
+    m, a, L, H = cfg.moe, cfg.mla, cfg.n_layers, cfg.n_heads
+    qk = a.qk_nope_dim + a.qk_rope_dim
+    B = N_PROMPTS * N_PER
+    C = max(int(MLA_PROMPT * m.top_k / m.n_experts * m.capacity_factor), 1)
+    log(f"  (a) serve {MLA_ARCH} at full width (d {cfg.d_model}, {H} heads,"
+        f" q rank {a.q_lora_rank}, kv rank {a.kv_lora_rank}, qk "
+        f"{a.qk_nope_dim}+{a.qk_rope_dim}, v {a.v_head_dim}; "
+        f"{m.first_k_dense} dense layers of d_ff {cfg.d_ff}, then "
+        f"{m.n_experts} experts of d {m.d_expert}, top-{m.top_k} "
+        f"{m.router}, {m.n_shared} shared; MTP head; V {cfg.vocab}): "
+        f"{cut_line(full, cfg)}; bf16; {N_PROMPTS} prompts x {N_PER} "
+        f"samples of {MLA_PROMPT} ids, {MLA_NEW} new tokens in chunks of "
+        f"{CHUNK}; prefill capacity {C} a group and expert")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    log(f"  init: {n / 1e9:.3f} B params, {2 * n / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s, peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (each expert "
+        "leaf drawn in fp32 before the cast)")
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(prompt_len=MLA_PROMPT,
+                                                 seed=0),
+                            n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+                            max_new=MLA_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=0, device=dev)
+    gen.set_weights(params, version=0)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(params)
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+
+    # a first prefill (the new shapes' first launches), whose dispatch
+    # masks give the share capacity drops; then a timed one, a profiled
+    # one, and the timed one decodes
+    valid = []
+    real_dispatch = ffn._dispatch_group
+
+    def kept(*args, **kwargs):
+        out = real_dispatch(*args, **kwargs)
+        valid.append(out[2])
+        return out
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()          # the batch rollout's run starts here
+    ffn._dispatch_group = kept
+    try:
+        t0 = time.perf_counter()
+        job, state = gen.begin_batch()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ffn._dispatch_group = real_dispatch
+    n_moe = L - m.first_k_dense
+    require(len(valid) == n_moe and all(
+        v.shape == (B, MLA_PROMPT * m.top_k) for v in valid),
+        f"prefill dispatches {[tuple(v.shape) for v in valid]}")
+    dropped = [1.0 - v.float().mean().item() for v in valid]
+    segs = state.cache["segments"]
+    require([sorted(sg) for sg in segs] == [["ckv", "krope", "slot_pos"]] * 2
+            and segs[0]["ckv"].shape == (m.first_k_dense, B,
+                                         MLA_PROMPT + MLA_NEW,
+                                         a.kv_lora_rank)
+            and segs[1]["krope"].shape == (n_moe, B, MLA_PROMPT + MLA_NEW,
+                                           a.qk_rope_dim),
+            f"latent cache {[{k: tuple(v.shape) for k, v in sg.items()} for sg in segs]}")
+    latent = sum(sg[k].nbytes for sg in segs for k in ("ckv", "krope"))
+    per_pos = a.kv_lora_rank + a.qk_rope_dim
+    expanded_per_pos = H * (qk + a.v_head_dim)
+    del valid, job, state, segs
+    t0 = time.perf_counter()
+    job, state = gen.begin_batch()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+    busy_p, moe_p, _ = moe_profile(torch, gen.begin_batch)
+    # the plain expanded attention's share: one layer's chunked_attention
+    # at the prefill's shapes (qk 192 against v 128, 128 heads), alone
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(B, MLA_PROMPT, H, qk, generator=g, device=dev
+                    ).to(torch.bfloat16)
+    k = torch.randn(B, MLA_PROMPT, H, qk, generator=g, device=dev
+                    ).to(torch.bfloat16)
+    v = k[..., :a.v_head_dim].contiguous()
+    attn_ms = cuda_ms(torch, lambda: chunked_attention(q, k, v), 3)
+    del q, k, v
+    t0 = time.perf_counter()
+    state = gen.advance_chunk(job, state)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / CHUNK
+    box = []
+    busy, moe_ms, ops = moe_profile(
+        torch, lambda: box.append(gen.advance_chunk(job, state)))
+    state = box[0]
+    out = gen.emit_batch(job, state)
+    t0 = time.perf_counter()
+    ref.put_input("completions", out)
+    ref.step()
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    rew.put_input("completions_with_ref", ref.get_output("completions_with_ref"))
+    out = rew.step()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    want = {"fused_sample": MLA_NEW, "fused_logprob": 1}
+    require(launches == want, f"mla rollout launch counts {launches}, "
+            f"want {want} (MLA's asymmetric heads go to chunked_attention "
+            "in prefill and scoring, as the reference routes them; decode "
+            "is plain torch over the latent cache)")
+    d = _check_outputs(torch, out, cfg.vocab)
+    log(f"  prefill [{B}, {MLA_PROMPT}]: {prefill_ms:.1f} ms (the first "
+        f"{first_ms:.1f} ms); profiled: device busy {busy_p:.1f} ms, of "
+        f"which the MoE FFN {moe_p:.1f} ms "
+        + (f"({100 * moe_p / busy_p:.1f}%)" if busy_p else "(not measured)")
+        + f"; the plain chunked_attention at [{B}, {MLA_PROMPT}, {H}, "
+        f"{qk}/{a.v_head_dim}] {attn_ms:.2f} ms a layer (CUDA events, "
+        f"alone), {L} x {attn_ms:.2f} = {L * attn_ms:.1f} ms "
+        f"({100 * L * attn_ms / prefill_ms:.1f}% of the prefill); peak "
+        f"memory through the prefills {prefill_peak:.2f} GB; capacity "
+        f"dropped {', '.join(f'{100 * x:.2f}' for x in dropped)}% of the "
+        f"prefill's choices in the MoE layer(s) {m.first_k_dense}-{L - 1}")
+    log(f"  latent cache (fp32, the rollout's): {latent / 1e6:.1f} MB for "
+        f"{B} rows x {MLA_PROMPT + MLA_NEW} positions x {L} layers, "
+        f"{per_pos} values a position a layer ({a.kv_lora_rank} + "
+        f"{a.qk_rope_dim}) against {expanded_per_pos} for expanded K "
+        f"({H} x {qk}) and V ({H} x {a.v_head_dim}): "
+        f"{expanded_per_pos / per_pos:.1f}x fewer bytes, "
+        f"{latent * expanded_per_pos / per_pos / 1e9:.2f} GB expanded")
+    busy /= CHUNK
+    log(f"  decode {decode_ms:.2f} ms per token (batch {B}, one "
+        f"unprofiled chunk); profiled chunk: device busy {busy:.2f} ms per "
+        f"token = {100 * busy / decode_ms:.1f}% of it; the MoE FFN "
+        f"{moe_ms / CHUNK:.2f} ms per token = "
+        + (f"{100 * moe_ms / CHUNK / busy:.1f}%" if busy else "not measured")
+        + " of the device time; top device operations (ms per token): "
+        + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / CHUNK:.3f}"
+                    for e in ops[:6]))
+    log(f"  reference {t_ref * 1e3:.1f} ms over [{B}, "
+        f"{MLA_PROMPT + MLA_NEW}] (with the MTP head's logits); "
+        f"|behavior_logp - ref_logp| at {d.numel()} actions (bf16): mean "
+        f"{d.mean().item():.4f}, max {d.max().item():.4f}; launches "
+        f"{launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del job, state, out, box, gen, ref, rew, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mla_train(torch, dev):
+    """[17] (b): two steps of the sequential async loop at full width,
+    MLA_TRAIN_LAYERS layers and MLA_TRAIN_EXPERTS experts, sequences of
+    80, the MTP loss and the MoE aux in the loss; KL 0.1 against a
+    reference fed the trainer's weights by its own weights channel, as
+    in [16] (b).  Returns the launch counts."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.channels import CommType, CommunicationChannel, \
+        WeightsCommunicationChannel
+    from repro_torch.core.controller import SyncExecutorController
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor, TrainerExecutor
+    from repro_torch.kernels import build
+    from repro_torch.rl.data import ArithmeticTasks
+
+    full = configs.get_config(MLA_ARCH)
+    cfg = full.replace(
+        name=f"{MLA_ARCH}-{MLA_TRAIN_LAYERS}l-{MLA_TRAIN_EXPERTS}e",
+        n_layers=MLA_TRAIN_LAYERS, moe=dataclasses.replace(
+            full.moe, first_k_dense=1, n_experts=MLA_TRAIN_EXPERTS))
+    n_steps = 2
+    torch.cuda.reset_peak_memory_stats()
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=0),
+                            n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+                            max_new=MAX_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=0, device=dev)
+    ref = RefPolicyExecutor(cfg)
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    trn = TrainerExecutor(cfg, dtype=torch.bfloat16, kl_coef=KL_COEF,
+                          seed=0, device=dev)
+    ctl = SyncExecutorController(
+        [gen, ref, rew, trn],
+        [WeightsCommunicationChannel("policy_model", trn, gen),
+         WeightsCommunicationChannel("policy_model", trn, ref),
+         CommunicationChannel("completions", gen, ref, CommType.BROADCAST),
+         CommunicationChannel("completions_with_ref", ref, rew,
+                              CommType.GATHER),
+         CommunicationChannel("completions_with_reward", rew, trn,
+                              CommType.SCATTER)],
+        max_steps=n_steps, mode="async", staleness=1)
+    ctl.init()
+    params = trn.get_model()
+    n = sum(t.numel() for t in leaves(params))
+    big = max(t.numel() for t in leaves(params))
+    seq = gen.tasks.prompt_len + MAX_NEW
+    log(f"  (b) train {MLA_ARCH} at full width, cut to {MLA_TRAIN_LAYERS} "
+        f"of {full.n_layers} layers (first_k_dense 1) and "
+        f"{MLA_TRAIN_EXPERTS} of {full.moe.n_experts} experts (top-"
+        f"{cfg.moe.top_k} kept; one full MoE layer would be 138 GB of "
+        f"trainer state): {n / 1e9:.3f} B params; reckoned peak "
+        f"{12 * n / 1e9:.1f} GB of trainer state + {2 * n / 1e9:.1f} GB "
+        f"for the version the generator and the reference share + "
+        f"{2 * n / 1e9:.1f} GB for the version Adam builds + "
+        f"{3 * 4 * big / 1e9:.1f} GB of Adam's fp32 temporaries on the "
+        f"largest leaf = {(16 * n + 12 * big) / 1e9:.1f} GB; {n_steps} "
+        f"steps of the async schedule, staleness 1, KL {KL_COEF}, MTP "
+        f"weight 0.1; sequences of {seq}")
+    # every MLA matrix of both stacks, mtp.proj and the MTP block's
+    # matrices, by key path
+    watched = [(key, "attn", k) for key in ("dense_layers", "moe_layers")
+               for k in params[key]["attn"] if not k.endswith("norm")]
+    watched += [("mtp", "proj")] + [
+        ("mtp", "block", part, k) for part in ("attn", "mlp")
+        for k in params["mtp"]["block"][part] if not k.endswith("norm")]
+
+    def prints(tree):
+        out = {}
+        for path in watched:
+            t = tree
+            for k in path:
+                t = t[k]
+            out[path] = fingerprint(torch, {"": t})
+        return out
+    before = prints(params)
+    del params
+    t0 = time.perf_counter()
+    build.reset_launches()          # the train path's run starts here
+    history = ctl.run()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    for h in history:
+        log(f"  step {h['step']}: loss {h['loss']:.5f}, mtp_loss "
+            f"{h['mtp_loss']:.5f}, moe_aux {h['moe_aux']:.6f}, grad_norm "
+            f"{h['grad_norm']:.4f}, weight_version {h['weight_version']}")
+        require(h["weight_version"] == max(0, h["step"] - 1)
+                and math.isfinite(h["loss"]) and h["moe_aux"] > 0
+                and math.isfinite(h["mtp_loss"]) and h["mtp_loss"] > 0
+                and math.isfinite(h["grad_norm"]), f"step {h}")
+    after = prints(trn.get_model())
+    still = [".".join(p) for p in watched if after[p] == before[p]]
+    require(not still, f"leaves that did not move: {still}")
+    want = {"fused_sample": n_steps * MAX_NEW,
+            "fused_logprob": 3 * n_steps, "fused_logprob_bwd": 2 * n_steps}
+    require(launches == want, f"mla train launch counts {launches}, want "
+            f"{want} (per step: the reference's log-probs, the trainer's "
+            "main and MTP log-probs and their two backwards; attention "
+            "through chunked_attention)")
+    log(f"  {n_steps} steps in {wall:.1f} s; moved: every MLA matrix of "
+        f"both stacks, mtp.proj and the MTP block's matrices ({len(watched)}"
+        f" leaves; the norms, all 1.0 in bf16, move by less than half a "
+        f"bf16 ulp at lr 1e-3); launches {launches}; peak memory "
+        f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del ctl, gen, ref, rew, trn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mla_numerics(torch, dev):
+    """[17] (c): the smoke config in fp32 on the card against the CPU:
+    prefill + decode against the teacher-forced forward, the absorbed
+    ``mla_decode`` against the expanded ``mla_forward``'s last position,
+    and ``mtp_logits`` on the card against the CPU's, all within the
+    reference's 1e-3 (``tests/test_arch_smoke.py``); then a batch rollout
+    scored by the reference, mu within 1e-3 of the reference's log-probs.
+    Returns the launch counts of the rollout."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import attention as attn
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import decode_step, forward_train, \
+        init_params, prefill
+    from repro_torch.rl.data import ArithmeticTasks
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = configs.get_smoke(MLA_ARCH)
+    params = init_params(cfg, seed=5, dtype=torch.float32, device=dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    S, n = MLA_SMOKE_PROMPT, MLA_SMOKE_NEW
+    rng = np.random.default_rng(5)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab, (2, S + n)),
+                          dtype=torch.int32)
+    toks = ids.to(dev)
+    with torch.no_grad():
+        full, aux = forward_train(params, cfg, {"tokens": toks})
+        full_cpu, aux_cpu = forward_train(host, cfg, {"tokens": ids})
+        mtp_err = max_err(aux["mtp_logits"].cpu(), aux_cpu["mtp_logits"])
+        fwd_err = max_err(full.cpu(), full_cpu)
+        last, cache = prefill(params, cfg, {"tokens": toks[:, :S]},
+                              cache_len=S + n, dtype=torch.float32)
+        dec_err = max_err(last, full[:, S - 1])
+        for i in range(n):
+            lg, cache = decode_step(params, cfg, cache,
+                                    toks[:, S + i:S + i + 1])
+            dec_err = max(dec_err, max_err(lg, full[:, S + i]))
+        # one layer's absorbed decode against its expanded forward
+        p = bb.unstack(params["dense_layers"], cfg.moe.first_k_dense)[0]
+        x = torch.as_tensor(rng.standard_normal((2, S + 1, cfg.d_model)),
+                            dtype=torch.float32, device=dev)
+        y, (ckv, kr) = attn.mla_forward(p["attn"], x, cfg)
+        sp = torch.full((S + 1,), -1, dtype=torch.int32, device=dev)
+        sp[:S] = torch.arange(S, dtype=torch.int32, device=dev)
+        cache_ckv, cache_kr = ckv.clone(), kr.clone()
+        cache_ckv[:, S] = cache_kr[:, S] = 0
+        y_dec = attn.mla_decode(p["attn"], x[:, S:], cache_ckv, cache_kr,
+                                sp, S, cfg)
+        abs_err = max_err(y_dec[:, 0], y[:, S])
+    log(f"  (c) {cfg.name} smoke fp32 ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, kv rank {cfg.mla.kv_lora_rank}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}): prefill of "
+        f"{S} + decode of {n} against the teacher-forced forward: "
+        f"max|dlogits| {dec_err:.3e}; the absorbed mla_decode against the "
+        f"expanded mla_forward's position {S}: max|dy| {abs_err:.3e}; "
+        f"card against CPU: logits {fwd_err:.3e}, mtp_logits "
+        f"{mtp_err:.3e} (tolerance 1e-3 each)")
+    require(max(dec_err, abs_err, fwd_err, mtp_err) <= 1e-3,
+            "[17] (c) numerics")
+    del full, aux, full_cpu, aux_cpu, cache, host
+
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=5), n_prompts=1,
+                            n_per_prompt=N_PER, max_new=MAX_NEW,
+                            chunk=CHUNK, temperature=1.0, seed=5, device=dev)
+    gen.set_weights(params, version=0)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(params)
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    build.reset_launches()          # the rollout's run starts here
+    ref.put_input("completions", gen.step())
+    ref.step()
+    rew.put_input("completions_with_ref", ref.get_output("completions_with_ref"))
+    out = rew.step()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    want = {"fused_sample": MAX_NEW, "fused_logprob": 1}
+    require(launches == want, f"fp32 mla rollout launches {launches}, "
+            f"want {want}")
+    d = _check_outputs(torch, out, cfg.vocab)
+    log(f"  fp32 batch rollout, {N_PER} samples of {MAX_NEW} tokens: "
+        f"|behavior_logp - ref_logp| at {d.numel()} actions (absorbed "
+        f"decode against the expanded forward): max {d.max().item():.2e} "
+        f"(tolerance 1e-3); launches {launches}")
+    require(d.max().item() <= 1e-3, "fp32 mla rollout mu vs reference")
+    del gen, ref, rew, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mla(torch, dev):
+    """[17]: the MLA + MTP family.  Returns the launch counts of its
+    main-path runs."""
+    log(f"[17] mla: {MLA_ARCH} at full width, {MLA_LAYERS} layers served "
+        f"and {MLA_TRAIN_LAYERS} layers of {MLA_TRAIN_EXPERTS} experts "
+        f"trained, its smoke config in fp32; {nvidia_smi()}")
+    from repro_torch import configs
+    V = configs.get_config(MLA_ARCH).vocab
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    dense = ("fused_sample_cuda", "fused_logprob_cuda")
+    with KernelCalls(torch, per_shape=1, names=KernelCalls.ENGINE) as calls:
+        launches.update(mla_serve(torch, dev))
+    for line in calls.replay("[17] (a)", expect=dense):
+        log(line)
+    sample = {tuple(args[0].shape) for args, _, _ in
+              calls.calls["fused_sample_cuda"]}
+    scored = {tuple(args[0].shape) for args, _, _ in
+              calls.calls["fused_logprob_cuda"]}
+    B = N_PROMPTS * N_PER
+    require(sample == {(B, V)} and scored == {(B, MLA_PROMPT + MLA_NEW - 1,
+                                               V)},
+            f"[17] (a) shapes: fused_sample {sample}, fused_logprob "
+            f"{scored}")
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    with KernelCalls(torch, host=True, names=KernelCalls.ENGINE) as calls:
+        launches.update(mla_train(torch, dev))
+    for line in calls.replay("[17] (b)", expect=dense + (
+            "fused_logprob_bwd_cuda",)):
+        log(line)
+    del calls
+    with KernelCalls(torch, names=KernelCalls.ENGINE) as calls:
+        launches.update(mla_numerics(torch, dev))
+    for line in calls.replay("[17] (c)", expect=dense):
+        log(line)
+    del calls
+    launches = dict(launches)
+    for name in KERNELS[:3]:
+        require(launches.get(name, 0) > 0, f"{name} never ran in [17]")
+    # the reference's routing: MLA's qk 192 against v 128 never reaches
+    # the flash kernel, and the engine (paged attention) refuses MLA
+    for name in ("flash_attention", "paged_attention"):
+        require(launches.get(name, 0) == 0, f"{name} ran in [17]")
+    log(f"  [17] launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: no src/repro_torch beside chip_smoke.py",
@@ -4509,6 +5030,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches = phase_moe(torch, dev)
     mark("[16]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_launches = phase_mla(torch, dev)
+    mark("[17]")
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
@@ -4524,7 +5049,8 @@ def main() -> int:
                    "launch": launch_launches.get(r["name"], 0),
                    "supervise": supervise_launches.get(r["name"], 0),
                    "windowed": windowed_launches.get(r["name"], 0),
-                   "moe": moe_launches.get(r["name"], 0)}
+                   "moe": moe_launches.get(r["name"], 0),
+                   "mla": mla_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")
@@ -4537,6 +5063,9 @@ def main() -> int:
                     f"{r['name']} never ran on the windowed path")
             require(by_path["moe"] > 0,
                     f"{r['name']} never ran on the MoE path")
+        if r["name"] in KERNELS[:3]:
+            require(by_path["mla"] > 0,
+                    f"{r['name']} never ran on the MLA path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(smi)

@@ -15,6 +15,7 @@ from repro_torch.configs.base import ArchConfig, param_count
 
 # the archs the port runs, in the reference registry's order
 _MODULES = {
+    "deepseek-v3-671b":       "repro_torch.configs.deepseek_v3_671b",
     "nemotron-4-340b":        "repro_torch.configs.nemotron_4_340b",
     "deepseek-67b":           "repro_torch.configs.deepseek_67b",
     "command-r-35b":          "repro_torch.configs.command_r_35b",
@@ -24,7 +25,6 @@ _MODULES = {
 
 # the reference registry's other archs: the ROADMAP item that ports each
 UNPORTED = {
-    "deepseek-v3-671b":       "A11.3 (MLA + MTP)",
     "qwen2-vl-7b":            "A11.4 (VLM)",
     "zamba2-7b":              "A11.5 (hybrid)",
     "xlstm-350m":             "A11.6 (SSM)",

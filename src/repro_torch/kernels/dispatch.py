@@ -121,23 +121,22 @@ class _FlashAttention(torch.autograd.Function):
 def attention(q, k, v, *, window: int = 0, q_offset: int = 0):
     """Causal self-attention of a prefill or training segment.
 
-    q: [B, Sq, H, hd]; k/v: [B, Sk, K, hd] -> [B, Sq, H, hd].  A
-    sliding-window segment (``window``) or a prefill continuation
+    q: [B, Sq, H, hd]; k/v: [B, Sk, K, hd(v)] -> [B, Sq, H, hd(v)].  A
+    sliding-window segment (``window``), a prefill continuation
     (``q_offset``: queries at absolute positions ``q_offset ..`` over a
-    cached prefix and themselves) goes to ``chunked_attention`` on either
-    device, as the reference routes them (its flash kernel takes neither);
-    dense causal self-attention goes to the flash kernel on the card.
-    Cross and asymmetric-head attention come with the remaining families
-    (ROADMAP A11).
+    cached prefix and themselves) or asymmetric head dims (MLA's qk 192
+    against v 128) go to ``chunked_attention`` on either device, as the
+    reference routes them (its flash kernel takes none of them); dense
+    causal self-attention goes to the flash kernel on the card.  Cross
+    attention comes with the encoder-decoder family (ROADMAP A11.7).
     """
-    if (q_offset + q.shape[1] != k.shape[1] or v.shape[-1] != q.shape[-1]
-            or q.shape[2] % k.shape[2]):
+    if q_offset + q.shape[1] != k.shape[1] or q.shape[2] % k.shape[2]:
         raise NotImplementedError(
             f"attention q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}, q_offset {q_offset}: only causal "
-            "self-attention and its continuation are ported (other shapes: "
-            "ROADMAP A11)")
-    if window or q_offset:
+            "self-attention and its continuation are ported (cross "
+            "attention: ROADMAP A11.7)")
+    if window or q_offset or v.shape[-1] != q.shape[-1]:
         return chunked_attention(q, k, v, window=window, q_offset=q_offset)
     if q.is_cuda:
         return _FlashAttention.apply(q, k, v)

@@ -1,5 +1,5 @@
-"""GQA attention with RoPE (the port of the JAX package's
-``models/attention.py``, dense family).
+"""GQA attention with RoPE, and MLA (the port of the JAX package's
+``models/attention.py``, dense and MoE families).
 
 Full-sequence attention (train/prefill) goes through
 ``kernels.dispatch.attention``: the flash kernel on the card,
@@ -9,7 +9,11 @@ reference leaves it to XLA; paged decode goes through
 ``kernels.dispatch.paged_attention``.  Every variant takes a sliding
 ``window`` (0 = full attention); a windowed ring cache holds its
 positions out of order, so ``slot_pos`` is the only record of which
-position a slot holds.  M-RoPE and MLA come with later slices.
+position a slot holds.  MLA (DeepSeek-V3) trains and prefills in the
+expanded form, whose asymmetric head dims ``dispatch.attention`` sends to
+``chunked_attention`` as the reference does, and decodes in the absorbed
+form over its latent cache, plain torch.  M-RoPE comes with a later
+slice.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import chunked_attention  # noqa: F401
 from repro_torch.kernels.online import NEG_INF
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import apply_rope, dense_init, rmsnorm
 
 
 def gqa_params(gen, cfg, n_layers: int, dtype, device):
@@ -195,3 +199,112 @@ def gqa_extend(p, x, prefix_k, prefix_v, cfg, *, q_offset: int,
     cat_v = torch.cat([prefix_v.to(v.dtype), v], dim=1)
     y = dispatch.attention(q, cat_k, cat_v, window=window, q_offset=q_offset)
     return y.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+# ------------------------------------------------------------------- MLA ---
+
+def mla_params(gen, cfg, n_layers: int, dtype, device):
+    """Stacked [n_layers, ...] MLA params in the reference's eight keys.
+    ``wk_b`` and ``wv_b`` stay factored, so decode can run in the
+    absorbed (latent) form."""
+    m, D, H, L = cfg.mla, cfg.d_model, cfg.n_heads, n_layers
+    qk = m.qk_nope_dim + m.qk_rope_dim
+
+    def ones(n):
+        return torch.ones((L, n), dtype=dtype, device=device)
+    return {
+        "wq_a": dense_init(gen, (L, D, m.q_lora_rank), dtype, device),
+        "q_norm": ones(m.q_lora_rank),
+        "wq_b": dense_init(gen, (L, m.q_lora_rank, H * qk), dtype, device),
+        "wkv_a": dense_init(gen, (L, D, m.kv_lora_rank + m.qk_rope_dim),
+                            dtype, device),
+        "kv_norm": ones(m.kv_lora_rank),
+        "wk_b": dense_init(gen, (L, m.kv_lora_rank, H * m.qk_nope_dim),
+                           dtype, device),
+        "wv_b": dense_init(gen, (L, m.kv_lora_rank, H * m.v_head_dim),
+                           dtype, device),
+        "wo": dense_init(gen, (L, H * m.v_head_dim, D), dtype, device)}
+
+
+def _mla_qkv_latent(p, x, cfg, positions):
+    """The shared front half: the queries' no-rope and rotated parts
+    [B, S, H, *], the normed latent c_kv [B, S, kv_lora_rank] and the
+    rotated key shared by every head [B, S, qk_rope_dim]."""
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    q = rmsnorm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    q_nope, q_rope = q.reshape(B, S, H, m.qk_nope_dim + m.qk_rope_dim) \
+        .split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim],
+                                          dim=-1)
+    c_kv = rmsnorm(c_kv, p["kv_norm"])
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
+
+
+def mla_forward(p, x, cfg):
+    """Full-sequence causal MLA in the expanded form (train and prefill):
+    per-head keys [no-rope from the latent, the shared rotated key] of
+    qk_nope + qk_rope dims against values of v_head_dim, scaled by
+    (qk_nope + qk_rope)^-0.5.  Returns (y, (c_kv, k_rope)), what the
+    latent cache holds."""
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(p, x, cfg, positions)
+    k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, m.qk_nope_dim)
+    v = (c_kv @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_dim)], dim=-1)
+    # v_head_dim != the qk dim, so dispatch takes chunked_attention (the
+    # flash kernel assumes symmetric head dims), as in the reference
+    y = dispatch.attention(q, k, v)
+    return y.reshape(B, S, -1) @ p["wo"], (c_kv, k_rope)
+
+
+def mla_decode(p, x, cache_ckv, cache_krope, cache_pos, pos, cfg):
+    """One-token MLA decode in the absorbed form: attention runs in the
+    latent space.  x: [B, 1, D]; cache_ckv: [B, Sc, kv_lora_rank];
+    cache_krope: [B, Sc, qk_rope_dim]; cache_pos: [Sc] (-1 = empty); pos:
+    an int, one cursor for every row, as in the reference (the engine's
+    per-row cursors take no latent cache in either package).
+
+    W_UK is absorbed into the query (``q_lat``, rounded to x's dtype as
+    the reference's product is), the scores of the latent and of the
+    rotated key accumulate and stay in fp32, and W_UV is applied after
+    the probabilities' product with the latent.  The caches are updated
+    in place, as ``gqa_decode`` does, and may hold another dtype than
+    the params: the latent output is cast back to x's dtype before W_UV.
+    Returns y [B, 1, D]."""
+    if torch.is_tensor(pos):
+        raise NotImplementedError(
+            "mla_decode takes one int cursor for every row: per-row "
+            "cursors (the engine) take no MLA latent cache, as in the "
+            "reference")
+    m, H = cfg.mla, cfg.n_heads
+    B = x.shape[0]
+    posb = torch.full((B, 1), pos, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(p, x, cfg, posb)
+    slot = pos % cache_ckv.shape[1]
+    cache_ckv[:, slot] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_krope[:, slot] = k_rope[:, 0].to(cache_krope.dtype)
+    cache_pos[slot] = pos
+
+    wk_b = p["wk_b"].reshape(m.kv_lora_rank, H, m.qk_nope_dim)
+    # q_lat[b, h, r] = sum_n q_nope[b, h, n] wk_b[r, h, n]
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk_b)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(),
+                           cache_ckv.float())
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                             cache_krope.float())) * scale
+    mask = (cache_pos <= pos) & (cache_pos >= 0)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhqs,bsr->bqhr", probs.to(cache_ckv.dtype),
+                           cache_ckv)
+    wv_b = p["wv_b"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    y = torch.einsum("bqhr,rhv->bqhv", out_lat.to(x.dtype), wv_b)
+    return y.reshape(B, 1, H * m.v_head_dim) @ p["wo"]

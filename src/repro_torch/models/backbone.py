@@ -7,8 +7,11 @@ key for key.  A dense model has one stack, ``layers``; a MoE model has
 ``dense_layers`` (its ``first_k_dense`` leading layers, when set) and
 ``moe_layers`` (``layer_stacks``).  Each stack is a Python loop where the
 reference scans, walked in segments of one window size each
-(``_segment_windows``).  The other families come with ROADMAP
-A11.3-A11.7.
+(``_segment_windows``).  Attention is GQA or MLA (``attn_kind``); a MoE
+model with ``mtp`` (DeepSeek-V3) also has ``mtp``, the multi-token
+prediction head, whose ``block`` is one decoder layer with a dense MLP
+and no leading layer axis, as in the reference.  The other families come
+with ROADMAP A11.4-A11.7.
 """
 from __future__ import annotations
 
@@ -24,24 +27,23 @@ from repro_torch.models.common import dense_init, norm
 
 Params = Dict[str, Any]
 
-# what is not ported yet, by family or attention kind: its ROADMAP item
-_UNPORTED = {"mla": "A11.3 (MLA + MTP)", "vlm": "A11.4 (VLM)",
-             "hybrid": "A11.5 (hybrid)", "ssm": "A11.6 (SSM)",
-             "audio": "A11.7 (audio encoder-decoder)"}
+# what is not ported yet, by family: its ROADMAP item
+_UNPORTED = {"vlm": "A11.4 (VLM)", "hybrid": "A11.5 (hybrid)",
+             "ssm": "A11.6 (SSM)", "audio": "A11.7 (audio encoder-decoder)"}
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """The port runs the dense and MoE families with GQA attention, with
-    or without windows."""
-    if cfg.family in ("dense", "moe") and cfg.attn_kind == "gqa" \
-            and not cfg.mtp:
+    """The port runs the dense and MoE families with GQA or MLA attention,
+    with or without windows, and the MoE family's MTP head."""
+    if cfg.family in ("dense", "moe") and cfg.attn_kind in ("gqa", "mla"):
+        if cfg.attn_kind == "mla" and cfg.mla is None:
+            raise ValueError(f"{cfg.name}: attn_kind='mla' needs an "
+                             "MLAConfig in cfg.mla")
         return
-    item = _UNPORTED["mla"] if cfg.attn_kind == "mla" or cfg.mtp \
-        else _UNPORTED.get(cfg.family, "A11")
     raise NotImplementedError(
-        f"family={cfg.family!r}, attn_kind={cfg.attn_kind!r}, "
-        f"mtp={cfg.mtp}: the port runs the dense and MoE families with GQA "
-        f"attention; this one comes with ROADMAP {item}")
+        f"family={cfg.family!r}, attn_kind={cfg.attn_kind!r}: the port "
+        "runs the dense and MoE families with GQA or MLA attention; this "
+        f"one comes with ROADMAP {_UNPORTED.get(cfg.family, 'A11')}")
 
 
 def layer_stacks(cfg: ArchConfig) -> list:
@@ -56,8 +58,10 @@ def layer_stacks(cfg: ArchConfig) -> list:
 
 def _layer_params(gen, cfg, n, dtype, dev, *, moe: bool) -> Params:
     D = cfg.d_model
+    attn_params = attn.mla_params if cfg.attn_kind == "mla" \
+        else attn.gqa_params
     p = {"ln1": torch.ones((n, D), dtype=dtype, device=dev),
-         "attn": attn.gqa_params(gen, cfg, n, dtype, dev),
+         "attn": attn_params(gen, cfg, n, dtype, dev),
          "ln2": torch.ones((n, D), dtype=dtype, device=dev)}
     if moe:
         p["moe"] = ffnmod.moe_params(gen, cfg, n, dtype, dev)
@@ -71,7 +75,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
                 device: DeviceLike = None) -> Params:
     """Random params drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``, with the reference's shapes and scales (a MoE router
-    stays fp32 whatever ``dtype`` is, as in the reference)."""
+    stays fp32 whatever ``dtype`` is, as in the reference).  The MTP
+    head's ``block`` is one layer with no leading axis."""
     check_family(cfg)
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -85,6 +90,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     for key, n, _ in layer_stacks(cfg):
         params[key] = _layer_params(gen, cfg, n, dtype, dev,
                                     moe=key == "moe_layers")
+    if cfg.family == "moe" and cfg.mtp:
+        params["mtp"] = {
+            "proj": dense_init(gen, (2 * D, D), dtype, dev),
+            "block": unstack(_layer_params(gen, cfg, 1, dtype, dev,
+                                           moe=False), 1)[0],
+            "norm": torch.ones(D, dtype=dtype, device=dev)}
     return params
 
 
@@ -124,8 +135,13 @@ def _segment_windows(cfg, n_layers, offset=0, seq_len=0):
 
 
 def _attn_block(p, x, cfg, *, window=0):
-    y, kv = attn.gqa_forward(p["attn"], norm(x, p["ln1"], cfg.norm), cfg,
-                             window=window)
+    """The attention half of a layer: (x + attn(norm(x)), what the cache
+    holds: rotated (k, v), or MLA's (c_kv, k_rope))."""
+    h = norm(x, p["ln1"], cfg.norm)
+    if cfg.attn_kind == "mla":
+        y, kv = attn.mla_forward(p["attn"], h, cfg)
+    else:
+        y, kv = attn.gqa_forward(p["attn"], h, cfg, window=window)
     return x + y, kv
 
 
@@ -154,8 +170,9 @@ def _run_decoder_stack(stacked, x, cfg, n_layers: int, offset: int = 0,
     from ``offset``, which set the windows), segment by segment of one
     window each.  Returns (x, the summed MoE aux, kv_segs): with
     ``collect_kv`` each segment's rotated (k, v), stacked [L_seg, B, S,
-    K, hd], for prefill to write into the cache.  ``seq_len`` merges
-    windows no shorter than the sequence (training)."""
+    K, hd] (MLA: (c_kv, k_rope), [L_seg, B, S, *]), for prefill to write
+    into the cache.  ``seq_len`` merges windows no shorter than the
+    sequence (training)."""
     layers = unstack(stacked, n_layers)
     aux = 0.0
     kv_segs = []
@@ -186,12 +203,25 @@ def _logits(params, cfg, x):
 
 def forward_train(params: Params, cfg: ArchConfig, batch) -> tuple:
     """Teacher-forced forward.  Returns (logits [B, S, V], aux) with the
-    MoE layers' summed load-balance loss in ``aux["moe_aux"]``."""
+    MoE layers' summed load-balance loss in ``aux["moe_aux"]`` and, with
+    an MTP head, its logits [B, S, V] in ``aux["mtp_logits"]``: position
+    t predicts token t + 2 from (h_t, embed(token t + 1)), the last
+    position reading its own token again, as in the reference."""
     check_family(cfg)
-    x = _embed(params, cfg, batch["tokens"])
+    tokens = batch["tokens"]
+    x = _embed(params, cfg, tokens)
     aux = 0.0
     for key, n, off in layer_stacks(cfg):
         x, a, _ = _run_decoder_stack(params[key], x, cfg, n, off,
                                      seq_len=x.shape[1])
         aux = aux + a
-    return _logits(params, cfg, x), {"moe_aux": aux}
+    out = {"moe_aux": aux}
+    if cfg.mtp and "mtp" in params:
+        mtp = params["mtp"]
+        nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        h = torch.cat([norm(x, mtp["norm"], cfg.norm),
+                       _embed(params, cfg, nxt)], dim=-1) @ mtp["proj"]
+        h, _ = _attn_block(mtp["block"], h, cfg, window=0)
+        h, _ = _ffn_block(mtp["block"], h, cfg)
+        out["mtp_logits"] = _logits(params, cfg, h)
+    return _logits(params, cfg, x), out

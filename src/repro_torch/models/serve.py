@@ -8,7 +8,11 @@ Two cache layouts, as in the reference:
   run of layers of one window within one layer stack (``segment_layout``:
   the stacks of ``backbone.layer_stacks`` in order), each a ring of
   ``min(cache_len, window)`` slots; a ring that wraps holds its
-  positions out of order, and ``slot_pos`` records them;
+  positions out of order, and ``slot_pos`` records them.  MLA's latent
+  segment holds ``{"ckv", "krope", "slot_pos"}`` instead, ckv [L_seg, B,
+  Sc, kv_lora_rank] and krope [L_seg, B, Sc, qk_rope_dim]: 576 values a
+  position a layer at DeepSeek-V3's widths, where expanded K and V would
+  hold 128 heads x (192 + 128) = 40960;
 - paged: ``{"pos", "page_table", "segments": [{"k", "v"}]}`` with k/v
   arenas [L_seg, n_pages + 1, P, K, hd] shared by all rows (the last
   page is the trash page) and one page_table [B, max_blocks + 1] int32
@@ -16,7 +20,8 @@ Two cache layouts, as in the reference:
 
 ``pos`` is a Python int, one cursor for every row, or a [B] int32
 tensor, one decode cursor per row (the engine's slot pool; the paged
-layout always has it).  Decode updates the cache in place and returns it.
+layout always has it, and neither takes MLA, as in the reference).
+Decode updates the cache in place and returns it.
 """
 from __future__ import annotations
 
@@ -71,6 +76,9 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int,
     bb.check_family(cfg)
     K, hd = cfg.n_kv_heads, cfg.hd
     if layout == "paged":
+        assert cfg.attn_kind != "mla", \
+            "paged layout covers dense/moe GQA only (MLA latent caches " \
+            "need latent-shaped pages)"
         assert page_size > 0 and n_pages > 0, (page_size, n_pages)
         mb = paged_blocks(cache_len, page_size)
 
@@ -88,27 +96,35 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int,
     if layout != "dense":
         raise ValueError(f"kv layout {layout!r}: expected dense|paged")
 
+    if cfg.attn_kind == "mla":
+        shapes = {"ckv": (cfg.mla.kv_lora_rank,),
+                  "krope": (cfg.mla.qk_rope_dim,)}
+    else:
+        shapes = {"k": (K, hd), "v": (K, hd)}
+
     def ring(n, Sc):
-        return {"k": torch.zeros((n, B, Sc, K, hd), dtype=dtype,
-                                 device=device),
-                "v": torch.zeros((n, B, Sc, K, hd), dtype=dtype,
-                                 device=device),
-                "slot_pos": torch.full((Sc,), -1, dtype=torch.int32,
-                                       device=device)}
+        seg = {name: torch.zeros((n, B, Sc) + shape, dtype=dtype,
+                                 device=device)
+               for name, shape in shapes.items()}
+        seg["slot_pos"] = torch.full((Sc,), -1, dtype=torch.int32,
+                                     device=device)
+        return seg
     return {"pos": 0,
             "segments": [ring(n, _seg_cache_len(cache_len, w))
                          for n, w in segment_layout(cfg)]}
 
 
 def _write_seg(seg, kvs, start: int):
-    """Write prefill KVs (stacked [L, B, S, ...]) into a ring segment, in
-    place: the last ``min(S, Sc)`` positions land at ``pos % Sc``."""
+    """Write prefill KVs (stacked [L, B, S, ...]; MLA's (c_kv, k_rope))
+    into a ring segment, in place: the last ``min(S, Sc)`` positions land
+    at ``pos % Sc``."""
     S = kvs[0].shape[2]
     Sc = seg["slot_pos"].shape[0]
     take = min(S, Sc)
     pos = torch.arange(S - take, S, device=seg["slot_pos"].device) + start
     slots = pos % Sc
-    for name, kv in zip(("k", "v"), kvs):
+    names = ("ckv", "krope") if "ckv" in seg else ("k", "v")
+    for name, kv in zip(names, kvs):
         seg[name][:, :, slots] = kv[:, :, -take:].to(seg[name].dtype)
     seg["slot_pos"][slots] = pos.to(torch.int32)
     return seg
@@ -165,7 +181,11 @@ def decode_step(params, cfg: ArchConfig, cache: Cache, tokens):
                                 cache["segments"]):
         for li, p in enumerate(layers):
             h = norm(x, p["ln1"], cfg.norm)
-            if table is not None:
+            if "ckv" in seg:
+                y = attn.mla_decode(p["attn"], h, seg["ckv"][li],
+                                    seg["krope"][li], seg["slot_pos"], pos,
+                                    cfg)
+            elif table is not None:
                 y = attn.gqa_decode_paged(p["attn"], h, seg["k"][li],
                                           seg["v"][li], table, pos, cfg,
                                           window=w)

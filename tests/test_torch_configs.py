@@ -1,8 +1,8 @@
 """The port's config registry (``repro_torch.configs``) against the JAX
 package's: every ported config and its smoke variant equal their JAX
 twins field by field, ``list_archs`` is the ported subset in the
-reference's order, and an arch whose family is not ported raises with
-its ROADMAP item."""
+reference's order (deepseek-v3-671b first), and an arch whose family is
+not ported raises with its ROADMAP item."""
 import dataclasses
 
 import pytest
@@ -15,6 +15,7 @@ from repro_torch.configs import llama_paper as llama
 WINDOWED = ["starcoder2-3b", "command-r-35b", "deepseek-67b",
             "nemotron-4-340b"]
 MOE = "llama4-scout-17b-a16e"
+MLA = "deepseek-v3-671b"
 
 
 def _fields(cfg):
@@ -52,13 +53,26 @@ def test_llama_paper_configs_equal_jax(name):
 def test_list_archs_is_the_ported_subset_in_reference_order():
     ref = jconfigs.list_archs()
     got = configs.list_archs()
-    assert sorted(got) == sorted(WINDOWED + [MOE])
-    assert got == [a for a in ref if a in got]
+    assert sorted(got) == sorted(WINDOWED + [MOE, MLA])
+    assert got == [a for a in ref if a in got] and got[0] == MLA
     assert sorted(got + list(configs.UNPORTED)) == sorted(ref)
 
 
+@pytest.mark.parametrize("which", ["get_config", "get_smoke"])
+def test_mla_config_equals_jax_and_loads(which):
+    """deepseek-v3-671b (A11.3) is ported: its config and smoke variant
+    equal the JAX ones, MLA and MTP included, and the port builds it."""
+    cfg = getattr(configs, which)(MLA)
+    want = getattr(jconfigs, which)(MLA)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    assert cfg.attn_kind == "mla" and cfg.mtp and cfg.family == "moe"
+    assert configs.param_count(cfg) == jconfigs.param_count(want)
+    assert MLA not in configs.UNPORTED
+    from repro_torch.models import backbone as bb
+    bb.check_family(cfg)
+
+
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek-v3-671b", "A11.3"),
     ("qwen2-vl-7b", "A11.4"), ("zamba2-7b", "A11.5"),
     ("xlstm-350m", "A11.6"), ("seamless-m4t-medium", "A11.7"),
 ])

@@ -139,7 +139,8 @@ def test_prefill_then_decode_logits(models):
 
 def test_other_families_raise():
     from repro_torch.models import init_params
-    with pytest.raises(NotImplementedError, match="A11.3"):
+    # MLA is ported (A11.3): it needs its MLAConfig
+    with pytest.raises(ValueError, match="MLAConfig"):
         init_params(tsmoke().replace(attn_kind="mla"), device="cpu")
     assert init_params(tsmoke().replace(window=8), device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
