@@ -8,7 +8,8 @@ Each phase prints its own lines:
   [0] device   the card's name and power limit, torch and CUDA versions
   [1] build    nvcc builds the six CUDA kernels from the repository's
                sources, one nvcc per source, all at once
-  [2] kernels  each kernel against its plain PyTorch version on the card,
+  [2] kernels  each kernel against its plain PyTorch version on the card
+               (B4 also at hd 112 and hd 192, with its registers),
                then its time beside the plain version's, a PyTorch
                yardstick's and the least time the card could take (the
                sampler at the generator's 16 rows and the engine's 32,
@@ -193,6 +194,45 @@ Each phase prints its own lines:
                B5 must not; the first kernel call of each shape of (a)
                and every call of (b) and (c) are held against the plain
                versions ([2] times B1, B2 and B3 at V 129280)
+  [18] vlm     the VLM family, qwen2-vl-7b at its published widths (28
+               layers, d 3584, 28/4 heads of 128 with qkv bias and
+               M-RoPE, d_ff 18944, V 152064, 256 patch embeddings ahead
+               of the tokens, drawn at scale 0.02 from a seed).  (a) full
+               depth, bf16: a batch rollout of 4 x 4 prompts of 256 ids,
+               32 new tokens, through start_rollout(extra=) and
+               rollout_chunk (the executors carry no patch embeddings, in
+               either package), scored by forward_train with the same
+               patches; prefill and decode times, the device-busy share,
+               |mu - ref|, peak memory; (b) two make_train_step steps at
+               8 layers with the patches in the batch, each on a rollout
+               of its own params scored by a frozen reference, KL 0.1:
+               every matrix and bias moves; (c) the smoke config in fp32:
+               logits card against CPU, prefill across the patch prefix +
+               decode against the forward, and a batch rollout's mu
+               against the reference's log-probs (1e-3 each)
+  [19] hybrid  the hybrid family, zamba2-7b at its published widths (81
+               Mamba2 layers, d 3584, 112 SSM heads of 64, state 64,
+               chunk 128; one shared attention block, 32 heads of 112 and
+               d_ff 14336, before every 6 Mamba layers: 14 applications;
+               V 32000).  (a) full depth, bf16: a batch rollout of 4 x 4
+               prompts of 256 ids (two SSD chunks), 32 new tokens,
+               through GeneratorExecutor and RefPolicyExecutor:
+               flash_attention at hd 112, 14 launches a forward; prefill
+               and decode times with the Mamba2 mixers' share of each
+               (a profiler range around mamba2_forward and
+               mamba2_decode), the recurrent state's bytes against a KV
+               cache of the same depth, peak memory; (b) two steps of the
+               async loop at 24 layers (4 applications), KL 0.1, through
+               the executors and SyncExecutorController: B4 at hd 112
+               forward, its gradient recomputed through
+               chunked_attention; (c) the smoke config in fp32: logits
+               card against CPU, prefill + decode against the forward,
+               the chunked SSD against the stepwise recurrence, and a
+               batch rollout's mu against the reference's (1e-3 each).
+               In [18] and [19] B1, B3 and B4 (and B2 in (b)) must
+               launch and B5 must not; the first kernel call of each
+               shape of (a) and every call of (b) and (c) are held
+               against the plain versions ([2] times B4 at hd 112)
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -238,8 +278,10 @@ V_LLAMA = 128256
 # llama4-scout-17b-a16e's vocabulary ([16]) and deepseek-v3-671b's ([17])
 V_SCOUT = 202048
 V_DSV3 = 129280
-# flash attention's hd-192 timing shape (nemotron-4-340b's head dim)
+# flash attention's hd-192 timing shape (nemotron-4-340b's head dim),
+# and its hd-112 one (zamba2-7b's shared block: MHA, 32 heads of 112)
 HD192 = (4, 2048, 16, 8, 192)
+HD112 = (4, 2048, 32, 32, 112)
 # the serve and train phases' generator: 4 prompts x 4 samples, 64 new
 # tokens decoded in chunks of 16
 N_PROMPTS, N_PER, MAX_NEW, CHUNK = 4, 4, 64, 16
@@ -309,6 +351,51 @@ def leaves(tree):
             yield from leaves(v)
     else:
         yield tree
+
+
+def leaves_by_path(tree, path=()) -> dict:
+    """{key path: leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaves_by_path(v, path + (k,)))
+        else:
+            out[path + (k,)] = v
+    return out
+
+
+def cloned(tree):
+    """A copy of a nested dict of tensors (other values shared)."""
+    if isinstance(tree, dict):
+        return {k: cloned(v) for k, v in tree.items()}
+    return tree.clone() if hasattr(tree, "clone") else tree
+
+
+# decode steps a profile of an eager many-layer decode covers: the
+# profiler's own cost grows with the host operations it records (a
+# 16-step chunk of zamba2's 81 layers took over a minute)
+PROFILED_STEPS = 2
+
+
+def profiled_decode(torch, profile, params, cfg, cache, tokens):
+    """``profile`` (device_profile, or a range_profile partial) over
+    PROFILED_STEPS ``decode_step`` calls on a copy of ``cache`` (the
+    rollout's own cache is left as it was).  Returns what ``profile``
+    returns."""
+    from repro_torch.models import decode_step
+    probe = cloned(cache)
+
+    def steps():
+        with torch.no_grad():
+            for _ in range(PROFILED_STEPS):
+                decode_step(params, cfg, probe, tokens)
+    return profile(torch, steps)
+
+
+def param_total(cfg) -> int:
+    """A config's params at its published depth."""
+    from repro_torch.configs import param_count
+    return param_count(cfg)[0]
 
 
 # ---------------------------------------------------------------- timing ---
@@ -431,6 +518,23 @@ def sass_loop_instructions(name: str, parts):
                     and not o.startswith("NOP")))
         return (longest, func) if longest else None
     return None
+
+
+def ptxas_usage(name: str, parts) -> list:
+    """[(function, registers, spill store bytes)] from the ``ptxas -v``
+    lines of ``csrc/<name>.cu``'s build, for every kernel whose mangled
+    name holds every string of ``parts``."""
+    from repro_torch.kernels import build
+    out = []
+    for sec in build.BUILD_LOG.get(name, "").split(
+            "Compiling entry function '")[1:]:
+        func = sec.split("'", 1)[0]
+        if all(p in func for p in parts):
+            regs = re.search(r"Used (\d+) registers", sec)
+            spill = re.search(r"(\d+) bytes spill stores", sec)
+            out.append((func, int(regs.group(1)) if regs else None,
+                        int(spill.group(1)) if spill else 0))
+    return out
 
 
 def phase_build() -> None:
@@ -854,6 +958,13 @@ def phase_kernels(torch, dev):
               ((2, 130, 10, 2, 192), torch.float32, 1.0, 1e-5, True),
               ((2, 130, 10, 2, 192), bf16, 4.0, 3e-2, True),
               ((2, 300, 40, 8, 128), bf16, 4.0, 3e-2, True)]
+    # hd 112 (zamba2-7b's shared block, MHA) at its timing shape and
+    # ragged, at hd 192's tolerances
+    cases += [(HD112, torch.float32, 1.0, 1e-5, True),
+              (HD112, torch.float32, 4.0, 1e-4, False),
+              (HD112, bf16, 4.0, 3e-2, True),
+              ((2, 130, 8, 8, 112), torch.float32, 1.0, 1e-5, True),
+              ((2, 130, 8, 8, 112), bf16, 4.0, 3e-2, True)]
     for shape, dtype, q_scale, tol, rel in cases:
         q, k, v = qkv(*shape, dtype, seed=sum(shape))
         q = q * q_scale
@@ -925,21 +1036,61 @@ def phase_kernels(torch, dev):
         f"{h['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     del q, k, v, qt, kt, vt
 
+    # hd 112: three warpgroups a block, m64n112k16 for P V
+    B, S, H, K, hd = HD112
+    q, k, v = qkv(B, S, H, K, hd, bf16, seed=9)
+
+    def run_flash():
+        return flash_attention_cuda(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2) * 2,
+                       4 * B * H * hd * S * (S + 1) / 2, BF16_TENSOR_FLOPS)
+    usage = {kind: ptxas_usage("flash_attention", parts) for kind, parts in
+             (("bf16", ("wgmma", "Li112E")),
+              ("fp32", ("flash_fwd_kernelIf", "Li112E")))}
+    require(all(len(u) == 1 for u in usage.values()),
+            f"ptxas lines of the hd-112 instances: {usage}")
+    records[-1]["hd112"] = {
+        "shape": list(HD112), "ms": cuda_ms(torch, run_flash, 10),
+        "kernel_only_ms": kernel_only_ms(torch, run_flash, 3,
+                                         "flash_fwd_wgmma_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: chunked_attention(q, k, v), 3),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "registers": {kind: u[0][1] for kind, u in usage.items()},
+        "spill_bytes": {kind: u[0][2] for kind, u in usage.items()}}
+    h = records[-1]["hd112"]
+    ko = h["kernel_only_ms"]
+    log(f"  time flash_attention {list(HD112)} bf16: {h['ms']:.4f} ms per "
+        f"call ({'not measured' if ko is None else f'{ko:.4f} ms'} in the "
+        f"kernel), plain {h['plain_ms']:.4f} ms, library (SDPA) "
+        f"{h['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{4 * B * H * hd * S * (S + 1) / 2 / 1e9:.1f} GFLOP); ptxas: "
+        + ", ".join(f"{kind} {h['registers'][kind]} registers, "
+                    f"{h['spill_bytes'][kind]} bytes spilled"
+                    for kind in ("bf16", "fp32")))
+    del q, k, v, qt, kt, vt
+
     # ---- the attention gradient: the flash forward's recompute backward
-    # against chunked_attention's, at the trainer's [16, 80] shape
-    for dtype, tol in ((torch.float32, 1e-4), (bf16, 3e-2)):
-        q, k, v = qkv(16, 80, 32, 8, 128, dtype, seed=11)
-        go = torch.randn(16, 80, 32, 128, generator=gen, device=dev).to(dtype)
-        grads = []
-        for fn in (dispatch.attention, chunked_attention):
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            grads.append(torch.autograd.grad(fn(*leaves), leaves, go))
-        err = max(max_err(a, b) for a, b in zip(*grads))
-        require(err <= tol, f"attention gradient {dtype} error {err:.3e}")
-        log(f"  attention gradient [16, 80, 32, 8, 128] {str(dtype)[6:]}: "
-            f"max|d(dq, dk, dv)| {err:.3e} against chunked_attention's "
-            f"(tolerance {tol:g})")
-        del q, k, v, go, grads
+    # against chunked_attention's, at the trainer's [16, 80] shape, and at
+    # zamba2-7b's hd 112 ([19] (b)'s shared block)
+    for shape in ((16, 80, 32, 8, 128), (16, 80, 32, 32, 112)):
+        for dtype, tol in ((torch.float32, 1e-4), (bf16, 3e-2)):
+            q, k, v = qkv(*shape, dtype, seed=11)
+            go = torch.randn(*shape[:3], shape[4], generator=gen,
+                             device=dev).to(dtype)
+            grads = []
+            for fn in (dispatch.attention, chunked_attention):
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                grads.append(torch.autograd.grad(fn(*leaves), leaves, go))
+            err = max(max_err(a, b) for a, b in zip(*grads))
+            require(err <= tol, f"attention gradient {list(shape)} {dtype} "
+                    f"error {err:.3e}")
+            log(f"  attention gradient {list(shape)} {str(dtype)[6:]}: "
+                f"max|d(dq, dk, dv)| {err:.3e} against chunked_attention's "
+                f"(tolerance {tol:g})")
+            del q, k, v, go, grads
 
     records.append(check_paged_attention(torch, dev))
 
@@ -4069,21 +4220,22 @@ def flash_layers(cfg, seq_len: int = 0) -> int:
                if not w)
 
 
-def moe_profile(torch, fn):
-    """One profiled call of ``fn``, every MoE FFN call (router, dispatch,
-    expert products, combine, shared expert) inside a ``moe_ffn`` range.
-    Returns (device busy ms, the MoE FFN's device ms, device operations
-    largest first)."""
+def range_profile(torch, fn, label: str, targets):
+    """One profiled call of ``fn``, every call of each ``(module, function
+    name)`` of ``targets`` inside a ``label`` range.  Returns (device busy
+    ms, the range's device ms, device operations largest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.models import ffn
-    real = ffn.moe_forward
+    real = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
-    def ranged(*args, **kwargs):
-        with record_function("moe_ffn"):
-            return real(*args, **kwargs)
-    ffn.moe_forward = ranged
+    def ranged(f):
+        def call(*args, **kwargs):
+            with record_function(label):
+                return f(*args, **kwargs)
+        return call
+    for mod, name, f in real:
+        setattr(mod, name, ranged(f))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -4091,15 +4243,26 @@ def moe_profile(torch, fn):
             fn()
             torch.cuda.synchronize()
     finally:
-        ffn.moe_forward = real
+        for mod, name, f in real:
+            setattr(mod, name, f)
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0 and e.key != "moe_ffn"]
+           and e.self_device_time_total > 0 and e.key != label]
     busy = sum(e.self_device_time_total for e in ops) / 1e3
-    moe = sum(e.device_time_total for e in prof.events()
-              if e.name == "moe_ffn"
-              and e.device_type == DeviceType.CPU) / 1e3
-    return busy, moe, sorted(ops, key=lambda e: -e.self_device_time_total)
+    ranged_ms = sum(e.device_time_total for e in prof.events()
+                    if e.name == label
+                    and e.device_type == DeviceType.CPU) / 1e3
+    return busy, ranged_ms, sorted(ops,
+                                   key=lambda e: -e.self_device_time_total)
+
+
+def moe_profile(torch, fn):
+    """One profiled call of ``fn``, every MoE FFN call (router, dispatch,
+    expert products, combine, shared expert) inside a ``moe_ffn`` range.
+    Returns (device busy ms, the MoE FFN's device ms, device operations
+    largest first)."""
+    from repro_torch.models import ffn
+    return range_profile(torch, fn, "moe_ffn", [(ffn, "moe_forward")])
 
 
 def moe_serve(torch, dev, calls):
@@ -4968,6 +5131,731 @@ def phase_mla(torch, dev):
     return launches
 
 
+VLM_ARCH = "qwen2-vl-7b"
+# (a): full width and depth (7.62 B params, 15.2 GB in bf16): prompts of
+# 256 ids after the 256 patch embeddings, so prefill attends over 512
+VLM_PROMPT, VLM_NEW = 256, 32
+# (b): 8 of 28 layers, 2.95 B params, 35 GB of bf16 params and grads and
+# fp32 Adam moments (91 GB at full depth); sequences of 80, as 64 prompt
+# ids and 16 new tokens: every sampler call of (b) is replayed through
+# the plain version, about 0.1 s each at V 152064
+VLM_TRAIN_LAYERS = 8
+VLM_TRAIN_PROMPT, VLM_TRAIN_NEW = 64, 16
+# (c): the smoke config's prompts and decoded tokens
+VLM_SMOKE_PROMPT, VLM_SMOKE_NEW = 24, 8
+
+
+def vlm_patches(torch, cfg, B, dev, seed):
+    """Patch embeddings [B, P, D] at scale 0.02 from a seeded generator,
+    as tests/test_arch_smoke.py draws them (the vision tower is a stub in
+    both packages)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(B, cfg.frontend_tokens, cfg.d_model, generator=g,
+                       device=dev) * 0.02
+
+
+def vlm_score(torch, params, cfg, tokens, extra):
+    """The reference's log-probs of ``tokens`` (0 at position 0), through
+    forward_train with the patch prefix and B1."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.aipo import token_logprobs
+    from repro_torch.models import forward_train
+    with torch.no_grad():
+        logits, _ = forward_train(params, cfg, {"tokens": tokens, **extra})
+        return F.pad(token_logprobs(logits[:, :-1], tokens[:, 1:]), (1, 0))
+
+
+def vlm_serve(torch, dev):
+    """[18] (a): qwen2-vl-7b at full width and depth, bf16: a batch rollout
+    through ``start_rollout(extra=)`` and ``rollout_chunk`` (the
+    executors carry no patch embeddings, in either package) scored by
+    forward_train with the same patches.  Returns the launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.models.common import mrope_sections
+    from repro_torch.rl import prng
+    from repro_torch.rl.data import ArithmeticTasks
+    from repro_torch.rl.rollout import action_mask, finalize_rollout, \
+        rollout_chunk, start_rollout
+
+    cfg = configs.get_config(VLM_ARCH)
+    L, P, B = cfg.n_layers, cfg.frontend_tokens, N_PROMPTS * N_PER
+    log(f"  (a) serve {VLM_ARCH} at full width and depth ({L} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"qkv bias, d_ff {cfg.d_ff}, M-RoPE sections "
+        f"{mrope_sections(cfg.hd)}, V {cfg.vocab}); bf16; {N_PROMPTS} "
+        f"prompts x {N_PER} samples of {VLM_PROMPT} ids after {P} patch "
+        f"embeddings, {VLM_NEW} new tokens in chunks of {CHUNK}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    log(f"  init: {n / 1e9:.3f} B params, {2 * n / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s, peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    prompts = torch.as_tensor(ArithmeticTasks(
+        prompt_len=VLM_PROMPT, seed=0).sample(N_PROMPTS, N_PER).prompts,
+        device=dev)
+    extra = {"patch_embeds": vlm_patches(torch, cfg, B, dev, seed=0)}
+    total = VLM_PROMPT + VLM_NEW
+    k1, k2 = prng.split(prng.PRNGKey(0))
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()          # the rollout's run starts here
+    t0 = time.perf_counter()
+    start_rollout(params, cfg, prompts, total, extra=extra)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    state = start_rollout(params, cfg, prompts, total, extra=extra)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    require(state.cache["pos"] == P + VLM_PROMPT
+            and state.cache["segments"][0]["k"].shape[2] == P + total,
+            f"cache pos {state.cache['pos']}")
+    busy, ops = profiled_decode(torch, device_profile, params, cfg,
+                                state.cache, prompts[:, -1:])
+    t0 = time.perf_counter()
+    state = rollout_chunk(params, cfg, state, k1, n_steps=CHUNK)
+    state = rollout_chunk(params, cfg, state, k2, n_steps=CHUNK)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (2 * CHUNK)
+    state = finalize_rollout(state, VLM_NEW)
+    t0 = time.perf_counter()
+    ref = vlm_score(torch, params, cfg, state.tokens, extra)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    want = {"flash_attention": 3 * L, "fused_sample": VLM_NEW,
+            "fused_logprob": 1}
+    require(launches == want, f"vlm rollout launch counts {launches}, want "
+            f"{want} (two prefills of the {P} patches and the prompt and "
+            "one scoring, flash_attention each layer; fused_sample a "
+            "decoded token; decode attention is plain torch)")
+    d = _check_outputs(torch, {"tokens": state.tokens,
+                               "mask": action_mask(state),
+                               "behavior_logp": state.behavior_logp,
+                               "ref_logp": ref}, cfg.vocab)
+    busy /= PROFILED_STEPS
+    log(f"  prefill [{B}, {P} + {VLM_PROMPT}]: {prefill_ms:.1f} ms (the "
+        f"first {first_ms:.1f} ms); decode {decode_ms:.2f} ms per token "
+        f"(batch {B}, two unprofiled chunks); {PROFILED_STEPS} profiled "
+        f"decode steps: device busy {busy:.2f} ms per token = "
+        f"{100 * busy / decode_ms:.1f}% of it; top device operations (ms "
+        "per token): "
+        + ", ".join(f"{e.key[:48]} "
+                    f"{e.self_device_time_total / 1e3 / PROFILED_STEPS:.3f}"
+                    for e in ops[:6]))
+    log(f"  reference {t_ref * 1e3:.1f} ms over [{B}, {P} + {total}]; "
+        f"|behavior_logp - ref_logp| at {d.numel()} actions (bf16): mean "
+        f"{d.mean().item():.4f}, max {d.max().item():.4f}; launches "
+        f"{launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state, ref, params, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vlm_train(torch, dev):
+    """[18] (b): two ``make_train_step`` steps at full width cut to
+    VLM_TRAIN_LAYERS layers, ``patch_embeds`` in the batch: each step's
+    batch is a rollout of the current params (prompts of 64, 16 new
+    tokens, so sequences of 80 after the patches) scored by a frozen
+    reference from another seed, KL 0.1 (a random policy earns no
+    reward).  Returns the launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.rl import prng
+    from repro_torch.rl.data import ArithmeticTasks
+    from repro_torch.rl.rollout import action_mask, generate
+    from repro_torch.train.optimizer import adam_init
+    from repro_torch.train.trainstep import TrainState, make_train_step
+
+    full = configs.get_config(VLM_ARCH)
+    cfg = full.replace(name=f"{VLM_ARCH}-{VLM_TRAIN_LAYERS}l",
+                       n_layers=VLM_TRAIN_LAYERS)
+    L, B, n_steps = cfg.n_layers, N_PROMPTS * N_PER, 2
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    ref_params = init_params(cfg, seed=1, dtype=torch.bfloat16, device=dev)
+    state = TrainState(params, adam_init(params))
+    step = make_train_step(cfg, lr=1e-3, kl_coef=KL_COEF)
+    tasks = ArithmeticTasks(prompt_len=VLM_TRAIN_PROMPT, seed=0)
+    extra = {"patch_embeds": vlm_patches(torch, cfg, B, dev, seed=1)}
+    n = sum(t.numel() for t in leaves(params))
+    seq = VLM_TRAIN_PROMPT + VLM_TRAIN_NEW
+    log(f"  (b) train {VLM_ARCH} at full width, {cut_line(full, cfg)}: "
+        f"{n / 1e9:.3f} B params, trainer state {12 * n / 1e9:.1f} GB "
+        f"({12 * param_total(full) / 1e9:.1f} GB at full depth); "
+        f"{n_steps} make_train_step steps, KL {KL_COEF}, sequences of "
+        f"{seq} after {cfg.frontend_tokens} patches")
+    # every leaf but the norms (1.0, which bf16 steps of 1e-3 do not move)
+    # and b_up, which the gated MLP does not read (as in the reference)
+    watched = [k for k in leaves_by_path(params)
+               if k[-1] not in ("ln1", "ln2", "final_norm", "b_up")]
+    before = {k: fingerprint(torch, {"": t})
+              for k, t in leaves_by_path(params).items() if k in watched}
+    key = prng.PRNGKey(1)
+    t0 = time.perf_counter()
+    build.reset_launches()          # the train path's run starts here
+    for i in range(n_steps):
+        key, sub = prng.split(key)
+        prompts = torch.as_tensor(tasks.sample(N_PROMPTS, N_PER).prompts,
+                                  device=dev)
+        roll = generate(state.params, cfg, prompts, max_new=VLM_TRAIN_NEW,
+                        key=sub, chunk=CHUNK, extra=extra)
+        mask = action_mask(roll)
+        batch = {"tokens": roll.tokens, "behavior_logp": roll.behavior_logp,
+                 "advantages": torch.zeros_like(mask), "mask": mask,
+                 "ref_logp": vlm_score(torch, ref_params, cfg, roll.tokens,
+                                       extra), **extra}
+        state, m = step(state, batch)
+        log(f"  step {i}: loss {float(m['loss']):.5f}, grad_norm "
+            f"{float(m['grad_norm']):.4f}")
+        require(math.isfinite(float(m["loss"]))
+                and math.isfinite(float(m["grad_norm"]))
+                and float(m["grad_norm"]) > 0, f"step {i}: {m}")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    after = leaves_by_path(state.params)
+    still = [".".join(k) for k in watched
+             if fingerprint(torch, {"": after[k]}) == before[k]]
+    require(not still, f"leaves that did not move: {still}")
+    want = {"fused_sample": n_steps * VLM_TRAIN_NEW,
+            "flash_attention": n_steps * 3 * L,
+            "fused_logprob": 2 * n_steps, "fused_logprob_bwd": n_steps}
+    require(launches == want, f"vlm train launch counts {launches}, want "
+            f"{want} (per step: the rollout's prefill, the reference's and "
+            "the trainer's forward through flash_attention; the "
+            "reference's and the trainer's log-probs; one backward)")
+    log(f"  {n_steps} steps in {wall:.1f} s (rollouts and scoring "
+        f"included); moved: {len(watched)} leaves (every matrix and bias "
+        "but the unread b_up); "
+        f"launches {launches}; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state, params, ref_params, batch, roll, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vlm_numerics(torch, dev):
+    """[18] (c): the smoke config in fp32 on the card against the CPU
+    port: logits, then prefill across the patch prefix + decode against
+    the teacher-forced forward (the reference's 1e-3), then a batch
+    rollout with the patches whose mu is within 1e-3 of the reference's
+    log-probs.  Returns the launch counts of the rollout."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import decode_step, forward_train, \
+        init_params, prefill
+    from repro_torch.rl import prng
+    from repro_torch.rl.data import ArithmeticTasks
+    from repro_torch.rl.rollout import action_mask, generate
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = configs.get_smoke(VLM_ARCH)
+    params = init_params(cfg, seed=5, dtype=torch.float32, device=dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    S, n, P = VLM_SMOKE_PROMPT, VLM_SMOKE_NEW, cfg.frontend_tokens
+    rng = np.random.default_rng(5)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab, (2, S + n)),
+                          dtype=torch.int32)
+    pe = torch.as_tensor(rng.standard_normal((2, P, cfg.d_model)) * 0.02,
+                         dtype=torch.float32)
+    toks, pe_dev = ids.to(dev), pe.to(dev)
+    with torch.no_grad():
+        full, _ = forward_train(params, cfg, {"tokens": toks,
+                                              "patch_embeds": pe_dev})
+        full_cpu, _ = forward_train(host, cfg, {"tokens": ids,
+                                                "patch_embeds": pe})
+        fwd_err = max_err(full.cpu(), full_cpu)
+        last, cache = prefill(params, cfg, {"tokens": toks[:, :S],
+                                            "patch_embeds": pe_dev},
+                              cache_len=P + S + n, dtype=torch.float32)
+        dec_err = max_err(last, full[:, S - 1])
+        for i in range(n):
+            lg, cache = decode_step(params, cfg, cache,
+                                    toks[:, S + i:S + i + 1])
+            dec_err = max(dec_err, max_err(lg, full[:, S + i]))
+    log(f"  (c) {cfg.name} smoke fp32 ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {P} patches): card against CPU logits "
+        f"{fwd_err:.3e}; prefill of {P} + {S} and {n} decode steps against "
+        f"the teacher-forced forward: max|dlogits| {dec_err:.3e} "
+        "(tolerance 1e-3 each)")
+    require(max(fwd_err, dec_err) <= 1e-3, "[18] (c) numerics")
+    prompts = torch.as_tensor(ArithmeticTasks(seed=5).sample(1, N_PER)
+                              .prompts, device=dev)
+    extra = {"patch_embeds": vlm_patches(torch, cfg, N_PER, dev, seed=5)}
+    build.reset_launches()          # the rollout's run starts here
+    roll = generate(params, cfg, prompts, max_new=MAX_NEW,
+                    key=prng.PRNGKey(5), chunk=CHUNK, extra=extra)
+    ref = vlm_score(torch, params, cfg, roll.tokens, extra)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L, "fused_sample": MAX_NEW,
+            "fused_logprob": 1}
+    require(launches == want, f"fp32 vlm rollout launches {launches}, want "
+            f"{want}")
+    d = _check_outputs(torch, {"tokens": roll.tokens,
+                               "mask": action_mask(roll),
+                               "behavior_logp": roll.behavior_logp,
+                               "ref_logp": ref}, cfg.vocab)
+    log(f"  fp32 batch rollout with patches, {N_PER} samples of {MAX_NEW} "
+        f"tokens: |behavior_logp - ref_logp| at {d.numel()} actions: max "
+        f"{d.max().item():.2e} (tolerance 1e-3); launches {launches}")
+    require(d.max().item() <= 1e-3, "fp32 vlm rollout mu vs reference")
+    del params, host, cache, roll
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vlm(torch, dev):
+    """[18]: the VLM family.  Returns the launch counts of its main-path
+    runs."""
+    log(f"[18] vlm: {VLM_ARCH} at full width and depth served, "
+        f"{VLM_TRAIN_LAYERS} layers trained, its smoke config in fp32; "
+        f"{nvidia_smi()}")
+    from repro_torch import configs
+    cfg = configs.get_config(VLM_ARCH)
+    V, P, B = cfg.vocab, cfg.frontend_tokens, N_PROMPTS * N_PER
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    dense = ("fused_sample_cuda", "fused_logprob_cuda",
+             "flash_attention_cuda")
+    parts = [time.perf_counter()]
+    with KernelCalls(torch, per_shape=1, names=KernelCalls.ENGINE) as calls:
+        launches.update(vlm_serve(torch, dev))
+    for line in calls.replay("[18] (a)", expect=dense):
+        log(line)
+    got = {n: {tuple(args[0].shape) for args, _, _ in calls.calls[n]}
+           for n in dense}
+    want = {"fused_sample_cuda": {(B, V)},
+            "fused_logprob_cuda": {(B, VLM_PROMPT + VLM_NEW - 1, V)},
+            "flash_attention_cuda": {
+                (B, P + VLM_PROMPT, cfg.n_heads, cfg.hd),
+                (B, P + VLM_PROMPT + VLM_NEW, cfg.n_heads, cfg.hd)}}
+    require(got == want, f"[18] (a) shapes {got}, want {want}")
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(time.perf_counter())
+    with KernelCalls(torch, host=True, names=KernelCalls.ENGINE) as calls:
+        launches.update(vlm_train(torch, dev))
+    for line in calls.replay("[18] (b)", expect=dense + (
+            "fused_logprob_bwd_cuda",)):
+        log(line)
+    del calls
+    parts.append(time.perf_counter())
+    with KernelCalls(torch, names=KernelCalls.ENGINE) as calls:
+        launches.update(vlm_numerics(torch, dev))
+    for line in calls.replay("[18] (c)", expect=dense):
+        log(line)
+    del calls
+    parts.append(time.perf_counter())
+    launches = dict(launches)
+    for name in KERNELS[:4]:
+        require(launches.get(name, 0) > 0, f"{name} never ran in [18]")
+    # both packages' engines refuse the VLM family
+    require(launches.get("paged_attention", 0) == 0,
+            "paged_attention ran in [18]")
+    log(f"  [18] launches {launches}; {time.perf_counter() - t0:.1f} s "
+        f"((a), (b), (c) with their replays: "
+        + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:]))
+        + " s)")
+    return launches
+
+
+HYBRID_ARCH = "zamba2-7b"
+# (a): full width and depth (6.75 B params, 13.5 GB in bf16): prompts of
+# 256 ids, two SSD chunks of 128
+HYBRID_PROMPT, HYBRID_NEW = 256, 32
+# (b): 24 of 81 layers (4 applications of the shared block), 2.31 B
+# params, 27.7 GB of trainer state (81 GB at full depth)
+HYBRID_TRAIN_LAYERS = 24
+# (c): the smoke config's prompts (past one SSD chunk of 32) and decoded
+# tokens, and the chunked SSD's sequence against the stepwise recurrence
+HYBRID_SMOKE_PROMPT, HYBRID_SMOKE_NEW, HYBRID_SSD_SEQ = 40, 8, 45
+
+
+def mamba_profile(torch, fn):
+    """range_profile with every Mamba2 mixer call (``mamba2_forward`` and
+    ``mamba2_decode``: projections, convolution, SSD or recurrence, gate
+    and norm) inside a ``mamba2`` range."""
+    from repro_torch.models import ssm
+    return range_profile(torch, fn, "mamba2", [(ssm, "mamba2_forward"),
+                                               (ssm, "mamba2_decode")])
+
+
+def hybrid_serve(torch, dev):
+    """[19] (a): zamba2-7b at full width and depth, bf16: a batch rollout
+    through GeneratorExecutor scored by RefPolicyExecutor; prefill and
+    decode times, the Mamba2 mixer's share of each, the recurrent state's
+    bytes against a KV cache of the same depth.  Returns the launch
+    counts of the run."""
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import init_params
+    from repro_torch.models.ssm import _mamba_dims
+    from repro_torch.rl.data import ArithmeticTasks
+
+    cfg = configs.get_config(HYBRID_ARCH)
+    s, L, B = cfg.ssm, cfg.n_layers, N_PROMPTS * N_PER
+    G = len(bb.hybrid_groups(cfg))
+    d_in, H, Ph, N = _mamba_dims(cfg)
+    log(f"  (a) serve {HYBRID_ARCH} at full width and depth ({L} Mamba2 "
+        f"layers, d {cfg.d_model}, d_inner {d_in}, {H} SSM heads of {Ph}, "
+        f"state {N}, chunk {s.chunk}; one shared attention block of "
+        f"{cfg.n_heads} heads of {cfg.hd} and d_ff {cfg.d_ff} before every "
+        f"{cfg.shared_attn_every}: {G} applications; V {cfg.vocab}); bf16;"
+        f" {N_PROMPTS} prompts x {N_PER} samples of {HYBRID_PROMPT} ids, "
+        f"{HYBRID_NEW} new tokens in chunks of {CHUNK}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    log(f"  init: {n / 1e9:.3f} B params, {2 * n / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s, peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(prompt_len=HYBRID_PROMPT,
+                                                 seed=0),
+                            n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+                            max_new=HYBRID_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=0, device=dev)
+    gen.set_weights(params, version=0)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(params)
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()          # the batch rollout's run starts here
+    t0 = time.perf_counter()
+    gen.begin_batch()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    job, state = gen.begin_batch()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+    busy_p, mamba_p, _ = mamba_profile(torch, gen.begin_batch)
+    cache = state.cache
+    T = cache["attn"]["k"].shape[2]
+    require(cache["pos"] == HYBRID_PROMPT and T == HYBRID_PROMPT + HYBRID_NEW
+            and cache["attn"]["k"].shape[0] == G
+            and cache["mamba"]["ssm"].shape == (L, B, H, Ph, N),
+            f"hybrid cache {cache['pos']}, "
+            f"{ {k: tuple(v.shape) for k, v in cache['attn'].items()} }")
+    state_bytes = sum(t.nbytes for t in cache["mamba"].values())
+    ring_bytes = sum(cache["attn"][k].nbytes for k in ("k", "v"))
+    kv_per_layer = ring_bytes // G
+    busy, mamba_ms, ops = profiled_decode(
+        torch, mamba_profile, params, cfg, cache,
+        state.tokens[:, HYBRID_PROMPT - 1:HYBRID_PROMPT])
+    t0 = time.perf_counter()
+    for _ in range(job.n_chunks):
+        state = gen.advance_chunk(job, state)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / HYBRID_NEW
+    out = gen.emit_batch(job, state)
+    t0 = time.perf_counter()
+    ref.put_input("completions", out)
+    ref.step()
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    rew.put_input("completions_with_ref", ref.get_output("completions_with_ref"))
+    out = rew.step()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    want = {"flash_attention": 4 * G, "fused_sample": HYBRID_NEW,
+            "fused_logprob": 1}
+    require(launches == want, f"hybrid rollout launch counts {launches}, "
+            f"want {want} (three prefills and one scoring, the shared "
+            f"block's {G} applications each through flash_attention at hd "
+            f"{cfg.hd}; fused_sample a decoded token)")
+    d = _check_outputs(torch, out, cfg.vocab)
+    log(f"  prefill [{B}, {HYBRID_PROMPT}]: {prefill_ms:.1f} ms (the first "
+        f"{first_ms:.1f} ms); profiled: device busy {busy_p:.1f} ms, of "
+        f"which the Mamba2 mixers {mamba_p:.1f} ms "
+        + (f"({100 * mamba_p / busy_p:.1f}%)" if busy_p else "(not measured)")
+        + f"; peak memory through the prefills {prefill_peak:.2f} GB")
+    log(f"  recurrent state (the rollout's, fp32): {state_bytes / 1e6:.1f} "
+        f"MB for {L} layers x {B} rows, whatever the length (conv "
+        f"{s.d_conv - 1} x {d_in + 2 * N} and SSM {H} x {Ph} x {N} values "
+        f"a row a layer); the shared block's ring {ring_bytes / 1e6:.1f} MB "
+        f"({G} x {T} positions); a KV cache of the same depth ({L} layers "
+        f"of {cfg.n_kv_heads} heads of {cfg.hd}) would hold "
+        f"{L * kv_per_layer / 1e9:.2f} GB at {T} positions, "
+        f"{L * kv_per_layer / state_bytes:.1f}x the state")
+    busy, mamba_ms = busy / PROFILED_STEPS, mamba_ms / PROFILED_STEPS
+    log(f"  decode {decode_ms:.2f} ms per token (batch {B}, "
+        f"{job.n_chunks} unprofiled chunks); {PROFILED_STEPS} profiled "
+        f"decode steps: device busy {busy:.2f} ms per token = "
+        f"{100 * busy / decode_ms:.1f}% of it; the Mamba2 mixers "
+        f"{mamba_ms:.2f} ms per token = "
+        + (f"{100 * mamba_ms / busy:.1f}%" if busy else "not measured")
+        + " of the device time; top device operations (ms per token): "
+        + ", ".join(f"{e.key[:48]} "
+                    f"{e.self_device_time_total / 1e3 / PROFILED_STEPS:.3f}"
+                    for e in ops[:6]))
+    log(f"  reference {t_ref * 1e3:.1f} ms over [{B}, "
+        f"{HYBRID_PROMPT + HYBRID_NEW}]; |behavior_logp - ref_logp| at "
+        f"{d.numel()} actions (bf16): mean {d.mean().item():.4f}, max "
+        f"{d.max().item():.4f}; launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del job, state, cache, out, gen, ref, rew, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_train(torch, dev):
+    """[19] (b): two steps of the sequential async loop at full width cut
+    to HYBRID_TRAIN_LAYERS layers, sequences of 80, KL 0.1 against a
+    frozen reference from another seed, through the executors and
+    SyncExecutorController as [15] (b).  Returns the launch counts."""
+    from repro_torch import configs
+    from repro_torch.core.channels import CommType, CommunicationChannel, \
+        WeightsCommunicationChannel
+    from repro_torch.core.controller import SyncExecutorController
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor, TrainerExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import init_params
+    from repro_torch.rl.data import ArithmeticTasks
+
+    full = configs.get_config(HYBRID_ARCH)
+    cfg = full.replace(name=f"{HYBRID_ARCH}-{HYBRID_TRAIN_LAYERS}l",
+                       n_layers=HYBRID_TRAIN_LAYERS)
+    G, n_steps = len(bb.hybrid_groups(cfg)), 2
+    torch.cuda.reset_peak_memory_stats()
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=0),
+                            n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+                            max_new=MAX_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=0, device=dev)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(init_params(cfg, seed=1, dtype=torch.bfloat16,
+                                device=dev))
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    trn = TrainerExecutor(cfg, dtype=torch.bfloat16, kl_coef=KL_COEF,
+                          seed=0, device=dev)
+    ctl = SyncExecutorController(
+        [gen, ref, rew, trn],
+        [WeightsCommunicationChannel("policy_model", trn, gen),
+         CommunicationChannel("completions", gen, ref, CommType.BROADCAST),
+         CommunicationChannel("completions_with_ref", ref, rew,
+                              CommType.GATHER),
+         CommunicationChannel("completions_with_reward", rew, trn,
+                              CommType.SCATTER)],
+        max_steps=n_steps, mode="async", staleness=1)
+    ctl.init()
+    params = trn.get_model()
+    n = sum(t.numel() for t in leaves(params))
+    seq = gen.tasks.prompt_len + MAX_NEW
+    log(f"  (b) train {HYBRID_ARCH} at full width, {cut_line(full, cfg)} "
+        f"({G} applications of the shared block): {n / 1e9:.3f} B params, "
+        f"trainer state {12 * n / 1e9:.1f} GB ({12 * param_total(full) / 1e9:.1f}"
+        f" GB at full depth); {n_steps} steps of the async schedule, "
+        f"staleness 1, KL {KL_COEF}; sequences of {seq}")
+    # every leaf but the norms (1.0, which bf16 steps of 1e-3 do not move)
+    watched = [k for k in leaves_by_path(params)
+               if k[-1] not in ("ln1", "ln2", "final_norm", "gate_norm")]
+    before = {k: fingerprint(torch, {"": t})
+              for k, t in leaves_by_path(params).items() if k in watched}
+    del params
+    t0 = time.perf_counter()
+    build.reset_launches()          # the train path's run starts here
+    history = ctl.run()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    for h in history:
+        log(f"  step {h['step']}: loss {h['loss']:.5f}, grad_norm "
+            f"{h['grad_norm']:.4f}, weight_version {h['weight_version']}")
+        require(h["weight_version"] == max(0, h["step"] - 1)
+                and math.isfinite(h["loss"])
+                and math.isfinite(h["grad_norm"]), f"step {h}")
+    after = leaves_by_path(trn.get_model())
+    still = [".".join(k) for k in watched
+             if fingerprint(torch, {"": after[k]}) == before[k]]
+    require(not still, f"leaves that did not move: {still}")
+    mamba = after[("mamba_layers", "mamba", "A_log")]
+    require(mamba.dtype == torch.float32, f"A_log became {mamba.dtype}")
+    want = {"fused_sample": n_steps * MAX_NEW,
+            "flash_attention": n_steps * 3 * G,
+            "fused_logprob": 2 * n_steps, "fused_logprob_bwd": n_steps}
+    require(launches == want, f"hybrid train launch counts {launches}, "
+            f"want {want} (per step: the generator's prefill, the "
+            "reference's and the trainer's forward, the shared block's "
+            f"{G} applications each through flash_attention, whose "
+            "gradient recomputes through chunked_attention)")
+    log(f"  {n_steps} steps in {wall:.1f} s; moved: {len(watched)} leaves "
+        f"(A_log, D_skip and dt_bias fp32 among bf16); launches "
+        f"{launches}; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del ctl, gen, ref, rew, trn, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_numerics(torch, dev):
+    """[19] (c): the smoke config in fp32 on the card against the CPU
+    port: logits; prefill + decode against the teacher-forced forward;
+    one layer's chunked SSD against its stepwise recurrence
+    (``mamba2_decode`` a token at a time), at a length no multiple of
+    the chunk; each within the reference's 1e-3; then a batch rollout
+    whose mu is within 1e-3 of the reference's log-probs.  Returns the
+    launch counts of the rollout."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import decode_step, forward_train, \
+        init_params, prefill, ssm
+    from repro_torch.rl.data import ArithmeticTasks
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = configs.get_smoke(HYBRID_ARCH)
+    params = init_params(cfg, seed=5, dtype=torch.float32, device=dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    S, n = HYBRID_SMOKE_PROMPT, HYBRID_SMOKE_NEW
+    rng = np.random.default_rng(5)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab, (2, S + n)),
+                          dtype=torch.int32)
+    toks = ids.to(dev)
+    with torch.no_grad():
+        full, _ = forward_train(params, cfg, {"tokens": toks})
+        full_cpu, _ = forward_train(host, cfg, {"tokens": ids})
+        fwd_err = max_err(full.cpu(), full_cpu)
+        last, cache = prefill(params, cfg, {"tokens": toks[:, :S]},
+                              cache_len=S + n, dtype=torch.float32)
+        dec_err = max_err(last, full[:, S - 1])
+        for i in range(n):
+            lg, cache = decode_step(params, cfg, cache,
+                                    toks[:, S + i:S + i + 1])
+            dec_err = max(dec_err, max_err(lg, full[:, S + i]))
+        p = bb.unstack(params["mamba_layers"], cfg.n_layers)[0]["mamba"]
+        x = torch.as_tensor(rng.standard_normal(
+            (2, HYBRID_SSD_SEQ, cfg.d_model)) * 0.3, dtype=torch.float32,
+            device=dev)
+        y = ssm.mamba2_forward(p, x, cfg)
+        st = ssm.mamba2_init_state(cfg, 2, device=dev)
+        steps = []
+        for t in range(HYBRID_SSD_SEQ):
+            yt, st = ssm.mamba2_decode(p, x[:, t:t + 1], st, cfg)
+            steps.append(yt)
+        ssd_err = max_err(y, torch.cat(steps, dim=1))
+    log(f"  (c) {cfg.name} smoke fp32 ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, SSD chunk {cfg.ssm.chunk}): card against CPU "
+        f"logits {fwd_err:.3e}; prefill of {S} + {n} decode steps against "
+        f"the teacher-forced forward: max|dlogits| {dec_err:.3e}; the "
+        f"chunked SSD against {HYBRID_SSD_SEQ} mamba2_decode steps: max|dy| "
+        f"{ssd_err:.3e} (tolerance 1e-3 each)")
+    require(max(fwd_err, dec_err, ssd_err) <= 1e-3, "[19] (c) numerics")
+    del full, full_cpu, cache, host
+
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=5), n_prompts=1,
+                            n_per_prompt=N_PER, max_new=MAX_NEW,
+                            chunk=CHUNK, temperature=1.0, seed=5, device=dev)
+    gen.set_weights(params, version=0)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(params)
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    build.reset_launches()          # the rollout's run starts here
+    ref.put_input("completions", gen.step())
+    ref.step()
+    rew.put_input("completions_with_ref", ref.get_output("completions_with_ref"))
+    out = rew.step()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    G = len(bb.hybrid_groups(cfg))
+    want = {"flash_attention": 2 * G, "fused_sample": MAX_NEW,
+            "fused_logprob": 1}
+    require(launches == want, f"fp32 hybrid rollout launches {launches}, "
+            f"want {want}")
+    d = _check_outputs(torch, out, cfg.vocab)
+    log(f"  fp32 batch rollout, {N_PER} samples of {MAX_NEW} tokens: "
+        f"|behavior_logp - ref_logp| at {d.numel()} actions (stepwise decode "
+        f"against the chunked forward): max {d.max().item():.2e} "
+        f"(tolerance 1e-3); launches {launches}")
+    require(d.max().item() <= 1e-3, "fp32 hybrid rollout mu vs reference")
+    del gen, ref, rew, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_hybrid(torch, dev):
+    """[19]: the hybrid family.  Returns the launch counts of its
+    main-path runs."""
+    log(f"[19] hybrid: {HYBRID_ARCH} at full width and depth served, "
+        f"{HYBRID_TRAIN_LAYERS} layers trained, its smoke config in fp32; "
+        f"{nvidia_smi()}")
+    from repro_torch import configs
+    cfg = configs.get_config(HYBRID_ARCH)
+    V, B, T = cfg.vocab, N_PROMPTS * N_PER, HYBRID_PROMPT + HYBRID_NEW
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    dense = ("fused_sample_cuda", "fused_logprob_cuda",
+             "flash_attention_cuda")
+    parts = [time.perf_counter()]
+    with KernelCalls(torch, per_shape=1, names=KernelCalls.ENGINE) as calls:
+        launches.update(hybrid_serve(torch, dev))
+    for line in calls.replay("[19] (a)", expect=dense):
+        log(line)
+    got = {n: {tuple(args[0].shape) for args, _, _ in calls.calls[n]}
+           for n in dense}
+    want = {"fused_sample_cuda": {(B, V)},
+            "fused_logprob_cuda": {(B, T - 1, V)},
+            "flash_attention_cuda": {(B, HYBRID_PROMPT, cfg.n_heads, cfg.hd),
+                                     (B, T, cfg.n_heads, cfg.hd)}}
+    require(got == want, f"[19] (a) shapes {got}, want {want}")
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(time.perf_counter())
+    with KernelCalls(torch, host=True, names=KernelCalls.ENGINE) as calls:
+        launches.update(hybrid_train(torch, dev))
+    for line in calls.replay("[19] (b)", expect=dense + (
+            "fused_logprob_bwd_cuda",)):
+        log(line)
+    del calls
+    parts.append(time.perf_counter())
+    with KernelCalls(torch, names=KernelCalls.ENGINE) as calls:
+        launches.update(hybrid_numerics(torch, dev))
+    for line in calls.replay("[19] (c)", expect=dense):
+        log(line)
+    del calls
+    parts.append(time.perf_counter())
+    launches = dict(launches)
+    for name in KERNELS[:4]:
+        require(launches.get(name, 0) > 0, f"{name} never ran in [19]")
+    # both packages' engines refuse the hybrid family
+    require(launches.get("paged_attention", 0) == 0,
+            "paged_attention ran in [19]")
+    log(f"  [19] launches {launches}; {time.perf_counter() - t0:.1f} s "
+        f"((a), (b), (c) with their replays: "
+        + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:]))
+        + " s)")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: no src/repro_torch beside chip_smoke.py",
@@ -5034,6 +5922,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     mla_launches = phase_mla(torch, dev)
     mark("[17]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_launches = phase_vlm(torch, dev)
+    mark("[18]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_launches = phase_hybrid(torch, dev)
+    mark("[19]")
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
@@ -5050,7 +5946,9 @@ def main() -> int:
                    "supervise": supervise_launches.get(r["name"], 0),
                    "windowed": windowed_launches.get(r["name"], 0),
                    "moe": moe_launches.get(r["name"], 0),
-                   "mla": mla_launches.get(r["name"], 0)}
+                   "mla": mla_launches.get(r["name"], 0),
+                   "vlm": vlm_launches.get(r["name"], 0),
+                   "hybrid": hybrid_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")
@@ -5066,6 +5964,9 @@ def main() -> int:
         if r["name"] in KERNELS[:3]:
             require(by_path["mla"] > 0,
                     f"{r['name']} never ran on the MLA path")
+        if r["name"] in KERNELS[:4]:
+            require(by_path["vlm"] > 0 and by_path["hybrid"] > 0,
+                    f"{r['name']} never ran on the VLM or hybrid path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(smi)

@@ -17,16 +17,16 @@ from repro_torch.configs.base import ArchConfig, param_count
 _MODULES = {
     "deepseek-v3-671b":       "repro_torch.configs.deepseek_v3_671b",
     "nemotron-4-340b":        "repro_torch.configs.nemotron_4_340b",
+    "zamba2-7b":              "repro_torch.configs.zamba2_7b",
     "deepseek-67b":           "repro_torch.configs.deepseek_67b",
     "command-r-35b":          "repro_torch.configs.command_r_35b",
+    "qwen2-vl-7b":            "repro_torch.configs.qwen2_vl_7b",
     "llama4-scout-17b-a16e":  "repro_torch.configs.llama4_scout_17b_a16e",
     "starcoder2-3b":          "repro_torch.configs.starcoder2_3b",
 }
 
 # the reference registry's other archs: the ROADMAP item that ports each
 UNPORTED = {
-    "qwen2-vl-7b":            "A11.4 (VLM)",
-    "zamba2-7b":              "A11.5 (hybrid)",
     "xlstm-350m":             "A11.6 (SSM)",
     "seamless-m4t-medium":    "A11.7 (audio encoder-decoder)",
 }

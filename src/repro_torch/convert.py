@@ -15,6 +15,10 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve
 
+# leaves the reference keeps in fp32 in a model of any dtype: a MoE
+# router, and Mamba2's log decay, skip and step bias
+FP32_KEYS = frozenset({"w_router", "A_log", "D_skip", "dt_bias"})
+
 
 def _leaf_to_torch(a, dtype, device):
     a = np.ascontiguousarray(a)
@@ -34,8 +38,9 @@ def from_jax_numpy(tree: Any, dtype: Optional[torch.dtype] = None,
                    device: DeviceLike = None) -> Any:
     """Nested dicts/lists of numpy arrays -> the same structure of tensors.
     ``dtype`` casts floating leaves (None keeps each leaf's own type),
-    except a MoE router (``w_router``), which stays fp32 in a tree of any
-    dtype as the reference keeps it."""
+    except those of ``FP32_KEYS`` (a MoE router, Mamba2's ``A_log``,
+    ``D_skip`` and ``dt_bias``), which stay fp32 in a tree of any dtype
+    as the reference keeps them."""
     dev = resolve(device)
 
     def go(x, key=None):
@@ -43,7 +48,7 @@ def from_jax_numpy(tree: Any, dtype: Optional[torch.dtype] = None,
             return {k: go(v, k) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(go(v) for v in x)
-        return _leaf_to_torch(x, None if key == "w_router" else dtype, dev)
+        return _leaf_to_torch(x, None if key in FP32_KEYS else dtype, dev)
     return go(tree)
 
 

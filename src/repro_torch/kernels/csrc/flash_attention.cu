@@ -11,7 +11,8 @@
 //
 // bf16 (flash_fwd_wgmma_kernel): FlashAttention-2's walk on Hopper's
 // warpgroup products.  A block is NWG = 3 warpgroups of 64 query rows
-// each (192 rows; 2 and 128 at hd 192, see FlashWg), which share every
+// each (192 rows; 2 and 128 at hd 192, see FlashWg; zamba2's hd 112 keeps
+// three, with m64n112k16 for P V), which share every
 // K and V tile: a tile read from L2
 // serves three times the rows it would serve one warpgroup alone, and
 // the K/V bytes re-read from L2, not the tensor instruction, set the
@@ -36,9 +37,9 @@
 // row; thread `part` of a row owns the head dims {c*16 + part*4 + e}, so
 // its q slice and output accumulator live in registers and its
 // shared-memory reads are float4 without bank conflicts.  The block walks
-// BK = 32-key tiles of K and V (in fp32 in dynamic shared memory, 32 KB at
-// hd = 128, 48 KB at hd = 192, the most a block may take without opting
-// in) up to the diagonal; each row's score is the four partial dots
+// BK = 32-key tiles of K and V (in fp32 in dynamic shared memory, 28 KB at
+// hd = 112, 32 KB at hd = 128, 48 KB at hd = 192, the most a block may
+// take without opting in) up to the diagonal; each row's score is the four partial dots
 // merged by two xor shuffles.
 constexpr int BQ = 64, BK = 32, TPR = 4, THREADS = BQ * TPR;
 
@@ -408,6 +409,7 @@ static cudaError_t launch_f32(const void* q, const void* k, const void* v, void*
     case 16: return launch<float, 16>(q, k, v, o, B, S, H, KH, st, scale, stream);
     case 32: return launch<float, 32>(q, k, v, o, B, S, H, KH, st, scale, stream);
     case 64: return launch<float, 64>(q, k, v, o, B, S, H, KH, st, scale, stream);
+    case 112: return launch<float, 112>(q, k, v, o, B, S, H, KH, st, scale, stream);
     case 128: return launch<float, 128>(q, k, v, o, B, S, H, KH, st, scale, stream);
     case 192: return launch<float, 192>(q, k, v, o, B, S, H, KH, st, scale, stream);
     default: return cudaErrorInvalidValue;
@@ -425,6 +427,7 @@ static cudaError_t launch_bf16(const void* q, const void* k, const void* v, void
     case 16: return launch_wgmma<16>(q, k, v, o, B, S, H, KH, st, scale, vec, stream);
     case 32: return launch_wgmma<32>(q, k, v, o, B, S, H, KH, st, scale, vec, stream);
     case 64: return launch_wgmma<64>(q, k, v, o, B, S, H, KH, st, scale, vec, stream);
+    case 112: return launch_wgmma<112>(q, k, v, o, B, S, H, KH, st, scale, vec, stream);
     case 128: return launch_wgmma<128>(q, k, v, o, B, S, H, KH, st, scale, vec, stream);
     case 192: return launch_wgmma<192>(q, k, v, o, B, S, H, KH, st, scale, vec, stream);
     default: return cudaErrorInvalidValue;

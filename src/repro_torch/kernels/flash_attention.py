@@ -20,9 +20,10 @@ operations: about 139 us at the H100's 989 TFLOP/s bf16 tensor rate.
   shared memory; q k^T and P V are ``wgmma`` with q, and P rounded to
   bf16, as register operands (``chunked_attention`` rounds its
   probabilities to bf16 before the PV product too) and K and V read by
-  descriptor.  Only a warpgroup's diagonal tile is masked.  At hd 192
-  a block is two warpgroups, so a thread may hold its 176 registers of
-  q fragments, accumulator and scores without spilling.
+  descriptor.  Only a warpgroup's diagonal tile is masked.  Head dims
+  16, 32, 64, 112 (Zamba2's shared block, P V as m64n112k16), 128 and
+  192; at hd 192 a block is two warpgroups, so a thread may hold its 176
+  registers of q fragments, accumulator and scores without spilling.
 - fp32: the first, SIMT kernel on the fp32 cores (four threads to a
   query row, 32-key tiles), kept because tensor cores in fp32 mean TF32
   and the fp32 checks hold 1e-5 and 1e-4.
@@ -37,7 +38,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.online import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 192)
+HEAD_DIMS = (16, 32, 64, 112, 128, 192)
 
 
 def _block_attend(q, k, v, row_pos, col_pos, window: int = 0):

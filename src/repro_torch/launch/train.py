@@ -37,9 +37,12 @@ and the supervisor's events are printed after the run.
 ``--checkpoint-every N`` writes the trainer's params to
 ``--checkpoint-path`` every N steps.  ``--arch`` names a config of the
 registry (``repro_torch.configs.list_archs()``: the windowed dense archs,
-the MoE llama4-scout-17b-a16e and the MLA + MTP deepseek-v3-671b, default
-``starcoder2-3b`` as in the reference) or ``llama31-8b``; the registry's
-other families (ROADMAP A11.4-A11.7) are not ported.  Submeshes (A12)
+the MoE llama4-scout-17b-a16e, the MLA + MTP deepseek-v3-671b, the VLM
+qwen2-vl-7b and the hybrid zamba2-7b, default ``starcoder2-3b`` as in the
+reference) or ``llama31-8b``; the registry's other families (ROADMAP
+A11.6-A11.7) are not ported.  qwen2-vl-7b's generator needs patch
+embeddings, which the executors do not carry in either package, so its
+loop stops at the first generator step, as the reference's does.  Submeshes (A12)
 are not ported either: ``--child-mesh`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -218,7 +221,7 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="starcoder2-3b",
                     choices=configs.list_archs() + ["llama31-8b"],
                     help="model config; the registry's other archs come "
-                    "with ROADMAP A11.4-A11.7")
+                    "with ROADMAP A11.6-A11.7")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config")
     ap.add_argument("--device", default="cuda",

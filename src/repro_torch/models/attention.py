@@ -12,8 +12,10 @@ positions out of order, so ``slot_pos`` is the only record of which
 position a slot holds.  MLA (DeepSeek-V3) trains and prefills in the
 expanded form, whose asymmetric head dims ``dispatch.attention`` sends to
 ``chunked_attention`` as the reference does, and decodes in the absorbed
-form over its latent cache, plain torch.  M-RoPE comes with a later
-slice.
+form over its latent cache, plain torch.  Qwen2-VL's M-RoPE turns q and
+k by (temporal, height, width) position ids; the paged decode and the
+prefill continuation refuse it, as the reference's do (no engine takes
+the VLM family).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import chunked_attention  # noqa: F401
 from repro_torch.kernels.online import NEG_INF
-from repro_torch.models.common import apply_rope, dense_init, rmsnorm
+from repro_torch.models.common import apply_mrope, apply_rope, dense_init, \
+    rmsnorm
 
 
 def gqa_params(gen, cfg, n_layers: int, dtype, device):
@@ -50,30 +53,35 @@ def _qkv(p, x, cfg):
             v.reshape(B, S, K, hd))
 
 
-def _rope(cfg):
-    if cfg.rope_kind not in ("rope", "none"):
-        raise NotImplementedError(
-            f"rope_kind={cfg.rope_kind!r}: ported with the remaining "
-            "families (ROADMAP A11)")
-    return cfg.rope_kind == "rope"
+def _rotate(q, k, cfg, positions, mrope_pos=None):
+    """q and k turned at ``positions`` [B, S] (RoPE) or at ``mrope_pos``
+    [3, B, S] (M-RoPE; None takes t = h = w = ``positions``, the text
+    rule); unchanged for ``rope_kind="none"``."""
+    if cfg.rope_kind == "rope":
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    if cfg.rope_kind == "mrope":
+        mp = torch.stack([positions] * 3) if mrope_pos is None \
+            else mrope_pos
+        return (apply_mrope(q, mp, cfg.rope_theta),
+                apply_mrope(k, mp, cfg.rope_theta))
+    return q, k
 
 
-def gqa_forward(p, x, cfg, *, window: int = 0):
+def gqa_forward(p, x, cfg, *, window: int = 0, mrope_pos=None):
     """Full-sequence causal GQA, over a sliding ``window`` when it is not
-    0.  Returns (y, (k, v)) so prefill can build the KV cache; keys are
-    returned already rotated."""
+    0; M-RoPE turns at ``mrope_pos`` [3, B, S].  Returns (y, (k, v)) so
+    prefill can build the KV cache; keys are returned already rotated."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
-    if _rope(cfg):
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rotate(q, k, cfg, torch.arange(S, device=x.device).expand(B, S),
+                   mrope_pos)
     y = dispatch.attention(q, k, v, window=window)
     return y.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
 def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg, *,
-               window: int = 0):
+               window: int = 0, mrope_pos=None):
     """One-token decode.  x: [B, 1, D]; cache_[kv]: [B, Sc, K, hd];
     cache_pos: [Sc] absolute position per slot (-1 = empty); pos: an int
     (one cursor for every row) or a [B] int tensor (one decode cursor per
@@ -81,7 +89,8 @@ def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg, *,
 
     The new rotated KV goes to slot ``pos % Sc`` (a ring); with a
     ``window`` a slot more than ``window - 1`` positions behind the
-    cursor is masked.  With per-row
+    cursor is masked.  M-RoPE turns at ``mrope_pos`` [3, B, 1], by
+    default the row's position three times.  With per-row
     ``pos`` each row writes its own slot and masks against its own
     cursor; the rows share one ``cache_pos``, which is consistent only
     while the ring never wraps (Sc > max pos): slot ``s`` then holds
@@ -104,9 +113,7 @@ def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg, *,
     per_row = torch.is_tensor(pos)
     posb = pos[:, None] if per_row else torch.full((B, 1), pos,
                                                    device=x.device)
-    if _rope(cfg):
-        q = apply_rope(q, posb, cfg.rope_theta)
-        k = apply_rope(k, posb, cfg.rope_theta)
+    q, k = _rotate(q, k, cfg, posb, mrope_pos)
     Sc = cache_k.shape[1]
     if per_row:
         slot = (pos % Sc).long()
@@ -155,15 +162,14 @@ def gqa_decode_paged(p, x, arena_k, arena_v, page_table, pos, cfg, *,
     every decode cursor); zombie rows may collide on the trash page, which
     no live row reads.  Attention goes through
     ``dispatch.paged_attention`` with ``window``, whose CPU route is the
-    dense ``gqa_decode`` arithmetic.  Returns y [B, 1, D].
+    dense ``gqa_decode`` arithmetic.  M-RoPE is refused, as in the
+    reference.  Returns y [B, 1, D].
     """
+    assert cfg.rope_kind != "mrope", "paged decode is rope/none only"
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.hd
     q, k, v = _qkv(p, x, cfg)
-    if _rope(cfg):
-        posb = pos[:, None]
-        q = apply_rope(q, posb, cfg.rope_theta)
-        k = apply_rope(k, posb, cfg.rope_theta)
+    q, k = _rotate(q, k, cfg, pos[:, None])
     P = arena_k.shape[1]
     rows = torch.arange(B, device=x.device)
     blk = torch.clamp(pos // P, max=page_table.shape[1] - 1).long()
@@ -186,15 +192,15 @@ def gqa_extend(p, x, prefix_k, prefix_v, cfg, *, q_offset: int,
     attention is independent of the others and the cached prefix KVs are
     what a full prefill produced, so the suffix KVs and logits equal a
     prefill from token 0.  With ``q_offset == 0`` it is the full prefill
-    (the flash kernel on the card when ``window`` is 0).  Returns (y, (k, v)) with k/v the
+    (the flash kernel on the card when ``window`` is 0).  M-RoPE is
+    refused, as in the reference.  Returns (y, (k, v)) with k/v the
     suffix KVs only.
     """
+    assert cfg.rope_kind != "mrope", "paged extend is rope/none only"
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
-    if _rope(cfg):
-        positions = (torch.arange(S, device=x.device) + q_offset).expand(B, S)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rotate(q, k, cfg,
+                   (torch.arange(S, device=x.device) + q_offset).expand(B, S))
     cat_k = torch.cat([prefix_k.to(k.dtype), k], dim=1)
     cat_v = torch.cat([prefix_v.to(v.dtype), v], dim=1)
     y = dispatch.attention(q, cat_k, cat_v, window=window, q_offset=q_offset)

@@ -1,17 +1,25 @@
-"""Backbone: dense- and MoE-family model assembly (the port of the JAX
-package's ``models/backbone.py``).
+"""Backbone: model assembly for the dense, MoE, VLM and hybrid families
+(the port of the JAX package's ``models/backbone.py``).
 
 Params are nested dicts of tensors in the reference pytree's key layout,
 layers stacked on a leading axis, so ``convert`` maps one onto the other
-key for key.  A dense model has one stack, ``layers``; a MoE model has
-``dense_layers`` (its ``first_k_dense`` leading layers, when set) and
+key for key.  A dense or VLM model has one stack, ``layers``; a MoE model
+has ``dense_layers`` (its ``first_k_dense`` leading layers, when set) and
 ``moe_layers`` (``layer_stacks``).  Each stack is a Python loop where the
 reference scans, walked in segments of one window size each
 (``_segment_windows``).  Attention is GQA or MLA (``attn_kind``); a MoE
 model with ``mtp`` (DeepSeek-V3) also has ``mtp``, the multi-token
 prediction head, whose ``block`` is one decoder layer with a dense MLP
-and no leading layer axis, as in the reference.  The other families come
-with ROADMAP A11.4-A11.7.
+and no leading layer axis, as in the reference.
+
+A VLM (Qwen2-VL) prefixes its tokens with precomputed patch embeddings
+(``batch["patch_embeds"]``, the vision tower is a stub in both packages)
+and turns q and k by M-RoPE: patch i at (0, i // side, i % side) with
+side = floor(sqrt(P)), text token t at side + t in all three sections.
+A hybrid (Zamba2) has ``mamba_layers``, a stack of Mamba2 layers, and
+``shared_attn``, one decoder layer with no leading axis whose weights
+run before every group of ``shared_attn_every`` Mamba layers.  The SSM
+and audio families come with ROADMAP A11.6-A11.7.
 """
 from __future__ import annotations
 
@@ -23,32 +31,44 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffnmod
-from repro_torch.models.common import dense_init, norm
+from repro_torch.models import ssm as ssmmod
+from repro_torch.models.common import dense_init, norm, \
+    text_mrope_positions
 
 Params = Dict[str, Any]
 
 # what is not ported yet, by family: its ROADMAP item
-_UNPORTED = {"vlm": "A11.4 (VLM)", "hybrid": "A11.5 (hybrid)",
-             "ssm": "A11.6 (SSM)", "audio": "A11.7 (audio encoder-decoder)"}
+_UNPORTED = {"ssm": "A11.6 (SSM)", "audio": "A11.7 (audio encoder-decoder)"}
 
 
 def check_family(cfg: ArchConfig) -> None:
     """The port runs the dense and MoE families with GQA or MLA attention,
-    with or without windows, and the MoE family's MTP head."""
+    with or without windows, the MoE family's MTP head, and the VLM and
+    hybrid families with GQA."""
     if cfg.family in ("dense", "moe") and cfg.attn_kind in ("gqa", "mla"):
         if cfg.attn_kind == "mla" and cfg.mla is None:
             raise ValueError(f"{cfg.name}: attn_kind='mla' needs an "
                              "MLAConfig in cfg.mla")
         return
+    if cfg.family in ("vlm", "hybrid") and cfg.attn_kind == "gqa":
+        if cfg.family == "hybrid" and (cfg.ssm is None
+                                       or cfg.shared_attn_every < 1):
+            raise ValueError(f"{cfg.name}: the hybrid family needs an "
+                             "SSMConfig and shared_attn_every >= 1")
+        return
     raise NotImplementedError(
         f"family={cfg.family!r}, attn_kind={cfg.attn_kind!r}: the port "
-        "runs the dense and MoE families with GQA or MLA attention; this "
-        f"one comes with ROADMAP {_UNPORTED.get(cfg.family, 'A11')}")
+        "runs the dense and MoE families with GQA or MLA attention and "
+        "the VLM and hybrid families with GQA; this one comes with "
+        f"ROADMAP {_UNPORTED.get(cfg.family, 'A11')}")
 
 
 def layer_stacks(cfg: ArchConfig) -> list:
-    """The layer stacks in the order every path walks them, as
-    ``(params key, n_layers, index of the stack's first layer)``."""
+    """The attention layer stacks in the order every path walks them, as
+    ``(params key, n_layers, index of the stack's first layer)``; none
+    for the hybrid family, whose one attention layer is ``shared_attn``."""
+    if cfg.family == "hybrid":
+        return []
     if cfg.family == "moe":
         fkd = cfg.moe.first_k_dense
         return ([("dense_layers", fkd, 0)] if fkd else []) \
@@ -75,8 +95,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
                 device: DeviceLike = None) -> Params:
     """Random params drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``, with the reference's shapes and scales (a MoE router
-    stays fp32 whatever ``dtype`` is, as in the reference).  The MTP
-    head's ``block`` is one layer with no leading axis."""
+    and Mamba2's ``A_log``, ``D_skip`` and ``dt_bias`` stay fp32 whatever
+    ``dtype`` is, as in the reference).  The MTP head's ``block`` and the
+    hybrid's ``shared_attn`` are one layer with no leading axis."""
     check_family(cfg)
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -90,6 +111,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     for key, n, _ in layer_stacks(cfg):
         params[key] = _layer_params(gen, cfg, n, dtype, dev,
                                     moe=key == "moe_layers")
+    if cfg.family == "hybrid":
+        L = cfg.n_layers
+        params["mamba_layers"] = {
+            "ln1": torch.ones((L, D), dtype=dtype, device=dev),
+            "mamba": ssmmod.mamba2_params(gen, cfg, L, dtype, dev)}
+        params["shared_attn"] = unstack(_layer_params(
+            gen, cfg, 1, dtype, dev, moe=False), 1)[0]
     if cfg.family == "moe" and cfg.mtp:
         params["mtp"] = {
             "proj": dense_init(gen, (2 * D, D), dtype, dev),
@@ -134,14 +162,15 @@ def _segment_windows(cfg, n_layers, offset=0, seq_len=0):
     return runs
 
 
-def _attn_block(p, x, cfg, *, window=0):
+def _attn_block(p, x, cfg, *, window=0, mrope_pos=None):
     """The attention half of a layer: (x + attn(norm(x)), what the cache
     holds: rotated (k, v), or MLA's (c_kv, k_rope))."""
     h = norm(x, p["ln1"], cfg.norm)
     if cfg.attn_kind == "mla":
         y, kv = attn.mla_forward(p["attn"], h, cfg)
     else:
-        y, kv = attn.gqa_forward(p["attn"], h, cfg, window=window)
+        y, kv = attn.gqa_forward(p["attn"], h, cfg, window=window,
+                                 mrope_pos=mrope_pos)
     return x + y, kv
 
 
@@ -165,21 +194,23 @@ def unstack(stacked: Params, n: int) -> list:
 
 
 def _run_decoder_stack(stacked, x, cfg, n_layers: int, offset: int = 0,
-                       collect_kv: bool = False, seq_len: int = 0):
+                       collect_kv: bool = False, seq_len: int = 0,
+                       mrope_pos=None):
     """The ``n_layers`` layers of one stack in order (global layer indices
     from ``offset``, which set the windows), segment by segment of one
     window each.  Returns (x, the summed MoE aux, kv_segs): with
     ``collect_kv`` each segment's rotated (k, v), stacked [L_seg, B, S,
     K, hd] (MLA: (c_kv, k_rope), [L_seg, B, S, *]), for prefill to write
     into the cache.  ``seq_len`` merges windows no shorter than the
-    sequence (training)."""
+    sequence (training); ``mrope_pos`` [3, B, S] are the VLM's M-RoPE
+    positions."""
     layers = unstack(stacked, n_layers)
     aux = 0.0
     kv_segs = []
     for i, j, w in _segment_windows(cfg, n_layers, offset, seq_len):
         kvs = []
         for p in layers[i:j]:
-            x, kv = _attn_block(p, x, cfg, window=w)
+            x, kv = _attn_block(p, x, cfg, window=w, mrope_pos=mrope_pos)
             x, a = _ffn_block(p, x, cfg)
             aux = aux + a
             if collect_kv:
@@ -194,6 +225,40 @@ def _embed(params, cfg, tokens):
     return params["embed"][tokens.long()]
 
 
+def vlm_prefix(cfg, x, batch):
+    """A VLM's input: the patch embeddings [B, P, D] (cast to x's dtype)
+    before the token embeddings x [B, S, D], and the M-RoPE positions
+    [3, B, P + S] of both: patch i at (0, i // side, i % side), token t
+    at side + t, with side = floor(sqrt(P)).  Returns (x, mrope_pos,
+    P)."""
+    patches = batch["patch_embeds"].to(x.dtype)
+    B, P = patches.shape[:2]
+    side = max(int(P ** 0.5), 1)
+    i = torch.arange(P, device=x.device).expand(B, P)
+    vis = torch.stack([torch.zeros_like(i), i // side, i % side])
+    txt = text_mrope_positions(B, x.shape[1], offset=side, device=x.device)
+    return (torch.cat([patches, x], dim=1), torch.cat([vis, txt], dim=-1),
+            P)
+
+
+def hybrid_groups(cfg) -> list:
+    """The hybrid's Mamba layer groups ``(start, end)``: the shared
+    attention block runs before each, ceil(n_layers / shared_attn_every)
+    times in all; the last group may be shorter."""
+    k, L = cfg.shared_attn_every, cfg.n_layers
+    return [(i, min(i + k, L)) for i in range(0, L, k)]
+
+
+def mamba_layer(p, x, cfg, return_state: bool = False):
+    """x + Mamba2(norm(x)) (and, with ``return_state``, the layer's decode
+    state after the last step)."""
+    out = ssmmod.mamba2_forward(p["mamba"], norm(x, p["ln1"], cfg.norm),
+                                cfg, return_state=return_state)
+    if return_state:
+        return x + out[0], out[1]
+    return x + out
+
+
 def _logits(params, cfg, x):
     """Logits in the params' dtype."""
     x = norm(x, params["final_norm"], cfg.norm)
@@ -206,15 +271,30 @@ def forward_train(params: Params, cfg: ArchConfig, batch) -> tuple:
     MoE layers' summed load-balance loss in ``aux["moe_aux"]`` and, with
     an MTP head, its logits [B, S, V] in ``aux["mtp_logits"]``: position
     t predicts token t + 2 from (h_t, embed(token t + 1)), the last
-    position reading its own token again, as in the reference."""
+    position reading its own token again, as in the reference.  A VLM's
+    batch holds ``patch_embeds`` [B, P, D]; its logits are the text
+    positions' only."""
     check_family(cfg)
     tokens = batch["tokens"]
+    S = tokens.shape[1]
     x = _embed(params, cfg, tokens)
+    mrope_pos = None
+    if cfg.family == "vlm":
+        x, mrope_pos, _ = vlm_prefix(cfg, x, batch)
     aux = 0.0
     for key, n, off in layer_stacks(cfg):
         x, a, _ = _run_decoder_stack(params[key], x, cfg, n, off,
-                                     seq_len=x.shape[1])
+                                     seq_len=x.shape[1], mrope_pos=mrope_pos)
         aux = aux + a
+    if cfg.family == "vlm":
+        x = x[:, -S:]
+    if cfg.family == "hybrid":
+        layers = unstack(params["mamba_layers"], cfg.n_layers)
+        for i, j in hybrid_groups(cfg):
+            x, _ = _attn_block(params["shared_attn"], x, cfg)
+            x, _ = _ffn_block(params["shared_attn"], x, cfg)
+            for p in layers[i:j]:
+                x = mamba_layer(p, x, cfg)
     out = {"moe_aux": aux}
     if cfg.mtp and "mtp" in params:
         mtp = params["mtp"]

@@ -54,6 +54,41 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def mrope_sections(head_dim: int):
+    """Qwen2-VL's M-RoPE: the rotary pairs split into (temporal, height,
+    width) sections; (16, 24, 24) at head dim 128."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x, pos_thw, theta: float):
+    """x: [B, S, H, hd]; pos_thw: [3, B, S] (temporal, height and width
+    position ids).  Each section of the rotary pairs turns by its own
+    position id; the angles are fp32, from ``rope_freqs``."""
+    hd = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                            device=x.device)
+    ang_all = pos_thw[..., None].float() * freqs           # [3, B, S, hd/2]
+    pieces, off = [], 0
+    for i, sec in enumerate(mrope_sections(hd)):
+        pieces.append(ang_all[i, ..., off:off + sec])
+        off += sec
+    ang = torch.cat(pieces, dim=-1)                        # [B, S, hd/2]
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def text_mrope_positions(batch: int, seq: int, offset=0, device=None):
+    """Plain text: t == h == w == position (Qwen2-VL's rule for text).
+    Returns [3, B, S] int64."""
+    p = (torch.arange(seq, device=device) + offset).expand(batch, seq)
+    return torch.stack([p, p, p])
+
 # ------------------------------------------------------------------ init ---
 
 def dense_init(gen: torch.Generator, shape, dtype, device,

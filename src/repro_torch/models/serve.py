@@ -1,6 +1,6 @@
 """Serving path: KV cache, prefill, single-token decode (the port of the
-JAX package's ``models/serve.py``, dense and MoE families), and the
-engine's slot-pool helpers.
+JAX package's ``models/serve.py``: the dense, MoE, VLM and hybrid
+families), and the engine's slot-pool helpers.
 
 Two cache layouts, as in the reference:
 - dense: ``{"pos", "segments": [{"k", "v", "slot_pos"}]}`` with k/v
@@ -18,6 +18,15 @@ Two cache layouts, as in the reference:
   page is the trash page) and one page_table [B, max_blocks + 1] int32
   for every segment, every entry starting on the trash page.
 
+A VLM's dense cache is the dense family's; its prefill writes the patch
+prefix and the prompt, so ``pos`` counts both.  A hybrid's cache is
+``{"pos", "mamba": {"conv", "ssm"}, "attn": {"k", "v", "slot_pos"}}``:
+the Mamba2 states stacked over the layers (conv [L, B, K-1, C] and ssm
+[L, B, H, P, N], fp32) and one ring of ``min(cache_len, 4096)`` slots
+for the shared attention block's ceil(L / shared_attn_every)
+applications, k/v [G, B, Sc, K, hd], the reference's own ring: past 4096
+positions it wraps and the block attends over the last 4096.
+
 ``pos`` is a Python int, one cursor for every row, or a [B] int32
 tensor, one decode cursor per row (the engine's slot pool; the paged
 layout always has it, and neither takes MLA, as in the reference).
@@ -32,10 +41,14 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import backbone as bb
+from repro_torch.models import ssm as ssmmod
 from repro_torch.models.common import norm
 from repro_torch.models.paging import paged_blocks
 
 Cache = Dict[str, Any]
+
+# the hybrid's shared attention ring, as the reference sizes it
+HYBRID_RING = 4096
 
 
 def _seg_cache_len(cache_len: int, window: int) -> int:
@@ -72,10 +85,13 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int,
     ring of ``min(cache_len, window)`` slots a segment.  The paged layout
     holds, for each segment, ``n_pages`` allocatable pages of
     ``page_size`` slots plus the trash page, and one table of
-    ``paged_blocks(cache_len, page_size) + 1`` entries a row."""
+    ``paged_blocks(cache_len, page_size) + 1`` entries a row.  A
+    hybrid's cache is its Mamba2 states and its shared block's ring."""
     bb.check_family(cfg)
     K, hd = cfg.n_kv_heads, cfg.hd
     if layout == "paged":
+        assert cfg.family in ("dense", "moe"), \
+            f"paged layout covers dense/moe GQA only, got {cfg.family!r}"
         assert cfg.attn_kind != "mla", \
             "paged layout covers dense/moe GQA only (MLA latent caches " \
             "need latent-shaped pages)"
@@ -109,6 +125,13 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int,
         seg["slot_pos"] = torch.full((Sc,), -1, dtype=torch.int32,
                                      device=device)
         return seg
+    if cfg.family == "hybrid":
+        state = ssmmod.mamba2_init_state(cfg, B, device=device)
+        return {"pos": 0,
+                "mamba": {k: v.expand((cfg.n_layers,) + v.shape).clone()
+                          for k, v in state.items()},
+                "attn": ring(len(bb.hybrid_groups(cfg)),
+                             min(cache_len, HYBRID_RING))}
     return {"pos": 0,
             "segments": [ring(n, _seg_cache_len(cache_len, w))
                          for n, w in segment_layout(cfg)]}
@@ -132,19 +155,48 @@ def _write_seg(seg, kvs, start: int):
 
 def prefill(params, cfg: ArchConfig, batch, cache_len: int,
             dtype=torch.bfloat16):
-    """batch: {'tokens': [B, S]}.  Returns (last_logits [B, V], cache)."""
+    """batch: {'tokens': [B, S]}, with ``patch_embeds`` [B, P, D] for a
+    VLM (then ``cache_len`` must hold P + S + the decoded tokens).
+    Returns (last_logits [B, V], cache)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = bb._embed(params, cfg, tokens)
     cache = init_cache(cfg, B, cache_len, dtype, device=x.device)
+    if cfg.family == "hybrid":
+        return _prefill_hybrid(params, cfg, x, cache)
+    mrope_pos, prefix = None, 0
+    if cfg.family == "vlm":
+        x, mrope_pos, prefix = bb.vlm_prefix(cfg, x, batch)
     kv_segs = []
     for key, n, off in bb.layer_stacks(cfg):
         x, _, kvs = bb._run_decoder_stack(params[key], x, cfg, n, off,
-                                          collect_kv=True)
+                                          collect_kv=True,
+                                          mrope_pos=mrope_pos)
         kv_segs += kvs
     for seg, kvs in zip(cache["segments"], kv_segs):
         _write_seg(seg, kvs, start=0)
-    cache["pos"] = S
+    cache["pos"] = S + prefix
+    return bb._logits(params, cfg, x[:, -1]), cache
+
+
+def _prefill_hybrid(params, cfg, x, cache):
+    """The hybrid's prefill: the shared block before each Mamba group,
+    its rotated KV of each application into the ring, each Mamba layer's
+    state after the last step into ``cache["mamba"]``."""
+    layers = bb.unstack(params["mamba_layers"], cfg.n_layers)
+    shared = params["shared_attn"]
+    ks, vs = [], []
+    for i, j in bb.hybrid_groups(cfg):
+        x, (k, v) = bb._attn_block(shared, x, cfg)
+        x, _ = bb._ffn_block(shared, x, cfg)
+        ks.append(k)
+        vs.append(v)
+        for li in range(i, j):
+            x, st = bb.mamba_layer(layers[li], x, cfg, return_state=True)
+            for name, t in st.items():
+                cache["mamba"][name][li] = t
+    _write_seg(cache["attn"], (torch.stack(ks), torch.stack(vs)), start=0)
+    cache["pos"] = x.shape[1]
     return bb._logits(params, cfg, x[:, -1]), cache
 
 
@@ -173,10 +225,21 @@ def _extend_collect(params, cfg, x, prefix_kvs, q_offset: int):
 def decode_step(params, cfg: ArchConfig, cache: Cache, tokens):
     """tokens: [B, 1].  Returns (logits [B, V], cache) with the cache
     advanced in place by one position (each row's own cursor when ``pos``
-    is a tensor), segment by segment."""
+    is a tensor), segment by segment.  A VLM's token at cache position
+    ``pos`` turns at side + pos - P in all three M-RoPE sections (P
+    patches, side = floor(sqrt(P)))."""
     pos = cache["pos"]
     table = cache.get("page_table")
     x = bb._embed(params, cfg, tokens)
+    if cfg.family == "hybrid":
+        return _decode_hybrid(params, cfg, cache, x)
+    mrope_pos = None
+    if cfg.family == "vlm":
+        P = cfg.frontend_tokens
+        side = max(int(P ** 0.5), 1)
+        t = (torch.full((x.shape[0], 1), pos, device=x.device)
+             if not torch.is_tensor(pos) else pos[:, None]) + side - P
+        mrope_pos = torch.stack([t, t, t])
     for (layers, w), seg in zip(stack_segments(params, cfg),
                                 cache["segments"]):
         for li, p in enumerate(layers):
@@ -192,8 +255,33 @@ def decode_step(params, cfg: ArchConfig, cache: Cache, tokens):
             else:
                 y = attn.gqa_decode(p["attn"], h, seg["k"][li],
                                     seg["v"][li], seg["slot_pos"], pos, cfg,
-                                    window=w)
+                                    window=w, mrope_pos=mrope_pos)
             x, _ = bb._ffn_block(p, x + y, cfg)
+    cache["pos"] = pos + 1
+    return bb._logits(params, cfg, x[:, -1]), cache
+
+
+def _decode_hybrid(params, cfg, cache, x):
+    """The hybrid's decode step: the shared block against its ring (no
+    window; the ring's slots are its span) before each Mamba group, then
+    ``mamba2_decode`` a layer at a time, each state updated in place."""
+    pos = cache["pos"]
+    layers = bb.unstack(params["mamba_layers"], cfg.n_layers)
+    shared, ring, states = params["shared_attn"], cache["attn"], \
+        cache["mamba"]
+    for g, (i, j) in enumerate(bb.hybrid_groups(cfg)):
+        y = attn.gqa_decode(shared["attn"], norm(x, shared["ln1"], cfg.norm),
+                            ring["k"][g], ring["v"][g], ring["slot_pos"],
+                            pos, cfg)
+        x, _ = bb._ffn_block(shared, x + y, cfg)
+        for li in range(i, j):
+            p = layers[li]
+            y, st = ssmmod.mamba2_decode(
+                p["mamba"], norm(x, p["ln1"], cfg.norm),
+                {k: v[li] for k, v in states.items()}, cfg)
+            x = x + y
+            for name, t in st.items():
+                states[name][li] = t
     cache["pos"] = pos + 1
     return bb._logits(params, cfg, x[:, -1]), cache
 

@@ -37,16 +37,25 @@ class RolloutState:
         return replace(self, **kw)
 
 
+def _prefix(cfg) -> int:
+    """The cache positions ahead of the tokens: a VLM's patches."""
+    return cfg.frontend_tokens if cfg.family == "vlm" else 0
+
+
 @torch.no_grad()
 def start_rollout(params, cfg, prompts, total_len: int,
-                  dtype=torch.float32, cache_len: int = 0) -> RolloutState:
+                  dtype=torch.float32, cache_len: int = 0,
+                  extra=None) -> RolloutState:
     """prompts: [B, S_p] int (rectangular), on the params' device.  The
     KV cache defaults to fp32 whatever the params' dtype, as in the
-    reference."""
+    reference.  ``extra`` joins the prefill's batch (a VLM's
+    ``patch_embeds``); the cache then defaults to ``total_len`` plus the
+    patch prefix."""
     B, Sp = prompts.shape
-    last_logits, cache = prefill(params, cfg, {"tokens": prompts},
-                                 cache_len=cache_len or total_len,
-                                 dtype=dtype)
+    batch = {"tokens": prompts, **(extra or {})}
+    last_logits, cache = prefill(params, cfg, batch,
+                                 cache_len=cache_len
+                                 or total_len + _prefix(cfg), dtype=dtype)
     tokens = torch.zeros((B, total_len), dtype=torch.int32,
                          device=prompts.device)
     tokens[:, :Sp] = prompts
@@ -70,7 +79,7 @@ def rollout_chunk(params, cfg, state: RolloutState, key, *, n_steps: int,
                   temperature: float = 1.0) -> RolloutState:
     """Generate up to ``n_steps`` tokens; resumable (partial rollout).  The
     cache advances in place."""
-    cursor = state.cache["pos"]
+    cursor = state.cache["pos"] - _prefix(cfg)
     cache, logits, done = state.cache, state.last_logits, state.done
     toks, lps = [], []
     for k in prng.split(key, n_steps):
@@ -110,17 +119,18 @@ def finalize_rollout(state: RolloutState, max_new: int) -> RolloutState:
 
 def generate(params, cfg, prompts, *, max_new: int, key,
              temperature: float = 1.0, chunk: int = 0,
-             dtype=torch.float32) -> RolloutState:
+             dtype=torch.float32, extra=None) -> RolloutState:
     """Full rollout = start + ceil(max_new/chunk) resumable chunks, every
     chunk of the same ``chunk`` steps, sliced back to ``prompt + max_new``
-    (the reference's bucketing)."""
+    (the reference's bucketing).  ``extra`` goes to ``start_rollout``."""
     B, Sp = prompts.shape
     if max_new <= 0:
-        return start_rollout(params, cfg, prompts, Sp, dtype=dtype)
+        return start_rollout(params, cfg, prompts, Sp, dtype=dtype,
+                             extra=extra)
     chunk = chunk or max_new
     n_chunks = -(-max_new // chunk)
     state = start_rollout(params, cfg, prompts, Sp + n_chunks * chunk,
-                          dtype=dtype)
+                          dtype=dtype, extra=extra)
     for _ in range(n_chunks):
         key, sub = prng.split(key)
         state = rollout_chunk(params, cfg, state, sub, n_steps=chunk,

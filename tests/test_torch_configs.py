@@ -2,7 +2,8 @@
 package's: every ported config and its smoke variant equal their JAX
 twins field by field, ``list_archs`` is the ported subset in the
 reference's order (deepseek-v3-671b first), and an arch whose family is
-not ported raises with its ROADMAP item."""
+not ported (xlstm's SSM, seamless's audio) raises with its ROADMAP
+item."""
 import dataclasses
 
 import pytest
@@ -16,6 +17,8 @@ WINDOWED = ["starcoder2-3b", "command-r-35b", "deepseek-67b",
             "nemotron-4-340b"]
 MOE = "llama4-scout-17b-a16e"
 MLA = "deepseek-v3-671b"
+VLM = "qwen2-vl-7b"
+HYBRID = "zamba2-7b"
 
 
 def _fields(cfg):
@@ -53,7 +56,7 @@ def test_llama_paper_configs_equal_jax(name):
 def test_list_archs_is_the_ported_subset_in_reference_order():
     ref = jconfigs.list_archs()
     got = configs.list_archs()
-    assert sorted(got) == sorted(WINDOWED + [MOE, MLA])
+    assert sorted(got) == sorted(WINDOWED + [MOE, MLA, VLM, HYBRID])
     assert got == [a for a in ref if a in got] and got[0] == MLA
     assert sorted(got + list(configs.UNPORTED)) == sorted(ref)
 
@@ -72,8 +75,27 @@ def test_mla_config_equals_jax_and_loads(which):
     bb.check_family(cfg)
 
 
+@pytest.mark.parametrize("arch,family,params", [
+    (VLM, "vlm", 7_615_283_200), (HYBRID, "hybrid", 6_751_911_936)])
+@pytest.mark.parametrize("which", ["get_config", "get_smoke"])
+def test_vlm_and_hybrid_configs_equal_jax_and_load(arch, family, params,
+                                                   which):
+    """qwen2-vl-7b (A11.4) and zamba2-7b (A11.5) are ported: each config
+    and smoke variant equals the JAX one field by field (its SSMConfig
+    and frontend fields included), the published configs count the
+    reference's params, and the port builds them."""
+    cfg = getattr(configs, which)(arch)
+    want = getattr(jconfigs, which)(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    assert cfg.family == family and arch not in configs.UNPORTED
+    assert configs.param_count(cfg) == jconfigs.param_count(want)
+    if which == "get_config":
+        assert configs.param_count(cfg)[0] == params
+    from repro_torch.models import backbone as bb
+    bb.check_family(cfg)
+
+
 @pytest.mark.parametrize("arch,item", [
-    ("qwen2-vl-7b", "A11.4"), ("zamba2-7b", "A11.5"),
     ("xlstm-350m", "A11.6"), ("seamless-m4t-medium", "A11.7"),
 ])
 def test_unported_arch_names_its_roadmap_item(arch, item):

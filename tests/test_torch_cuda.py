@@ -188,7 +188,7 @@ def test_cuda_fused_logprob_strided(cuda, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,H,K,hd", [(128, 8, 2, 32), (100, 4, 4, 64),
                                       (77, 8, 1, 16), (130, 4, 2, 128),
-                                      (200, 10, 2, 192)])
+                                      (200, 10, 2, 192), (150, 8, 8, 112)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3e-2)])
 def test_cuda_flash_attention(cuda, S, H, K, hd, dtype, tol):
@@ -206,7 +206,7 @@ def test_cuda_flash_attention(cuda, S, H, K, hd, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 192])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 192])
 @pytest.mark.parametrize("layout", ["contiguous", "unaligned"])
 def test_cuda_flash_attention_bf16_peaked(cuda, hd, layout):
     """The tensor-core kernel at S = 2048 on sharply peaked attention (q x
@@ -314,7 +314,8 @@ def test_cuda_token_logprob_grad(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,H,K,hd", [(80, 8, 2, 128), (100, 4, 4, 64)])
+@pytest.mark.parametrize("S,H,K,hd", [(80, 8, 2, 128), (100, 4, 4, 64),
+                                      (80, 8, 8, 112)])
 def test_cuda_attention_grad(cuda, S, H, K, hd):
     """The flash forward's recompute backward against chunked_attention's
     gradient under autograd, on the card in fp32."""

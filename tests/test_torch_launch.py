@@ -131,7 +131,7 @@ def test_tracks_the_jax_launcher():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "zamba2-7b"], "A11"),
+    (["--arch", "xlstm-350m"], "A11"),
     (["--child-mesh", "1x2"], "A12"),
 ])
 def test_unported_flags_raise(flags, item):

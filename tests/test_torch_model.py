@@ -144,7 +144,7 @@ def test_other_families_raise():
         init_params(tsmoke().replace(attn_kind="mla"), device="cpu")
     assert init_params(tsmoke().replace(window=8), device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
-        init_params(tsmoke().replace(family="hybrid"), device="cpu")
+        init_params(tsmoke().replace(family="ssm"), device="cpu")
     from repro_torch.models import init_cache
     with pytest.raises(ValueError, match="dense|paged"):
         init_cache(tsmoke(), 1, 8, device="cpu", layout="ring")
