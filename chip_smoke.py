@@ -55,7 +55,7 @@ Each phase prints its own lines:
                device-busy share beside the dense layout's decode time;
                then the same engine at 2 layers in fp32, its behaviour
                log-probs within 1e-3 of the reference's
-  [10] pool    llama31-8b widths with 4 layers, bf16 params, fp32 Adam,
+  [10] pool    llama31-8b widths with 2 layers, bf16 params, fp32 Adam,
                KL 0.1: the threaded AsyncExecutorController.  (a) a pool
                of 1, chunk scheduling, 3 steps, bit-equal to
                run_sequential of a controller built the same way (tokens,
@@ -79,7 +79,7 @@ Each phase prints its own lines:
                interpreter, CUDA context and default stream), the reward
                in this process; every child's launch counts, peak memory
                and modules read through a ``probe`` endpoint.  (a)
-               ``proc`` at [10]'s 4 layers, a pool of 1 (chunk
+               ``proc`` at [10]'s 2 layers, a pool of 1 (chunk
                scheduling, the child pinning each job's params): bit-equal
                to [10] (a), its launch counts summed over the children
                equal to [10] (a)'s; (b) an engine pool of 2 on paged KV at
@@ -233,6 +233,50 @@ Each phase prints its own lines:
                launch and B5 must not; the first kernel call of each
                shape of (a) and every call of (b) and (c) are held
                against the plain versions ([2] times B4 at hd 112)
+  [20] ssm     the SSM family, xlstm-350m at its published widths (24
+               blocks, sLSTM at 5, 11 and 17 and mLSTM elsewhere; d 1024,
+               4 heads, mLSTM inner width 2048; V 50304 tied).  (a) full
+               depth, bf16: a batch rollout of 4 x 4 prompts of 256 ids
+               (four mLSTM chunks of 64), 64 new tokens, through
+               GeneratorExecutor and RefPolicyExecutor (scored at
+               [16, 320]); prefill and decode times with the mLSTM's and
+               the sLSTM's shares (profiler ranges around their forward
+               and decode), the recurrent state's bytes; (b) two steps of
+               the async loop at full depth through the executors and
+               SyncExecutorController, sequences of 32 (longer, the
+               gradient through the reference's chaotic sLSTM init
+               swamps the rest, in both packages), KL 0.1: the list
+               of layers through Adam, weight sync and the generator,
+               every leaf but the norms moves; (c) the smoke config in
+               fp32: logits card against CPU, prefill + decode against
+               the forward, the chunked mLSTM across two chunks against
+               its stepwise decode, a batch rollout's mu against the
+               reference's (1e-3 each).  B1, B2 and B3 must launch, B4
+               and B5 must not (the family has no attention)
+  [21] audio   the audio encoder-decoder family, seamless-m4t-medium at
+               its published widths (12 encoder and 12 decoder layers, d
+               1024, 16/16 heads of 64, d_ff 4096 SiLU-gated, V 256206
+               untied, 1024 frame embeddings a row from the stub front
+               end).  (a) full depth, bf16: a batch rollout of 4 x 4
+               prompts of 64 ids behind the frames, 64 new tokens,
+               through start_rollout(extra=) and rollout_chunk (the
+               executors carry no frames, in either package), scored at
+               [16, 128] with the frames: B4 at hd 64 in the decoder's
+               prefill and scoring, 12 launches a forward; the encoder
+               and the cross attention run the plain chunked_attention,
+               as the reference routes them; the encoder's share of the
+               prefill, the cross attention's share of decode, the
+               cross-K/V cache's bytes; (b) two make_train_step steps at
+               full depth with the frames in the batch, each on a rollout
+               of its own params (64 + 32 ids), KL 0.1: every leaf but
+               the norms moves;
+               (c) the smoke config in fp32: logits card against CPU,
+               prefill + decode against the forward, a batch rollout's mu
+               against the reference's (1e-3 each).  B1-B4 must launch,
+               B5 must not.  In [20] and [21] the first kernel call of
+               each shape of (a) and every call of (b) and (c) are held
+               against the plain versions ([2] times B4 at hd 64 and B1-B3
+               at V 50304 and 256206)
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -282,6 +326,11 @@ V_DSV3 = 129280
 # and its hd-112 one (zamba2-7b's shared block: MHA, 32 heads of 112)
 HD192 = (4, 2048, 16, 8, 192)
 HD112 = (4, 2048, 32, 32, 112)
+# and its hd-64 one (seamless-m4t-medium's decoder: MHA, 16 heads of 64)
+HD64 = (4, 2048, 16, 16, 64)
+# xlstm-350m's vocabulary ([20], GPT-NeoX) and seamless-m4t-medium's ([21])
+V_XLSTM = 50304
+V_SEAMLESS = 256206
 # the serve and train phases' generator: 4 prompts x 4 samples, 64 new
 # tokens decoded in chunks of 16
 N_PROMPTS, N_PER, MAX_NEW, CHUNK = 4, 4, 64, 16
@@ -300,13 +349,15 @@ LOGPROB_BWD_OPS_PER_LOGIT = 6
 # admitted mid-decode at divergent cursors
 ENGINE_PROMPT, ENGINE_PAGE, ENGINE_BATCHES = 48, 16, 3
 ENGINE_BUDGETS = [1, 2, 4, 4]
-# the pool phase keeps the published widths and cuts the depth to 4
-# layers (1.92 B params, 3.85 GB a bf16 weight version, 23.1 GB of
+# the pool phase keeps the published widths and cuts the depth to 2
+# layers (1.49 B params, 2.97 GB a bf16 weight version, 17.8 GB of
 # trainer state): in-process subscribers share each version's tensors,
 # and at bound 1 with 2 workers the fabric and channels may hold up to
 # 2 bound + workers + 4 = 8 versions, which at 8 layers (5.59 GB each)
-# would not fit beside the trainer on an 80 GB card
-POOL_LAYERS = 4
+# would not fit beside the trainer on an 80 GB card; [12] (a) runs the
+# same depth in children, where the socket pair carries each version at
+# about 0.5 GB/s, so 2 layers rather than 4 keep the script's time
+POOL_LAYERS = 2
 # [12] (b)'s depth: two generator children at 4 layers, each with up to
 # three 3.85 GB versions beside its KV, the trainer's 23.1 GB and the
 # controller's relayed versions would pass 75 GB of the card's 80; the
@@ -346,18 +397,25 @@ def require(cond, msg: str) -> None:
 
 
 def leaves(tree):
+    """The leaves of nested dicts, lists and tuples, in order."""
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from leaves(v)
     else:
         yield tree
 
 
 def leaves_by_path(tree, path=()) -> dict:
-    """{key path: leaf} of a nested dict."""
+    """{key path: leaf} of nested dicts and lists (a list's index is its
+    items' key, as a string)."""
+    items = tree.items() if isinstance(tree, dict) \
+        else ((str(i), v) for i, v in enumerate(tree))
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
             out.update(leaves_by_path(v, path + (k,)))
         else:
             out[path + (k,)] = v
@@ -365,9 +423,12 @@ def leaves_by_path(tree, path=()) -> dict:
 
 
 def cloned(tree):
-    """A copy of a nested dict of tensors (other values shared)."""
+    """A copy of nested dicts, lists and tuples of tensors (other values
+    shared)."""
     if isinstance(tree, dict):
         return {k: cloned(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cloned(v) for v in tree)
     return tree.clone() if hasattr(tree, "clone") else tree
 
 
@@ -556,25 +617,26 @@ def phase_build() -> None:
     log(f"  build total {time.perf_counter() - t0:.1f} s")
 
 
-def timed_logprob_at(torch, dev, gen, V):
-    """B1 at the reference-scoring shape of [16] (V 202048) or [17] (V
-    129280), the [16, 287, V] view of [16, 288] bf16 logits: held against
-    the plain version and timed."""
+def timed_logprob_at(torch, dev, gen, V, T=288):
+    """B1 at the reference-scoring shape of [16] (V 202048), [17] (V
+    129280), [20] (V 50304, T 320) or [21] (V 256206, T 128): the
+    [16, T - 1, V] view of [16, T] bf16 logits, held against the plain
+    version and timed."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.fused_logprob import fused_logprob_cuda, \
         fused_logprob_plain
-    logits = (torch.randn(16, 288, V, generator=gen, device=dev)
+    logits = (torch.randn(16, T, V, generator=gen, device=dev)
               * 2).to(torch.bfloat16)
     view = logits[:, :-1]
-    toks = torch.randint(0, V, (16, 287), generator=gen, device=dev,
+    toks = torch.randint(0, V, (16, T - 1), generator=gen, device=dev,
                          dtype=torch.int32)
     lp, m, _ = fused_logprob_cuda(view, toks)
     lp_p, m_p, _ = fused_logprob_plain(view.reshape(-1, V),
                                        toks.reshape(-1))
     err = max_err(lp.reshape(-1), lp_p)
     require(err <= 1e-4 and torch.equal(m.reshape(-1), m_p),
-            f"fused_logprob [16, 287, {V}] error {err:.3e}")
+            f"fused_logprob [16, {T - 1}, {V}] error {err:.3e}")
     del lp_p, m_p
 
     def run():
@@ -584,7 +646,7 @@ def timed_logprob_at(torch, dev, gen, V):
     n_rows = toks.numel()
     b_ms, b_by = bound(view.numel() * 2 + n_rows * 4 + 3 * n_rows * 4,
                        view.numel() * LOGPROB_OPS_PER_LOGIT, FP32_FLOPS)
-    rec = {"shape": [16, 287, V], "max_abs_err": err,
+    rec = {"shape": [16, T - 1, V], "max_abs_err": err,
            "ms": cuda_ms(torch, run, 10),
            "kernel_only_ms": kernel_only_ms(torch, run, 5,
                                             "fused_logprob_kernel"),
@@ -594,7 +656,7 @@ def timed_logprob_at(torch, dev, gen, V):
                flat, flat_toks, reduction="none"), 10),
            "bound_ms": b_ms, "bound_by": b_by}
     ko = rec["kernel_only_ms"]
-    log(f"  fused_logprob [16, 287, {V}] strided view bf16: max|dlogp| "
+    log(f"  fused_logprob [16, {T - 1}, {V}] strided view bf16: max|dlogp| "
         f"{err:.3e}, m equal; {rec['ms']:.4f} ms per call ("
         + ("not measured" if ko is None else f"{ko:.4f} ms")
         + f" in the kernel), plain {rec['plain_ms']:.4f} ms, library "
@@ -604,26 +666,28 @@ def timed_logprob_at(torch, dev, gen, V):
     return rec
 
 
-def timed_logprob_bwd_at(torch, dev, gen, V):
-    """B2 at [17] (b)'s trainer shape: the gradient of [16, 80, V] bf16
-    logits from their [16, 79, V] view (n_valid 79), held against the
-    plain version and timed."""
+def timed_logprob_bwd_at(torch, dev, gen, V, T=80):
+    """B2 at a trainer's shape ([17] (b): V 129280, T 80; [20] (b) and
+    [21] (b): V 50304 and 256206, T 128): the gradient of [16, T, V]
+    bf16 logits from their [16, T - 1, V] view (n_valid T - 1), held
+    against the plain version and timed."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
         fused_logprob_bwd_plain, fused_logprob_cuda
-    logits = (torch.randn(16, 80, V, generator=gen, device=dev)
+    logits = (torch.randn(16, T, V, generator=gen, device=dev)
               * 2).to(torch.bfloat16)
     view = logits[:, :-1]
-    toks = torch.randint(0, V, (16, 79), generator=gen, device=dev,
+    n = T - 1
+    toks = torch.randint(0, V, (16, n), generator=gen, device=dev,
                          dtype=torch.int32)
-    g_out = torch.randn(16, 79, generator=gen, device=dev)
+    g_out = torch.randn(16, n, generator=gen, device=dev)
     _, m, s = fused_logprob_cuda(view, toks)
     log_s = torch.log(s)
 
     def run():
         return fused_logprob_bwd_cuda(logits, toks, m, log_s, g_out,
-                                      n_valid=79)
+                                      n_valid=n)
 
     def plain():
         return fused_logprob_bwd_plain(
@@ -633,7 +697,7 @@ def timed_logprob_bwd_at(torch, dev, gen, V):
     err = max_err(got, want)
     excess = bwd_excess(torch, got, want, g_out.reshape(-1),
                         toks.reshape(-1), 2.0 ** -7)
-    require(excess <= 1.0, f"fused_logprob_bwd [16, 79, {V}]: an element "
+    require(excess <= 1.0, f"fused_logprob_bwd [16, {n}, {V}]: an element "
             f"is {excess:.3g} times its tolerance")
     del got, want
     flat = view.reshape(-1, V).contiguous().requires_grad_()
@@ -641,7 +705,7 @@ def timed_logprob_bwd_at(torch, dev, gen, V):
     n_rows = toks.numel()
     b_ms, b_by = bound(view.numel() * 2 + logits.numel() * 2 + 4 * n_rows * 4,
                        view.numel() * LOGPROB_BWD_OPS_PER_LOGIT, FP32_FLOPS)
-    rec = {"shape": [16, 79, V], "max_abs_err": err,
+    rec = {"shape": [16, n, V], "max_abs_err": err,
            "ms": cuda_ms(torch, run, 10),
            "kernel_only_ms": kernel_only_ms(torch, run, 5,
                                             "fused_logprob_bwd_kernel"),
@@ -650,7 +714,7 @@ def timed_logprob_bwd_at(torch, dev, gen, V):
                ce, flat, g_out.reshape(-1), retain_graph=True), 10),
            "bound_ms": b_ms, "bound_by": b_by}
     ko = rec["kernel_only_ms"]
-    log(f"  fused_logprob_bwd [16, 79, {V}] strided view bf16: max|ddl| "
+    log(f"  fused_logprob_bwd [16, {n}, {V}] strided view bf16: max|ddl| "
         f"{err:.3e}, worst element {excess:.3g} of its tolerance; "
         f"{rec['ms']:.4f} ms per call ("
         + ("not measured" if ko is None else f"{ko:.4f} ms")
@@ -767,10 +831,12 @@ def phase_kernels(torch, dev):
     pool = timed_sample(32)
     # the windowed archs' vocabularies ([15]): starcoder2-3b's at the
     # generator's 16 rows, command-r's and nemotron's at 4 and 16; and
-    # llama4-scout's ([16]) and deepseek-v3's ([17]) at 16
+    # llama4-scout's ([16]) and deepseek-v3's ([17]) at 16; xlstm-350m's
+    # ([20]) and seamless-m4t-medium's ([21]) at 16
     vocabs = {f"{B}x{V}": timed_sample(B, V)
               for B, V in ((16, 49152), (4, 256000), (16, 256000),
-                           (16, V_SCOUT), (16, V_DSV3))}
+                           (16, V_SCOUT), (16, V_DSV3), (16, V_XLSTM),
+                           (16, V_SEAMLESS))}
     # what the launch-count lock adds to every wrapper call, host clock
     t0 = time.perf_counter()
     for _ in range(100000):
@@ -845,6 +911,10 @@ def phase_kernels(torch, dev):
         "dtype": "bfloat16"})
     records[-1]["scout"] = timed_logprob_at(torch, dev, gen, V_SCOUT)
     records[-1]["deepseek_v3"] = timed_logprob_at(torch, dev, gen, V_DSV3)
+    records[-1]["xlstm"] = timed_logprob_at(torch, dev, gen, V_XLSTM,
+                                            T=XLSTM_PROMPT + XLSTM_NEW)
+    records[-1]["seamless"] = timed_logprob_at(torch, dev, gen, V_SEAMLESS,
+                                               T=AUDIO_PROMPT + AUDIO_NEW)
 
     # ---- fused_logprob_bwd: the trainer's strided view, with the gradient
     # of the whole [16, 80, V] written (zeros in the last position).  The
@@ -920,6 +990,10 @@ def phase_kernels(torch, dev):
         "dtype": "bfloat16"})
     del logits, view
     records[-1]["deepseek_v3"] = timed_logprob_bwd_at(torch, dev, gen, V_DSV3)
+    records[-1]["xlstm"] = timed_logprob_bwd_at(
+        torch, dev, gen, V_XLSTM, T=XLSTM_TRAIN_PROMPT + XLSTM_TRAIN_NEW)
+    records[-1]["seamless"] = timed_logprob_bwd_at(
+        torch, dev, gen, V_SEAMLESS, T=AUDIO_TRAIN_SEQ)
 
     # ---- flash_attention: fp32 on peaked attention, bf16, ragged, small
     def qkv(B, S, H, K, hd, dtype, seed):
@@ -965,6 +1039,15 @@ def phase_kernels(torch, dev):
               (HD112, bf16, 4.0, 3e-2, True),
               ((2, 130, 8, 8, 112), torch.float32, 1.0, 1e-5, True),
               ((2, 130, 8, 8, 112), bf16, 4.0, 3e-2, True)]
+    # hd 64 (seamless-m4t-medium's decoder, MHA) at its timing shape and
+    # at [21]'s own: the prefill of the prompts and the scoring, in fp32
+    # (the SIMT instance) and bf16 (the wgmma instance)
+    for shape in ((N_PROMPTS * N_PER, AUDIO_PROMPT, 16, 16, 64),
+                  (N_PROMPTS * N_PER, AUDIO_PROMPT + AUDIO_NEW, 16, 16, 64)):
+        cases += [(shape, torch.float32, 4.0, 1e-4, False),
+                  (shape, bf16, 4.0, 3e-2, True)]
+    cases += [(HD64, torch.float32, 1.0, 1e-5, True),
+              (HD64, bf16, 4.0, 3e-2, True)]
     for shape, dtype, q_scale, tol, rel in cases:
         q, k, v = qkv(*shape, dtype, seed=sum(shape))
         q = q * q_scale
@@ -1072,10 +1155,48 @@ def phase_kernels(torch, dev):
                     for kind in ("bf16", "fp32")))
     del q, k, v, qt, kt, vt
 
+    # hd 64: seamless-m4t-medium's decoder ([21])
+    B, S, H, K, hd = HD64
+    q, k, v = qkv(B, S, H, K, hd, bf16, seed=10)
+
+    def run_flash():
+        return flash_attention_cuda(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flops = 4 * B * H * hd * S * (S + 1) / 2
+    b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2) * 2, flops,
+                       BF16_TENSOR_FLOPS)
+    usage = {kind: ptxas_usage("flash_attention", parts) for kind, parts in
+             (("bf16", ("wgmma", "Li64E")),
+              ("fp32", ("flash_fwd_kernelIf", "Li64E")))}
+    records[-1]["hd64"] = {
+        "shape": list(HD64), "ms": cuda_ms(torch, run_flash, 10),
+        "kernel_only_ms": kernel_only_ms(torch, run_flash, 3,
+                                         "flash_fwd_wgmma_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: chunked_attention(q, k, v), 3),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 10),
+        "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9,
+        "registers": {kind: [r for _, r, _ in u] for kind, u in usage.items()},
+        "spill_bytes": {kind: [b for _, _, b in u]
+                        for kind, u in usage.items()}}
+    h = records[-1]["hd64"]
+    ko = h["kernel_only_ms"]
+    log(f"  time flash_attention {list(HD64)} bf16: {h['ms']:.4f} ms per "
+        f"call ({'not measured' if ko is None else f'{ko:.4f} ms'} in the "
+        f"kernel), plain {h['plain_ms']:.4f} ms, library (SDPA) "
+        f"{h['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{flops / 1e9:.1f} GFLOP); ptxas: "
+        + ", ".join(f"{kind} registers {h['registers'][kind]}, spilled "
+                    f"{h['spill_bytes'][kind]} bytes"
+                    for kind in ("bf16", "fp32")))
+    del q, k, v, qt, kt, vt
+
     # ---- the attention gradient: the flash forward's recompute backward
-    # against chunked_attention's, at the trainer's [16, 80] shape, and at
-    # zamba2-7b's hd 112 ([19] (b)'s shared block)
-    for shape in ((16, 80, 32, 8, 128), (16, 80, 32, 32, 112)):
+    # against chunked_attention's, at the trainer's [16, 80] shape, at
+    # zamba2-7b's hd 112 ([19] (b)'s shared block) and at
+    # seamless-m4t-medium's hd 64 ([21] (b)'s decoder)
+    for shape in ((16, 80, 32, 8, 128), (16, 80, 32, 32, 112),
+                  (16, AUDIO_TRAIN_SEQ, 16, 16, 64)):
         for dtype, tol in ((torch.float32, 1e-4), (bf16, 3e-2)):
             q, k, v = qkv(*shape, dtype, seed=11)
             go = torch.randn(*shape[:3], shape[4], generator=gen,
@@ -1532,7 +1653,7 @@ def phase_serve(torch, dev):
     log(f"  peak memory allocated over the two steps: "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    # prefill and decode apart, then one profiled decode chunk
+    # prefill and decode apart, then PROFILED_STEPS profiled decode steps
     t0 = time.perf_counter()
     job, state = gen.begin_batch()
     torch.cuda.synchronize()
@@ -1543,8 +1664,9 @@ def phase_serve(torch, dev):
     decode_ms = (time.perf_counter() - t0) * 1e3 / chunk
     log(f"  prefill [{B}, {state.prompt_len}]: {prefill_ms:.1f} ms; decode "
         f"{decode_ms:.2f} ms per token (batch {B})")
-    busy_share(torch, lambda: gen.advance_chunk(job, state), chunk,
-               decode_ms)
+    busy_share(torch, lambda: profiled_decode(
+        torch, lambda _, steps: steps(), params, cfg, state.cache,
+        state.tokens[:, -1:]), PROFILED_STEPS, decode_ms)
     del gen, ref, job, state, outs
     return params, cfg, launches
 
@@ -1567,11 +1689,12 @@ def device_profile(torch, fn):
 
 
 def busy_share(torch, fn, n_tokens: int, wall_ms_per_token: float) -> None:
-    """Device-busy share of one profiled decode chunk, and its top device
-    operations."""
+    """Device-busy share of ``n_tokens`` profiled decode steps, and their
+    top device operations."""
     busy, ops = device_profile(torch, fn)
     busy /= n_tokens
-    log(f"  profiled chunk: device busy {busy:.2f} ms per token = "
+    log(f"  {n_tokens} profiled decode steps: device busy {busy:.2f} ms "
+        f"per token = "
         f"{100 * busy / wall_ms_per_token:.1f}% of the unprofiled "
         f"{wall_ms_per_token:.2f} ms; top device operations (ms per token): "
         + ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n_tokens:.3f}"
@@ -2528,8 +2651,8 @@ def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16,
 
 
 def phase_pool(torch, dev):
-    """[10]: the threaded controller at the published widths, 4 layers.
-    (a) a pool of 1, chunk scheduling, against run_sequential of a
+    """[10]: the threaded controller at the published widths, POOL_LAYERS
+    layers.  (a) a pool of 1, chunk scheduling, against run_sequential of a
     controller built the same way; (b) an engine-mode pool of 2 on paged
     KV, traced.  Returns the launch counts of (b)."""
     import threading
@@ -3008,7 +3131,7 @@ def device_overlap(timelines, started) -> str:
 
 def phase_proc(torch, dev, pool_a, quick_hist):
     """[12]: the async loop with its actors in spawned processes.  (a)
-    ``proc`` at [10]'s 4 layers, a pool of 1 (chunk scheduling), against
+    ``proc`` at [10]'s depth, a pool of 1 (chunk scheduling), against
     [10] (a) bit for bit; (b) an engine pool of 2 on paged KV at 1 layer,
     threaded in process and then over ``shm``, traced; (c) the
     quickstart with every actor on a self-hosted ``socket``, against
@@ -3834,16 +3957,19 @@ def windowed_serve(torch, dev, calls):
             and sp.max().item() == WINDOW_PROMPT - 1
             and sp[0].item() == W, "the prefilled ring does not hold the "
             "last W positions at pos % W")
-    walls, box = [], []
-    for c in range(job.n_chunks - 1):
+    walls = []
+    for c in range(job.n_chunks):
         t0 = time.perf_counter()
         state = gen.advance_chunk(job, state)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     decode_ms = statistics.median(walls) * 1e3 / CHUNK
-    busy_share(torch, lambda: box.append(gen.advance_chunk(job, state)),
-               CHUNK, decode_ms)
-    state = box[0]
+    # PROFILED_STEPS decode steps on a copy of the wrapped rings, not a
+    # whole chunk: the profiler's bookkeeping grows with the host
+    # operations it records
+    busy_share(torch, lambda: profiled_decode(
+        torch, lambda _, steps: steps(), params, cfg, state.cache,
+        state.tokens[:, -1:]), PROFILED_STEPS, decode_ms)
     end = WINDOW_PROMPT + MAX_NEW
     require(sp[(end - 1) % W].item() == end - 1 and sp.min().item() == end - W,
             "decode did not wrap the rings")
@@ -3884,7 +4010,7 @@ def windowed_serve(torch, dev, calls):
         f"actions (bf16): mean {d.mean().item():.4f}, max "
         f"{d.max().item():.4f}; launches {launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    del job, state, ring, sp, out, box
+    del job, state, ring, sp, out
 
     # the paged engine: 2 batches through WINDOW_ENGINE_ROWS slots
     torch.cuda.reset_peak_memory_stats()
@@ -4220,22 +4346,24 @@ def flash_layers(cfg, seq_len: int = 0) -> int:
                if not w)
 
 
-def range_profile(torch, fn, label: str, targets):
+def ranges_profile(torch, fn, labelled):
     """One profiled call of ``fn``, every call of each ``(module, function
-    name)`` of ``targets`` inside a ``label`` range.  Returns (device busy
-    ms, the range's device ms, device operations largest first)."""
+    name)`` of ``labelled[label]`` inside a ``label`` range.  Returns
+    (device busy ms, {label: the range's device ms}, device operations
+    largest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    real = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    real = [(label, mod, name, getattr(mod, name))
+            for label, targets in labelled.items() for mod, name in targets]
 
-    def ranged(f):
+    def ranged(f, label):
         def call(*args, **kwargs):
             with record_function(label):
                 return f(*args, **kwargs)
         return call
-    for mod, name, f in real:
-        setattr(mod, name, ranged(f))
+    for label, mod, name, f in real:
+        setattr(mod, name, ranged(f, label))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -4243,17 +4371,25 @@ def range_profile(torch, fn, label: str, targets):
             fn()
             torch.cuda.synchronize()
     finally:
-        for mod, name, f in real:
+        for _, mod, name, f in real:
             setattr(mod, name, f)
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0 and e.key != label]
+           and e.self_device_time_total > 0 and e.key not in labelled]
     busy = sum(e.self_device_time_total for e in ops) / 1e3
-    ranged_ms = sum(e.device_time_total for e in prof.events()
-                    if e.name == label
-                    and e.device_type == DeviceType.CPU) / 1e3
+    ranged_ms = {label: sum(e.device_time_total for e in prof.events()
+                            if e.name == label
+                            and e.device_type == DeviceType.CPU) / 1e3
+                 for label in labelled}
     return busy, ranged_ms, sorted(ops,
                                    key=lambda e: -e.self_device_time_total)
+
+
+def range_profile(torch, fn, label: str, targets):
+    """``ranges_profile`` with one range: (device busy ms, the range's
+    device ms, device operations largest first)."""
+    busy, ranged_ms, ops = ranges_profile(torch, fn, {label: targets})
+    return busy, ranged_ms[label], ops
 
 
 def moe_profile(torch, fn):
@@ -5156,7 +5292,8 @@ def vlm_patches(torch, cfg, B, dev, seed):
 
 def vlm_score(torch, params, cfg, tokens, extra):
     """The reference's log-probs of ``tokens`` (0 at position 0), through
-    forward_train with the patch prefix and B1."""
+    forward_train with ``extra`` (a VLM's patch prefix, an audio model's
+    frames) and B1."""
     import torch.nn.functional as F
 
     from repro_torch.core.aipo import token_logprobs
@@ -5856,6 +5993,747 @@ def phase_hybrid(torch, dev):
     return launches
 
 
+XLSTM_ARCH = "xlstm-350m"
+# (a): full width and depth (467 M params in the tree, 0.93 GB in bf16):
+# prompts of 256 ids (4 mLSTM chunks of 64) and 64 new tokens, scored at
+# [16, 320] (5 chunks): a length above 64 must be a multiple of 64, in
+# both packages
+XLSTM_PROMPT, XLSTM_NEW = 256, 64
+# (b): prompts of 16 ids and 16 new tokens, sequences of 32.  At full
+# width the reference's sLSTM init (r_h with H as its fan-in: a
+# recurrent gain near 8) makes the recurrence chaotic: the gradient
+# through it grows about 1.6x a step, and it swamps the rest once
+# clipped.  Over 128 steps the square of its norm passes fp32's range,
+# the global norm reads inf in both packages (tests/test_torch_xlstm.py)
+# and clipping zeroes the step; over 64 the norm is 1.4e14-1.7e14 and,
+# clipped to 1, the gradients of the layers after the last sLSTM fall
+# below Adam's eps, so those 19 leaves do not move; over 32 it is about
+# 1e8 and every leaf moves
+XLSTM_TRAIN_PROMPT, XLSTM_TRAIN_NEW = 16, 16
+# (c): the smoke config's prompt and decoded tokens, the reference's own
+# 16 + 4 (the sLSTM at its init amplifies rounding about tenfold every 20
+# steps, tests/test_torch_xlstm.py), the rollout's 16 + 16, and the
+# mLSTM's sequence across two chunks against its stepwise decode
+XLSTM_SMOKE_PROMPT, XLSTM_SMOKE_NEW, XLSTM_ROLL_NEW = 16, 4, 16
+XLSTM_MLSTM_SEQ = 128
+
+
+def xlstm_profile(torch, fn):
+    """ranges_profile with every mLSTM call (``mlstm_forward`` and
+    ``mlstm_decode``: projections, chunked core or recurrence, norm) in
+    an ``mlstm`` range and every sLSTM call in an ``slstm`` range."""
+    from repro_torch.models import ssm
+    return ranges_profile(torch, fn, {
+        "mlstm": [(ssm, "mlstm_forward"), (ssm, "mlstm_decode")],
+        "slstm": [(ssm, "slstm_forward"), (ssm, "slstm_decode")]})
+
+
+def shares(busy, ranged) -> str:
+    """Each range's device ms and its share of ``busy``."""
+    return ", ".join(
+        f"{k} {v:.2f} ms ("
+        + (f"{100 * v / busy:.1f}%" if busy else "not measured") + ")"
+        for k, v in ranged.items())
+
+
+def xlstm_serve(torch, dev):
+    """[20] (a): xlstm-350m at full width and depth, bf16: a batch rollout
+    through GeneratorExecutor scored by RefPolicyExecutor at [16, 320];
+    prefill and decode times, the mLSTM and sLSTM ranges' shares of each,
+    the recurrent state's bytes.  Returns the launch counts of the run."""
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.models.ssm import _mlstm_dims
+    from repro_torch.rl.data import ArithmeticTasks
+
+    cfg = configs.get_config(XLSTM_ARCH)
+    L, B = cfg.n_layers, N_PROMPTS * N_PER
+    d_in, H, Ph = _mlstm_dims(cfg)
+    sl = cfg.xlstm.slstm_layers
+    log(f"  (a) serve {XLSTM_ARCH} at full width and depth ({L} blocks, "
+        f"sLSTM at {list(sl)} and mLSTM elsewhere; d {cfg.d_model}, "
+        f"{H} heads, mLSTM inner width {d_in} (head dim {Ph}), V "
+        f"{cfg.vocab} tied); bf16; {N_PROMPTS} prompts x {N_PER} samples "
+        f"of {XLSTM_PROMPT} ids, {XLSTM_NEW} new tokens in chunks of "
+        f"{CHUNK}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    log(f"  init: {n / 1e9:.3f} B params ({param_total(cfg) / 1e9:.3f} B by "
+        f"param_count), {2 * n / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s, peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(prompt_len=XLSTM_PROMPT,
+                                                 seed=0),
+                            n_prompts=N_PROMPTS, n_per_prompt=N_PER,
+                            max_new=XLSTM_NEW, chunk=CHUNK, temperature=1.0,
+                            seed=0, device=dev)
+    gen.set_weights(params, version=0)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(params)
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()          # the batch rollout's run starts here
+    t0 = time.perf_counter()
+    gen.begin_batch()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    job, state = gen.begin_batch()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+    busy_p, ranged_p, _ = xlstm_profile(torch, gen.begin_batch)
+    cache = state.cache
+    states = cache["xlstm"]
+    require(cache["pos"] == XLSTM_PROMPT and len(states) == L
+            and all(isinstance(states[i], dict) == (i in sl)
+                    for i in range(L))
+            and states[0][0].shape == (B, H, Ph, Ph),
+            f"xlstm cache pos {cache['pos']}, {len(states)} states")
+    state_bytes = sum(t.nbytes for t in leaves(states))
+    c_bytes = sum(states[i][0].nbytes for i in range(L) if i not in sl)
+    busy, ranged, ops = profiled_decode(
+        torch, xlstm_profile, params, cfg, cache,
+        state.tokens[:, XLSTM_PROMPT - 1:XLSTM_PROMPT])
+    t0 = time.perf_counter()
+    for _ in range(job.n_chunks):
+        state = gen.advance_chunk(job, state)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / XLSTM_NEW
+    out = gen.emit_batch(job, state)
+    t0 = time.perf_counter()
+    ref.put_input("completions", out)
+    ref.step()
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    rew.put_input("completions_with_ref", ref.get_output("completions_with_ref"))
+    out = rew.step()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    want = {"fused_sample": XLSTM_NEW, "fused_logprob": 1}
+    require(launches == want, f"xlstm rollout launch counts {launches}, "
+            f"want {want} (fused_sample a decoded token, fused_logprob the "
+            "scoring; no attention anywhere)")
+    d = _check_outputs(torch, out, cfg.vocab)
+    log(f"  prefill [{B}, {XLSTM_PROMPT}]: {prefill_ms:.1f} ms (the first "
+        f"{first_ms:.1f} ms); profiled: device busy {busy_p:.1f} ms, "
+        f"{shares(busy_p, ranged_p)}; peak memory through the prefills "
+        f"{prefill_peak:.2f} GB")
+    log(f"  recurrent state (fp32, whatever the length): "
+        f"{state_bytes / 1e9:.3f} GB for {B} rows, of which the "
+        f"{L - len(sl)} mLSTM memories C ({H} x {Ph} x {Ph} a row) "
+        f"{c_bytes / 1e9:.3f} GB, {c_bytes / B / 1e6:.1f} MB a row")
+    busy /= PROFILED_STEPS
+    ranged = {k: v / PROFILED_STEPS for k, v in ranged.items()}
+    log(f"  decode {decode_ms:.2f} ms per token (batch {B}, "
+        f"{job.n_chunks} unprofiled chunks); {PROFILED_STEPS} profiled "
+        f"decode steps: device busy {busy:.2f} ms per token = "
+        f"{100 * busy / decode_ms:.1f}% of it; {shares(busy, ranged)} per "
+        "token; top device operations (ms per token): "
+        + ", ".join(f"{e.key[:48]} "
+                    f"{e.self_device_time_total / 1e3 / PROFILED_STEPS:.3f}"
+                    for e in ops[:6]))
+    log(f"  reference {t_ref * 1e3:.1f} ms over [{B}, "
+        f"{XLSTM_PROMPT + XLSTM_NEW}]; |behavior_logp - ref_logp| at "
+        f"{d.numel()} actions (bf16; the sLSTM amplifies the stepwise and "
+        f"chunked forms' rounding): mean {d.mean().item():.4f}, max "
+        f"{d.max().item():.4f}; launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del job, state, cache, states, out, gen, ref, rew, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def xlstm_train(torch, dev):
+    """[20] (b): two steps of the sequential async loop (staleness 1) at
+    full width and depth, bf16 params and fp32 Adam, sequences of 32, KL
+    0.1 against a frozen reference from another seed, through the
+    executors and SyncExecutorController: the list of xLSTM layers
+    through Adam, weight sync and the generator.  Every leaf but the
+    norms must move (a whole-leaf compare: the optimizer builds new
+    tensors).  Sequences of 32: see XLSTM_TRAIN_PROMPT.  Returns the
+    launch counts."""
+    from repro_torch import configs
+    from repro_torch.core.channels import CommType, CommunicationChannel, \
+        WeightsCommunicationChannel
+    from repro_torch.core.controller import SyncExecutorController
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor, TrainerExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.rl.data import ArithmeticTasks
+
+    cfg = configs.get_config(XLSTM_ARCH)
+    n_steps = 2
+    torch.cuda.reset_peak_memory_stats()
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(
+        prompt_len=XLSTM_TRAIN_PROMPT, seed=0), n_prompts=N_PROMPTS,
+        n_per_prompt=N_PER, max_new=XLSTM_TRAIN_NEW, chunk=CHUNK,
+        temperature=1.0, seed=0, device=dev)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(init_params(cfg, seed=1, dtype=torch.bfloat16,
+                                device=dev))
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    trn = TrainerExecutor(cfg, dtype=torch.bfloat16, kl_coef=KL_COEF,
+                          seed=0, device=dev)
+    ctl = SyncExecutorController(
+        [gen, ref, rew, trn],
+        [WeightsCommunicationChannel("policy_model", trn, gen),
+         CommunicationChannel("completions", gen, ref, CommType.BROADCAST),
+         CommunicationChannel("completions_with_ref", ref, rew,
+                              CommType.GATHER),
+         CommunicationChannel("completions_with_reward", rew, trn,
+                              CommType.SCATTER)],
+        max_steps=n_steps, mode="async", staleness=1)
+    ctl.init()
+    before = {k: t for k, t in leaves_by_path(trn.get_model()).items()
+              if "norm" not in k[-1] and not k[-1].startswith("ln")}
+    n = sum(t.numel() for t in leaves(trn.get_model()))
+    log(f"  (b) train {XLSTM_ARCH} at full width and depth: {n / 1e9:.3f} B "
+        f"params, trainer state {12 * n / 1e9:.1f} GB; {n_steps} steps of "
+        f"the async schedule, staleness 1, KL {KL_COEF}; sequences of "
+        f"{XLSTM_TRAIN_PROMPT + XLSTM_TRAIN_NEW} (longer, the gradient "
+        "through the reference's chaotic sLSTM init swamps the rest)")
+    t0 = time.perf_counter()
+    build.reset_launches()          # the train path's run starts here
+    history = ctl.run()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    for h in history:
+        log(f"  step {h['step']}: loss {h['loss']:.5f}, grad_norm "
+            f"{h['grad_norm']:.4g}, weight_version {h['weight_version']}")
+        require(h["weight_version"] == max(0, h["step"] - 1)
+                and math.isfinite(h["loss"])
+                and math.isfinite(h["grad_norm"]), f"[20] step {h}")
+    after = leaves_by_path(trn.get_model())
+    still = [".".join(k) for k, t in before.items()
+             if torch.equal(after[k], t)]
+    require(not still, f"[20] (b) leaves that did not move: {still}")
+    want = {"fused_sample": n_steps * XLSTM_TRAIN_NEW,
+            "fused_logprob": 2 * n_steps, "fused_logprob_bwd": n_steps}
+    require(launches == want, f"xlstm train launch counts {launches}, want "
+            f"{want} (per step: the reference's and the trainer's log-probs "
+            "and one backward)")
+    log(f"  {n_steps} steps in {wall:.1f} s; moved: all {len(before)} "
+        f"leaves but the norms (every cell's matrices, r_h included); "
+        f"launches {launches}; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del ctl, gen, ref, rew, trn, after, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def xlstm_numerics(torch, dev):
+    """[20] (c): the smoke config in fp32 on the card against the CPU port:
+    logits; prefill + decode against the teacher-forced forward; one
+    mLSTM layer's chunked form across two chunks against its stepwise
+    decode; each within the reference's 1e-3; then a batch rollout whose
+    mu is within 1e-3 of the reference's log-probs.  Returns the launch
+    counts of the rollout."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.executor import GeneratorExecutor, \
+        RefPolicyExecutor, RewardExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import decode_step, forward_train, \
+        init_params, prefill, ssm
+    from repro_torch.rl.data import ArithmeticTasks
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = configs.get_smoke(XLSTM_ARCH)
+    params = init_params(cfg, seed=5, dtype=torch.float32, device=dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    S, n = XLSTM_SMOKE_PROMPT, XLSTM_SMOKE_NEW
+    rng = np.random.default_rng(5)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab, (2, S + n)),
+                          dtype=torch.int32)
+    toks = ids.to(dev)
+    with torch.no_grad():
+        full, _ = forward_train(params, cfg, {"tokens": toks})
+        full_cpu, _ = forward_train(host, cfg, {"tokens": ids})
+        fwd_err = max_err(full.cpu(), full_cpu)
+        last, cache = prefill(params, cfg, {"tokens": toks[:, :S]},
+                              cache_len=S + n, dtype=torch.float32)
+        dec_err = max_err(last, full[:, S - 1])
+        for i in range(n):
+            lg, cache = decode_step(params, cfg, cache,
+                                    toks[:, S + i:S + i + 1])
+            dec_err = max(dec_err, max_err(lg, full[:, S + i]))
+        p = params["xlstm_layers"][0]["cell"]
+        x = torch.as_tensor(rng.standard_normal(
+            (2, XLSTM_MLSTM_SEQ, cfg.d_model)) * 0.5, dtype=torch.float32,
+            device=dev)
+        y, _ = ssm.mlstm_forward(p, x, cfg)
+        st = ssm.mlstm_init_state(cfg, 2, device=dev)
+        steps = []
+        for t in range(XLSTM_MLSTM_SEQ):
+            yt, st = ssm.mlstm_decode(p, x[:, t:t + 1], st, cfg)
+            steps.append(yt)
+        mlstm_err = max_err(y, torch.cat(steps, dim=1))
+    log(f"  (c) {cfg.name} smoke fp32 ({cfg.n_layers} blocks, sLSTM at "
+        f"{list(cfg.xlstm.slstm_layers)}, d {cfg.d_model}): card against "
+        f"CPU logits {fwd_err:.3e}; prefill of {S} + {n} decode steps "
+        f"against the teacher-forced forward: max|dlogits| {dec_err:.3e}; "
+        f"the chunked mLSTM against {XLSTM_MLSTM_SEQ} mlstm_decode steps "
+        f"(two chunks of 64): max|dy| {mlstm_err:.3e} (tolerance 1e-3 each)")
+    require(max(fwd_err, dec_err, mlstm_err) <= 1e-3, "[20] (c) numerics")
+    del full, full_cpu, cache, host
+
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=5), n_prompts=1,
+                            n_per_prompt=N_PER, max_new=XLSTM_ROLL_NEW,
+                            chunk=CHUNK, temperature=1.0, seed=5, device=dev)
+    gen.set_weights(params, version=0)
+    ref = RefPolicyExecutor(cfg)
+    ref.set_weights(params)
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    build.reset_launches()          # the rollout's run starts here
+    ref.put_input("completions", gen.step())
+    ref.step()
+    rew.put_input("completions_with_ref", ref.get_output("completions_with_ref"))
+    out = rew.step()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    want = {"fused_sample": XLSTM_ROLL_NEW, "fused_logprob": 1}
+    require(launches == want, f"fp32 xlstm rollout launches {launches}, "
+            f"want {want}")
+    d = _check_outputs(torch, out, cfg.vocab)
+    log(f"  fp32 batch rollout, {N_PER} samples of "
+        f"{gen.tasks.prompt_len} + {XLSTM_ROLL_NEW} tokens: "
+        f"|behavior_logp - ref_logp| at {d.numel()} actions (stepwise "
+        f"decode against the chunked forward): max {d.max().item():.2e} "
+        f"(tolerance 1e-3); launches {launches}")
+    require(d.max().item() <= 1e-3, "fp32 xlstm rollout mu vs reference")
+    del gen, ref, rew, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_checks(label, launches, must, must_not):
+    """The launch rules of a family's phase: every kernel of ``must``
+    launched, none of ``must_not``."""
+    for name in must:
+        require(launches.get(name, 0) > 0, f"{name} never ran in [{label}]")
+    for name in must_not:
+        require(launches.get(name, 0) == 0, f"{name} ran in [{label}]")
+
+
+def phase_xlstm(torch, dev):
+    """[20]: the SSM family.  Returns the launch counts of its main-path
+    runs."""
+    log(f"[20] ssm: {XLSTM_ARCH} at full width and depth served and "
+        f"trained, its smoke config in fp32; {nvidia_smi()}")
+    from repro_torch import configs
+    cfg = configs.get_config(XLSTM_ARCH)
+    V, B = cfg.vocab, N_PROMPTS * N_PER
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    dense = ("fused_sample_cuda", "fused_logprob_cuda")
+    parts = [time.perf_counter()]
+    with KernelCalls(torch, per_shape=1, names=KernelCalls.ENGINE) as calls:
+        launches.update(xlstm_serve(torch, dev))
+    for line in calls.replay("[20] (a)", expect=dense):
+        log(line)
+    got = {n: {tuple(args[0].shape) for args, _, _ in calls.calls[n]}
+           for n in dense}
+    want = {"fused_sample_cuda": {(B, V)},
+            "fused_logprob_cuda": {(B, XLSTM_PROMPT + XLSTM_NEW - 1, V)}}
+    require(got == want, f"[20] (a) shapes {got}, want {want}")
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(time.perf_counter())
+    with KernelCalls(torch, host=True, names=KernelCalls.ENGINE) as calls:
+        launches.update(xlstm_train(torch, dev))
+    for line in calls.replay("[20] (b)", expect=dense + (
+            "fused_logprob_bwd_cuda",)):
+        log(line)
+    del calls
+    parts.append(time.perf_counter())
+    with KernelCalls(torch, names=KernelCalls.ENGINE) as calls:
+        launches.update(xlstm_numerics(torch, dev))
+    for line in calls.replay("[20] (c)", expect=dense):
+        log(line)
+    del calls
+    parts.append(time.perf_counter())
+    launches = dict(launches)
+    # no attention in the family; both packages' engines refuse it
+    family_checks("20", launches, KERNELS[:3],
+                  ("flash_attention", "paged_attention"))
+    log(f"  [20] launches {launches}; {time.perf_counter() - t0:.1f} s "
+        f"((a), (b), (c) with their replays: "
+        + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:]))
+        + " s)")
+    return launches
+
+
+AUDIO_ARCH = "seamless-m4t-medium"
+# (a): full width and depth (978 M params, 1.96 GB in bf16): prompts of
+# 64 ids behind 1024 frame embeddings a row, 64 new tokens, scored at
+# [16, 128] with the frames
+AUDIO_PROMPT, AUDIO_NEW = 64, 64
+# (b): prompts of 64 ids and 32 new tokens, sequences of 96: each of
+# (b)'s sampler calls is replayed through the plain version, about 0.16 s
+# a call at V 256206
+AUDIO_TRAIN_PROMPT, AUDIO_TRAIN_NEW = 64, 32
+AUDIO_TRAIN_SEQ = AUDIO_TRAIN_PROMPT + AUDIO_TRAIN_NEW
+# (c): the smoke config's prompt and decoded tokens
+AUDIO_SMOKE_PROMPT, AUDIO_SMOKE_NEW = 24, 8
+
+
+def audio_frames(torch, cfg, B, dev, seed):
+    """Frame embeddings [B, F, D] at scale 0.02 from a seeded generator,
+    as tests/test_arch_smoke.py draws them (the speech front end is a
+    stub in both packages)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(B, cfg.frontend_tokens, cfg.d_model, generator=g,
+                       device=dev) * 0.02
+
+
+def audio_profile(torch, fn):
+    """ranges_profile with the encoder (``backbone._encode``) in an
+    ``encoder`` range and every cross attention (``gqa_cross_forward``:
+    the query and output projections and the unmasked attention over the
+    frames) in a ``cross`` range."""
+    from repro_torch.models import attention, backbone
+    return ranges_profile(torch, fn, {
+        "encoder": [(backbone, "_encode")],
+        "cross": [(attention, "gqa_cross_forward")]})
+
+
+def audio_serve(torch, dev):
+    """[21] (a): seamless-m4t-medium at full width and depth, bf16: a
+    batch rollout through ``start_rollout(extra=)`` and ``rollout_chunk``
+    (the executors carry no frame embeddings, in either package) scored by
+    forward_train with the same frames; the encoder's share of the
+    prefill, the cross attention's share of decode, the cross K/V
+    cache's bytes.  Returns the launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.rl import prng
+    from repro_torch.rl.data import ArithmeticTasks
+    from repro_torch.rl.rollout import action_mask, finalize_rollout, \
+        rollout_chunk, start_rollout
+
+    cfg = configs.get_config(AUDIO_ARCH)
+    L, F, B = cfg.n_layers, cfg.frontend_tokens, N_PROMPTS * N_PER
+    K, hd = cfg.n_kv_heads, cfg.hd
+    log(f"  (a) serve {AUDIO_ARCH} at full width and depth "
+        f"({cfg.n_enc_layers} encoder and {L} decoder layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{K} heads of {hd}, d_ff {cfg.d_ff} "
+        f"SiLU-gated, V {cfg.vocab} untied); bf16; {N_PROMPTS} prompts x "
+        f"{N_PER} samples of {AUDIO_PROMPT} ids behind {F} frame "
+        f"embeddings a row, {AUDIO_NEW} new tokens in chunks of {CHUNK}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    log(f"  init: {n / 1e9:.3f} B params ({param_total(cfg) / 1e9:.3f} B by "
+        f"param_count), {2 * n / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t0:.1f} s, peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    prompts = torch.as_tensor(ArithmeticTasks(
+        prompt_len=AUDIO_PROMPT, seed=0).sample(N_PROMPTS, N_PER).prompts,
+        device=dev)
+    extra = {"frame_embeds": audio_frames(torch, cfg, B, dev, seed=0)
+             .to(torch.bfloat16)}
+    total = AUDIO_PROMPT + AUDIO_NEW
+    keys = prng.split(prng.PRNGKey(0), AUDIO_NEW // CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()          # the rollout's run starts here
+    t0 = time.perf_counter()
+    start_rollout(params, cfg, prompts, total, extra=extra)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    state = start_rollout(params, cfg, prompts, total, extra=extra)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+    busy_p, ranged_p, _ = audio_profile(torch, lambda: start_rollout(
+        params, cfg, prompts, total, extra=extra))
+    cache = state.cache
+    require(cache["pos"] == AUDIO_PROMPT
+            and cache["self"]["k"].shape == (L, B, total, K, hd)
+            and cache["cross_k"].shape == (L, B, F, K, hd)
+            and cache["cross_k"].dtype == torch.bfloat16,
+            f"audio cache pos {cache['pos']}, self "
+            f"{tuple(cache['self']['k'].shape)}, cross "
+            f"{tuple(cache['cross_k'].shape)} {cache['cross_k'].dtype}")
+    cross_bytes = cache["cross_k"].nbytes + cache["cross_v"].nbytes
+    ring_bytes = cache["self"]["k"].nbytes + cache["self"]["v"].nbytes
+    busy, ranged, ops = profiled_decode(torch, audio_profile, params, cfg,
+                                        cache, prompts[:, -1:])
+    t0 = time.perf_counter()
+    for k in keys:
+        state = rollout_chunk(params, cfg, state, k, n_steps=CHUNK)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / AUDIO_NEW
+    state = finalize_rollout(state, AUDIO_NEW)
+    t0 = time.perf_counter()
+    ref = vlm_score(torch, params, cfg, state.tokens, extra)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    want = {"flash_attention": 4 * L, "fused_sample": AUDIO_NEW,
+            "fused_logprob": 1}
+    require(launches == want, f"audio rollout launch counts {launches}, "
+            f"want {want} (three prefills and one scoring, the decoder's "
+            f"causal self-attention through flash_attention at hd {hd} in "
+            "each layer; the encoder's and the cross attention plain "
+            "chunked_attention, as the reference routes them; fused_sample "
+            "a decoded token)")
+    d = _check_outputs(torch, {"tokens": state.tokens,
+                               "mask": action_mask(state),
+                               "behavior_logp": state.behavior_logp,
+                               "ref_logp": ref}, cfg.vocab)
+    log(f"  prefill [{B}, {F} frames + {AUDIO_PROMPT}]: {prefill_ms:.1f} ms "
+        f"(the first {first_ms:.1f} ms); profiled: device busy "
+        f"{busy_p:.1f} ms, {shares(busy_p, ranged_p)}; peak memory through "
+        f"the prefills {prefill_peak:.2f} GB")
+    log(f"  cache: the cross attention's K and V {cross_bytes / 1e6:.1f} MB "
+        f"(bf16, {L} layers x {B} rows x {F} frames x {K} heads x {hd}, "
+        f"written once by the prefill); the decoder's ring "
+        f"{ring_bytes / 1e6:.1f} MB (fp32, {total} positions)")
+    busy /= PROFILED_STEPS
+    ranged = {k: v / PROFILED_STEPS for k, v in ranged.items()}
+    log(f"  decode {decode_ms:.2f} ms per token (batch {B}, "
+        f"{len(keys)} unprofiled chunks); {PROFILED_STEPS} profiled decode "
+        f"steps: device busy {busy:.2f} ms per token = "
+        f"{100 * busy / decode_ms:.1f}% of it; {shares(busy, ranged)} per "
+        "token; top device operations (ms per token): "
+        + ", ".join(f"{e.key[:48]} "
+                    f"{e.self_device_time_total / 1e3 / PROFILED_STEPS:.3f}"
+                    for e in ops[:6]))
+    log(f"  reference {t_ref * 1e3:.1f} ms over [{B}, {total}] with the "
+        f"frames; |behavior_logp - ref_logp| at {d.numel()} actions (bf16): "
+        f"mean {d.mean().item():.4f}, max {d.max().item():.4f}; launches "
+        f"{launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state, cache, ref, params, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def audio_train(torch, dev):
+    """[21] (b): two ``make_train_step`` steps at full width and depth,
+    ``frame_embeds`` in the batch: each step's batch is a rollout of the
+    current params (prompts of 64 ids, 32 new tokens) scored by a frozen
+    reference from another seed, KL 0.1.  Returns the launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.rl import prng
+    from repro_torch.rl.data import ArithmeticTasks
+    from repro_torch.rl.rollout import action_mask, generate
+    from repro_torch.train.optimizer import adam_init
+    from repro_torch.train.trainstep import TrainState, make_train_step
+
+    cfg = configs.get_config(AUDIO_ARCH)
+    L, B, n_steps = cfg.n_layers, N_PROMPTS * N_PER, 2
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    ref_params = init_params(cfg, seed=1, dtype=torch.bfloat16, device=dev)
+    state = TrainState(params, adam_init(params))
+    step = make_train_step(cfg, lr=1e-3, kl_coef=KL_COEF)
+    tasks = ArithmeticTasks(prompt_len=AUDIO_TRAIN_PROMPT, seed=0)
+    extra = {"frame_embeds": audio_frames(torch, cfg, B, dev, seed=1)
+             .to(torch.bfloat16)}
+    n = sum(t.numel() for t in leaves(params))
+    log(f"  (b) train {AUDIO_ARCH} at full width and depth: {n / 1e9:.3f} B "
+        f"params, trainer state {12 * n / 1e9:.1f} GB; {n_steps} "
+        f"make_train_step steps, KL {KL_COEF}, sequences of "
+        f"{AUDIO_TRAIN_SEQ} "
+        f"behind {cfg.frontend_tokens} frames")
+    before = {k: t for k, t in leaves_by_path(params).items()
+              if "norm" not in k[-1] and not k[-1].startswith("ln")}
+    del params
+    key = prng.PRNGKey(1)
+    t0 = time.perf_counter()
+    build.reset_launches()          # the train path's run starts here
+    for i in range(n_steps):
+        key, sub = prng.split(key)
+        prompts = torch.as_tensor(tasks.sample(N_PROMPTS, N_PER).prompts,
+                                  device=dev)
+        roll = generate(state.params, cfg, prompts, max_new=AUDIO_TRAIN_NEW,
+                        key=sub, chunk=CHUNK, extra=extra)
+        mask = action_mask(roll)
+        batch = {"tokens": roll.tokens, "behavior_logp": roll.behavior_logp,
+                 "advantages": torch.zeros_like(mask), "mask": mask,
+                 "ref_logp": vlm_score(torch, ref_params, cfg, roll.tokens,
+                                       extra), **extra}
+        del roll
+        state, m = step(state, batch)
+        log(f"  step {i}: loss {float(m['loss']):.5f}, grad_norm "
+            f"{float(m['grad_norm']):.4f}")
+        require(math.isfinite(float(m["loss"]))
+                and math.isfinite(float(m["grad_norm"]))
+                and float(m["grad_norm"]) > 0, f"step {i}: {m}")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    after = leaves_by_path(state.params)
+    still = [".".join(k) for k, t in before.items()
+             if torch.equal(after[k], t)]
+    require(not still, f"[21] (b) leaves that did not move: {still}")
+    want = {"fused_sample": n_steps * AUDIO_TRAIN_NEW,
+            "flash_attention": n_steps * 3 * L,
+            "fused_logprob": 2 * n_steps, "fused_logprob_bwd": n_steps}
+    require(launches == want, f"audio train launch counts {launches}, want "
+            f"{want} (per step: the rollout's prefill, the reference's and "
+            "the trainer's forward through flash_attention in each decoder "
+            "layer; the reference's and the trainer's log-probs; one "
+            "backward)")
+    log(f"  {n_steps} steps in {wall:.1f} s (rollouts and scoring "
+        f"included); moved: all {len(before)} leaves but the norms "
+        f"(encoder, decoder, cross attention, untied head); launches "
+        f"{launches}; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del state, ref_params, batch, after, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def audio_numerics(torch, dev):
+    """[21] (c): the smoke config in fp32 on the card against the CPU
+    port: logits with the frames, then prefill + decode against the
+    teacher-forced forward (the reference's 1e-3), then a batch rollout
+    with the frames whose mu is within 1e-3 of the reference's log-probs.
+    Returns the launch counts of the rollout."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import decode_step, forward_train, \
+        init_params, prefill
+    from repro_torch.rl import prng
+    from repro_torch.rl.data import ArithmeticTasks
+    from repro_torch.rl.rollout import action_mask, generate
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = configs.get_smoke(AUDIO_ARCH)
+    params = init_params(cfg, seed=5, dtype=torch.float32, device=dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    S, n, F = AUDIO_SMOKE_PROMPT, AUDIO_SMOKE_NEW, cfg.frontend_tokens
+    rng = np.random.default_rng(5)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab, (2, S + n)),
+                          dtype=torch.int32)
+    fr = torch.as_tensor(rng.standard_normal((2, F, cfg.d_model)) * 0.02,
+                         dtype=torch.float32)
+    toks, fr_dev = ids.to(dev), fr.to(dev)
+    with torch.no_grad():
+        full, _ = forward_train(params, cfg, {"tokens": toks,
+                                              "frame_embeds": fr_dev})
+        full_cpu, _ = forward_train(host, cfg, {"tokens": ids,
+                                                "frame_embeds": fr})
+        fwd_err = max_err(full.cpu(), full_cpu)
+        last, cache = prefill(params, cfg, {"tokens": toks[:, :S],
+                                            "frame_embeds": fr_dev},
+                              cache_len=S + n, dtype=torch.float32)
+        dec_err = max_err(last, full[:, S - 1])
+        for i in range(n):
+            lg, cache = decode_step(params, cfg, cache,
+                                    toks[:, S + i:S + i + 1])
+            dec_err = max(dec_err, max_err(lg, full[:, S + i]))
+    log(f"  (c) {cfg.name} smoke fp32 ({cfg.n_enc_layers} + {cfg.n_layers} "
+        f"layers, d {cfg.d_model}, {F} frames): card against CPU logits "
+        f"{fwd_err:.3e}; prefill of {S} and {n} decode steps against the "
+        f"teacher-forced forward: max|dlogits| {dec_err:.3e} (tolerance "
+        "1e-3 each)")
+    require(max(fwd_err, dec_err) <= 1e-3, "[21] (c) numerics")
+    prompts = torch.as_tensor(ArithmeticTasks(seed=5).sample(1, N_PER)
+                              .prompts, device=dev)
+    extra = {"frame_embeds": audio_frames(torch, cfg, N_PER, dev, seed=5)}
+    build.reset_launches()          # the rollout's run starts here
+    roll = generate(params, cfg, prompts, max_new=MAX_NEW,
+                    key=prng.PRNGKey(5), chunk=CHUNK, extra=extra)
+    ref = vlm_score(torch, params, cfg, roll.tokens, extra)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # ... and ends here
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L, "fused_sample": MAX_NEW,
+            "fused_logprob": 1}
+    require(launches == want, f"fp32 audio rollout launches {launches}, "
+            f"want {want}")
+    d = _check_outputs(torch, {"tokens": roll.tokens,
+                               "mask": action_mask(roll),
+                               "behavior_logp": roll.behavior_logp,
+                               "ref_logp": ref}, cfg.vocab)
+    log(f"  fp32 batch rollout with frames, {N_PER} samples of {MAX_NEW} "
+        f"tokens: |behavior_logp - ref_logp| at {d.numel()} actions: max "
+        f"{d.max().item():.2e} (tolerance 1e-3); launches {launches}")
+    require(d.max().item() <= 1e-3, "fp32 audio rollout mu vs reference")
+    del params, host, cache, roll
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_audio(torch, dev):
+    """[21]: the audio encoder-decoder family.  Returns the launch counts
+    of its main-path runs."""
+    log(f"[21] audio: {AUDIO_ARCH} at full width and depth served and "
+        f"trained, its smoke config in fp32; {nvidia_smi()}")
+    from repro_torch import configs
+    cfg = configs.get_config(AUDIO_ARCH)
+    V, B = cfg.vocab, N_PROMPTS * N_PER
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    dense = ("fused_sample_cuda", "fused_logprob_cuda",
+             "flash_attention_cuda")
+    parts = [time.perf_counter()]
+    with KernelCalls(torch, per_shape=1, names=KernelCalls.ENGINE) as calls:
+        launches.update(audio_serve(torch, dev))
+    for line in calls.replay("[21] (a)", expect=dense):
+        log(line)
+    got = {n: {tuple(args[0].shape) for args, _, _ in calls.calls[n]}
+           for n in dense}
+    want = {"fused_sample_cuda": {(B, V)},
+            "fused_logprob_cuda": {(B, AUDIO_PROMPT + AUDIO_NEW - 1, V)},
+            "flash_attention_cuda": {
+                (B, AUDIO_PROMPT, cfg.n_heads, cfg.hd),
+                (B, AUDIO_PROMPT + AUDIO_NEW, cfg.n_heads, cfg.hd)}}
+    require(got == want, f"[21] (a) shapes {got}, want {want}")
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts.append(time.perf_counter())
+    with KernelCalls(torch, host=True, names=KernelCalls.ENGINE) as calls:
+        launches.update(audio_train(torch, dev))
+    for line in calls.replay("[21] (b)", expect=dense + (
+            "fused_logprob_bwd_cuda",)):
+        log(line)
+    del calls
+    parts.append(time.perf_counter())
+    with KernelCalls(torch, names=KernelCalls.ENGINE) as calls:
+        launches.update(audio_numerics(torch, dev))
+    for line in calls.replay("[21] (c)", expect=dense):
+        log(line)
+    del calls
+    parts.append(time.perf_counter())
+    launches = dict(launches)
+    # both packages' engines refuse the audio family
+    family_checks("21", launches, KERNELS[:4], ("paged_attention",))
+    log(f"  [21] launches {launches}; {time.perf_counter() - t0:.1f} s "
+        f"((a), (b), (c) with their replays: "
+        + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:]))
+        + " s)")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: no src/repro_torch beside chip_smoke.py",
@@ -5930,6 +6808,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_launches = phase_hybrid(torch, dev)
     mark("[19]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_launches = phase_xlstm(torch, dev)
+    mark("[20]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio_launches = phase_audio(torch, dev)
+    mark("[21]")
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
@@ -5948,7 +6834,9 @@ def main() -> int:
                    "moe": moe_launches.get(r["name"], 0),
                    "mla": mla_launches.get(r["name"], 0),
                    "vlm": vlm_launches.get(r["name"], 0),
-                   "hybrid": hybrid_launches.get(r["name"], 0)}
+                   "hybrid": hybrid_launches.get(r["name"], 0),
+                   "ssm": ssm_launches.get(r["name"], 0),
+                   "audio": audio_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")
@@ -5965,8 +6853,18 @@ def main() -> int:
             require(by_path["mla"] > 0,
                     f"{r['name']} never ran on the MLA path")
         if r["name"] in KERNELS[:4]:
-            require(by_path["vlm"] > 0 and by_path["hybrid"] > 0,
-                    f"{r['name']} never ran on the VLM or hybrid path")
+            require(by_path["vlm"] > 0 and by_path["hybrid"] > 0
+                    and by_path["audio"] > 0,
+                    f"{r['name']} never ran on the VLM, hybrid or audio "
+                    "path")
+        if r["name"] in KERNELS[:3]:
+            require(by_path["ssm"] > 0,
+                    f"{r['name']} never ran on the SSM path")
+        if r["name"] in ("flash_attention", "paged_attention"):
+            require(by_path["ssm"] == 0, f"{r['name']} ran on the SSM path")
+        if r["name"] == "paged_attention":
+            require(by_path["audio"] == 0,
+                    "paged_attention ran on the audio path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(smi)

@@ -1,9 +1,9 @@
 """Architecture config system (a copy of the JAX package's ``configs/base.py``).
 
 The dataclasses keep the reference's field names and defaults so a config
-built for one package reads the same in the other.  The port runs the dense,
-MoE (MLA and MTP included), VLM and hybrid families so far; the other
-families' fields are kept so the dataclass stays a field-for-field copy.
+built for one package reads the same in the other.  The port runs every
+family of the reference: dense, MoE (MLA and MTP included), VLM, hybrid,
+SSM (xLSTM) and the audio encoder-decoder.
 """
 from __future__ import annotations
 

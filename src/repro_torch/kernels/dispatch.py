@@ -3,8 +3,9 @@
 A CUDA tensor launches the hand-written kernel or raises; a CPU tensor
 takes the kernel's plain PyTorch version.  There is no mode knob and no
 size threshold: on the card the path always goes through the kernels.
-A call the kernels cannot take raises ``NotImplementedError`` naming the
-slice that brings it.
+``attention`` sends what the reference's flash kernel does not take
+(windows, continuations, asymmetric heads, encoder and cross attention)
+to ``chunked_attention`` on either device, as the reference does.
 
 ``token_logprob`` and ``attention`` are differentiable, as the
 reference's custom VJPs are (``repro/kernels/dispatch.py``): the
@@ -118,26 +119,28 @@ class _FlashAttention(torch.autograd.Function):
         return torch.autograd.grad(out, leaves, g)
 
 
-def attention(q, k, v, *, window: int = 0, q_offset: int = 0):
-    """Causal self-attention of a prefill or training segment.
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              q_offset: int = 0):
+    """Attention of a prefill or training segment.
 
-    q: [B, Sq, H, hd]; k/v: [B, Sk, K, hd(v)] -> [B, Sq, H, hd(v)].  A
-    sliding-window segment (``window``), a prefill continuation
-    (``q_offset``: queries at absolute positions ``q_offset ..`` over a
-    cached prefix and themselves) or asymmetric head dims (MLA's qk 192
-    against v 128) go to ``chunked_attention`` on either device, as the
-    reference routes them (its flash kernel takes none of them); dense
-    causal self-attention goes to the flash kernel on the card.  Cross
-    attention comes with the encoder-decoder family (ROADMAP A11.7).
+    q: [B, Sq, H, hd]; k/v: [B, Sk, K, hd(v)] -> [B, Sq, H, hd(v)], H a
+    multiple of K.  Dense causal self-attention (Sq == Sk, no window, no
+    offset, one head dim) goes to the flash kernel on the card; the
+    rest goes to ``chunked_attention`` on either device, as the reference
+    routes it (its flash kernel takes none of it): a sliding-window
+    segment (``window``), a prefill continuation (``q_offset``: queries
+    at absolute positions ``q_offset ..`` over a cached prefix and
+    themselves), asymmetric head dims (MLA's qk 192 against v 128), and
+    ``causal=False``: an encoder's self-attention, or cross attention of
+    decoder queries over encoder frames (Sq != Sk).
     """
-    if q_offset + q.shape[1] != k.shape[1] or q.shape[2] % k.shape[2]:
-        raise NotImplementedError(
-            f"attention q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-            f"{tuple(v.shape)}, q_offset {q_offset}: only causal "
-            "self-attention and its continuation are ported (cross "
-            "attention: ROADMAP A11.7)")
-    if window or q_offset or v.shape[-1] != q.shape[-1]:
-        return chunked_attention(q, k, v, window=window, q_offset=q_offset)
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"attention: {q.shape[2]} query heads are no "
+                         f"multiple of {k.shape[2]} kv heads")
+    if (not causal or window or q_offset or q.shape[1] != k.shape[1]
+            or v.shape[-1] != q.shape[-1]):
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
     if q.is_cuda:
         return _FlashAttention.apply(q, k, v)
     return chunked_attention(q, k, v)

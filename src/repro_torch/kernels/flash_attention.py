@@ -1,4 +1,4 @@
-"""Causal GQA flash attention, forward.
+"""Causal GQA flash attention, forward, and its plain version.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
 (body ``_kernel``).  The plain version is ``chunked_attention``, the
@@ -41,29 +41,36 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128, 192)
 
 
-def _block_attend(q, k, v, row_pos, col_pos, window: int = 0):
-    """q: [B, bq, K, g, hd]; k/v: [B, Sk, K, hd]; causal by absolute
-    positions, and with ``window`` a key more than ``window - 1``
-    positions behind its query is masked too.  Scores and softmax in
-    fp32, probs cast to v's dtype before the PV product, as the reference
-    does."""
+def _block_attend(q, k, v, row_pos, col_pos, window: int = 0,
+                  causal: bool = True):
+    """q: [B, bq, K, g, hd]; k/v: [B, Sk, K, hd]; with ``causal`` a key
+    past its query's absolute position is masked, and with ``window`` a
+    key more than ``window - 1`` positions behind it too.  Scores and
+    softmax in fp32, probs cast to v's dtype before the PV product, as
+    the reference does."""
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
-    mask = col_pos[None, :] <= row_pos[:, None]
+    mask = None
+    if causal:
+        mask = col_pos[None, :] <= row_pos[:, None]
     if window:
-        mask &= col_pos[None, :] > row_pos[:, None] - window
-    scores = torch.where(mask, scores, NEG_INF)
+        near = col_pos[None, :] > row_pos[:, None] - window
+        mask = near if mask is None else mask & near
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
 
 
-def chunked_attention(q, k, v, *, window: int = 0, block_q: int = 512,
-                      q_offset: int = 0):
-    """Causal attention over query blocks: q: [B, Sq, H, hd], k/v:
-    [B, Sk, K, hd] -> [B, Sq, H, hd]; live scores are
-    [B, K, g, block_q, Sk] rather than [B, H, S, S].  ``q_offset`` is the
-    absolute position of q[0] over keys at positions 0 .. Sk - 1 (a
-    prefill continuation over a cached prefix).
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      block_q: int = 512, q_offset: int = 0):
+    """Attention over query blocks: q: [B, Sq, H, hd], k/v: [B, Sk, K,
+    hd] -> [B, Sq, H, hd]; live scores are [B, K, g, block_q, Sk] rather
+    than [B, H, S, S].  ``q_offset`` is the absolute position of q[0]
+    over keys at positions 0 .. Sk - 1 (a prefill continuation over a
+    cached prefix).  ``causal=False`` masks nothing: an encoder's
+    self-attention, or cross attention of Sq decoder queries over Sk
+    encoder frames (Sq may be 1, a decode step).
 
     With a sliding ``window`` and ``Sk > window + block_q``, each query
     block reads only a ``window + block_q`` span of keys, the reference's
@@ -82,7 +89,8 @@ def chunked_attention(q, k, v, *, window: int = 0, block_q: int = 512,
         start = min(max(q_offset + qs + block_q - span, 0), Sk - span)
         outs.append(_block_attend(qi, k[:, start:start + span],
                                   v[:, start:start + span], row_pos,
-                                  col_pos[start:start + span], window))
+                                  col_pos[start:start + span], window,
+                                  causal))
     return torch.cat(outs, dim=1).reshape(B, Sq, H, v.shape[-1])
 
 

@@ -36,14 +36,18 @@ actor, then degrades the pool to the survivors; ``--chaos SPEC`` (or
 and the supervisor's events are printed after the run.
 ``--checkpoint-every N`` writes the trainer's params to
 ``--checkpoint-path`` every N steps.  ``--arch`` names a config of the
-registry (``repro_torch.configs.list_archs()``: the windowed dense archs,
-the MoE llama4-scout-17b-a16e, the MLA + MTP deepseek-v3-671b, the VLM
-qwen2-vl-7b and the hybrid zamba2-7b, default ``starcoder2-3b`` as in the
-reference) or ``llama31-8b``; the registry's other families (ROADMAP
-A11.6-A11.7) are not ported.  qwen2-vl-7b's generator needs patch
-embeddings, which the executors do not carry in either package, so its
-loop stops at the first generator step, as the reference's does.  Submeshes (A12)
-are not ported either: ``--child-mesh`` raises ``NotImplementedError``.
+registry (``repro_torch.configs.list_archs()``, all ten of the
+reference's: the windowed dense archs, the MoE llama4-scout-17b-a16e,
+the MLA + MTP deepseek-v3-671b, the VLM qwen2-vl-7b, the hybrid
+zamba2-7b, the xLSTM xlstm-350m and the audio encoder-decoder
+seamless-m4t-medium; default ``starcoder2-3b`` as in the reference) or
+``llama31-8b``.  qwen2-vl-7b's generator needs patch embeddings and
+seamless-m4t-medium's frame embeddings, which the executors do not carry
+in either package, so their loops stop at the first generator step
+(``KeyError``), as the reference's do.  xlstm-350m's mLSTM takes a
+sequence of at most 64 tokens or a multiple of 64, in both packages.
+Submeshes (A12) are not ported: ``--child-mesh`` raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -220,8 +224,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="starcoder2-3b",
                     choices=configs.list_archs() + ["llama31-8b"],
-                    help="model config; the registry's other archs come "
-                    "with ROADMAP A11.6-A11.7")
+                    help="model config: any arch of the registry, or "
+                    "llama31-8b")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config")
     ap.add_argument("--device", default="cuda",

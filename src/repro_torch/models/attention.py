@@ -1,9 +1,12 @@
-"""GQA attention with RoPE, and MLA (the port of the JAX package's
-``models/attention.py``, dense and MoE families).
+"""GQA attention with RoPE, cross attention, and MLA (the port of the JAX
+package's ``models/attention.py``).
 
 Full-sequence attention (train/prefill) goes through
-``kernels.dispatch.attention``: the flash kernel on the card,
-``chunked_attention`` on the CPU and for prefill continuations.  Dense
+``kernels.dispatch.attention``: the flash kernel on the card for causal
+self-attention, ``chunked_attention`` on the CPU, for prefill
+continuations, and for an encoder's unmasked self-attention and the
+decoder's cross attention over its frames (``gqa_cross_forward``, in
+prefill and in decode alike), as the reference routes them.  Dense
 one-token decode, with one cursor or one per row, is plain torch, as the
 reference leaves it to XLA; paged decode goes through
 ``kernels.dispatch.paged_attention``.  Every variant takes a sliding
@@ -68,16 +71,28 @@ def _rotate(q, k, cfg, positions, mrope_pos=None):
     return q, k
 
 
-def gqa_forward(p, x, cfg, *, window: int = 0, mrope_pos=None):
-    """Full-sequence causal GQA, over a sliding ``window`` when it is not
-    0; M-RoPE turns at ``mrope_pos`` [3, B, S].  Returns (y, (k, v)) so
-    prefill can build the KV cache; keys are returned already rotated."""
+def gqa_forward(p, x, cfg, *, window: int = 0, mrope_pos=None,
+                causal: bool = True):
+    """Full-sequence GQA, causal unless ``causal=False`` (an encoder),
+    over a sliding ``window`` when it is not 0; M-RoPE turns at
+    ``mrope_pos`` [3, B, S].  Returns (y, (k, v)) so prefill can build
+    the KV cache; keys are returned already rotated."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     q, k = _rotate(q, k, cfg, torch.arange(S, device=x.device).expand(B, S),
                    mrope_pos)
-    y = dispatch.attention(q, k, v, window=window)
+    y = dispatch.attention(q, k, v, causal=causal, window=window)
     return y.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def gqa_cross_forward(p, x, k, v, cfg):
+    """Cross attention: the decoder's x [B, S, D] (S may be 1, a decode
+    step) over the encoder's k/v [B, F, K, hd] in x's dtype, no mask and
+    no rotation."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    y = dispatch.attention(q, k, v, causal=False)
+    return y.reshape(B, S, -1) @ p["wo"]
 
 
 def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg, *,

@@ -18,8 +18,19 @@ and turns q and k by M-RoPE: patch i at (0, i // side, i % side) with
 side = floor(sqrt(P)), text token t at side + t in all three sections.
 A hybrid (Zamba2) has ``mamba_layers``, a stack of Mamba2 layers, and
 ``shared_attn``, one decoder layer with no leading axis whose weights
-run before every group of ``shared_attn_every`` Mamba layers.  The SSM
-and audio families come with ROADMAP A11.6-A11.7.
+run before every group of ``shared_attn_every`` Mamba layers.
+
+An xLSTM (the SSM family) has ``xlstm_layers``, a list of per-layer
+dicts ``{"ln", "cell"}`` as in the reference, not a stack: its two kinds
+of cell (sLSTM at ``cfg.xlstm.slstm_layers``, mLSTM elsewhere) hold
+different leaves.  It has no attention.  The audio encoder-decoder
+(SeamlessM4T) has ``enc_layers`` and ``dec_layers``, stacks of GQA
+layers whose decoder layers also hold ``ln_cross`` and ``cross`` (the
+cross attention over the encoder's output), and ``enc_norm``.  Its
+encoder reads precomputed frame embeddings (``batch["frame_embeds"]``
+[B, F, D], the speech front end is a stub in both packages) plus
+sinusoidal positions, unmasked; its decoder adds sinusoidal positions
+to the token embeddings, with no rotation.
 """
 from __future__ import annotations
 
@@ -33,41 +44,51 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffnmod
 from repro_torch.models import ssm as ssmmod
 from repro_torch.models.common import dense_init, norm, \
-    text_mrope_positions
+    sinusoidal_positions, text_mrope_positions
 
 Params = Dict[str, Any]
 
-# what is not ported yet, by family: its ROADMAP item
-_UNPORTED = {"ssm": "A11.6 (SSM)", "audio": "A11.7 (audio encoder-decoder)"}
-
 
 def check_family(cfg: ArchConfig) -> None:
-    """The port runs the dense and MoE families with GQA or MLA attention,
-    with or without windows, the MoE family's MTP head, and the VLM and
-    hybrid families with GQA."""
-    if cfg.family in ("dense", "moe") and cfg.attn_kind in ("gqa", "mla"):
-        if cfg.attn_kind == "mla" and cfg.mla is None:
+    """The port runs every family of the reference: dense and MoE with
+    GQA or MLA attention, with or without windows, the MoE family's MTP
+    head; VLM, hybrid and the audio encoder-decoder with GQA; the SSM
+    family (xLSTM) with no attention.  A config whose family lacks the
+    sub-config it needs raises ``ValueError``."""
+    fam, kind = cfg.family, cfg.attn_kind
+    if fam in ("dense", "moe") and kind in ("gqa", "mla"):
+        if kind == "mla" and cfg.mla is None:
             raise ValueError(f"{cfg.name}: attn_kind='mla' needs an "
                              "MLAConfig in cfg.mla")
         return
-    if cfg.family in ("vlm", "hybrid") and cfg.attn_kind == "gqa":
-        if cfg.family == "hybrid" and (cfg.ssm is None
-                                       or cfg.shared_attn_every < 1):
+    if fam in ("vlm", "hybrid", "audio") and kind == "gqa":
+        if fam == "hybrid" and (cfg.ssm is None
+                                or cfg.shared_attn_every < 1):
             raise ValueError(f"{cfg.name}: the hybrid family needs an "
                              "SSMConfig and shared_attn_every >= 1")
+        if fam == "audio" and not (cfg.enc_dec and cfg.n_enc_layers >= 1):
+            raise ValueError(f"{cfg.name}: the audio family needs "
+                             "enc_dec=True and n_enc_layers >= 1")
         return
-    raise NotImplementedError(
-        f"family={cfg.family!r}, attn_kind={cfg.attn_kind!r}: the port "
-        "runs the dense and MoE families with GQA or MLA attention and "
-        "the VLM and hybrid families with GQA; this one comes with "
-        f"ROADMAP {_UNPORTED.get(cfg.family, 'A11')}")
+    if fam == "ssm":
+        if cfg.xlstm is None:
+            raise ValueError(f"{cfg.name}: the SSM family needs an "
+                             "XLSTMConfig in cfg.xlstm")
+        return
+    raise ValueError(
+        f"{cfg.name}: family={fam!r} with attn_kind={kind!r} is no family "
+        "of the reference (dense and moe take gqa or mla; vlm, hybrid and "
+        "audio take gqa; ssm has its own cells)")
 
 
 def layer_stacks(cfg: ArchConfig) -> list:
-    """The attention layer stacks in the order every path walks them, as
-    ``(params key, n_layers, index of the stack's first layer)``; none
-    for the hybrid family, whose one attention layer is ``shared_attn``."""
-    if cfg.family == "hybrid":
+    """The decoder-only attention layer stacks in the order every path
+    walks them, as ``(params key, n_layers, index of the stack's first
+    layer)``; none for the hybrid family, whose one attention layer is
+    ``shared_attn``, for the SSM family, which has no attention, or for
+    the audio family, whose stacks ``enc_layers`` and ``dec_layers`` have
+    paths of their own."""
+    if cfg.family in ("hybrid", "ssm", "audio"):
         return []
     if cfg.family == "moe":
         fkd = cfg.moe.first_k_dense
@@ -76,7 +97,8 @@ def layer_stacks(cfg: ArchConfig) -> list:
     return [("layers", cfg.n_layers, 0)]
 
 
-def _layer_params(gen, cfg, n, dtype, dev, *, moe: bool) -> Params:
+def _layer_params(gen, cfg, n, dtype, dev, *, moe: bool,
+                  cross: bool = False) -> Params:
     D = cfg.d_model
     attn_params = attn.mla_params if cfg.attn_kind == "mla" \
         else attn.gqa_params
@@ -88,7 +110,22 @@ def _layer_params(gen, cfg, n, dtype, dev, *, moe: bool) -> Params:
     else:
         p["mlp"] = ffnmod.mlp_params(gen, n, D, cfg.d_ff, cfg.act, dtype,
                                      dev, bias=cfg.bias)
+    if cross:
+        p["ln_cross"] = torch.ones((n, D), dtype=dtype, device=dev)
+        p["cross"] = attn.gqa_params(gen, cfg, n, dtype, dev)
     return p
+
+
+def _xlstm_layers(gen, cfg, dtype, dev) -> list:
+    """xLSTM's per-layer ``{"ln", "cell"}`` dicts, sLSTM cells at
+    ``cfg.xlstm.slstm_layers`` and mLSTM cells elsewhere."""
+    out = []
+    for i in range(cfg.n_layers):
+        cell = ssmmod.slstm_params if i in cfg.xlstm.slstm_layers \
+            else ssmmod.mlstm_params
+        out.append({"ln": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+                    "cell": cell(gen, cfg, dtype, dev)})
+    return out
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
@@ -97,7 +134,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     on ``device``, with the reference's shapes and scales (a MoE router
     and Mamba2's ``A_log``, ``D_skip`` and ``dt_bias`` stay fp32 whatever
     ``dtype`` is, as in the reference).  The MTP head's ``block`` and the
-    hybrid's ``shared_attn`` are one layer with no leading axis."""
+    hybrid's ``shared_attn`` are one layer with no leading axis; xLSTM's
+    ``xlstm_layers`` is a list of layers."""
     check_family(cfg)
     dev = resolve(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -118,6 +156,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
             "mamba": ssmmod.mamba2_params(gen, cfg, L, dtype, dev)}
         params["shared_attn"] = unstack(_layer_params(
             gen, cfg, 1, dtype, dev, moe=False), 1)[0]
+    if cfg.family == "ssm":
+        params["xlstm_layers"] = _xlstm_layers(gen, cfg, dtype, dev)
+    if cfg.family == "audio":
+        params["enc_layers"] = _layer_params(gen, cfg, cfg.n_enc_layers,
+                                             dtype, dev, moe=False)
+        params["dec_layers"] = _layer_params(gen, cfg, cfg.n_layers, dtype,
+                                             dev, moe=False, cross=True)
+        params["enc_norm"] = torch.ones(D, dtype=dtype, device=dev)
     if cfg.family == "moe" and cfg.mtp:
         params["mtp"] = {
             "proj": dense_init(gen, (2 * D, D), dtype, dev),
@@ -273,11 +319,22 @@ def forward_train(params: Params, cfg: ArchConfig, batch) -> tuple:
     t predicts token t + 2 from (h_t, embed(token t + 1)), the last
     position reading its own token again, as in the reference.  A VLM's
     batch holds ``patch_embeds`` [B, P, D]; its logits are the text
-    positions' only."""
+    positions' only.  An audio model's batch holds ``frame_embeds``
+    [B, F, D], which the encoder reads."""
     check_family(cfg)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = _embed(params, cfg, tokens)
+    if cfg.family == "ssm":
+        for i, p in enumerate(params["xlstm_layers"]):
+            x = x + xlstm_layer(p, x, cfg, i)[0]
+        return _logits(params, cfg, x), {"moe_aux": 0.0}
+    if cfg.family == "audio":
+        enc = _encode(params, cfg, batch["frame_embeds"])
+        x = x + sinusoidal_positions(S, cfg.d_model,
+                                     device=x.device)[None].to(x.dtype)
+        x, _ = run_encdec_decoder(params, cfg, x, enc)
+        return _logits(params, cfg, x), {"moe_aux": 0.0}
     mrope_pos = None
     if cfg.family == "vlm":
         x, mrope_pos, _ = vlm_prefix(cfg, x, batch)
@@ -305,3 +362,61 @@ def forward_train(params: Params, cfg: ArchConfig, batch) -> tuple:
         h, _ = _ffn_block(mtp["block"], h, cfg)
         out["mtp_logits"] = _logits(params, cfg, h)
     return _logits(params, cfg, x), out
+
+
+def xlstm_layer(p, x, cfg, i: int, state=None):
+    """Layer ``i`` of an xLSTM without its residual: (cell(norm(x)), the
+    cell's state after the last step), an sLSTM cell where
+    ``cfg.xlstm.slstm_layers`` names ``i``, else an mLSTM cell."""
+    fwd = ssmmod.slstm_forward if i in cfg.xlstm.slstm_layers \
+        else ssmmod.mlstm_forward
+    return fwd(p["cell"], norm(x, p["ln"], cfg.norm), cfg, state)
+
+
+def _encode(params, cfg, frame_embeds):
+    """The encoder: frame embeddings [B, F, D] (cast to the params' dtype:
+    the reference adds them as given, and a bf16 model's products in
+    torch take one dtype) plus sinusoidal positions, through the encoder
+    layers with unmasked self-attention, then ``enc_norm``."""
+    x = frame_embeds.to(params["enc_norm"].dtype)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 device=x.device)[None].to(x.dtype)
+    for p in unstack(params["enc_layers"], cfg.n_enc_layers):
+        y, _ = attn.gqa_forward(p["attn"], norm(x, p["ln1"], cfg.norm), cfg,
+                                causal=False)
+        x, _ = _ffn_block(p, x + y, cfg)
+    return norm(x, params["enc_norm"], cfg.norm)
+
+
+def _enc_kv(p, enc, cfg):
+    """A decoder layer's cross-attention K and V [B, F, K, hd] from the
+    encoder's output (no bias, no rotation, as in the reference)."""
+    B, F_ = enc.shape[:2]
+    K, hd = cfg.n_kv_heads, cfg.hd
+    return ((enc @ p["cross"]["wk"]).reshape(B, F_, K, hd),
+            (enc @ p["cross"]["wv"]).reshape(B, F_, K, hd))
+
+
+def run_encdec_decoder(params, cfg, x, enc, collect: bool = False):
+    """The decoder layers over x [B, S, D] (positions added): causal
+    self-attention, cross attention over ``enc`` [B, F, D], the MLP.
+    Returns (x, kvs): with ``collect`` the self-attention's (k, v) and the
+    cross attention's (k, v) of every layer, stacked [L, B, S | F, K,
+    hd], for prefill to cache; else None."""
+    ks, vs, eks, evs = [], [], [], []
+    for p in unstack(params["dec_layers"], cfg.n_layers):
+        y, (k, v) = attn.gqa_forward(p["attn"], norm(x, p["ln1"], cfg.norm),
+                                     cfg)
+        x = x + y
+        ek, ev = _enc_kv(p, enc, cfg)
+        x = x + attn.gqa_cross_forward(
+            p["cross"], norm(x, p["ln_cross"], cfg.norm), ek, ev, cfg)
+        x, _ = _ffn_block(p, x, cfg)
+        if collect:
+            ks.append(k)
+            vs.append(v)
+            eks.append(ek)
+            evs.append(ev)
+    if not collect:
+        return x, None
+    return x, tuple(torch.stack(t) for t in (ks, vs, eks, evs))

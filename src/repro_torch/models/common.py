@@ -1,5 +1,6 @@
-"""Shared building blocks: norms, activations, rotary embeddings, init
-(the port of the JAX package's ``models/common.py``)."""
+"""Shared building blocks: norms, activations, rotary and sinusoidal
+position embeddings, init (the port of the JAX package's
+``models/common.py``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -88,6 +89,18 @@ def text_mrope_positions(batch: int, seq: int, offset=0, device=None):
     Returns [3, B, S] int64."""
     p = (torch.arange(seq, device=device) + offset).expand(batch, seq)
     return torch.stack([p, p, p])
+
+
+def sinusoidal_positions(seq: int, d_model: int, offset=0, device=None):
+    """[seq, d_model] fp32 sinusoidal position embeddings (sines in the
+    first half, cosines in the second): the angles are computed in
+    float64 numpy and cast once, as the reference does."""
+    pos = np.arange(seq)[:, None] + offset
+    i = np.arange(d_model // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d_model))
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(out, dtype=torch.float32, device=device)
+
 
 # ------------------------------------------------------------------ init ---
 

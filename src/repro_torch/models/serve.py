@@ -1,6 +1,6 @@
 """Serving path: KV cache, prefill, single-token decode (the port of the
-JAX package's ``models/serve.py``: the dense, MoE, VLM and hybrid
-families), and the engine's slot-pool helpers.
+JAX package's ``models/serve.py``, every family), and the engine's
+slot-pool helpers.
 
 Two cache layouts, as in the reference:
 - dense: ``{"pos", "segments": [{"k", "v", "slot_pos"}]}`` with k/v
@@ -27,6 +27,16 @@ for the shared attention block's ceil(L / shared_attn_every)
 applications, k/v [G, B, Sc, K, hd], the reference's own ring: past 4096
 positions it wraps and the block attends over the last 4096.
 
+An xLSTM's cache is ``{"pos", "xlstm": [state a layer]}``: an mLSTM
+layer's (C [B, H, P, P], n [B, H, P]) tuple, an sLSTM layer's {"h", "c",
+"n", "m"} dict of [B, H, P], all fp32, whatever the length.  An audio
+model's is ``{"pos", "self": {"k", "v", "slot_pos"}, "cross_k",
+"cross_v"}``: the decoder's self-attention ring of ``cache_len`` slots,
+k/v [L, B, Sc, K, hd], and the encoder's cross-attention K and V of
+every decoder layer, [L, B, F, K, hd], which prefill computes once and
+leaves in the params' dtype, as the reference does; ``pos`` counts the
+tokens only.
+
 ``pos`` is a Python int, one cursor for every row, or a [B] int32
 tensor, one decode cursor per row (the engine's slot pool; the paged
 layout always has it, and neither takes MLA, as in the reference).
@@ -42,7 +52,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import backbone as bb
 from repro_torch.models import ssm as ssmmod
-from repro_torch.models.common import norm
+from repro_torch.models.common import norm, sinusoidal_positions
 from repro_torch.models.paging import paged_blocks
 
 Cache = Dict[str, Any]
@@ -86,7 +96,9 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int,
     holds, for each segment, ``n_pages`` allocatable pages of
     ``page_size`` slots plus the trash page, and one table of
     ``paged_blocks(cache_len, page_size) + 1`` entries a row.  A
-    hybrid's cache is its Mamba2 states and its shared block's ring."""
+    hybrid's cache is its Mamba2 states and its shared block's ring, an
+    xLSTM's its cells' states, an audio model's its decoder's ring and
+    zeroed cross-attention K and V of ``frontend_tokens`` frames."""
     bb.check_family(cfg)
     K, hd = cfg.n_kv_heads, cfg.hd
     if layout == "paged":
@@ -125,6 +137,17 @@ def init_cache(cfg: ArchConfig, B: int, cache_len: int,
         seg["slot_pos"] = torch.full((Sc,), -1, dtype=torch.int32,
                                      device=device)
         return seg
+    if cfg.family == "ssm":
+        return {"pos": 0, "xlstm": [
+            ssmmod.slstm_init_state(cfg, B, device=device)
+            if i in cfg.xlstm.slstm_layers
+            else ssmmod.mlstm_init_state(cfg, B, device=device)
+            for i in range(cfg.n_layers)]}
+    if cfg.family == "audio":
+        cross = (cfg.n_layers, B, cfg.frontend_tokens, K, hd)
+        return {"pos": 0, "self": ring(cfg.n_layers, cache_len),
+                "cross_k": torch.zeros(cross, dtype=dtype, device=device),
+                "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
     if cfg.family == "hybrid":
         state = ssmmod.mamba2_init_state(cfg, B, device=device)
         return {"pos": 0,
@@ -156,14 +179,23 @@ def _write_seg(seg, kvs, start: int):
 def prefill(params, cfg: ArchConfig, batch, cache_len: int,
             dtype=torch.bfloat16):
     """batch: {'tokens': [B, S]}, with ``patch_embeds`` [B, P, D] for a
-    VLM (then ``cache_len`` must hold P + S + the decoded tokens).
-    Returns (last_logits [B, V], cache)."""
+    VLM (then ``cache_len`` must hold P + S + the decoded tokens) and
+    ``frame_embeds`` [B, F, D] for an audio model.  Returns (last_logits
+    [B, V], cache)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = bb._embed(params, cfg, tokens)
     cache = init_cache(cfg, B, cache_len, dtype, device=x.device)
     if cfg.family == "hybrid":
         return _prefill_hybrid(params, cfg, x, cache)
+    if cfg.family == "ssm":
+        for i, p in enumerate(params["xlstm_layers"]):
+            y, cache["xlstm"][i] = bb.xlstm_layer(p, x, cfg, i)
+            x = x + y
+        cache["pos"] = S
+        return bb._logits(params, cfg, x[:, -1]), cache
+    if cfg.family == "audio":
+        return _prefill_audio(params, cfg, batch, x, cache)
     mrope_pos, prefix = None, 0
     if cfg.family == "vlm":
         x, mrope_pos, prefix = bb.vlm_prefix(cfg, x, batch)
@@ -200,6 +232,22 @@ def _prefill_hybrid(params, cfg, x, cache):
     return bb._logits(params, cfg, x[:, -1]), cache
 
 
+def _prefill_audio(params, cfg, batch, x, cache):
+    """The audio model's prefill: the encoder once, then the decoder over
+    the prompt with its positions; the self-attention's KV into the ring,
+    the cross attention's K and V of every layer into the cache."""
+    S = x.shape[1]
+    enc = bb._encode(params, cfg, batch["frame_embeds"])
+    x = x + sinusoidal_positions(S, cfg.d_model,
+                                 device=x.device)[None].to(x.dtype)
+    x, (ks, vs, eks, evs) = bb.run_encdec_decoder(params, cfg, x, enc,
+                                                  collect=True)
+    _write_seg(cache["self"], (ks, vs), start=0)
+    cache["cross_k"], cache["cross_v"] = eks, evs
+    cache["pos"] = S
+    return bb._logits(params, cfg, x[:, -1]), cache
+
+
 def _extend_collect(params, cfg, x, prefix_kvs, q_offset: int):
     """Prefill continuation: run the suffix embeds ``x`` (absolute
     positions ``q_offset ..``) through the layers, attending over the
@@ -233,6 +281,17 @@ def decode_step(params, cfg: ArchConfig, cache: Cache, tokens):
     x = bb._embed(params, cfg, tokens)
     if cfg.family == "hybrid":
         return _decode_hybrid(params, cfg, cache, x)
+    if cfg.family == "ssm":
+        for i, p in enumerate(params["xlstm_layers"]):
+            step = ssmmod.slstm_decode if i in cfg.xlstm.slstm_layers \
+                else ssmmod.mlstm_decode
+            y, cache["xlstm"][i] = step(p["cell"], norm(x, p["ln"], cfg.norm),
+                                        cache["xlstm"][i], cfg)
+            x = x + y
+        cache["pos"] = pos + 1
+        return bb._logits(params, cfg, x[:, -1]), cache
+    if cfg.family == "audio":
+        return _decode_audio(params, cfg, cache, x)
     mrope_pos = None
     if cfg.family == "vlm":
         P = cfg.frontend_tokens
@@ -284,6 +343,38 @@ def _decode_hybrid(params, cfg, cache, x):
                 states[name][li] = t
     cache["pos"] = pos + 1
     return bb._logits(params, cfg, x[:, -1]), cache
+
+
+def _decode_audio(params, cfg, cache, x):
+    """The audio model's decode step: the token's sinusoidal position
+    (``_sin_pos_at``), then each decoder layer's self-attention against
+    its ring (updated in place), its cross attention over the cached
+    frames' K and V, and its MLP."""
+    pos = cache["pos"]
+    ring = cache["self"]
+    x = x + _sin_pos_at(pos, cfg.d_model, x.device).to(x.dtype)
+    for li, p in enumerate(bb.unstack(params["dec_layers"], cfg.n_layers)):
+        y = attn.gqa_decode(p["attn"], norm(x, p["ln1"], cfg.norm),
+                            ring["k"][li], ring["v"][li], ring["slot_pos"],
+                            pos, cfg)
+        x = x + y
+        x = x + attn.gqa_cross_forward(
+            p["cross"], norm(x, p["ln_cross"], cfg.norm),
+            cache["cross_k"][li], cache["cross_v"][li], cfg)
+        x, _ = bb._ffn_block(p, x, cfg)
+    cache["pos"] = pos + 1
+    return bb._logits(params, cfg, x[:, -1]), cache
+
+
+def _sin_pos_at(pos: int, d_model: int, device=None):
+    """The sinusoidal position embedding of one position, [1, 1, D]: the
+    angles in fp32, as the reference's decode computes them (its prefill
+    takes float64 angles, so the two agree to about 1e-5, not bit for
+    bit)."""
+    i = torch.arange(d_model // 2, dtype=torch.int32, device=device)
+    ang = torch.tensor(pos, dtype=torch.float32, device=device) \
+        / torch.pow(10000.0, 2 * i / d_model)
+    return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :]
 
 
 # ------------------------------------------------ engine slot-pool helpers -

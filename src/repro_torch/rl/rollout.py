@@ -48,9 +48,11 @@ def start_rollout(params, cfg, prompts, total_len: int,
                   extra=None) -> RolloutState:
     """prompts: [B, S_p] int (rectangular), on the params' device.  The
     KV cache defaults to fp32 whatever the params' dtype, as in the
-    reference.  ``extra`` joins the prefill's batch (a VLM's
-    ``patch_embeds``); the cache then defaults to ``total_len`` plus the
-    patch prefix."""
+    reference.  ``extra`` joins the prefill's batch: a VLM's
+    ``patch_embeds``, after which the cache defaults to ``total_len``
+    plus the patch prefix, or an audio model's ``frame_embeds``, which
+    the encoder reads once (the cache stays ``total_len``: the reference
+    adds the prefix for the VLM only)."""
     B, Sp = prompts.shape
     batch = {"tokens": prompts, **(extra or {})}
     last_logits, cache = prefill(params, cfg, batch,

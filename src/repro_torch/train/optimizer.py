@@ -21,17 +21,26 @@ import torch
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested dict, in insertion order."""
+    """The tensors of nested dicts, lists and tuples: a dict's values in
+    insertion order, a list's or tuple's items in order (``jax.tree``
+    walks lists and tuples so too; it sorts a dict's keys, which this
+    does not, so the leaf order of a tree of dicts stays as it was)."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts of one structure."""
+    """``fn`` over the leaves of nested dicts, lists and tuples of one
+    structure; a list stays a list and a tuple a tuple."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 

@@ -1,9 +1,7 @@
 """The port's config registry (``repro_torch.configs``) against the JAX
 package's: every ported config and its smoke variant equal their JAX
-twins field by field, ``list_archs`` is the ported subset in the
-reference's order (deepseek-v3-671b first), and an arch whose family is
-not ported (xlstm's SSM, seamless's audio) raises with its ROADMAP
-item."""
+twins field by field, and ``list_archs`` is the reference's ten archs
+in its order (deepseek-v3-671b first): every family is ported."""
 import dataclasses
 
 import pytest
@@ -19,6 +17,8 @@ MOE = "llama4-scout-17b-a16e"
 MLA = "deepseek-v3-671b"
 VLM = "qwen2-vl-7b"
 HYBRID = "zamba2-7b"
+XLSTM = "xlstm-350m"
+AUDIO = "seamless-m4t-medium"
 
 
 def _fields(cfg):
@@ -54,11 +54,13 @@ def test_llama_paper_configs_equal_jax(name):
 
 
 def test_list_archs_is_the_ported_subset_in_reference_order():
-    ref = jconfigs.list_archs()
+    """Every arch of the reference registry is ported, in its order; the
+    registry keeps no list of unported archs."""
     got = configs.list_archs()
-    assert sorted(got) == sorted(WINDOWED + [MOE, MLA, VLM, HYBRID])
-    assert got == [a for a in ref if a in got] and got[0] == MLA
-    assert sorted(got + list(configs.UNPORTED)) == sorted(ref)
+    assert sorted(got) == sorted(WINDOWED + [MOE, MLA, VLM, HYBRID, XLSTM,
+                                             AUDIO])
+    assert got == jconfigs.list_archs() and got[0] == MLA
+    assert not hasattr(configs, "UNPORTED")
 
 
 @pytest.mark.parametrize("which", ["get_config", "get_smoke"])
@@ -70,7 +72,6 @@ def test_mla_config_equals_jax_and_loads(which):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
     assert cfg.attn_kind == "mla" and cfg.mtp and cfg.family == "moe"
     assert configs.param_count(cfg) == jconfigs.param_count(want)
-    assert MLA not in configs.UNPORTED
     from repro_torch.models import backbone as bb
     bb.check_family(cfg)
 
@@ -87,7 +88,7 @@ def test_vlm_and_hybrid_configs_equal_jax_and_load(arch, family, params,
     cfg = getattr(configs, which)(arch)
     want = getattr(jconfigs, which)(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
-    assert cfg.family == family and arch not in configs.UNPORTED
+    assert cfg.family == family
     assert configs.param_count(cfg) == jconfigs.param_count(want)
     if which == "get_config":
         assert configs.param_count(cfg)[0] == params
@@ -99,7 +100,18 @@ def test_vlm_and_hybrid_configs_equal_jax_and_load(arch, family, params,
     ("xlstm-350m", "A11.6"), ("seamless-m4t-medium", "A11.7"),
 ])
 def test_unported_arch_names_its_roadmap_item(arch, item):
-    assert arch in jconfigs.list_archs()
-    for fn in (configs.get_config, configs.get_smoke):
-        with pytest.raises(NotImplementedError, match=item):
-            fn(arch)
+    """xlstm-350m (ROADMAP A11.6) and seamless-m4t-medium (A11.7), the
+    last two archs once refused, are ported: each config and smoke
+    variant loads and equals the JAX one field by field (the XLSTMConfig
+    and the encoder-decoder fields included), ``param_count`` is the
+    reference's, and the port builds them."""
+    assert arch in jconfigs.list_archs() and arch in configs.list_archs()
+    for which in ("get_config", "get_smoke"):
+        cfg = getattr(configs, which)(arch)
+        want = getattr(jconfigs, which)(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+        assert configs.param_count(cfg) == jconfigs.param_count(want)
+        from repro_torch.models import backbone as bb
+        bb.check_family(cfg)
+    fam = configs.get_config(arch).family
+    assert fam == ("ssm" if item == "A11.6" else "audio")

@@ -18,7 +18,8 @@ from repro.kernels.fused_sample import hash_uniform as jhash_uniform
 from repro_torch import convert
 from repro_torch.kernels import dispatch, fused_logprob, fused_sample
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import chunked_attention, \
+    flash_attention_cuda
 from repro_torch.rl import prng
 
 DTYPES = [(jnp.float32, 1e-5), (jnp.bfloat16, 3e-2)]
@@ -150,10 +151,22 @@ def test_flash_plain_matches_kernel(B, S, H, K, hd, dtype, tol):
 
 
 def test_attention_rejects_what_the_kernel_cannot_take():
-    q = torch.zeros(1, 8, 4, 16)
-    with pytest.raises(NotImplementedError, match="A11"):
-        dispatch.attention(q, torch.zeros(1, 6, 2, 16), torch.zeros(1, 6, 2, 16))
-    with pytest.raises(NotImplementedError, match="A11"):
+    """What the flash kernel cannot take goes to ``chunked_attention``, as
+    the reference routes it: 8 queries over 6 keys (cross attention,
+    unmasked or causal by position) equal the reference's dispatch within
+    1e-5; query heads that are no multiple of the kv heads are
+    refused."""
+    rng = np.random.default_rng(0)
+    qn = rng.standard_normal((1, 8, 4, 16)).astype(np.float32)
+    kn = rng.standard_normal((1, 6, 2, 16)).astype(np.float32)
+    q, k = torch.as_tensor(qn), torch.as_tensor(kn)
+    for causal in (True, False):
+        got = dispatch.attention(q, k, k, causal=causal)
+        assert torch.equal(got, chunked_attention(q, k, k, causal=causal))
+        want = jdispatch.attention(jnp.asarray(qn), jnp.asarray(kn),
+                                   jnp.asarray(kn), causal=causal)
+        assert np.max(np.abs(_np(got) - np.asarray(want))) < 1e-5
+    with pytest.raises(ValueError, match="multiple"):
         dispatch.attention(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16))
 
 

@@ -12,6 +12,7 @@ actors to a ``--connect`` controller on localhost; ``--out`` and
 The bit-for-bit cases run torch on one CPU thread in every process (see
 ``tests/test_torch_actors.py``)."""
 import json
+import math
 import os
 import subprocess
 import sys
@@ -135,13 +136,19 @@ def test_tracks_the_jax_launcher():
     (["--child-mesh", "1x2"], "A12"),
 ])
 def test_unported_flags_raise(flags, item):
+    """``--child-mesh`` (ROADMAP A12) still raises; ``--arch xlstm-350m``,
+    refused until A11 was done, now runs: two async steps of its smoke
+    config on the CPU with finite metrics, the list of xLSTM layers
+    through the trainer and weight sync."""
     if flags[0] == "--arch":
-        # the parser takes only the archs the port runs; the registry
-        # names the ROADMAP item of the others
-        with pytest.raises(SystemExit):
-            train.parse_args(["--smoke", "--device", "cpu"] + flags)
-        with pytest.raises(NotImplementedError, match=item):
-            configs.get_smoke(flags[1])
+        args = train.parse_args(["--smoke", "--device", "cpu", "--steps",
+                                 "2", "--max-new", "4"] + flags)
+        cfg = train.config_for(args)
+        assert cfg == configs.get_smoke(flags[1]) and cfg.family == "ssm"
+        hist = train.build_controller(cfg, args).run()
+        assert len(hist) == 2
+        assert all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                   for h in hist)
         return
     args = train.parse_args(["--smoke", "--device", "cpu"] + flags)
     with pytest.raises(NotImplementedError, match=item):

@@ -160,7 +160,8 @@ def test_attention_with_asymmetric_head_dims_matches_jax(Sq, bq):
     ``chunked_attention`` on the CPU (the flash kernel has no such
     instance; the reference routes it there too) and equals the
     reference's ``chunked_attention`` within 1e-5, one query block or
-    several."""
+    several.  Cross attention (8 keys, no mask) routes to
+    ``chunked_attention`` too, as in the reference, and equals its."""
     from repro_torch.kernels.flash_attention import chunked_attention
     rng = np.random.default_rng(Sq)
     q = rng.standard_normal((2, Sq, 4, 48)).astype(np.float32)
@@ -173,9 +174,12 @@ def test_attention_with_asymmetric_head_dims_matches_jax(Sq, bq):
     assert _maxdiff(got, want) < EXACT
     plain = chunked_attention(*map(torch.as_tensor, (q, k, v)), block_q=bq)
     assert _maxdiff(plain, want) < EXACT
-    with pytest.raises(NotImplementedError, match="A11.7"):
-        dispatch.attention(torch.as_tensor(q), torch.as_tensor(k[:, :8]),
-                           torch.as_tensor(v[:, :8]))
+    cross = dispatch.attention(torch.as_tensor(q), torch.as_tensor(k[:, :8]),
+                               torch.as_tensor(v[:, :8]), causal=False)
+    jcross = jattn.chunked_attention(jnp.asarray(q), jnp.asarray(k[:, :8]),
+                                     jnp.asarray(v[:, :8]), causal=False)
+    assert cross.shape == (2, Sq, 4, 32)
+    assert _maxdiff(cross, jcross) < EXACT
 
 
 # --------------------------------------------------------------- family --

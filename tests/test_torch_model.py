@@ -143,8 +143,11 @@ def test_other_families_raise():
     with pytest.raises(ValueError, match="MLAConfig"):
         init_params(tsmoke().replace(attn_kind="mla"), device="cpu")
     assert init_params(tsmoke().replace(window=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    # every family is ported (A11): one without its sub-config raises
+    with pytest.raises(ValueError, match="XLSTMConfig"):
         init_params(tsmoke().replace(family="ssm"), device="cpu")
+    with pytest.raises(ValueError, match="enc_dec"):
+        init_params(tsmoke().replace(family="audio"), device="cpu")
     from repro_torch.models import init_cache
     with pytest.raises(ValueError, match="dense|paged"):
         init_cache(tsmoke(), 1, 8, device="cpu", layout="ring")
