@@ -277,6 +277,21 @@ Each phase prints its own lines:
                each shape of (a) and every call of (b) and (c) are held
                against the plain versions ([2] times B4 at hd 64 and B1-B3
                at V 50304 and 256206)
+  [22] sharded the mesh-bound pieces on a (data 1, model 1) cuda mesh of
+               an NCCL group of one rank (file:// rendezvous under
+               build/).  (a) llama31-8b at full width with 2 layers in
+               fp32 from [7]'s seed, two steps on [7]'s batch: the
+               one-card make_train_step first (params, m and v kept on
+               the host), then make_sharded_train_step on shard_state's
+               DTensors; params and moments within [7]'s 1e-4, the
+               largest difference, bit-equality, both runs' step times
+               and peak memory printed; (b) llama4-scout at full width
+               with 1 layer in bf16: forward_train with moe_mode
+               'ep_shmap' on the installed mesh against the gathered mode;
+               (c) (a)'s params saved and restored onto the mesh with
+               restore_checkpoint(shardings=), bit for bit.  B1, B2 and
+               B4 must launch on this path ("sharded"), and (a)'s first
+               kernel call of each shape is held against the plain version
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -2083,7 +2098,8 @@ class plain_kernels:
         self.dispatch.token_logprob, self.dispatch.attention = self.saved
 
 
-def phase_train_numerics(torch, dev) -> None:
+def phase_train_numerics(torch, dev):
+    """[7].  Returns its batch, on the host, for [22]."""
     from repro_torch.configs.llama_paper import LLAMA31_8B
     from repro_torch.core.executor import GeneratorExecutor, \
         RefPolicyExecutor, RewardExecutor
@@ -2175,6 +2191,7 @@ def phase_train_numerics(torch, dev) -> None:
         + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
     for k, v in rel.items():
         require(v <= 1e-4, f"train numerics: {k} {v:.3e} > 1e-4")
+    return {k: v.cpu() for k, v in batch.items()}
 
 
 class KernelCalls:
@@ -2606,36 +2623,46 @@ def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16,
     (controller, generator handles, trainer, reference, seconds each
     actor took to spawn)."""
     import functools
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.core import (CommType, CommunicationChannel,
                                   ExecutorController, RewardExecutor,
                                   build_generator_pool, spawn_actor)
     from repro_torch.rl.data import ArithmeticTasks
 
-    spawn_s = {}
-    t0 = time.perf_counter()
-    ref = spawn_actor(probed_executor, "reference", cfg,
-                      ref_init=(1, torch.bfloat16, dev), transport=transport)
-    spawn_s[ref.name] = time.perf_counter() - t0
-    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
-    t0 = time.perf_counter()
-    trn = spawn_actor(probed_executor, "trainer", cfg, dtype=torch.bfloat16,
-                      kl_coef=KL_COEF, seed=0, device=dev,
-                      transport=transport)
-    spawn_s[trn.name] = time.perf_counter() - t0
+    def timed_spawn(*args, **kwargs):
+        t0 = time.perf_counter()
+        h = spawn_actor(*args, **kwargs)
+        return h, time.perf_counter() - t0
+
     starts = []                 # the pool builds worker g's tasks just
                                 # before it spawns worker g
 
     def make_tasks(g):
         starts.append(time.perf_counter())
         return ArithmeticTasks(prompt_len=prompt_len, seed=g)
-    gens, chans = build_generator_pool(
-        cfg, trn, make_tasks, n_generators=n_gens,
-        generator_cls=functools.partial(probed_executor, "generator",
-                                        record=record, stall=stall),
-        n_prompts=N_PROMPTS, n_per_prompt=N_PER, max_new=MAX_NEW,
-        chunk=CHUNK, temperature=1.0, device=dev, transport=transport)
-    starts.append(time.perf_counter())
+
+    spawn_s = {}
+    # the reference spawns on a thread while the trainer and the
+    # generators spawn here: a child takes 10-15 s to import torch and
+    # open its CUDA context, and the reference waits on none of them
+    with ThreadPoolExecutor(1) as spawner:
+        ref_f = spawner.submit(timed_spawn, probed_executor, "reference",
+                               cfg, ref_init=(1, torch.bfloat16, dev),
+                               transport=transport)
+        rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+        trn, trn_s = timed_spawn(
+            probed_executor, "trainer", cfg, dtype=torch.bfloat16,
+            kl_coef=KL_COEF, seed=0, device=dev, transport=transport)
+        gens, chans = build_generator_pool(
+            cfg, trn, make_tasks, n_generators=n_gens,
+            generator_cls=functools.partial(probed_executor, "generator",
+                                            record=record, stall=stall),
+            n_prompts=N_PROMPTS, n_per_prompt=N_PER, max_new=MAX_NEW,
+            chunk=CHUNK, temperature=1.0, device=dev, transport=transport)
+        starts.append(time.perf_counter())
+        ref, ref_s = ref_f.result()
+    spawn_s[ref.name], spawn_s[trn.name] = ref_s, trn_s
     for g, h in enumerate(gens):
         spawn_s[h.name] = starts[g + 1] - starts[g]
     chans += [
@@ -6734,6 +6761,229 @@ def phase_audio(torch, dev):
     return launches
 
 
+# ------------------------------------------- [22] the sharded trainer --
+
+SHARD_LAYERS = 2        # [22] (a): llama31-8b at full width, fp32, as [7]
+SHARD_STEPS = 2
+EP_TOKENS = (4, 256)    # [22] (b): rows x ids through forward_train
+
+
+def sharded_step_check(torch, dev, mesh, batch):
+    """[22] (a): llama31-8b at full width with SHARD_LAYERS layers in fp32
+    from [7]'s seed, SHARD_STEPS steps on [7]'s batch at [7]'s settings
+    (the paper's lr, KL 0.1): first the one-card ``make_train_step`` (its
+    params, m and v kept on the host, the card freed), then
+    ``make_sharded_train_step`` on the state ``shard_state`` placed on
+    ``mesh``.  Params and moments within [7]'s 1e-4 of the one-card
+    run's, each relative to its largest |value| (the moments hold the
+    gradients); the largest difference against the steps' largest update
+    is printed beside.  Returns (the launches of the sharded steps, the
+    sharded state's params)."""
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import adam_init
+    from repro_torch.train.sharded import make_sharded_train_step, \
+        shard_state
+    from repro_torch.train.trainstep import TrainState, make_train_step
+
+    cfg = LLAMA31_8B.replace(name="llama31-8b-2l", n_layers=SHARD_LAYERS)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    kw = dict(kl_coef=KL_COEF)
+    runs = {}
+    for path in ("one card", "sharded"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=2, dtype=torch.float32, device=dev)
+        n = sum(t.numel() for t in leaves(params))
+        state = TrainState(params, adam_init(params))
+        if path == "sharded":
+            state = shard_state(state, mesh)
+            step = make_sharded_train_step(cfg, mesh, **kw)
+        else:
+            p0 = {k: t.clone() for k, t in leaves_by_path(params).items()}
+            step = make_train_step(cfg, **kw)
+        del params
+        ms = []
+        if path == "sharded":
+            build.reset_launches()      # the sharded path's run starts here
+        for _ in range(SHARD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(build.LAUNCHES)  # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  (a) {path}: {n / 1e9:.3f} B params, {SHARD_STEPS} steps of "
+            + ", ".join(f"{t:.1f}" for t in ms) + f" ms, loss "
+            f"{float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}"
+            f", peak memory allocated {peak:.2f} GB")
+        if path == "one card":
+            big = max((t - p0[k]).abs().max().item()
+                      for k, t in leaves_by_path(state.params).items())
+            del p0
+            runs[path] = {part: {k: t.cpu() for k, t in
+                                 leaves_by_path(tree).items()}
+                          for part, tree in (("params", state.params),
+                                             ("m", state.opt.m),
+                                             ("v", state.opt.v))}
+            del state
+    require(state.opt.step == SHARD_STEPS, f"Adam step {state.opt.step}")
+    one = runs["one card"]
+    err, worst, equal = {}, {}, True
+    for part, tree in (("params", state.params), ("m", state.opt.m),
+                       ("v", state.opt.v)):
+        worst[part] = 0.0
+        for k, t in leaves_by_path(tree).items():
+            got, want = t.to_local(), one[part][k].to(dev)
+            equal = equal and torch.equal(got, want)
+            worst[part] = max(worst[part], (got - want).abs().max().item())
+        err[part] = worst[part] / max(
+            t.abs().max().item() for t in one[part].values())
+    log(f"  (a) sharded against one card: largest difference "
+        + ", ".join(f"{k} {worst[k]:.3e} ({v:.2e} of the largest)"
+                    for k, v in err.items())
+        + f" (tolerance 1e-4); params {worst['params'] / big:.2e} of the "
+        f"largest update {big:.3e}; bit-equal: {equal}; sharded launches "
+        f"{launches}")
+    for k, v in err.items():
+        require(v <= 1e-4, f"[22] (a) {k} {v:.3e} > 1e-4")
+    want = {"fused_logprob": SHARD_STEPS, "fused_logprob_bwd": SHARD_STEPS,
+            "flash_attention": SHARD_STEPS * cfg.n_layers}
+    require(launches == want, f"[22] (a) launches {launches}, want {want}")
+    params = state.params
+    del state, runs, one, batch
+    return launches, params
+
+
+def ep_check(torch, dev, mesh):
+    """[22] (b): llama4-scout at full width with 1 layer, bf16:
+    ``forward_train`` with moe_mode 'ep_shmap' on the installed mesh (its
+    experts split over the model axis, the EP path counted) against the
+    gathered mode.  Returns the launches of the EP forward."""
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import ffn, forward_train, init_params
+    from repro_torch.models.sharding import activation_sharding
+
+    cfg = configs.get_config(MOE_ARCH).replace(n_layers=1)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    B, S = EP_TOKENS
+    toks = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                         generator=torch.Generator(dev).manual_seed(0))
+    calls = []
+    real = ffn.moe_forward_shmap
+    ffn.moe_forward_shmap = lambda *a: calls.append(1) or real(*a)
+    try:
+        with torch.no_grad():
+            want, waux = forward_train(params, cfg, {"tokens": toks})
+            build.reset_launches()      # the EP path's run starts here
+            with activation_sharding(mesh):
+                got, aux = forward_train(params,
+                                         cfg.replace(moe_mode="ep_shmap"),
+                                         {"tokens": toks})
+            torch.cuda.synchronize()
+            launches = dict(build.LAUNCHES)  # ... and ends here
+    finally:
+        ffn.moe_forward_shmap = real
+    d = (got.float() - want.float()).abs().max().item()
+    da = abs(float(aux["moe_aux"]) - float(waux["moe_aux"]))
+    log(f"  (b) {MOE_ARCH} at full width, 1 layer, bf16, [{B}, {S}] ids: "
+        f"ep_shmap against gathered: max|dlogits| {d:.3e} (of "
+        f"{want.float().abs().max().item():.3e}), |dmoe_aux| {da:.3e}; EP "
+        f"calls {len(calls)}; launches {launches}")
+    require(calls == [1] and d <= 1e-4 * max(
+        1.0, want.float().abs().max().item()) and da <= 1e-6,
+        "[22] (b) ep_shmap against gathered")
+    want = {"flash_attention": flash_layers(cfg, S)}
+    require(launches == want, f"[22] (b) launches {launches}, want {want}")
+    del params, got, want
+    return launches
+
+
+def checkpoint_check(torch, mesh, params):
+    """[22] (c): (a)'s sharded params, gathered and saved, restored onto
+    the mesh with ``restore_checkpoint(shardings=)``, bit for bit."""
+    from repro_torch.models.sharding import params_shardings
+    from repro_torch.train.checkpoint import restore_checkpoint, \
+        save_checkpoint
+    from repro_torch.train.optimizer import tree_map
+
+    path = str(ROOT / "build" / "sharded_ckpt")
+    host = tree_map(lambda t: t.full_tensor().cpu(), params)
+    t0 = time.perf_counter()
+    save_checkpoint(path, host)
+    t1 = time.perf_counter()
+    got = restore_checkpoint(path, host, params_shardings(host, mesh),
+                             mesh=mesh)
+    t2 = time.perf_counter()
+    bad = [k for k, t in leaves_by_path(got).items()
+           if not torch.equal(t.to_local(),
+                              leaves_by_path(params)[k].to_local())]
+    n = os.path.getsize(path + ".npz")
+    os.remove(path + ".npz")
+    os.remove(path + ".json")
+    log(f"  (c) checkpoint of (a)'s params: {n / 1e9:.2f} GB saved in "
+        f"{t1 - t0:.1f} s, restored onto the mesh in {t2 - t1:.1f} s; leaves "
+        f"not bit-equal: {bad}")
+    require(not bad, f"[22] (c) restored leaves differ: {bad}")
+
+
+def phase_sharded(torch, dev, batch):
+    """[22]: the sharded trainer, expert parallelism and sharded
+    checkpoints on a (data 1, model 1) mesh of an NCCL group of one rank.
+    Returns the launch counts of its sharded runs."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as meshmod
+    log(f"[22] sharded: a process group of 1, a (1, 1) {dev.type} mesh; "
+        f"{nvidia_smi()}")
+    t0 = time.perf_counter()
+    rdv = ROOT / "build" / f"rendezvous_{os.getpid()}"
+    rdv.parent.mkdir(exist_ok=True)
+    if rdv.exists():
+        rdv.unlink()
+    meshmod.join("file://" + str(rdv), 0, 1, device_type=dev.type)
+    try:
+        mesh = meshmod.make_dev_mesh(device_type=dev.type)
+        require(tuple(mesh.shape) == (1, 1)
+                and mesh.device_type == dev.type, f"mesh {mesh}")
+        parts = [time.perf_counter()]
+        launches = collections.Counter()
+        with KernelCalls(torch, per_shape=1, host=True) as calls:
+            a, params = sharded_step_check(torch, dev, mesh, batch)
+        launches.update(a)
+        for line in calls.replay("[22] (a)", expect=(
+                "fused_logprob_cuda", "fused_logprob_bwd_cuda",
+                "flash_attention_cuda")):
+            log(line)
+        del calls
+        parts.append(time.perf_counter())
+        checkpoint_check(torch, mesh, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts.append(time.perf_counter())
+        launches.update(ep_check(torch, dev, mesh))
+        parts.append(time.perf_counter())
+    finally:
+        dist.destroy_process_group()
+        if rdv.exists():
+            rdv.unlink()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict(launches)
+    family_checks("22", launches, ("fused_logprob", "fused_logprob_bwd",
+                                   "flash_attention"), ())
+    log(f"  [22] launches {launches}; {time.perf_counter() - t0:.1f} s "
+        "((a), (c), (b): "
+        + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:]))
+        + " s)")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: no src/repro_torch beside chip_smoke.py",
@@ -6776,7 +7026,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, dev)
     torch.cuda.empty_cache()
-    phase_train_numerics(torch, dev)
+    numerics_batch = phase_train_numerics(torch, dev)
     torch.cuda.empty_cache()
     mark("[5]-[7]")
     pool_launches, pool_a = phase_pool(torch, dev)
@@ -6816,6 +7066,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     audio_launches = phase_audio(torch, dev)
     mark("[21]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_launches = phase_sharded(torch, dev, numerics_batch)
+    mark("[22]")
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
@@ -6836,7 +7090,8 @@ def main() -> int:
                    "vlm": vlm_launches.get(r["name"], 0),
                    "hybrid": hybrid_launches.get(r["name"], 0),
                    "ssm": ssm_launches.get(r["name"], 0),
-                   "audio": audio_launches.get(r["name"], 0)}
+                   "audio": audio_launches.get(r["name"], 0),
+                   "sharded": sharded_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")
@@ -6865,6 +7120,10 @@ def main() -> int:
         if r["name"] == "paged_attention":
             require(by_path["audio"] == 0,
                     "paged_attention ran on the audio path")
+        if r["name"] in ("fused_logprob", "fused_logprob_bwd",
+                         "flash_attention"):
+            require(by_path["sharded"] > 0,
+                    f"{r['name']} never ran on the sharded path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(smi)

@@ -2,14 +2,18 @@
 port of the JAX package's ``configs/__init__.py``).
 
 ``list_archs()`` names the archs the port runs: all ten of the reference
-registry, in its order.
+registry, in its order.  ``combos()`` lists the (arch, input shape) pairs
+of the dry run, less ``SKIPS``.
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
-from repro_torch.configs.base import ArchConfig, param_count
+from repro_torch.configs.base import (
+    ArchConfig, MLAConfig, MoEConfig, SSMConfig, XLSTMConfig,
+    INPUT_SHAPES, ShapeSpec, param_count,
+)
 
 # the archs the port runs, in the reference registry's order
 _MODULES = {
@@ -26,6 +30,17 @@ _MODULES = {
 }
 
 
+# (arch, shape) combos intentionally skipped, with reasons
+SKIPS: Dict[tuple, str] = {
+    ("deepseek-v3-671b", "long_500k"):
+        "pure full-attention (MLA) arch; no windowed variant claimed",
+    ("seamless-m4t-medium", "long_500k"):
+        "enc-dec full attention; 500k-frame decode out of scope",
+    ("qwen2-vl-7b", "long_500k"):
+        "pure full-attention arch; no windowed variant claimed",
+}
+
+
 def list_archs() -> List[str]:
     return list(_MODULES)
 
@@ -38,5 +53,19 @@ def get_smoke(arch_id: str) -> ArchConfig:
     return importlib.import_module(_MODULES[arch_id]).smoke()
 
 
-__all__ = ["ArchConfig", "param_count", "list_archs", "get_config",
-           "get_smoke"]
+def combos(include_skips: bool = False):
+    """All (arch_id, shape_name) dry-run combos."""
+    out = []
+    for a in _MODULES:
+        for s in INPUT_SHAPES:
+            if not include_skips and (a, s) in SKIPS:
+                continue
+            out.append((a, s))
+    return out
+
+
+__all__ = [
+    "ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig", "XLSTMConfig",
+    "INPUT_SHAPES", "ShapeSpec", "param_count", "SKIPS",
+    "list_archs", "get_config", "get_smoke", "combos",
+]

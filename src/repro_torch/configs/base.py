@@ -1,4 +1,5 @@
-"""Architecture config system (a copy of the JAX package's ``configs/base.py``).
+"""Architecture and input-shape config system (a copy of the JAX package's
+``configs/base.py``).
 
 The dataclasses keep the reference's field names and defaults so a config
 built for one package reads the same in the other.  The port runs every
@@ -120,6 +121,22 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k":    ShapeSpec("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeSpec("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeSpec("long_500k",   524_288, 1,   "decode"),
+}
 
 
 def param_count(cfg: ArchConfig) -> Tuple[int, int]:

@@ -131,16 +131,16 @@ class DeviceSpec:
     this process sees (``CUDA_VISIBLE_DEVICES``, set in the child before
     torch initializes CUDA; a ``--listen`` host sets its own at launch),
     and hands an executor that takes ``device`` the child's first card.
-    Submeshes (``mesh_shape``) come with the sharded pieces, ROADMAP
-    A12."""
+    A child's own mesh (``mesh_shape``) comes with the actors' placement
+    on meshes, ROADMAP A12.6."""
     device_count: int = 0
     mesh_shape: Tuple[int, ...] = ()
 
     def __post_init__(self):
         if self.mesh_shape:
             raise NotImplementedError(
-                "DeviceSpec.mesh_shape comes with the port of the mesh-bound "
-                "pieces (ROADMAP A12)")
+                "DeviceSpec.mesh_shape comes with the actors' placement on "
+                "meshes (ROADMAP A12.6)")
 
     def apply_env(self):
         if self.device_count > 0:

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.models.sharding import batch_total
 
 
 def token_logprobs(logits, tokens, n_valid=None):
@@ -53,7 +54,9 @@ def aipo_loss(logits, tokens, behavior_logp, advantages, mask, *,
     logits: [B, T, V] for action positions; tokens/behavior_logp/
     advantages/mask: [B, T].  With ``n_valid`` only ``logits[:, :n_valid]``
     are action positions and the rest are [B, n_valid].  Returns (loss,
-    metrics); the metrics are detached 0-d tensors.
+    metrics); the metrics are detached 0-d tensors.  The sums and the
+    mask's count are over the global batch (``batch_total``) when this
+    rank runs its share of split rows.
     """
     logp = token_logprobs(logits, tokens, n_valid)
     adv = advantages.float()
@@ -71,15 +74,14 @@ def aipo_loss(logits, tokens, behavior_logp, advantages, mask, *,
     else:
         per_tok = -w * adv * logp
     m = mask.float()
-    denom = torch.clamp(m.sum(), min=1.0)
-    loss = (per_tok * m).sum() / denom
+    denom = torch.clamp(batch_total(m.sum()), min=1.0)
+    loss = batch_total((per_tok * m).sum()) / denom
     with torch.no_grad():
         ratio_raw = torch.exp(logp - behavior_logp)
-        metrics = {
-            "loss": loss.detach(),
-            "mean_ratio": (ratio_raw * m).sum() / denom,
-            "clip_frac": ((ratio_raw > rho) * m).sum() / denom,
-            "mean_logp": (logp * m).sum() / denom,
-            "mean_adv": (adv * m).sum() / denom,
-        }
+        sums = batch_total(torch.stack([
+            (ratio_raw * m).sum(), ((ratio_raw > rho) * m).sum(),
+            (logp * m).sum(), (adv * m).sum()])) / denom
+        metrics = {"loss": loss.detach(), "mean_ratio": sums[0],
+                   "clip_frac": sums[1], "mean_logp": sums[2],
+                   "mean_adv": sums[3]}
     return loss, metrics

@@ -46,8 +46,8 @@ seamless-m4t-medium's frame embeddings, which the executors do not carry
 in either package, so their loops stop at the first generator step
 (``KeyError``), as the reference's do.  xlstm-350m's mLSTM takes a
 sequence of at most 64 tokens or a multiple of 64, in both packages.
-Submeshes (A12) are not ported: ``--child-mesh`` raises
-``NotImplementedError``.
+A child's own submesh is not ported yet (ROADMAP A12.6): ``--child-mesh``
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -80,8 +80,8 @@ def _parse_addr(s: str):
 def _refuse_unported(args):
     if args.child_mesh:
         raise NotImplementedError(
-            "--child-mesh comes with the port of the mesh-bound pieces "
-            "(ROADMAP A12)")
+            "--child-mesh comes with the actors' placement on meshes "
+            "(ROADMAP A12.6)")
 
 
 def config_for(args):
@@ -281,7 +281,7 @@ def parse_args(argv=None):
     ap.add_argument("--child-devices", type=int, default=0,
                     help="the first N cards for every spawned child actor")
     ap.add_argument("--child-mesh", default="",
-                    help="a submesh for every child (ROADMAP A12)")
+                    help="a submesh for every child (ROADMAP A12.6)")
     ap.add_argument("--no-overlap-publish", action="store_true",
                     help="publish weights on the consumer thread instead "
                     "of the weight fabric's background publisher")

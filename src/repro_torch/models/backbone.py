@@ -131,14 +131,16 @@ def _xlstm_layers(gen, cfg, dtype, dev) -> list:
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
                 device: DeviceLike = None) -> Params:
     """Random params drawn from a ``torch.Generator`` seeded with ``seed``
-    on ``device``, with the reference's shapes and scales (a MoE router
+    on ``device`` (``meta`` gives the shapes and dtypes alone), with the reference's shapes and scales (a MoE router
     and Mamba2's ``A_log``, ``D_skip`` and ``dt_bias`` stay fp32 whatever
     ``dtype`` is, as in the reference).  The MTP head's ``block`` and the
     hybrid's ``shared_attn`` are one layer with no leading axis; xLSTM's
     ``xlstm_layers`` is a list of layers."""
     check_family(cfg)
     dev = resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # the meta device has no generator: its tensors hold shapes only
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                          ).manual_seed(seed)
     D = cfg.d_model
     params: Params = {
         "embed": dense_init(gen, (cfg.vocab, D), dtype, dev),
@@ -206,6 +208,53 @@ def _segment_windows(cfg, n_layers, offset=0, seq_len=0):
         runs.append((i, j, wins[i]))
         i = j
     return runs
+
+
+def segment_lengths(cfg, kind: str = "train", seq_len: int = 0):
+    """Lengths of every layer stack that the reference scans for the
+    given step kind (train/prefill/decode), its dry run's counted-layers
+    extrapolation.  seq_len only merges for kind='train'."""
+    sl = seq_len if kind == "train" else 0
+    if cfg.family in ("dense", "vlm"):
+        return [j - i for (i, j, _) in
+                _segment_windows(cfg, cfg.n_layers, 0, sl)]
+    if cfg.family == "moe":
+        out = []
+        fkd = cfg.moe.first_k_dense
+        if fkd:
+            out += [j - i for (i, j, _) in _segment_windows(cfg, fkd, 0, sl)]
+        # the MTP block is one unscanned layer, counted in full
+        out += [j - i for (i, j, _) in
+                _segment_windows(cfg, cfg.n_layers - fkd, fkd, sl)]
+        return out
+    if cfg.family == "hybrid":
+        k = cfg.shared_attn_every
+        out, i = [], 0
+        while i < cfg.n_layers:
+            out.append(min(k, cfg.n_layers - i))
+            i += k
+        return out
+    if cfg.family == "ssm":
+        return []                       # a Python loop: counted in full
+    if cfg.family == "audio":
+        if kind == "decode":
+            return [cfg.n_layers]
+        return [cfg.n_enc_layers, cfg.n_layers]
+    raise ValueError(cfg.family)
+
+
+def counted_layers(cfg, u: int, kind: str = "train",
+                   seq_len: int = 0) -> int:
+    """How many layer instances the reference's cost analysis sees at
+    scan_group=u."""
+    tot = 0
+    for n in segment_lengths(cfg, kind, seq_len):
+        tot += n if n <= u else u + (n % u)
+    return tot
+
+
+def real_layers(cfg, kind: str = "train", seq_len: int = 0) -> int:
+    return sum(segment_lengths(cfg, kind, seq_len))
 
 
 def _attn_block(p, x, cfg, *, window=0, mrope_pos=None):

@@ -7,8 +7,9 @@ list by expert -> rank within the expert -> scatter into an [E, C, D]
 capacity buffer (a choice past its expert's capacity goes to the dump
 slot E*C, which nothing reads) -> three batched expert products ->
 gather back -> weighted combine, plus the shared expert.  Groups are
-batch rows.  No TPU kernel sits behind it, so it is plain PyTorch; the
-expert-parallel modes need a device mesh (ROADMAP A12).
+batch rows.  No TPU kernel sits behind it, so it is plain PyTorch.  The
+expert-parallel modes run each model rank's share of the experts on a
+device mesh (``moe_forward_shmap``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import act_fn, dense_init
+from repro_torch.models.sharding import _ACT_MESH, _axis_size, \
+    batch_mean, copy_to, groups, reduce_from
 
 
 def mlp_params(gen, n_layers: int, d_model: int, d_ff: int, act: str, dtype,
@@ -87,26 +90,29 @@ def _route(p, x, m):
     return probs, vals, idx
 
 
-def _dispatch_group(x, idx, n_experts: int, capacity: int):
-    """Sort-based capacity dispatch of each group, the reference's
-    vmapped ``_dispatch_group``.
+def _dispatch_group_local(x, idx, n_local: int, capacity: int):
+    """Sort-based capacity dispatch of each group to the experts
+    [0, n_local), the reference's vmapped ``_dispatch_group_local``.
 
-    x: [G, S, D]; idx: [G, S, k] int.  Returns (buffer [G, E, C, D],
-    dest [G, S*k], valid [G, S*k], order [G, S*k]): ``order`` sorts the
-    flat (token, choice) list by expert, stably, so a choice's rank
-    within its expert follows token order; the first C choices of an
-    expert land at ``e * C + rank``, the others at the dump slot E*C,
-    which several may write and none reads."""
+    x: [G, S, D]; idx: [G, S, k] int, shifted so this rank's experts are
+    [0, n_local); a choice of another rank's expert goes to the dump slot
+    n_local*C.  Returns (buffer [G, n_local, C, D], dest [G, S*k],
+    valid [G, S*k], order [G, S*k]): ``order`` sorts the flat (token,
+    choice) list by expert, stably, so a choice's rank within its expert
+    follows token order; the first C choices of an expert land at
+    ``e * C + rank``, the others at the dump slot, which several may
+    write and none reads."""
     G, S, k = idx.shape
-    E, C, D = n_experts, capacity, x.shape[-1]
-    flat_e = idx.reshape(G, S * k).long()
+    E, C, D = n_local, capacity, x.shape[-1]
+    flat_e = idx.reshape(G, S * k).long().clamp(-1, E)
+    flat_e = torch.where(flat_e < 0, E, flat_e)     # another rank's expert
     order = torch.argsort(flat_e, dim=-1, stable=True)
     sorted_e = flat_e.gather(1, order)
-    counts = torch.zeros((G, E), dtype=torch.long, device=x.device
+    counts = torch.zeros((G, E + 1), dtype=torch.long, device=x.device
                          ).scatter_add_(1, flat_e, torch.ones_like(flat_e))
     offsets = counts.cumsum(-1) - counts            # exclusive
     rank = torch.arange(S * k, device=x.device) - offsets.gather(1, sorted_e)
-    valid = rank < C
+    valid = (rank < C) & (sorted_e < E)
     dest = torch.where(valid, sorted_e * C + rank, E * C)
     src = x.gather(1, (order // k)[..., None].expand(G, S * k, D))
     buf = x.new_zeros((G, E * C + 1, D)).scatter(
@@ -114,28 +120,18 @@ def _dispatch_group(x, idx, n_experts: int, capacity: int):
     return buf[:, :-1].reshape(G, E, C, D), dest, valid, order
 
 
-def moe_forward(p, x, cfg):
-    """x: [B, S, D] -> (y, aux loss).  Groups are batch rows, and the
-    capacity C = max(int(S * k / E * capacity_factor), 1) follows the
-    length S of the segment run: the prompt in prefill, the suffix of a
-    radix hit, 1 in decode."""
-    if cfg.moe_mode != "gathered":
-        raise NotImplementedError(
-            f"moe_mode={cfg.moe_mode!r} shards the experts over a device "
-            "mesh (ROADMAP A12); the port runs moe_mode='gathered'")
-    m = cfg.moe
-    B, S, D = x.shape
-    E, k = m.n_experts, m.top_k
-    C = max(int(S * k / E * m.capacity_factor), 1)
-    probs, weights, idx = _route(p, x, m)
+def _dispatch_group(x, idx, n_experts: int, capacity: int):
+    """The dispatch to all ``n_experts`` experts, the reference's vmapped
+    ``_dispatch_group``: ``_dispatch_group_local`` with every expert
+    local, so no choice reaches the dump slot but by capacity."""
+    return _dispatch_group_local(x, idx, n_experts, capacity)
 
-    # load-balance auxiliary (switch-style): E * sum_e f_e * P_e, with f_e
-    # from the (not differentiable) choices and P_e the mean probability
-    f_e = F.one_hot(idx, E).float().sum(2).mean((0, 1)) / k
-    P_e = probs.mean((0, 1))
-    aux = E * (f_e * P_e).sum() * m.aux_loss_coef
 
-    buf, dest, valid, order = _dispatch_group(x, idx, E, C)
+def _experts_combine(p, buf, dest, valid, order, weights, S, k):
+    """The expert products of the capacity buffer [B, E, C, D] with the
+    expert leaves [E, ...] in ``p``, gathered back to (token, choice)
+    order and combined with the top-k weights: [B, S, D]."""
+    B, E, C, D = buf.shape
     h = F.silu(torch.einsum("becd,edf->becf", buf, p["w_gate"])) \
         * torch.einsum("becd,edf->becf", buf, p["w_up"])
     out = torch.einsum("becf,efd->becd", h, p["w_down"]).reshape(B, E * C, D)
@@ -144,8 +140,84 @@ def moe_forward(p, x, cfg):
     gathered = torch.where(valid[..., None], gathered, 0.0)
     unsorted = torch.zeros_like(gathered).scatter(
         1, order[..., None].expand_as(gathered), gathered)
-    y = (unsorted * weights.reshape(B, S * k, 1).to(x.dtype)
-         ).reshape(B, S, k, D).sum(2)
+    return (unsorted * weights.reshape(B, S * k, 1).to(buf.dtype)
+            ).reshape(B, S, k, D).sum(2)
+
+
+def _aux_loss(probs, idx, m):
+    """Load-balance auxiliary (switch-style): E * sum_e f_e * P_e, with
+    f_e from the (not differentiable) choices and P_e the mean
+    probability, both means over the global batch."""
+    E = m.n_experts
+    f_e = batch_mean(F.one_hot(idx, E).float().sum(2), (0, 1)) / m.top_k
+    P_e = batch_mean(probs, (0, 1))
+    return E * (f_e * P_e).sum() * m.aux_loss_coef
+
+
+def moe_forward_shmap(p, x, cfg, mesh):
+    """Expert parallelism over the mesh's ``model`` axis (moe_mode
+    'ep_shmap'; 'ep' too, see ``moe_forward``).
+
+    Activations are replicated along ``model``, so each model rank has
+    every token: it routes them all, dispatches only to its E/m local
+    experts (``_MOE_RULES`` shard the expert leaves' E over ``model``),
+    computes them with its own expert weights, combines its partial
+    per-token outputs, and one all-reduce over ``model`` finishes the
+    layer.  Differentiable: the tokens and the top-k weights enter the
+    local part through ``copy_to`` (their gradient is summed over
+    ``model``) and the partial outputs leave through ``reduce_from``, so
+    every model rank gets the whole gradient of x and of the router, and
+    each the gradient of its own experts' rows of the expert leaves."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    mm = _axis_size(mesh, "model")
+    if E % mm:
+        raise ValueError(f"{E} experts over a model axis of {mm}")
+    E_l = E // mm
+    C = max(int(S * k / E * m.capacity_factor), 1)
+    lo = mesh.get_local_rank("model") * E_l
+    grp = groups(mesh, ("model",))
+
+    probs, weights, idx = _route(p, x, m)
+    aux = _aux_loss(probs, idx, m)
+    xl, wl = copy_to(x, grp), copy_to(weights, grp)
+    buf, dest, valid, order = _dispatch_group_local(xl, idx - lo, E_l, C)
+    local = {n: p[n][lo:lo + E_l] for n in ("w_gate", "w_up", "w_down")}
+    y = reduce_from(
+        _experts_combine(local, buf, dest, valid, order, wl, S, k), grp)
+    if m.n_shared:
+        y = y + mlp_forward(p["shared"], x, "silu_gated")
+    return y, aux
+
+
+def moe_forward(p, x, cfg):
+    """x: [B, S, D] -> (y, aux loss).  Groups are batch rows, and the
+    capacity C = max(int(S * k / E * capacity_factor), 1) follows the
+    length S of the segment run: the prompt in prefill, the suffix of a
+    radix hit, 1 in decode.
+
+    moe_mode 'ep_shmap' with a mesh installed (``activation_sharding``)
+    whose model axis divides E runs ``moe_forward_shmap``, as the
+    reference does; otherwise the gathered math.  The reference's 'ep'
+    is the gathered math with XLA hints that move the capacity buffer to
+    the experts' ranks and back, the same numbers; on an installed mesh
+    the port runs it through the same local-experts path as 'ep_shmap'."""
+    if cfg.moe_mode not in ("gathered", "ep", "ep_shmap"):
+        raise ValueError(f"moe_mode {cfg.moe_mode!r}: expected gathered, "
+                         "ep or ep_shmap")
+    m = cfg.moe
+    if cfg.moe_mode != "gathered":
+        mesh = _ACT_MESH["mesh"]
+        if mesh is not None and m.n_experts % _axis_size(mesh, "model") == 0:
+            return moe_forward_shmap(p, x, cfg, mesh)
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    C = max(int(S * k / E * m.capacity_factor), 1)
+    probs, weights, idx = _route(p, x, m)
+    aux = _aux_loss(probs, idx, m)
+    buf, dest, valid, order = _dispatch_group(x, idx, E, C)
+    y = _experts_combine(p, buf, dest, valid, order, weights, S, k)
     if m.n_shared:
         y = y + mlp_forward(p["shared"], x, "silu_gated")
     return y, aux

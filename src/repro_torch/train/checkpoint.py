@@ -83,27 +83,47 @@ def save_checkpoint(path: str, tree: Any) -> None:
 
 
 def _leaf(a: np.ndarray, dtype: str, like) -> torch.Tensor:
+    # ``a`` is read afresh from the file and owned here alone: no copy
     if dtype == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
         t = t.view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype).copy())
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
     device = like.device if isinstance(like, torch.Tensor) else "cpu"
     return t.to(device)
 
 
-def restore_checkpoint(path: str, like: Any) -> Any:
+def restore_checkpoint(path: str, like: Any, shardings: Any = None, *,
+                       mesh=None) -> Any:
     """The tree saved at ``path``, in the structure of ``like`` (its
-    values are ignored), each leaf on the device of ``like``'s leaf."""
+    values are ignored), each leaf on the device of ``like``'s leaf.
+    With ``shardings`` (a tree of ``models.sharding.Spec`` in ``like``'s
+    structure, as ``params_shardings`` gives) and ``mesh``, every rank
+    of the mesh reads the checkpoint and keeps its own shard of each
+    leaf, a DTensor placed by its spec."""
+    if shardings is not None and mesh is None:
+        raise ValueError("restoring onto shardings needs their mesh")
     with open(path + ".json") as f:
         manifest = json.load(f)
     like_leaves, _ = _flatten(like)
+    spec_leaves = None
+    if shardings is not None:
+        from repro_torch.models.sharding import place
+        spec_leaves, _ = _flatten(shardings)   # a Spec is a leaf
     with np.load(path + ".npz") as data:
         if len(like_leaves) != len(data.files) or \
                 manifest["n_leaves"] != len(data.files):
             raise ValueError(
                 f"checkpoint has {len(data.files)} leaves (manifest "
                 f"{manifest['n_leaves']}), expected {len(like_leaves)}")
-        leaves = [_leaf(data[f"leaf_{i}"], manifest["dtypes"][i], ref)
-                  for i, ref in enumerate(like_leaves)]
+        leaves = []
+        for i, ref in enumerate(like_leaves):
+            if spec_leaves is None:
+                leaves.append(_leaf(data[f"leaf_{i}"], manifest["dtypes"][i],
+                                    ref))
+                continue
+            full = _leaf(data[f"leaf_{i}"], manifest["dtypes"][i], None)
+            leaves.append(place(full.to(mesh.device_type), mesh,
+                                spec_leaves[i], shared=False))
+            del full
     return _unflatten(like, leaves)

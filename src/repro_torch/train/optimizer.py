@@ -86,10 +86,13 @@ def clip_by_global_norm(grads, max_norm: float):
 
 def adam_update(params, grads, state: AdamState, *, lr,
                 b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                weight_decay: float = 0.0, max_grad_norm: float = 1.0):
+                weight_decay: float = 0.0, max_grad_norm: float = 1.0,
+                grad_norm=None):
     """Returns (new_params, new_state, metrics).  The clipped gradient is
-    formed one leaf at a time, so no clipped copy of all grads exists."""
-    gn = global_norm(grads)
+    formed one leaf at a time, so no clipped copy of all grads exists.
+    ``grad_norm``, when given, is the global norm of ``grads``: a caller
+    that holds shards of them takes it over every rank."""
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gn, max_norm=max_grad_norm) if max_grad_norm \
         else None
     step = state.step + 1

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.aipo import aipo_loss, token_logprobs
 from repro_torch.device import DeviceLike
 from repro_torch.models import forward_train, init_params
+from repro_torch.models.sharding import batch_total
 from repro_torch.train.optimizer import AdamState, adam_init, adam_update, \
     tree_leaves, tree_map, tree_unflatten
 
@@ -67,7 +68,8 @@ def make_loss_fn(cfg, *, rho=4.0, clip_mode="aipo", kl_coef=0.0,
             tgt = batch["tokens"][:, 2:]
             m = batch["mask"][:, 2:]
             lp = token_logprobs(aux["mtp_logits"], tgt, n_valid=T - 2)
-            mtp_loss = -(lp * m).sum() / torch.clamp(m.sum(), min=1.0)
+            mtp_loss = -batch_total((lp * m).sum()) \
+                / torch.clamp(batch_total(m.sum()), min=1.0)
             loss = loss + mtp_weight * mtp_loss
             metrics = dict(metrics, mtp_loss=mtp_loss.detach())
         if torch.is_tensor(moe_aux):

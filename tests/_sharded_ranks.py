@@ -1,0 +1,209 @@
+"""The rank side of tests/test_torch_sharded.py: what each gloo rank of
+a spawned mesh runs.  It imports torch and the port only, so a spawned
+rank starts without JAX."""
+import json
+
+import numpy as np
+import torch
+
+LR, STEPS = 1e-3, 2
+MOE_ARCHS = ("llama4-scout-17b-a16e", "deepseek-v3-671b")
+
+
+def paths(tree, prefix=()):
+    """{path: leaf} of nested dicts and lists, as ``_path_str`` joins."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree
+                for k, v in paths(tree[key], prefix + (key,)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, x in enumerate(tree)
+                for k, v in paths(x, prefix + (i,)).items()}
+    return {"/".join(map(str, prefix)): tree}
+
+
+def _expected_shard(full, spec, mesh):
+    """The slice of ``full`` that ``spec`` gives this rank, computed from
+    the mesh coordinates alone (major axis first within a tuple)."""
+    idx = []
+    for d, ax in enumerate(spec):
+        if ax is None:
+            idx.append(slice(None))
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        i, n = 0, 1
+        for a in axes:
+            size = mesh.size(mesh.mesh_dim_names.index(a))
+            i, n = i * size + mesh.get_local_rank(a), n * size
+        w = full.shape[d] // n
+        idx.append(slice(i * w, (i + 1) * w))
+    return full[tuple(idx)]
+
+
+def _moe_checks(mesh, arch, ref, out):
+    """ep and ep_shmap against gathered on an installed mesh: logits,
+    moe_aux and every gradient (an expert leaf's rows summed over
+    ``model``, each rank holding its own experts'); the EP path ran."""
+    from repro_torch import configs, convert
+    from repro_torch.models import ffn, forward_train
+    from repro_torch.models.sharding import activation_sharding
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    cfg = configs.get_smoke(arch)
+    params = convert.from_jax_numpy(ref["params"], device="cpu")
+    names = list(paths(params))
+    calls = []
+    real = ffn.moe_forward_shmap
+    ffn.moe_forward_shmap = lambda *a: calls.append(1) or real(*a)
+    got = {}
+    try:
+        for mode in ("gathered", "ep", "ep_shmap"):
+            leaves = [t.detach().requires_grad_()
+                      for t in tree_leaves(params)]
+            with activation_sharding(mesh):
+                lg, aux = forward_train(tree_unflatten(params, leaves),
+                                        cfg.replace(moe_mode=mode),
+                                        {"tokens": torch.as_tensor(
+                                            ref["tokens"])})
+                loss = lg.square().mean() + aux["moe_aux"]
+            g = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                         materialize_grads=True))
+            if mode != "gathered":
+                for i, p in enumerate(names):
+                    if p.split("/")[-2:] in (["moe", "w_gate"],
+                                             ["moe", "w_up"],
+                                             ["moe", "w_down"]):
+                        torch.distributed.all_reduce(
+                            g[i], group=mesh.get_group("model"))
+            got[mode] = (lg.detach(), float(aux["moe_aux"].detach()), g)
+    finally:
+        ffn.moe_forward_shmap = real
+    base = got["gathered"]
+    res = {"ep_calls": len(calls),
+           "want_calls": 2 * (cfg.n_layers - cfg.moe.first_k_dense),
+           "jax_logits": float(np.max(np.abs(base[0].numpy()
+                                             - ref["logits"]))),
+           "jax_aux": abs(base[1] - ref["moe_aux"]),
+           "logit_scale": float(np.max(np.abs(ref["logits"])))}
+    for mode in ("ep", "ep_shmap"):
+        lg, aux, g = got[mode]
+        res[mode] = {
+            "logits": (lg - base[0]).abs().max().item(),
+            "aux": abs(aux - base[1]),
+            "grad": max(((a - b).abs().max() / b.abs().max().clamp(
+                min=1e-30)).item() for a, b in zip(g, base[2]))}
+    out[arch] = res
+
+
+def _mesh_checks(mesh, name, cases, runs, ckpt, out):
+    """On ``mesh``: the sharded state's shards, each of a case's two steps
+    from the JAX state before it, a sharded restore, the expert-parallel
+    checks.  Returns the full tensors after each step, by
+    ``mesh|case|step|part|path``."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, convert
+    from repro_torch.configs.llama_paper import smoke
+    from repro_torch.models.sharding import params_shardings
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.optimizer import AdamState
+    from repro_torch.train.sharded import make_sharded_train_step, \
+        shard_state
+    from repro_torch.train.trainstep import TrainState
+    res = out[name] = {"mesh": [list(mesh.shape), list(mesh.mesh_dim_names)],
+                       "steps": {}}
+    shards_ok, arrays = [], {}
+    for case, arch, B, accum, kl in cases:
+        run = runs[case]
+        cfg = smoke() if arch == "llama31-8b" else configs.get_smoke(arch)
+        batch = {k: torch.as_tensor(v) for k, v in run["batch"].items()}
+        step = make_sharded_train_step(cfg, mesh, lr=LR, kl_coef=kl,
+                                       accum_steps=accum)
+        res["steps"][case] = []
+        for k, trees in enumerate(run["states"][:STEPS]):
+            params, m, v = (convert.from_jax_numpy(t, device="cpu")
+                            for t in trees)
+            state = shard_state(TrainState(params, AdamState(k, m, v)), mesh)
+            specs = paths(params_shardings(params, mesh, "train"))
+            for full, tree in ((params, state.params), (m, state.opt.m),
+                               (v, state.opt.v)):
+                full = paths(full)
+                for p, t in paths(tree).items():
+                    shards_ok.append(torch.equal(t.to_local(), _expected_shard(
+                        full[p], specs[p], mesh)))
+            state, metrics = step(state, batch)
+            res["steps"][case].append(
+                [{n: float(x) for n, x in metrics.items()}, state.opt.step])
+            for part, tree in (("params", state.params), ("m", state.opt.m),
+                               ("v", state.opt.v)):
+                for p, t in paths(tree).items():
+                    arrays[f"{name}|{case}|{k}|{part}|{p}"] = \
+                        t.full_tensor().numpy()
+    # the first case's init, saved by rank 0 and restored onto the mesh
+    # by every rank, fp32 and bf16, bit for bit
+    params = paths(convert.from_jax_numpy(runs[cases[0][0]]["states"][0][0],
+                                          device="cpu"))
+    for dt in (torch.float32, torch.bfloat16):
+        tree = {k: v.to(dt) for k, v in params.items()}
+        path = f"{ckpt}_{name}_{str(dt)[6:]}"
+        if dist.get_rank() == 0:
+            ck.save_checkpoint(path, tree)
+        dist.barrier()
+        sh = params_shardings(tree, mesh, "train")
+        got = ck.restore_checkpoint(path, tree, sh, mesh=mesh)
+        for p, t in got.items():
+            shards_ok.append(t.dtype == dt and torch.equal(
+                t.to_local(), _expected_shard(tree[p], sh[p], mesh)))
+    res["shards_ok"] = [len(shards_ok), all(shards_ok)]
+    for arch in MOE_ARCHS:
+        _moe_checks(mesh, arch, runs[arch], res)
+    return arrays
+
+
+def rank_main(rank, world, rdv, meshes, runs_path, ckpt, out_path):
+    """One rank of the world: for each (name, shape, cases) of
+    ``meshes``, a (data, model) mesh of that shape over the world's ranks
+    and its checks; the (1, world) mesh comes from ``make_dev_mesh``,
+    with the submeshes and the production mesh's refusal.  The JAX runs
+    come in a pickle at ``runs_path``, which the parent writes (and
+    renames into place) while the ranks start; rank 0 writes what the
+    parent compares."""
+    import os
+    import pickle
+    import time
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import mesh as meshmod
+    torch.set_num_threads(1)
+    meshmod.join(rdv, rank, world, device_type="cpu")
+    # the parent makes the JAX runs while the ranks start
+    deadline = time.monotonic() + 600
+    while not os.path.exists(runs_path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no JAX runs at {runs_path}")
+        time.sleep(0.05)
+    with open(runs_path, "rb") as f:
+        runs = pickle.load(f)
+    out, arrays = {}, {}
+    for name, shape, cases in meshes:
+        if shape == (1, world):
+            mesh = meshmod.make_dev_mesh(device_type="cpu")
+            t, g = meshmod.trainer_generator_submeshes(0.5,
+                                                       device_type="cpu")
+            out["submeshes"] = [t.mesh.tolist(), g.mesh.tolist(),
+                                (t if rank < 2 else g).get_local_rank(
+                                    "model")]
+            try:
+                meshmod.make_production_mesh(device_type="cpu")
+            except ValueError as e:
+                out["production"] = str(e)
+        else:
+            mesh = DeviceMesh("cpu", torch.arange(world).reshape(shape),
+                              mesh_dim_names=("data", "model"))
+        arrays.update(_mesh_checks(mesh, name, cases, runs, ckpt, out))
+    if rank == 0:
+        np.savez(out_path + ".npz", **arrays)
+        with open(out_path + ".json", "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()

@@ -115,3 +115,45 @@ def test_unported_arch_names_its_roadmap_item(arch, item):
         bb.check_family(cfg)
     fam = configs.get_config(arch).family
     assert fam == ("ssm" if item == "A11.6" else "audio")
+
+
+def test_input_shapes_skips_and_combos_equal_jax():
+    """The dry run's input shapes, its skipped (arch, shape) pairs with
+    their reasons, and ``combos`` with and without the skips; the
+    registry exports what the reference's ``__all__`` names."""
+    assert {k: dataclasses.asdict(v) for k, v in
+            configs.INPUT_SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jconfigs.INPUT_SHAPES.items()}
+    assert configs.SKIPS == jconfigs.SKIPS
+    for skips in (False, True):
+        assert configs.combos(skips) == jconfigs.combos(skips)
+    assert len(configs.combos()) == 4 * 10 - 3
+    assert configs.__all__ == jconfigs.__all__
+    assert all(hasattr(configs, n) for n in configs.__all__)
+
+
+@pytest.mark.parametrize("arch", jconfigs.list_archs())
+def test_segment_lengths_and_layer_counts_equal_jax(arch):
+    """``segment_lengths``, ``counted_layers`` (scan groups 1, 2 and 3)
+    and ``real_layers`` of every arch's config and smoke, for every step
+    kind, at every input shape's sequence length and at none."""
+    from repro.models import backbone as jbb
+    from repro_torch.models import backbone as bb
+    lens = [0] + sorted({s.seq_len for s in jconfigs.INPUT_SHAPES.values()})
+    for which in ("get_config", "get_smoke"):
+        cfg = getattr(configs, which)(arch)
+        jcfg = getattr(jconfigs, which)(arch)
+        for kind in ("train", "prefill", "decode"):
+            for sl in lens:
+                assert bb.segment_lengths(cfg, kind, sl) == \
+                    jbb.segment_lengths(jcfg, kind, sl), (which, kind, sl)
+                assert bb.real_layers(cfg, kind, sl) == \
+                    jbb.real_layers(jcfg, kind, sl)
+                for u in (1, 2, 3):
+                    assert bb.counted_layers(cfg, u, kind, sl) == \
+                        jbb.counted_layers(jcfg, u, kind, sl)
+    full = configs.get_config(arch)
+    if arch == "deepseek-v3-671b":          # the reference's own units
+        assert bb.real_layers(full) == 61 and bb.counted_layers(full, 2) == 5
+    if arch == "llama4-scout-17b-a16e":
+        assert bb.segment_lengths(full, "train", 4096) == [48]

@@ -175,14 +175,20 @@ def test_moe_forward_matches_jax(router, top_k, cf):
 
 @pytest.mark.parametrize("mode", ["ep", "ep_shmap"])
 def test_expert_parallel_modes_raise(mode):
+    """With no mesh installed the expert-parallel modes take the gathered
+    math, as the reference's do, bit for bit; a mode the reference does
+    not know raises.  (The modes on a mesh: tests/test_torch_sharded.py.)"""
     tcfg, _ = _moe_cfgs("sigmoid", 1, 1.25)
-    tcfg = tcfg.replace(moe_mode=mode)
     p = ffn.moe_params(torch.Generator().manual_seed(0), tcfg, 1,
                        torch.float32, "cpu")
     p = {k: v[0] if torch.is_tensor(v) else {n: t[0] for n, t in v.items()}
          for k, v in p.items()}
-    with pytest.raises(NotImplementedError, match="A12"):
-        ffn.moe_forward(p, torch.zeros(1, 4, 64), tcfg)
+    x = torch.randn(2, 4, 64, generator=torch.Generator().manual_seed(1))
+    y, aux = ffn.moe_forward(p, x, tcfg.replace(moe_mode=mode))
+    y0, aux0 = ffn.moe_forward(p, x, tcfg)
+    assert torch.equal(y, y0) and torch.equal(aux, aux0)
+    with pytest.raises(ValueError, match="moe_mode"):
+        ffn.moe_forward(p, x, tcfg.replace(moe_mode=mode + "_x"))
 
 
 # ------------------------------------------------------------- family ----

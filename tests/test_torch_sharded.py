@@ -1,0 +1,211 @@
+"""The sharded train step, sharded checkpoints and expert-parallel MoE
+(``repro_torch.train.sharded``, ``train.checkpoint``, ``models.ffn``) on
+gloo ranks on the CPU, against the JAX package.
+
+One spawn of four ranks runs many checks on two meshes over them: a
+(data 2, model 2) mesh and a (data 1, model 4) mesh.  Rendezvous is a ``file://`` in the
+test's own tmp_path, so parallel test workers never share a port.  The
+JAX runs (the reference's ``make_train_step`` from its own init, two
+steps) are made here in the parent and handed to the ranks as numpy;
+each sharded step starts from the JAX state before it, and rank 0 sends
+back what the parent compares.  Tolerances are
+tests/test_torch_train.py's for one step: metrics within 1e-5 relative,
+moments within 1e-5 of each leaf's largest, and each leaf's update, an
+Adam step at lr 1e-3, 99% within 1e-5 of its largest and all within 0.2
+of it (a gradient element near Adam's eps moves its param by about lr
+whatever its fp32 noise); deepseek-v3's MLA + MoE + MTP smoke within
+tests/test_torch_mla.py's 1e-4, its updates all within 2 lr.  (Chained, the second step starts from
+the first's fp32 noise, which Adam lifts to lr-sized moves: the port's
+one-device step drifts from JAX's past these bounds the same way.)  The expert-parallel modes hold to the
+gathered one within tests/test_moe_ep.py's 1e-4."""
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch.multiprocessing as mp
+
+from repro import configs as jconfigs
+from repro.configs import llama_paper as jllama
+from repro.models import forward_train as jforward
+from repro.models import init_params as jinit
+from repro.train import trainstep as jts
+from _sharded_ranks import LR, MOE_ARCHS, STEPS, paths, rank_main
+
+# (name, arch, rows, accum_steps, kl_coef): llama31 smoke with its two
+# microbatches' rows split over data (2 % 2 == 0), and replicated
+# (3 % 2 != 0); deepseek-v3's smoke (MLA, MoE aux, MTP) split
+CASES = [("llama", "llama31-8b", 4, 2, 0.05),
+         ("llama_rep", "llama31-8b", 3, 1, 0.0),
+         ("dsv3", "deepseek-v3-671b", 4, 1, 0.0)]
+TOL = {"llama31-8b": 1e-5, "deepseek-v3-671b": 1e-4}
+# the most an update may be off, as a share of the leaf's largest update:
+# tests/test_torch_train.py's 0.2, and tests/test_torch_mla.py's 2 lr
+# (an element whose gradient is near Adam's eps can flip its move)
+WORST = {"llama31-8b": 0.2, "deepseek-v3-671b": 2.0}
+
+
+def _jcfg(arch):
+    return jllama.smoke() if arch == "llama31-8b" else \
+        jconfigs.get_smoke(arch)
+
+
+def _batch(cfg, seed, B, T=24, prompt=8):
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((B, T), np.float32)
+    mask[:, prompt:] = (rng.uniform(size=(B, T - prompt)) > 0.1)
+    return {
+        "tokens": rng.integers(0, cfg.vocab, size=(B, T)).astype(np.int32),
+        "behavior_logp": (rng.uniform(-8, -4, size=(B, T)) * mask
+                          ).astype(np.float32),
+        "advantages": (rng.standard_normal((B, 1)) * mask).astype(np.float32),
+        "mask": mask,
+        "ref_logp": (rng.uniform(-8, -4, size=(B, T)) * mask
+                     ).astype(np.float32),
+    }
+
+
+def _jax_runs():
+    """Per case: the batch, and the JAX states (params, m and v as numpy)
+    before and after each of two steps with each step's metrics.  The
+    MoE smokes' gathered forward for the expert-parallel checks."""
+    out = {}
+    for name, arch, B, accum, kl in CASES:
+        jcfg = _jcfg(arch)
+        state = jts.init_train_state(jcfg, jax.random.PRNGKey(0),
+                                     jnp.float32)
+        batch = _batch(jcfg, 30, B)
+        step = jax.jit(jts.make_train_step(jcfg, lr=LR, kl_coef=kl,
+                                           accum_steps=accum))
+        states, metrics = [], []
+        for _ in range(STEPS + 1):
+            states.append(jax.device_get((state.params, state.opt.m,
+                                          state.opt.v)))
+            if len(metrics) < STEPS:
+                state, m = step(state, jax.tree.map(jnp.asarray, batch))
+                metrics.append({k: float(v) for k, v in m.items()})
+        out[name] = dict(batch=batch, metrics=metrics, states=states)
+    for arch in MOE_ARCHS:
+        jcfg = jconfigs.get_smoke(arch)
+        p = jinit(jcfg, jax.random.PRNGKey(1), jnp.float32)
+        toks = np.random.default_rng(2).integers(
+            0, jcfg.vocab, (4, 16)).astype(np.int32)
+        logits, aux = jforward(p, jcfg, {"tokens": jnp.asarray(toks)})
+        out[arch] = dict(params=jax.device_get(p), tokens=toks,
+                         logits=np.asarray(logits),
+                         moe_aux=float(aux["moe_aux"]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """One spawn of four gloo ranks running both meshes' checks: the
+    (data 2, model 2) mesh every case, the (data 1, model 4) mesh the
+    cases whose rows split.  The ranks start (a torch import each) while
+    this process makes the JAX runs.  Returns (the JAX runs, rank 0's
+    results, its arrays)."""
+    import pickle
+    d = tmp_path_factory.mktemp("sharded")
+    meshes = [("data2_model2", (2, 2), CASES),
+              ("model4", (1, 4), [c for c in CASES if c[0] != "llama_rep"])]
+    out = str(d / "out")
+    ctx = mp.start_processes(rank_main, nprocs=4, join=False,
+                             start_method="spawn", args=(
+                                 4, "file://" + str(d / "rdv"), meshes,
+                                 str(d / "runs.pkl"), str(d / "ckpt"), out))
+    try:
+        runs = _jax_runs()
+        with open(d / "runs.tmp", "wb") as f:
+            pickle.dump(runs, f)
+        os.replace(d / "runs.tmp", d / "runs.pkl")
+        while not ctx.join():
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    with open(out + ".json") as f:
+        res = json.load(f)
+    with np.load(out + ".npz") as data:
+        arrays = {tuple(k.split("|", 4)): data[k] for k in data.files}
+    return runs, res, arrays
+
+
+def _check_steps(res, arrays, name, runs, cases):
+    """Each step from the JAX state before it against the JAX step:
+    tests/test_torch_train.py's criteria (a metric of size below 1, such
+    as a policy loss that cancels across rows, is held absolutely; an
+    update's error is counted past one fp32 ulp of its param, the
+    rounding of a norm weight near 1 under an update of lr)."""
+    for case, arch, B, accum, kl in cases:
+        run, tol = runs[case], TOL[arch]
+        for k, (metrics, adam_step) in enumerate(res["steps"][case]):
+            want = run["metrics"][k]
+            assert adam_step == k + 1          # Adam's step, on the host
+            assert set(metrics) == set(want)
+            for n in ("loss", "grad_norm", "mean_ratio", "mean_logp",
+                      "total_loss") + (("mtp_loss", "moe_aux")
+                                       if "mtp_loss" in want else ()):
+                assert abs(metrics[n] - want[n]) <= \
+                    tol * max(abs(want[n]), 1.0), (case, k, n)
+            before = [paths(t) for t in run["states"][k]]
+            after = [paths(t) for t in run["states"][k + 1]]
+            for i, part in enumerate(("params", "m", "v")):
+                for p, j in after[i].items():
+                    t = arrays[name, case, str(k), part, p]
+                    if part != "params":
+                        assert np.max(np.abs(t - j)) <= \
+                            tol * max(np.max(np.abs(j)), 1e-30), \
+                            (case, k, part, p)
+                        continue
+                    o = before[0][p]
+                    dj = np.asarray(j, np.float64) - o
+                    dt = t.astype(np.float64) - o
+                    big = np.max(np.abs(dj))
+                    assert 0.5 * LR < big < 2 * LR, (case, k, p, big)
+                    ulp = np.spacing(np.abs(j).astype(np.float32))
+                    err = np.maximum(np.abs(dt - dj) - ulp, 0) / big
+                    assert err.max() <= WORST[arch], (case, k, p, err.max())
+                    assert np.quantile(err, 0.99) <= tol, (case, k, p)
+
+
+def _check_moe(res):
+    for arch in MOE_ARCHS:
+        r = res[arch]
+        assert r["ep_calls"] == r["want_calls"] > 0, r
+        assert r["jax_logits"] <= 1e-5 * max(1.0, r["logit_scale"]), r
+        assert r["jax_aux"] <= 1e-6, r
+        for mode in ("ep", "ep_shmap"):
+            assert r[mode]["logits"] <= 1e-4 and r[mode]["aux"] <= 1e-4 \
+                and r[mode]["grad"] <= 1e-4, (arch, mode, r[mode])
+
+
+def test_sharded_on_data2_model2(ranks):
+    """(data 2, model 2): every shard of the state and of a restored
+    checkpoint (fp32 and bf16) is the slice its spec names; each case's
+    two sharded steps equal the JAX steps; ep and ep_shmap equal gathered
+    with 2 experts a model rank."""
+    jax_runs, res, arrays = ranks
+    r = res["data2_model2"]
+    assert r["mesh"] == [[2, 2], ["data", "model"]]
+    n, ok = r["shards_ok"]
+    assert ok and n > 0
+    _check_steps(r, arrays, "data2_model2", jax_runs, CASES)
+    _check_moe(r)
+
+
+def test_sharded_on_model4(ranks):
+    """(data 1, model 4) from ``make_dev_mesh``: the submeshes split the
+    world 2 + 2 and the production mesh refuses a world of 4; the split
+    cases' sharded steps; ep and ep_shmap with 1 expert a model rank."""
+    jax_runs, res, arrays = ranks
+    r = res["model4"]
+    assert r["mesh"] == [[1, 4], ["data", "model"]]
+    assert res["submeshes"] == [[[0, 1]], [[2, 3]], 0]
+    assert "256 ranks" in res["production"]
+    assert r["shards_ok"][1]
+    _check_steps(r, arrays, "model4", jax_runs,
+                 [c for c in CASES if c[0] != "llama_rep"])
+    _check_moe(r)
