@@ -80,9 +80,12 @@ Each phase prints its own lines:
                in this process; every child's launch counts, peak memory
                and modules read through a ``probe`` endpoint.  (a)
                ``proc`` at [10]'s 2 layers, a pool of 1 (chunk
-               scheduling, the child pinning each job's params): bit-equal
-               to [10] (a), its launch counts summed over the children
-               equal to [10] (a)'s; (b) an engine pool of 2 on paged KV at
+               scheduling, the child pinning each job's params), each
+               child on a (1, 1) mesh of its own (DeviceSpec.mesh_shape:
+               an NCCL world of one, the trainer stepping sharded on
+               it, each probe reporting its mesh): bit-equal to [10]
+               (a), its launch counts summed over the children equal to
+               [10] (a)'s; (b) an engine pool of 2 on paged KV at
                1 layer, 3 steps, threaded in process and then over
                ``shm``, both traced: decode ms a token per worker, the stats, each
                weight hop's ms and GB/s, spawn seconds, peak memory per
@@ -95,8 +98,9 @@ Each phase prints its own lines:
                ``REPRO_TRANSPORT=socket`` (self-hosted), bit-equal to [11]
   [13] launcher  (i) ``python -m repro_torch.launch.train --arch
                llama31-8b --smoke --steps 3 --transport shm
-               --n-generators 2 --kl-coef 0.1`` with the paged engine,
-               traced, as a process of its own: exit 0, 3 history rows,
+               --n-generators 2 --kl-coef 0.1 --child-mesh 1x1`` with
+               the paged engine, traced, as a process of its own, each
+               child on a mesh of its own: exit 0, 3 history rows,
                spans from every child; (ii) meanwhile the launcher's
                build_controller with the same flags in this process,
                its children probed: B1-B5 launched in the children, the
@@ -289,7 +293,13 @@ Each phase prints its own lines:
                with 1 layer in bf16: forward_train with moe_mode
                'ep_shmap' on the installed mesh against the gathered mode;
                (c) (a)'s params saved and restored onto the mesh with
-               restore_checkpoint(shardings=), bit for bit.  B1, B2 and
+               restore_checkpoint(shardings=), bit for bit; (d) the
+               dry run (launch/dryrun.py) predicts (a)'s sharded step
+               from the meta device -- bytes allocated as it starts,
+               its peak, FLOPs a step -- and is held to what (a)
+               measured: torch.cuda.max_memory_allocated of the sharded
+               steps and a FlopCounterMode count of the first, plus the
+               FLOPs of B1, B2 and B4, which it cannot see.  B1, B2 and
                B4 must launch on this path ("sharded"), and (a)'s first
                kernel call of each shape is held against the plain version
 
@@ -2546,7 +2556,9 @@ def probed_executor(kind, *args, ref_init=None, record=None, stall=None,
                    # loaded from the parent's build
                    "built": sorted(build.BUILD_SECONDS),
                    "first_print": getattr(self, "first_print", None),
-                   "most_staged": self.most_staged}
+                   "most_staged": self.most_staged,
+                   "mesh": list(self.mesh.shape)
+                   if self.mesh is not None else None}
             if reset:
                 build.reset_launches()
                 RSS.reset()
@@ -2613,13 +2625,14 @@ def probed_executor(kind, *args, ref_init=None, record=None, stall=None,
 
 def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16,
                     transport="inproc", staleness=1, supervise=None,
-                    record=None, stall=None):
+                    record=None, stall=None, device_spec=None):
     """Generator pool -> frozen reference -> reward -> trainer behind the
     threaded controller, staleness 1 unless told, KL to a reference from
     another seed (as in [6]); the reward stays in this process, the other
     actors go where ``transport`` puts them (``probed_executor``s, the
     generators recording the kernel calls of ``record``, the one named
-    ``stall`` stalling at version 0).  Returns
+    ``stall`` stalling at version 0), each spawned child with
+    ``device_spec``.  Returns
     (controller, generator handles, trainer, reference, seconds each
     actor took to spawn)."""
     import functools
@@ -2635,11 +2648,7 @@ def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16,
         h = spawn_actor(*args, **kwargs)
         return h, time.perf_counter() - t0
 
-    starts = []                 # the pool builds worker g's tasks just
-                                # before it spawns worker g
-
     def make_tasks(g):
-        starts.append(time.perf_counter())
         return ArithmeticTasks(prompt_len=prompt_len, seed=g)
 
     spawn_s = {}
@@ -2649,22 +2658,25 @@ def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16,
     with ThreadPoolExecutor(1) as spawner:
         ref_f = spawner.submit(timed_spawn, probed_executor, "reference",
                                cfg, ref_init=(1, torch.bfloat16, dev),
-                               transport=transport)
+                               transport=transport, device_spec=device_spec)
         rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
         trn, trn_s = timed_spawn(
             probed_executor, "trainer", cfg, dtype=torch.bfloat16,
-            kl_coef=KL_COEF, seed=0, device=dev, transport=transport)
+            kl_coef=KL_COEF, seed=0, device=dev, transport=transport,
+            device_spec=device_spec)
+        t_pool = time.perf_counter()
         gens, chans = build_generator_pool(
             cfg, trn, make_tasks, n_generators=n_gens,
             generator_cls=functools.partial(probed_executor, "generator",
                                             record=record, stall=stall),
             n_prompts=N_PROMPTS, n_per_prompt=N_PER, max_new=MAX_NEW,
-            chunk=CHUNK, temperature=1.0, device=dev, transport=transport)
-        starts.append(time.perf_counter())
+            chunk=CHUNK, temperature=1.0, device=dev, transport=transport,
+            device_spec=device_spec)
+        # the pool spawns its remote workers at once
+        spawn_s["generators" if len(gens) > 1 else gens[0].name] = \
+            time.perf_counter() - t_pool
         ref, ref_s = ref_f.result()
     spawn_s[ref.name], spawn_s[trn.name] = ref_s, trn_s
-    for g, h in enumerate(gens):
-        spawn_s[h.name] = starts[g + 1] - starts[g]
     chans += [
         CommunicationChannel("completions", gens[0], ref, CommType.BROADCAST),
         CommunicationChannel("completions_with_ref", ref, rew,
@@ -3158,15 +3170,16 @@ def device_overlap(timelines, started) -> str:
 
 def phase_proc(torch, dev, pool_a, quick_hist):
     """[12]: the async loop with its actors in spawned processes.  (a)
-    ``proc`` at [10]'s depth, a pool of 1 (chunk scheduling), against
-    [10] (a) bit for bit; (b) an engine pool of 2 on paged KV at 1 layer,
-    threaded in process and then over ``shm``, traced; (c) the
-    quickstart with every actor on a self-hosted ``socket``, against
-    [11] bit for bit.  Returns the children's launch counts of (a) and
-    (b)."""
+    ``proc`` at [10]'s depth, a pool of 1 (chunk scheduling), each child
+    on a (1, 1) mesh of its own (an NCCL world of one; the trainer steps
+    sharded on it), against [10] (a) bit for bit; (b) an engine pool of 2
+    on paged KV at 1 layer, threaded in process and then over ``shm``,
+    traced; (c) the quickstart with every actor on a self-hosted
+    ``socket``, against [11] bit for bit.  Returns the children's launch
+    counts of (a) and (b)."""
     from repro_torch import quickstart
     from repro_torch.configs.llama_paper import LLAMA31_8B
-    from repro_torch.core import PoolConfig, close_all_actors
+    from repro_torch.core import DeviceSpec, PoolConfig, close_all_actors
     from repro_torch.kernels import build
     from repro_torch.obs import trace as obs_trace
 
@@ -3183,11 +3196,11 @@ def phase_proc(torch, dev, pool_a, quick_hist):
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated here "
         "before it")
 
-    # (a) proc, a pool of 1, against [10] (a)
+    # (a) proc, a pool of 1, each child on a (1, 1) mesh, against [10] (a)
     tracer.clear()
     ctl, gens, trn, ref, spawn_s = pool_controller(
         torch, dev, cfg, n_gens=1, pool=PoolConfig(), steps=len(ha),
-        transport="proc")
+        transport="proc", device_spec=DeviceSpec(mesh_shape=(1, 1)))
     actors = gens + [ref, trn]
     for h in actors:
         h.call("probe", reset=True)
@@ -3235,7 +3248,9 @@ def phase_proc(torch, dev, pool_a, quick_hist):
         f"{len(chunk_s)} chunks (host clock, the job and its KV state "
         "crossing the socket every chunk)")
     log(f"  (a) spawn s: " + ", ".join(f"{k} {v:.2f}"
-                                      for k, v in spawn_s.items()))
+                                      for k, v in spawn_s.items())
+        + "; meshes: " + ", ".join(f"{k} {p['mesh']}"
+                                   for k, p in probes.items()))
     log(f"  (a) {hop_line('trainer -> controller (socket pair)', up)}")
     log(f"  (a) {hop_line('controller -> generator (socket pair)', down)}")
     log(f"  (a) launches: " + ", ".join(
@@ -3251,6 +3266,8 @@ def phase_proc(torch, dev, pool_a, quick_hist):
         f"{pinned_after}; most staged slots {probes['generator']['most_staged']}"
         f", staged after the run {staged_after[0]} (commit markers queued "
         f"{staged_after[1]}); fabric {subs}")
+    require(all(p["mesh"] == [1, 1] for p in probes.values()),
+            f"(a) meshes {[p['mesh'] for p in probes.values()]}")
     require([h["weight_version"] for h in hist] == [0, 0, 1],
             "(a) weight versions")
     require(bit_equal, "(a) the process-placed loop differs from [10] (a)")
@@ -3427,8 +3444,9 @@ LAUNCH_FLAGS = ["--arch", "llama31-8b", "--smoke", "--steps", "3",
 def phase_launch(torch) -> dict:
     """[13]: the launcher with the trainer, two engine generators on
     paged KV and the reference in ``shm`` children.  (i) ``python -m
-    repro_torch.launch.train`` as a user runs it, a process of its own:
-    exit 0, 3 history rows, spans from every child in its trace.  (ii)
+    repro_torch.launch.train`` as a user runs it, a process of its own,
+    with ``--child-mesh 1x1`` (each child on a mesh of its own): exit 0,
+    3 history rows, spans from every child in its trace.  (ii)
     meanwhile, in this process, the launcher's ``build_controller`` with
     the same flags and ``probed_executor`` factories: the children count
     their launches and record their kernel calls, which each child then
@@ -3447,7 +3465,7 @@ def phase_launch(torch) -> dict:
         if f.exists():
             f.unlink()
     cmd = [sys.executable, "-m", "repro_torch.launch.train"] + LAUNCH_FLAGS \
-        + ["--trace", str(trace.relative_to(ROOT)),
+        + ["--child-mesh", "1x1", "--trace", str(trace.relative_to(ROOT)),
            "--out", str(out.relative_to(ROOT))]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     log(f"[13] launcher: (i) {' '.join(cmd[1:])} as a process of its own; "
@@ -6778,7 +6796,12 @@ def sharded_step_check(torch, dev, mesh, batch):
     run's, each relative to its largest |value| (the moments hold the
     gradients); the largest difference against the steps' largest update
     is printed beside.  Returns (the launches of the sharded steps, the
-    sharded state's params)."""
+    sharded state's params, what [22] (d) holds the dry run to: the
+    bytes allocated as the sharded steps start and their peak, each less
+    what the process held before the sharded state was built, and the
+    FLOPs ``FlopCounterMode`` counted in one more sharded step)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.configs.llama_paper import LLAMA31_8B
     from repro_torch.kernels import build
     from repro_torch.models import init_params
@@ -6795,6 +6818,8 @@ def sharded_step_check(torch, dev, mesh, batch):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        # what earlier phases left allocated, outside (d)'s comparison
+        base = torch.cuda.memory_allocated()
         params = init_params(cfg, seed=2, dtype=torch.float32, device=dev)
         n = sum(t.numel() for t in leaves(params))
         state = TrainState(params, adam_init(params))
@@ -6807,6 +6832,12 @@ def sharded_step_check(torch, dev, mesh, batch):
         del params
         ms = []
         if path == "sharded":
+            gc.collect()
+            torch.cuda.synchronize()
+            init_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            measured = {"argument_bytes": torch.cuda.memory_allocated()
+                        - base}
             build.reset_launches()      # the sharded path's run starts here
         for _ in range(SHARD_STEPS):
             torch.cuda.synchronize()
@@ -6816,6 +6847,9 @@ def sharded_step_check(torch, dev, mesh, batch):
             ms.append((time.perf_counter() - t0) * 1e3)
         launches = dict(build.LAUNCHES)  # ... and ends here
         peak = torch.cuda.max_memory_allocated() / 1e9
+        if path == "sharded":
+            measured["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            peak = max(init_peak / 1e9, peak)
         log(f"  (a) {path}: {n / 1e9:.3f} B params, {SHARD_STEPS} steps of "
             + ", ".join(f"{t:.1f}" for t in ms) + f" ms, loss "
             f"{float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}"
@@ -6853,9 +6887,89 @@ def sharded_step_check(torch, dev, mesh, batch):
     want = {"fused_logprob": SHARD_STEPS, "fused_logprob_bwd": SHARD_STEPS,
             "flash_attention": SHARD_STEPS * cfg.n_layers}
     require(launches == want, f"[22] (a) launches {launches}, want {want}")
+    # one more sharded step, counted for (d): a dispatch mode around a step
+    # changes its bits on the card (m moved by 1.5e-6 of its largest), so
+    # the compared steps run without it
+    with FlopCounterMode(display=False) as fc:
+        state, _ = step(state, batch)
+    measured["card_flops"] = fc.get_total_flops()
     params = state.params
     del state, runs, one, batch
-    return launches, params
+    return launches, params, measured
+
+
+DRYRUN_FLOP_TOL = 1e-3      # [22] (d): the card's count plus the kernels'
+                            # own FLOPs against the meta count, relative
+DRYRUN_BYTES_BAND = (0.9, 1.1)  # [22] (d): measured / predicted peak bytes
+
+
+def dryrun_check(torch, mesh, batch, measured):
+    """[22] (d): the dry run (``launch/dryrun.py``) predicts (a)'s sharded
+    step on ``mesh`` from the ``meta`` device -- llama31-8b at full width
+    with SHARD_LAYERS layers, fp32, KL 0.1, on [7]'s batch shape -- and
+    the prediction is held to what (a) measured on the card: the bytes
+    allocated as the steps start against ``argument_bytes``, the steps'
+    peak against ``peak_bytes_per_device`` (within DRYRUN_BYTES_BAND),
+    and FLOPs.  ``FlopCounterMode`` on the card cannot see B1, B2 and B4,
+    ``ctypes`` launches; the meta run counts their plain versions (B1's
+    and B2's count no product, the plain attention's forward is counted
+    where the card runs B4 and then recomputes it in the backward).  So
+    the card's count gains the kernels' own FLOPs, as ``bound`` reckons
+    them, before it is held to the prediction within DRYRUN_FLOP_TOL.
+    Returns the phase's seconds."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    cfg = LLAMA31_8B.replace(name="llama31-8b-2l", n_layers=SHARD_LAYERS)
+    B, T = batch["tokens"].shape
+    amesh = dryrun.production_mesh(mesh_shape=tuple(mesh.shape))
+    c, shape, lowered = dryrun.lower_combo(
+        cfg, ShapeSpec("numerics", T, B, "train"), amesh,
+        dtype=torch.float32, remat=False, kl_coef=KL_COEF)
+    rec = dryrun.analyse(c, shape, lowered, amesh)
+    H, hd, V = cfg.n_heads, cfg.hd, cfg.vocab
+    own = {"fused_logprob": B * (T - 1) * V * LOGPROB_OPS_PER_LOGIT,
+           "fused_logprob_bwd": B * (T - 1) * V * LOGPROB_BWD_OPS_PER_LOGIT,
+           "flash_attention": cfg.n_layers * 4 * B * H * hd * T * (T + 1)
+           / 2}
+    card = measured["card_flops"] + sum(own.values())
+    pred = rec["flops_per_device"]
+    flop_err = abs(card - pred) / pred
+    # the plain attention's forward, which the meta run counts and the
+    # card runs as B4: every key of every query
+    plain_fwd = cfg.n_layers * 4 * B * H * hd * T * T
+    got_arg, got_peak = measured["argument_bytes"], measured["peak_bytes"]
+    ratio = got_peak / rec["peak_bytes_per_device"]
+    log(f"  (d) dry run of (a) on a {list(amesh.shape.values())} mesh "
+        f"(meta, {rec['count_s']} s): predicted argument "
+        f"{rec['argument_bytes'] / 1e9:.3f} GB, temp "
+        f"{rec['temp_bytes'] / 1e9:.3f} GB (saved activations "
+        f"{rec['saved_bytes'] / 1e9:.3f} GB), peak "
+        f"{rec['peak_bytes_per_device'] / 1e9:.3f} GB, "
+        f"{pred / 1e12:.4f} TFLOP a step; roofline compute "
+        f"{rec['roofline']['compute_s'] * 1e3:.2f} ms, memory "
+        f"{rec['roofline']['memory_s'] * 1e3:.2f} ms; {nvidia_smi()}")
+    log(f"  (d) measured in (a): {got_arg / 1e9:.3f} GB allocated as the "
+        f"steps start, peak {got_peak / 1e9:.3f} GB ({ratio:.3f} of the "
+        f"prediction, band {DRYRUN_BYTES_BAND}); FlopCounterMode "
+        f"{measured['card_flops'] / 1e12:.4f} TFLOP + the kernels' own "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in own.items())
+        + f" GFLOP = {card / 1e12:.4f} TFLOP against the predicted "
+        f"{pred / 1e12:.4f} (relative {flop_err:.2e}, tolerance "
+        f"{DRYRUN_FLOP_TOL:g}); the count plus the plain attention's "
+        f"forward ({plain_fwd / 1e9:.3f} GFLOP) less the prediction: "
+        f"{measured['card_flops'] + plain_fwd - pred:.0f} FLOP; "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(flop_err <= DRYRUN_FLOP_TOL, f"(d) FLOPs off by {flop_err:.2e}")
+    require(DRYRUN_BYTES_BAND[0] <= ratio <= DRYRUN_BYTES_BAND[1],
+            f"(d) peak {got_peak / 1e9:.3f} GB against the predicted "
+            f"{rec['peak_bytes_per_device'] / 1e9:.3f}")
+    require(abs(got_arg - rec["argument_bytes"])
+            <= 0.01 * rec["argument_bytes"],
+            f"(d) argument bytes {got_arg} against {rec['argument_bytes']}")
+    return time.perf_counter() - t0
 
 
 def ep_check(torch, dev, mesh):
@@ -6953,7 +7067,7 @@ def phase_sharded(torch, dev, batch):
         parts = [time.perf_counter()]
         launches = collections.Counter()
         with KernelCalls(torch, per_shape=1, host=True) as calls:
-            a, params = sharded_step_check(torch, dev, mesh, batch)
+            a, params, measured = sharded_step_check(torch, dev, mesh, batch)
         launches.update(a)
         for line in calls.replay("[22] (a)", expect=(
                 "fused_logprob_cuda", "fused_logprob_bwd_cuda",
@@ -6968,6 +7082,8 @@ def phase_sharded(torch, dev, batch):
         parts.append(time.perf_counter())
         launches.update(ep_check(torch, dev, mesh))
         parts.append(time.perf_counter())
+        dryrun_check(torch, mesh, batch, measured)
+        parts.append(time.perf_counter())
     finally:
         dist.destroy_process_group()
         if rdv.exists():
@@ -6978,7 +7094,7 @@ def phase_sharded(torch, dev, batch):
     family_checks("22", launches, ("fused_logprob", "fused_logprob_bwd",
                                    "flash_attention"), ())
     log(f"  [22] launches {launches}; {time.perf_counter() - t0:.1f} s "
-        "((a), (c), (b): "
+        "((a), (c), (b), (d): "
         + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:]))
         + " s)")
     return launches

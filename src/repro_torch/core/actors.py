@@ -42,7 +42,11 @@ CPU.
 
 ``DeviceSpec`` gives a spawned child its own cards: ``device_count`` sets
 ``CUDA_VISIBLE_DEVICES`` in the child before torch touches CUDA, and an
-executor that takes ``device`` is handed the child's first card.
+executor that takes ``device`` is handed the child's first card.  Its
+``mesh_shape`` gives the executor a ``DeviceMesh`` of the child's own
+(``mesh=``): a torch mesh of n ranks is n processes, so a child whose
+mesh has more than one rank is the mesh's rank 0, spawns the other ranks
+and runs every endpoint call on all of them (``_MeshWorld``).
 
 Ordering: operations through one handle execute in the order they were
 sent (direct calls trivially; the socket is FIFO and the server
@@ -64,8 +68,10 @@ import multiprocessing as mp
 import os
 import pickle
 import select
+import shutil
 import socket as socketlib
 import struct
+import tempfile
 import threading
 import time
 import traceback
@@ -131,16 +137,35 @@ class DeviceSpec:
     this process sees (``CUDA_VISIBLE_DEVICES``, set in the child before
     torch initializes CUDA; a ``--listen`` host sets its own at launch),
     and hands an executor that takes ``device`` the child's first card.
-    A child's own mesh (``mesh_shape``) comes with the actors' placement
-    on meshes, ROADMAP A12.6."""
+
+    ``mesh_shape`` / ``mesh_axes`` give the executor a ``DeviceMesh`` of
+    that shape as its ``mesh=`` kwarg, built from the child's own world
+    (``build_mesh``).  A mesh of more than one rank makes the child its
+    rank 0: it spawns the other ranks, one card each in its
+    ``CUDA_VISIBLE_DEVICES`` order (gloo ranks on the CPU when the
+    executor is asked for ``device="cpu"``), joins them on a ``file://``
+    rendezvous in a directory of its own and runs each endpoint call on
+    every rank; only rank 0 replies.  A mesh of one rank is a world of one
+    and spawns nothing."""
     device_count: int = 0
     mesh_shape: Tuple[int, ...] = ()
+    mesh_axes: Tuple[str, ...] = ("data", "model")
 
     def __post_init__(self):
-        if self.mesh_shape:
-            raise NotImplementedError(
-                "DeviceSpec.mesh_shape comes with the actors' placement on "
-                "meshes (ROADMAP A12.6)")
+        if self.mesh_shape and (len(self.mesh_shape) != len(self.mesh_axes)
+                                or min(self.mesh_shape) < 1):
+            raise ValueError(f"mesh_shape {self.mesh_shape} over axes "
+                             f"{self.mesh_axes}")
+
+    @property
+    def mesh_size(self) -> int:
+        """The mesh's ranks (0 without a mesh)."""
+        if not self.mesh_shape:
+            return 0
+        n = 1
+        for s in self.mesh_shape:
+            n *= s
+        return n
 
     def apply_env(self):
         if self.device_count > 0:
@@ -161,12 +186,181 @@ class DeviceSpec:
             return kwargs
         return dict(kwargs, device="cuda")
 
+    def build_mesh(self, device_type: str = "cuda"):
+        """This process's world as a ``DeviceMesh`` of ``mesh_shape`` (None
+        without one).  The world must hold exactly the mesh's ranks
+        (``launch/mesh.join``); a mesh of one rank joins a world of one
+        where there is none yet."""
+        if not self.mesh_shape:
+            return None
+        import torch.distributed as dist
+        from repro_torch.launch import mesh as meshmod
+        if not dist.is_initialized():
+            if self.mesh_size != 1:
+                raise ValueError(
+                    f"a mesh {self.mesh_shape} of {self.mesh_size} ranks is "
+                    f"that many processes: join them first (launch/mesh."
+                    f"join), or give the spec to a spawned child")
+            meshmod.join_world_of_one(device_type)
+        return meshmod.make_mesh(self.mesh_shape, self.mesh_axes,
+                                 device_type=device_type)
+
+
+def _mesh_device_type(kwargs) -> str:
+    """The device type of an executor's mesh: its ``device``'s (cuda when
+    none is given, as the executors default)."""
+    import torch
+    return torch.device(kwargs.get("device") or "cuda").type
+
 
 def _takes(factory, name: str) -> bool:
     try:
         return name in inspect.signature(factory).parameters
     except (TypeError, ValueError):
         return False
+
+
+# ------------------------------------------------------ a child's own mesh --
+
+def _mesh_send(msg, device_type: str):
+    """Rank 0: broadcast one endpoint message (None: the end) to the
+    mesh's other ranks as wire bytes."""
+    import torch
+    import torch.distributed as dist
+    dev = ddma.rank_device(device_type)
+    data = bytearray() if msg is None else wire.serialize(msg)
+    dist.broadcast(torch.tensor([len(data)], dtype=torch.int64, device=dev),
+                   src=0)
+    if data:
+        dist.broadcast(torch.frombuffer(data, dtype=torch.uint8).to(dev),
+                       src=0)
+
+
+def _mesh_recv(device_type: str):
+    """Another rank: the next endpoint message of rank 0 (None: the
+    end)."""
+    import torch
+    import torch.distributed as dist
+    dev = ddma.rank_device(device_type)
+    n = torch.zeros(1, dtype=torch.int64, device=dev)
+    dist.broadcast(n, src=0)
+    if int(n) == 0:
+        return None
+    buf = torch.empty(int(n), dtype=torch.uint8, device=dev)
+    dist.broadcast(buf, src=0)
+    return wire.deserialize(memoryview(buf.cpu().numpy()))
+
+
+def _exit_with(ppid: int):
+    """A mesh rank's watchdog: leave when rank 0, its parent, is gone."""
+    while os.getppid() == ppid:
+        time.sleep(1.0)
+    os._exit(1)
+
+
+def _mesh_rank_main(factory, args, kwargs, spec, rank, init_method,
+                    device_type, card, ppid):
+    """A rank of a child's own mesh other than 0: join the world, build
+    the mesh and the executor, then run every endpoint message rank 0
+    broadcasts until the end message."""
+    if card is not None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = card
+    threading.Thread(target=_exit_with, args=(ppid,), daemon=True,
+                     name="mesh-rank-watchdog").start()
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as meshmod
+    meshmod.join(init_method, rank, spec.mesh_size, device_type=device_type)
+    try:
+        ex = factory(*args, **dict(kwargs,
+                                   mesh=spec.build_mesh(device_type)))
+        while True:
+            msg = _mesh_recv(device_type)
+            if msg is None:
+                return
+            method, cargs, ckw = msg
+            try:
+                _invoke(ex, method, cargs, ckw)
+            except Exception:
+                # rank 0 runs the same call and answers for the mesh
+                _log.exception("mesh rank %d: endpoint '%s'", rank, method)
+    finally:
+        dist.destroy_process_group()
+
+
+class _MeshWorld:
+    """The world of a spawned child's own mesh, this process its rank 0:
+    the other ranks (spawned here), the process group and the
+    ``DeviceMesh``.  ``broadcast`` hands each endpoint message to the
+    other ranks before rank 0 runs it; ``close`` ends them, reaps them
+    and leaves the group."""
+
+    def __init__(self, spec: DeviceSpec, factory, args, kwargs,
+                 device_type: str):
+        from repro_torch.launch import mesh as meshmod
+        self.device_type = device_type
+        self._dir = tempfile.mkdtemp(prefix="repro-mesh-")
+        self._procs: List[Any] = []
+        self._joined = False
+        n = spec.mesh_size
+        init = "file://" + os.path.join(self._dir, "rendezvous")
+        try:
+            if n > 1:
+                cards = self._cards(n) if device_type == "cuda" \
+                    else [None] * n
+                # a spawned actor is a daemon, and multiprocessing lets a
+                # daemon start no process: its ranks are its own, reaped
+                # by close() and, should it die, by their watchdogs
+                mp.current_process()._config["daemon"] = False
+                ctx = mp.get_context("spawn")
+                for r in range(1, n):
+                    p = ctx.Process(
+                        target=_mesh_rank_main,
+                        args=(factory, tuple(args), dict(kwargs), spec, r,
+                              init, device_type, cards[r], os.getpid()),
+                        daemon=True, name=f"mesh-rank{r}")
+                    p.start()
+                    self._procs.append(p)
+            meshmod.join(init, 0, n, device_type=device_type)
+            self._joined = True
+            self.mesh = spec.build_mesh(device_type)
+        except BaseException:
+            self.close()
+            raise
+
+    @staticmethod
+    def _cards(n: int) -> List[str]:
+        import torch
+        seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+        cards = [c.strip() for c in seen.split(",") if c.strip()] \
+            if seen is not None else \
+            [str(i) for i in range(torch.cuda.device_count())]
+        if len(cards) < n:
+            raise ValueError(f"a mesh of {n} ranks needs {n} cards; the "
+                             f"child sees {len(cards)}")
+        return cards[:n]
+
+    def broadcast(self, msg):
+        if not self._procs:
+            return
+        dead = [p.name for p in self._procs if not p.is_alive()]
+        if dead:
+            raise ActorDied(f"mesh ranks {dead} exited")
+        _mesh_send(msg, self.device_type)
+
+    def close(self):
+        import torch.distributed as dist
+        if self._joined:
+            self._joined = False
+            if self._procs and all(p.is_alive() for p in self._procs):
+                try:
+                    _mesh_send(None, self.device_type)
+                except Exception as e:       # pragma: no cover - best effort
+                    _log.debug("mesh end message not sent: %r", e)
+            dist.destroy_process_group()
+        for p in self._procs:
+            _reap(p)
+        self._procs = []
+        shutil.rmtree(self._dir, ignore_errors=True)
 
 
 # --------------------------------------------------------------- transports --
@@ -253,19 +447,60 @@ class InprocTransport(Transport):
     def cast(self, method, args=(), kwargs=None):
         self.call(method, args, kwargs)
 
+    @property
+    def mesh(self):
+        return getattr(self.executor, "mesh", None)
+
     def prepare(self, data, comm_type):
-        """Stage a channel payload toward this actor: the DDMA (or the
-        parameter-server) transfer to the executor's device for weight
-        payloads, the identity otherwise and for executors without a
-        device."""
+        """Stage a channel payload toward this actor: for weight payloads
+        the DDMA (or the parameter-server) transfer, replicated over the
+        executor's mesh or onto its device; on a mesh, every other tensor
+        placed by ``_payload_placements``; the identity otherwise."""
         from repro_torch.core.channels import CommType   # import cycle
-        device = self.device
-        if not comm_type.is_weights or device is None:
+        mesh = self.mesh
+        if comm_type.is_weights:
+            target = mesh if mesh is not None else self.device
+            if target is None:
+                return data
+            sync = (ddma.ddma_weight_sync
+                    if comm_type == CommType.DDMA_WEIGHTS_UPDATE
+                    else ddma.ps_weight_sync)
+            return sync(data, target)
+        if mesh is None:
             return data
-        sync = (ddma.ddma_weight_sync
-                if comm_type == CommType.DDMA_WEIGHTS_UPDATE
-                else ddma.ps_weight_sync)
-        return sync(data, device)
+        return _place_payload(data, mesh, comm_type)
+
+
+def _payload_placements(mesh, comm_type, x) -> list:
+    """The DTensor placements of a payload tensor on ``mesh`` (the
+    reference's ``_payload_sharding``): a ``SCATTER`` payload of at least
+    one dim split on dim 0 over the first mesh axis, anything else
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.core.channels import CommType   # import cycle
+    out = [Replicate()] * mesh.ndim
+    if comm_type == CommType.SCATTER and x.dim() >= 1:
+        out[0] = Shard(0)
+    return out
+
+
+def _place_payload(data, mesh, comm_type):
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    dev = ddma.rank_device(mesh.device_type)
+
+    def place(x):
+        if isinstance(x, dict):
+            return {k: place(v) for k, v in x.items()}
+        if type(x) in (list, tuple):
+            return type(x)(place(v) for v in x)
+        if isinstance(x, torch.Tensor):
+            # every rank holds the same payload: each keeps its own block
+            return distribute_tensor(x.to(dev), mesh,
+                                     _payload_placements(mesh, comm_type, x),
+                                     src_data_rank=None)
+        return x
+    return place(data)
 
 
 # ------------------------------------------------------------- connections --
@@ -635,11 +870,16 @@ def _actor_server(conn, factory, args, kwargs, boot=None):
             send_obj(("__trace__", evs[:_TRACE_FLUSH_BATCH]))
             evs = evs[_TRACE_FLUSH_BATCH:]
 
+    world: Optional[_MeshWorld] = None
     try:
         try:
             kwargs = dict(kwargs or {})
             if spec is not None:
                 kwargs = spec.executor_kwargs(factory, kwargs)
+                if spec.mesh_shape and "mesh" not in kwargs:
+                    world = _MeshWorld(spec, factory, args, kwargs,
+                                       _mesh_device_type(kwargs))
+                    kwargs["mesh"] = world.mesh
             ex = factory(*args, **kwargs)
             desc = _describe_executor(ex, getattr(factory, "__name__", "?"))
             if obs_trace.enabled():
@@ -667,10 +907,15 @@ def _actor_server(conn, factory, args, kwargs, boot=None):
                 send_obj((seq, "ok", t.drain() if t is not None else []))
                 continue
             if kind == "shutdown":
+                if world is not None:
+                    world.close()
                 flush_trace()                # the last drain rides the ack
                 send_obj((seq, "ok", None))
                 return
             try:
+                if world is not None:
+                    # the mesh's other ranks run the same call (SPMD)
+                    world.broadcast((method, cargs, ckw))
                 t = obs_trace.tracer()
                 if t is None:
                     result = _invoke(ex, method, cargs, ckw)
@@ -690,6 +935,8 @@ def _actor_server(conn, factory, args, kwargs, boot=None):
     except (EOFError, OSError):
         return                               # peer vanished mid-reply
     finally:
+        if world is not None:
+            world.close()
         codec.close()
 
 
@@ -1442,6 +1689,14 @@ def _check_transport(transport: str) -> str:
     return transport
 
 
+def _inproc_mesh(spec: Optional[DeviceSpec], kwargs):
+    """An in-process actor's kwargs with its mesh, built from this
+    process's world, when ``spec`` asks for one."""
+    if spec is None or not spec.mesh_shape or "mesh" in kwargs:
+        return kwargs
+    return dict(kwargs, mesh=spec.build_mesh(_mesh_device_type(kwargs)))
+
+
 @dataclass(frozen=True)
 class SpawnSpec:
     """How an actor was built: the factory, its arguments, the transport,
@@ -1463,7 +1718,8 @@ class SpawnSpec:
         kwargs = dict(self.kwargs or {})
         transport = _check_transport(self.transport)
         if transport == "inproc":
-            return InprocTransport(self.factory(*self.args, **kwargs))
+            return InprocTransport(self.factory(
+                *self.args, **_inproc_mesh(self.device_spec, kwargs)))
         common = dict(spawn_timeout=self.spawn_timeout,
                       call_timeout=self.call_timeout,
                       device_spec=self.device_spec)
@@ -1506,6 +1762,6 @@ def spawn_actor(factory, *args, transport: Optional[str] = None,
         return spec.spawn()
     # the identity-caching as_handle path: wiring sites that name the
     # same raw executor share one canonical handle
-    h = as_handle(factory(*args, **kwargs))
+    h = as_handle(factory(*args, **_inproc_mesh(device_spec, kwargs)))
     h.spawn_spec = spec
     return h

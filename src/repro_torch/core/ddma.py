@@ -8,6 +8,13 @@ safe because the optimizer never writes a param in place
 generator.  ``ps_weight_sync`` is the parameter-server baseline the paper
 contrasts against: every leaf goes through host memory and back.
 
+The target may be a ``DeviceMesh``: every leaf is then replicated over
+it, a DTensor with ``Replicate()`` on each mesh dim (the reference's
+``NamedSharding(mesh, P())``), each rank holding its own whole copy.
+Across meshes (``launch/mesh.trainer_generator_submeshes``) the weights
+are broadcast from one rank of the source mesh (``src``) to the target
+mesh's ranks.
+
 ``quantize_dequant`` gives the generator its low-precision weights (the
 paper uses fp8; this is the reference's int8 symmetric per-channel
 fake-quantization, applied once at weight sync, with no int8 kernel).
@@ -16,22 +23,105 @@ from __future__ import annotations
 
 import statistics
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
 
-def ddma_weight_sync(params, device) -> Any:
-    """Direct device-to-device transfer of every leaf to ``device``."""
-    return tree_map(lambda x: x.to(device, non_blocking=True), params)
+def rank_device(device_type: str) -> torch.device:
+    """This rank's device of ``device_type``: its current card, or the
+    CPU."""
+    if device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device_type)
 
 
-def ps_weight_sync(params, device) -> Any:
-    """Parameter-server-style baseline: host gather, then host scatter."""
-    host = tree_map(lambda x: x.to("cpu", copy=True), params)
-    return tree_map(lambda x: x.to(device), host)
+def whole(x):
+    """``x`` whole on this rank: every DTensor in nested dicts, lists and
+    tuples gathered over its mesh (a collective of that mesh's ranks; a
+    replicated one is its local tensor), anything else as it is."""
+    if isinstance(x, DTensor):
+        return x.full_tensor()
+    if isinstance(x, dict):
+        return {k: whole(v) for k, v in x.items()}
+    if type(x) in (list, tuple):
+        return type(x)(whole(v) for v in x)
+    return x
+
+
+def _replicated(x, mesh: DeviceMesh):
+    if isinstance(x, DTensor):
+        if x.device_mesh != mesh:
+            raise ValueError("a DTensor of another mesh crosses meshes only "
+                             "with src=")
+        return x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return DTensor.from_local(x.to(rank_device(mesh.device_type),
+                                   non_blocking=True),
+                              mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+class _LeafDesc:
+    """A leaf's shape and dtype, for the ranks that receive it."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, t: torch.Tensor):
+        self.shape, self.dtype = tuple(t.shape), t.dtype
+
+
+def _carry(params, mesh: DeviceMesh, src: int):
+    """Broadcast the whole leaves of ``params`` from global rank ``src``
+    over the world's group; the ranks of ``mesh`` keep them replicated.
+    Every rank of the world calls: the source mesh's ranks with their
+    params (a DTensor leaf is gathered whole on its mesh first), the
+    others with None, who learn the tree's shapes from ``src``."""
+    rank = dist.get_rank()
+    held = whole(params)
+    desc = [tree_map(_LeafDesc, held) if rank == src else None]
+    dist.broadcast_object_list(desc, src=src)
+    mine = rank in mesh.mesh.flatten().tolist()
+    dev = rank_device("cuda" if dist.get_backend() == "nccl" else "cpu")
+
+    def move(d: _LeafDesc, t=None):
+        buf = t.to(dev).contiguous() if t is not None else \
+            torch.empty(d.shape, dtype=d.dtype, device=dev)
+        # as bytes: the backend then carries any dtype bit for bit
+        dist.broadcast(buf.reshape(-1).view(torch.uint8), src=src)
+        return buf
+
+    out = tree_map(move, desc[0], held) if rank == src \
+        else tree_map(move, desc[0])
+    if not mine:
+        return None
+    return tree_map(lambda t: _replicated(t, mesh), out)
+
+
+def ddma_weight_sync(params, target, *, src: Optional[int] = None) -> Any:
+    """Direct device-to-device transfer of every leaf to ``target``: a
+    device, or a ``DeviceMesh`` over which every leaf is replicated.
+    With ``src`` (a global rank of the source mesh) the weights cross
+    meshes: every rank of the world calls, and the ranks outside
+    ``target`` get None (``_carry``)."""
+    if isinstance(target, DeviceMesh):
+        if src is not None:
+            return _carry(params, target, src)
+        return tree_map(lambda x: _replicated(x, target), params)
+    return tree_map(lambda x: x.to(target, non_blocking=True), params)
+
+
+def ps_weight_sync(params, target) -> Any:
+    """Parameter-server-style baseline: host gather, then host scatter
+    (onto a device, or replicated over a ``DeviceMesh``)."""
+    host = tree_map(lambda x: x.to("cpu", copy=True), whole(params))
+    if isinstance(target, DeviceMesh):
+        return ddma_weight_sync(host, target)
+    return tree_map(lambda x: x.to(target), host)
 
 
 def _sync(tree) -> None:

@@ -6,6 +6,19 @@ Each executor exposes the reference's port surface -- ``put_input`` /
 JAX ones.  The generator also carries the chunk-stepping hooks the pool's
 ``RolloutScheduler`` drives (with their pinned-params forms) and the
 continuous-batching engine's hooks (``engine_*``).
+
+``mesh=`` is the executor's own ``DeviceMesh`` (``DeviceSpec.mesh_shape``
+builds it where the actor lives).  Every rank of the mesh holds the
+executor and runs each endpoint call.  The trainer keeps its state in
+shards (``train/sharded.shard_state``) and steps with
+``make_sharded_train_step``; it publishes its params whole.  The
+generator and the reference hold the weights replicated, each rank the
+whole tree, and compute the whole batch on every rank: the sampler's
+noise is keyed by the batch's key, not by the global row, so a rank
+cannot draw its own rows alone.  An executor with a mesh takes each
+payload whole: a DTensor that ``InprocTransport.prepare`` placed on the
+mesh becomes its local tensor where replicated and is gathered where
+split (the sharded train step keeps its own rows of the global batch).
 """
 from __future__ import annotations
 
@@ -50,8 +63,9 @@ class Executor:
 
     role = "generic"
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, mesh=None):
         self.name = name
+        self.mesh = mesh
         self.curr_step = 0
         self._port_lock = threading.RLock()
         self._outputs: Dict[str, Any] = {}
@@ -76,6 +90,8 @@ class Executor:
             self._outputs[name] = value
 
     def put_input(self, name: str, value):
+        if self.mesh is not None:
+            value = ddma.whole(value)
         with self._port_lock:
             self._inputs[name] = value
 
@@ -157,8 +173,8 @@ class GeneratorExecutor(Executor):
                  n_prompts: int, n_per_prompt: int, max_new: int,
                  temperature: float = 1.0, quantize: bool = False,
                  chunk: int = 0, seed: int = 0, device: DeviceLike = None,
-                 name: str = "generator"):
-        super().__init__(name)
+                 name: str = "generator", mesh=None):
+        super().__init__(name, mesh)
         self.cfg = cfg
         self.tasks = tasks
         self.n_prompts = n_prompts
@@ -181,6 +197,8 @@ class GeneratorExecutor(Executor):
         forward: an older delivery is dropped."""
         if version is not None and version < self.weight_version:
             return
+        if self.mesh is not None:
+            params = ddma.whole(params)
         self.params = ddma.quantize_dequant(params) if self.quantize \
             else params
         if version is not None:
@@ -358,8 +376,9 @@ class RewardExecutor(Executor):
     role = "reward"
 
     def __init__(self, *, n_per_prompt: int, scorer: str = "numeric",
-                 leave_one_out: bool = False, name: str = "reward"):
-        super().__init__(name)
+                 leave_one_out: bool = False, name: str = "reward",
+                 mesh=None):
+        super().__init__(name, mesh)
         if n_per_prompt < 1:
             raise ValueError(f"n_per_prompt must be >= 1, got {n_per_prompt}")
         if leave_one_out and n_per_prompt < 2:
@@ -413,14 +432,15 @@ class RefPolicyExecutor(Executor):
 
     role = "reference"
 
-    def __init__(self, cfg, *, name: str = "ref"):
-        super().__init__(name)
+    def __init__(self, cfg, *, name: str = "ref", mesh=None):
+        super().__init__(name, mesh)
         self.cfg = cfg
         self.params = None
 
     def set_weights(self, params, version: Optional[int] = None):
         if self.params is None:
-            self.params = params
+            self.params = ddma.whole(params) if self.mesh is not None \
+                else params
 
     @torch.no_grad()
     def step(self):
@@ -444,31 +464,45 @@ class TrainerExecutor(Executor):
     the Adam moments are fp32 whatever it is.  ``policy_model`` on the
     output port is the params after the latest step: the optimizer builds
     new tensors each step, so a snapshot taken from the port never
-    changes afterwards."""
+    changes afterwards.  With a ``mesh`` the state lives in shards placed
+    by ``state_shardings`` and each step is ``make_sharded_train_step``;
+    ``policy_model`` and ``get_model`` are the params whole."""
 
     role = "trainer"
 
     def __init__(self, cfg, *, lr=1e-3, rho=4.0, clip_mode="aipo",
                  kl_coef=0.0, seed=0, dtype=torch.float32,
-                 device: DeviceLike = None, name: str = "trainer"):
-        super().__init__(name)
+                 device: DeviceLike = None, name: str = "trainer",
+                 mesh=None):
+        super().__init__(name, mesh)
         self.cfg = cfg
         self.state: Optional[TrainState] = None
         self.seed = seed
         self.dtype = dtype
         self.device = resolve(device)
-        self._train_step = make_train_step(cfg, lr=lr, rho=rho,
-                                           clip_mode=clip_mode,
-                                           kl_coef=kl_coef)
+        kw = dict(lr=lr, rho=rho, clip_mode=clip_mode, kl_coef=kl_coef)
+        if mesh is None:
+            self._train_step = make_train_step(cfg, **kw)
+        else:
+            from repro_torch.train.sharded import make_sharded_train_step
+            self._train_step = make_sharded_train_step(cfg, mesh, **kw)
         self.metrics_history: List[Dict[str, float]] = []
 
     def init(self):
-        self.state = init_train_state(self.cfg, self.seed, self.dtype,
-                                      device=self.device)
-        self.set_output("policy_model", self.state.params)
+        state = init_train_state(self.cfg, self.seed, self.dtype,
+                                 device=self.device)
+        if self.mesh is not None:
+            from repro_torch.train.sharded import shard_state
+            state = shard_state(state, self.mesh)
+        self.state = state
+        self.set_output("policy_model", self.get_model())
 
     def get_model(self):
-        return self.state.params
+        """The params whole (gathered over the mesh, where there is one:
+        a collective of its ranks)."""
+        if self.mesh is None:
+            return self.state.params
+        return ddma.whole(self.state.params)
 
     def last_metrics(self) -> Dict[str, Any]:
         """The most recent train-step metrics row."""
@@ -489,14 +523,18 @@ class TrainerExecutor(Executor):
         metrics = {k: float(v) for k, v in metrics.items()}
         metrics["mean_reward"] = scored.get("mean_reward", 0.0)
         self.metrics_history.append(metrics)
-        self.set_output("policy_model", self.state.params)
+        self.set_output("policy_model", self.get_model())
         self.curr_step += 1
         return metrics
 
     def save_checkpoint(self, path: str, step: int):
         """Write the params as ``{path}/{name}_{step}`` (``.npz`` and
-        ``.json``, the JAX package's checkpoint format)."""
+        ``.json``, the JAX package's checkpoint format); on a mesh, every
+        rank gathers them and the mesh's first rank writes."""
         from repro_torch.train.checkpoint import save_checkpoint
+        params = self.get_model()
+        if self.mesh is not None and \
+                self.mesh.get_rank() != int(self.mesh.mesh.flatten()[0]):
+            return
         os.makedirs(path, exist_ok=True)
-        save_checkpoint(os.path.join(path, f"{self.name}_{step}"),
-                        self.state.params)
+        save_checkpoint(os.path.join(path, f"{self.name}_{step}"), params)

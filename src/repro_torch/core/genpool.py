@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import os
 import queue
 import threading
 import time
@@ -78,25 +79,52 @@ def build_generator_pool(cfg, trainer, make_tasks, *, n_generators=1,
     ``REPRO_TRANSPORT``).  ``device_spec`` gives each spawned generator
     its cards: one ``DeviceSpec`` for all, or a callable ``g -> spec``;
     ``addresses`` (socket transport) assigns worker ``g`` the ``g``-th
-    ``--listen`` host, self-hosting any worker beyond the list.  Returns
-    ``(generator_handles, weight_channels)``; the caller declares data
+    ``--listen`` host, self-hosting any worker beyond the list.  Remote
+    workers spawn at once, each on a thread of its own (a child takes
+    seconds to import torch and open its CUDA context); in-process ones
+    are built in order.  Returns ``(generator_handles,
+    weight_channels)``, worker ``g`` at ``g``; the caller declares data
     channels outbound from ``generators[0]`` -- they serve the whole pool
     through per-item snapshots.
     """
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.core.channels import WeightsCommunicationChannel
     from repro_torch.core.executor import GeneratorExecutor
     generator_cls = generator_cls or GeneratorExecutor
-    gens, chans = [], []
-    for g in range(n_generators):
-        spec = device_spec(g) if callable(device_spec) else device_spec
-        addr = addresses[g] if addresses and g < len(addresses) else None
-        gen = spawn_actor(
-            generator_cls, cfg, make_tasks(g), seed=seed + g,
+    workers = [(g, make_tasks(g),
+                device_spec(g) if callable(device_spec) else device_spec,
+                addresses[g] if addresses and g < len(addresses) else None)
+               for g in range(n_generators)]
+
+    def spawn(worker):
+        g, tasks, spec, addr = worker
+        return spawn_actor(
+            generator_cls, cfg, tasks, seed=seed + g,
             name=name if n_generators == 1 else f"{name}{g}",
             transport=transport, device_spec=spec, address=addr,
             call_timeout=call_timeout, **gen_kwargs)
-        gens.append(gen)
-        chans.append(WeightsCommunicationChannel(weight_port, trainer, gen))
+
+    remote = (transport or os.environ.get("REPRO_TRANSPORT", "inproc")) \
+        != "inproc"
+    if remote and n_generators > 1:
+        with ThreadPoolExecutor(n_generators,
+                                thread_name_prefix="genpool-spawn") as ex:
+            futures = [ex.submit(spawn, w) for w in workers]
+        gens, failed = [], None
+        for f in futures:
+            try:
+                gens.append(f.result())
+            except BaseException as e:      # re-raised once all are read
+                failed = failed or e
+        if failed is not None:
+            for h in gens:
+                h.close()
+            raise failed
+    else:
+        gens = [spawn(w) for w in workers]
+    chans = [WeightsCommunicationChannel(weight_port, trainer, gen)
+             for gen in gens]
     return gens, chans
 
 

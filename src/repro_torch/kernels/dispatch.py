@@ -12,6 +12,9 @@ reference's custom VJPs are (``repro/kernels/dispatch.py``): the
 log-prob's backward is its own kernel on the card, the attention's
 backward recomputes through ``chunked_attention`` under autograd.
 ``paged_attention`` is the engine's decode attention, forward only.
+A ``meta`` tensor (the dry run, ``launch/dryrun.py``) takes the card's
+attention route with the plain version in the kernel's place, so it
+saves and recomputes what the card does; it launches nothing.
 ``int8_matmul`` is the quantized product's dispatch surface, forward
 only; no model path calls it.
 """
@@ -109,6 +112,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
+        if q.is_meta:
+            return chunked_attention(q, k, v)
         return flash_attention_cuda(q, k, v)
 
     @staticmethod
@@ -141,7 +146,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
             or v.shape[-1] != q.shape[-1]):
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         return _FlashAttention.apply(q, k, v)
     return chunked_attention(q, k, v)
 

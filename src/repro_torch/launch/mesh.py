@@ -11,6 +11,7 @@ as the reference's meshes follow ``jax.devices()``.
 from __future__ import annotations
 
 import datetime
+import os
 
 import torch
 import torch.distributed as dist
@@ -45,6 +46,32 @@ def _world(device_type: str) -> int:
 def _mesh(device_type: str, ranks, shape, names) -> DeviceMesh:
     return DeviceMesh(device_type, torch.as_tensor(ranks).reshape(shape),
                       mesh_dim_names=names)
+
+
+def make_mesh(shape, axes=("data", "model"), *,
+              device_type: str = "cuda") -> DeviceMesh:
+    """A mesh of ``shape`` named ``axes`` over every rank of the world,
+    which must hold exactly that many (``jax.make_mesh``'s twin)."""
+    n = 1
+    for s in shape:
+        n *= s
+    world = _world(device_type)
+    if world != n:
+        raise ValueError(f"a mesh {tuple(shape)} needs {n} ranks; the world "
+                         f"has {world}")
+    return _mesh(device_type, list(range(n)), tuple(shape), tuple(axes))
+
+
+def join_world_of_one(device_type: str = "cuda") -> None:
+    """Join a world of one rank (this process), its ``file://``
+    rendezvous in a directory of its own, removed at exit."""
+    import atexit
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="repro-world-")
+    atexit.register(shutil.rmtree, d, True)
+    join("file://" + os.path.join(d, "rendezvous"), 0, 1,
+         device_type=device_type)
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -46,8 +46,11 @@ seamless-m4t-medium's frame embeddings, which the executors do not carry
 in either package, so their loops stop at the first generator step
 (``KeyError``), as the reference's do.  xlstm-350m's mLSTM takes a
 sequence of at most 64 tokens or a multiple of 64, in both packages.
-A child's own submesh is not ported yet (ROADMAP A12.6): ``--child-mesh``
-raises ``NotImplementedError``.
+``--child-mesh 1x4`` gives every spawned child a mesh of that shape
+(``DeviceSpec.mesh_shape``, composing with ``--child-devices``): a child
+whose mesh has more than one rank spawns the other ranks, one card each,
+and runs its executor on all of them (``core/actors.py``); the trainer
+then steps sharded over its mesh.
 """
 from __future__ import annotations
 
@@ -77,11 +80,9 @@ def _parse_addr(s: str):
     return (host or "0.0.0.0", int(port))
 
 
-def _refuse_unported(args):
-    if args.child_mesh:
-        raise NotImplementedError(
-            "--child-mesh comes with the actors' placement on meshes "
-            "(ROADMAP A12.6)")
+def _parse_mesh(s: str):
+    """'1x4' -> (1, 4)."""
+    return tuple(int(p) for p in s.lower().split("x")) if s else ()
 
 
 def config_for(args):
@@ -105,12 +106,13 @@ def build_controller(cfg, args, *, trainer_cls=TrainerExecutor,
     """The executors and channels behind the controller ``args`` asks
     for; remote actors are spawned here, each built by its factory
     (picklable for a remote transport)."""
-    _refuse_unported(args)
     n_gens = max(1, args.n_generators)
     if (args.mode == "sync" or args.sequential) and n_gens != 1:
         raise ValueError("--n-generators > 1 needs the threaded async loop")
-    spec = DeviceSpec(device_count=args.child_devices) \
-        if args.child_devices else None
+    spec = None
+    if args.child_devices or args.child_mesh:
+        spec = DeviceSpec(device_count=args.child_devices,
+                          mesh_shape=_parse_mesh(args.child_mesh))
     # --connect addresses are taken trainer first, then generators, then
     # the reference; actors beyond the list self-host on localhost
     addrs = [_parse_addr(a) for a in args.connect.split(",")
@@ -281,7 +283,8 @@ def parse_args(argv=None):
     ap.add_argument("--child-devices", type=int, default=0,
                     help="the first N cards for every spawned child actor")
     ap.add_argument("--child-mesh", default="",
-                    help="a submesh for every child (ROADMAP A12.6)")
+                    help="mesh shape (e.g. '1x4') of every spawned child, "
+                    "built from its own ranks and passed as its mesh=")
     ap.add_argument("--no-overlap-publish", action="store_true",
                     help="publish weights on the consumer thread instead "
                     "of the weight fabric's background publisher")

@@ -215,8 +215,16 @@ def test_device_spec_reaches_the_child(monkeypatch):
         EchoExecutor, {"device": "cpu"}) == {"device": "cpu"}
     assert DeviceSpec(device_count=2).executor_kwargs(
         RewardExecutor, {"n_per_prompt": 2}) == {"n_per_prompt": 2}
-    with pytest.raises(NotImplementedError, match="A12"):
-        DeviceSpec(device_count=2, mesh_shape=(1, 2))
+    # a child's own mesh: its shape, axes and ranks (a mesh of more than
+    # one rank is that many processes, tests/test_torch_child_mesh.py)
+    spec = DeviceSpec(device_count=2, mesh_shape=(1, 2))
+    assert spec.mesh_axes == ("data", "model") and spec.mesh_size == 2
+    assert DeviceSpec(device_count=2).mesh_size == 0
+    assert DeviceSpec().build_mesh("cpu") is None
+    with pytest.raises(ValueError, match="join"):
+        spec.build_mesh("cpu")               # no world of two here
+    with pytest.raises(ValueError, match="mesh_shape"):
+        DeviceSpec(mesh_shape=(1, 2, 2))     # three dims, two axes
 
 
 def test_socket_actor_on_a_listening_host():

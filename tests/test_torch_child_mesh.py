@@ -1,0 +1,219 @@
+"""A child's own mesh (``DeviceSpec.mesh_shape``, ``Executor(mesh=)``,
+``--child-mesh``) on gloo ranks on the CPU.
+
+Two meshed actors spawn at once, each a ``proc`` child and the one other
+rank it spawns: a trainer on a (1, 2) mesh and a generator on a (2, 1)
+mesh, both on llama31's smoke config in fp32.  Each is held to the same
+executor without a mesh, built here on one thread as the children run:
+the trainer's one step (params and m within 1e-6 of each leaf's largest,
+v within 2e-6, the bits reported), the generator's tokens under the same
+key, equal.  The trainer's world of two also carries DDMA onto its mesh
+and across ``trainer_generator_submeshes``, bit for bit; the generator's
+places payloads as ``InprocTransport.prepare`` does.  After
+``close_all_actors()`` no rank of either mesh is left.  (One step only:
+two chained Adam steps lift fp32 noise near eps to lr-sized moves, see
+tests/test_torch_sharded.py.)"""
+import os
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from _mesh_actors import MeshGenerator, MeshTrainer
+from repro_torch.configs.llama_paper import smoke
+from repro_torch.core import DeviceSpec, close_all_actors, spawn_actor
+from repro_torch.core.executor import GeneratorExecutor, TrainerExecutor
+from repro_torch.launch import train
+from repro_torch.rl.data import ArithmeticTasks
+from repro_torch.train.optimizer import tree_leaves
+
+LR = 1e-3
+# of each leaf's largest |value|: the sharded step sums the gradient's
+# squares shard by shard, so its global norm, and with it the clip scale,
+# differs from the one-device norm in the last bits (m shows it, about
+# 7e-7); v holds the clipped gradient squared, so twice that
+TOL = {"params": 1e-6, "m": 1e-6, "v": 2e-6}
+
+
+def _batch(cfg, seed=5, B=4, T=24, prompt=8):
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((B, T), np.float32)
+    mask[:, prompt:] = rng.uniform(size=(B, T - prompt)) > 0.1
+    return {
+        "tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, size=(B, T)).astype(np.int64)),
+        "behavior_logp": torch.as_tensor(
+            (rng.uniform(-8, -4, size=(B, T)) * mask).astype(np.float32)),
+        "advantages": torch.as_tensor(
+            (rng.standard_normal((B, 1)) * mask).astype(np.float32)),
+        "mask": torch.as_tensor(mask),
+    }
+
+
+def _gen_kwargs():
+    return dict(n_prompts=2, n_per_prompt=2, max_new=6, seed=3,
+                device="cpu")
+
+
+def _one_thread(fn):
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def meshed():
+    """The two meshed actors, spawned at once; each is driven, then
+    closed, and its ranks' pids kept for the leak check."""
+    cfg = smoke()
+    batch = _batch(cfg)
+    out, errors = {}, []
+
+    def trainer():
+        h = spawn_actor(MeshTrainer, cfg, lr=LR, seed=0, device="cpu",
+                        transport="proc",
+                        device_spec=DeviceSpec(mesh_shape=(1, 2)))
+        h.call("init")
+        out["trainer_info"] = h.call("mesh_info")
+        h.call("put_input", "completions_with_reward", batch)
+        out["trainer_metrics"] = h.call("step")
+        out["trainer_state"] = h.call("state_whole")
+        out["ddma"] = h.call("ddma_checks")
+        out["trainer_h"] = h
+
+    def generator():
+        h = spawn_actor(MeshGenerator, cfg, ArithmeticTasks(seed=1),
+                        transport="proc", **_gen_kwargs(),
+                        device_spec=DeviceSpec(mesh_shape=(2, 1)))
+        h.call("set_weights", out_params, version=0)
+        out["gen_info"] = h.call("mesh_info")
+        out["tokens"] = h.call("step")["tokens"]
+        out["placement"] = h.call("placement_checks", {
+            "x": torch.arange(24.0).reshape(6, 4), "n": torch.tensor(3.0)})
+        out["gen_h"] = h
+
+    from repro_torch.models import init_params
+    out_params = init_params(cfg, 7, torch.float32, device="cpu")
+
+    def run(fn):
+        try:
+            fn()
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(f,))
+               for f in (trainer, generator)]
+    for t in threads:
+        t.start()
+    # the unmeshed twins, here, while the children spawn
+    twin = TrainerExecutor(cfg, lr=LR, seed=0, device="cpu")
+    _one_thread(twin.init)
+    twin.put_input("completions_with_reward", batch)
+    out["twin_metrics"] = _one_thread(twin.step)
+    out["twin_state"] = twin.state
+    gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=1), **_gen_kwargs())
+    gen.set_weights(out_params, version=0)
+    out["twin_tokens"] = _one_thread(gen.step)["tokens"]
+    for t in threads:
+        t.join(timeout=240)
+        assert not t.is_alive()
+    try:
+        if errors:
+            raise errors[0]
+        yield out
+    finally:
+        close_all_actors()
+
+
+def test_meshed_trainer_step_equals_the_unmeshed_step(meshed):
+    info = meshed["trainer_info"]
+    assert info["shape"] == [1, 2] and info["axes"] == ["data", "model"]
+    assert info["device_type"] == "cpu" and len(set(info["pids"])) == 2
+    got, want = meshed["trainer_state"], meshed["twin_state"]
+    assert got["step"] == want.opt.step == 1
+    bits, worst = True, {}
+    for part, tree in (("params", want.params), ("m", want.opt.m),
+                       ("v", want.opt.v)):
+        for a, b in zip(tree_leaves(got[part]), tree_leaves(tree)):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            bits = bits and torch.equal(a, b)
+            rel = (a - b).abs().max().item() / max(b.abs().max().item(),
+                                                   1e-30)
+            worst[part] = max(worst.get(part, 0.0), rel)
+            assert rel <= TOL[part], part
+    for k in ("loss", "grad_norm", "mean_ratio", "mean_logp"):
+        assert abs(meshed["trainer_metrics"][k] - meshed["twin_metrics"][k]) \
+            <= 1e-6 * max(1.0, abs(meshed["twin_metrics"][k])), k
+    print(f"meshed trainer bit-equal to the unmeshed one: {bits}; the "
+          "largest difference of each leaf's largest: " + ", ".join(
+              f"{k} {v:.1e}" for k, v in worst.items()))
+
+
+def test_meshed_generator_tokens_equal_the_unmeshed_ones(meshed):
+    info = meshed["gen_info"]
+    assert info["shape"] == [2, 1] and len(set(info["pids"])) == 2
+    assert torch.equal(meshed["tokens"], meshed["twin_tokens"])
+
+
+def test_ddma_onto_a_mesh_and_across_submeshes(meshed):
+    """Replicated onto the trainer's (1, 2) mesh on both ranks; across
+    the submeshes ([0] trains, [1] generates), rank 1 holds rank 0's
+    version bit for bit and rank 0 gets None."""
+    r0, r1 = meshed["ddma"]
+    assert r0["on_mesh"] and r1["on_mesh"]
+    assert r0["submeshes"] == r1["submeshes"] == [[0], [1]]
+    assert r0["in_trainer"] and r0["carried"] is None
+    assert not r1["in_trainer"] and r1["carried"] is True
+
+
+def test_payload_placement_on_a_mesh(meshed):
+    """SCATTER split on dim 0 over the first axis (three rows a rank of
+    six), BROADCAST, weights and a 0-d tensor replicated; ``put_input``
+    takes the payload whole on every rank."""
+    for rank, r in enumerate(meshed["placement"]):
+        assert r["scatter"] == [["Shard", 0], ["Replicate", None]], rank
+        assert r["scatter_local"] and r["broadcast"] and r["weights"]
+        assert r["scalar"] and r["whole_input"]
+
+
+def test_no_mesh_rank_left_after_close(meshed):
+    close_all_actors()
+    pids = meshed["trainer_info"]["pids"] + meshed["gen_info"]["pids"]
+    deadline = time.monotonic() + 20.0
+    while time.monotonic() < deadline and any(
+            os.path.exists(f"/proc/{p}") for p in pids):
+        time.sleep(0.1)
+    assert not [p for p in pids if os.path.exists(f"/proc/{p}")]
+    assert not meshed["trainer_h"].healthy()
+    assert not meshed["gen_h"].healthy()
+
+
+def test_child_mesh_flag_reaches_every_child_spec(monkeypatch):
+    """``--child-mesh 1x2`` parses as the reference's ``_parse_mesh`` and
+    composes with ``--child-devices``: the trainer, each pool generator
+    and the reference get one ``DeviceSpec((2, (1, 2)))``."""
+    seen = []
+    real_pool = train.build_generator_pool
+
+    def fake_spawn(factory, *args, device_spec=None, **kwargs):
+        seen.append(device_spec)
+        return factory(*args, **{k: v for k, v in kwargs.items()
+                                 if k not in ("transport", "address")})
+
+    def fake_pool(*args, device_spec=None, **kwargs):
+        seen.append(device_spec)
+        return real_pool(*args, **dict(kwargs, transport="inproc"))
+
+    monkeypatch.setattr(train, "spawn_actor", fake_spawn)
+    monkeypatch.setattr(train, "build_generator_pool", fake_pool)
+    assert train._parse_mesh("1x4") == (1, 4)
+    assert train._parse_mesh("") == ()
+    args = train.parse_args(["--smoke", "--device", "cpu", "--kl-coef",
+                             "0.1", "--child-mesh", "1x2",
+                             "--child-devices", "2"])
+    train.build_controller(train.config_for(args), args)
+    assert seen == [DeviceSpec(device_count=2, mesh_shape=(1, 2))] * 3

@@ -1,0 +1,221 @@
+"""The dry run on the ``meta`` device (``repro_torch.launch.dryrun``)
+against the JAX package.
+
+* ``argument_bytes`` a device, for every ``combos()`` pair on the pod1
+  (16, 16) and pod2 (2, 16, 16) meshes, is the sum over leaves of the
+  reference's ``NamedSharding.shard_shape`` bytes under its own rules,
+  less its 0-d ``pos`` and Adam ``step`` (device scalars there, host ints
+  in the port).
+* For the ten smoke configs, every product a forward runs on ``meta`` is
+  counted as 2 m n k FLOPs (2 b m n k batched), computed here from the
+  operands' shapes, and every linear layer's weight is an operand of
+  one.
+* A one-layer smoke train step's FLOPs against the reference's
+  ``jax.jit(step).lower(...).compile().cost_analysis()["flops"]`` on the
+  CPU (one layer: XLA counts a scan's body once): ``FlopCounterMode``
+  counts products only and XLA elementwise work too, 2.7% more here
+  (measured ratio 0.9734), so the port's count lies within [0.95, 1.0]
+  of XLA's.
+* The CLI runs one full-size combo (starcoder2-3b, train_4k, a (1, 1)
+  mesh) and writes its JSON record.
+
+Only ``inputspecs``, ``models.sharding`` and the train step of the
+reference are imported: ``repro.launch.dryrun`` sets ``XLA_FLAGS`` when
+imported."""
+import json
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import AbstractMesh as JMesh
+from jax.sharding import NamedSharding
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro import configs as jconfigs
+from repro.configs import llama_paper as jllama
+from repro.configs.base import INPUT_SHAPES as JSHAPES
+from repro.launch import inputspecs as jspecs
+from repro.models import init_params as jinit
+from repro.models import sharding as jsh
+from repro.train import trainstep as jts
+from repro_torch import configs
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.configs.llama_paper import smoke as llama_smoke
+from repro_torch.launch import dryrun
+from repro_torch.models import forward_train, init_params
+
+MESHES = {"pod1": ((16, 16), ("data", "model")),
+          "pod2": ((2, 16, 16), ("pod", "data", "model"))}
+KEY = jax.random.PRNGKey(0)
+
+
+def _shard_bytes(tree, shardings) -> int:
+    leaves = jax.tree.leaves(tree)
+    shs = jax.tree.leaves(shardings,
+                          is_leaf=lambda x: isinstance(x, NamedSharding))
+    assert len(leaves) == len(shs)
+    return sum(int(np.prod(s.shard_shape(x.shape))) * x.dtype.itemsize
+               for x, s in zip(leaves, shs))
+
+
+@pytest.fixture(scope="module")
+def jax_trees():
+    """Per arch, the reference's eval_shape params and train state."""
+    out = {}
+
+    def get(arch, which):
+        if (arch, which) not in out:
+            cfg = jconfigs.get_config(arch)
+            out[arch, which] = jax.eval_shape(
+                (lambda: jts.init_train_state(cfg, KEY, jnp.bfloat16))
+                if which == "state" else
+                (lambda: jinit(cfg, KEY, jnp.bfloat16)))
+        return out[arch, which]
+    return get
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_argument_bytes_match_the_references_shards(mesh_name, jax_trees):
+    shape, axes = MESHES[mesh_name]
+    jmesh = JMesh(shape, axes)
+    mesh = dryrun.production_mesh(mesh_name)
+    assert tuple(mesh.shape.values()) == shape
+    for arch, sname in configs.combos():
+        jcfg, spec = jconfigs.get_config(arch), JSHAPES[sname]
+        inputs = jspecs.input_specs(jcfg, spec)
+        if spec.kind == "train":
+            state = jax_trees(arch, "state")
+            want = _shard_bytes(state, jsh.state_shardings(state, jmesh)) \
+                + _shard_bytes(inputs["batch"],
+                               jsh.batch_shardings(inputs["batch"], jmesh))
+            want -= 4                        # AdamState.step
+        else:
+            params = jax_trees(arch, "params")
+            want = _shard_bytes(params, jsh.params_shardings(
+                params, jmesh, mode="serve"))
+            if spec.kind == "prefill":
+                want += _shard_bytes(inputs["batch"], jsh.batch_shardings(
+                    inputs["batch"], jmesh))
+            else:
+                want += _shard_bytes(inputs["cache"], jsh.cache_shardings(
+                    inputs["cache"], jmesh)) - 4          # pos
+                want += _shard_bytes(
+                    inputs["tokens"],
+                    jsh.batch_shardings({"t": inputs["tokens"]}, jmesh)["t"])
+        _, _, lowered = dryrun.lower_combo(arch, sname, mesh)
+        assert lowered.argument_bytes == want, (arch, sname)
+
+
+class _Products(TorchDispatchMode):
+    """Each product's operand shapes and the FLOPs ``FlopCounterMode``
+    (the outer mode) counted for it."""
+
+    OPS = {torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+           torch.ops.aten.baddbmm}
+
+    def __init__(self, fc):
+        super().__init__()
+        self.fc, self.calls = fc, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = self.fc.get_total_flops()
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket in self.OPS:
+            a, b = [t for t in args if isinstance(t, torch.Tensor)][-2:]
+            self.calls.append((tuple(a.shape), tuple(b.shape),
+                               self.fc.get_total_flops() - before))
+        return out
+
+
+LINEAR = re.compile(r"(^|/)(wq|wk|wv|wo|w_gate|w_up|w_down|w_in|w_out|"
+                    r"wq_a|wq_b|wkv_a|wk_b|wv_b|w_qkv|w_if|w_x|w_router|"
+                    r"proj|lm_head)$")
+
+
+def _linear_weights(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _linear_weights(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _linear_weights(v, prefix + (str(i),))
+    elif LINEAR.search("/".join(prefix)) and tree.dim() >= 2:
+        yield "/".join(prefix), tuple(tree.shape[-2:])
+
+
+@pytest.mark.parametrize("arch", configs.list_archs())
+def test_every_linear_layer_counts_two_m_n_k(arch):
+    cfg = configs.get_smoke(arch)
+    params = init_params(cfg, 0, torch.float32, device="meta")
+    B, S = 2, 16
+    batch = {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                   device="meta")}
+    front = {"vision": "patch_embeds", "audio": "frame_embeds"}
+    if cfg.frontend in front:
+        batch[front[cfg.frontend]] = torch.empty(
+            (B, cfg.frontend_tokens, cfg.d_model), device="meta")
+    with FlopCounterMode(display=False) as fc, _Products(fc) as rec:
+        forward_train(params, cfg, batch)
+    assert rec.calls
+    for a, b, flops in rec.calls:
+        if len(a) == 2:
+            m, k = a
+            n = b[1]
+            want = 2 * m * k * n
+        else:
+            bt, m, k = a
+            n = b[2]
+            want = 2 * bt * m * k * n
+        assert flops == want, (a, b, flops)
+    seen = {b[-2:] for _, b, _ in rec.calls} | \
+        {b[-2:][::-1] for _, b, _ in rec.calls}
+    for path, kn in _linear_weights(params):
+        assert kn in seen, (arch, path, kn)
+    assert fc.get_total_flops() == sum(f for _, _, f in rec.calls)
+
+
+def test_train_step_flops_against_xla():
+    jcfg = jllama.smoke().replace(n_layers=1)
+    B, T = 4, 32
+    rng = np.random.default_rng(0)
+    batch = {"tokens": jnp.asarray(rng.integers(0, jcfg.vocab, (B, T))
+                                   .astype(np.int32)),
+             "behavior_logp": jnp.zeros((B, T)),
+             "advantages": jnp.ones((B, T)), "mask": jnp.ones((B, T))}
+    state = jts.init_train_state(jcfg, KEY, jnp.float32)
+    cost = jax.jit(jts.make_train_step(jcfg)).lower(
+        state, batch).compile().cost_analysis()
+    cost = cost[0] if isinstance(cost, list) else cost
+    mesh = dryrun.production_mesh(mesh_shape=(1, 1))
+    cfg, shape, lowered = dryrun.lower_combo(
+        llama_smoke().replace(n_layers=1), ShapeSpec("t", T, B, "train"),
+        mesh, dtype=torch.float32, remat=False)
+    rec = dryrun.analyse(cfg, shape, lowered, mesh)
+    ratio = rec["flops_per_device"] / cost["flops"]
+    assert 0.95 <= ratio <= 1.0, ratio
+
+
+def test_cli_writes_a_full_size_record(tmp_path, capsys):
+    rec = dryrun.main(["--arch", "starcoder2-3b", "--shape", "train_4k",
+                       "--mesh-shape", "1x1", "--out", str(tmp_path)])
+    line = capsys.readouterr().out
+    assert line.startswith("starcoder2-3b") and "C=" in line \
+        and "peak=" in line and "count=" in line
+    saved = json.loads(
+        (tmp_path / "starcoder2-3b_train_4k_pod1.json").read_text())
+    assert saved == json.loads(json.dumps(rec))
+    cfg = configs.get_config("starcoder2-3b")
+    assert saved["mesh"] == [1, 1] and saved["rows_per_device"] == 256
+    # every weight and moment whole on one device: 12 bytes a param
+    n = sum(t.numel() for t in jax.tree.leaves(
+        init_params(cfg, 0, torch.bfloat16, device="meta")))
+    assert saved["argument_bytes"] == n * (2 + 4 + 4) + 256 * 4096 * 16
+    assert saved["flops_per_device"] >= 6 * n * 256 * 4096 * 0.9
+    assert saved["peak_bytes_per_device"] > saved["hbm_bytes"]
+    assert not saved["fits_hbm"] and saved["collectives"] == {}
+    assert set(saved["roofline"]) == {"compute_s", "memory_s",
+                                      "collective_s"}

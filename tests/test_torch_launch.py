@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core import close_all_actors
+from repro_torch.core import DeviceSpec, close_all_actors
 from repro_torch.launch import train
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -136,10 +136,14 @@ def test_tracks_the_jax_launcher():
     (["--child-mesh", "1x2"], "A12"),
 ])
 def test_unported_flags_raise(flags, item):
-    """``--child-mesh`` (ROADMAP A12) still raises; ``--arch xlstm-350m``,
-    refused until A11 was done, now runs: two async steps of its smoke
-    config on the CPU with finite metrics, the list of xLSTM layers
-    through the trainer and weight sync."""
+    """Flags refused until their ROADMAP item was done now run:
+    ``--arch xlstm-350m`` (A11) takes two async steps of its smoke config
+    on the CPU with finite metrics, the list of xLSTM layers through the
+    trainer and weight sync; ``--child-mesh 1x2`` (A12.6) builds the
+    loop with a (1, 2) ``DeviceSpec`` for every spawned child (here the
+    actors stay in this process, where a mesh of two ranks cannot be
+    built, so the spec is read off the spawn spec; the meshed children
+    run in tests/test_torch_child_mesh.py)."""
     if flags[0] == "--arch":
         args = train.parse_args(["--smoke", "--device", "cpu", "--steps",
                                  "2", "--max-new", "4"] + flags)
@@ -151,7 +155,11 @@ def test_unported_flags_raise(flags, item):
                    for h in hist)
         return
     args = train.parse_args(["--smoke", "--device", "cpu"] + flags)
-    with pytest.raises(NotImplementedError, match=item):
+    assert item == "A12" and args.child_mesh == "1x2"
+    spec = DeviceSpec(mesh_shape=train._parse_mesh(args.child_mesh))
+    assert spec.mesh_shape == (1, 2) and spec.mesh_size == 2
+    with pytest.raises(ValueError, match="join"):
+        # an in-process actor's mesh is this process's world, of one rank
         train.build_controller(train.config_for(args), args)
 
 
