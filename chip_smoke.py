@@ -14,7 +14,11 @@ Each phase prints its own lines:
                yardstick's and the least time the card could take (the
                sampler at the generator's 16 rows and the engine's 32,
                with its instructions a logit from cuobjdump and the
-               time they take at the card's issue rate); the
+               time they take at the card's issue rate); B1 and B2
+               also at a misaligned [16, 15, 50310] view that splits its
+               rows, B1 against the split plain version at its plan at
+               every shape, each with its split plan and its body loop's
+               instructions a logit beside the bytes bound's budget; the
                attention gradient against chunked_attention's; paged
                attention also on an arena whose unread slots are NaN,
                for all four (q, arena) dtype pairs and at the edges of
@@ -573,12 +577,15 @@ def max_sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def sass_loop_instructions(name: str, parts):
-    """(instructions, function): the static SASS instructions, NOPs left
-    out, of the longest loop (a backward branch back to its target) of
-    the first kernel in ``csrc/<name>.cu``'s built library whose mangled
-    name holds every string of ``parts``, from ``cuobjdump -sass``; None
-    where the toolkit has no cuobjdump or the listing does not parse."""
+def sass_loop_instructions(name: str, parts, must=None):
+    """(instructions, function, matches): the static SASS instructions,
+    NOPs left out, of the longest loop (a backward branch back to its
+    target) of the first kernel in ``csrc/<name>.cu``'s built library
+    whose mangled name holds every string of ``parts``, from ``cuobjdump
+    -sass``; with ``must``, a regex, only loops with an instruction it
+    matches count, and ``matches`` is their number in that loop (0
+    without ``must``).  None where the toolkit has no cuobjdump or the
+    listing does not parse."""
     from repro_torch.kernels import build
     tool = Path(build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
@@ -594,15 +601,17 @@ def sass_loop_instructions(name: str, parts):
         # (address, instruction without its predicate)
         ins = [(int(a, 16), re.sub(r"^@!?\w+\s+", "", op.strip())) for a, op
                in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", text)]
-        longest = 0
+        longest, matches = 0, 0
         for addr, op in ins:
             m = re.match(r"BRA\b.*?(0x[0-9a-f]+)", op)
             if m and int(m.group(1), 16) < addr:
                 lo = int(m.group(1), 16)
-                longest = max(longest, sum(
-                    1 for a, o in ins if lo <= a <= addr
-                    and not o.startswith("NOP")))
-        return (longest, func) if longest else None
+                body = [o for a, o in ins if lo <= a <= addr
+                        and not o.startswith("NOP")]
+                hits = sum(1 for o in body if must and re.match(must, o))
+                if (hits or not must) and len(body) > longest:
+                    longest, matches = len(body), hits
+        return (longest, func, matches) if longest else None
     return None
 
 
@@ -642,6 +651,111 @@ def phase_build() -> None:
     log(f"  build total {time.perf_counter() - t0:.1f} s")
 
 
+def logprob_split_check(torch, view, toks, lp, m):
+    """B1's result (lp, m) on ``view`` against ``fused_logprob_split_plain``
+    at the kernel's own plan: m bit for bit, the log-prob within 1e-4.
+    Returns ((span, n_splits), max|dlogp|)."""
+    from repro_torch.kernels import build, fused_logprob
+    V = view.shape[-1]
+    plan = fused_logprob.split_plan(toks.numel(), V,
+                                    build.sm_count(view.device))
+    lp_s, m_s, _ = fused_logprob.fused_logprob_split_plain(view, toks,
+                                                           plan[0])
+    err = max_err(lp, lp_s)
+    require(err <= 1e-4 and torch.equal(m, m_s),
+            f"fused_logprob {list(view.shape)} against the split plain "
+            f"version at {plan}: error {err:.3e}")
+    return plan, err
+
+
+def edge_tokens(torch, view, span, n_splits):
+    """Tokens for ``view``'s rows, one a row, taking in turn column 0, the
+    row's last head column and its first body column (its head is the
+    columns before its first 16-byte boundary), both sides of each split
+    border, the first tail column and column V - 1."""
+    from repro_torch.kernels.fused_logprob import row_heads
+    V = view.shape[-1]
+    vec = 16 // view.element_size()
+    out = []
+    for r, h in enumerate(row_heads(view).reshape(-1).tolist()):
+        cols = [0, max(h - 1, 0), h, h + (V - h) // vec * vec, V - 1]
+        cols += [h + i * span + d for i in range(1, n_splits) for d in (-1, 0)]
+        out.append(min(V - 1, cols[r % len(cols)]))
+    return torch.tensor(out, dtype=torch.int32,
+                        device=view.device).reshape(view.shape[:-1])
+
+
+def check_logprob_misaligned(torch, dev, gen):
+    """B1 and B2 at a small misaligned shape that splits its rows: the
+    [16, 15, 50310] view of [16, 16, 50310] logits (V % 8 = 6, so the rows
+    start at every 2-byte phase), with tokens in the heads, the tails and
+    on the split borders, a +1e30, a -1e30 and a tied row, in bf16 and
+    fp32.  B1 against the plain version (m bit for bit) and the split
+    plain version at its plan, B2 against the plain version, element by
+    element, and zero in the last position."""
+    from repro_torch.kernels import build, fused_logprob
+    V = 50310
+    for dtype, tol, rtol in ((torch.bfloat16, 1e-4, 2.0 ** -7),
+                             (torch.float32, 1e-5, 1e-6)):
+        x = torch.randn(16, 16, V, generator=gen, device=dev) * 2
+        x[3, 0, 5], x[3, 1], x[3, 2, 3], x[3, 2, 99] = 1e30, -1e30, 9.0, 9.0
+        x = x.to(dtype)
+        view = x[:, :-1]
+        span, n = fused_logprob.split_plan(240, V, build.sm_count(dev))
+        require(n > 1, f"[16, 15, {V}] does not split: {span}, {n}")
+        toks = edge_tokens(torch, view, span, n)
+        lp, m, s = fused_logprob.fused_logprob_cuda(view, toks)
+        lp_p, m_p, _ = fused_logprob.fused_logprob_plain(
+            view.reshape(-1, V), toks.reshape(-1))
+        err = max_err(lp.reshape(-1), lp_p)
+        require(err <= tol and torch.equal(m.reshape(-1), m_p),
+                f"fused_logprob [16, 15, {V}] {dtype}: error {err:.3e}")
+        _, split_err = logprob_split_check(torch, view, toks, lp, m)
+        g = torch.randn(16, 15, generator=gen, device=dev)
+        dl = fused_logprob.fused_logprob_bwd_cuda(x, toks, m, torch.log(s), g,
+                                                  n_valid=15)
+        want = fused_logprob.fused_logprob_bwd_plain(
+            view.reshape(-1, V), toks.reshape(-1), m.reshape(-1),
+            torch.log(s).reshape(-1), g.reshape(-1))
+        require(bool((dl[:, -1] == 0).all().item()),
+                f"fused_logprob_bwd [16, 15, {V}]: last position not zero")
+        excess = bwd_excess(torch, dl[:, :-1].reshape(-1, V), want,
+                            g.reshape(-1), toks.reshape(-1), rtol)
+        require(excess <= 1.0, f"fused_logprob_bwd [16, 15, {V}] {dtype}: "
+                f"an element is {excess:.3g} times its tolerance")
+        bwd_plan = fused_logprob.bwd_plan(V)
+        log(f"  fused_logprob [16, 15, {V}] misaligned view "
+            f"{str(dtype)[6:]} with +-1e30 and tied rows, tokens in heads, "
+            f"tails and on split borders, plan {n} splits of {span}: "
+            f"max|dlogp| {err:.3e}, m equal, split plain {split_err:.3e}; "
+            f"fused_logprob_bwd, plan {bwd_plan[1]} splits of "
+            f"{bwd_plan[0]}: worst element {excess:.3g} of its tolerance "
+            f"({rtol:.3g} relative), last position zero")
+
+
+def logprob_sass(name: str, bytes_per_logit: int, n_sm: int, clock: float):
+    """B1's or B2's bf16 body loop from cuobjdump: its instructions a logit
+    (the loop's instructions over the logits of its 16-byte loads),
+    logged beside the budget the bytes bound leaves at the card's issue
+    rate; None where not measured."""
+    sass = sass_loop_instructions(name, (f"{name}_kernel", "__nv_bfloat16"),
+                                  must=r"LDG\S*\.128")
+    budget = (ISSUE_PER_SM_CLOCK * 32 * n_sm * clock * 1e6 * bytes_per_logit
+              / HBM_BYTES_PER_S)
+    if sass is None:
+        log(f"  {name} SASS: not measured (no cuobjdump); budget "
+            f"{budget:.1f} instructions a logit")
+        return None
+    per_logit = sass[0] / (sass[2] * 8)
+    log(f"  {name} SASS: {sass[0]} instructions in the body loop of "
+        f"{sass[1]} ({sass[2]} 16-byte loads, {sass[2] * 8} logits), "
+        f"{per_logit:.1f} a logit against a budget of {budget:.1f} ("
+        f"{bytes_per_logit} bytes a logit at {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s, {ISSUE_PER_SM_CLOCK} warp instructions a clock on each of "
+        f"{n_sm} SMs at {clock:.0f} MHz)")
+    return per_logit
+
+
 def timed_logprob_at(torch, dev, gen, V, T=288):
     """B1 at the reference-scoring shape of [16] (V 202048), [17] (V
     129280), [20] (V 50304, T 320) or [21] (V 256206, T 128): the
@@ -662,6 +776,9 @@ def timed_logprob_at(torch, dev, gen, V, T=288):
     err = max_err(lp.reshape(-1), lp_p)
     require(err <= 1e-4 and torch.equal(m.reshape(-1), m_p),
             f"fused_logprob [16, {T - 1}, {V}] error {err:.3e}")
+    t0 = time.perf_counter()
+    plan, split_err = logprob_split_check(torch, view, toks, lp, m)
+    split_s = time.perf_counter() - t0
     del lp_p, m_p
 
     def run():
@@ -671,7 +788,8 @@ def timed_logprob_at(torch, dev, gen, V, T=288):
     n_rows = toks.numel()
     b_ms, b_by = bound(view.numel() * 2 + n_rows * 4 + 3 * n_rows * 4,
                        view.numel() * LOGPROB_OPS_PER_LOGIT, FP32_FLOPS)
-    rec = {"shape": [16, T - 1, V], "max_abs_err": err,
+    rec = {"shape": [16, T - 1, V], "max_abs_err": err, "splits": plan[1],
+           "split_plain_err": split_err, "split_check_s": split_s,
            "ms": cuda_ms(torch, run, 10),
            "kernel_only_ms": kernel_only_ms(torch, run, 5,
                                             "fused_logprob_kernel"),
@@ -681,8 +799,9 @@ def timed_logprob_at(torch, dev, gen, V, T=288):
                flat, flat_toks, reduction="none"), 10),
            "bound_ms": b_ms, "bound_by": b_by}
     ko = rec["kernel_only_ms"]
-    log(f"  fused_logprob [16, {T - 1}, {V}] strided view bf16: max|dlogp| "
-        f"{err:.3e}, m equal; {rec['ms']:.4f} ms per call ("
+    log(f"  fused_logprob [16, {T - 1}, {V}] strided view bf16, plan "
+        f"{plan[1]} splits of {plan[0]}: max|dlogp| {err:.3e}, m equal, "
+        f"split plain {split_err:.3e}; {rec['ms']:.4f} ms per call ("
         + ("not measured" if ko is None else f"{ko:.4f} ms")
         + f" in the kernel), plain {rec['plain_ms']:.4f} ms, library "
         f"(F.cross_entropy) {rec['library_ms']:.4f} ms, bound "
@@ -698,6 +817,7 @@ def timed_logprob_bwd_at(torch, dev, gen, V, T=80):
     against the plain version and timed."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build, fused_logprob
     from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
         fused_logprob_bwd_plain, fused_logprob_cuda
     logits = (torch.randn(16, T, V, generator=gen, device=dev)
@@ -724,13 +844,16 @@ def timed_logprob_bwd_at(torch, dev, gen, V, T=80):
                         toks.reshape(-1), 2.0 ** -7)
     require(excess <= 1.0, f"fused_logprob_bwd [16, {n}, {V}]: an element "
             f"is {excess:.3g} times its tolerance")
+    require(bool((run()[:, -1] == 0).all().item()),
+            f"fused_logprob_bwd [16, {n}, {V}]: last position not zero")
+    plan = fused_logprob.bwd_plan(V)
     del got, want
     flat = view.reshape(-1, V).contiguous().requires_grad_()
     ce = F.cross_entropy(flat, toks.reshape(-1).long(), reduction="none")
     n_rows = toks.numel()
     b_ms, b_by = bound(view.numel() * 2 + logits.numel() * 2 + 4 * n_rows * 4,
                        view.numel() * LOGPROB_BWD_OPS_PER_LOGIT, FP32_FLOPS)
-    rec = {"shape": [16, n, V], "max_abs_err": err,
+    rec = {"shape": [16, n, V], "max_abs_err": err, "splits": plan[1],
            "ms": cuda_ms(torch, run, 10),
            "kernel_only_ms": kernel_only_ms(torch, run, 5,
                                             "fused_logprob_bwd_kernel"),
@@ -739,8 +862,9 @@ def timed_logprob_bwd_at(torch, dev, gen, V, T=80):
                ce, flat, g_out.reshape(-1), retain_graph=True), 10),
            "bound_ms": b_ms, "bound_by": b_by}
     ko = rec["kernel_only_ms"]
-    log(f"  fused_logprob_bwd [16, {n}, {V}] strided view bf16: max|ddl| "
-        f"{err:.3e}, worst element {excess:.3g} of its tolerance; "
+    log(f"  fused_logprob_bwd [16, {n}, {V}] strided view bf16, plan "
+        f"{plan[1]} splits of {plan[0]}: max|ddl| {err:.3e}, worst element "
+        f"{excess:.3g} of its tolerance, last position zero; "
         f"{rec['ms']:.4f} ms per call ("
         + ("not measured" if ko is None else f"{ko:.4f} ms")
         + f" in the kernel), plain {rec['plain_ms']:.4f} ms, library "
@@ -754,7 +878,8 @@ def phase_kernels(torch, dev):
     """Each kernel against its plain version; returns the JSON records."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import build, dispatch, fused_sample
+    from repro_torch.kernels import build, dispatch, fused_logprob, \
+        fused_sample
     from repro_torch.kernels.flash_attention import chunked_attention, \
         flash_attention_cuda
     from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
@@ -888,6 +1013,7 @@ def phase_kernels(torch, dev):
                          for n, r in vocabs.items()}})
 
     # ---- fused_logprob: the reference scorer's strided view, read in place
+    t_new = time.perf_counter()    # the checks the B1/B2 redesign added
     logits = (torch.randn(16, 80, V_LLAMA, generator=gen, device=dev)
               * 2).to(bf16)
     view = logits[:, :-1]
@@ -899,9 +1025,14 @@ def phase_kernels(torch, dev):
     logprob_err = max_err(lp.reshape(-1), lp_p)
     require(logprob_err <= 1e-4, f"fused_logprob error {logprob_err:.3e}")
     require(torch.equal(m.reshape(-1), m_p), "fused_logprob m differs")
-    log(f"  fused_logprob [16, 79, {V_LLAMA}] strided view bf16: "
-        f"max|dlogp| {logprob_err:.3e}, m equal, max|ds|/s "
-        f"{((s.reshape(-1) - s_p).abs() / s_p).max().item():.3e}")
+    t0 = time.perf_counter()
+    plan, split_err = logprob_split_check(torch, view, toks, lp, m)
+    new_s = time.perf_counter() - t0
+    log(f"  fused_logprob [16, 79, {V_LLAMA}] strided view bf16, plan "
+        f"{plan[1]} splits of {plan[0]}: max|dlogp| {logprob_err:.3e}, m "
+        f"equal, max|ds|/s "
+        f"{((s.reshape(-1) - s_p).abs() / s_p).max().item():.3e}, split "
+        f"plain {split_err:.3e}")
     small = torch.randn(33, 257, generator=gen, device=dev) * 4
     small[0, 5], small[1], small[2, 3], small[2, 99] = 1e30, -1e30, 9.0, 9.0
     stoks = torch.randint(0, 257, (33,), generator=gen, device=dev)
@@ -910,6 +1041,9 @@ def phase_kernels(torch, dev):
     require(err <= 1e-5, f"fused_logprob [33, 257] error {err:.3e}")
     log(f"  fused_logprob [33, 257] fp32 with +-1e30 and tied rows: "
         f"max|dlogp| {err:.3e}")
+    t0 = time.perf_counter()
+    check_logprob_misaligned(torch, dev, gen)
+    new_s += time.perf_counter() - t0
 
     def run_logprob():
         return fused_logprob_cuda(view, toks)
@@ -924,29 +1058,38 @@ def phase_kernels(torch, dev):
     n_rows = toks.numel()
     b_ms, b_by = bound(view.numel() * 2 + n_rows * 4 + 3 * n_rows * 4,
                        view.numel() * LOGPROB_OPS_PER_LOGIT, FP32_FLOPS)
+    ko = kernel_only_ms(torch, run_logprob, 10, "fused_logprob_kernel")
+    t0 = time.perf_counter()
+    per_logit = logprob_sass("fused_logprob", 2, n_sm, clock)
+    new_s += time.perf_counter() - t0
+    log(f"  fused_logprob [16, 79, {V_LLAMA}] strided view bf16, plan "
+        f"{plan[1]} splits of {plan[0]}: {ms:.4f} ms per call ("
+        + ("not measured" if ko is None else f"{ko:.4f} ms")
+        + f" in the kernel), plain {plain_ms:.4f} ms, library "
+        f"(F.cross_entropy) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     records.append({
         "name": "fused_logprob", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_logprob.cu",
         "replaces": "src/repro/kernels/fused_logprob.py:31",
         "launches": 0, "max_abs_err": logprob_err, "ms": ms,
-        "kernel_only_ms": kernel_only_ms(torch, run_logprob, 10,
-                                         "fused_logprob_kernel"),
+        "kernel_only_ms": ko,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "shape": [16, 79, V_LLAMA],
-        "dtype": "bfloat16"})
+        "dtype": "bfloat16", "splits": plan[1], "sass_per_logit": per_logit})
     records[-1]["scout"] = timed_logprob_at(torch, dev, gen, V_SCOUT)
     records[-1]["deepseek_v3"] = timed_logprob_at(torch, dev, gen, V_DSV3)
     records[-1]["xlstm"] = timed_logprob_at(torch, dev, gen, V_XLSTM,
                                             T=XLSTM_PROMPT + XLSTM_NEW)
     records[-1]["seamless"] = timed_logprob_at(torch, dev, gen, V_SEAMLESS,
                                                T=AUDIO_PROMPT + AUDIO_NEW)
+    new_s += sum(r["split_check_s"] for r in records[-1].values()
+                 if isinstance(r, dict) and "split_check_s" in r)
 
     # ---- fused_logprob_bwd: the trainer's strided view, with the gradient
     # of the whole [16, 80, V] written (zeros in the last position).  The
     # +-1e30 and tied rows sit in batches 0 and 13, so a wrong outer stride
-    # shows; bf16 and fp32 both take the 16-byte vector path here.  Each
-    # element is held to the rounding of its own dtype: one bf16 ulp, and
-    # 1e-6 relative in fp32
+    # shows.  Each element is held to the rounding of its own dtype: one
+    # bf16 ulp, and 1e-6 relative in fp32
     g_out = torch.randn(16, 79, generator=gen, device=dev)
     bwd_err = None
     for dtype, rtol in ((bf16, 2.0 ** -7), (torch.float32, 1e-6)):
@@ -983,9 +1126,9 @@ def phase_kernels(torch, dev):
     excess = bwd_excess(torch, got, want, sg, stoks, 1e-6)
     require(err <= 1e-5 and excess <= 1.0, f"fused_logprob_bwd [33, 257] "
             f"error {err:.3e}, worst element {excess:.3g} of its tolerance")
-    log(f"  fused_logprob_bwd [33, 257] fp32 (scalar path) with +-1e30 and "
-        f"tied rows: max|ddl| {err:.3e} (tolerance 1e-5), worst element "
-        f"{excess:.3g} of 1e-6 relative")
+    log(f"  fused_logprob_bwd [33, 257] fp32 (rows at every phase) with "
+        f"+-1e30 and tied rows: max|ddl| {err:.3e} (tolerance 1e-5), worst "
+        f"element {excess:.3g} of 1e-6 relative")
 
     log_s = torch.log(s)
 
@@ -1003,22 +1146,39 @@ def phase_kernels(torch, dev):
     del flat, ce
     b_ms, b_by = bound(view.numel() * 2 + logits.numel() * 2 + 4 * n_rows * 4,
                        view.numel() * LOGPROB_BWD_OPS_PER_LOGIT, FP32_FLOPS)
+    ko = kernel_only_ms(torch, run_bwd, 10, "fused_logprob_bwd_kernel")
+    plan = fused_logprob.bwd_plan(V_LLAMA)
+    t0 = time.perf_counter()
+    per_logit = logprob_sass("fused_logprob_bwd", 4, n_sm, clock)
+    new_s += time.perf_counter() - t0
+    log(f"  fused_logprob_bwd [16, 79, {V_LLAMA}] strided view bf16, plan "
+        f"{plan[1]} splits of {plan[0]}: {ms:.4f} ms per call ("
+        + ("not measured" if ko is None else f"{ko:.4f} ms")
+        + f" in the kernel), plain {plain_ms:.4f} ms, library (backward of "
+        f"F.cross_entropy) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     records.append({
         "name": "fused_logprob_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_logprob_bwd.cu",
         "replaces": "src/repro/kernels/fused_logprob.py:111",
         "launches": 0, "max_abs_err": bwd_err, "ms": ms,
-        "kernel_only_ms": kernel_only_ms(torch, run_bwd, 10,
-                                         "fused_logprob_bwd_kernel"),
+        "kernel_only_ms": ko,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "shape": [16, 79, V_LLAMA],
-        "dtype": "bfloat16"})
+        "dtype": "bfloat16", "splits": plan[1], "sass_per_logit": per_logit})
     del logits, view
     records[-1]["deepseek_v3"] = timed_logprob_bwd_at(torch, dev, gen, V_DSV3)
     records[-1]["xlstm"] = timed_logprob_bwd_at(
         torch, dev, gen, V_XLSTM, T=XLSTM_TRAIN_PROMPT + XLSTM_TRAIN_NEW)
     records[-1]["seamless"] = timed_logprob_bwd_at(
         torch, dev, gen, V_SEAMLESS, T=AUDIO_TRAIN_SEQ)
+    # and at [21] (b)'s view before its cut to AUDIO_TRAIN_SEQ
+    t0 = time.perf_counter()
+    records[-1]["seamless_t128"] = timed_logprob_bwd_at(
+        torch, dev, gen, V_SEAMLESS, T=128)
+    new_s += time.perf_counter() - t0
+    log(f"  B1 and B2: the checks and timings their redesign added took "
+        f"{new_s:.1f} s of the {time.perf_counter() - t_new:.1f} s of "
+        "theirs")
 
     # ---- flash_attention: fp32 on peaked attention, bf16, ragged, small
     def qkv(B, S, H, K, hd, dtype, seed):

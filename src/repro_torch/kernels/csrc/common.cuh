@@ -1,5 +1,6 @@
 // Shared pieces of the port's CUDA kernels: dtype conversion, 16-byte
-// vector loads, and the online-softmax (m, s) state with its block merge.
+// vector loads, the columns of a split row read from any phase, and the
+// online-softmax (m, s) state with its block merge.
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -37,6 +38,50 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) VecT { T v[VEC]; };
 
+// The columns a block of a split row owns.  A row's head is the columns
+// before its first 16-byte boundary, fewer than VEC = 16 / sizeof(T) (at
+// most V); split 0 starts at column 0, split i > 0 at head + i span (span
+// a multiple of 8), and the last split ends at V.  So every split but
+// the first starts on a 16-byte boundary, and each is an edge of fewer
+// than VEC columns, read one at a time, an aligned body of n_vec whole
+// vectors from column body, and an edge after it.
+struct Cols { int64_t lo, hi, body, n_vec; };
+
+template <typename T>
+__device__ __forceinline__ Cols split_cols(const T* row, int64_t V, int64_t span, int split,
+                                           int n_splits) {
+  constexpr int64_t VEC = 16 / sizeof(T);
+  const int64_t phase = (int64_t)(((uintptr_t)row / sizeof(T)) & (VEC - 1));
+  const int64_t to_boundary = (VEC - phase) & (VEC - 1);
+  const int64_t head = to_boundary < V ? to_boundary : V;
+  Cols c;
+  c.lo = split == 0 ? 0 : head + split * span;
+  c.hi = split == n_splits - 1 ? V : head + (split + 1) * span;
+  c.body = split == 0 ? head : c.lo;
+  c.n_vec = (c.hi - c.body) / VEC;
+  return c;
+}
+
+// The e-th column of a split's two edges: the columns [lo, body) and
+// those after the body, up to hi; -1 past the last.  At most 2 (VEC - 1)
+// columns, so the first threads of a block take one each.
+template <typename T>
+__device__ __forceinline__ int64_t edge_col(const Cols& c, int e) {
+  constexpr int64_t VEC = 16 / sizeof(T);
+  const int64_t n_head = c.body - c.lo, tail = c.body + c.n_vec * VEC;
+  if (e < n_head) return c.lo + e;
+  return e - n_head < c.hi - tail ? tail + (e - n_head) : -1;
+}
+
+// A 16-byte vector read once, marked evict-first (ld.global.cs): a stream
+// through the logits then keeps less of the cache from other data
+template <typename T, int VEC>
+__device__ __forceinline__ VecT<T, VEC> load_once(const VecT<T, VEC>* p) {
+  static_assert(sizeof(VecT<T, VEC>) == 16, "16-byte vectors only");
+  const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p));
+  return *reinterpret_cast<const VecT<T, VEC>*>(&u);
+}
+
 // VEC consecutive elements at p (aligned to sizeof(T) * VEC) as fp32
 template <typename T, int VEC>
 __device__ __forceinline__ void load_f32(const T* p, float* out) {
@@ -45,14 +90,31 @@ __device__ __forceinline__ void load_f32(const T* p, float* out) {
   for (int u = 0; u < VEC; ++u) out[u] = to_f32(v.v[u]);
 }
 
+// e^d for d <= 0 by one ex2.approx (relative error about 2^-22); a d
+// of -1e30 or -inf gives 0, d = 0 gives 1
+__device__ __forceinline__ float exp_approx(float d) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d * 1.4426950408889634f));
+  return r;
+}
+
 // Online softmax state: running max m and sum of exp(x - m).  The start
 // value is (NEG_INF_F, 0) as in the reference, so a value below -1e30
 // adds exp(x + 1e30) == 0, exactly as there.
 struct MS { float m; float s; };
 
-__device__ __forceinline__ void ms_push(MS& st, float x) {
-  if (x > st.m) { st.s = st.s * expf(st.m - x) + 1.0f; st.m = x; }
-  else          { st.s += expf(x - st.m); }
+// The state after the N values x, with no branch: their max with m, one
+// rescale of s, and e^(x - m) of each by exp_approx.  m stays exact (a
+// max); -inf values add nothing, whatever the state.
+template <int N>
+__device__ __forceinline__ void ms_push(MS& st, const float* x) {
+  float m = st.m;
+#pragma unroll
+  for (int u = 0; u < N; ++u) m = fmaxf(m, x[u]);
+  float s = st.s * exp_approx(st.m - m);
+#pragma unroll
+  for (int u = 0; u < N; ++u) s += exp_approx(x[u] - m);
+  st = {m, s};
 }
 
 __device__ __forceinline__ MS ms_merge(MS a, MS b) {

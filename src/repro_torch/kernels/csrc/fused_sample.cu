@@ -58,14 +58,6 @@ __device__ __forceinline__ float gumbel(uint32_t hk, uint32_t col) {
   return -logf(-logf(u));
 }
 
-// e^d for d <= 0 by one ex2.approx (relative error about 2^-22); a d
-// of -1e30 or -inf gives 0, d = 0 gives 1
-__device__ __forceinline__ float exp_approx(float d) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d * 1.4426950408889634f));
-  return r;
-}
-
 struct Best { float z; int col; float x; };
 
 __device__ __forceinline__ Best best_merge(Best a, Best b) {

@@ -185,6 +185,135 @@ def test_cuda_fused_logprob_strided(cuda, dtype, tol):
     assert torch.equal(m.reshape(-1), mp)
 
 
+def _border_logits(shape, V, dtype, seed, cuda, shift=0):
+    """Seeded [B, T + 1, V] logits of randn x 4 on the card (read through a
+    view ``shift`` columns into rows that much wider), and tokens for
+    their [:, :-1] view: column 0, V - 1 and the columns on both sides of
+    each split border of B1's and B2's plans (the row's head + i span), in
+    turn, row by row; batch 1 holds a +1e30 row, a -1e30 row and a tied
+    row.  Returns the logits, the view, the tokens and B1's plan."""
+    B, T = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T + 1, V + shift, generator=g) * 4
+    x[1, 0, 5 + shift], x[1, 1], x[1, 2, 3 + shift] = 1e30, -1e30, 9.0
+    x[1, 2, 99 % V + shift] = 9.0
+    x = x.to(dtype).to(cuda)[..., shift:]
+    view = x[:, :-1]
+    toks = torch.randint(0, V, (B, T), generator=g)
+    n_sm = build.sm_count(cuda)
+    span, n = fused_logprob.split_plan(B * T, V, n_sm)
+    bspan, bn = fused_logprob.bwd_plan(V)
+    heads = fused_logprob.row_heads(view)
+    cols = [0, V - 1] + [c for sp, k in ((span, n), (bspan, bn))
+                         for i in range(1, k) for c in (i * sp - 1, i * sp)]
+    flat = toks.reshape(-1)
+    for r, h in enumerate(heads.reshape(-1).tolist()):
+        c = cols[r % len(cols)]
+        flat[r] = min(V - 1, c + (h if c not in (0, V - 1) else 0))
+    return x, view, toks.to(cuda), (span, n)
+
+
+# rows of each phase: V % 8 is 1, 6 and 6, so a [:, :-1] view's rows
+# start at every 2-byte phase; 16 x 7 rows take several splits a row at V
+# 50310, 16 x 127 rows several waves
+LOGPROB_EDGES = [((16, 7), 1001), ((16, 7), 1030), ((16, 7), 50310),
+                 ((16, 127), 1030), ((16, 63), 50310)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("shape,V", LOGPROB_EDGES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-4)])
+def test_cuda_fused_logprob_misaligned(cuda, shape, V, dtype, tol, shift):
+    """B1 on strided views whose rows start at any phase, against the plain
+    version (m bit for bit) and against ``fused_logprob_split_plain`` at
+    the kernel's own plan; one launch a call, the merge counters back at
+    zero."""
+    x, view, toks, (span, n) = _border_logits(shape, V, dtype, V, cuda, shift)
+    build.reset_launches()
+    got, m, s = fused_logprob.fused_logprob_cuda(view, toks)
+    assert build.LAUNCHES["fused_logprob"] == 1
+    want, mp, _ = fused_logprob.fused_logprob_plain(view.reshape(-1, V),
+                                                    toks.reshape(-1))
+    assert _err(got.reshape(-1), want) < tol
+    assert torch.equal(m.reshape(-1), mp)
+    split, ms, ss = fused_logprob.fused_logprob_split_plain(view, toks, span)
+    assert _err(got, split) < tol and torch.equal(m, ms)
+    assert torch.where(s == ss, 0.0, (s - ss).abs() / ss).max().item() < 1e-5
+    counts = build.scratch("fused_logprob counters", cuda, 1, torch.int32)
+    assert int(counts.abs().sum().item()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 3])     # input phase = output's, or not
+@pytest.mark.parametrize("shape,V", LOGPROB_EDGES)
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6),
+                                        (torch.bfloat16, 2.0 ** -7)])
+def test_cuda_fused_logprob_bwd_misaligned(cuda, shape, V, dtype, rtol, shift):
+    """B2 on the same views: every element within its dtype's rounding,
+    the last position zero.  With ``shift`` the logits' rows start 3
+    columns off the gradient's, so the body's loads go one logit at a
+    time."""
+    x, view, toks, _ = _border_logits(shape, V, dtype, V + 1, cuda, shift)
+    w = torch.randn(*shape, generator=torch.Generator().manual_seed(V)) \
+        .to(cuda)
+    _, m, s = fused_logprob.fused_logprob_cuda(view, toks)
+    build.reset_launches()
+    got = fused_logprob.fused_logprob_bwd_cuda(x, toks, m, torch.log(s), w,
+                                               n_valid=shape[1])
+    assert build.LAUNCHES["fused_logprob_bwd"] == 1
+    want = fused_logprob.fused_logprob_bwd_plain(
+        view.reshape(-1, V), toks.reshape(-1), m.reshape(-1),
+        torch.log(s).reshape(-1), w.reshape(-1))
+    assert got.shape == x.shape and got.is_contiguous()
+    assert (got[:, -1] == 0).all()
+    assert _bwd_excess(got[:, :-1].reshape(-1, V), want, w.reshape(-1),
+                       toks.reshape(-1), rtol) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_logprob_refuses_bad_spans(cuda):
+    """Both launchers take only plans of the shape ``split_plan`` and
+    ``bwd_plan`` give: aligned spans, none under MIN_SPAN when a row
+    splits, a last split that keeps a column whatever the head and holds
+    less than span + 8, and (B1) at most MAX_SPLITS."""
+    rows, width = 2, 257 * 4096 + 8
+    x = torch.zeros(rows, width, device=cuda)
+    toks = torch.zeros(rows, dtype=torch.int32, device=cuda)
+    outs = [torch.empty(rows, device=cuda) for _ in range(3)]
+    ws = build.scratch("fused_logprob partials", cuda, rows * 512 * 2,
+                       torch.float32)
+    count = build.scratch("fused_logprob counters", cuda, rows, torch.int32)
+    fwd = build.c_function("fused_logprob", "fused_logprob_launch",
+                           fused_logprob._ARGS)
+    bwd = build.c_function("fused_logprob_bwd", "fused_logprob_bwd_launch",
+                           fused_logprob._BWD_ARGS)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    dl = torch.empty_like(x)
+
+    def launch(span, n, V=8200):
+        a = fwd(x.data_ptr(), 0, rows, rows, 0, width, V, span, n,
+                toks.data_ptr(), ws.data_ptr(), count.data_ptr(),
+                *(o.data_ptr() for o in outs), stream)
+        b = bwd(x.data_ptr(), 0, rows, rows, rows, 0, width, V, span, n,
+                toks.data_ptr(), *(o.data_ptr() for o in outs),
+                dl.data_ptr(), stream)
+        torch.cuda.synchronize()
+        return a, b
+    for span in (8200, 4104, 4096):
+        assert launch(span, fused_logprob.n_splits_of(8200, span)) == (0, 0)
+    # no split, one split too few, one too many (a head of 1 empties the
+    # last), unaligned, under MIN_SPAN
+    for span, n in ((8200, 0), (4096, 2), (4104, 3), (4100, 2), (2048, 5)):
+        assert all(e != 0 for e in launch(span, n)), (span, n)
+    # 258 splits: past the forward's merge, which the backward has not
+    assert fused_logprob.n_splits_of(width, 4096) == 258
+    a, b = launch(4096, 258, width)
+    assert a != 0 and b == 0
+    assert int(count.abs().sum().item()) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,H,K,hd", [(128, 8, 2, 32), (100, 4, 4, 64),
                                       (77, 8, 1, 16), (130, 4, 2, 128),
@@ -247,8 +376,8 @@ def _bwd_excess(got, want, g, toks, rtol, atol=1e-12):
 
 
 # each gradient element within its dtype's rounding: one bf16 ulp, and 1e-6
-# relative in fp32; V = 257 takes the scalar path, 1000 and 4096 the
-# 16-byte vector path
+# relative in fp32; V = 257's rows start at every phase, 1000's at two in
+# bf16, 4096's on 16-byte boundaries
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,V", [(33, 257), (64, 1000), (16, 4096)])
 @pytest.mark.parametrize("dtype,rtol,extreme", [(torch.float32, 1e-6, True),
@@ -272,7 +401,7 @@ def test_cuda_fused_logprob_bwd(cuda, T, V, dtype, rtol, extreme):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6),
                                         (torch.bfloat16, 2.0 ** -7)])
-@pytest.mark.parametrize("V", [1000, 1001])     # 16-byte loads, and not
+@pytest.mark.parametrize("V", [1000, 1001])     # rows at two phases, at all
 def test_cuda_fused_logprob_bwd_prefix_view(cuda, dtype, rtol, V):
     """The trainer's logits[:, :-1]: read in place, and the gradient of the
     whole [B, T, V] written with zeros in the last position.  Extreme rows

@@ -14,6 +14,8 @@ import torch
 
 from repro.kernels import dispatch as jdispatch
 from repro.kernels import ops, ref
+from repro.kernels.fused_logprob import fused_logprob as jfused_logprob
+from repro.kernels.fused_logprob import fused_logprob_bwd as jfused_logprob_bwd
 from repro.kernels.fused_sample import hash_uniform as jhash_uniform
 from repro_torch import convert
 from repro_torch.kernels import dispatch, fused_logprob, fused_sample
@@ -123,6 +125,183 @@ def test_token_logprob_extreme_rows_and_batched():
     got = dispatch.token_logprob(tl[:, :-1], torch.as_tensor(toks))
     assert got.dtype == torch.float32 and got.shape == (2, 17)
     assert np.max(np.abs(got.numpy() - np.asarray(want))) < 3e-2
+
+
+# ------------------------------------- B1's split merge and B2's rows --
+#
+# The CUDA kernels read each row as a head of fewer than 16 // itemsize
+# columns up to its first 16-byte boundary, an aligned body and a tail,
+# and cut a row into splits from its body: ``fused_logprob_split_plain``
+# states that partition and B1's merge in plain PyTorch.  Views whose rows
+# start at every phase: V % 8 is 0, 1 and 6; "prefix" is the scorer's
+# [:, :-1] of [B, T, V], "shifted" a 2-D view 3 columns into rows 3 wider.
+
+SPLIT_SPANS = [1, 8, 64, 200, 1000, 4096]
+
+
+def _split_case(V, layout, dtype, seed):
+    """Seeded logits of randn x 4 with a +1e30 row, a -1e30 row and a tied
+    row, as a torch view in ``layout`` and the same values as a [N, V]
+    jax array; tokens (the view's leading shape) at column 0, V - 1 and
+    both sides of the first two split borders of each span, row by row."""
+    rng = np.random.default_rng(seed)
+    B, T = 3, 9
+    pad = 3 if layout == "shifted" else 0
+    x = (rng.standard_normal((B, T + 1, V + pad)) * 4).astype(np.float32)
+    x[1, 0, pad + 5], x[1, 1], x[1, 2, pad + 3] = 1e30, -1e30, 9.0
+    x[1, 2, pad + 99 % V] = 9.0
+    j, base = _pair(x, dtype)
+    if layout == "prefix":
+        view, jl = base[:, :-1], j[:, :-1].reshape(-1, V)
+    else:
+        view = base.reshape(-1, V + pad)[:, pad:]
+        jl = j.reshape(-1, V + pad)[:, pad:]
+    heads = fused_logprob.row_heads(view).reshape(-1).tolist()
+    cols = [0, V - 1] + [i * s + d for s in SPLIT_SPANS for i in (1, 2)
+                         for d in (-1, 0)]
+    toks = np.array([min(V - 1, c + (h if 0 < c < V - 1 else 0))
+                     for c, h in zip(cols * len(heads), heads)],
+                    dtype=np.int32).reshape(view.shape[:-1])
+    return view, jl, toks
+
+
+@pytest.mark.parametrize("layout", ["prefix", "shifted"])
+@pytest.mark.parametrize("V", [1024, 257, 1030])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_fused_logprob_split_plain_matches_jax(V, layout, dtype, tol):
+    """The split merge at every span against the JAX package's kernel in
+    interpret mode and against the plain version: m bit for bit, the
+    log-probs within the dtype's tolerance; and the views' rows do start
+    at several phases."""
+    view, jl, toks = _split_case(V, layout, dtype, V)
+    heads = set(fused_logprob.row_heads(view).reshape(-1).tolist())
+    if layout == "prefix" and V % (16 // view.element_size()):
+        assert len(heads) > 1
+    want = np.asarray(ops.fused_logprob(jl, jnp.asarray(toks.reshape(-1)),
+                                        block_t=32, block_v=128))
+    t_toks = torch.as_tensor(toks)
+    lp_p, m_p, s_p = fused_logprob.fused_logprob_plain(view.reshape(-1, V),
+                                                       t_toks.reshape(-1))
+    for span in SPLIT_SPANS:
+        lp, m, s = fused_logprob.fused_logprob_split_plain(view, t_toks, span)
+        assert lp.shape == m.shape == s.shape == toks.shape
+        assert torch.equal(m.reshape(-1), m_p), span
+        for ref in (want, lp_p.numpy()):
+            got = lp.reshape(-1).numpy()
+            same = got == ref      # the -1e30 row scores +inf in bf16
+            assert np.isfinite(got[~same]).all(), span
+            assert np.max(np.abs(got[~same] - ref[~same]), initial=0) < tol
+        close = torch.where(s.reshape(-1) == s_p, 0.0,
+                            (s.reshape(-1) - s_p).abs() / s_p)
+        assert close.max().item() < 1e-5
+
+
+@pytest.mark.parametrize("span", [8, 64, 1000])
+@pytest.mark.parametrize("V", [1024, 257, 1030])
+def test_fused_logprob_bwd_from_split_stats_matches_jax(V, span):
+    """The backward from the split merge's stats, on the scorer's [:, :-1]
+    view, against the JAX package's backward kernel in interpret mode from
+    its own stats, in fp32."""
+    view, jl, toks = _split_case(V, "prefix", jnp.float32, V + span)
+    g = np.random.default_rng(span).standard_normal(toks.size) \
+        .astype(np.float32)
+    _, jm, js = jfused_logprob(jl, jnp.asarray(toks.reshape(-1)),
+                               block_t=32, block_v=128, interpret=True,
+                               return_stats=True)
+    want = jfused_logprob_bwd(jl, jnp.asarray(toks.reshape(-1)), jm,
+                              jnp.log(js), jnp.asarray(g), block_t=32,
+                              block_v=128, interpret=True)
+    _, m, s = fused_logprob.fused_logprob_split_plain(
+        view, torch.as_tensor(toks), span)
+    got = fused_logprob.fused_logprob_bwd_plain(
+        view.reshape(-1, V), torch.as_tensor(toks).reshape(-1),
+        m.reshape(-1), torch.log(s).reshape(-1), torch.as_tensor(g))
+    want, got = np.asarray(want), got.numpy()
+    assert np.isfinite(got).all() and np.max(np.abs(got - want)) < 1e-5
+
+
+# the kernel table's launches at 132 SMs: B1's scoring views ([16, T - 1]
+# rows) and chip_smoke.py's misaligned check shape; B2's written
+# gradients ([16, T] rows)
+FWD_SHAPES = [(1264, 128256), (4592, 202048), (4592, 129280), (5104, 50304),
+              (2032, 50304), (2032, 256206), (240, 50310)]
+BWD_SHAPES = [(1280, 128256), (1280, 129280), (2048, 50304), (512, 50304),
+              (2048, 256206), (1536, 256206)]
+
+
+def _split_bounds(V, span, n, head):
+    """[lo, hi) of each split as ``split_cols`` (common.cuh) cuts a row."""
+    return [(0 if i == 0 else head + i * span,
+             V if i == n - 1 else head + (i + 1) * span) for i in range(n)]
+
+
+def _check_plan(V, span, n):
+    """What both launchers demand of a plan, for every head a row may
+    have: aligned spans that cover the row once, no split empty or past
+    span + 7 columns, none under MIN_SPAN unless the row is one split."""
+    assert span % fused_logprob.SPAN_ALIGN == 0 and span > 0
+    assert n == fused_logprob.n_splits_of(V, span) >= 1
+    assert n == 1 or span >= fused_logprob.MIN_SPAN
+    for head in range(min(8, V + 1)):
+        bounds = _split_bounds(V, span, n, head)
+        assert bounds[0][0] == 0 and bounds[-1][1] == V
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        assert all(0 < hi - lo < span + 8 for lo, hi in bounds)
+
+
+def _fill(rows, n):
+    """The grid's share of its waves' slots at 132 SMs."""
+    slots = fused_logprob.BLOCKS_PER_SM * 132
+    return rows * n / (-(-rows * n // slots) * slots)
+
+
+@pytest.mark.parametrize("rows,V", FWD_SHAPES)
+def test_logprob_split_plan_fills_the_card(rows, V):
+    """B1's plan at the kernel table's shapes runs in whole waves of
+    BLOCKS_PER_SM x 132 blocks, or nearly: the last wave leaves under a
+    tenth of the grid's slots idle."""
+    span, n = fused_logprob.split_plan(rows, V, 132)
+    _check_plan(V, span, n)
+    assert n <= fused_logprob.MAX_SPLITS
+    assert _fill(rows, n) >= 0.9, (span, n)
+
+
+@pytest.mark.parametrize("rows,V", BWD_SHAPES)
+def test_logprob_bwd_plan_fills_the_card(rows, V):
+    """B2's spans of BWD_SPAN columns give the trainers' gradients 7 to
+    123 waves, the last one at least 0.9 full."""
+    span, n = fused_logprob.bwd_plan(V)
+    _check_plan(V, span, n)
+    assert span == fused_logprob.BWD_SPAN and n > 1
+    assert _fill(rows, n) >= 0.9, (span, n)
+
+
+def test_logprob_split_plan_at_the_main_shapes():
+    """The scorer's 1264 rows of llama31-8b take 5 splits (6 waves, 0.997
+    full), [21]'s 2032 rows of V 256206 stay one split a row (2 waves,
+    0.962 full), the misaligned check shape of chip_smoke.py takes 4; B2
+    cuts llama31-8b's rows into 32 splits of 4096 columns (the last of
+    1280 less the head) and [21]'s into 63."""
+    assert fused_logprob.split_plan(1264, 128256, 132) == (25656, 5)
+    assert fused_logprob.split_plan(2032, 256206, 132) == (256208, 1)
+    assert fused_logprob.split_plan(240, 50310, 132) == (12584, 4)
+    assert fused_logprob.bwd_plan(128256) == (4096, 32)
+    assert fused_logprob.bwd_plan(256206) == (4096, 63)
+    assert fused_logprob.bwd_plan(4103) == (4096, 1)
+    assert fused_logprob.bwd_plan(4104) == (4096, 2)
+
+
+@pytest.mark.parametrize("n_sm", [1, 114, 132])
+@pytest.mark.parametrize("rows", [1, 16, 240, 1264, 66560])
+@pytest.mark.parametrize("V", [1, 7, 8, 9, 257, 1030, 4103, 4104, 8200,
+                               50310, 128256, 256206, 2 ** 21 + 3])
+def test_logprob_split_plan_invariants(V, rows, n_sm):
+    """B1's plans hold what its launcher demands, with at most MAX_SPLITS
+    splits (one thread each in its merge), and so do B2's."""
+    span, n = fused_logprob.split_plan(rows, V, n_sm)
+    _check_plan(V, span, n)
+    assert n <= fused_logprob.MAX_SPLITS
+    _check_plan(V, *fused_logprob.bwd_plan(V))
 
 
 @pytest.mark.parametrize("B,S,H,K,hd", [
