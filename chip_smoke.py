@@ -290,22 +290,27 @@ Each phase prints its own lines:
                build/).  (a) llama31-8b at full width with 2 layers in
                fp32 from [7]'s seed, two steps on [7]'s batch: the
                one-card make_train_step first (params, m and v kept on
-               the host), then make_sharded_train_step on shard_state's
-               DTensors; params and moments within [7]'s 1e-4, the
-               largest difference, bit-equality, both runs' step times
-               and peak memory printed; (b) llama4-scout at full width
+               the card), then make_sharded_train_step on shard_state's
+               DTensors, once as it is and once with remat_layers (each
+               layer under a checkpoint, its slice of each stacked leaf
+               gathered again in the recompute: B4 twice a layer a
+               step); params and moments within [7]'s 1e-4, the largest
+               difference, bit-equality, the three runs' step times and
+               peak memory (the steps', and through the loss and
+               backward) printed; (b) llama4-scout at full width
                with 1 layer in bf16: forward_train with moe_mode
                'ep_shmap' on the installed mesh against the gathered mode;
                (c) (a)'s params saved and restored onto the mesh with
                restore_checkpoint(shardings=), bit for bit; (d) the
-               dry run (launch/dryrun.py) predicts (a)'s sharded step
-               from the meta device -- bytes allocated as it starts,
-               its peak, FLOPs a step -- and is held to what (a)
-               measured: torch.cuda.max_memory_allocated of the sharded
-               steps and a FlopCounterMode count of the first, plus the
-               FLOPs of B1, B2 and B4, which it cannot see.  B1, B2 and
-               B4 must launch on this path ("sharded"), and (a)'s first
-               kernel call of each shape is held against the plain version
+               dry run (launch/dryrun.py) predicts each of (a)'s
+               sharded runs from the meta device -- bytes allocated as
+               it starts, its peak, FLOPs a step -- and is held to what
+               (a) measured: torch.cuda.max_memory_allocated of the
+               sharded steps and a FlopCounterMode count of one more,
+               plus the FLOPs of B1, B2 and B4, which it cannot see.
+               B1, B2 and B4 must launch on this path ("sharded"), and
+               (a)'s first kernel call of each shape is held against the
+               plain version
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -6946,25 +6951,35 @@ SHARD_STEPS = 2
 EP_TOKENS = (4, 256)    # [22] (b): rows x ids through forward_train
 
 
+SHARD_PATHS = ("one card", "sharded", "sharded, remat_layers")
+
+
 def sharded_step_check(torch, dev, mesh, batch):
     """[22] (a): llama31-8b at full width with SHARD_LAYERS layers in fp32
     from [7]'s seed, SHARD_STEPS steps on [7]'s batch at [7]'s settings
     (the paper's lr, KL 0.1): first the one-card ``make_train_step`` (its
-    params, m and v kept on the host, the card freed), then
+    params, m and v kept on the card, where the comparisons read them),
+    then
     ``make_sharded_train_step`` on the state ``shard_state`` placed on
-    ``mesh``.  Params and moments within [7]'s 1e-4 of the one-card
-    run's, each relative to its largest |value| (the moments hold the
-    gradients); the largest difference against the steps' largest update
-    is printed beside.  Returns (the launches of the sharded steps, the
-    sharded state's params, what [22] (d) holds the dry run to: the
-    bytes allocated as the sharded steps start and their peak, each less
-    what the process held before the sharded state was built, and the
-    FLOPs ``FlopCounterMode`` counted in one more sharded step)."""
+    ``mesh``, once as it is and once with ``remat_layers`` (each layer
+    under a checkpoint, its slice of each stacked leaf gathered again in
+    the recompute).  Each sharded run's params and moments within [7]'s
+    1e-4 of the one-card run's, each relative to its largest |value| (the
+    moments hold the gradients); the largest difference against the
+    steps' largest update is printed beside.  Each run's peak memory is
+    printed twice: through the loss and backward (``value_and_grad``) and
+    over the whole steps (Adam too).  Returns (the launches of the
+    sharded runs, the last sharded state's params, per sharded run what
+    [22] (d) holds the dry run to: the bytes allocated as the steps start
+    and their peak, each less what the process held before the sharded
+    state was built, and the FLOPs ``FlopCounterMode`` counted in one
+    more sharded step)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs.llama_paper import LLAMA31_8B
     from repro_torch.kernels import build
     from repro_torch.models import init_params
+    from repro_torch.train import sharded, trainstep
     from repro_torch.train.optimizer import adam_init
     from repro_torch.train.sharded import make_sharded_train_step, \
         shard_state
@@ -6973,89 +6988,130 @@ def sharded_step_check(torch, dev, mesh, batch):
     cfg = LLAMA31_8B.replace(name="llama31-8b-2l", n_layers=SHARD_LAYERS)
     batch = {k: v.to(dev) for k, v in batch.items()}
     kw = dict(kl_coef=KL_COEF)
-    runs = {}
-    for path in ("one card", "sharded"):
-        gc.collect()
-        torch.cuda.empty_cache()
+    # the peak through each step's loss and backward, and the peak before
+    # it, which the reset below would drop from the step's own
+    held, bwd = [0], [0]
+    real_vg = trainstep.value_and_grad
+
+    def peaked_vg(*args):
+        held[0] = max(held[0], torch.cuda.max_memory_allocated())
         torch.cuda.reset_peak_memory_stats()
-        # what earlier phases left allocated, outside (d)'s comparison
-        base = torch.cuda.memory_allocated()
-        params = init_params(cfg, seed=2, dtype=torch.float32, device=dev)
-        n = sum(t.numel() for t in leaves(params))
-        state = TrainState(params, adam_init(params))
-        if path == "sharded":
-            state = shard_state(state, mesh)
-            step = make_sharded_train_step(cfg, mesh, **kw)
-        else:
-            p0 = {k: t.clone() for k, t in leaves_by_path(params).items()}
-            step = make_train_step(cfg, **kw)
-        del params
-        ms = []
-        if path == "sharded":
+        out = real_vg(*args)
+        torch.cuda.synchronize()
+        bwd[0] = max(bwd[0], torch.cuda.max_memory_allocated())
+        return out
+
+    runs, launches, measured = {}, collections.Counter(), {}
+    trainstep.value_and_grad = sharded.value_and_grad = peaked_vg
+    try:
+        for path in SHARD_PATHS:
+            remat = path.endswith("remat_layers")
+            c = cfg.replace(remat_layers=remat)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            # what earlier phases left allocated, outside (d)'s comparison
+            base = torch.cuda.memory_allocated()
+            params = init_params(c, seed=2, dtype=torch.float32, device=dev)
+            n = sum(t.numel() for t in leaves(params))
+            state = TrainState(params, adam_init(params))
+            if path != "one card":
+                state = shard_state(state, mesh)
+                step = make_sharded_train_step(c, mesh, **kw)
+            else:
+                p0 = {k: t.clone() for k, t in
+                      leaves_by_path(params).items()}
+                step = make_train_step(c, **kw)
+            del params
+            ms = []
             gc.collect()
             torch.cuda.synchronize()
             init_peak = torch.cuda.max_memory_allocated()
+            held[0] = bwd[0] = 0
             torch.cuda.reset_peak_memory_stats()
-            measured = {"argument_bytes": torch.cuda.memory_allocated()
-                        - base}
-            build.reset_launches()      # the sharded path's run starts here
-        for _ in range(SHARD_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        launches = dict(build.LAUNCHES)  # ... and ends here
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        if path == "sharded":
-            measured["peak_bytes"] = torch.cuda.max_memory_allocated() - base
-            peak = max(init_peak / 1e9, peak)
-        log(f"  (a) {path}: {n / 1e9:.3f} B params, {SHARD_STEPS} steps of "
-            + ", ".join(f"{t:.1f}" for t in ms) + f" ms, loss "
-            f"{float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}"
-            f", peak memory allocated {peak:.2f} GB")
-        if path == "one card":
-            big = max((t - p0[k]).abs().max().item()
-                      for k, t in leaves_by_path(state.params).items())
-            del p0
-            runs[path] = {part: {k: t.cpu() for k, t in
-                                 leaves_by_path(tree).items()}
-                          for part, tree in (("params", state.params),
-                                             ("m", state.opt.m),
-                                             ("v", state.opt.v))}
+            got = {"argument_bytes": torch.cuda.memory_allocated() - base}
+            build.reset_launches()      # this path's run starts here
+            for _ in range(SHARD_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            run_launches = dict(build.LAUNCHES)  # ... and ends here
+            top = max(held[0], torch.cuda.max_memory_allocated())
+            got["peak_bytes"] = top - base
+            log(f"  (a) {path}: {n / 1e9:.3f} B params, {SHARD_STEPS} steps "
+                "of " + ", ".join(f"{t:.1f}" for t in ms) + f" ms, loss "
+                f"{float(m['loss']):.6f}, grad_norm "
+                f"{float(m['grad_norm']):.6f}, peak memory allocated "
+                f"{max(init_peak, top) / 1e9:.2f} GB; in the steps "
+                f"{got['peak_bytes'] / 1e9:.3f} GB, through the loss and "
+                f"backward {(bwd[0] - base) / 1e9:.3f} GB, each above the "
+                f"{base / 1e9:.3f} GB held before")
+            if path == "one card":
+                big = max((t - p0[k]).abs().max().item()
+                          for k, t in leaves_by_path(state.params).items())
+                del p0
+                runs[path] = {part: leaves_by_path(tree)
+                              for part, tree in (("params", state.params),
+                                                 ("m", state.opt.m),
+                                                 ("v", state.opt.v))}
+                del state
+                continue
+            require(state.opt.step == SHARD_STEPS,
+                    f"Adam step {state.opt.step}")
+            err, worst, equal = against_one_card(torch, state,
+                                                 runs["one card"])
+            log(f"  (a) {path} against one card: largest difference "
+                + ", ".join(f"{k} {worst[k]:.3e} ({v:.2e} of the largest)"
+                            for k, v in err.items())
+                + f" (tolerance 1e-4); params {worst['params'] / big:.2e} of "
+                f"the largest update {big:.3e}; bit-equal: {equal}; "
+                f"launches {run_launches}")
+            for k, v in err.items():
+                require(v <= 1e-4, f"[22] (a) {path}: {k} {v:.3e} > 1e-4")
+            # B4 once a layer in each forward and once more in each
+            # layer's recompute under remat_layers
+            want = {"fused_logprob": SHARD_STEPS,
+                    "fused_logprob_bwd": SHARD_STEPS,
+                    "flash_attention": SHARD_STEPS * c.n_layers
+                    * (2 if remat else 1)}
+            require(run_launches == want,
+                    f"[22] (a) {path}: launches {run_launches}, want {want}")
+            launches.update(run_launches)
+            # one more sharded step, counted for (d): a dispatch mode
+            # around a step changes its bits on the card (m moved by
+            # 1.5e-6 of its largest), so the compared steps run without it
+            with FlopCounterMode(display=False) as fc:
+                state, _ = step(state, batch)
+            got["card_flops"] = fc.get_total_flops()
+            measured[path] = got
+            # only the last run's params stay, for (c): what a run keeps
+            # would count in the next one's bytes
+            params = state.params if path == SHARD_PATHS[-1] else None
             del state
-    require(state.opt.step == SHARD_STEPS, f"Adam step {state.opt.step}")
-    one = runs["one card"]
+    finally:
+        trainstep.value_and_grad = sharded.value_and_grad = real_vg
+    del runs, batch
+    return dict(launches), params, measured
+
+
+def against_one_card(torch, state, one):
+    """A sharded ``state``'s params, m and v against the one-card run's
+    (``one``): per part (the largest difference relative to
+    the part's largest |value|, the largest difference) and whether every
+    leaf is bit-equal."""
     err, worst, equal = {}, {}, True
     for part, tree in (("params", state.params), ("m", state.opt.m),
                        ("v", state.opt.v)):
         worst[part] = 0.0
         for k, t in leaves_by_path(tree).items():
-            got, want = t.to_local(), one[part][k].to(dev)
+            got, want = t.to_local(), one[part][k]
             equal = equal and torch.equal(got, want)
             worst[part] = max(worst[part], (got - want).abs().max().item())
         err[part] = worst[part] / max(
             t.abs().max().item() for t in one[part].values())
-    log(f"  (a) sharded against one card: largest difference "
-        + ", ".join(f"{k} {worst[k]:.3e} ({v:.2e} of the largest)"
-                    for k, v in err.items())
-        + f" (tolerance 1e-4); params {worst['params'] / big:.2e} of the "
-        f"largest update {big:.3e}; bit-equal: {equal}; sharded launches "
-        f"{launches}")
-    for k, v in err.items():
-        require(v <= 1e-4, f"[22] (a) {k} {v:.3e} > 1e-4")
-    want = {"fused_logprob": SHARD_STEPS, "fused_logprob_bwd": SHARD_STEPS,
-            "flash_attention": SHARD_STEPS * cfg.n_layers}
-    require(launches == want, f"[22] (a) launches {launches}, want {want}")
-    # one more sharded step, counted for (d): a dispatch mode around a step
-    # changes its bits on the card (m moved by 1.5e-6 of its largest), so
-    # the compared steps run without it
-    with FlopCounterMode(display=False) as fc:
-        state, _ = step(state, batch)
-    measured["card_flops"] = fc.get_total_flops()
-    params = state.params
-    del state, runs, one, batch
-    return launches, params, measured
+    return err, worst, equal
 
 
 DRYRUN_FLOP_TOL = 1e-3      # [22] (d): the card's count plus the kernels'
@@ -7063,20 +7119,22 @@ DRYRUN_FLOP_TOL = 1e-3      # [22] (d): the card's count plus the kernels'
 DRYRUN_BYTES_BAND = (0.9, 1.1)  # [22] (d): measured / predicted peak bytes
 
 
-def dryrun_check(torch, mesh, batch, measured):
-    """[22] (d): the dry run (``launch/dryrun.py``) predicts (a)'s sharded
-    step on ``mesh`` from the ``meta`` device -- llama31-8b at full width
-    with SHARD_LAYERS layers, fp32, KL 0.1, on [7]'s batch shape -- and
-    the prediction is held to what (a) measured on the card: the bytes
+def dryrun_check(torch, mesh, batch, measured, remat: bool):
+    """[22] (d): the dry run (``launch/dryrun.py``) predicts one of (a)'s
+    sharded runs on ``mesh`` from the ``meta`` device -- llama31-8b at
+    full width with SHARD_LAYERS layers, fp32, KL 0.1, on [7]'s batch
+    shape, with ``remat`` (``remat_layers``) or without -- and the
+    prediction is held to what (a) measured on the card: the bytes
     allocated as the steps start against ``argument_bytes``, the steps'
     peak against ``peak_bytes_per_device`` (within DRYRUN_BYTES_BAND),
     and FLOPs.  ``FlopCounterMode`` on the card cannot see B1, B2 and B4,
     ``ctypes`` launches; the meta run counts their plain versions (B1's
     and B2's count no product, the plain attention's forward is counted
-    where the card runs B4 and then recomputes it in the backward).  So
-    the card's count gains the kernels' own FLOPs, as ``bound`` reckons
-    them, before it is held to the prediction within DRYRUN_FLOP_TOL.
-    Returns the phase's seconds."""
+    where the card runs B4, again in each recompute under ``remat``, and
+    then recomputed in the backward).  So the card's count gains the
+    kernels' own FLOPs, as ``bound`` reckons them, before it is held to
+    the prediction within DRYRUN_FLOP_TOL.  Returns the phase's
+    seconds."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.llama_paper import LLAMA31_8B
     from repro_torch.launch import dryrun
@@ -7087,26 +7145,29 @@ def dryrun_check(torch, mesh, batch, measured):
     amesh = dryrun.production_mesh(mesh_shape=tuple(mesh.shape))
     c, shape, lowered = dryrun.lower_combo(
         cfg, ShapeSpec("numerics", T, B, "train"), amesh,
-        dtype=torch.float32, remat=False, kl_coef=KL_COEF)
+        dtype=torch.float32, remat=remat, kl_coef=KL_COEF)
     rec = dryrun.analyse(c, shape, lowered, amesh)
     H, hd, V = cfg.n_heads, cfg.hd, cfg.vocab
+    forwards = 2 if remat else 1        # B4 again in each recompute
     own = {"fused_logprob": B * (T - 1) * V * LOGPROB_OPS_PER_LOGIT,
            "fused_logprob_bwd": B * (T - 1) * V * LOGPROB_BWD_OPS_PER_LOGIT,
-           "flash_attention": cfg.n_layers * 4 * B * H * hd * T * (T + 1)
-           / 2}
+           "flash_attention": forwards * cfg.n_layers * 4 * B * H * hd * T
+           * (T + 1) / 2}
     card = measured["card_flops"] + sum(own.values())
     pred = rec["flops_per_device"]
     flop_err = abs(card - pred) / pred
-    # the plain attention's forward, which the meta run counts and the
+    # the plain attention's forwards, which the meta run counts and the
     # card runs as B4: every key of every query
-    plain_fwd = cfg.n_layers * 4 * B * H * hd * T * T
+    plain_fwd = forwards * cfg.n_layers * 4 * B * H * hd * T * T
     got_arg, got_peak = measured["argument_bytes"], measured["peak_bytes"]
     ratio = got_peak / rec["peak_bytes_per_device"]
-    log(f"  (d) dry run of (a) on a {list(amesh.shape.values())} mesh "
+    log(f"  (d) dry run of (a){' with remat_layers' if remat else ''} on a "
+        f"{list(amesh.shape.values())} mesh "
         f"(meta, {rec['count_s']} s): predicted argument "
         f"{rec['argument_bytes'] / 1e9:.3f} GB, temp "
         f"{rec['temp_bytes'] / 1e9:.3f} GB (saved activations "
-        f"{rec['saved_bytes'] / 1e9:.3f} GB), peak "
+        f"{rec['saved_bytes'] / 1e9:.3f} GB), all-gather "
+        f"{rec['collectives'].get('all-gather', 0) / 1e9:.3f} GB, peak "
         f"{rec['peak_bytes_per_device'] / 1e9:.3f} GB, "
         f"{pred / 1e12:.4f} TFLOP a step; roofline compute "
         f"{rec['roofline']['compute_s'] * 1e3:.2f} ms, memory "
@@ -7242,7 +7303,9 @@ def phase_sharded(torch, dev, batch):
         parts.append(time.perf_counter())
         launches.update(ep_check(torch, dev, mesh))
         parts.append(time.perf_counter())
-        dryrun_check(torch, mesh, batch, measured)
+        for path, got in measured.items():
+            dryrun_check(torch, mesh, batch, got,
+                         remat=path.endswith("remat_layers"))
         parts.append(time.perf_counter())
     finally:
         dist.destroy_process_group()

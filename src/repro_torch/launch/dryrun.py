@@ -16,12 +16,15 @@ compiler to ask, so it measures the step itself:
     ``batch_shardings``, ``cache_shardings``): ``argument_bytes`` is the
     sum of one device's shards;
   * one device's step runs on ``meta`` as the port's code runs it, on its
-    share of the batch: the sharded train step's whole-tree gather of the
-    params (``train/sharded.py``, ROADMAP C2.5), ``forward_train`` and its
-    backward, the gradients cut to the params' shards and Adam on the
-    shards; for serving, the whole tree (the port serves without tensor
-    parallelism) and ``prefill`` or ``decode_step``.  ``meta`` tensors
-    are not CUDA tensors, so every kernel takes its plain version
+    share of the batch: the sharded train step (``train/sharded.py``)
+    through its own seam (``gathered_params``) with a ``meta`` gather:
+    the leaves outside the layer stacks gathered up front, each stacked
+    leaf one layer at a time inside that layer's work, ``forward_train``
+    and its backward, each gather's gradient cut to the leaf's shard as
+    the backward reaches it, and Adam on the shards; for serving, the
+    whole tree (the port serves without tensor parallelism) and
+    ``prefill`` or ``decode_step``.  ``meta`` tensors are not CUDA
+    tensors, so every kernel takes its plain version
     (``kernels/dispatch.py``) and no kernel runs: the FLOPs include the
     plain attention's, over every key of a query block;
   * ``FlopCounterMode`` counts the FLOPs; a dispatch mode counts the bytes
@@ -29,15 +32,20 @@ compiler to ask, so it measures the step itself:
     reads its inputs and writes its outputs) and follows every storage
     from allocation to release, which gives the step's peak bytes
     (``temp_bytes`` is that peak above the arguments); a
-    ``saved_tensors_hooks`` sums the bytes autograd saves for the
-    backward (``saved_bytes``, the activation term);
-  * the collective bytes a device are the sharded step's own: the params'
-    all-gather, the gradients' reduce-scatter (an all-reduce where a leaf
-    is replicated over the data axes), the global norm's and
-    ``batch_total``'s all-reduces, each counted as its result's bytes and
-    only over mesh axes of more than one rank.  The reference's
-    ``collective_bytes`` and ``_shape_bytes`` parse XLA's HLO text and
-    have no counterpart here.
+    ``saved_tensors_hooks`` sums the bytes autograd keeps for the
+    backward when the forward ends (``saved_bytes``, the activation
+    term): what the forward saves and, under ``remat_layers``, each
+    checkpointed layer's inputs in place of what the layer saves.  A
+    layer's recompute in the backward shows in the peak;
+  * the collective bytes a device are the sharded step's own, each
+    counted as its result's bytes and only over mesh axes of more than
+    one rank: every gather of a sharded leaf (a stacked leaf's layer
+    again in the backward under ``remat_layers``), each gradient's
+    reduce-scatter (an all-reduce where a leaf is replicated over the
+    data axes) once a microbatch, the global norm's and
+    ``batch_total``'s all-reduces.  The reference's ``collective_bytes``
+    and ``_shape_bytes`` parse XLA's HLO text and have no counterpart
+    here.
 
 The port runs every layer eagerly, so the reference's two-compile
 extrapolation from scan bodies (``_extrapolate``, ``counted_layers``) has
@@ -46,10 +54,11 @@ replaces ``compile_s`` and ``counted_layers``.  The reference's XLA-only
 options (``--prefill-out-shardings``, ``--seq-parallel``, unrolled scans,
 scan groups) have no twin either; ``--moe-mode`` takes ``gathered``: the
 port's expert parallelism runs its collectives on a ``DeviceMesh``, which
-a dry run does not have.  With ``remat`` (the reference's default) the
-port checkpoints the whole ``forward_train``, so its backward recomputes
-and holds the whole forward at once: the FLOPs gain a forward and the
-peak stays what it is without remat.
+a dry run does not have.  ``remat`` (the default) is the reference's
+training baseline, ``remat_layers``: every layer's work under a
+checkpoint, the backward recomputing one layer at a time; ``--no-remat``
+turns it off.  The serving steps still gather the whole tree (ROADMAP
+C2).
 """
 from __future__ import annotations
 
@@ -71,10 +80,11 @@ from repro_torch import configs
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, ShapeSpec, \
     param_count
 from repro_torch.launch.inputspecs import META, input_specs
+from repro_torch.models import backbone as bb
 from repro_torch.models import sharding as shd
-from repro_torch.models.sharding import AbstractMesh, _axis_size, \
+from repro_torch.models.sharding import AbstractMesh, Spec, _axis_size, \
     activation_sharding, batch_shardings, cache_shardings, dp_axes, \
-    params_shardings, state_shardings
+    params_shardings, stacked_leaves, state_shardings
 from repro_torch.train.optimizer import AdamState, adam_update, \
     tree_leaves, tree_map, tree_unflatten
 
@@ -208,21 +218,42 @@ class _Meter(TorchDispatchMode):
 
 
 @contextlib.contextmanager
-def _saved_bytes(exclude):
-    """Sums the bytes of the storages autograd saves for the backward,
-    each once, ``exclude``'s (the params') left out."""
-    seen = set(exclude)
+def _saved_bytes(seen):
+    """Sums the bytes of the storages autograd keeps for the backward,
+    each once while it lives, those in ``seen`` (the params and their
+    gathered copies) left out: what the forward saves and, where a layer
+    runs under a checkpoint (``backbone._layer``), the layer's inputs,
+    which its recompute reads.  Read it as the forward ends."""
     total = [0]
+    real = bb.checkpoint
+
+    def forget(key, n):
+        seen.discard(key)
+        total[0] -= n
 
     def pack(t):
         st = t.untyped_storage()
         if st._cdata not in seen:
             seen.add(st._cdata)
             total[0] += st.nbytes()
+            # a saved tensor that dies before the backward (its branch
+            # dropped) is not kept, and a later storage may take its
+            # address
+            weakref.finalize(st, forget, st._cdata, st.nbytes())
         return t
 
-    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        yield total
+    def kept(fn, *args, **kwargs):
+        for t in pytree_leaves(args):
+            if isinstance(t, torch.Tensor):
+                pack(t)
+        return real(fn, *args, **kwargs)
+
+    bb.checkpoint = kept
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            yield total
+    finally:
+        bb.checkpoint = real
 
 
 @contextlib.contextmanager
@@ -278,8 +309,51 @@ def _gather_bytes(full_leaves, shard_leaves) -> int:
                if s.shape != f.shape)
 
 
+class _MetaWay:
+    """A leaf's gather and gradient reduction in the meta step, in place
+    of ``train/sharded.MeshWay``: a leaf whose shard is the whole leaf is
+    used as it is, any other is gathered into a new tensor (its storage
+    in ``seen`` while it lives, as a param's is) and its all-gather
+    counted; a gradient is cut to the shard, its reduce-scatter (sharded
+    over the data axes) or all-reduce counted where the rows split over
+    more than one rank (``reduce_dp``)."""
+
+    def __init__(self, full, spec, mesh, reduce_dp, counted, seen):
+        self.full, self.spec, self.mesh = tuple(full), spec, mesh
+        self.reduce_dp, self.counted, self.seen = reduce_dp, counted, seen
+        self.shard = shard_shape(self.full, spec, mesh)
+
+    def gather(self, local):
+        if self.shard == self.full:
+            return local.view_as(local)
+        out = _meta(self.full, local.dtype)
+        self.counted["all-gather"] += out.numel() * out.element_size()
+        st = out.untyped_storage()
+        self.seen.add(st._cdata)
+        # a later storage may take a dead one's address
+        weakref.finalize(st, self.seen.discard, st._cdata)
+        return out
+
+    def reduce(self, grad):
+        if self.reduce_dp:
+            dp = set(dp_axes(self.mesh))
+            names = {a for ax in self.spec if ax is not None
+                     for a in (ax if isinstance(ax, tuple) else (ax,))}
+            self.counted["reduce-scatter" if names & dp else "all-reduce"] \
+                += _nbytes(self.shard, grad.dtype)
+        if self.shard == self.full:
+            return grad
+        return _meta(self.shard, grad.dtype)
+
+    def layer(self) -> "_MetaWay":
+        return _MetaWay(self.full[1:], Spec(*self.spec[1:]), self.mesh,
+                        self.reduce_dp, self.counted, self.seen)
+
+
 def _lower_train(cfg, shape, mesh, dtype, *, remat, accum_steps, kl_coef):
+    from repro_torch.train.sharded import gathered_params
     from repro_torch.train.trainstep import init_train_state, make_loss_fn
+    cfg = cfg.replace(remat_layers=remat)
     state = init_train_state(cfg, 0, dtype, device=META)
     batch = input_specs(cfg, shape, dtype)["batch"]
     if kl_coef:
@@ -297,74 +371,60 @@ def _lower_train(cfg, shape, mesh, dtype, *, remat, accum_steps, kl_coef):
 
     params = shards(state.params, st_sh.params)
     m, v = shards(state.opt.m, st_sh.opt.m), shards(state.opt.v, st_sh.opt.v)
-    full_leaves = tree_leaves(state.params)
     B = shape.global_batch
     if B % accum_steps:
         raise ValueError(f"batch of {B} does not split into {accum_steps} "
                          "microbatches")
     rows, split = _local_rows(B // accum_steps, mesh)
-    loss_fn = make_loss_fn(cfg, kl_coef=kl_coef, remat=remat)
+    loss_fn = make_loss_fn(cfg, kl_coef=kl_coef)
     reduce_dp = split and _dp_size(mesh) > 1
-
+    stacked = stacked_leaves(state.params)
+    fulls = [t.shape for t in tree_leaves(state.params)]
+    specs = tree_leaves(st_sh.params)
     shard_leaves = tree_leaves(params)
     micro = _rows_of(batch, rows)
 
     def run():
+        counted = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
         with _batch_total_meter(mesh, split) as bt:
-            full = _gathered(full_leaves, shard_leaves)
             grads, saved = None, 0
             for _ in range(accum_steps):
-                leaves = [t.detach().requires_grad_() for t in full]
-                with _saved_bytes({t.untyped_storage()._cdata
-                                   for t in leaves}) as sv, \
-                        torch.enable_grad(), \
-                        activation_sharding(mesh, split_rows=split):
-                    loss, _ = loss_fn(tree_unflatten(state.params, leaves),
-                                      micro)
-                g = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
+                leaves = [t.detach().requires_grad_() for t in shard_leaves]
+                seen = {t.untyped_storage()._cdata for t in leaves}
+                ways = [_MetaWay(f, s, mesh, reduce_dp, counted, seen)
+                        for f, s in zip(fulls, specs)]
+                with activation_sharding(mesh, split_rows=split):
+                    with _saved_bytes(seen) as sv, torch.enable_grad():
+                        loss, _ = loss_fn(gathered_params(
+                            tree_unflatten(params, leaves), ways, stacked),
+                            micro)
+                    saved = max(saved, sv[0])
+                    g = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
                 del loss, leaves
-                saved = max(saved, sv[0])
                 if accum_steps == 1:
                     grads = list(g)
                 else:
                     if grads is None:
                         grads = [torch.zeros(t.shape, dtype=torch.float32,
-                                             device=META) for t in full]
+                                             device=META) for t in g]
                     for a, b in zip(grads, g):
                         a.add_(b)
                 del g
-            del full
             if accum_steps > 1:
                 for a in grads:
                     a.div_(accum_steps)
-            local_g = [g if s.shape == g.shape else _meta(s.shape, g.dtype)
-                       for g, s in zip(grads, shard_leaves)]
-            del grads
             gn = torch.sqrt(sum(torch.linalg.vector_norm(
-                g, dtype=torch.float32).square() for g in local_g))
+                g, dtype=torch.float32).square() for g in grads))
             new, _, _ = adam_update(
-                params, tree_unflatten(params, local_g),
+                params, tree_unflatten(params, grads),
                 AdamState(0, m, v), lr=1e-3, grad_norm=gn)
         out_bytes = sum(t.numel() * t.element_size()
                         for t in tree_leaves(new))
-        colls = {}
-        gather = _gather_bytes(full_leaves, shard_leaves)
-        if gather:
-            colls["all-gather"] = gather
+        colls = {k: n for k, n in counted.items() if n}
         if reduce_dp:
-            dp = set(dp_axes(mesh))
-            rs = ar = 0
-            for s, spec in zip(shard_leaves, tree_leaves(st_sh.params)):
-                n = s.numel() * s.element_size()
-                names = {a for ax in spec if ax is not None
-                         for a in (ax if isinstance(ax, tuple) else (ax,))}
-                if names & dp:
-                    rs += n
-                else:
-                    ar += n
-            colls["reduce-scatter"] = rs
-            colls["all-reduce"] = ar
+            colls["reduce-scatter"] = counted["reduce-scatter"]
+            colls["all-reduce"] = counted["all-reduce"]
         norm = 4 * sum(1 for s in mesh.shape.values() if s > 1)
         if norm or bt["bytes"]:
             colls["all-reduce"] = colls.get("all-reduce", 0) + norm \
@@ -441,13 +501,19 @@ def lower_combo(arch, shape_name, mesh, *, dtype=torch.bfloat16,
                 moe_mode: str = "gathered", remat: bool = True,
                 accum_steps: int = 1, kl_coef: float = 0.0):
     """The combo's config, input shape and one device's step on meta.
-    ``arch`` is a registry name or an ``ArchConfig``, ``shape_name`` a
-    name of ``INPUT_SHAPES`` or a ``ShapeSpec``."""
+    ``arch`` is a registry name, ``llama31-8b`` or an ``ArchConfig``,
+    ``shape_name`` a name of ``INPUT_SHAPES`` or a ``ShapeSpec``."""
     if moe_mode != "gathered":
         raise ValueError(
             f"moe_mode {moe_mode!r}: the port's expert parallelism runs its "
             "collectives on a DeviceMesh; the dry run counts 'gathered'")
-    cfg = arch if isinstance(arch, ArchConfig) else configs.get_config(arch)
+    if isinstance(arch, ArchConfig):
+        cfg = arch
+    elif arch == "llama31-8b":      # the paper's policy, as the launcher
+        from repro_torch.configs.llama_paper import LLAMA31_8B
+        cfg = LLAMA31_8B
+    else:
+        cfg = configs.get_config(arch)
     shape = shape_name if isinstance(shape_name, ShapeSpec) \
         else INPUT_SHAPES[shape_name]
     if shape.kind == "train":

@@ -37,6 +37,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve
@@ -278,6 +279,23 @@ def _ffn_block(p, x, cfg):
     return x + ffnmod.mlp_forward(p["mlp"], h, cfg.act, bias=cfg.bias), 0.0
 
 
+class StackShard:
+    """A leaf of a layer stack held as this rank's shard ``t`` [L, ...],
+    as the sharded train step passes it (``train/sharded.py``):
+    ``gather`` turns one layer's shard into that layer's whole leaf.
+    ``unbind`` splits it into its layers' shards as a tensor's splits,
+    so ``unstack`` walks both, and each layer's work gathers its own
+    leaves when it starts (``_layer``)."""
+
+    __slots__ = ("t", "gather")
+
+    def __init__(self, t: torch.Tensor, gather):
+        self.t, self.gather = t, gather
+
+    def unbind(self, dim: int = 0) -> tuple:
+        return tuple(StackShard(x, self.gather) for x in self.t.unbind(dim))
+
+
 def unstack(stacked: Params, n: int) -> list:
     """The ``n`` per-layer subtrees of a stacked params subtree (views, no
     copies), from one ``unbind`` per leaf.  Its backward stacks the
@@ -286,6 +304,36 @@ def unstack(stacked: Params, n: int) -> list:
     per = {k: unstack(v, n) if isinstance(v, dict) else v.unbind(0)
            for k, v in stacked.items()}
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def _gathered(p: Params) -> Params:
+    return {k: _gathered(v) if isinstance(v, dict)
+            else v.gather(v.t) if isinstance(v, StackShard) else v
+            for k, v in p.items()}
+
+
+def _run_layer(fn, p, *args):
+    return fn(_gathered(p), *args)
+
+
+def _layer(cfg, fn, p, *args):
+    """One layer's work, ``fn(p, *args)``, its ``StackShard`` leaves
+    gathered first.  With ``cfg.remat_layers`` while grad is on it runs
+    under a checkpoint, the reference's ``jax.checkpoint`` of each layer
+    scan's body: the backward keeps the layer's inputs and recomputes
+    the rest, the gather included (the layers draw no random numbers,
+    so no RNG state is kept)."""
+    if cfg.remat_layers and torch.is_grad_enabled():
+        return checkpoint(_run_layer, fn, p, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return _run_layer(fn, p, *args)
+
+
+def _decoder_layer(p, x, cfg, window=0, mrope_pos=None):
+    """One decoder layer: (x, the MoE aux loss, what the cache holds)."""
+    x, kv = _attn_block(p, x, cfg, window=window, mrope_pos=mrope_pos)
+    x, aux = _ffn_block(p, x, cfg)
+    return x, aux, kv
 
 
 def _run_decoder_stack(stacked, x, cfg, n_layers: int, offset: int = 0,
@@ -305,8 +353,7 @@ def _run_decoder_stack(stacked, x, cfg, n_layers: int, offset: int = 0,
     for i, j, w in _segment_windows(cfg, n_layers, offset, seq_len):
         kvs = []
         for p in layers[i:j]:
-            x, kv = _attn_block(p, x, cfg, window=w, mrope_pos=mrope_pos)
-            x, a = _ffn_block(p, x, cfg)
+            x, a, kv = _layer(cfg, _decoder_layer, p, x, cfg, w, mrope_pos)
             aux = aux + a
             if collect_kv:
                 kvs.append(kv)
@@ -397,18 +444,16 @@ def forward_train(params: Params, cfg: ArchConfig, batch) -> tuple:
     if cfg.family == "hybrid":
         layers = unstack(params["mamba_layers"], cfg.n_layers)
         for i, j in hybrid_groups(cfg):
-            x, _ = _attn_block(params["shared_attn"], x, cfg)
-            x, _ = _ffn_block(params["shared_attn"], x, cfg)
+            x, _, _ = _decoder_layer(params["shared_attn"], x, cfg)
             for p in layers[i:j]:
-                x = mamba_layer(p, x, cfg)
+                x = _layer(cfg, mamba_layer, p, x, cfg)
     out = {"moe_aux": aux}
     if cfg.mtp and "mtp" in params:
         mtp = params["mtp"]
         nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
         h = torch.cat([norm(x, mtp["norm"], cfg.norm),
                        _embed(params, cfg, nxt)], dim=-1) @ mtp["proj"]
-        h, _ = _attn_block(mtp["block"], h, cfg, window=0)
-        h, _ = _ffn_block(mtp["block"], h, cfg)
+        h, _, _ = _decoder_layer(mtp["block"], h, cfg)
         out["mtp_logits"] = _logits(params, cfg, h)
     return _logits(params, cfg, x), out
 
@@ -431,10 +476,14 @@ def _encode(params, cfg, frame_embeds):
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  device=x.device)[None].to(x.dtype)
     for p in unstack(params["enc_layers"], cfg.n_enc_layers):
-        y, _ = attn.gqa_forward(p["attn"], norm(x, p["ln1"], cfg.norm), cfg,
-                                causal=False)
-        x, _ = _ffn_block(p, x + y, cfg)
+        x = _layer(cfg, _encoder_layer, p, x, cfg)
     return norm(x, params["enc_norm"], cfg.norm)
+
+
+def _encoder_layer(p, x, cfg):
+    y, _ = attn.gqa_forward(p["attn"], norm(x, p["ln1"], cfg.norm), cfg,
+                            causal=False)
+    return _ffn_block(p, x + y, cfg)[0]
 
 
 def _enc_kv(p, enc, cfg):
@@ -446,26 +495,29 @@ def _enc_kv(p, enc, cfg):
             (enc @ p["cross"]["wv"]).reshape(B, F_, K, hd))
 
 
+def _encdec_layer(p, x, enc, cfg):
+    """One decoder layer: (x, its self-attention's (k, v) and its cross
+    attention's (k, v))."""
+    y, (k, v) = attn.gqa_forward(p["attn"], norm(x, p["ln1"], cfg.norm), cfg)
+    x = x + y
+    ek, ev = _enc_kv(p, enc, cfg)
+    x = x + attn.gqa_cross_forward(
+        p["cross"], norm(x, p["ln_cross"], cfg.norm), ek, ev, cfg)
+    x, _ = _ffn_block(p, x, cfg)
+    return x, (k, v, ek, ev)
+
+
 def run_encdec_decoder(params, cfg, x, enc, collect: bool = False):
     """The decoder layers over x [B, S, D] (positions added): causal
     self-attention, cross attention over ``enc`` [B, F, D], the MLP.
     Returns (x, kvs): with ``collect`` the self-attention's (k, v) and the
     cross attention's (k, v) of every layer, stacked [L, B, S | F, K,
     hd], for prefill to cache; else None."""
-    ks, vs, eks, evs = [], [], [], []
+    kvs = []
     for p in unstack(params["dec_layers"], cfg.n_layers):
-        y, (k, v) = attn.gqa_forward(p["attn"], norm(x, p["ln1"], cfg.norm),
-                                     cfg)
-        x = x + y
-        ek, ev = _enc_kv(p, enc, cfg)
-        x = x + attn.gqa_cross_forward(
-            p["cross"], norm(x, p["ln_cross"], cfg.norm), ek, ev, cfg)
-        x, _ = _ffn_block(p, x, cfg)
+        x, kv = _layer(cfg, _encdec_layer, p, x, enc, cfg)
         if collect:
-            ks.append(k)
-            vs.append(v)
-            eks.append(ek)
-            evs.append(ev)
+            kvs.append(kv)
     if not collect:
         return x, None
-    return x, tuple(torch.stack(t) for t in (ks, vs, eks, evs))
+    return x, tuple(torch.stack(t) for t in zip(*kvs))

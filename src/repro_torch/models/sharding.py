@@ -298,6 +298,14 @@ def _is_stacked(path: str) -> bool:
         r"dec_layers)/", path))
 
 
+def stacked_leaves(params) -> list:
+    """Per leaf of ``params`` in ``tree_leaves`` order, whether it is a
+    leaf of a layer stack (its leading axis the layers')."""
+    from repro_torch.train.optimizer import tree_leaves
+    return tree_leaves(_map_with_path(
+        lambda path, _: _is_stacked(_path_str(path)), params))
+
+
 def params_shardings(params, mesh, mode: str = "train"):
     """A tree of ``Spec`` in the structure of ``params``."""
     def spec_of(path, leaf):

@@ -8,18 +8,28 @@ that ``state_shardings`` names, as DTensors (``shard_state``);
 ``AdamState.step`` stays on the host.
 
 One step (``make_sharded_train_step``):
-  1. gather every param leaf (``full_tensor``), the whole tree at once;
+  1. gather the param leaves outside the layer stacks (embeddings, head,
+     norms, the hybrid's shared block, the MTP head) from their shards;
   2. run the port's own loss and backward on this rank's rows as
      ``batch_shardings`` places them: its share along the data-parallel
-     axes where they divide B, else every row (the rows are replicated);
-  3. sum the gradients over the data-parallel axes (``Partial``) and
-     redistribute them to the params' placements: a reduce-scatter where
-     a leaf is sharded over ``data``, a slice where it is sharded over
-     ``model``.  The ranks of a ``model`` row ran the same rows and hold
-     the same gradients, so nothing is summed over ``model`` (under
-     expert parallelism each holds its own experts' rows of an expert
-     leaf, the rows its shard keeps); with replicated rows nothing is
-     summed at all;
+     axes where they divide B, else every row (the rows are replicated).
+     A stacked leaf reaches the model as its shard
+     (``backbone.StackShard``): each layer gathers its own slice when it
+     runs, inside that layer's checkpoint under ``cfg.remat_layers``, so
+     the backward gathers it again, as XLA gathers a stacked leaf's
+     layer inside the reference's layer scan.  With ``remat_layers`` a
+     rank holds its shards, the leaves outside the stacks, one gathered
+     layer (two while the backward gathers one again), the layers'
+     inputs and one layer's recompute;
+  3. each gather's backward sums its gradient over the data-parallel
+     axes (``Partial``) and cuts it to the leaf's placements: a
+     reduce-scatter where a leaf is sharded over ``data``, a slice where
+     it is sharded over ``model``, one layer at a time, so no whole
+     gradient of a stacked leaf is ever alive.  The ranks of a ``model``
+     row ran the same rows and hold the same gradients, so nothing is
+     summed over ``model`` (under expert parallelism each holds its own
+     experts' rows of an expert leaf, the rows its shard keeps); with
+     replicated rows nothing is summed at all;
   4. Adam on the local shards, clipped by the global gradient norm: the
      local shards' squares summed over the mesh, a leaf's replicated
      copies counted once.
@@ -33,13 +43,14 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.models.backbone import StackShard
 from repro_torch.models.sharding import _axis_size, _sizes, \
     activation_sharding, axis_names, batch_shardings, distribute, dp_axes, \
-    groups, state_shardings
+    groups, stacked_leaves, state_shardings
 from repro_torch.train.optimizer import AdamState, adam_update, \
-    tree_leaves, tree_map
+    tree_leaves, tree_map, tree_unflatten
 from repro_torch.train.trainstep import TrainState, make_loss_fn, \
     value_and_grad
 
@@ -69,15 +80,68 @@ def local_rows(batch, mesh):
     return {k: v[i * n:(i + 1) * n] for k, v in batch.items()}, True
 
 
-def _reduce_grad(g, placements, mesh, split: bool):
-    """This rank's gradient of a whole leaf -> its shard of the global
-    gradient: summed over the data-parallel axes when the rows are
-    split, then cut to ``placements``."""
-    dp = dp_axes(mesh)
-    src = [Partial() if split and a in dp else Replicate()
-           for a in axis_names(mesh)]
-    return DTensor.from_local(g, mesh, src, run_check=False).redistribute(
-        mesh, placements).to_local()
+class _Gather(torch.autograd.Function):
+    """A leaf's whole tensor from this rank's shard forward
+    (``way.gather``); its gradient cut back to the shard backward
+    (``way.reduce``)."""
+
+    @staticmethod
+    def forward(ctx, local, way):
+        ctx.way = way
+        return way.gather(local)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.way.reduce(grad), None
+
+
+class MeshWay:
+    """How one leaf moves on ``mesh``: its shard gathered from the ranks
+    (``full_tensor``); this rank's gradient of the whole leaf summed over
+    the data-parallel axes when the rows are ``split``, then cut to the
+    leaf's placements.  ``layer()`` is the way of one layer's slice of a
+    stacked leaf, whose leading (layer) axis is never sharded."""
+
+    def __init__(self, mesh, placements, split: bool):
+        self.mesh, self.placements, self.split = mesh, placements, split
+
+    def gather(self, local):
+        out = DTensor.from_local(local.detach(), self.mesh, self.placements,
+                                 run_check=False).full_tensor()
+        return local.view_as(local) if out.data_ptr() == local.data_ptr() \
+            else out
+
+    def reduce(self, grad):
+        src = [Partial() if self.split and a in dp_axes(self.mesh)
+               else Replicate() for a in axis_names(self.mesh)]
+        out = DTensor.from_local(grad, self.mesh, src, run_check=False
+                                 ).redistribute(self.mesh,
+                                                self.placements).to_local()
+        if out.numel() < grad.numel() and out.untyped_storage().data_ptr() \
+                == grad.untyped_storage().data_ptr():
+            out = out.clone()       # a slice would keep the whole alive
+        return out
+
+    def layer(self) -> "MeshWay":
+        return MeshWay(self.mesh, [Shard(p.dim - 1) if isinstance(p, Shard)
+                                   else p for p in self.placements],
+                       self.split)
+
+
+def gathered_params(local, ways, stacked):
+    """The params tree the loss runs on, from this rank's shards
+    ``local`` (with grad): a leaf outside the layer stacks gathered now,
+    a stacked leaf (``stacked``, per leaf) as a ``StackShard`` whose
+    layers the model gathers one at a time.  Each gather's backward
+    reduces its gradient to the shard.  ``ways`` holds a leaf's way
+    (``gather``, ``reduce`` and ``layer()``, as ``MeshWay``)."""
+    def placed(t, way, is_stacked):
+        if not is_stacked:
+            return _Gather.apply(t, way)
+        one = way.layer()
+        return StackShard(t, lambda x: _Gather.apply(x, one))
+    return tree_unflatten(local, [placed(*a) for a in zip(
+        tree_leaves(local), ways, stacked)])
 
 
 def sharded_global_norm(local_grads, placements, mesh):
@@ -117,40 +181,42 @@ def make_sharded_train_step(cfg, mesh, *, lr=2e-7, rho=4.0,
             raise ValueError(f"batch of {B} does not split into "
                              f"{accum_steps} microbatches")
         mb = B // accum_steps
+        def to_local(tree):
+            return tree_map(lambda t: t.to_local(), tree)
+
         placements = [t.placements for t in tree_leaves(state.params)]
-        full = tree_map(lambda t: t.full_tensor(), state.params)
-        grads = None
+        stacked = stacked_leaves(state.params)
+        local = to_local(state.params)
+        local_g = None
         for i in range(accum_steps):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             rows, split = local_rows(micro, mesh)
+            ways = [MeshWay(mesh, pl, split) for pl in placements]
+
+            def sharded_loss(p, b):
+                return loss_fn(gathered_params(p, ways, stacked), b)
+
             with activation_sharding(mesh, split_rows=split):
-                (_, metrics), g = value_and_grad(loss_fn, full, rows)
+                (_, metrics), g = value_and_grad(sharded_loss, local, rows)
+            g = tree_leaves(g)
             if accum_steps == 1:
-                grads = g
+                local_g = g
             else:
-                if grads is None:
-                    grads = tree_map(lambda p: torch.zeros(
-                        p.shape, dtype=torch.float32, device=p.device), full)
-                tree_map(lambda a, b: a.add_(b), grads, g)
+                if local_g is None:
+                    local_g = [torch.zeros(t.shape, dtype=torch.float32,
+                                           device=t.device) for t in g]
+                for a, b in zip(local_g, g):
+                    a.add_(b)
             del g
-        del full
         if accum_steps > 1:
-            tree_map(lambda g: g.div_(accum_steps), grads)
-        with torch.no_grad():
-            local_g = [_reduce_grad(g, pl, mesh, split) for g, pl in
-                       zip(tree_leaves(grads), placements)]
-        del grads
+            for g in local_g:
+                g.div_(accum_steps)
         gn = sharded_global_norm(local_g, placements, mesh)
         step_lr = lr_fn(state.opt.step) if lr_fn is not None else lr
-
-        def local(tree):
-            return tree_map(lambda t: t.to_local(), tree)
-
-        it = iter(local_g)
         params, opt, opt_metrics = adam_update(
-            local(state.params), tree_map(lambda _: next(it), state.params),
-            AdamState(state.opt.step, local(state.opt.m),
-                      local(state.opt.v)),
+            local, tree_unflatten(state.params, local_g),
+            AdamState(state.opt.step, to_local(state.opt.m),
+                      to_local(state.opt.v)),
             lr=step_lr, weight_decay=weight_decay,
             max_grad_norm=max_grad_norm, grad_norm=gn)
 

@@ -2,12 +2,15 @@
 a spawned mesh runs.  It imports torch and the port only, so a spawned
 rank starts without JAX."""
 import json
+import weakref
 
 import numpy as np
 import torch
 
 LR, STEPS = 1e-3, 2
 MOE_ARCHS = ("llama4-scout-17b-a16e", "deepseek-v3-671b")
+# the cases that also run with remat_layers on every mesh
+REMAT = ("llama", "dsv3")
 
 
 def paths(tree, prefix=()):
@@ -39,6 +42,79 @@ def _expected_shard(full, spec, mesh):
     return full[tuple(idx)]
 
 
+class _LayerMeter:
+    """While entered, counts the sharded step's one-layer gathers
+    (``MeshWay.layer()``'s ways): how many, the most bytes of gathered
+    layer slices alive at once in the forward and over the whole step,
+    and the most bytes of whole layer gradients alive at once as the
+    backward hands them to the reductions.  Each is followed from its
+    storage's allocation to its release."""
+
+    def __init__(self):
+        self.n = self.live = self.fwd_peak = self.peak = 0
+        self.grad_live = self.grad_peak = 0
+
+    def _hold(self, t, attr, peaks):
+        n = t.untyped_storage().nbytes()
+        setattr(self, attr, getattr(self, attr) + n)
+        for p in peaks:
+            setattr(self, p, max(getattr(self, p), getattr(self, attr)))
+        weakref.finalize(t.untyped_storage(), lambda: setattr(
+            self, attr, getattr(self, attr) - n))
+
+    def __enter__(self):
+        from torch.distributed.tensor import Shard
+
+        from repro_torch.train import sharded
+        meter, self._real = self, sharded.MeshWay.layer
+
+        class Counted(sharded.MeshWay):
+            def gather(self, local):
+                out = super().gather(local)
+                if out.data_ptr() != local.data_ptr():
+                    meter.n += 1
+                    fwd = torch._C._current_graph_task_id() == -1
+                    meter._hold(out, "live", ("peak", "fwd_peak") if fwd
+                                else ("peak",))
+                return out
+
+            def reduce(self, grad):
+                if any(isinstance(p, Shard) and self.mesh.size(i) > 1
+                       for i, p in enumerate(self.placements)):
+                    meter._hold(grad, "grad_live", ("grad_peak",))
+                return super().reduce(grad)
+
+        def layer(way):
+            one = meter._real(way)
+            return Counted(one.mesh, one.placements, one.split)
+
+        sharded.MeshWay.layer = layer
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import sharded
+        sharded.MeshWay.layer = self._real
+
+    def summary(self) -> dict:
+        return {k: getattr(self, k) for k in
+                ("n", "fwd_peak", "peak", "grad_peak")}
+
+
+def _layer_bytes(state) -> int:
+    """The most bytes one layer's sharded stacked leaves take whole."""
+    from repro_torch.models.sharding import stacked_leaves
+    from repro_torch.train.optimizer import tree_leaves
+    per = {}
+    for key, tree in state.params.items():
+        leaves = tree_leaves(tree)
+        if not all(stacked_leaves({key: tree})):
+            continue
+        per[key] = sum(t.numel() * t.element_size() for t in leaves
+                       if t.to_local().numel() < t.numel()) \
+            // leaves[0].shape[0]
+    return max(per.values())
+
+
 def _moe_checks(mesh, arch, ref, out):
     """ep and ep_shmap against gathered on an installed mesh: logits,
     moe_aux and every gradient (an expert leaf's rows summed over
@@ -55,17 +131,18 @@ def _moe_checks(mesh, arch, ref, out):
     ffn.moe_forward_shmap = lambda *a: calls.append(1) or real(*a)
     got = {}
     try:
-        for mode in ("gathered", "ep", "ep_shmap"):
+        for mode in ("gathered", "ep", "ep_shmap", "ep_shmap_remat"):
             leaves = [t.detach().requires_grad_()
                       for t in tree_leaves(params)]
+            c = cfg.replace(moe_mode=mode.removesuffix("_remat"),
+                            remat_layers=mode.endswith("_remat"))
             with activation_sharding(mesh):
-                lg, aux = forward_train(tree_unflatten(params, leaves),
-                                        cfg.replace(moe_mode=mode),
+                lg, aux = forward_train(tree_unflatten(params, leaves), c,
                                         {"tokens": torch.as_tensor(
                                             ref["tokens"])})
                 loss = lg.square().mean() + aux["moe_aux"]
-            g = list(torch.autograd.grad(loss, leaves, allow_unused=True,
-                                         materialize_grads=True))
+                g = list(torch.autograd.grad(
+                    loss, leaves, allow_unused=True, materialize_grads=True))
             if mode != "gathered":
                 for i, p in enumerate(names):
                     if p.split("/")[-2:] in (["moe", "w_gate"],
@@ -78,12 +155,12 @@ def _moe_checks(mesh, arch, ref, out):
         ffn.moe_forward_shmap = real
     base = got["gathered"]
     res = {"ep_calls": len(calls),
-           "want_calls": 2 * (cfg.n_layers - cfg.moe.first_k_dense),
+           "want_calls": 4 * (cfg.n_layers - cfg.moe.first_k_dense),
            "jax_logits": float(np.max(np.abs(base[0].numpy()
                                              - ref["logits"]))),
            "jax_aux": abs(base[1] - ref["moe_aux"]),
            "logit_scale": float(np.max(np.abs(ref["logits"])))}
-    for mode in ("ep", "ep_shmap"):
+    for mode in ("ep", "ep_shmap", "ep_shmap_remat"):
         lg, aux, g = got[mode]
         res[mode] = {
             "logits": (lg - base[0]).abs().max().item(),
@@ -111,32 +188,44 @@ def _mesh_checks(mesh, name, cases, runs, ckpt, out):
     res = out[name] = {"mesh": [list(mesh.shape), list(mesh.mesh_dim_names)],
                        "steps": {}}
     shards_ok, arrays = [], {}
-    for case, arch, B, accum, kl in cases:
-        run = runs[case]
-        cfg = smoke() if arch == "llama31-8b" else configs.get_smoke(arch)
-        batch = {k: torch.as_tensor(v) for k, v in run["batch"].items()}
-        step = make_sharded_train_step(cfg, mesh, lr=LR, kl_coef=kl,
-                                       accum_steps=accum)
-        res["steps"][case] = []
-        for k, trees in enumerate(run["states"][:STEPS]):
-            params, m, v = (convert.from_jax_numpy(t, device="cpu")
-                            for t in trees)
-            state = shard_state(TrainState(params, AdamState(k, m, v)), mesh)
-            specs = paths(params_shardings(params, mesh, "train"))
-            for full, tree in ((params, state.params), (m, state.opt.m),
-                               (v, state.opt.v)):
-                full = paths(full)
-                for p, t in paths(tree).items():
-                    shards_ok.append(torch.equal(t.to_local(), _expected_shard(
-                        full[p], specs[p], mesh)))
-            state, metrics = step(state, batch)
-            res["steps"][case].append(
-                [{n: float(x) for n, x in metrics.items()}, state.opt.step])
-            for part, tree in (("params", state.params), ("m", state.opt.m),
-                               ("v", state.opt.v)):
-                for p, t in paths(tree).items():
-                    arrays[f"{name}|{case}|{k}|{part}|{p}"] = \
-                        t.full_tensor().numpy()
+    for base, arch, B, accum, kl in cases:
+        run = runs[base]
+        for remat in (False, True) if base in REMAT else (False,):
+            case = base + "_remat" * remat
+            cfg = smoke() if arch == "llama31-8b" \
+                else configs.get_smoke(arch)
+            cfg = cfg.replace(remat_layers=remat)
+            batch = {k: torch.as_tensor(v) for k, v in run["batch"].items()}
+            step = make_sharded_train_step(cfg, mesh, lr=LR, kl_coef=kl,
+                                           accum_steps=accum)
+            res["steps"][case] = []
+            meter = _LayerMeter()
+            for k, trees in enumerate(run["states"][:STEPS]):
+                params, m, v = (convert.from_jax_numpy(t, device="cpu")
+                                for t in trees)
+                state = shard_state(TrainState(params, AdamState(k, m, v)),
+                                    mesh)
+                specs = paths(params_shardings(params, mesh, "train"))
+                for full, tree in ((params, state.params), (m, state.opt.m),
+                                   (v, state.opt.v)):
+                    full = paths(full)
+                    for p, t in paths(tree).items():
+                        shards_ok.append(torch.equal(
+                            t.to_local(),
+                            _expected_shard(full[p], specs[p], mesh)))
+                layer_bytes = _layer_bytes(state)
+                with meter:
+                    state, metrics = step(state, batch)
+                res["steps"][case].append(
+                    [{n: float(x) for n, x in metrics.items()},
+                     state.opt.step])
+                for part, tree in (("params", state.params),
+                                   ("m", state.opt.m), ("v", state.opt.v)):
+                    for p, t in paths(tree).items():
+                        arrays[f"{name}|{case}|{k}|{part}|{p}"] = \
+                            t.full_tensor().numpy()
+            res.setdefault("layers", {})[case] = dict(
+                meter.summary(), layer_bytes=layer_bytes)
     # the first case's init, saved by rank 0 and restored onto the mesh
     # by every rank, fp32 and bf16, bit for bit
     params = paths(convert.from_jax_numpy(runs[cases[0][0]]["states"][0][0],

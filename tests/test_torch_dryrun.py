@@ -16,8 +16,17 @@ against the JAX package.
   counts products only and XLA elementwise work too, 2.7% more here
   (measured ratio 0.9734), so the port's count lies within [0.95, 1.0]
   of XLA's.
-* The CLI runs one full-size combo (starcoder2-3b, train_4k, a (1, 1)
-  mesh) and writes its JSON record.
+* ``remat`` (the reference's ``remat_layers``) on the llama31 smoke's
+  train step on a (data 2) mesh: autograd keeps the layers' inputs in
+  place of what the layers save, so the saved bytes are what the
+  forward saves outside the layers plus one boundary a layer, each
+  measured from ``--no-remat`` records at 1 and 2 layers; the peak
+  drops, the FLOPs grow by the recompute, and each stacked leaf is
+  gathered twice (the recompute's gather) while its gradient is
+  reduced once.
+* ``llama31-8b`` lowers by name, as the launcher takes it; the CLI runs
+  one full-size combo (starcoder2-3b, train_4k, a (1, 1) mesh) and
+  writes its JSON record.
 
 Only ``inputspecs``, ``models.sharding`` and the train step of the
 reference are imported: ``repro.launch.dryrun`` sets ``XLA_FLAGS`` when
@@ -197,6 +206,43 @@ def test_train_step_flops_against_xla():
     rec = dryrun.analyse(cfg, shape, lowered, mesh)
     ratio = rec["flops_per_device"] / cost["flops"]
     assert 0.95 <= ratio <= 1.0, ratio
+
+
+def test_remat_keeps_the_layer_boundaries():
+    mesh = dryrun.production_mesh(mesh_shape=(2, 1))
+    B, T = 4, 32
+
+    def record(n_layers, remat):
+        cfg, shape, lowered = dryrun.lower_combo(
+            llama_smoke().replace(n_layers=n_layers),
+            ShapeSpec("t", T, B, "train"), mesh, dtype=torch.float32,
+            remat=remat)
+        return dryrun.analyse(cfg, shape, lowered, mesh)
+
+    one, off, on = record(1, False), record(2, False), record(2, True)
+    layer = off["saved_bytes"] - one["saved_bytes"]     # one layer's saves
+    outside = one["saved_bytes"] - layer
+    boundary = (B // 2) * T * llama_smoke().d_model * 4
+    assert on["rows_per_device"] == B // 2 and boundary < layer
+    assert on["saved_bytes"] == outside + 2 * boundary
+    assert on["saved_bytes"] < off["saved_bytes"]
+    assert on["peak_bytes_per_device"] < off["peak_bytes_per_device"]
+    assert on["argument_bytes"] == off["argument_bytes"]
+    assert on["flops_per_device"] > off["flops_per_device"]
+    # on (2, 1) only the layers' FSDP leaves are sharded
+    assert on["collectives"]["all-gather"] == \
+        2 * off["collectives"]["all-gather"] > 0
+    assert on["collectives"]["reduce-scatter"] == \
+        off["collectives"]["reduce-scatter"] > 0
+
+
+def test_llama31_8b_lowers_by_name():
+    """``llama31-8b``, the paper's policy outside the registry, by name
+    as the launcher takes it."""
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    cfg, _, lowered = dryrun.lower_combo("llama31-8b", "train_4k",
+                                         dryrun.production_mesh("pod1"))
+    assert cfg.name == LLAMA31_8B.name and lowered.rows == 16
 
 
 def test_cli_writes_a_full_size_record(tmp_path, capsys):

@@ -16,8 +16,16 @@ of it (a gradient element near Adam's eps moves its param by about lr
 whatever its fp32 noise); deepseek-v3's MLA + MoE + MTP smoke within
 tests/test_torch_mla.py's 1e-4, its updates all within 2 lr.  (Chained, the second step starts from
 the first's fp32 noise, which Adam lifts to lr-sized moves: the port's
-one-device step drifts from JAX's past these bounds the same way.)  The expert-parallel modes hold to the
-gathered one within tests/test_moe_ep.py's 1e-4."""
+one-device step drifts from JAX's past these bounds the same way.)  The
+cases of ``REMAT`` run again with ``remat_layers`` and hold to the same
+JAX steps; the ranks count the step's one-layer gathers: with
+``remat_layers`` at most one layer's gathered slices are alive at once
+in the forward (two over the step, while the backward gathers again),
+each layer is gathered twice, and the whole gradients a backward hands
+to the reductions never outgrow one layer's.  The expert-parallel modes,
+ep_shmap also under ``remat_layers`` (its recompute runs the EP
+collectives again), hold to the gathered one within
+tests/test_moe_ep.py's 1e-4."""
 import json
 import os
 
@@ -32,7 +40,7 @@ from repro.configs import llama_paper as jllama
 from repro.models import forward_train as jforward
 from repro.models import init_params as jinit
 from repro.train import trainstep as jts
-from _sharded_ranks import LR, MOE_ARCHS, STEPS, paths, rank_main
+from _sharded_ranks import LR, MOE_ARCHS, REMAT, STEPS, paths, rank_main
 
 # (name, arch, rows, accum_steps, kl_coef): llama31 smoke with its two
 # microbatches' rows split over data (2 % 2 == 0), and replicated
@@ -139,36 +147,55 @@ def _check_steps(res, arrays, name, runs, cases):
     as a policy loss that cancels across rows, is held absolutely; an
     update's error is counted past one fp32 ulp of its param, the
     rounding of a norm weight near 1 under an update of lr)."""
-    for case, arch, B, accum, kl in cases:
-        run, tol = runs[case], TOL[arch]
-        for k, (metrics, adam_step) in enumerate(res["steps"][case]):
-            want = run["metrics"][k]
-            assert adam_step == k + 1          # Adam's step, on the host
-            assert set(metrics) == set(want)
-            for n in ("loss", "grad_norm", "mean_ratio", "mean_logp",
-                      "total_loss") + (("mtp_loss", "moe_aux")
-                                       if "mtp_loss" in want else ()):
-                assert abs(metrics[n] - want[n]) <= \
-                    tol * max(abs(want[n]), 1.0), (case, k, n)
-            before = [paths(t) for t in run["states"][k]]
-            after = [paths(t) for t in run["states"][k + 1]]
-            for i, part in enumerate(("params", "m", "v")):
-                for p, j in after[i].items():
-                    t = arrays[name, case, str(k), part, p]
-                    if part != "params":
-                        assert np.max(np.abs(t - j)) <= \
-                            tol * max(np.max(np.abs(j)), 1e-30), \
-                            (case, k, part, p)
-                        continue
-                    o = before[0][p]
-                    dj = np.asarray(j, np.float64) - o
-                    dt = t.astype(np.float64) - o
-                    big = np.max(np.abs(dj))
-                    assert 0.5 * LR < big < 2 * LR, (case, k, p, big)
-                    ulp = np.spacing(np.abs(j).astype(np.float32))
-                    err = np.maximum(np.abs(dt - dj) - ulp, 0) / big
-                    assert err.max() <= WORST[arch], (case, k, p, err.max())
-                    assert np.quantile(err, 0.99) <= tol, (case, k, p)
+    for base, arch, B, accum, kl in cases:
+        for case in (base, base + "_remat") if base in REMAT else (base,):
+            _check_case(res, arrays, name, runs[base], case, arch)
+
+
+def _check_case(res, arrays, name, run, case, arch):
+    tol = TOL[arch]
+    for k, (metrics, adam_step) in enumerate(res["steps"][case]):
+        want = run["metrics"][k]
+        assert adam_step == k + 1          # Adam's step, on the host
+        assert set(metrics) == set(want)
+        for n in ("loss", "grad_norm", "mean_ratio", "mean_logp",
+                  "total_loss") + (("mtp_loss", "moe_aux")
+                                   if "mtp_loss" in want else ()):
+            assert abs(metrics[n] - want[n]) <= \
+                tol * max(abs(want[n]), 1.0), (case, k, n)
+        before = [paths(t) for t in run["states"][k]]
+        after = [paths(t) for t in run["states"][k + 1]]
+        for i, part in enumerate(("params", "m", "v")):
+            for p, j in after[i].items():
+                t = arrays[name, case, str(k), part, p]
+                if part != "params":
+                    assert np.max(np.abs(t - j)) <= \
+                        tol * max(np.max(np.abs(j)), 1e-30), \
+                        (case, k, part, p)
+                    continue
+                o = before[0][p]
+                dj = np.asarray(j, np.float64) - o
+                dt = t.astype(np.float64) - o
+                big = np.max(np.abs(dj))
+                assert 0.5 * LR < big < 2 * LR, (case, k, p, big)
+                ulp = np.spacing(np.abs(j).astype(np.float32))
+                err = np.maximum(np.abs(dt - dj) - ulp, 0) / big
+                assert err.max() <= WORST[arch], (case, k, p, err.max())
+                assert np.quantile(err, 0.99) <= tol, (case, k, p)
+
+
+def _check_layers(res):
+    """The one-layer gathers of each ``REMAT`` case, without and with
+    ``remat_layers`` (bytes of one rank)."""
+    for base in REMAT:
+        off, on = res["layers"][base], res["layers"][base + "_remat"]
+        one = on["layer_bytes"]
+        assert off["layer_bytes"] == one > 0, (base, off, on)
+        assert off["n"] > 0 and on["n"] == 2 * off["n"], (base, off, on)
+        assert 0 < on["fwd_peak"] <= one < off["fwd_peak"], (base, off, on)
+        assert on["peak"] <= 2 * one, (base, on)
+        for r in (off, on):
+            assert 0 < r["grad_peak"] <= one, (base, r)
 
 
 def _check_moe(res):
@@ -177,7 +204,7 @@ def _check_moe(res):
         assert r["ep_calls"] == r["want_calls"] > 0, r
         assert r["jax_logits"] <= 1e-5 * max(1.0, r["logit_scale"]), r
         assert r["jax_aux"] <= 1e-6, r
-        for mode in ("ep", "ep_shmap"):
+        for mode in ("ep", "ep_shmap", "ep_shmap_remat"):
             assert r[mode]["logits"] <= 1e-4 and r[mode]["aux"] <= 1e-4 \
                 and r[mode]["grad"] <= 1e-4, (arch, mode, r[mode])
 
@@ -185,21 +212,24 @@ def _check_moe(res):
 def test_sharded_on_data2_model2(ranks):
     """(data 2, model 2): every shard of the state and of a restored
     checkpoint (fp32 and bf16) is the slice its spec names; each case's
-    two sharded steps equal the JAX steps; ep and ep_shmap equal gathered
-    with 2 experts a model rank."""
+    two sharded steps, with and without ``remat_layers``, equal the JAX
+    steps; the one-layer gathers; ep and ep_shmap equal gathered with 2
+    experts a model rank."""
     jax_runs, res, arrays = ranks
     r = res["data2_model2"]
     assert r["mesh"] == [[2, 2], ["data", "model"]]
     n, ok = r["shards_ok"]
     assert ok and n > 0
     _check_steps(r, arrays, "data2_model2", jax_runs, CASES)
+    _check_layers(r)
     _check_moe(r)
 
 
 def test_sharded_on_model4(ranks):
     """(data 1, model 4) from ``make_dev_mesh``: the submeshes split the
     world 2 + 2 and the production mesh refuses a world of 4; the split
-    cases' sharded steps; ep and ep_shmap with 1 expert a model rank."""
+    cases' sharded steps, with and without ``remat_layers``; the
+    one-layer gathers; ep and ep_shmap with 1 expert a model rank."""
     jax_runs, res, arrays = ranks
     r = res["model4"]
     assert r["mesh"] == [[1, 4], ["data", "model"]]
@@ -208,4 +238,5 @@ def test_sharded_on_model4(ranks):
     assert r["shards_ok"][1]
     _check_steps(r, arrays, "model4", jax_runs,
                  [c for c in CASES if c[0] != "llama_rep"])
+    _check_layers(r)
     _check_moe(r)
