@@ -311,6 +311,29 @@ Each phase prints its own lines:
                B1, B2 and B4 must launch on this path ("sharded"), and
                (a)'s first kernel call of each shape is held against the
                plain version
+  [23] tp      tensor-parallel serving: B3 in its partial mode on a
+               rank's [16, 64128] vocabulary shard (col0 64128) and B4 on a
+               rank's heads [4, 2048, 16, 4, 128] held against their plain
+               versions and timed here; then two spawned processes share
+               the card as a (data 1, model 2) mesh of a gloo group over
+               CUDA tensors (NCCL refuses two ranks on one device), each
+               building llama31-8b at full depth in bf16 from a seed in
+               turn and keeping its shard (16 q heads, 4 KV heads, d_ff
+               7168, V 64128; rank 0 first runs the one-card path on the
+               whole tree): (a) a prefill of 16 prompts of 16, TP logits
+               against one card; (b) 32 new tokens, the TP step's log-probs
+               of the one-card tokens (teacher-forced) against the
+               one-card behaviour log-probs within 0.05 nats on average,
+               and the share of equal sampled tokens; (c) B3 on each shard
+               with col0 against fused_sample_split_plain, merged over the
+               ranks against B3 on the whole row (tokens bit for bit,
+               log-probs within 1e-5 relative); (d) 2 layers in fp32 at
+               full width, logits within 1e-4 and tokens identical; (e)
+               the dry run's prediction of a rank's TP prefill at (d)'s
+               config held to the card (bytes, FLOPs, all-reduce bytes).
+               B3 and B4 are counted on the "tp" path (each rank's
+               prefill and rollout) and the first B4 call of each shape
+               is held against chunked_attention
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -327,6 +350,8 @@ result.  Any failed check raises, so the script exits non-zero.
 from __future__ import annotations
 
 import collections
+import dataclasses
+import datetime
 import gc
 import json
 import math
@@ -7323,6 +7348,521 @@ def phase_sharded(torch, dev, batch):
     return launches
 
 
+# --------------------------------- [23] tensor-parallel serving (TP) ---
+
+TP_RANKS = 2                # a (data 1, model 2) mesh on the one card
+TP_ROWS, TP_PROMPT, TP_NEW = 16, 16, 32
+TP_FP32_LAYERS = 2          # (d) and (e): [7]'s depth and dtype
+TP_FP32_NEW = 16
+TP_LP_MEAN = 0.05           # (b): mean |dlogp| of the teacher-forced TP
+TP_FP32_TOL = 1e-4          # (d): [7]'s bound, relative to max(1, |logit|)
+TP_SAMPLE_REL = 1e-5        # (c): merged log-prob against the whole row's
+TP_B4 = (4, 2048, 16, 4, 128)   # B4 on a rank's heads (llama31-8b, TP 2)
+TP_SEED, TP_KEY = 3, 23
+TP_TIMEOUT_S = 600
+
+
+def _tp_cuts(torch, cfg, mesh, params):
+    """This rank's TP shard of the whole ``params`` and its ``TPRank``."""
+    from repro_torch.models.sharding import tp_plan, tp_shard
+    from repro_torch.models.tp import tp_rank
+    return tp_shard(params, mesh, tp_plan(cfg, mesh, params)), \
+        tp_rank(cfg, mesh)
+
+
+def _tp_whole(torch, x, tp):
+    """A rank's [rows, V/m] logits gathered whole (the checks only; the
+    sampling path never gathers them)."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x.contiguous(), group=tp.group)
+    return torch.cat(parts, dim=-1)
+
+
+def _tp_build(torch, cfg, dtype, rank, mesh, dev, yardstick):
+    """Each rank in turn (rank 0 first) builds ``cfg`` whole on the card
+    from TP_SEED, rank 0 runs ``yardstick(params)`` on it, and the rank
+    keeps its shard and frees the rest.  Returns (shard, TPRank, what
+    the yardstick returned)."""
+    import torch.distributed as dist
+
+    from repro_torch.models import init_params
+    got = None
+    for turn in range(TP_RANKS):
+        if turn == rank:
+            params = init_params(cfg, seed=TP_SEED, dtype=dtype, device=dev)
+            if rank == 0:
+                got = yardstick(params)
+            shard, tp = _tp_cuts(torch, cfg, mesh, params)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return shard, tp, got
+
+
+def _tp_prompts(torch, cfg, rows, dev):
+    g = torch.Generator().manual_seed(TP_KEY)
+    return torch.randint(3, cfg.vocab, (rows, TP_PROMPT), generator=g,
+                         dtype=torch.int32).to(dev)
+
+
+def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
+    """One rank of [23]'s (1, 2) mesh on the one card: a gloo group over
+    CUDA tensors (NCCL refuses two ranks on one device).  Writes its
+    results to ``out_path``_<rank>.json.  (``dev_type`` "cpu" runs the
+    same on the CPU, for a rehearsal with the kernels faked.)"""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.flash_attention import chunked_attention
+    from repro_torch.kernels.fused_sample import fused_sample_cuda, \
+        fused_sample_partial_cuda, fused_sample_split_plain, \
+        merge_partials, split_plan
+    from repro_torch.launch import dryrun
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.tp import TPRank
+    from repro_torch.rl import prng
+    from repro_torch.rl.rollout import action_mask, generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" \
+        else torch.device(dev_type)
+    dist.init_process_group("gloo", init_method=rdv, rank=rank,
+                            world_size=TP_RANKS,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    res = {"backend": dist.get_backend()}
+    times = [time.perf_counter()]
+
+    def mark():
+        times.append(time.perf_counter())
+
+    try:
+        mesh = DeviceMesh(dev_type,
+                          torch.arange(TP_RANKS).reshape(1, TP_RANKS),
+                          mesh_dim_names=("data", "model"))
+        cfg = LLAMA31_8B
+        key = prng.PRNGKey(TP_KEY)
+        prompts = _tp_prompts(torch, cfg, TP_ROWS, dev)
+        cache_len = TP_PROMPT + TP_NEW
+
+        def one_card(params):
+            with torch.no_grad():
+                logits, _ = prefill(params, cfg, {"tokens": prompts},
+                                    cache_len, torch.float32)
+                st = generate(params, cfg, prompts, max_new=TP_NEW, key=key,
+                              temperature=1.0)
+            torch.cuda.synchronize()
+            return logits, st
+
+        shard, tp, yard = _tp_build(torch, cfg, torch.bfloat16, rank, mesh,
+                                    dev, one_card)
+        res["held_gb"] = sum(t.numel() * t.element_size()
+                             for t in leaves(shard)) / 1e9
+        res["wq"] = list(shard["layers"]["attn"]["wq"].shape)
+        res["splits"] = [tp.heads, tp.ffn, tp.vocab]
+        mark()
+
+        # B4's calls on this rank's heads, the first of each shape kept
+        flash_calls = {}
+        real_flash = dispatch.flash_attention_cuda
+
+        def recorded(q, k, v):
+            out = real_flash(q, k, v)
+            if tuple(q.shape) not in flash_calls:
+                flash_calls[tuple(q.shape)] = (q.clone(), k.clone(),
+                                               v.clone(), out.clone())
+            return out
+        dispatch.flash_attention_cuda = recorded
+        # (a) + (b): the main path, this phase's launches counted
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            local, _ = prefill(shard, cfg, {"tokens": prompts}, cache_len,
+                               torch.float32, tp=tp)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st = generate(shard, cfg, prompts, max_new=TP_NEW, key=key,
+                          temperature=1.0, tp=tp)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res["launches"] = dict(build.LAUNCHES)
+        dispatch.flash_attention_cuda = real_flash
+        res["prefill_ms"] = (t1 - t0) * 1e3
+        res["decode_ms"] = (t2 - t1) * 1e3 / TP_NEW
+        res["b4"] = {}
+        for s, (q, k, v, o) in flash_calls.items():
+            o_p = chunked_attention(q, k, v).float()
+            res["b4"][str(list(s))] = ((o.float() - o_p).abs()
+                                       / o_p.abs().clamp(min=1.0)).max() \
+                .item()
+        del flash_calls
+        whole = _tp_whole(torch, local, tp)
+        if rank == 0:
+            want, one = yard
+            d = (whole.float() - want.float()).abs()
+            res["a"] = {"max": d.max().item(), "mean": d.mean().item(),
+                        "finite": bool(torch.isfinite(whole).all()),
+                        "scale": want.float().abs().max().item()}
+            res["b_equal"] = (st.tokens == one.tokens)[:, TP_PROMPT:] \
+                .float().mean().item()
+        # (b) teacher-forced: the TP step's log-prob of the one-card tokens
+        toks = torch.empty((TP_ROWS, TP_PROMPT + TP_NEW), dtype=torch.int32,
+                           device=dev)
+        if rank == 0:
+            toks.copy_(yard[1].tokens)
+        dist.broadcast(toks, src=0, group=tp.group)
+        lps = []
+        with torch.no_grad():
+            logits, cache = prefill(shard, cfg, {"tokens": prompts},
+                                    cache_len, torch.float32, tp=tp)
+            for j in range(TP_NEW):
+                full = _tp_whole(torch, logits, tp).float()
+                t = toks[:, TP_PROMPT + j].long()
+                lps.append(torch.log_softmax(full, dim=-1)
+                           .gather(1, t[:, None])[:, 0])
+                logits, cache = decode_step(shard, cfg, cache,
+                                            toks[:, TP_PROMPT + j:
+                                                 TP_PROMPT + j + 1], tp=tp)
+        if rank == 0:
+            one = yard[1]
+            mask = action_mask(one)[:, TP_PROMPT:].bool()
+            d = (torch.stack(lps, 1) - one.behavior_logp[:, TP_PROMPT:]).abs()
+            res["b"] = {"mean": d[mask].mean().item(),
+                        "max": d[mask].max().item(), "n": int(mask.sum())}
+        del cache, logits, lps, st
+        mark()
+
+        # (c) B3 on each shard with col0, merged, against the whole row
+        V = local.shape[1]
+        col0 = tp.rank * V
+        span, _ = split_plan(TP_ROWS, V, build.sm_count(dev))
+        c = {"shape": list(local.shape), "col0": col0}
+        for T in (0.0, 0.7, 1.0):
+            part = fused_sample_partial_cuda(local, key, T, col0=col0)
+            plain = fused_sample_split_plain(local, key, T, span, col0=col0,
+                                             partial=True)
+            c[f"T{T}"] = {
+                "col": bool(torch.equal(part[:, 3], plain[:, 3])),
+                "mx": bool(torch.equal(part[:, [0, 4]], plain[:, [0, 4]])),
+                "z": max_err(part[:, 2], plain[:, 2]),
+                "s": ((part[:, 1] - plain[:, 1]).abs()
+                      / plain[:, 1].abs()).max().item()}
+            parts = [torch.empty_like(part) for _ in range(tp.size)]
+            dist.all_gather(parts, part, group=tp.group)
+            tok, lp = merge_partials(torch.stack(parts))
+            if rank == 0:
+                tok_w, lp_w = fused_sample_cuda(whole, key, T)
+                c[f"T{T}"].update(
+                    tokens=bool(torch.equal(tok, tok_w)),
+                    lp=((lp - lp_w).abs() / lp_w.abs().clamp(min=1e-30))
+                    .max().item())
+        res["c"] = c
+        del local, whole, shard
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark()
+
+        # (d) 2 layers in fp32 at full width: TP against one card
+        cfg2 = cfg.replace(name="llama31-8b-2l", n_layers=TP_FP32_LAYERS)
+
+        def one_card2(params):
+            with torch.no_grad():
+                logits, _ = prefill(params, cfg2, {"tokens": prompts},
+                                    TP_PROMPT, torch.float32)
+                st = generate(params, cfg2, prompts, max_new=TP_FP32_NEW,
+                              key=key, temperature=1.0)
+            return logits, st.tokens
+
+        shard, tp, yard = _tp_build(torch, cfg2, torch.float32, rank, mesh,
+                                    dev, one_card2)
+        with torch.no_grad():
+            local, _ = prefill(shard, cfg2, {"tokens": prompts}, TP_PROMPT,
+                               torch.float32, tp=tp)
+            st = generate(shard, cfg2, prompts, max_new=TP_FP32_NEW, key=key,
+                          temperature=1.0, tp=tp)
+        whole = _tp_whole(torch, local, tp)
+        if rank == 0:
+            want, tokens = yard
+            res["d"] = {"max": (whole - want).abs().max().item(),
+                        "scale": want.abs().max().item(),
+                        "tokens": bool(torch.equal(st.tokens, tokens))}
+        del local, whole, st, yard
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark()
+
+        # (e) the dry run's meta prediction of this rank's TP prefill at
+        # (d)'s config, held to the card: bytes, FLOPs and all-reduces
+        shape = ShapeSpec("tp", TP_PROMPT, TP_ROWS, "prefill")
+        amesh = dryrun.production_mesh(mesh_shape=(1, TP_RANKS))
+        c2, sh, lowered = dryrun.lower_combo(cfg2, shape, amesh,
+                                             dtype=torch.float32)
+        rec = dryrun.analyse(c2, sh, lowered, amesh)
+        counted = {"all-reduce": 0}
+
+        class Counted(TPRank):
+            def reduce(self, x):
+                counted["all-reduce"] += x.numel() * x.element_size()
+                return super().reduce(x)
+        ctp = Counted(**{f.name: getattr(tp, f.name)
+                         for f in dataclasses.fields(TPRank)})
+        held = sum(t.numel() * t.element_size() for t in leaves(shard)) \
+            + prompts.numel() * prompts.element_size()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            out = prefill(shard, cfg2, {"tokens": prompts}, TP_PROMPT,
+                          torch.float32, tp=ctp)
+        torch.cuda.synchronize()
+        temp = torch.cuda.max_memory_allocated() - base
+        del out
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            prefill(shard, cfg2, {"tokens": prompts}, TP_PROMPT,
+                    torch.float32, tp=tp)
+        H, hd, S, L = cfg2.n_heads // tp.size, cfg2.hd, TP_PROMPT, \
+            cfg2.n_layers
+        own = L * 4 * TP_ROWS * H * hd * S * (S + 1) / 2     # B4, causal
+        plain_fwd = L * 4 * TP_ROWS * H * hd * S * S
+        res["e"] = {"pred": {k: rec[k] for k in (
+                        "argument_bytes", "held_bytes", "temp_bytes",
+                        "peak_bytes_per_device", "flops_per_device",
+                        "collectives", "count_s")},
+                    "held": held, "temp": temp, "card_flops":
+                    fc.get_total_flops(), "own": own, "plain_fwd": plain_fwd,
+                    "all_reduce": counted["all-reduce"]}
+        del shard
+        mark()
+        res["seconds"] = [b - a for a, b in zip(times, times[1:])]
+    finally:
+        with open(f"{out_path}_{rank}.json", "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+
+
+def tp_time_shards(torch, dev, records):
+    """B3 in its partial mode on a rank's [16, 64128] bf16 shard (col0
+    64128) and B4 on a rank's heads [4, 2048, 16, 4, 128], each against
+    its plain version, then timed beside it (and B4 beside
+    scaled_dot_product_attention); added to the kernels' records."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import chunked_attention, \
+        flash_attention_cuda
+    from repro_torch.kernels.fused_sample import fused_sample_partial_cuda, \
+        fused_sample_split_plain, split_plan
+    from repro_torch.rl import prng
+    gen = torch.Generator(device=dev).manual_seed(23)
+    B, V = TP_ROWS, V_LLAMA // TP_RANKS
+    x = (torch.randn(B, V, generator=gen, device=dev) * 3).to(torch.bfloat16)
+    key = prng.PRNGKey(TP_KEY)
+    span, n = split_plan(B, V, build.sm_count(dev))
+    part = fused_sample_partial_cuda(x, key, 1.0, col0=V)
+    plain = fused_sample_split_plain(x, key, 1.0, span, col0=V, partial=True)
+    require(torch.equal(part[:, 3], plain[:, 3])
+            and torch.equal(part[:, [0, 4]], plain[:, [0, 4]]),
+            "[23] B3 partial: column, max or logit differ")
+    s_err = ((part[:, 1] - plain[:, 1]).abs() / plain[:, 1]).max().item()
+    require(s_err <= 1e-4, f"[23] B3 partial: s off by {s_err:.2e}")
+
+    def run():
+        return fused_sample_partial_cuda(x, key, 1.0, col0=V)
+    b_ms, b_by = bound(x.numel() * 2 + B * 20,
+                       x.numel() * SAMPLE_OPS_PER_LOGIT, FP32_FLOPS)
+    b3 = {"shape": [B, V], "col0": V, "splits": n, "ms": cuda_ms(torch, run,
+                                                                 50),
+          "kernel_only_ms": kernel_only_ms(torch, run, 20,
+                                           "fused_sample_kernel"),
+          "plain_ms": cuda_ms(torch, lambda: fused_sample_split_plain(
+              x, key, 1.0, span, col0=V, partial=True), 3),
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+          "s_rel_err": s_err}
+    Bq, S, H, K, hd = TP_B4
+    g = torch.Generator(device=dev).manual_seed(sum(TP_B4))
+    q, k, v = (torch.randn(Bq, S, h, hd, generator=g, device=dev)
+               .to(torch.bfloat16) for h in (H, K, K))
+    o = flash_attention_cuda(q, k, v)
+    o_p = chunked_attention(q, k, v)
+    err = ((o.float() - o_p.float()).abs()
+           / o_p.float().abs().clamp(min=1.0)).max().item()
+    require(err <= 3e-2, f"[23] B4 at {list(TP_B4)}: error {err:.3e}")
+
+    def run_flash():
+        return flash_attention_cuda(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2) * 2,
+                       4 * Bq * H * hd * S * (S + 1) / 2, BF16_TENSOR_FLOPS)
+    b4 = {"shape": list(TP_B4), "ms": cuda_ms(torch, run_flash, 10),
+          "kernel_only_ms": kernel_only_ms(torch, run_flash, 3,
+                                           "flash_fwd_wgmma_kernel"),
+          "plain_ms": cuda_ms(torch, lambda: chunked_attention(q, k, v), 3),
+          "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+              qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+          "bound_ms": b_ms, "bound_by": b_by, "max_rel_err": err}
+    for name, r in (("fused_sample", b3), ("flash_attention", b4)):
+        next(x for x in records if x["name"] == name)["tp_shard"] = r
+        log(f"  time {name} on a rank's shard {r['shape']}"
+            + (f" (partial mode, col0 {r['col0']}, {r['splits']} splits)"
+               if name == "fused_sample" else "")
+            + f": {r['ms']:.4f} ms per call ("
+            + ("not measured" if r["kernel_only_ms"] is None
+               else f"{r['kernel_only_ms']:.4f} ms") + " in the kernel), "
+            f"plain {r['plain_ms']:.4f} ms, "
+            + ("" if r["library_ms"] is None
+               else f"library {r['library_ms']:.4f} ms, ")
+            + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            + nvidia_smi())
+    del x, q, k, v, o, o_p, qt, kt, vt
+
+
+def phase_tp(torch, dev, records):
+    """[23]: llama31-8b served tensor-parallel by two spawned ranks
+    sharing the one card as a (data 1, model 2) mesh.  Returns the
+    launch counts of the ranks' main-path runs, summed."""
+    import torch.multiprocessing as mp
+    log(f"[23] tp: llama31-8b on a (data 1, model 2) mesh of two processes "
+        f"on the one card; {nvidia_smi()}")
+    t0 = time.perf_counter()
+    tp_time_shards(torch, dev, records)
+    t1 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = ROOT / "build"
+    d.mkdir(exist_ok=True)
+    rdv = d / f"rendezvous_tp_{os.getpid()}"
+    out = str(d / f"tp_rank_{os.getpid()}")
+    for p in [rdv] + [Path(f"{out}_{r}.json") for r in range(TP_RANKS)]:
+        if p.exists():
+            p.unlink()
+    ctx = mp.start_processes(tp_rank_main, nprocs=TP_RANKS, join=False,
+                             start_method="spawn",
+                             args=("file://" + str(rdv), out))
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            require(time.monotonic() < deadline, "[23] ranks timed out")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        if rdv.exists():
+            rdv.unlink()
+    ranks = []
+    for r in range(TP_RANKS):
+        path = Path(f"{out}_{r}.json")
+        ranks.append(json.loads(path.read_text()))
+        path.unlink()
+    t2 = time.perf_counter()
+    r0 = ranks[0]
+    smi = nvidia_smi()
+    require(all(r["backend"] == "gloo" for r in ranks), "[23] backend")
+    log(f"  process group: {r0['backend']} over CUDA tensors, {TP_RANKS} "
+        f"ranks on one card; each rank holds {r0['held_gb']:.3f} GB (wq "
+        f"{r0['wq']}), splits heads/ffn/vocab {r0['splits']}")
+    require(r0["splits"] == [True, True, True], "[23] llama31-8b splits")
+    a = r0["a"]
+    log(f"  (a) prefill [{TP_ROWS}, {TP_PROMPT}] bf16, TP logits against one "
+        f"card: max|d| {a['max']:.4f}, mean|d| {a['mean']:.5f} (max|logit| "
+        f"{a['scale']:.2f}); TP prefill {r0['prefill_ms']:.1f} ms, decode "
+        f"{r0['decode_ms']:.2f} ms a token on gloo; {smi}")
+    require(a["finite"], "[23] (a) TP logits not finite")
+    b = r0["b"]
+    log(f"  (b) {TP_NEW} new tokens: the TP step's log-probs of the one-card "
+        f"rollout's tokens (teacher-forced) against its behaviour log-probs "
+        f"at {b['n']} actions: mean|d| {b['mean']:.4f} (bound {TP_LP_MEAN}), "
+        f"max|d| {b['max']:.4f}; the TP rollout's own tokens equal to the "
+        f"one card's: {100 * r0['b_equal']:.1f}%")
+    require(b["mean"] <= TP_LP_MEAN, f"[23] (b) mean|dlogp| {b['mean']:.4f}")
+    for r, res in enumerate(ranks):
+        c = res["c"]
+        for T in ("T0.0", "T0.7", "T1.0"):
+            ct = c[T]
+            require(ct["col"] and ct["mx"] and ct["z"] <= 1e-5
+                    and ct["s"] <= 1e-4,
+                    f"[23] (c) rank {r} {T}: B3 partial against the plain "
+                    f"split version: {ct}")
+            if r == 0:
+                require(ct["tokens"] and ct["lp"] <= TP_SAMPLE_REL,
+                        f"[23] (c) {T}: merged against the whole row {ct}")
+        log(f"  (c) rank {r}: B3 partial on {c['shape']} with col0 "
+            f"{c['col0']} against fused_sample_split_plain: columns, max "
+            f"and logits equal, |dz| <= "
+            f"{max(c[T]['z'] for T in ('T0.0', 'T0.7', 'T1.0')):.2e}, s "
+            f"within {max(c[T]['s'] for T in ('T0.0', 'T0.7', 'T1.0')):.2e}"
+            + ("" if r else
+               "; merged over the ranks against B3 on the whole row: tokens "
+               "bit-equal, log-probs within "
+               f"{max(c[T]['lp'] for T in ('T0.0', 'T0.7', 'T1.0')):.2e} "
+               f"relative (bound {TP_SAMPLE_REL:g})"))
+        for s, err in res["b4"].items():
+            require(err <= 3e-2, f"[23] rank {r} B4 {s}: {err:.3e}")
+        log(f"  rank {r}: B4 on its heads {list(res['b4'])} against "
+            f"chunked_attention: max|do|/max(1,|o|) "
+            f"{max(res['b4'].values()):.3e} (tolerance 3e-2); launches "
+            f"{res['launches']}")
+    dd = r0["d"]
+    log(f"  (d) {TP_FP32_LAYERS} layers fp32 at full width: TP logits max|d| "
+        f"{dd['max']:.3e} (max|logit| {dd['scale']:.2f}, bound "
+        f"{TP_FP32_TOL:g} of max(1, |logit|)); tokens of {TP_FP32_NEW} under "
+        f"the same key identical: {dd['tokens']}")
+    require(dd["max"] <= TP_FP32_TOL * max(1.0, dd["scale"]) and dd["tokens"],
+            f"[23] (d) {dd}")
+    e = r0["e"]
+    p = e["pred"]
+    card = e["card_flops"] + e["own"]
+    flop_err = abs(card - p["flops_per_device"]) / p["flops_per_device"]
+    peak = e["held"] + e["temp"]
+    ratio = peak / p["peak_bytes_per_device"]
+    log(f"  (e) dry run of rank 0's TP prefill at (d)'s config (meta, "
+        f"{p['count_s']} s): held {p['held_bytes'] / 1e6:.0f} MB (argument "
+        f"bytes by the reference's rules {p['argument_bytes'] / 1e6:.0f} MB), "
+        f"temp {p['temp_bytes'] / 1e6:.0f} MB, peak "
+        f"{p['peak_bytes_per_device'] / 1e6:.0f} MB, all-reduce "
+        f"{p['collectives'].get('all-reduce', 0) / 1e6:.3f} MB, "
+        f"{p['flops_per_device'] / 1e9:.3f} GFLOP; on the card: held "
+        f"{e['held'] / 1e6:.0f} MB, {e['temp'] / 1e6:.0f} MB above it, peak "
+        f"{peak / 1e6:.0f} MB ({ratio:.3f} of the prediction, band "
+        f"{DRYRUN_BYTES_BAND}), gloo all-reduce {e['all_reduce'] / 1e6:.3f} "
+        f"MB, FlopCounterMode {e['card_flops'] / 1e9:.3f} + B4's own "
+        f"{e['own'] / 1e9:.4f} GFLOP (relative {flop_err:.2e}, tolerance "
+        f"{DRYRUN_FLOP_TOL:g}); the count plus the plain attention's forward "
+        f"less the prediction: "
+        f"{e['card_flops'] + e['plain_fwd'] - p['flops_per_device']:.0f} "
+        "FLOP")
+    require(flop_err <= DRYRUN_FLOP_TOL, f"[23] (e) FLOPs off {flop_err:.2e}")
+    require(DRYRUN_BYTES_BAND[0] <= ratio <= DRYRUN_BYTES_BAND[1],
+            f"[23] (e) peak {peak} against {p['peak_bytes_per_device']}")
+    require(e["all_reduce"] == p["collectives"].get("all-reduce"),
+            "[23] (e) all-reduce bytes")
+    from repro_torch.configs.llama_paper import LLAMA31_8B
+    launches = collections.Counter()
+    for res in ranks:
+        want = {"flash_attention": 2 * LLAMA31_8B.n_layers,
+                "fused_sample": TP_NEW}
+        require(res["launches"] == want,
+                f"[23] launches {res['launches']}, want {want}")
+        launches.update(res["launches"])
+    log(f"  [23] launches {dict(launches)}; {time.perf_counter() - t0:.1f} s "
+        f"(shard timings {t1 - t0:.1f} s, ranks {t2 - t1:.1f} s: "
+        + ", ".join(f"{s:.1f}" for s in r0["seconds"])
+        + " s for build, (a)-(b), (c), (d), (e))")
+    return dict(launches)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: no src/repro_torch beside chip_smoke.py",
@@ -7409,6 +7949,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded_launches = phase_sharded(torch, dev, numerics_batch)
     mark("[22]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches = phase_tp(torch, dev, records)
+    mark("[23]")
 
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "repro"))
@@ -7430,7 +7974,8 @@ def main() -> int:
                    "hybrid": hybrid_launches.get(r["name"], 0),
                    "ssm": ssm_launches.get(r["name"], 0),
                    "audio": audio_launches.get(r["name"], 0),
-                   "sharded": sharded_launches.get(r["name"], 0)}
+                   "sharded": sharded_launches.get(r["name"], 0),
+                   "tp": tp_launches.get(r["name"], 0)}
         r["launches"] = sum(by_path.values())
         r["launches_by_path"] = by_path
         require(r["launches"] > 0, f"{r['name']} never ran on a main path")
@@ -7463,6 +8008,9 @@ def main() -> int:
                          "flash_attention"):
             require(by_path["sharded"] > 0,
                     f"{r['name']} never ran on the sharded path")
+        if r["name"] in ("fused_sample", "flash_attention"):
+            require(by_path["tp"] > 0,
+                    f"{r['name']} never ran on the tensor-parallel path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": records}))
     log(smi)

@@ -15,6 +15,15 @@ Across meshes (``launch/mesh.trainer_generator_submeshes``) the weights
 are broadcast from one rank of the source mesh (``src``) to the target
 mesh's ranks.
 
+The target may be ``sharding.Shardings`` (a mesh and a tree of
+``Spec``), the reference's ``ddma_weight_sync(params, target_shardings)``
+and the paper's hop from the trainer's FSDP shards to the generator's
+tensor-parallel shards (``sharding.tp_plan``): each rank keeps its own
+block of each leaf as a plain tensor on its device, cut from a whole
+leaf (a slice, copied on the device) or redistributed from a DTensor of
+the same mesh (the trainer's shards, gathered over ``data`` only where
+the target replicates), with no host round trip on a card.
+
 ``quantize_dequant`` gives the generator its low-precision weights (the
 paper uses fp8; this is the reference's int8 symmetric per-channel
 fake-quantization, applied once at weight sync, with no int8 kernel).
@@ -30,15 +39,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.models.sharding import Shardings, rank_device, tp_shard
 from repro_torch.train.optimizer import tree_leaves, tree_map
-
-
-def rank_device(device_type: str) -> torch.device:
-    """This rank's device of ``device_type``: its current card, or the
-    CPU."""
-    if device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device_type)
 
 
 def whole(x):
@@ -104,10 +106,15 @@ def _carry(params, mesh: DeviceMesh, src: int):
 
 def ddma_weight_sync(params, target, *, src: Optional[int] = None) -> Any:
     """Direct device-to-device transfer of every leaf to ``target``: a
-    device, or a ``DeviceMesh`` over which every leaf is replicated.
+    device, a ``DeviceMesh`` over which every leaf is replicated, or
+    ``sharding.Shardings``, of which each rank keeps its own blocks
+    (``sharding.tp_shard``; a collective of the mesh where a leaf is a
+    DTensor).
     With ``src`` (a global rank of the source mesh) the weights cross
     meshes: every rank of the world calls, and the ranks outside
     ``target`` get None (``_carry``)."""
+    if isinstance(target, Shardings):
+        return tp_shard(params, target.mesh, target.specs)
     if isinstance(target, DeviceMesh):
         if src is not None:
             return _carry(params, target, src)

@@ -11,17 +11,26 @@ continuous-batching engine's hooks (``engine_*``).
 builds it where the actor lives).  Every rank of the mesh holds the
 executor and runs each endpoint call.  The trainer keeps its state in
 shards (``train/sharded.shard_state``) and steps with
-``make_sharded_train_step``; it publishes its params whole.  The
-generator and the reference hold the weights replicated, each rank the
-whole tree, and compute the whole batch on every rank: the sampler's
-noise is keyed by the batch's key, not by the global row, so a rank
-cannot draw its own rows alone.  An executor with a mesh takes each
+``make_sharded_train_step``; it publishes its params whole.  A
+generator of the dense family on a mesh whose ``model`` axis has more
+than one rank serves tensor-parallel (``models/tp.py``): each rank holds
+its shard (``sharding.tp_plan``, carried by ``ddma_weight_sync`` onto
+``sharding.Shardings``) and computes its heads, FFN columns and
+vocabulary slice, on its share of the rows where the data axes split
+them (the sampler keys the noise by the global row and column, so a
+rank draws its rows alone), and every rank emits the whole batch.  The
+mesh decides, as the params' placement decides in the reference; the
+engine hooks refuse such a generator (the paged engine on a mesh is
+not ported).  Every other generator, and the reference, hold the
+weights replicated, each rank the whole tree, and compute the whole
+batch on every rank.  An executor with a mesh takes each
 payload whole: a DTensor that ``InprocTransport.prepare`` placed on the
 mesh becomes its local tensor where replicated and is gathered where
 split (the sharded train step keeps its own rows of the global batch).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
@@ -35,6 +44,8 @@ from repro_torch.core import ddma
 from repro_torch.core.aipo import token_logprobs
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import forward_train
+from repro_torch.models import tp as tpmod
+from repro_torch.models.sharding import Shardings, tp_plan
 from repro_torch.rl import data as rl_data
 from repro_torch.rl import prng
 from repro_torch.rl import rewards as rl_rewards
@@ -190,12 +201,24 @@ class GeneratorExecutor(Executor):
         self._pinned: Dict[int, Any] = {}    # admission snapshots by pin key
         self._pin_seq = 0
         self._engine = None             # lazy RolloutEngine (engine mode)
+        # this rank of a tensor-parallel mesh (None: the whole tree)
+        self.tp = tpmod.tp_rank(cfg, mesh)
+        self._tp_target = None if self.tp is None \
+            else Shardings(mesh, tp_plan(cfg, mesh))
 
     def set_weights(self, params, version: Optional[int] = None):
         """Receives the trainer's weights, through int8 when ``quantize``
         (``ddma.quantize_dequant``, once per sync).  Versions only move
         forward: an older delivery is dropped."""
         if version is not None and version < self.weight_version:
+            return
+        if self.tp is not None:
+            # int8's per-column scales span every row: quantize whole
+            if self.quantize:
+                params = ddma.quantize_dequant(ddma.whole(params))
+            self.params = ddma.ddma_weight_sync(params, self._tp_target)
+            if version is not None:
+                self.weight_version = version
             return
         if self.mesh is not None:
             params = ddma.whole(params)
@@ -215,13 +238,18 @@ class GeneratorExecutor(Executor):
         self.key, sub = prng.split(self.key)
         chunk = self.chunk or self.max_new
         n_chunks = -(-self.max_new // chunk)
+        meta, tp = {"answers": batch.answers}, None
+        if self.tp is not None:
+            rows, tp = self.tp.for_rows(prompts.shape[0])
+            prompts = prompts[rows]
+            meta["row0"] = tp.row0
         state = start_rollout(self.params, self.cfg, prompts,
-                              prompts.shape[1] + n_chunks * chunk)
+                              prompts.shape[1] + n_chunks * chunk, tp=tp)
         job = RolloutJob(
             batch_index=self.curr_step if batch_index is None
             else batch_index,
             params=self.params, weight_version=self.weight_version,
-            key=sub, meta={"answers": batch.answers},
+            key=sub, meta=meta,
             max_new=self.max_new, chunk=chunk, n_chunks=n_chunks)
         return job, state
 
@@ -275,8 +303,11 @@ class GeneratorExecutor(Executor):
     def advance_chunk(self, job, state):
         """One resumable ``rollout_chunk`` with the job's key discipline."""
         job.key, sub = prng.split(job.key)
+        tp = None if self.tp is None \
+            else dataclasses.replace(self.tp, row0=job.meta["row0"])
         state = rollout_chunk(self._job_params(job), self.cfg, state, sub,
-                              n_steps=job.chunk, temperature=self.temperature)
+                              n_steps=job.chunk, temperature=self.temperature,
+                              tp=tp)
         job.chunks_done += 1
         return state
 
@@ -288,6 +319,11 @@ class GeneratorExecutor(Executor):
     def emit_batch(self, job, state):
         """Finalize and publish the completed batch."""
         state = finalize_rollout(state, job.max_new)
+        if self.tp is not None:
+            B = self.n_prompts * self.n_per_prompt
+            state = state._replace(
+                tokens=self.tp.gather_rows(state.tokens, B),
+                behavior_logp=self.tp.gather_rows(state.behavior_logp, B))
         out = {
             "tokens": state.tokens,
             "behavior_logp": state.behavior_logp,
@@ -330,6 +366,11 @@ class GeneratorExecutor(Executor):
         """(Re)build the in-flight engine; a live engine's in-flight work
         is aborted first.  A rebuild starts with an empty radix cache in
         the paged layout."""
+        if self.tp is not None:
+            raise NotImplementedError(
+                "the engine on a tensor-parallel mesh is not ported: a "
+                "dense generator on a mesh with model > 1 serves through "
+                "the chunk hooks")
         if self._engine is not None:
             self._engine.abort()
         self._engine = RolloutEngine(

@@ -35,6 +35,16 @@
 // lower columns).  The result depends on no timing and is the same from
 // call to call; fused_sample_split_plain states the rule.  The
 // log-prob is (x_best - M) - log s, m subtracted first.
+//
+// On a shard of the vocabulary (tensor-parallel serving: a rank holds the
+// columns [col0, col0 + V) of rows [row0, row0 + B) of the whole draw)
+// the noise and the kept column are those of the absolute (row0 + row,
+// col0 + col), so a rank's draw is the whole draw's on its columns.  With
+// part_out the row's merged partial (M, s, z, col, x) is written in place
+// of (token, log-prob), col as a float (-1 where no z beat -inf): the
+// ranks' partials are then merged in rank order by the same rule
+// (dispatch.sample_vocab_parallel).  fused_sample_launch is the whole
+// row's launch, row0 = col0 = 0 and no partial.
 #include "common.cuh"
 #include <limits.h>
 
@@ -67,16 +77,30 @@ __device__ __forceinline__ Best best_merge(Best a, Best b) {
 // a row whose every z is -inf keeps column 0, as the plain version does
 __device__ __forceinline__ int token_of(const Best& b) { return b.col == INT_MAX ? 0 : b.col; }
 
+// a partial's column as a float: exact below 2^24, -1 where no z beat -inf
+__device__ __forceinline__ float col_of(const Best& b) {
+  return b.col == INT_MAX ? -1.0f : (float)b.col;
+}
+
+__device__ __forceinline__ void write_part(float* w, float m, float s, const Best& b) {
+  w[0] = m;
+  w[1] = s;
+  w[2] = b.z;
+  w[3] = col_of(b);
+  w[4] = b.x;
+}
+
 template <typename T, int VEC, bool NOISY>
 __global__ void __launch_bounds__(THREADS)
 fused_sample_kernel(const T* __restrict__ logits, int64_t V, int64_t row_stride, uint32_t k0,
-                    uint32_t k1, float inv_temp, int64_t span, float* __restrict__ ws,
-                    int* __restrict__ counters, int* __restrict__ tok_out,
-                    float* __restrict__ lp_out) {
+                    uint32_t k1, float inv_temp, int64_t span, int64_t row0, int64_t col0,
+                    float* __restrict__ ws, int* __restrict__ counters,
+                    int* __restrict__ tok_out, float* __restrict__ lp_out,
+                    float* __restrict__ part_out) {
   const int row = blockIdx.x, split = blockIdx.y, n_splits = gridDim.y;
   const T* p = logits + (int64_t)row * row_stride;
   const int64_t end = (int64_t)(split + 1) * span, hi = end < V ? end : V;
-  const uint32_t hk = mix32((uint32_t)row * 0x9E3779B9u + k0) + k1;
+  const uint32_t hk = mix32((uint32_t)(row0 + row) * 0x9E3779B9u + k0) + k1;
   MS st = {NEG_INF_F, 0.0f};
   Best best = {-INFINITY, INT_MAX, NEG_INF_F};
 #pragma unroll 1
@@ -95,7 +119,7 @@ fused_sample_kernel(const T* __restrict__ logits, int64_t V, int64_t row_stride,
     st = {m, s};
 #pragma unroll
     for (int u = 0; u < VEC; ++u) {
-      const int col = (int)(c0 + u);
+      const int col = (int)(col0 + c0 + u);
       const float z = NOISY ? __fadd_rn(x[u], gumbel(hk, (uint32_t)col)) : x[u];
       if (z > best.z) best = {z, col, x[u]};
     }
@@ -112,7 +136,9 @@ fused_sample_kernel(const T* __restrict__ logits, int64_t V, int64_t row_stride,
       [](Best a, Best b) { return best_merge(a, b); });
   const int tid = threadIdx.x;
   if (n_splits == 1) {
-    if (tid == 0) {
+    if (tid == 0 && part_out != nullptr) {
+      write_part(part_out + (int64_t)row * PART, st.m, st.s, best);
+    } else if (tid == 0) {
       tok_out[row] = token_of(best);
       // subtract m before log s: |m| ~ 1e30 would absorb log s in m + log s
       lp_out[row] = (best.x - st.m) - logf(st.s);
@@ -153,6 +179,10 @@ fused_sample_kernel(const T* __restrict__ logits, int64_t V, int64_t row_stride,
       s += term_s[i];
       if (z_s[i] > b.z) b = {z_s[i], col_s[i], x_s[i]};
     }
+    if (part_out != nullptr) {
+      write_part(part_out + (int64_t)row * PART, M, s, b);
+      return;
+    }
     tok_out[row] = token_of(b);
     lp_out[row] = (b.x - M) - logf(s);
   }
@@ -161,35 +191,56 @@ fused_sample_kernel(const T* __restrict__ logits, int64_t V, int64_t row_stride,
 template <typename T, int VEC>
 static cudaError_t launch_vec(const T* logits, long long B, long long V, long long row_stride,
                               uint32_t k0, uint32_t k1, float inv_temp, int noisy,
-                              long long span, int n_splits, float* ws, int* counters, int* tok,
-                              float* lp, cudaStream_t stream) {
+                              long long span, int n_splits, long long row0, long long col0,
+                              float* ws, int* counters, int* tok, float* lp, float* part,
+                              cudaStream_t stream) {
   dim3 grid((unsigned)B, (unsigned)n_splits);
   if (noisy)
     fused_sample_kernel<T, VEC, true><<<grid, THREADS, 0, stream>>>(
-        logits, V, row_stride, k0, k1, inv_temp, span, ws, counters, tok, lp);
+        logits, V, row_stride, k0, k1, inv_temp, span, row0, col0, ws, counters, tok, lp, part);
   else
     fused_sample_kernel<T, VEC, false><<<grid, THREADS, 0, stream>>>(
-        logits, V, row_stride, k0, k1, inv_temp, span, ws, counters, tok, lp);
+        logits, V, row_stride, k0, k1, inv_temp, span, row0, col0, ws, counters, tok, lp, part);
   return cudaGetLastError();
 }
 
 template <typename T>
 static cudaError_t launch(const void* logits, long long B, long long V, long long row_stride,
                           uint32_t k0, uint32_t k1, float inv_temp, int noisy, long long span,
-                          int n_splits, float* ws, int* counters, int* tok, float* lp,
-                          cudaStream_t stream) {
+                          int n_splits, long long row0, long long col0, float* ws, int* counters,
+                          int* tok, float* lp, float* part, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   if (n_splits < 1 || n_splits > MAX_SPLITS || span % 8 != 0 || (n_splits - 1) * span >= V ||
-      n_splits * span < V ||
+      n_splits * span < V || row0 < 0 || col0 < 0 || col0 + V > (1LL << 24) ||
+      (part == nullptr && (tok == nullptr || lp == nullptr)) ||
       (n_splits > 1 && (span < MIN_SPAN || ws == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const bool vec_ok = ((uintptr_t)logits % 16 == 0) && (row_stride * sizeof(T)) % 16 == 0 &&
                       V % VEC == 0;
   if (vec_ok)
     return launch_vec<T, VEC>((const T*)logits, B, V, row_stride, k0, k1, inv_temp, noisy, span,
-                              n_splits, ws, counters, tok, lp, stream);
+                              n_splits, row0, col0, ws, counters, tok, lp, part, stream);
   return launch_vec<T, 1>((const T*)logits, B, V, row_stride, k0, k1, inv_temp, noisy, span,
-                          n_splits, ws, counters, tok, lp, stream);
+                          n_splits, row0, col0, ws, counters, tok, lp, part, stream);
+}
+
+// rows [row0, row0 + B) and columns [col0, col0 + V) of the whole draw;
+// with part non-null each row's merged partial (5 floats) in place of
+// (token, log-prob)
+extern "C" int fused_sample_launch_at(const void* logits, int dtype, long long B, long long V,
+                                      long long row_stride, uint32_t k0, uint32_t k1,
+                                      float inv_temp, int noisy, long long span, int n_splits,
+                                      long long row0, long long col0, void* ws, void* counters,
+                                      void* tok, void* lp, void* part, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DT_F32)
+    return launch<float>(logits, B, V, row_stride, k0, k1, inv_temp, noisy, span, n_splits, row0,
+                         col0, (float*)ws, (int*)counters, (int*)tok, (float*)lp, (float*)part, s);
+  if (dtype == DT_BF16)
+    return launch<__nv_bfloat16>(logits, B, V, row_stride, k0, k1, inv_temp, noisy, span,
+                                 n_splits, row0, col0, (float*)ws, (int*)counters, (int*)tok,
+                                 (float*)lp, (float*)part, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int fused_sample_launch(const void* logits, int dtype, long long B, long long V,
@@ -197,12 +248,6 @@ extern "C" int fused_sample_launch(const void* logits, int dtype, long long B, l
                                    float inv_temp, int noisy, long long span, int n_splits,
                                    void* ws, void* counters, void* tok, void* lp,
                                    void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DT_F32)
-    return launch<float>(logits, B, V, row_stride, k0, k1, inv_temp, noisy, span, n_splits,
-                         (float*)ws, (int*)counters, (int*)tok, (float*)lp, s);
-  if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(logits, B, V, row_stride, k0, k1, inv_temp, noisy, span,
-                                 n_splits, (float*)ws, (int*)counters, (int*)tok, (float*)lp, s);
-  return cudaErrorInvalidValue;
+  return fused_sample_launch_at(logits, dtype, B, V, row_stride, k0, k1, inv_temp, noisy, span,
+                                n_splits, 0, 0, ws, counters, tok, lp, nullptr, stream);
 }

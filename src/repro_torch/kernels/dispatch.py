@@ -16,7 +16,10 @@ A ``meta`` tensor (the dry run, ``launch/dryrun.py``) takes the card's
 attention route with the plain version in the kernel's place, so it
 saves and recomputes what the card does; it launches nothing.
 ``int8_matmul`` is the quantized product's dispatch surface, forward
-only; no model path calls it.
+only; no model path calls it.  ``sample_vocab_parallel`` is the sampler
+of a tensor-parallel rank, which holds a slice of each row's vocabulary:
+B3 on the slice in its partial mode, the ranks' partials gathered and
+merged; the logits are never gathered.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from repro_torch.kernels.flash_attention import chunked_attention, \
 from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
     fused_logprob_bwd_plain, fused_logprob_cuda, fused_logprob_plain
 from repro_torch.kernels.fused_sample import fused_sample_cuda, \
-    fused_sample_plain
+    fused_sample_partial_cuda, fused_sample_plain, \
+    fused_sample_split_plain, merge_partials
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda, \
     int8_matmul_plain
 from repro_torch.kernels.paged_attention import paged_attention_cuda, \
@@ -91,17 +95,43 @@ def token_logprob(logits, tokens, n_valid=None):
     return out.reshape(tokens.shape)
 
 
-def sample(logits, key, temperature: float):
+def sample(logits, key, temperature: float, *, row0: int = 0):
     """Categorical draw + behaviour log-prob in one streamed pass.
 
-    logits: [B, V]; key: a ``rl.prng`` key.  Returns (tokens [B] int32,
-    log mu(token) [B] fp32) under the temperature-scaled distribution
-    (greedy argmax scored at T = 1 when ``temperature == 0``).  Not
-    differentiable, as in the reference.
+    logits: [B, V], the rows ``[row0, row0 + B)`` of the draw (a rank's
+    share of split rows); key: a ``rl.prng`` key.  Returns (tokens [B]
+    int32, log mu(token) [B] fp32) under the temperature-scaled
+    distribution (greedy argmax scored at T = 1 when ``temperature ==
+    0``).  Not differentiable, as in the reference.
     """
     if logits.is_cuda:
-        return fused_sample_cuda(logits, key, temperature)
-    return fused_sample_plain(logits, key, temperature)
+        return fused_sample_cuda(logits, key, temperature, row0=row0)
+    return fused_sample_plain(logits, key, temperature, row0=row0)
+
+
+def sample_vocab_parallel(local_logits, key, temperature: float, col0: int,
+                          group, *, row0: int = 0):
+    """``sample`` of rows whose vocabulary is split over the ranks of
+    ``group`` in rank order: ``local_logits`` [B, V/m] holds this rank's
+    columns ``[col0, col0 + V/m)``.  Each rank runs B3 on its slice in
+    its partial mode (the plain version's partial on the CPU), the
+    ranks' [B, 5] partials are all-gathered, and every rank merges them
+    in rank order (``fused_sample.merge_partials``): the tokens are the
+    whole row's draw bit for bit, the log-probs agree to fp32 rounding,
+    and every rank holds the same.  Returns (tokens [B] int32, log
+    mu(token) [B] fp32)."""
+    import torch.distributed as dist
+    if local_logits.is_cuda:
+        part = fused_sample_partial_cuda(local_logits, key, temperature,
+                                         col0=col0, row0=row0)
+    else:
+        part = fused_sample_split_plain(local_logits, key, temperature,
+                                        max(local_logits.shape[1], 1),
+                                        col0=col0, row0=row0, partial=True)
+    parts = [torch.empty_like(part)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, part, group=group)
+    return merge_partials(torch.stack(parts))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -21,9 +21,15 @@ compiler to ask, so it measures the step itself:
     the leaves outside the layer stacks gathered up front, each stacked
     leaf one layer at a time inside that layer's work, ``forward_train``
     and its backward, each gather's gradient cut to the leaf's shard as
-    the backward reaches it, and Adam on the shards; for serving, the
-    whole tree (the port serves without tensor parallelism) and
-    ``prefill`` or ``decode_step``.  ``meta`` tensors are not CUDA
+    the backward reaches it, and Adam on the shards; for serving a dense
+    model on a mesh whose ``model`` axis has more than one rank, the
+    tensor-parallel step a rank runs (``models/tp.py``): its shards of
+    ``sharding.tp_plan`` (the reference's serve shards, but ``wq wk wv
+    wo`` whole where ``n_kv_heads % model != 0``), its cache of its own
+    KV heads, ``prefill`` or ``decode_step`` with ``tp``; for serving
+    any other family, or on a ``model`` axis of one rank, the whole tree
+    (those serve without tensor parallelism) and ``prefill`` or
+    ``decode_step``.  ``meta`` tensors are not CUDA
     tensors, so every kernel takes its plain version
     (``kernels/dispatch.py``) and no kernel runs: the FLOPs include the
     plain attention's, over every key of a query block;
@@ -31,7 +37,11 @@ compiler to ask, so it measures the step itself:
     each operation reads and writes (eager and unfused: every operation
     reads its inputs and writes its outputs) and follows every storage
     from allocation to release, which gives the step's peak bytes
-    (``temp_bytes`` is that peak above the arguments); a
+    (``temp_bytes`` is that peak above what the port holds as the step
+    starts, ``held_bytes``: the arguments, except in the
+    tensor-parallel serving step, where it is the rank's own shards,
+    cache and rows, and ``argument_bytes`` stays the reference's
+    shards); a
     ``saved_tensors_hooks`` sums the bytes autograd keeps for the
     backward when the forward ends (``saved_bytes``, the activation
     term): what the forward saves and, under ``remat_layers``, each
@@ -43,7 +53,12 @@ compiler to ask, so it measures the step itself:
     again in the backward under ``remat_layers``), each gradient's
     reduce-scatter (an all-reduce where a leaf is replicated over the
     data axes) once a microbatch, the global norm's and
-    ``batch_total``'s all-reduces.  The reference's ``collective_bytes``
+    ``batch_total``'s all-reduces; in the tensor-parallel serving step,
+    its all-reduces over ``model`` (two of [rows, S, D] a layer where
+    the heads split, one where they do not, the embedding's one; the
+    serving steps return logits and do not sample, so no sampler
+    partials).  The whole-tree serving steps count the gather of every
+    sharded leaf.  The reference's ``collective_bytes``
     and ``_shape_bytes`` parse XLA's HLO text and have no counterpart
     here.
 
@@ -57,8 +72,7 @@ port's expert parallelism runs its collectives on a ``DeviceMesh``, which
 a dry run does not have.  ``remat`` (the default) is the reference's
 training baseline, ``remat_layers``: every layer's work under a
 checkpoint, the backward recomputing one layer at a time; ``--no-remat``
-turns it off.  The serving steps still gather the whole tree (ROADMAP
-C2).
+turns it off.
 """
 from __future__ import annotations
 
@@ -289,11 +303,16 @@ class Lowered:
     ``run()`` drives it once (under the meters ``analyse`` installs) and
     returns the record's measured part."""
 
-    def __init__(self, run, argument_bytes: int, rows: int, args):
+    def __init__(self, run, argument_bytes: int, rows: int, args,
+                 held_bytes: int = None):
         self.run = run
         self.argument_bytes = argument_bytes
         self.rows = rows
-        self.args = list(args)      # the tensors of one device's arguments
+        self.args = list(args)      # the tensors the step starts with
+        # what the port holds as the step starts (the arguments, unless
+        # the port's layout differs from the reference's shards)
+        self.held_bytes = argument_bytes if held_bytes is None \
+            else held_bytes
 
 
 def _gathered(full_leaves, shard_leaves):
@@ -436,6 +455,66 @@ def _lower_train(cfg, shape, mesh, dtype, *, remat, accum_steps, kl_coef):
                    + tree_leaves(v) + list(micro.values()))
 
 
+def _meta_tp(cfg, mesh, counted):
+    """The meta step's ``TPRank``: each all-reduce over ``model`` counted
+    (its result's bytes) and run as the card runs it, into a new tensor
+    of the input's shape."""
+    from repro_torch.models.sharding import tp_splits
+    from repro_torch.models.tp import TPRank
+
+    class Counted(TPRank):
+        def reduce(self, x):
+            counted["all-reduce"] += x.numel() * x.element_size()
+            return x.clone()
+    return Counted(size=_axis_size(mesh, "model"), rank=0,
+                   **tp_splits(cfg, mesh))
+
+
+def _tensors(tree) -> list:
+    return [t for t in tree_leaves(tree) if torch.is_tensor(t)]
+
+
+def _lower_serve_tp(cfg, shape, mesh, dtype, p_full, arg, rows, local):
+    """The tensor-parallel serving step of a rank of a dense model: its
+    shards of ``tp_plan``, its cache (decode: ``K/m`` heads where the
+    heads split, its rows, the whole ring), its rows of the batch, as
+    the step starts (``held_bytes``); ``argument_bytes`` stays the
+    reference's."""
+    from repro_torch.models.serve import decode_step, init_cache, prefill
+    from repro_torch.models.sharding import tp_plan
+    plan = tp_plan(cfg, mesh, p_full)
+    params = tree_map(lambda t, s: _meta(shard_shape(t.shape, s, mesh),
+                                         t.dtype), p_full, plan)
+    counted = {"all-reduce": 0}
+    tp = _meta_tp(cfg, mesh, counted)
+    cache = None
+    if shape.kind == "decode":
+        cache = init_cache(tp.attn_cfg(cfg), rows, shape.seq_len, dtype,
+                           device=META)
+    held = _tensors(params) + _tensors(cache) + _tensors(local)
+    held_bytes = sum(t.numel() * t.element_size() for t in held)
+
+    def run():
+        counted["all-reduce"] = 0
+        with torch.no_grad():
+            if shape.kind == "prefill":
+                logits, out_cache = prefill(params, cfg, local,
+                                            cache_len=shape.seq_len,
+                                            dtype=dtype, tp=tp)
+                outs = [logits] + _tensors(out_cache)
+            else:
+                c = dict(cache, segments=[dict(g) for g in
+                                          cache["segments"]])
+                logits, _ = decode_step(params, cfg, c, local, tp=tp)
+                outs = [logits]
+        return {"output_bytes": sum(t.numel() * t.element_size()
+                                    for t in outs),
+                "saved_bytes": 0,
+                "collectives": {"all-reduce": counted["all-reduce"]}}
+
+    return Lowered(run, arg, rows, held, held_bytes=held_bytes)
+
+
 def _lower_serve(cfg, shape, mesh, dtype):
     from repro_torch.models import init_params
     from repro_torch.models.serve import decode_step, init_cache, prefill
@@ -470,6 +549,9 @@ def _lower_serve(cfg, shape, mesh, dtype):
                         for t, s in zip(tree_leaves(cache), tree_leaves(c_sh))
                         if torch.is_tensor(t)]
         local = _meta((rows, 1), tokens.dtype)
+    if cfg.family == "dense" and _axis_size(mesh, "model") > 1:
+        return _lower_serve_tp(cfg, shape, mesh, dtype, p_full, arg, rows,
+                               local)
 
     def run():
         params = tree_unflatten(p_full, _gathered(full_leaves, p_shards))
@@ -530,7 +612,7 @@ def analyse(cfg, shape, lowered: Lowered, mesh) -> Dict:
     """Run ``lowered`` once under the meters; the reference's record,
     with the H100's roofline terms."""
     t0 = time.time()
-    meter = _Meter(lowered.argument_bytes, lowered.args)
+    meter = _Meter(lowered.held_bytes, lowered.args)
     with FlopCounterMode(display=False) as fc, meter:
         got = lowered.run()
     count_s = time.time() - t0
@@ -549,8 +631,8 @@ def analyse(cfg, shape, lowered: Lowered, mesh) -> Dict:
                                    else shape.seq_len)
     mult = 6 if shape.kind == "train" else 2
     model_flops = mult * active * tokens          # global useful FLOPs
-    arg = lowered.argument_bytes
-    peak = max(meter.peak, arg)
+    arg, held = lowered.argument_bytes, lowered.held_bytes
+    peak = max(meter.peak, held)
     hbm = hbm_bytes()
     return {
         "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
@@ -562,8 +644,9 @@ def analyse(cfg, shape, lowered: Lowered, mesh) -> Dict:
         "collective_bytes_per_device": coll_total,
         "collectives": colls,
         "argument_bytes": arg,
+        "held_bytes": held,
         "output_bytes": got["output_bytes"],
-        "temp_bytes": peak - arg,
+        "temp_bytes": peak - held,
         "saved_bytes": got["saved_bytes"],
         "peak_bytes_per_device": peak,
         "hbm_bytes": hbm,

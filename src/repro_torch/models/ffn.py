@@ -38,7 +38,11 @@ def mlp_params(gen, n_layers: int, d_model: int, d_ff: int, act: str, dtype,
     return p
 
 
-def mlp_forward(p, x, act: str, bias: bool = False):
+def mlp_forward(p, x, act: str, bias: bool = False, reduce=None):
+    """The MLP.  A tensor-parallel rank passes its columns of the first
+    products and its rows of ``w_down`` (``models/tp.py``): ``reduce``
+    then sums the partial products over its ranks before ``b_down`` is
+    added once."""
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
@@ -47,6 +51,8 @@ def mlp_forward(p, x, act: str, bias: bool = False):
             h = h + p["b_up"]
         h = act_fn(h, act)
     y = h @ p["w_down"]
+    if reduce is not None:
+        y = reduce(y)
     if bias:
         y = y + p["b_down"]
     return y

@@ -41,6 +41,12 @@ tokens only.
 tensor, one decode cursor per row (the engine's slot pool; the paged
 layout always has it, and neither takes MLA, as in the reference).
 Decode updates the cache in place and returns it.
+
+``prefill`` and ``decode_step`` with ``tp`` (a ``models.tp.TPRank``) run
+a dense model's step on a rank's tensor-parallel shard (``models/tp.py``):
+its logits are its vocabulary slice, its dense cache holds its ``K/m``
+heads where the heads split.  Without ``tp`` every path is the one-card
+one.
 """
 from __future__ import annotations
 
@@ -177,11 +183,15 @@ def _write_seg(seg, kvs, start: int):
 
 
 def prefill(params, cfg: ArchConfig, batch, cache_len: int,
-            dtype=torch.bfloat16):
+            dtype=torch.bfloat16, *, tp=None):
     """batch: {'tokens': [B, S]}, with ``patch_embeds`` [B, P, D] for a
     VLM (then ``cache_len`` must hold P + S + the decoded tokens) and
     ``frame_embeds`` [B, F, D] for an audio model.  Returns (last_logits
-    [B, V], cache)."""
+    [B, V], cache); with ``tp`` a tensor-parallel rank's
+    (``models/tp.py``)."""
+    if tp is not None:
+        from repro_torch.models import tp as tpmod
+        return tpmod.prefill(params, cfg, batch, cache_len, dtype, tp)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = bb._embed(params, cfg, tokens)
@@ -270,12 +280,16 @@ def _extend_collect(params, cfg, x, prefix_kvs, q_offset: int):
     return x, kv_segs
 
 
-def decode_step(params, cfg: ArchConfig, cache: Cache, tokens):
+def decode_step(params, cfg: ArchConfig, cache: Cache, tokens, *, tp=None):
     """tokens: [B, 1].  Returns (logits [B, V], cache) with the cache
     advanced in place by one position (each row's own cursor when ``pos``
     is a tensor), segment by segment.  A VLM's token at cache position
     ``pos`` turns at side + pos - P in all three M-RoPE sections (P
-    patches, side = floor(sqrt(P)))."""
+    patches, side = floor(sqrt(P))).  With ``tp`` a tensor-parallel
+    rank's step (``models/tp.py``)."""
+    if tp is not None:
+        from repro_torch.models import tp as tpmod
+        return tpmod.decode_step(params, cfg, cache, tokens, tp)
     pos = cache["pos"]
     table = cache.get("page_table")
     x = bb._embed(params, cfg, tokens)

@@ -414,3 +414,107 @@ def distribute(tree, mesh: DeviceMesh, shardings):
     nothing holds on to ``tree``."""
     from repro_torch.train.optimizer import tree_map
     return tree_map(lambda t, s: place(t, mesh, s), tree, shardings)
+
+
+# ----------------------------------------------- tensor parallelism ---
+
+_ATTN_LEAF = re.compile(r"(^|/)attn/(wq|wk|wv|wo)$")
+
+
+def tp_splits(cfg, mesh) -> dict:
+    """Which products of a dense model a rank of ``mesh``'s ``model``
+    axis (of size m) computes a 1/m share of: ``heads`` when
+    ``n_kv_heads % m == 0`` (the reference's ``constrain_attn``; else
+    attention runs whole on every rank), ``ffn`` and ``vocab`` where
+    ``_fit`` splits the MLP's columns (``d_ff % m == 0``) and the
+    vocabulary (``vocab % m == 0``); what stays whole is computed whole,
+    with no collective."""
+    m = _axis_size(mesh, "model")
+    return {"heads": cfg.n_kv_heads % m == 0, "ffn": cfg.d_ff % m == 0,
+            "vocab": cfg.vocab % m == 0}
+
+
+def tp_plan(cfg, mesh, params=None):
+    """A tree of ``Spec`` in the structure of the dense ``params`` (built
+    on ``meta`` when None): each leaf's slice along ``model`` that a
+    tensor-parallel rank holds and computes with.  It is
+    ``params_shardings(mode="serve")`` -- the column products ``wq wk wv
+    w_gate w_up w_in`` split by columns, the row products ``wo w_down``
+    by rows, ``embed`` and ``lm_head`` by the vocabulary, each only where
+    ``_fit`` divides -- except that ``wq wk wv wo`` stay whole where the
+    heads do not split (``tp_splits``).  Biases and norms stay whole, as
+    the rules leave them; a rank slices a bias where it uses it."""
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: tensor-parallel serving covers the "
+                         f"dense family, not {cfg.family!r}")
+    if params is None:
+        from repro_torch.models import init_params
+        params = init_params(cfg, 0, torch.bfloat16, device="meta")
+    specs = params_shardings(params, mesh, mode="serve")
+    if tp_splits(cfg, mesh)["heads"]:
+        return specs
+    return _map_with_path(
+        lambda path, s: Spec(*(None,) * len(s))
+        if _ATTN_LEAF.search(_path_str(path)) else s, specs)
+
+
+def shard_of(t, spec, mesh: DeviceMesh):
+    """The block of ``t`` that ``spec`` gives this rank of ``mesh`` (a view;
+    major axis first within a tuple), as DTensor's ``Shard`` cuts it
+    where the dim divides."""
+    idx = []
+    for d, ax in enumerate(spec):
+        if ax is None:
+            idx.append(slice(None))
+            continue
+        i, n = 0, 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            size = mesh.size(mesh.mesh_dim_names.index(a))
+            i, n = i * size + mesh.get_local_rank(a), n * size
+        w = t.shape[d] // n
+        idx.append(slice(i * w, (i + 1) * w))
+    return t[tuple(idx)]
+
+
+class Shardings:
+    """A tree of ``Spec`` on a ``DeviceMesh``: the port's twin of the
+    reference's tree of ``NamedSharding``, a target of
+    ``ddma_weight_sync``."""
+
+    __slots__ = ("mesh", "specs")
+
+    def __init__(self, mesh: DeviceMesh, specs):
+        self.mesh, self.specs = mesh, specs
+
+
+def rank_device(device_type: str) -> torch.device:
+    """This rank's device of ``device_type``: its current card, or the
+    CPU."""
+    if device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device_type)
+
+
+def local_shard(t, spec, mesh: DeviceMesh):
+    """This rank's block of the leaf ``t`` under ``spec`` as a plain tensor
+    on its device of ``mesh`` that holds on to nothing else of ``t``: cut
+    from a whole tensor (nothing is sent), or redistributed from a
+    DTensor of ``mesh`` (a collective of its ranks)."""
+    if isinstance(t, DTensor):
+        if t.device_mesh != mesh:
+            raise ValueError("a DTensor of another mesh crosses meshes only "
+                             "with src=")
+        return t.redistribute(mesh, to_placements(mesh, spec)).to_local()
+    local = shard_of(t, spec, mesh).to(rank_device(mesh.device_type),
+                                       non_blocking=True)
+    if local.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
+        local = local.clone()
+    return local.contiguous()
+
+
+def tp_shard(params, mesh: DeviceMesh, specs):
+    """This rank's tensor-parallel shards of ``params`` (whole tensors or
+    DTensors of ``mesh``): each leaf's block under ``specs`` (``tp_plan``),
+    as ``local_shard`` cuts it."""
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda t, s: local_shard(t, s, mesh), params, specs)

@@ -1,0 +1,234 @@
+"""Tensor-parallel serving of the dense family over a mesh's ``model``
+axis: the reference's partitioned serving steps (its ``param_spec`` in
+``mode="serve"`` and ``constrain_attn``, which XLA partitions), written
+out for a rank of a ``DeviceMesh``.
+
+A rank of a ``model`` axis of m ranks holds its shard of each leaf
+(``sharding.tp_plan``, ``tp_shard``) and computes:
+
+* attention on its ``H/m`` query and ``K/m`` KV heads where ``K % m ==
+  0``: the column products ``wq wk wv`` give its heads, the row product
+  ``wo`` a partial sum that one all-reduce over the ``model`` group
+  completes; its KV cache holds its own heads.  Where ``K % m != 0``
+  attention runs whole on every rank, with no collective;
+* the MLP on its ``d_ff/m`` columns: ``w_gate w_up`` (or ``w_in``) by
+  columns, ``w_down`` by rows, then one all-reduce, then ``b_down``;
+* a vocabulary-parallel embedding (a masked lookup of its ``V/m`` rows,
+  then an all-reduce: one row is the token's, the others add zeros, so
+  the sum is exact) and head (its ``[rows, V/m]`` logits, never
+  gathered: ``TPRank.sample`` draws through
+  ``dispatch.sample_vocab_parallel``).
+
+A product whose leaf ``_fit`` keeps whole (a dim that m does not divide)
+is computed whole with no collective.  Rows split over the data axes
+where ``batch_shardings`` splits them (``TPRank.for_rows``); the sampler
+keys each row's noise by its global row.  The layers' bodies are the
+one-card ones (``attention.gqa_forward``, ``gqa_decode``,
+``ffn.mlp_forward``, ``backbone._logits``) on local shapes: a local
+config holds the rank's heads.  A layer is two all-reduces of [rows, S,
+D] where the heads split, and the embedding one more.  The paged engine
+on a mesh is not here (a later slice); the other families serve on the
+whole tree.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.kernels import dispatch
+from repro_torch.models import attention as attn
+from repro_torch.models import backbone as bb
+from repro_torch.models import ffn as ffnmod
+from repro_torch.models import serve
+from repro_torch.models.common import norm
+from repro_torch.models.sharding import _axis_size, dp_axes, reduce_from, \
+    tp_splits
+
+
+@dataclasses.dataclass(frozen=True)
+class TPRank:
+    """A rank of a ``model`` axis of ``size`` ranks, its index ``rank``
+    there, which products split (``sharding.tp_splits``), its ``model``
+    group, and the global row of its first row (``row0``, set by
+    ``for_rows``).  ``dp`` lists (group, size, index) of each data axis,
+    major first, over which its rows split."""
+
+    size: int
+    rank: int
+    heads: bool
+    ffn: bool
+    vocab: bool
+    group: Any = None
+    dp: tuple = ()
+    row0: int = 0
+
+    def reduce(self, x):
+        """The sum of ``x`` over the ranks of the ``model`` group."""
+        return reduce_from(x, [self.group])
+
+    def attn_cfg(self, cfg):
+        """``cfg`` with this rank's heads where they split."""
+        if not self.heads:
+            return cfg
+        return cfg.replace(n_heads=cfg.n_heads // self.size,
+                           n_kv_heads=cfg.n_kv_heads // self.size,
+                           head_dim=cfg.hd)
+
+    def sample(self, logits, key, temperature: float):
+        """(tokens, log mu) of the rows whose logits this rank holds: its
+        vocabulary slice merged over the ``model`` group, or the whole
+        row where the vocabulary stays whole."""
+        if self.vocab:
+            return dispatch.sample_vocab_parallel(
+                logits, key, temperature, self.rank * logits.shape[1],
+                self.group, row0=self.row0)
+        return dispatch.sample(logits, key, temperature, row0=self.row0)
+
+    def for_rows(self, B: int):
+        """(this rank's rows of a batch of ``B`` as a slice, this rank
+        with their ``row0``): a share over the data axes where ``B``
+        divides by their size, as ``batch_shardings`` splits it, else
+        every row."""
+        n = 1
+        for _, size, _ in self.dp:
+            n *= size
+        if n == 1 or B % n:
+            return slice(0, B), dataclasses.replace(self, row0=0)
+        i = 0
+        for _, size, idx in self.dp:
+            i = i * size + idx
+        rows = B // n
+        return slice(i * rows, (i + 1) * rows), \
+            dataclasses.replace(self, row0=i * rows)
+
+    def gather_rows(self, x, B: int):
+        """``x`` [rows, ...] of this rank's rows (``for_rows(B)``) whole
+        over the data axes; ``x`` itself where the rows did not split."""
+        if x.shape[0] == B:
+            return x
+        for grp, size, _ in reversed(self.dp):
+            parts = [torch.empty_like(x) for _ in range(size)]
+            dist.all_gather(parts, x.contiguous(), group=grp)
+            x = torch.cat(parts)
+        return x
+
+
+def tp_rank(cfg, mesh):
+    """This rank's ``TPRank`` on ``mesh`` (a ``DeviceMesh``) for a dense
+    ``cfg`` whose ``model`` axis has more than one rank; None otherwise
+    (every other family, and a ``model`` axis of one rank, serve on the
+    whole tree)."""
+    if mesh is None or cfg.family != "dense" \
+            or _axis_size(mesh, "model") == 1:
+        return None
+    names = mesh.mesh_dim_names
+    dp = tuple((mesh.get_group(a), mesh.size(names.index(a)),
+                mesh.get_local_rank(a)) for a in dp_axes(mesh))
+    return TPRank(size=_axis_size(mesh, "model"),
+                  rank=mesh.get_local_rank("model"),
+                  group=mesh.get_group("model"), dp=dp,
+                  **tp_splits(cfg, mesh))
+
+
+# ----------------------------------------------------------- layers ---
+
+def embed(params, cfg, tokens, tp: TPRank):
+    """The token embeddings [.., D]: this rank's ``V/m`` rows looked up
+    where the token is theirs, zeros elsewhere, summed over the ranks."""
+    if not tp.vocab:
+        return bb._embed(params, cfg, tokens)
+    E = params["embed"]
+    n = E.shape[0]
+    local = tokens.long() - tp.rank * n
+    inside = ((local >= 0) & (local < n))[..., None]
+    x = torch.where(inside, E[local.clamp(0, n - 1)],
+                    torch.zeros((), dtype=E.dtype, device=E.device))
+    return tp.reduce(x)
+
+
+def _attn_params(p, cfg, tp: TPRank):
+    """A layer's attention leaves as this rank uses them: its bias slices
+    where the heads split (the rules keep biases whole)."""
+    if not (tp.heads and cfg.bias):
+        return p
+    out = dict(p)
+    for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+        n = p[w].shape[-1]
+        out[b] = p[b][..., tp.rank * n:(tp.rank + 1) * n]
+    return out
+
+
+def _attn_out(y, tp: TPRank):
+    return tp.reduce(y) if tp.heads else y
+
+
+def _ffn(p, x, cfg, tp: TPRank):
+    """x + the MLP of norm(x) on this rank's columns, summed over the
+    ranks where they split."""
+    mp = p["mlp"]
+    if tp.ffn and cfg.bias:
+        n = mp["w_down"].shape[-2]
+        mp = dict(mp, b_up=mp["b_up"][..., tp.rank * n:(tp.rank + 1) * n])
+    return x + ffnmod.mlp_forward(mp, norm(x, p["ln2"], cfg.norm), cfg.act,
+                                  bias=cfg.bias,
+                                  reduce=tp.reduce if tp.ffn else None)
+
+
+def _check(cfg, cache=None):
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: tensor-parallel serving covers the "
+                         f"dense family, not {cfg.family!r}")
+    if cache is not None and "page_table" in cache:
+        raise NotImplementedError("the paged layout on a tensor-parallel "
+                                  "mesh is not ported")
+
+
+def prefill(params, cfg, batch, cache_len: int, dtype, tp: TPRank):
+    """``serve.prefill`` on this rank's shard: (its logits [B, V/m] of the
+    last position, or [B, V] where the vocabulary stays whole, and its
+    cache, which holds its ``K/m`` heads where the heads split)."""
+    _check(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed(params, cfg, tokens, tp)
+    acfg = tp.attn_cfg(cfg)
+    cache = serve.init_cache(acfg, B, cache_len, dtype, device=x.device)
+    kv_segs = []
+    for key, n, off in bb.layer_stacks(cfg):
+        layers = bb.unstack(params[key], n)
+        for i, j, w in bb._segment_windows(cfg, n, off):
+            ks, vs = [], []
+            for p in layers[i:j]:
+                y, (k, v) = attn.gqa_forward(
+                    _attn_params(p["attn"], cfg, tp),
+                    norm(x, p["ln1"], cfg.norm), acfg, window=w)
+                x = _ffn(p, x + _attn_out(y, tp), cfg, tp)
+                ks.append(k)
+                vs.append(v)
+            kv_segs.append((torch.stack(ks), torch.stack(vs)))
+    for seg, kvs in zip(cache["segments"], kv_segs):
+        serve._write_seg(seg, kvs, start=0)
+    cache["pos"] = S
+    return bb._logits(params, cfg, x[:, -1]), cache
+
+
+def decode_step(params, cfg, cache, tokens, tp: TPRank):
+    """``serve.decode_step`` on this rank's shard and cache: (its logits,
+    as ``prefill`` returns them, and the cache advanced in place)."""
+    _check(cfg, cache)
+    pos = cache["pos"]
+    x = embed(params, cfg, tokens, tp)
+    acfg = tp.attn_cfg(cfg)
+    for (layers, w), seg in zip(serve.stack_segments(params, cfg),
+                                cache["segments"]):
+        for li, p in enumerate(layers):
+            y = attn.gqa_decode(_attn_params(p["attn"], cfg, tp),
+                                norm(x, p["ln1"], cfg.norm), seg["k"][li],
+                                seg["v"][li], seg["slot_pos"], pos, acfg,
+                                window=w)
+            x = _ffn(p, x + _attn_out(y, tp), cfg, tp)
+    cache["pos"] = pos + 1
+    return bb._logits(params, cfg, x[:, -1]), cache

@@ -6,6 +6,13 @@ Behaviour log-probs mu(y_t | x, y_<t) -- under the sampling distribution,
 temperature included -- travel with the sample.  Decoding never waits on
 the card: the cursor is a Python int (a [B] tensor on the card in the
 slot pool) and the keys live on the host.
+
+``start_rollout``, ``rollout_chunk`` and ``generate`` take ``tp``, a
+``models.tp.TPRank``, on a rank's tensor-parallel shard of a dense
+model: its prompts are its rows (``TPRank.for_rows``), its logits its
+vocabulary slice, and it samples through ``TPRank.sample`` (B3 on the
+slice, the ranks' partials merged), so every rank of a ``model`` group
+draws the same tokens.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ def _prefix(cfg) -> int:
 @torch.no_grad()
 def start_rollout(params, cfg, prompts, total_len: int,
                   dtype=torch.float32, cache_len: int = 0,
-                  extra=None) -> RolloutState:
+                  extra=None, *, tp=None) -> RolloutState:
     """prompts: [B, S_p] int (rectangular), on the params' device.  The
     KV cache defaults to fp32 whatever the params' dtype, as in the
     reference.  ``extra`` joins the prefill's batch: a VLM's
@@ -57,7 +64,8 @@ def start_rollout(params, cfg, prompts, total_len: int,
     batch = {"tokens": prompts, **(extra or {})}
     last_logits, cache = prefill(params, cfg, batch,
                                  cache_len=cache_len
-                                 or total_len + _prefix(cfg), dtype=dtype)
+                                 or total_len + _prefix(cfg), dtype=dtype,
+                                 tp=tp)
     tokens = torch.zeros((B, total_len), dtype=torch.int32,
                          device=prompts.device)
     tokens[:, :Sp] = prompts
@@ -70,28 +78,31 @@ def start_rollout(params, cfg, prompts, total_len: int,
         prompt_len=Sp)
 
 
-def _sample(logits, key, temperature: float):
+def _sample(logits, key, temperature: float, tp=None):
     """Fused Gumbel-max draw + behaviour log-prob through the dispatch
-    layer: one streamed pass over the vocabulary per decode step."""
+    layer: one streamed pass over the vocabulary per decode step (over a
+    rank's slice, merged over its ranks, with ``tp``)."""
+    if tp is not None:
+        return tp.sample(logits, key, temperature)
     return dispatch.sample(logits, key, temperature)
 
 
 @torch.no_grad()
 def rollout_chunk(params, cfg, state: RolloutState, key, *, n_steps: int,
-                  temperature: float = 1.0) -> RolloutState:
+                  temperature: float = 1.0, tp=None) -> RolloutState:
     """Generate up to ``n_steps`` tokens; resumable (partial rollout).  The
     cache advances in place."""
     cursor = state.cache["pos"] - _prefix(cfg)
     cache, logits, done = state.cache, state.last_logits, state.done
     toks, lps = [], []
     for k in prng.split(key, n_steps):
-        tok, lp = _sample(logits, k, temperature)
+        tok, lp = _sample(logits, k, temperature, tp)
         tok = torch.where(done, PAD, tok)
         # PAD emissions (done rows, or a live row drawing id 0) are never
         # action positions: keep mu consistent with the action mask
         lp = torch.where(tok == PAD, 0.0, lp)
         done = done | (tok == EOS)
-        logits, cache = decode_step(params, cfg, cache, tok[:, None])
+        logits, cache = decode_step(params, cfg, cache, tok[:, None], tp=tp)
         toks.append(tok)
         lps.append(lp)
     tokens = state.tokens.clone()
@@ -121,22 +132,23 @@ def finalize_rollout(state: RolloutState, max_new: int) -> RolloutState:
 
 def generate(params, cfg, prompts, *, max_new: int, key,
              temperature: float = 1.0, chunk: int = 0,
-             dtype=torch.float32, extra=None) -> RolloutState:
+             dtype=torch.float32, extra=None, tp=None) -> RolloutState:
     """Full rollout = start + ceil(max_new/chunk) resumable chunks, every
     chunk of the same ``chunk`` steps, sliced back to ``prompt + max_new``
-    (the reference's bucketing).  ``extra`` goes to ``start_rollout``."""
+    (the reference's bucketing).  ``extra`` goes to ``start_rollout``,
+    ``tp`` to each step."""
     B, Sp = prompts.shape
     if max_new <= 0:
         return start_rollout(params, cfg, prompts, Sp, dtype=dtype,
-                             extra=extra)
+                             extra=extra, tp=tp)
     chunk = chunk or max_new
     n_chunks = -(-max_new // chunk)
     state = start_rollout(params, cfg, prompts, Sp + n_chunks * chunk,
-                          dtype=dtype, extra=extra)
+                          dtype=dtype, extra=extra, tp=tp)
     for _ in range(n_chunks):
         key, sub = prng.split(key)
         state = rollout_chunk(params, cfg, state, sub, n_steps=chunk,
-                              temperature=temperature)
+                              temperature=temperature, tp=tp)
     return finalize_rollout(state, max_new)
 
 

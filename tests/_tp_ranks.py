@@ -1,0 +1,138 @@
+"""The rank side of tests/test_torch_tp.py: what each gloo rank of a
+spawned world runs.  It imports torch and the port only, so a spawned
+rank starts without JAX."""
+import json
+
+import numpy as np
+import torch
+
+from _sharded_ranks import _expected_shard, paths
+
+# (name, mesh shape, the ranks of each mesh of that shape in the world of
+# four): the (1, 2) meshes run on ranks 0-1 and 2-3 at once
+MESHES = [("model2", (1, 2), [[0, 1], [2, 3]]),
+          ("model4", (1, 4), [[0, 1, 2, 3]]),
+          ("data2_model2", (2, 2), [[0, 1, 2, 3]])]
+B, PROMPT, CACHE, MAX_NEW, TEMP = 4, 8, 24, 6, 0.8
+
+
+def _whole(x, tp, B_):
+    """A rank's [rows, V/m] (or [rows, V]) gathered over the model group
+    (when the vocabulary splits) and over the data axes."""
+    import torch.distributed as dist
+    if tp.vocab:
+        parts = [torch.empty_like(x) for _ in range(tp.size)]
+        dist.all_gather(parts, x.contiguous(), group=tp.group)
+        x = torch.cat(parts, dim=-1)
+    return tp.gather_rows(x, B_)
+
+
+def _mesh_checks(mesh, ref):
+    """On ``mesh``: the shards and cache against the plan, prefill and
+    decode logits and a rollout, as numpy for the parent to hold to the
+    JAX package."""
+    from repro_torch import convert
+    from repro_torch.configs.llama_paper import smoke
+    from repro_torch.core.ddma import ddma_weight_sync
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.sharding import Shardings, distribute, \
+        params_shardings, tp_plan, tp_shard
+    from repro_torch.models.tp import tp_rank
+    from repro_torch.rl import prng
+    from repro_torch.rl.rollout import generate
+    cfg = smoke()
+    params = convert.from_jax_numpy(ref["params"], device="cpu")
+    plan = tp_plan(cfg, mesh)
+    shard = tp_shard(params, mesh, plan)
+    full, specs = paths(params), paths(plan)
+    ok = [torch.equal(t, _expected_shard(full[p], specs[p], mesh))
+          for p, t in paths(shard).items()]
+    # the trainer's FSDP + TP shards (DTensors) carried onto the serve
+    # shards by DDMA: the same blocks
+    carried = ddma_weight_sync(
+        distribute(params, mesh, params_shardings(params, mesh, "train")),
+        Shardings(mesh, plan))
+    held = paths(shard)
+    ok += [torch.equal(t, held[p]) for p, t in paths(carried).items()]
+    tp = tp_rank(cfg, mesh)
+    rows, tpr = tp.for_rows(B)
+    prompts = torch.as_tensor(ref["prompts"])
+    with torch.no_grad():
+        logits, cache = prefill(shard, cfg, {"tokens": prompts[rows]}, CACHE,
+                                torch.float32, tp=tpr)
+        out = {"prefill": _whole(logits, tpr, B).numpy()}
+        out["cache_k"] = list(cache["segments"][0]["k"].shape)
+        for i, tok in enumerate(ref["decode_tokens"]):
+            logits, cache = decode_step(shard, cfg, cache,
+                                        torch.as_tensor(tok)[rows], tp=tpr)
+            out[f"decode{i}"] = _whole(logits, tpr, B).numpy()
+        st = generate(shard, cfg, prompts[rows], max_new=MAX_NEW,
+                      key=prng.PRNGKey(3), temperature=TEMP, tp=tpr)
+    out["tokens"] = tpr.gather_rows(st.tokens, B).numpy()
+    out["blp"] = tpr.gather_rows(st.behavior_logp, B).numpy()
+    return out, {"shards_ok": [len(ok), all(ok)],
+                 "heads": tpr.heads, "ffn": tpr.ffn, "vocab": tpr.vocab,
+                 "row0": tpr.row0,
+                 "wq": list(shard["layers"]["attn"]["wq"].shape)}
+
+
+def _executor_check(mesh):
+    """A generator executor on ``mesh`` (its TP shard, serving
+    tensor-parallel) against the same executor without a mesh."""
+    from repro_torch.configs.llama_paper import smoke
+    from repro_torch.core.executor import GeneratorExecutor
+    from repro_torch.models import init_params
+    from repro_torch.rl.data import ArithmeticTasks
+    cfg = smoke()
+    params = init_params(cfg, seed=5, dtype=torch.float32, device="cpu")
+    outs = []
+    for m in (None, mesh):
+        ex = GeneratorExecutor(cfg, ArithmeticTasks(seed=1), n_prompts=2,
+                               n_per_prompt=2, max_new=5, chunk=2, seed=7,
+                               temperature=1.0, device="cpu", mesh=m)
+        ex.set_weights(params, version=0)
+        outs.append(ex.step())
+    a, b = outs
+    held = {p: list(t.shape) for p, t in paths(ex.params).items()}
+    return {"tokens_equal": bool(torch.equal(a["tokens"], b["tokens"])),
+            "blp": float((a["behavior_logp"] - b["behavior_logp"])
+                         .abs().max()),
+            "mask_equal": bool(torch.equal(a["mask"], b["mask"])),
+            "tp": ex.tp is not None, "wq": held["layers/attn/wq"]}
+
+
+def rank_main(rank, world, rdv, ref_path, out_path):
+    """One rank of the world: each mesh of ``MESHES`` it belongs to, its
+    checks; every rank writes its own results."""
+    import os
+    import pickle
+    import time
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import mesh as meshmod
+    torch.set_num_threads(1)
+    meshmod.join(rdv, rank, world, device_type="cpu")
+    deadline = time.monotonic() + 600
+    while not os.path.exists(ref_path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no JAX runs at {ref_path}")
+        time.sleep(0.05)
+    with open(ref_path, "rb") as f:
+        ref = pickle.load(f)
+    res, arrays = {}, {}
+    for name, shape, groups in MESHES:
+        meshes = [DeviceMesh("cpu", torch.as_tensor(g).reshape(shape),
+                             mesh_dim_names=("data", "model"))
+                  for g in groups]
+        mesh = next(m for m, g in zip(meshes, groups) if rank in g)
+        out, res[name] = _mesh_checks(mesh, ref)
+        arrays.update({f"{name}|{k}": np.asarray(v) for k, v in out.items()})
+        if name == "model2":
+            res["executor"] = _executor_check(mesh)
+    np.savez(f"{out_path}_{rank}.npz", **arrays)
+    with open(f"{out_path}_{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()

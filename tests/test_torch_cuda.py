@@ -128,6 +128,47 @@ def test_cuda_fused_sample_planned_edges(cuda, B, V, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,V,m", [(16, 1000, 2), (16, 128256, 2),
+                                   (16, 128256, 4), (5, 256000, 2),
+                                   (32, 1001, 3)])
+def test_cuda_fused_sample_vocab_shards(cuda, B, V, m, dtype):
+    """B3's partial mode on each of m vocabulary shards (columns
+    [col0, col0 + V/m), the last one ragged) of rows [row0, row0 + B):
+    each partial's column, max and kept logit equal the plain split
+    version's at the kernel's span, s within 1e-4; merged in shard order
+    the tokens equal B3 on the whole rows bit for bit, the log-probs
+    within 1e-4 (the -inf row, the ties placed across a shard boundary
+    included)."""
+    x = _sample_rows(B, V, dtype, B + V + m, cuda)
+    w = -(-V // m)
+    if B >= 16:
+        x[5, w - 1] = x[5, w] = 40.0            # a tie across shards
+    key = prng.split(prng.PRNGKey(m), 2)[1]
+    for T in (0.0, 0.7, 1.0):
+        parts = []
+        for c0 in range(0, V, w):
+            shard = x[:, c0:c0 + w]
+            part = fused_sample.fused_sample_partial_cuda(shard, key, T,
+                                                          col0=c0, row0=7)
+            span, _ = fused_sample.split_plan(B, shard.shape[1],
+                                              build.sm_count(cuda))
+            plain = fused_sample.fused_sample_split_plain(
+                shard, key, T, span, col0=c0, row0=7, partial=True)
+            assert torch.equal(part[:, 3], plain[:, 3]), (T, c0)
+            assert torch.equal(part[:, [0, 4]], plain[:, [0, 4]]), (T, c0)
+            ds = (part[:, 1] - plain[:, 1]).abs()
+            assert bool((ds <= 1e-4 * plain[:, 1].abs()).all()), (T, c0)
+            parts.append(part)
+        tok, lp = fused_sample.merge_partials(torch.stack(parts))
+        tok_w, lp_w = fused_sample.fused_sample_cuda(x, key, T, row0=7)
+        assert torch.equal(tok, tok_w), T
+        assert _err(lp, lp_w) < 1e-4
+        if T == 0.0 and B >= 16:
+            assert tok[5].item() == w - 1 and tok[4].item() == 0
+
+
+@pytest.mark.cuda
 def test_cuda_fused_sample_counters_and_repeat(cuda):
     """Two calls give the same bits, one launch each, and the merge
     counters are back at zero after each."""

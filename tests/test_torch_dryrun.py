@@ -265,3 +265,114 @@ def test_cli_writes_a_full_size_record(tmp_path, capsys):
     assert not saved["fits_hbm"] and saved["collectives"] == {}
     assert set(saved["roofline"]) == {"compute_s", "memory_s",
                                       "collective_s"}
+
+
+def _serve_products(cfg, kind, mesh_shape):
+    """One device's serving step of ``cfg`` on meta (``kind`` prefill of
+    16 ids or decode over a cache of 32, 4 rows), run under
+    ``FlopCounterMode``: (each product's shapes and FLOPs, the record's
+    collectives)."""
+    mesh = dryrun.production_mesh(mesh_shape=mesh_shape)
+    S = 16 if kind == "prefill" else 32
+    c, shape, lowered = dryrun.lower_combo(
+        cfg, ShapeSpec("t", S, 4, kind), mesh, dtype=torch.float32)
+    with FlopCounterMode(display=False) as fc, _Products(fc) as rec:
+        got = lowered.run()
+    return rec.calls, got["collectives"], lowered
+
+
+@pytest.mark.parametrize("kv_heads", [2, 4])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_tp_serving_splits_every_sharded_product(kind, kv_heads):
+    """On a (1, 4) mesh the dense serving step is the tensor-parallel one:
+    every product whose weight the plan splits counts exactly a quarter
+    of the (1, 1) step's FLOPs, every other product its whole count
+    (attention where 4 does not divide the KV heads); two all-reduces of
+    [rows, S, D] a layer where the heads split (one, the MLP's, where
+    they do not) and the embedding's one; ``argument_bytes`` stays the
+    reference's shards while ``held_bytes`` is what the rank holds."""
+    cfg = llama_smoke().replace(n_kv_heads=kv_heads)
+    full, none, one = _serve_products(cfg, kind, (1, 1))
+    part, colls, four = _serve_products(cfg, kind, (1, 4))
+    assert none == {} and len(full) == len(part) > 0
+    split = 0
+    for (_, b, f), (_, b4, f4) in zip(full, part):
+        if b4 == b:
+            assert f4 == f, (b, f, f4)
+        else:
+            split += 1
+            assert 4 * f4 == f, (b, b4, f, f4)
+    # per layer: wq wk wv wo (where the heads split) and the two attention
+    # products, w_gate w_up w_down; the head
+    per_layer = 3 + (6 if kv_heads == 4 else 0)
+    assert split == cfg.n_layers * per_layer + 1
+    S = 16 if kind == "prefill" else 1
+    act = 4 * S * cfg.d_model * 4
+    per = 2 if kv_heads == 4 else 1
+    assert colls == {"all-reduce": (per * cfg.n_layers + 1) * act}
+    assert four.argument_bytes < one.argument_bytes
+    if kv_heads == 4 and kind == "decode":
+        # a cache of one KV head in place of the reference's four
+        assert four.held_bytes < four.argument_bytes
+
+
+@pytest.fixture(scope="module")
+def xla_tp_decode_flops():
+    """XLA's ``cost_analysis()`` FLOPs a device of the reference's
+    ``lower_combo`` for llama31-smoke's decode at one layer (XLA counts a
+    scan's body once) on a (1, 4) mesh of four emulated CPU devices, with
+    2 and with 4 KV heads (a subprocess: the device count is fixed at
+    JAX's first use)."""
+    import os
+    import subprocess
+    import sys
+    script = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp, numpy as np
+assert len(jax.devices()) == 4
+from repro import configs
+from repro.configs.base import INPUT_SHAPES, ShapeSpec
+from repro.configs.llama_paper import smoke
+import repro.launch.dryrun as d
+INPUT_SHAPES["tp_decode"] = ShapeSpec("tp_decode", 32, 4, "decode")
+mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(1, 4),
+                         ("data", "model"))
+for k in (2, 4):
+    configs.get_config = lambda a: smoke().replace(n_layers=1, n_kv_heads=k)
+    _, _, lowered = d.lower_combo("llama31-smoke", "tp_decode", mesh,
+                                  dtype=jnp.float32)
+    cost = lowered.compile().cost_analysis()
+    cost = cost[0] if isinstance(cost, list) else cost
+    print("FLOPS", k, cost["flops"])
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", script], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return {int(k): float(f) for k, f in
+            (line.split()[1:] for line in out.stdout.splitlines()
+             if line.startswith("FLOPS"))}
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_tp_decode_flops_against_xla(kv_heads, xla_tp_decode_flops):
+    """The port's per-device FLOPs of the tensor-parallel decode against
+    XLA's for the reference's partitioned decode on (1, 4).  With 4 KV
+    heads both split the heads over ``model``: within [0.9, 1.1].  With
+    the smoke's own 2 (2 % 4 != 0) the port runs attention whole on
+    every rank, as the reference's ``constrain_attn`` rule says, while
+    XLA still spreads that attention's work over the model devices: the
+    port counts more than 1.1 of XLA's (ROADMAP C2 names the row split
+    that would close it)."""
+    mesh = dryrun.production_mesh(mesh_shape=(1, 4))
+    cfg, shape, lowered = dryrun.lower_combo(
+        llama_smoke().replace(n_layers=1, n_kv_heads=kv_heads),
+        ShapeSpec("tp_decode", 32, 4, "decode"), mesh, dtype=torch.float32)
+    rec = dryrun.analyse(cfg, shape, lowered, mesh)
+    ratio = rec["flops_per_device"] / xla_tp_decode_flops[kv_heads]
+    if kv_heads == 4:
+        assert 0.9 <= ratio <= 1.1, (rec["flops_per_device"], ratio)
+    else:
+        assert ratio > 1.1, (rec["flops_per_device"], ratio)

@@ -90,6 +90,44 @@ def test_sample_extreme_and_tied_rows(temperature):
         assert tok[2] == 3          # ties go to the lower column
 
 
+@pytest.mark.parametrize("temperature", [0.0, 0.7, 1.0])
+@pytest.mark.parametrize("m", [2, 4])
+def test_sample_partials_merged_over_vocab_shards(m, temperature):
+    """B3's plain partial of each of m vocabulary shards (columns
+    ``[col0, col0 + V/m)`` at a span of 64, rows from ``row0``), merged
+    in shard order by ``merge_partials``, gives ``fused_sample_plain``'s
+    tokens on the whole rows bit for bit and the JAX reference's, with
+    log-probs within 1e-5: a tie placed across each shard boundary goes
+    to the lower column, and a row whose every z is -inf to column 0."""
+    B, V, row0 = 8, 1000, 5
+    w = V // m
+    x = np.random.default_rng(3).standard_normal((B + row0, V)) * 2
+    for r, c in enumerate(range(w, V, w)):
+        x[row0 + r, c - 1] = x[row0 + r, c] = 30.0
+    x[row0 + B - 1] = -np.inf
+    jl, tl = _pair(x)
+    key = 11
+    parts = torch.stack([fused_sample.fused_sample_split_plain(
+        tl[row0:, c0:c0 + w], prng.PRNGKey(key), temperature, 64, col0=c0,
+        row0=row0, partial=True) for c0 in range(0, V, w)])
+    tok, lp = fused_sample.merge_partials(parts)
+    tok_w, lp_w = fused_sample.fused_sample_plain(
+        tl[row0:], prng.PRNGKey(key), temperature, row0=row0)
+    assert torch.equal(tok, tok_w)
+    # rows [row0, row0 + B) of the reference's draw of the whole batch
+    tok_r, lp_r = ref.fused_sample_ref(jl, jax.random.PRNGKey(key),
+                                       temperature)
+    assert np.array_equal(tok.numpy(), np.asarray(tok_r)[row0:])
+    got, want = lp.numpy(), lp_w.numpy()
+    fin = np.isfinite(want)
+    assert np.array_equal(got[~fin], want[~fin])   # the -inf row: +inf
+    assert np.max(np.abs(got[fin] - want[fin])) < 1e-5
+    if temperature == 0.0:
+        for r, c in enumerate(range(w, V, w)):
+            assert tok[r] == c - 1
+    assert tok[B - 1] == 0
+
+
 @pytest.mark.parametrize("T,V", [(64, 512), (100, 1000), (33, 257)])
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_fused_logprob_plain_matches_kernel(T, V, dtype, tol):
