@@ -83,14 +83,15 @@ Each phase prints its own lines:
                interpreter, CUDA context and default stream), the reward
                in this process; every child's launch counts, peak memory
                and modules read through a ``probe`` endpoint.  (a)
-               ``proc`` at [10]'s 2 layers, a pool of 1 (chunk
+               ``proc`` on llama31-8b's smoke config, a pool of 1 (chunk
                scheduling, the child pinning each job's params), each
                child on a (1, 1) mesh of its own (DeviceSpec.mesh_shape:
                an NCCL world of one, the trainer stepping sharded on
-               it, each probe reporting its mesh): bit-equal to [10]
-               (a), its launch counts summed over the children equal to
-               [10] (a)'s; (b) an engine pool of 2 on paged KV at
-               1 layer, 3 steps, threaded in process and then over
+               it, each probe reporting its mesh): bit-equal to the
+               same loop threaded in process, its launch counts summed
+               over the children equal to that run's; (b) an engine
+               pool of 2 on paged KV on the smoke config, 3 steps,
+               threaded in process and then over
                ``shm``, both traced: decode ms a token per worker, the stats, each
                weight hop's ms and GB/s, spawn seconds, peak memory per
                process (CUDA and resident set), staged slots, the most
@@ -110,9 +111,9 @@ Each phase prints its own lines:
                its children probed: B1-B5 launched in the children, the
                first call of each shape each child gave a kernel held
                against its plain version there
-  [14] supervise  llama31-8b widths at 1 layer, bf16 params, fp32 Adam,
-               KL 0.1, under a ``Supervisor``.  (a) [12] (b)'s engine pool
-               of 2 on paged KV in ``shm`` children, staleness 2, 4 steps,
+  [14] supervise  llama31-8b's smoke config, bf16 params, fp32 Adam,
+               KL 0.1, under a ``Supervisor``.  (a) an engine pool of 2
+               on paged KV in ``shm`` children, staleness 2, 4 steps,
                ``kill:generator1@batch=3`` while generator1's engine
                holds batch 1 (it stalls at version 0): steps in order,
                generator1 respawned, batch 1 re-admitted and emitted by
@@ -124,7 +125,8 @@ Each phase prints its own lines:
                seconds; (b) the generator and the trainer threaded here,
                the frozen reference in a ``proc`` child killed at the
                consumer's batch 2: bit-equal to the same controller's run
-               without the fault, the respawned reference replaying its
+               without the fault (its reference in this process), the
+               respawned reference replaying its
                version-0 seed and running B1, the first kernel call of
                each shape here and in the reference's second life held
                against the plain version; (c) ``python -m
@@ -311,9 +313,10 @@ Each phase prints its own lines:
                B1, B2 and B4 must launch on this path ("sharded"), and
                (a)'s first kernel call of each shape is held against the
                plain version
-  [23] tp      tensor-parallel serving: B3 in its partial mode on a
-               rank's [16, 64128] vocabulary shard (col0 64128) and B4 on a
-               rank's heads [4, 2048, 16, 4, 128] held against their plain
+  [23] tp      tensor-parallel serving and training: B3 in its partial
+               mode on a rank's [16, 64128] vocabulary shard (col0 64128),
+               B4 on a rank's heads [4, 2048, 16, 4, 128], and B1 and B2 on
+               a rank's [16, 80, 64128] logits held against their plain
                versions and timed here; then two spawned processes share
                the card as a (data 1, model 2) mesh of a gloo group over
                CUDA tensors (NCCL refuses two ranks on one device), each
@@ -331,9 +334,28 @@ Each phase prints its own lines:
                full width, logits within 1e-4 and tokens identical; (e)
                the dry run's prediction of a rank's TP prefill at (d)'s
                config held to the card (bytes, FLOPs, all-reduce bytes).
-               B3 and B4 are counted on the "tp" path (each rank's
-               prefill and rollout) and the first B4 call of each shape
-               is held against chunked_attention
+               Then at (d)'s config, on a [16, 80] batch, each rank in
+               turn builds the whole train state and runs the one-card
+               reference scoring and two make_train_step steps at lr
+               1e-3, KL 0.1, keeping its blocks: (h) a RefPolicyExecutor
+               on the mesh (its TP shard) against the one-card one within
+               1e-5; (f) two TP sharded train steps, each from the
+               one-card state before it (metrics within 1e-5, m 1e-5
+               and v 2e-5 of a leaf's largest, updates 99% within 1e-4
+               of the largest and all within 2 of it: the comment at
+               TP_TRAIN_ROWS says why the card needs more than the sharded
+               tests' 1e-5 and 0.2), their step times beside the one
+               card's (gloo-bound);
+               (i) the dry run's prediction of that step held to one more
+               (held bytes within 1 MB, the peak within its band, FLOPs,
+               all-reduce and all-gather bytes exactly); (g) B1 on each
+               rank's [16, 80, 64128] slice merged over the ranks against
+               B1 on the whole rows (1e-6 relative), B2 on the slice
+               against the whole row's columns (one bf16 ulp; bit for bit
+               with the whole row's stats).  B3 and B4 are counted on the
+               "tp" path (each rank's prefill and rollout), B1, B2 and B4
+               in (f)'s steps, and the first B4 call of each serving
+               shape is held against chunked_attention
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
 so every reward is 0, every advantage is 0 and so is the policy-gradient
@@ -413,16 +435,8 @@ ENGINE_BUDGETS = [1, 2, 4, 4]
 # trainer state): in-process subscribers share each version's tensors,
 # and at bound 1 with 2 workers the fabric and channels may hold up to
 # 2 bound + workers + 4 = 8 versions, which at 8 layers (5.59 GB each)
-# would not fit beside the trainer on an 80 GB card; [12] (a) runs the
-# same depth in children, where the socket pair carries each version at
-# about 0.5 GB/s, so 2 layers rather than 4 keep the script's time
+# would not fit beside the trainer on an 80 GB card
 POOL_LAYERS = 2
-# [12] (b)'s depth: two generator children at 4 layers, each with up to
-# three 3.85 GB versions beside its KV, the trainer's 23.1 GB and the
-# controller's relayed versions would pass 75 GB of the card's 80; the
-# run is paced by weight hops (the vocabulary's embedding and head are
-# 2.10 GB of a version), so one layer keeps the script's time in hand
-PROC_LAYERS = 1
 # B6 against its plain version: |d| <= INT8_TOL max(1, |plain|).  Both
 # widen the same x and int8 values exactly, so every product is equal;
 # only the order of the fp32 sum differs (over K up to 14336, about 1e-6
@@ -2826,48 +2840,47 @@ def pool_controller(torch, dev, cfg, *, n_gens, pool, steps, prompt_len=16,
     (controller, generator handles, trainer, reference, seconds each
     actor took to spawn)."""
     import functools
-    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.core import (CommType, CommunicationChannel,
                                   ExecutorController, RewardExecutor,
-                                  build_generator_pool, spawn_actor)
+                                  WeightsCommunicationChannel,
+                                  build_generator_pool, spawn_actor,
+                                  spawn_all)
     from repro_torch.rl.data import ArithmeticTasks
 
-    def timed_spawn(*args, **kwargs):
-        t0 = time.perf_counter()
-        h = spawn_actor(*args, **kwargs)
-        return h, time.perf_counter() - t0
+    def timed(job):
+        def run():
+            t0 = time.perf_counter()
+            out = job()
+            return out, time.perf_counter() - t0
+        return run
 
     def make_tasks(g):
         return ArithmeticTasks(prompt_len=prompt_len, seed=g)
 
-    spawn_s = {}
-    # the reference spawns on a thread while the trainer and the
-    # generators spawn here: a child takes 10-15 s to import torch and
-    # open its CUDA context, and the reference waits on none of them
-    with ThreadPoolExecutor(1) as spawner:
-        ref_f = spawner.submit(timed_spawn, probed_executor, "reference",
-                               cfg, ref_init=(1, torch.bfloat16, dev),
-                               transport=transport, device_spec=device_spec)
-        rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
-        trn, trn_s = timed_spawn(
-            probed_executor, "trainer", cfg, dtype=torch.bfloat16,
-            kl_coef=KL_COEF, seed=0, device=dev, transport=transport,
-            device_spec=device_spec)
-        t_pool = time.perf_counter()
-        gens, chans = build_generator_pool(
-            cfg, trn, make_tasks, n_generators=n_gens,
-            generator_cls=functools.partial(probed_executor, "generator",
-                                            record=record, stall=stall),
-            n_prompts=N_PROMPTS, n_per_prompt=N_PER, max_new=MAX_NEW,
-            chunk=CHUNK, temperature=1.0, device=dev, transport=transport,
-            device_spec=device_spec)
-        # the pool spawns its remote workers at once
-        spawn_s["generators" if len(gens) > 1 else gens[0].name] = \
-            time.perf_counter() - t_pool
-        ref, ref_s = ref_f.result()
-    spawn_s[ref.name], spawn_s[trn.name] = ref_s, trn_s
-    chans += [
+    jobs = [functools.partial(
+        spawn_actor, probed_executor, "reference", cfg,
+        ref_init=(1, torch.bfloat16, dev), transport=transport,
+        device_spec=device_spec), functools.partial(
+        spawn_actor, probed_executor, "trainer", cfg, dtype=torch.bfloat16,
+        kl_coef=KL_COEF, seed=0, device=dev, transport=transport,
+        device_spec=device_spec), functools.partial(
+        build_generator_pool, cfg, None, make_tasks, n_generators=n_gens,
+        generator_cls=functools.partial(probed_executor, "generator",
+                                        record=record, stall=stall),
+        n_prompts=N_PROMPTS, n_per_prompt=N_PER, max_new=MAX_NEW,
+        chunk=CHUNK, temperature=1.0, device=dev, transport=transport,
+        device_spec=device_spec)]
+    # spawned children start at once (the pool's workers on threads of
+    # their own): a child takes 10-15 s to import torch and open its CUDA
+    # context, and none of them waits on another
+    (ref, ref_s), (trn, trn_s), ((gens, _), gens_s) = spawn_all(
+        [timed(j) for j in jobs], at_once=transport != "inproc")
+    rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
+    spawn_s = {"generators" if len(gens) > 1 else gens[0].name: gens_s,
+               ref.name: ref_s, trn.name: trn_s}
+    chans = [WeightsCommunicationChannel("policy_model", trn, g)
+             for g in gens] + [
         CommunicationChannel("completions", gens[0], ref, CommType.BROADCAST),
         CommunicationChannel("completions_with_ref", ref, rew,
                              CommType.GATHER),
@@ -2929,7 +2942,6 @@ def phase_pool(torch, dev):
         gc.collect()
         torch.cuda.empty_cache()
     (ht, bt, wt), (hs, bs, ws) = runs["threaded"], runs["sequential"]
-    runs_launches = launches
     chunk_s = [e[6] for e in tracer.events()
                if e[2] == "X" and e[4] == "scheduler" and e[3] == "chunk"]
     chunks = len(chunk_s)
@@ -3075,7 +3087,7 @@ def phase_pool(torch, dev):
         log(line)
     del recorded
     torch.cuda.empty_cache()
-    return launches, (ht, bt, runs_launches)
+    return launches
 
 
 def phase_quickstart(torch, dev):
@@ -3358,17 +3370,20 @@ def device_overlap(timelines, started) -> str:
     return out
 
 
-def phase_proc(torch, dev, pool_a, quick_hist):
+def phase_proc(torch, dev, quick_hist):
     """[12]: the async loop with its actors in spawned processes.  (a)
-    ``proc`` at [10]'s depth, a pool of 1 (chunk scheduling), each child
-    on a (1, 1) mesh of its own (an NCCL world of one; the trainer steps
-    sharded on it), against [10] (a) bit for bit; (b) an engine pool of 2
-    on paged KV at 1 layer, threaded in process and then over ``shm``,
-    traced; (c) the quickstart with every actor on a self-hosted
-    ``socket``, against [11] bit for bit.  Returns the children's launch
-    counts of (a) and (b)."""
+    ``proc`` on llama31-8b's smoke config, a pool of 1 (chunk
+    scheduling), each child on a (1, 1) mesh of its own (an NCCL world of
+    one; the trainer steps sharded on it), against the same loop threaded
+    in process bit for bit; (b) an engine pool of 2 on paged KV, threaded
+    in process and then over ``shm``, traced; (c) the quickstart with
+    every actor on a self-hosted ``socket``, against [11] bit for bit.
+    Every loop runs llama31-8b's smoke config: at its published widths a
+    weight version is 2.5 GB a layer and more, each hop of it took 2-6 s
+    (0.2-1.2 GB/s) and the hops paced the script.  Returns the children's
+    launch counts of (a) and (b)."""
     from repro_torch import quickstart
-    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.configs.llama_paper import smoke
     from repro_torch.core import DeviceSpec, PoolConfig, close_all_actors
     from repro_torch.kernels import build
     from repro_torch.obs import trace as obs_trace
@@ -3377,16 +3392,31 @@ def phase_proc(torch, dev, pool_a, quick_hist):
     torch.cuda.empty_cache()
     keys = ("loss", "grad_norm", "mean_ratio", "mean_logp", "mean_reward")
     tracer = obs_trace.enable("controller")
-    ha, ta, want_a = pool_a
-    cfg = LLAMA31_8B.replace(name=f"llama31-8b-{POOL_LAYERS}l",
-                             n_layers=POOL_LAYERS)
+    cfg = smoke()
+    parts = [("", time.perf_counter())]
+
+    def part(label):
+        """Closes the part of the phase called ``label``."""
+        parts.append((label, time.perf_counter()))
     log(f"[12] processes: the async loop with the reference, the trainer "
         f"and the generators each in a spawned child (own interpreter, "
         f"CUDA context and default stream), the reward in this process; "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated here "
         "before it")
 
-    # (a) proc, a pool of 1, each child on a (1, 1) mesh, against [10] (a)
+    # (a) proc, a pool of 1, each child on a (1, 1) mesh, against the same
+    # loop threaded here
+    ctl, gens, trn, ref, _ = pool_controller(torch, dev, cfg, n_gens=1,
+                                             pool=PoolConfig(), steps=3)
+    build.reset_launches()          # the threaded twin's run starts here
+    ha = ctl.run()
+    torch.cuda.synchronize()
+    want_a = dict(build.LAUNCHES)   # ... and ends here
+    ta = trn.call("probe")["batches"]
+    del ctl, gens, trn, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("(a)'s twin")
     tracer.clear()
     ctl, gens, trn, ref, spawn_s = pool_controller(
         torch, dev, cfg, n_gens=1, pool=PoolConfig(), steps=len(ha),
@@ -3430,8 +3460,9 @@ def phase_proc(torch, dev, pool_a, quick_hist):
             f"weight_version {h['weight_version']}")
     chunk_s = [e[6] for e in spans(events, "chunk") if e[4] == "scheduler"]
     up, down = weight_hops(events, "trainer", ["generator"])
-    log(f"  (a) proc, pool of 1, chunk scheduling, {len(hist)} steps in "
-        f"{wall:.2f} s: tokens equal to [10] (a) {same_tokens}, metrics "
+    log(f"  (a) proc, {cfg.name}, pool of 1, chunk scheduling, {len(hist)} "
+        f"steps in {wall:.2f} s: tokens equal to the threaded twin's "
+        f"{same_tokens}, metrics "
         f"bit-equal {bit_equal}; versions "
         f"{[h['weight_version'] for h in hist]}; decode "
         f"{1e3 * sum(chunk_s) / (len(chunk_s) * CHUNK):.2f} ms a token over "
@@ -3460,7 +3491,8 @@ def phase_proc(torch, dev, pool_a, quick_hist):
             f"(a) meshes {[p['mesh'] for p in probes.values()]}")
     require([h["weight_version"] for h in hist] == [0, 0, 1],
             "(a) weight versions")
-    require(bit_equal, "(a) the process-placed loop differs from [10] (a)")
+    require(bit_equal, "(a) the process-placed loop differs from its "
+            "threaded twin")
     require(launches_a == want_a and not parent, f"(a) launches {launches_a}"
             f" in the children and {parent} here, want {want_a} there")
     require(all(not p["stray"] for p in probes.values()),
@@ -3472,18 +3504,16 @@ def phase_proc(torch, dev, pool_a, quick_hist):
             and all(r["published"] > 0 for r in subs.values()),
             "(a) staged slots not used, or one neither committed nor queued")
 
-    # (b) an engine pool of 2 on paged KV at PROC_LAYERS: in process, then
-    # shm
-    cfg2 = LLAMA31_8B.replace(name=f"llama31-8b-{PROC_LAYERS}l",
-                              n_layers=PROC_LAYERS)
-    L, steps_b = PROC_LAYERS, 3
+    part("(a)")
+    # (b) an engine pool of 2 on paged KV: in process, then shm
+    L, steps_b = cfg.n_layers, 3
     proc_launches = [launches_a]
     for transport in ("inproc", "shm"):
         tracer.clear()
         remote = transport != "inproc"
         with ShmSegments() as shm:
             ctl, gens, trn, ref, spawn_s = pool_controller(
-                torch, dev, cfg2, n_gens=2, steps=steps_b,
+                torch, dev, cfg, n_gens=2, steps=steps_b,
                 prompt_len=ENGINE_PROMPT, transport=transport,
                 pool=PoolConfig(engine=True, kv_layout="paged",
                                 kv_page_size=ENGINE_PAGE))
@@ -3597,6 +3627,7 @@ def phase_proc(torch, dev, pool_a, quick_hist):
             log(f"  {tag}: weights shared by reference (no hop); peak "
                 f"{peak_here:.2f} GB allocated ({reserved_here:.2f} "
                 f"reserved) in one process; {smi.line()}")
+        part(tag)
 
     # (c) the quickstart with its actors on self-hosted sockets
     os.environ["REPRO_TRANSPORT"] = "socket"
@@ -3621,6 +3652,9 @@ def phase_proc(torch, dev, pool_a, quick_hist):
         f"{wall:.2f} s (+{spawn:.2f} s building); bit-equal to [11] "
         f"in process: {equal}")
     require(equal, "(c) the socket-placed quickstart differs from [11]")
+    part("(c)")
+    log("  [12] by part (spawns and teardown included): " + ", ".join(
+        f"{k} {t - parts[n][1]:.1f} s" for n, (k, t) in enumerate(parts[1:])))
     obs_trace.disable()
     return summed(proc_launches)
 
@@ -3728,8 +3762,13 @@ def phase_launch(torch) -> dict:
     return summed(launches.values())
 
 
-SUPERVISE_LAYERS = 1        # [14]: every child holds its own weights,
-                            # as in [12] (b), and hops pace the run
+# [14] runs llama31-8b's smoke config, as the launcher runs in (c): what
+# it checks (a kill, a respawn, the replay, the batch re-admitted, a
+# recovery bit-equal to the run without the fault) does not depend on the
+# width, and at llama31-8b's widths each weight hop of 2.5 GB (0.2-0.5
+# GB/s, which [12] measures) paced the phase to about 250 s
+# the least card memory a CUDA context holds beside its allocator's
+CONTEXT_GB = 0.25
 SUPERVISE_FLAGS = ["--arch", "llama31-8b", "--smoke", "--steps", "6",
                    "--transport", "proc", "--n-generators", "2",
                    "--rollout-chunk", "2", "--supervise"]
@@ -3747,16 +3786,16 @@ def card_used_gb(torch) -> float:
 
 
 def phase_supervise(torch, dev) -> dict:
-    """[14]: supervision at llama31-8b's widths, SUPERVISE_LAYERS deep.
+    """[14]: supervision on llama31-8b's smoke config.
     (a) an shm engine pool of 2 whose generator1 is killed at batch 3 with batch 1
     in flight, respawned, and batch 1 re-admitted; (b) the frozen reference in a proc child killed at
     the consumer's batch 2, bit-equal to the same controller's run
-    without the fault; (c) the launcher with --supervise --chaos as a
+    without the fault and with the reference here; (c) the launcher with --supervise --chaos as a
     process of its own, respawning and then degrading; (d) the
     train_arithmetic_rl twin with checkpoints.  Returns the launch
     counts of (a), (b) and (d)."""
     from repro_torch import train_arithmetic_rl
-    from repro_torch.configs.llama_paper import LLAMA31_8B
+    from repro_torch.configs.llama_paper import smoke
     from repro_torch.core import (FaultPlan, PoolConfig, Supervisor,
                                   close_all_actors)
     from repro_torch.kernels import build
@@ -3765,11 +3804,11 @@ def phase_supervise(torch, dev) -> dict:
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = LLAMA31_8B.replace(name=f"llama31-8b-{SUPERVISE_LAYERS}l",
-                             n_layers=SUPERVISE_LAYERS)
+    cfg = smoke()
     launches = []
-    log(f"[14] supervise: llama31-8b widths at {SUPERVISE_LAYERS} layers, "
-        f"bf16 params, fp32 Adam, KL {KL_COEF}; "
+    log(f"[14] supervise: {cfg.name} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, V {cfg.vocab}), bf16 params, fp32 Adam, KL "
+        f"{KL_COEF}; "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated here "
         "before it")
 
@@ -3903,8 +3942,10 @@ def phase_supervise(torch, dev) -> dict:
             f"{second['built']}")
     require(victim["segments"] and not corpse_left,
             f"(a) the corpse's shm segments left: {corpse_left}")
+    # the corpse's caching allocator and its CUDA context (about 0.7 GB
+    # on an H100) leave the card when it exits
     require(victim["used_gb"] - victim["after_kill_gb"]
-            >= first_life["reserved_now_gb"] - 1.0,
+            >= first_life["reserved_now_gb"] + CONTEXT_GB,
             "(a) the corpse's memory was not returned when it exited")
     # after the recovery the card holds at most 1 GB more than before the
     # kill, and the new child holds at least the version replayed into it
@@ -3940,8 +3981,10 @@ def phase_supervise(torch, dev) -> dict:
                                      stderr=se), so, se, out, cmd)
 
     # (b) the reference killed at the consumer's batch 2, against the
-    # same controller's run without the fault; the fault run records its
-    # kernel calls here and in the reference's second life
+    # same controller's run without the fault and with the reference here
+    # ([12] (a) holds a proc child bit-equal to its threaded twin); the
+    # fault run records its kernel calls here and in the reference's
+    # second life, and only its launches count
     keys = ("loss", "grad_norm", "mean_ratio", "mean_reward")
     runs_b = {}
     build.reset_launches()
@@ -3950,15 +3993,16 @@ def phase_supervise(torch, dev) -> dict:
         plan = Measured("kill:ref@consume=2") if fault else None
         t0 = time.perf_counter()
         ctl, gens, trn, ref = ref_child_controller(
-            torch, dev, cfg, plan, record=KernelCalls.NAMES if fault else None)
-        ref.call("probe", reset=True)
+            torch, dev, cfg, plan, record=KernelCalls.NAMES if fault else None,
+            ref_transport="proc" if fault else "inproc")
         if fault:
+            ref.call("probe", reset=True)
             with KernelCalls(torch, per_shape=1) as rec_b:
                 hist = ctl.run()
-            here_b = dict(build.LAUNCHES)
+            parent_b = dict(build.LAUNCHES)
             replay_b = ref.call("replay", "(b) the reference, second life") \
                 + rec_b.replay("(b) in process, the fault run", expect={
-                    f"{n}_cuda" for n, c in here_b.items() if c})
+                    f"{n}_cuda" for n, c in parent_b.items() if c})
             del rec_b
         else:
             hist = ctl.run()
@@ -3973,11 +4017,10 @@ def phase_supervise(torch, dev) -> dict:
         del ctl, gens, trn, ref
         gc.collect()
         torch.cuda.empty_cache()
-    parent_b = dict(build.LAUNCHES)
-    (hf, pf, tf, victim_b, ev_b), (hc, pc, _, _, _) = \
+    (hf, pf, tf, victim_b, ev_b), (hc, _, _, _, _) = \
         runs_b["fault"], runs_b["clean"]
     seed_print = tf["first_print"]
-    launches.append(summed([parent_b, pf["launches"], pc["launches"],
+    launches.append(summed([parent_b, pf["launches"],
                             victim_b["probe"]["launches"]]))
     resp_b = [e for e in ev_b if e["event"] == "respawned"]
     log(f"  (b) the reference respawned in "
@@ -4071,12 +4114,13 @@ def phase_supervise(torch, dev) -> dict:
     return summed(launches)
 
 
-def ref_child_controller(torch, dev, cfg, plan, record=None):
+def ref_child_controller(torch, dev, cfg, plan, record=None,
+                         ref_transport="proc"):
     """[14] (b)'s loop, the launcher's ``--kl-coef`` wiring: the generator
     (chunk scheduling) and the trainer threaded here, the frozen
-    reference (seed 1) in a proc child with its weight channel, staleness
-    1, 3 steps, supervised with the fault plan ``plan``; the reference
-    records the kernel calls of ``record``."""
+    reference (seed 1) where ``ref_transport`` puts it with its weight
+    channel, staleness 1, 3 steps, supervised with the fault plan
+    ``plan``; the reference records the kernel calls of ``record``."""
     import functools
 
     from repro_torch.core import (CommType, CommunicationChannel,
@@ -4087,7 +4131,7 @@ def ref_child_controller(torch, dev, cfg, plan, record=None):
 
     ref = spawn_actor(probed_executor, "reference", cfg,
                       ref_init=(1, torch.bfloat16, dev), record=record,
-                      transport="proc")
+                      transport=ref_transport)
     rew = RewardExecutor(n_per_prompt=N_PER, leave_one_out=True)
     trn = spawn_actor(probed_executor, "trainer", cfg, dtype=torch.bfloat16,
                       kl_coef=KL_COEF, seed=0, device=dev,
@@ -7360,6 +7404,32 @@ TP_SAMPLE_REL = 1e-5        # (c): merged log-prob against the whole row's
 TP_B4 = (4, 2048, 16, 4, 128)   # B4 on a rank's heads (llama31-8b, TP 2)
 TP_SEED, TP_KEY = 3, 23
 TP_TIMEOUT_S = 600
+# (f)-(i): the TP train step and reference scoring at (d)'s config, on a
+# [16, 80] batch as [7]'s, at tests/_sharded_ranks.py's lr.  Its bounds
+# are the sharded tests' (metrics 1e-5, m 1e-5 of a leaf's largest)
+# where the card holds them.  The first step starts from zero moments,
+# so its m is a tenth of the clipped gradient: m's bound holds the
+# gradient itself, before Adam, to the tests' 1e-5.  At full width fp32
+# sums over 1264 to 14336 terms in another order (partial products
+# all-reduced, the merged vocabulary stats, cuBLAS's kernels for other
+# shapes) move a gradient element by up to about 1e-5 of its leaf's
+# largest, and Adam's step divides each element by its own size: an
+# element far below its leaf's rms gradient carries its rounding into
+# its update.  So v (the gradient squared) holds to twice m's bound, 99%
+# of an update to 1e-4 of the leaf's largest (2% of a leaf's elements
+# lay past 1e-5 on the card, 0.55% past 1e-4), and the worst element to
+# 0.5 of it (0.270 on the card).  The log gives, of the elements past
+# 1e-4, their one-card |m| over their leaf's rms |m|, the size that
+# decides how far Adam lifts their rounding
+TP_TRAIN_ROWS, TP_TRAIN_T, TP_TRAIN_PROMPT = 16, 80, 16
+TP_TRAIN_LR = 1e-3
+TP_TRAIN_STEPS = 2
+TP_METRIC_TOL = 1e-5        # metrics, relative to max(1, |value|)
+TP_MOMENT_TOL = {"m": 1e-5, "v": 2e-5}  # of each leaf's largest
+TP_UPDATE_TOL = 1e-4        # 99% of an update within it of the largest
+TP_UPDATE_WORST = 0.5       # and all within this share of it
+TP_REF_TOL = 1e-5           # (h): ref_logp, relative to max(1, |logp|)
+TP_LOGPROB_REL = 1e-6       # (g): merged B1 against the whole row's
 
 
 def _tp_cuts(torch, cfg, mesh, params):
@@ -7645,6 +7715,14 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
                     fc.get_total_flops(), "own": own, "plain_fwd": plain_fwd,
                     "all_reduce": counted["all-reduce"]}
         del shard
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark()
+
+        # (f)-(i): the TP train step and reference scoring at (d)'s config
+        res["train"] = tp_train_rank(torch, rank, mesh, cfg2, dev, mark)
+        # (g): the vocabulary-parallel B1 and B2 against the whole row's
+        res["g"] = tp_logprob_merge(torch, tp, dev)
         mark()
         res["seconds"] = [b - a for a, b in zip(times, times[1:])]
     finally:
@@ -7653,11 +7731,323 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
         dist.destroy_process_group()
 
 
+def _tp_train_batch(torch, cfg, dev):
+    """A [TP_TRAIN_ROWS, TP_TRAIN_T] training batch from TP_KEY, the same
+    on every rank: random tokens, a prompt of TP_TRAIN_PROMPT, behaviour
+    and reference log-probs and advantages on the actions."""
+    g = torch.Generator().manual_seed(TP_KEY)
+    B, T = TP_TRAIN_ROWS, TP_TRAIN_T
+    mask = torch.zeros(B, T)
+    mask[:, TP_TRAIN_PROMPT:] = (torch.rand(B, T - TP_TRAIN_PROMPT,
+                                            generator=g) > 0.1).float()
+    batch = {"tokens": torch.randint(3, cfg.vocab, (B, T), generator=g,
+                                     dtype=torch.int32),
+             "behavior_logp": -8 + 4 * torch.rand(B, T, generator=g),
+             "advantages": torch.randn(B, 1, generator=g).expand(B, T),
+             "ref_logp": -8 + 4 * torch.rand(B, T, generator=g),
+             "mask": mask}
+    for k in ("behavior_logp", "advantages", "ref_logp"):
+        batch[k] = batch[k] * mask
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _tp_slices(torch, tree, specs, mesh, dev):
+    """This rank's blocks of the whole ``tree`` under ``specs`` (a tree
+    of ``Spec``), copied to ``dev``."""
+    from repro_torch.models.sharding import shard_of
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda t, sp: shard_of(t, sp, mesh).to(dev, copy=True),
+                    tree, specs)
+
+
+def _tp_state(torch, mesh, specs, params, m, v, step):
+    """A sharded ``TrainState`` of this rank's blocks (DTensors placed by
+    ``specs``, a ``state_shardings`` tree; nothing is sent)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import to_placements
+    from repro_torch.train.optimizer import AdamState, tree_map
+    from repro_torch.train.trainstep import TrainState
+
+    def placed(tree, sp):
+        return tree_map(lambda t, s: DTensor.from_local(
+            t, mesh, to_placements(mesh, s), run_check=False), tree, sp)
+    return TrainState(placed(params, specs.params),
+                      AdamState(step, placed(m, specs.opt.m),
+                                placed(v, specs.opt.v)))
+
+
+def _tp_against(torch, state, want, before):
+    """A TP step's ``state`` against the one-card step's blocks ``want``
+    ((params, m, v)) from params ``before``: per part the worst share --
+    params: an update's error past one fp32 ulp over the leaf's largest
+    update (the worst, and the share of elements past TP_UPDATE_TOL, and
+    of those elements the one-card |m| over the leaf's rms |m|: the
+    median and the largest, ``m_rms``); m and v: the largest difference
+    over the leaf's largest |value|."""
+    out = {"update_worst": 0.0, "update_past": 0.0, "m": 0.0, "v": 0.0,
+           "leaves": {}, "m_rms": []}
+    got = (state.params, state.opt.m, state.opt.v)
+    want_m = list(leaves(want[1]))
+    for part, g_tree, w_tree in zip(("params", "m", "v"), got, want):
+        for j, ((k, t), w) in enumerate(zip(leaves_by_path(g_tree).items(),
+                                            leaves(w_tree))):
+            t = t.to_local()
+            leaf = out["leaves"].setdefault("/".join(k), {})
+            if part != "params":
+                leaf[part] = ((t - w).abs().max()
+                              / w.abs().max().clamp(min=1e-30)).item()
+                out[part] = max(out[part], leaf[part])
+                continue
+            b = leaves_by_path(before)[k]
+            big = (w - b).abs().max().clamp(min=1e-30)
+            ulp = torch.nextafter(w.abs(), torch.full_like(w, float("inf"))) \
+                - w.abs()
+            err = ((t - w).abs() - ulp).clamp(min=0) / big
+            leaf.update(worst=err.max().item(), past=(
+                err > TP_UPDATE_TOL).float().mean().item(), past_1e5=(
+                err > 1e-5).float().mean().item(), past_1e3=(
+                err > 1e-3).float().mean().item())
+            m = want_m[j].float()
+            rel = m.abs()[err > TP_UPDATE_TOL] / m.square().mean().sqrt()
+            if rel.numel():
+                out["m_rms"].append(rel.cpu())
+            out["update_worst"] = max(out["update_worst"], leaf["worst"])
+            out["update_past"] = max(out["update_past"], leaf["past"])
+            del ulp, err, m, rel
+    rel = torch.cat(out["m_rms"]) if out["m_rms"] else torch.zeros(1)
+    out["m_rms"] = {"n": len(rel), "median": rel.median().item(),
+                    "max": rel.max().item()}
+    return out
+
+
+def tp_train_rank(torch, rank, mesh, cfg, dev, mark):
+    """[23] (h), (f) and (i) on this rank of the (1, 2) mesh, llama31-8b
+    at full width with (d)'s layers in fp32 from TP_SEED on a
+    ``_tp_train_batch``.  Each rank in turn builds the whole state on the
+    card, keeps its blocks of it, scores the batch with the one-card
+    ``RefPolicyExecutor`` and runs TP_TRAIN_STEPS one-card
+    ``make_train_step`` steps, keeping its blocks of each step's state
+    (the second's on the host until it is compared).  Then (h) a
+    ``RefPolicyExecutor`` on the mesh scores the batch on its TP shard;
+    (f) ``make_sharded_train_step`` steps tensor-parallel, each step from
+    the one-card state before it, its launches counted; (i) the dry
+    run's prediction of that step, held to one more step: the bytes it
+    starts with and its peak, its FLOPs and its collective bytes.
+    Returns what the parent holds to its bounds."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.executor import RefPolicyExecutor
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.models.sharding import state_shardings
+    from repro_torch.models.tp import TPRank
+    from repro_torch.train.optimizer import adam_init, tree_map
+    from repro_torch.train.sharded import make_sharded_train_step
+    from repro_torch.train.trainstep import TrainState, make_train_step
+
+    out = {}
+    batch = _tp_train_batch(torch, cfg, dev)
+    kw = dict(lr=TP_TRAIN_LR, kl_coef=KL_COEF)
+    specs = yard = None
+    for turn in range(TP_RANKS):
+        if turn == rank:
+            params = init_params(cfg, seed=TP_SEED, dtype=torch.float32,
+                                 device=dev)
+            state = TrainState(params, adam_init(params))
+            specs = state_shardings(state, mesh)
+            p0 = _tp_slices(torch, params, specs.params, mesh, dev)
+            ref = RefPolicyExecutor(cfg)
+            ref.set_weights(params)
+            ref.put_input("completions", {"tokens": batch["tokens"]})
+            out_ref = ref.step()["ref_logp"]
+            del ref
+            step = make_train_step(cfg, **kw)
+            yard, one_ms, one_metrics = [], [], []
+            for i in range(TP_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                one_ms.append((time.perf_counter() - t0) * 1e3)
+                one_metrics.append({k: float(v) for k, v in metrics.items()})
+                keep = dev if i == 0 else "cpu"
+                yard.append(tuple(_tp_slices(torch, t, sp, mesh, keep)
+                                  for t, sp in ((state.params, specs.params),
+                                                (state.opt.m, specs.opt.m),
+                                                (state.opt.v, specs.opt.v))))
+            del state, params, step, metrics
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out["one_ms"], out["one_metrics"] = one_ms, one_metrics
+    mark()
+
+    # (h) reference scoring on the mesh, on the TP shard of the init
+    zeros = tree_map(torch.zeros_like, p0)
+    init = _tp_state(torch, mesh, specs, p0, zeros, tree_map(
+        torch.zeros_like, p0), 0)
+    ref = RefPolicyExecutor(cfg, mesh=mesh)
+    ref.set_weights(init.params)
+    ref.put_input("completions", {"tokens": batch["tokens"]})
+    got = ref.step()["ref_logp"]
+    out["h"] = {"tp": ref.tp is not None,
+                "err": ((got - out_ref).abs() / out_ref.abs().clamp(
+                    min=1.0)).max().item(),
+                "scale": out_ref.abs().max().item()}
+    del ref, got, out_ref, zeros
+
+    # (f) TP steps, each from the one-card state before it, counted
+    step = make_sharded_train_step(cfg, mesh, **kw)
+    starts = [(init, p0)] + [(None, y[0]) for y in yard[:-1]]
+    out["f"], tp_ms = [], []
+    torch.cuda.synchronize()
+    build.reset_launches()          # the TP train path's run starts here
+    for i in range(TP_TRAIN_STEPS):
+        st, before = starts[i]
+        if st is None:
+            st = _tp_state(torch, mesh, specs, *yard[i - 1], i)
+            yard[i - 1] = None
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        new, metrics = step(st, batch)
+        torch.cuda.synchronize()
+        tp_ms.append((time.perf_counter() - t0) * 1e3)
+        del st
+        starts[i] = None
+        want = tuple(tree_map(lambda t: t.to(dev), tree) for tree in yard[i]) \
+            if i else yard[i]
+        check = _tp_against(torch, new, want, before)
+        check["metrics"] = {k: float(v) for k, v in metrics.items()}
+        check["step"] = new.opt.step
+        out["f"].append(check)
+        del want, before
+        if i < TP_TRAIN_STEPS - 1:
+            del new
+        gc.collect()
+    torch.cuda.synchronize()
+    out["launches"] = dict(build.LAUNCHES)      # ... and ends here
+    out["tp_ms"] = tp_ms
+    del yard, p0, init, starts
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark()
+
+    # (i) the dry run's prediction of one TP step, held to one more step
+    amesh = dryrun.production_mesh(mesh_shape=(1, TP_RANKS))
+    c2, sh, lowered = dryrun.lower_combo(
+        cfg, ShapeSpec("tp_train", TP_TRAIN_T, TP_TRAIN_ROWS, "train"),
+        amesh, dtype=torch.float32, remat=False, kl_coef=KL_COEF)
+    rec = dryrun.analyse(c2, sh, lowered, amesh)
+    counted = {"all-reduce": 0, "all-gather": 0}
+    real = TPRank.all_reduce, TPRank.gather_partials
+
+    def all_reduce(self, x):
+        counted["all-reduce"] += x.numel() * x.element_size()
+        return real[0](self, x)
+
+    def gather_partials(self, part):
+        got = real[1](self, part)
+        counted["all-gather"] += got.numel() * got.element_size()
+        return got
+    held = sum(t.to_local().numel() * t.to_local().element_size()
+               for tree in (new.params, new.opt.m, new.opt.v)
+               for t in leaves(tree)) \
+        + sum(t.numel() * t.element_size() for t in batch.values())
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    TPRank.all_reduce, TPRank.gather_partials = all_reduce, gather_partials
+    try:
+        new, _ = step(new, batch)
+    finally:
+        TPRank.all_reduce, TPRank.gather_partials = real
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base
+    with FlopCounterMode(display=False) as fc:
+        new, _ = step(new, batch)
+    H, hd, T = cfg.n_heads // TP_RANKS, cfg.hd, TP_TRAIN_T
+    Vl, n_rows = cfg.vocab // TP_RANKS, TP_TRAIN_ROWS * (TP_TRAIN_T - 1)
+    own = {"fused_logprob": n_rows * Vl * LOGPROB_OPS_PER_LOGIT,
+           "fused_logprob_bwd": n_rows * Vl * LOGPROB_BWD_OPS_PER_LOGIT,
+           "flash_attention": cfg.n_layers * 4 * TP_TRAIN_ROWS * H * hd * T
+           * (T + 1) / 2}
+    out["i"] = {"pred": {k: rec[k] for k in (
+                    "argument_bytes", "held_bytes", "temp_bytes",
+                    "saved_bytes", "peak_bytes_per_device",
+                    "flops_per_device", "collectives", "count_s")},
+                "held": held, "temp": temp, "card_flops":
+                fc.get_total_flops(), "own": own,
+                "plain_fwd": cfg.n_layers * 4 * TP_TRAIN_ROWS * H * hd * T
+                * T,
+                # the global norm's all-reduce of one fp32 over ``model``
+                "all_reduce": counted["all-reduce"] + 4,
+                "all_gather": counted["all-gather"]}
+    del new
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_logprob_merge(torch, tp, dev):
+    """[23] (g): ``dispatch.token_logprob_vocab_parallel`` on this rank's
+    [TP_TRAIN_ROWS, TP_TRAIN_T, V/2] bf16 slice of logits that every rank
+    draws whole from one seed, scored over the prefix TP_TRAIN_T - 1, and
+    its backward, against B1 and B2 on the whole rows: the merged
+    log-probs relative to max(1, |logp|), the slice's gradient against
+    the whole row's columns in bf16 ulps (the merged log s differs from
+    the whole row's in its last bits), and B2 on the slice with the
+    whole row's own stats bit for bit against them."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.fused_logprob import fused_logprob_bwd_cuda, \
+        fused_logprob_cuda
+    g = torch.Generator(device=dev).manual_seed(TP_KEY)
+    B, T, V = TP_TRAIN_ROWS, TP_TRAIN_T, V_LLAMA
+    whole = (torch.randn(B, T, V, generator=g, device=dev) * 2) \
+        .to(torch.bfloat16)
+    toks = torch.randint(0, V, (B, T - 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    g_out = torch.randn(B, T - 1, generator=g, device=dev)
+    n = V // tp.size
+    col0 = tp.rank * n
+    local = whole[..., col0:col0 + n].contiguous().requires_grad_()
+    with torch.enable_grad():
+        lp = dispatch.token_logprob_vocab_parallel(local, toks, col0,
+                                                   tp.group, n_valid=T - 1)
+        (d_local,) = torch.autograd.grad(lp, local, g_out)
+    lp_w, m_w, s_w = fused_logprob_cuda(whole[:, :-1], toks)
+    log_s = torch.log(s_w)
+    d_w = fused_logprob_bwd_cuda(whole, toks, m_w, log_s, g_out,
+                                 n_valid=T - 1)[..., col0:col0 + n]
+    d_own = fused_logprob_bwd_cuda(local.detach(), toks.long() - col0, m_w,
+                                   log_s, g_out, n_valid=T - 1)
+    want = d_w.float()
+    ulps = ((d_local.float() - want).abs()
+            / (want.abs() * 2.0 ** -7).clamp(min=1e-38)).max().item()
+    out = {"shape": list(local.shape), "col0": col0,
+           "lp_rel": ((lp.detach() - lp_w).abs()
+                      / lp_w.abs().clamp(min=1.0)).max().item(),
+           "grad_ulps": ulps, "own_stats_equal": bool(torch.equal(d_own,
+                                                                  d_w)),
+           "last_zero": bool((d_local[:, -1] == 0).all().item())}
+    del whole, local, d_local, d_w, d_own, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_time_shards(torch, dev, records):
     """B3 in its partial mode on a rank's [16, 64128] bf16 shard (col0
-    64128) and B4 on a rank's heads [4, 2048, 16, 4, 128], each against
-    its plain version, then timed beside it (and B4 beside
-    scaled_dot_product_attention); added to the kernels' records."""
+    64128), B4 on a rank's heads [4, 2048, 16, 4, 128], and B1 and B2 on
+    a rank's [16, 80, 64128] bf16 logits of the TP train step, each
+    against its plain version, then timed beside it (and B4 beside
+    scaled_dot_product_attention, B1 and B2 beside F.cross_entropy and
+    its backward); added to the kernels' records."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import build
@@ -7713,6 +8103,12 @@ def tp_time_shards(torch, dev, records):
           "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
               qt, kt, vt, is_causal=True, enable_gqa=True), 10),
           "bound_ms": b_ms, "bound_by": b_by, "max_rel_err": err}
+    # B1 and B2 on a rank's vocabulary slice of the TP train step's logits
+    # ((f): [16, 80, 64128] bf16, scored over the first 79 positions)
+    for name, timed in (("fused_logprob", timed_logprob_at),
+                        ("fused_logprob_bwd", timed_logprob_bwd_at)):
+        next(x for x in records if x["name"] == name)["tp_shard"] = timed(
+            torch, dev, gen, V_LLAMA // TP_RANKS, T=TP_TRAIN_T)
     for name, r in (("fused_sample", b3), ("flash_attention", b4)):
         next(x for x in records if x["name"] == name)["tp_shard"] = r
         log(f"  time {name} on a rank's shard {r['shape']}"
@@ -7730,11 +8126,12 @@ def tp_time_shards(torch, dev, records):
 
 
 def phase_tp(torch, dev, records):
-    """[23]: llama31-8b served tensor-parallel by two spawned ranks
-    sharing the one card as a (data 1, model 2) mesh.  Returns the
+    """[23]: llama31-8b served and trained tensor-parallel by two spawned
+    ranks sharing the one card as a (data 1, model 2) mesh.  Returns the
     launch counts of the ranks' main-path runs, summed."""
     import torch.multiprocessing as mp
-    log(f"[23] tp: llama31-8b on a (data 1, model 2) mesh of two processes "
+    log(f"[23] tp: llama31-8b served and trained on a (data 1, model 2) "
+        f"mesh of two processes "
         f"on the one card; {nvidia_smi()}")
     t0 = time.perf_counter()
     tp_time_shards(torch, dev, records)
@@ -7848,6 +8245,7 @@ def phase_tp(torch, dev, records):
             f"[23] (e) peak {peak} against {p['peak_bytes_per_device']}")
     require(e["all_reduce"] == p["collectives"].get("all-reduce"),
             "[23] (e) all-reduce bytes")
+    tp_train_report(ranks)
     from repro_torch.configs.llama_paper import LLAMA31_8B
     launches = collections.Counter()
     for res in ranks:
@@ -7855,12 +8253,118 @@ def phase_tp(torch, dev, records):
                 "fused_sample": TP_NEW}
         require(res["launches"] == want,
                 f"[23] launches {res['launches']}, want {want}")
+        # (f): B1 and B2 once a step, B4 once a layer (no remat_layers)
+        want = {"fused_logprob": TP_TRAIN_STEPS,
+                "fused_logprob_bwd": TP_TRAIN_STEPS,
+                "flash_attention": TP_TRAIN_STEPS * TP_FP32_LAYERS}
+        got = res["train"]["launches"]
+        require(got == want, f"[23] (f) launches {got}, want {want}")
         launches.update(res["launches"])
+        launches.update(got)
     log(f"  [23] launches {dict(launches)}; {time.perf_counter() - t0:.1f} s "
         f"(shard timings {t1 - t0:.1f} s, ranks {t2 - t1:.1f} s: "
         + ", ".join(f"{s:.1f}" for s in r0["seconds"])
-        + " s for build, (a)-(b), (c), (d), (e))")
+        + " s for build, (a)-(b), (c), (d), (e), the one-card turns, "
+        "(h)-(f), (i)-(g))")
     return dict(launches)
+
+
+def tp_train_report(ranks):
+    """[23] (f)-(i) of every rank, printed and held to their bounds."""
+    smi = nvidia_smi()
+    for r, res in enumerate(ranks):
+        tr = res["train"]
+        h = tr["h"]
+        log(f"  (h) rank {r}: reference scoring on the mesh (its TP shard) "
+            f"against the one-card RefPolicyExecutor, [{TP_TRAIN_ROWS}, "
+            f"{TP_TRAIN_T}] fp32: max|d ref_logp|/max(1, |ref_logp|) "
+            f"{h['err']:.3e} (bound {TP_REF_TOL:g}; max|ref_logp| "
+            f"{h['scale']:.2f})")
+        require(h["tp"] and h["err"] <= TP_REF_TOL, f"[23] (h) rank {r}: {h}")
+        for i, f in enumerate(tr["f"]):
+            want = tr["one_metrics"][i]
+            worst = max(abs(f["metrics"][k] - want[k]) / max(1.0,
+                                                               abs(want[k]))
+                        for k in ("loss", "grad_norm", "mean_ratio",
+                                  "mean_logp", "total_loss"))
+            log(f"  (f) rank {r} step {i + 1} from the one-card state before "
+                f"it: metrics within {worst:.2e} relative (bound "
+                f"{TP_METRIC_TOL:g}; loss {f['metrics']['loss']:.6f}, "
+                f"grad_norm {f['metrics']['grad_norm']:.6f}); updates: "
+                f"worst {f['update_worst']:.3e} of the leaf's largest (bound "
+                f"{TP_UPDATE_WORST:g}), {100 * f['update_past']:.3f}% past "
+                f"{TP_UPDATE_TOL:g} (bound 1%); m within {f['m']:.2e}, v "
+                f"within {f['v']:.2e} of the leaf's largest (bounds "
+                f"{TP_MOMENT_TOL['m']:g}, {TP_MOMENT_TOL['v']:g}); the "
+                f"{f['m_rms']['n']} elements past {TP_UPDATE_TOL:g}: one-card "
+                f"|m| over the leaf's rms |m|, median "
+                f"{f['m_rms']['median']:.3g}, largest "
+                f"{f['m_rms']['max']:.3g}")
+            lv = f["leaves"]
+            log("    worst leaves: " + "; ".join(
+                f"{key} {k} {lv[k][key]:.3g}" for key in (
+                    "worst", "past_1e5", "past", "past_1e3", "m", "v")
+                for k in [max(lv, key=lambda n: lv[n][key])]))
+            require(f["step"] == i + 1 and worst <= TP_METRIC_TOL
+                    and f["update_worst"] <= TP_UPDATE_WORST
+                    and f["update_past"] <= 0.01
+                    and f["m"] <= TP_MOMENT_TOL["m"]
+                    and f["v"] <= TP_MOMENT_TOL["v"],
+                    f"[23] (f) rank {r} step {i + 1}: {f['metrics']}, want "
+                    f"{want}")
+        log(f"  (f) rank {r}: TP step "
+            + ", ".join(f"{t:.1f}" for t in tr["tp_ms"])
+            + " ms (gloo-bound: each all-reduce of [16, 80, 4096] fp32 "
+            "crosses the host) against the one-card step "
+            + ", ".join(f"{t:.1f}" for t in tr["one_ms"])
+            + f" ms; launches {tr['launches']}; {smi}")
+        g = res["g"]
+        log(f"  (g) rank {r}: B1 on its slice {g['shape']} (col0 "
+            f"{g['col0']}), merged over the ranks, against B1 on the whole "
+            f"rows: max|dlogp|/max(1, |logp|) {g['lp_rel']:.3e} (bound "
+            f"{TP_LOGPROB_REL:g}); B2 on the slice with the merged stats "
+            f"against the whole row's columns: {g['grad_ulps']:.3f} bf16 "
+            f"ulps at most (bound 1), with the whole row's stats bit-equal: "
+            f"{g['own_stats_equal']}; last position zero: {g['last_zero']}")
+        require(g["lp_rel"] <= TP_LOGPROB_REL and g["grad_ulps"] <= 1.0
+                and g["own_stats_equal"] and g["last_zero"],
+                f"[23] (g) rank {r}: {g}")
+    i = ranks[0]["train"]["i"]
+    p = i["pred"]
+    card = i["card_flops"] + sum(i["own"].values())
+    flop_err = abs(card - p["flops_per_device"]) / p["flops_per_device"]
+    peak = i["held"] + i["temp"]
+    ratio = peak / p["peak_bytes_per_device"]
+    colls = p["collectives"]
+    log(f"  (i) peak on the card less the prediction: "
+        f"{peak - p['peak_bytes_per_device']} B, held less the prediction: "
+        f"{i['held'] - p['held_bytes']} B")
+    log(f"  (i) dry run of rank 0's TP train step at (f)'s config (meta, "
+        f"{p['count_s']} s): held {p['held_bytes'] / 1e6:.0f} MB, temp "
+        f"{p['temp_bytes'] / 1e6:.0f} MB (saved activations "
+        f"{p['saved_bytes'] / 1e6:.0f} MB), peak "
+        f"{p['peak_bytes_per_device'] / 1e6:.0f} MB, "
+        f"{p['flops_per_device'] / 1e12:.4f} TFLOP, collectives "
+        + ", ".join(f"{k} {v} B" for k, v in colls.items())
+        + f"; on the card: held {i['held'] / 1e6:.0f} MB, "
+        f"{i['temp'] / 1e6:.0f} MB above it, peak {peak / 1e6:.0f} MB "
+        f"({ratio:.3f} of the prediction, band {DRYRUN_BYTES_BAND}), gloo "
+        f"all-reduce {i['all_reduce']} B, all-gather {i['all_gather']} B, "
+        f"FlopCounterMode {i['card_flops'] / 1e12:.4f} TFLOP + the kernels' "
+        "own " + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in i["own"].items())
+        + f" GFLOP (relative {flop_err:.2e}, tolerance {DRYRUN_FLOP_TOL:g}); "
+        "the count plus the plain attention's forward less the prediction: "
+        f"{i['card_flops'] + i['plain_fwd'] - p['flops_per_device']:.0f} "
+        f"FLOP; {smi}")
+    require(abs(i["held"] - p["held_bytes"]) <= 1e6,
+            f"[23] (i) held {i['held']} against {p['held_bytes']}")
+    require(flop_err <= DRYRUN_FLOP_TOL, f"[23] (i) FLOPs off {flop_err:.2e}")
+    require(DRYRUN_BYTES_BAND[0] <= ratio <= DRYRUN_BYTES_BAND[1],
+            f"[23] (i) peak {peak} against {p['peak_bytes_per_device']}")
+    require(i["all_reduce"] == colls.get("all-reduce")
+            and i["all_gather"] == colls.get("all-gather"),
+            f"[23] (i) collective bytes {i['all_reduce']}, "
+            f"{i['all_gather']} against {colls}")
 
 
 def main() -> int:
@@ -7908,10 +8412,10 @@ def main() -> int:
     numerics_batch = phase_train_numerics(torch, dev)
     torch.cuda.empty_cache()
     mark("[5]-[7]")
-    pool_launches, pool_a = phase_pool(torch, dev)
+    pool_launches = phase_pool(torch, dev)
     quick_launches, quick_hist = phase_quickstart(torch, dev)
     mark("[10]-[11]")
-    proc_launches = phase_proc(torch, dev, pool_a, quick_hist)
+    proc_launches = phase_proc(torch, dev, quick_hist)
     mark("[12]")
     launch_launches = phase_launch(torch)
     mark("[13]")
@@ -8008,7 +8512,7 @@ def main() -> int:
                          "flash_attention"):
             require(by_path["sharded"] > 0,
                     f"{r['name']} never ran on the sharded path")
-        if r["name"] in ("fused_sample", "flash_attention"):
+        if r["name"] in KERNELS[:4]:
             require(by_path["tp"] > 0,
                     f"{r['name']} never ran on the tensor-parallel path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -20,6 +20,7 @@ _EXPORTS = {
     "close_all_actors": "repro_torch.core.actors",
     "serve_actor_host": "repro_torch.core.actors",
     "spawn_actor": "repro_torch.core.actors",
+    "spawn_all": "repro_torch.core.actors",
     "serialize": "repro_torch.core.wire",
     "deserialize": "repro_torch.core.wire",
     "WeightFabric": "repro_torch.core.fabric",

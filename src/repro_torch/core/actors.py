@@ -1737,6 +1737,39 @@ class SpawnSpec:
         return h
 
 
+def spawn_all(jobs, at_once: bool = True) -> list:
+    """What each of ``jobs`` returns (callables that spawn actors: a
+    handle, or a tuple or list holding handles), run at once on threads
+    when ``at_once`` -- a spawned child takes seconds to import torch and
+    open its CUDA context -- else in order.  If one fails, every actor
+    the others spawned is closed and the first error is raised once all
+    have returned."""
+    if not at_once:
+        return [job() for job in jobs]
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max(1, len(jobs)),
+                            thread_name_prefix="spawn") as ex:
+        futures = [ex.submit(job) for job in jobs]
+    out, failed = [], None
+    for f in futures:
+        try:
+            out.append(f.result())
+        except BaseException as e:          # re-raised once all are read
+            failed = failed or e
+    if failed is not None:
+        _close_spawned(out)
+        raise failed
+    return out
+
+
+def _close_spawned(x):
+    if isinstance(x, (list, tuple)):
+        for y in x:
+            _close_spawned(y)
+    elif hasattr(x, "close"):
+        x.close()
+
+
 def spawn_actor(factory, *args, transport: Optional[str] = None,
                 spawn_timeout: float = 180.0, call_timeout: float = 600.0,
                 device_spec: Optional[DeviceSpec] = None,

@@ -48,7 +48,7 @@ def aipo_loss(logits, tokens, behavior_logp, advantages, mask, *,
               rho: float = 4.0, clip_mode: str = "aipo",
               ppo_eps: float = 0.2, kl_coef: float = 0.0,
               ref_logp: Optional[torch.Tensor] = None,
-              n_valid: Optional[int] = None):
+              n_valid: Optional[int] = None, logprob=None):
     """Scalar AIPO loss (negative clipped-IS policy-gradient surrogate).
 
     logits: [B, T, V] for action positions; tokens/behavior_logp/
@@ -56,9 +56,12 @@ def aipo_loss(logits, tokens, behavior_logp, advantages, mask, *,
     are action positions and the rest are [B, n_valid].  Returns (loss,
     metrics); the metrics are detached 0-d tensors.  The sums and the
     mask's count are over the global batch (``batch_total``) when this
-    rank runs its share of split rows.
+    rank runs its share of split rows.  ``logprob(logits, tokens,
+    n_valid)`` scores the logits: ``token_logprobs`` by default, a
+    tensor-parallel rank's ``TPRank.token_logprob`` for its vocabulary
+    slice.
     """
-    logp = token_logprobs(logits, tokens, n_valid)
+    logp = (logprob or token_logprobs)(logits, tokens, n_valid)
     adv = advantages.float()
     if kl_coef and ref_logp is not None:
         # k1 estimator of KL(pi || pi_base), added as a per-token penalty

@@ -21,12 +21,16 @@ them (the sampler keys the noise by the global row and column, so a
 rank draws its rows alone), and every rank emits the whole batch.  The
 mesh decides, as the params' placement decides in the reference; the
 engine hooks refuse such a generator (the paged engine on a mesh is
-not ported).  Every other generator, and the reference, hold the
-weights replicated, each rank the whole tree, and compute the whole
-batch on every rank.  An executor with a mesh takes each
-payload whole: a DTensor that ``InprocTransport.prepare`` placed on the
-mesh becomes its local tensor where replicated and is gathered where
-split (the sharded train step keeps its own rows of the global batch).
+not ported).  A dense reference on such a mesh holds the same TP shard
+and scores its share of the rows with ``models.tp.forward_train`` and
+the vocabulary-parallel log-prob, then gathers the rows.  Every other
+generator and reference hold the weights replicated, each rank the
+whole tree, and compute the whole batch on every rank.  A dense trainer
+on such a mesh steps tensor-parallel (``train/sharded.py``).  An
+executor with a mesh takes each payload whole: a DTensor that
+``InprocTransport.prepare`` placed on the mesh becomes its local tensor
+where replicated and is gathered where split (the sharded train step
+keeps its own rows of the global batch).
 """
 from __future__ import annotations
 
@@ -477,9 +481,16 @@ class RefPolicyExecutor(Executor):
         super().__init__(name, mesh)
         self.cfg = cfg
         self.params = None
+        # this rank of a tensor-parallel mesh (None: the whole tree)
+        self.tp = tpmod.tp_rank(cfg, mesh)
 
     def set_weights(self, params, version: Optional[int] = None):
-        if self.params is None:
+        if self.params is not None:
+            return
+        if self.tp is not None:
+            self.params = ddma.ddma_weight_sync(
+                params, Shardings(self.mesh, tp_plan(self.cfg, self.mesh)))
+        else:
             self.params = ddma.whole(params) if self.mesh is not None \
                 else params
 
@@ -488,9 +499,22 @@ class RefPolicyExecutor(Executor):
         assert self.params is not None
         comp = self.get_input("completions")
         tokens = comp["tokens"]
-        logits, _ = forward_train(self.params, self.cfg, {"tokens": tokens})
-        # the strided logits[:, :-1] goes to the kernel as it is, no copy
-        lp = token_logprobs(logits[:, :-1], tokens[:, 1:])
+        if self.tp is not None:
+            # this rank's rows, heads, FFN columns and vocabulary slice;
+            # the merged log-probs are whole rows, gathered over data
+            B = tokens.shape[0]
+            rows, tp = self.tp.for_rows(B)
+            toks = tokens[rows]
+            logits, _ = tpmod.forward_train(self.params, self.cfg,
+                                            {"tokens": toks}, tp)
+            lp = tp.gather_rows(
+                tp.token_logprob(logits, toks[:, 1:],
+                                 n_valid=toks.shape[1] - 1), B)
+        else:
+            logits, _ = forward_train(self.params, self.cfg,
+                                      {"tokens": tokens})
+            # the strided logits[:, :-1] goes to the kernel as it is
+            lp = token_logprobs(logits[:, :-1], tokens[:, 1:])
         out = dict(comp)
         out["ref_logp"] = F.pad(lp, (1, 0))
         self.set_output("completions_with_ref", out)

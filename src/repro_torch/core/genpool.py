@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import os
 import queue
 import threading
@@ -57,7 +58,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
-from repro_torch.core.actors import ActorDied, spawn_actor
+from repro_torch.core.actors import ActorDied, spawn_actor, spawn_all
 from repro_torch.core.offpolicy import PartialRolloutCache, StalenessBuffer
 from repro_torch.core.supervise import LOST, RESPAWNED
 from repro_torch.obs import trace as obs_trace
@@ -83,12 +84,11 @@ def build_generator_pool(cfg, trainer, make_tasks, *, n_generators=1,
     workers spawn at once, each on a thread of its own (a child takes
     seconds to import torch and open its CUDA context); in-process ones
     are built in order.  Returns ``(generator_handles,
-    weight_channels)``, worker ``g`` at ``g``; the caller declares data
-    channels outbound from ``generators[0]`` -- they serve the whole pool
-    through per-item snapshots.
+    weight_channels)``, worker ``g`` at ``g`` (no weight channel when
+    ``trainer`` is None: the caller wires them once its trainer is up);
+    the caller declares data channels outbound from ``generators[0]`` --
+    they serve the whole pool through per-item snapshots.
     """
-    from concurrent.futures import ThreadPoolExecutor
-
     from repro_torch.core.channels import WeightsCommunicationChannel
     from repro_torch.core.executor import GeneratorExecutor
     generator_cls = generator_cls or GeneratorExecutor
@@ -107,24 +107,10 @@ def build_generator_pool(cfg, trainer, make_tasks, *, n_generators=1,
 
     remote = (transport or os.environ.get("REPRO_TRANSPORT", "inproc")) \
         != "inproc"
-    if remote and n_generators > 1:
-        with ThreadPoolExecutor(n_generators,
-                                thread_name_prefix="genpool-spawn") as ex:
-            futures = [ex.submit(spawn, w) for w in workers]
-        gens, failed = [], None
-        for f in futures:
-            try:
-                gens.append(f.result())
-            except BaseException as e:      # re-raised once all are read
-                failed = failed or e
-        if failed is not None:
-            for h in gens:
-                h.close()
-            raise failed
-    else:
-        gens = [spawn(w) for w in workers]
+    gens = spawn_all([functools.partial(spawn, w) for w in workers],
+                     at_once=remote and n_generators > 1)
     chans = [WeightsCommunicationChannel(weight_port, trainer, gen)
-             for gen in gens]
+             for gen in gens] if trainer is not None else []
     return gens, chans
 
 

@@ -19,7 +19,10 @@ saves and recomputes what the card does; it launches nothing.
 only; no model path calls it.  ``sample_vocab_parallel`` is the sampler
 of a tensor-parallel rank, which holds a slice of each row's vocabulary:
 B3 on the slice in its partial mode, the ranks' partials gathered and
-merged; the logits are never gathered.
+merged; the logits are never gathered.  ``token_logprob_vocab_parallel``
+is such a rank's differentiable log-prob: B1 on the slice, the ranks'
+(m, s, target logit) gathered and merged, and B2 on the slice with the
+merged stats in the backward.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.kernels.fused_sample import fused_sample_cuda, \
     fused_sample_split_plain, merge_partials
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda, \
     int8_matmul_plain
+from repro_torch.kernels.online import NEG_INF
 from repro_torch.kernels.paged_attention import paged_attention_cuda, \
     paged_attention_plain
 
@@ -95,6 +99,97 @@ def token_logprob(logits, tokens, n_valid=None):
     return out.reshape(tokens.shape)
 
 
+class _TokenLogprobVP(torch.autograd.Function):
+    """``_TokenLogprob`` on this rank's vocabulary slice ``base`` [B, T,
+    V/m] of columns ``[col0, col0 + V/m)``: B1 on the slice scores
+    ``tokens - col0`` (a token outside the slice as -1e30), the ranks'
+    [rows, 3] fp32 partials (m, s, target logit) are gathered and merged
+    in rank order (``merge_logprob_partials``); the backward is B2 on the
+    slice with the merged (M, log s), this rank's columns of ``g *
+    (onehot - softmax)``."""
+
+    @staticmethod
+    def forward(ctx, base, tokens, n, col0, gather):
+        view, V = base[:, :n], base.shape[-1]
+        local = tokens.long() - col0
+        if base.is_cuda:
+            _, m, s = fused_logprob_cuda(view, local)
+        else:
+            _, m, s = (t.reshape(tokens.shape) for t in fused_logprob_plain(
+                view.reshape(-1, V), local.reshape(-1)))
+        inside = (local >= 0) & (local < V)
+        t = view.gather(2, local.clamp(0, V - 1)[..., None])[..., 0].float()
+        t = torch.where(inside, t, NEG_INF)
+        logp, M, log_s = merge_logprob_partials(
+            gather(torch.stack([m, s, t], dim=-1)))
+        ctx.n = n
+        ctx.save_for_backward(base, local, M, log_s)
+        return logp
+
+    @staticmethod
+    def backward(ctx, g):
+        base, local, M, log_s = ctx.saved_tensors
+        n = ctx.n
+        if base.is_cuda:
+            return fused_logprob_bwd_cuda(base, local, M, log_s, g,
+                                          n_valid=n), None, None, None, None
+        V = base.shape[-1]
+        d = fused_logprob_bwd_plain(base[:, :n].reshape(-1, V),
+                                    local.reshape(-1), M.reshape(-1),
+                                    log_s.reshape(-1), g.reshape(-1))
+        full = torch.zeros_like(base)
+        full[:, :n] = d.reshape(base.shape[0], n, V)
+        return full, None, None, None, None
+
+
+def merge_logprob_partials(parts):
+    """(log-prob, M, log s) of rows whose vocabulary is split over ranks,
+    from every rank's [..., 3] fp32 partial (m_i, s_i, t_i) stacked in
+    rank order on a leading axis: M = max m_i, s = the sum of s_i
+    exp(m_i - M) in rank order, t the target logit (-1e30 on every rank
+    but the token's), log-prob (t - M) - log s (the rule of
+    ``fused_logprob_split_plain``)."""
+    M = parts[..., 0].amax(dim=0)
+    s = torch.zeros_like(M)
+    for p in parts:             # rank order
+        s = s + p[..., 1] * torch.exp(p[..., 0] - M)
+    t = parts[..., 2].amax(dim=0)
+    log_s = torch.log(s)
+    return (t - M) - log_s, M, log_s
+
+
+def all_gather_stacked(x, group):
+    """Every rank's ``x`` of ``group``, stacked in rank order."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.stack(parts)
+
+
+def token_logprob_vocab_parallel(local_logits, tokens, col0: int, group,
+                                 n_valid=None, *, gather=None):
+    """``token_logprob`` of rows whose vocabulary is split over the ranks
+    of ``group`` in rank order: ``local_logits`` [B, T, V/m] holds this
+    rank's columns ``[col0, col0 + V/m)``; tokens are global ids.  B1 runs
+    on the slice (the plain version on the CPU), the ranks' [rows, 3]
+    partials are all-gathered (``gather``, by default
+    ``all_gather_stacked`` over ``group``) and merged in rank order, so
+    every rank holds the same log-probs bit for bit; differentiable, B2
+    on the slice in the backward, written through the ``n_valid`` prefix
+    as ``token_logprob`` writes it.  The logits are never gathered.
+    Returns fp32 in the tokens' shape."""
+    if local_logits.dim() != 3:
+        raise ValueError("token_logprob_vocab_parallel takes 3-D logits, "
+                         f"got {tuple(local_logits.shape)}")
+    n = local_logits.shape[1] if n_valid is None else n_valid
+    if gather is None:
+        def gather(x):
+            return all_gather_stacked(x, group)
+    return _TokenLogprobVP.apply(local_logits,
+                                 tokens.reshape(local_logits.shape[0], n), n,
+                                 col0, gather).reshape(tokens.shape)
+
+
 def sample(logits, key, temperature: float, *, row0: int = 0):
     """Categorical draw + behaviour log-prob in one streamed pass.
 
@@ -120,7 +215,6 @@ def sample_vocab_parallel(local_logits, key, temperature: float, col0: int,
     whole row's draw bit for bit, the log-probs agree to fp32 rounding,
     and every rank holds the same.  Returns (tokens [B] int32, log
     mu(token) [B] fp32)."""
-    import torch.distributed as dist
     if local_logits.is_cuda:
         part = fused_sample_partial_cuda(local_logits, key, temperature,
                                          col0=col0, row0=row0)
@@ -128,10 +222,7 @@ def sample_vocab_parallel(local_logits, key, temperature: float, col0: int,
         part = fused_sample_split_plain(local_logits, key, temperature,
                                         max(local_logits.shape[1], 1),
                                         col0=col0, row0=row0, partial=True)
-    parts = [torch.empty_like(part)
-             for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, part, group=group)
-    return merge_partials(torch.stack(parts))
+    return merge_partials(all_gather_stacked(part, group))
 
 
 class _FlashAttention(torch.autograd.Function):

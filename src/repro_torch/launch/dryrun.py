@@ -21,7 +21,11 @@ compiler to ask, so it measures the step itself:
     the leaves outside the layer stacks gathered up front, each stacked
     leaf one layer at a time inside that layer's work, ``forward_train``
     and its backward, each gather's gradient cut to the leaf's shard as
-    the backward reaches it, and Adam on the shards; for serving a dense
+    the backward reaches it, and Adam on the shards (for a dense model on
+    a ``model`` axis of more than one rank, the tensor-parallel step:
+    ``models.tp.forward_train`` and the vocabulary-parallel log-prob, a
+    split leaf gathered over the data axes only into its ``model`` slice,
+    ``tp.train_roles``); for serving a dense
     model on a mesh whose ``model`` axis has more than one rank, the
     tensor-parallel step a rank runs (``models/tp.py``): its shards of
     ``sharding.tp_plan`` (the reference's serve shards, but ``wq wk wv
@@ -53,11 +57,15 @@ compiler to ask, so it measures the step itself:
     again in the backward under ``remat_layers``), each gradient's
     reduce-scatter (an all-reduce where a leaf is replicated over the
     data axes) once a microbatch, the global norm's and
-    ``batch_total``'s all-reduces; in the tensor-parallel serving step,
-    its all-reduces over ``model`` (two of [rows, S, D] a layer where
-    the heads split, one where they do not, the embedding's one; the
-    serving steps return logits and do not sample, so no sampler
-    partials).  The whole-tree serving steps count the gather of every
+    ``batch_total``'s all-reduces; in the tensor-parallel steps, every
+    ``TPRank.all_reduce`` over ``model`` (serving: two of [rows, S, D] a
+    layer where the heads split, one where they do not, the embedding's
+    one; training adds the backward's, one a ``TPRank.copy``, the head's
+    included, those of each layer's recompute under ``remat_layers``,
+    and a sliced bias's gradient sum) and, in training, the
+    vocabulary-parallel log-prob's all-gather of the ranks' [rows, T, 3]
+    partials (the serving steps return logits and do not sample, so no
+    sampler partials).  The whole-tree serving steps count the gather of every
     sharded leaf.  The reference's ``collective_bytes``
     and ``_shape_bytes`` parse XLA's HLO text and have no counterpart
     here.
@@ -96,6 +104,7 @@ from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, ShapeSpec, \
 from repro_torch.launch.inputspecs import META, input_specs
 from repro_torch.models import backbone as bb
 from repro_torch.models import sharding as shd
+from repro_torch.models.tp import TPRank, steps_tp, train_roles
 from repro_torch.models.sharding import AbstractMesh, Spec, _axis_size, \
     activation_sharding, batch_shardings, cache_shardings, dp_axes, \
     params_shardings, stacked_leaves, state_shardings
@@ -330,22 +339,31 @@ def _gather_bytes(full_leaves, shard_leaves) -> int:
 
 class _MetaWay:
     """A leaf's gather and gradient reduction in the meta step, in place
-    of ``train/sharded.MeshWay``: a leaf whose shard is the whole leaf is
-    used as it is, any other is gathered into a new tensor (its storage
-    in ``seen`` while it lives, as a param's is) and its all-gather
-    counted; a gradient is cut to the shard, its reduce-scatter (sharded
-    over the data axes) or all-reduce counted where the rows split over
-    more than one rank (``reduce_dp``)."""
+    of ``train/sharded.MeshWay``: a leaf whose shard is what the step
+    computes with is used as it is, any other is gathered into a new
+    tensor (its storage in ``seen`` while it lives, as a param's is) and
+    its all-gather counted: into the whole leaf, or, for a
+    tensor-parallel "shard" leaf (``models.tp.train_roles``), over the
+    data axes only into its ``model`` slice.  A gradient is cut to the
+    shard, its reduce-scatter (sharded over the data axes) or all-reduce
+    counted where the rows split over more than one rank
+    (``reduce_dp``), and a "sum" leaf's all-reduce over ``model``."""
 
-    def __init__(self, full, spec, mesh, reduce_dp, counted, seen):
+    def __init__(self, full, spec, mesh, reduce_dp, counted, seen,
+                 role: str = "whole"):
         self.full, self.spec, self.mesh = tuple(full), spec, mesh
         self.reduce_dp, self.counted, self.seen = reduce_dp, counted, seen
+        self.role = role
         self.shard = shard_shape(self.full, spec, mesh)
+        keep = Spec(*(("model" if shd.on_axis(ax, "model") else None)
+                      for ax in spec)) if role == "shard" \
+            else Spec(*(None,) * len(spec))
+        self.target = shard_shape(self.full, keep, mesh)
 
     def gather(self, local):
-        if self.shard == self.full:
+        if self.shard == self.target:
             return local.view_as(local)
-        out = _meta(self.full, local.dtype)
+        out = _meta(self.target, local.dtype)
         self.counted["all-gather"] += out.numel() * out.element_size()
         st = out.untyped_storage()
         self.seen.add(st._cdata)
@@ -354,19 +372,21 @@ class _MetaWay:
         return out
 
     def reduce(self, grad):
+        if self.role == "sum":
+            self.counted["all-reduce"] += grad.numel() * grad.element_size()
         if self.reduce_dp:
             dp = set(dp_axes(self.mesh))
             names = {a for ax in self.spec if ax is not None
                      for a in (ax if isinstance(ax, tuple) else (ax,))}
             self.counted["reduce-scatter" if names & dp else "all-reduce"] \
                 += _nbytes(self.shard, grad.dtype)
-        if self.shard == self.full:
+        if self.shard == self.target:
             return grad
         return _meta(self.shard, grad.dtype)
 
     def layer(self) -> "_MetaWay":
         return _MetaWay(self.full[1:], Spec(*self.spec[1:]), self.mesh,
-                        self.reduce_dp, self.counted, self.seen)
+                        self.reduce_dp, self.counted, self.seen, self.role)
 
 
 def _lower_train(cfg, shape, mesh, dtype, *, remat, accum_steps, kl_coef):
@@ -395,23 +415,30 @@ def _lower_train(cfg, shape, mesh, dtype, *, remat, accum_steps, kl_coef):
         raise ValueError(f"batch of {B} does not split into {accum_steps} "
                          "microbatches")
     rows, split = _local_rows(B // accum_steps, mesh)
-    loss_fn = make_loss_fn(cfg, kl_coef=kl_coef)
+    counted = {}
+    tp, roles = None, None
+    if steps_tp(cfg, _axis_size(mesh, "model")):
+        tp = _meta_tp(cfg, mesh, counted)
+        roles = train_roles(cfg, mesh, state.params)
+    loss_fn = make_loss_fn(cfg, kl_coef=kl_coef, tp=tp)
     reduce_dp = split and _dp_size(mesh) > 1
     stacked = stacked_leaves(state.params)
     fulls = [t.shape for t in tree_leaves(state.params)]
     specs = tree_leaves(st_sh.params)
+    roles = roles or ["whole"] * len(specs)
     shard_leaves = tree_leaves(params)
     micro = _rows_of(batch, rows)
 
     def run():
-        counted = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+        counted.update({"all-gather": 0, "reduce-scatter": 0,
+                        "all-reduce": 0})
         with _batch_total_meter(mesh, split) as bt:
             grads, saved = None, 0
             for _ in range(accum_steps):
                 leaves = [t.detach().requires_grad_() for t in shard_leaves]
                 seen = {t.untyped_storage()._cdata for t in leaves}
-                ways = [_MetaWay(f, s, mesh, reduce_dp, counted, seen)
-                        for f, s in zip(fulls, specs)]
+                ways = [_MetaWay(f, s, mesh, reduce_dp, counted, seen, r)
+                        for f, s, r in zip(fulls, specs, roles)]
                 with activation_sharding(mesh, split_rows=split):
                     with _saved_bytes(seen) as sv, torch.enable_grad():
                         loss, _ = loss_fn(gathered_params(
@@ -456,16 +483,24 @@ def _lower_train(cfg, shape, mesh, dtype, *, remat, accum_steps, kl_coef):
 
 
 def _meta_tp(cfg, mesh, counted):
-    """The meta step's ``TPRank``: each all-reduce over ``model`` counted
-    (its result's bytes) and run as the card runs it, into a new tensor
-    of the input's shape."""
+    """The meta step's ``TPRank``: each all-reduce over ``model`` (a
+    ``reduce`` forward, a ``copy`` backward) counted (its result's bytes)
+    and run as the card runs it, into a new tensor of the input's shape;
+    the vocabulary-parallel log-prob's gather of the ranks' partials
+    counted (its result's bytes) and stood in for by a new tensor."""
     from repro_torch.models.sharding import tp_splits
-    from repro_torch.models.tp import TPRank
 
     class Counted(TPRank):
-        def reduce(self, x):
-            counted["all-reduce"] += x.numel() * x.element_size()
+        def all_reduce(self, x):
+            counted["all-reduce"] = counted.get("all-reduce", 0) \
+                + x.numel() * x.element_size()
             return x.clone()
+
+        def gather_partials(self, part):
+            out = _meta((self.size,) + tuple(part.shape), part.dtype)
+            counted["all-gather"] = counted.get("all-gather", 0) \
+                + out.numel() * out.element_size()
+            return out
     return Counted(size=_axis_size(mesh, "model"), rank=0,
                    **tp_splits(cfg, mesh))
 
@@ -549,7 +584,7 @@ def _lower_serve(cfg, shape, mesh, dtype):
                         for t, s in zip(tree_leaves(cache), tree_leaves(c_sh))
                         if torch.is_tensor(t)]
         local = _meta((rows, 1), tokens.dtype)
-    if cfg.family == "dense" and _axis_size(mesh, "model") > 1:
+    if steps_tp(cfg, _axis_size(mesh, "model")):
         return _lower_serve_tp(cfg, shape, mesh, dtype, p_full, arg, rows,
                                local)
 

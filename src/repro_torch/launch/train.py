@@ -55,6 +55,7 @@ then steps sharded over its mesh.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 
@@ -69,7 +70,7 @@ from repro_torch.core import (AdaptiveStalenessController, CommType,
                               RewardExecutor, Supervisor,
                               TrainerExecutor, WeightsCommunicationChannel,
                               build_generator_pool, close_all_actors,
-                              serve_actor_host, spawn_actor)
+                              serve_actor_host, spawn_actor, spawn_all)
 from repro_torch.kernels import build
 from repro_torch.obs import trace as obs_trace
 from repro_torch.rl.data import VOCAB_SIZE, ArithmeticTasks
@@ -117,32 +118,41 @@ def build_controller(cfg, args, *, trainer_cls=TrainerExecutor,
     # the reference; actors beyond the list self-host on localhost
     addrs = [_parse_addr(a) for a in args.connect.split(",")
              if a.strip()] if args.connect else []
-    trn = spawn_actor(trainer_cls, cfg, lr=args.lr, rho=args.rho,
-                      clip_mode=args.clip_mode, kl_coef=args.kl_coef,
-                      seed=args.seed, device=args.device,
-                      transport=args.transport, device_spec=spec,
-                      address=addrs[0] if addrs else None)
-    gens, channels = build_generator_pool(
-        cfg, trn,
+    jobs = [functools.partial(
+        spawn_actor, trainer_cls, cfg, lr=args.lr, rho=args.rho,
+        clip_mode=args.clip_mode, kl_coef=args.kl_coef, seed=args.seed,
+        device=args.device, transport=args.transport, device_spec=spec,
+        address=addrs[0] if addrs else None),
+        functools.partial(
+        build_generator_pool, cfg, None,
         lambda g: ArithmeticTasks(prompt_len=args.prompt_len,
                                   max_operand=args.max_operand, ops="+-",
-                                  seed=args.seed + g),
-        n_generators=n_gens, generator_cls=generator_cls, seed=args.seed,
-        n_prompts=args.n_prompts,
-        n_per_prompt=args.n_per_prompt, max_new=args.max_new,
-        temperature=args.temp, quantize=args.quantize_generator,
-        chunk=args.rollout_chunk, device=args.device,
-        transport=args.transport, device_spec=spec,
-        addresses=addrs[1:1 + n_gens])
+                                  seed=args.seed + g), n_generators=n_gens,
+        generator_cls=generator_cls, seed=args.seed,
+        n_prompts=args.n_prompts, n_per_prompt=args.n_per_prompt,
+        max_new=args.max_new, temperature=args.temp,
+        quantize=args.quantize_generator, chunk=args.rollout_chunk,
+        device=args.device, transport=args.transport, device_spec=spec,
+        addresses=addrs[1:1 + n_gens])]
+    if args.kl_coef > 0:
+        # paper Sec. 6: KL regularization against a frozen reference
+        jobs.append(functools.partial(
+            spawn_actor, ref_cls, cfg, transport=args.transport,
+            device_spec=spec,
+            address=addrs[1 + n_gens] if len(addrs) > 1 + n_gens else None))
+    # a spawned child takes seconds to import torch and open its CUDA
+    # context, so spawned children start at once; in-process actors, and
+    # socket hosts (which take REPRO_SOCKET_ADDRS in order), in turn
+    at_once = (args.transport or os.environ.get("REPRO_TRANSPORT")) \
+        in ("proc", "shm")
+    trn, (gens, _), *refs = spawn_all(jobs, at_once)
+    channels = [WeightsCommunicationChannel("policy_model", trn, g)
+                for g in gens]
     rew = RewardExecutor(n_per_prompt=args.n_per_prompt,
                          leave_one_out=args.rloo)
     executors = gens + [rew, trn]
-    if args.kl_coef > 0:
-        # paper Sec. 6: KL regularization against a frozen reference
-        ref = spawn_actor(ref_cls, cfg, transport=args.transport,
-                          device_spec=spec,
-                          address=addrs[1 + n_gens]
-                          if len(addrs) > 1 + n_gens else None)
+    if refs:
+        ref = refs[0]
         executors.insert(len(gens), ref)
         channels += [
             WeightsCommunicationChannel("policy_model", trn, ref),

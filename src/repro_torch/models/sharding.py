@@ -108,6 +108,12 @@ def _axis_size(mesh, name) -> int:
     return sizes[name]
 
 
+def on_axis(ax, name: str) -> bool:
+    """Whether a spec entry ``ax`` (None, an axis name or a tuple of
+    names) shards its dim over the mesh axis ``name``."""
+    return ax == name or (isinstance(ax, tuple) and name in ax)
+
+
 def _fit(mesh, shape, spec: Tuple) -> Spec:
     """Drop spec axes whose mesh size does not divide the dim."""
     fitted = []
@@ -149,17 +155,24 @@ def groups(mesh, axes) -> list:
     return [mesh.get_group(a) for a in axes]
 
 
+def all_reduce_groups(x, grps):
+    """A new tensor: the sum of ``x`` over the ranks of each of ``grps``
+    in turn (not differentiable; ``reduce_from`` and ``copy_to`` run it
+    unless given their own)."""
+    out = x.clone()
+    for g in grps:
+        dist.all_reduce(out, group=g)
+    return out
+
+
 class _ReduceFrom(torch.autograd.Function):
-    """Sum over the ranks of ``groups`` forward; the gradient passes
-    through as it is (every rank computes the same value downstream, and
-    this rank's share of the sum moves it one for one)."""
+    """The sum ``all_reduce`` takes forward; the gradient passes through
+    as it is (every rank computes the same value downstream, and this
+    rank's share of the sum moves it one for one)."""
 
     @staticmethod
-    def forward(ctx, x, grps):
-        out = x.clone()
-        for g in grps:
-            dist.all_reduce(out, group=g)
-        return out
+    def forward(ctx, x, all_reduce):
+        return all_reduce(x)
 
     @staticmethod
     def backward(ctx, grad):
@@ -167,29 +180,39 @@ class _ReduceFrom(torch.autograd.Function):
 
 
 class _CopyTo(torch.autograd.Function):
-    """The identity forward; the gradient summed over the ranks of
-    ``groups`` backward (each rank's use of the value feeds a different
-    share of a sum that ``reduce_from`` takes)."""
+    """The identity forward; the gradient summed by ``all_reduce``
+    backward (each rank's use of the value feeds a different share of a
+    sum that ``reduce_from`` takes)."""
 
     @staticmethod
-    def forward(ctx, x, grps):
-        ctx.grps = grps
+    def forward(ctx, x, all_reduce):
+        ctx.all_reduce = all_reduce
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone()
-        for g in ctx.grps:
-            dist.all_reduce(grad, group=g)
-        return grad, None
+        return ctx.all_reduce(grad), None
 
 
-def reduce_from(x, grps):
-    return _ReduceFrom.apply(x, grps) if grps else x
+def _summing(grps, all_reduce):
+    if all_reduce is not None:
+        return all_reduce
+    return (lambda x: all_reduce_groups(x, grps)) if grps else None
 
 
-def copy_to(x, grps):
-    return _CopyTo.apply(x, grps) if grps else x
+def reduce_from(x, grps=(), all_reduce=None):
+    """The sum of ``x`` over the ranks of ``grps`` (or by ``all_reduce``,
+    a callable from a tensor to a new one, its sum); its gradient as it
+    is.  ``x`` itself with neither."""
+    fn = _summing(grps, all_reduce)
+    return x if fn is None else _ReduceFrom.apply(x, fn)
+
+
+def copy_to(x, grps=(), all_reduce=None):
+    """``x``; its gradient summed over the ranks of ``grps`` (or by
+    ``all_reduce``, as ``reduce_from`` takes it)."""
+    fn = _summing(grps, all_reduce)
+    return x if fn is None else _CopyTo.apply(x, fn)
 
 
 def _split_groups() -> list:

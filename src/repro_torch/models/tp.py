@@ -24,15 +24,36 @@ is computed whole with no collective.  Rows split over the data axes
 where ``batch_shardings`` splits them (``TPRank.for_rows``); the sampler
 keys each row's noise by its global row.  The layers' bodies are the
 one-card ones (``attention.gqa_forward``, ``gqa_decode``,
-``ffn.mlp_forward``, ``backbone._logits``) on local shapes: a local
+``ffn.mlp_forward``, and the head's product) on local shapes: a local
 config holds the rank's heads.  A layer is two all-reduces of [rows, S,
 D] where the heads split, and the embedding one more.  The paged engine
 on a mesh is not here (a later slice); the other families serve on the
 whole tree.
+
+``forward_train`` is the teacher-forced forward on the same shards and
+layer bodies with autograd, the reference's partitioned training step
+(its ``param_spec`` in ``mode="train"``): the input of every column
+product (q/k/v where the heads split, the MLP's first products, the
+head) passes through ``TPRank.copy`` (the identity; its gradient summed
+over the ``model`` group; serving, without grad, runs it as the
+identity), the output of every row product (``wo``, ``w_down``) and the
+embedding through ``TPRank.reduce`` (the sum; its gradient as it is).
+The head's logits stay this rank's vocabulary slice, scored by
+``TPRank.token_logprob`` (``dispatch.token_logprob_vocab_parallel``):
+every rank of a ``model`` row then holds the same residual stream, the
+same loss and the same gradients of the leaves it holds whole, and its
+own slice's gradients of the split leaves.  A layer's backward is two
+all-reduces of [rows, S, D] where the heads split (one where they do
+not), and under ``cfg.remat_layers`` its recompute runs its forward's
+again; the head's backward one more.  Every all-reduce of the
+``model`` group goes through ``TPRank.all_reduce`` and the log-prob's
+gather through ``TPRank.gather_partials``, the seams the dry run and
+the checks count at.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any
 
 import torch
@@ -44,8 +65,9 @@ from repro_torch.models import backbone as bb
 from repro_torch.models import ffn as ffnmod
 from repro_torch.models import serve
 from repro_torch.models.common import norm
-from repro_torch.models.sharding import _axis_size, dp_axes, reduce_from, \
-    tp_splits
+from repro_torch.models.sharding import _axis_size, _map_with_path, \
+    _path_str, all_reduce_groups, copy_to, dp_axes, on_axis, reduce_from, \
+    tp_plan, tp_splits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,9 +87,35 @@ class TPRank:
     dp: tuple = ()
     row0: int = 0
 
+    def all_reduce(self, x):
+        """A new tensor: the sum of ``x`` over the ranks of the ``model``
+        group (not differentiable; ``reduce`` and ``copy`` call it)."""
+        return all_reduce_groups(x, [self.group])
+
     def reduce(self, x):
-        """The sum of ``x`` over the ranks of the ``model`` group."""
-        return reduce_from(x, [self.group])
+        """The sum of ``x`` over the ranks of the ``model`` group; the
+        gradient passes as it is."""
+        return reduce_from(x, all_reduce=self.all_reduce)
+
+    def copy(self, x):
+        """``x``; its gradient summed over the ranks of the ``model``
+        group."""
+        return copy_to(x, all_reduce=self.all_reduce)
+
+    def gather_partials(self, part):
+        """Every rank's ``part`` of the ``model`` group, stacked in rank
+        order."""
+        return dispatch.all_gather_stacked(part, self.group)
+
+    def token_logprob(self, logits, tokens, n_valid=None):
+        """``dispatch.token_logprob`` of this rank's logits: of its
+        vocabulary slice [B, T, V/m] merged over the ``model`` group, or of
+        the whole rows where the vocabulary stays whole."""
+        if self.vocab:
+            return dispatch.token_logprob_vocab_parallel(
+                logits, tokens, self.rank * logits.shape[-1], self.group,
+                n_valid, gather=self.gather_partials)
+        return dispatch.token_logprob(logits, tokens, n_valid)
 
     def attn_cfg(self, cfg):
         """``cfg`` with this rank's heads where they split."""
@@ -116,13 +164,18 @@ class TPRank:
         return x
 
 
+def steps_tp(cfg, model: int) -> bool:
+    """Whether a rank of ``cfg`` on a ``model`` axis of ``model`` ranks
+    computes tensor-parallel: a dense model on more than one rank (every
+    other family, and a ``model`` axis of one rank, run on the whole
+    tree)."""
+    return cfg.family == "dense" and model > 1
+
+
 def tp_rank(cfg, mesh):
-    """This rank's ``TPRank`` on ``mesh`` (a ``DeviceMesh``) for a dense
-    ``cfg`` whose ``model`` axis has more than one rank; None otherwise
-    (every other family, and a ``model`` axis of one rank, serve on the
-    whole tree)."""
-    if mesh is None or cfg.family != "dense" \
-            or _axis_size(mesh, "model") == 1:
+    """This rank's ``TPRank`` on ``mesh`` (a ``DeviceMesh``) where
+    ``steps_tp``; None otherwise."""
+    if mesh is None or not steps_tp(cfg, _axis_size(mesh, "model")):
         return None
     names = mesh.mesh_dim_names
     dp = tuple((mesh.get_group(a), mesh.size(names.index(a)),
@@ -161,20 +214,39 @@ def _attn_params(p, cfg, tp: TPRank):
     return out
 
 
+def _attn_in(p, x, cfg, tp: TPRank):
+    """norm(x), the attention's input: through ``TPRank.copy`` where the
+    heads split (the identity forward, so serving, which runs without
+    grad, computes as before)."""
+    h = norm(x, p["ln1"], cfg.norm)
+    return tp.copy(h) if tp.heads else h
+
+
 def _attn_out(y, tp: TPRank):
     return tp.reduce(y) if tp.heads else y
 
 
 def _ffn(p, x, cfg, tp: TPRank):
     """x + the MLP of norm(x) on this rank's columns, summed over the
-    ranks where they split."""
+    ranks where they split (its input through ``TPRank.copy`` there)."""
     mp = p["mlp"]
-    if tp.ffn and cfg.bias:
+    h = norm(x, p["ln2"], cfg.norm)
+    if not tp.ffn:
+        return x + ffnmod.mlp_forward(mp, h, cfg.act, bias=cfg.bias)
+    if cfg.bias:
         n = mp["w_down"].shape[-2]
         mp = dict(mp, b_up=mp["b_up"][..., tp.rank * n:(tp.rank + 1) * n])
-    return x + ffnmod.mlp_forward(mp, norm(x, p["ln2"], cfg.norm), cfg.act,
-                                  bias=cfg.bias,
-                                  reduce=tp.reduce if tp.ffn else None)
+    return x + ffnmod.mlp_forward(mp, tp.copy(h), cfg.act, bias=cfg.bias,
+                                  reduce=tp.reduce)
+
+
+def head_logits(params, cfg, x, tp: TPRank):
+    """This rank's logits of x [.., D]: its vocabulary slice [.., V/m]
+    (the head's input through ``TPRank.copy``), or the whole row where
+    the vocabulary stays whole."""
+    x = norm(x, params["final_norm"], cfg.norm)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (tp.copy(x) if tp.vocab else x) @ head
 
 
 def _check(cfg, cache=None):
@@ -204,7 +276,7 @@ def prefill(params, cfg, batch, cache_len: int, dtype, tp: TPRank):
             for p in layers[i:j]:
                 y, (k, v) = attn.gqa_forward(
                     _attn_params(p["attn"], cfg, tp),
-                    norm(x, p["ln1"], cfg.norm), acfg, window=w)
+                    _attn_in(p, x, cfg, tp), acfg, window=w)
                 x = _ffn(p, x + _attn_out(y, tp), cfg, tp)
                 ks.append(k)
                 vs.append(v)
@@ -212,7 +284,7 @@ def prefill(params, cfg, batch, cache_len: int, dtype, tp: TPRank):
     for seg, kvs in zip(cache["segments"], kv_segs):
         serve._write_seg(seg, kvs, start=0)
     cache["pos"] = S
-    return bb._logits(params, cfg, x[:, -1]), cache
+    return head_logits(params, cfg, x[:, -1], tp), cache
 
 
 def decode_step(params, cfg, cache, tokens, tp: TPRank):
@@ -226,9 +298,68 @@ def decode_step(params, cfg, cache, tokens, tp: TPRank):
                                 cache["segments"]):
         for li, p in enumerate(layers):
             y = attn.gqa_decode(_attn_params(p["attn"], cfg, tp),
-                                norm(x, p["ln1"], cfg.norm), seg["k"][li],
+                                _attn_in(p, x, cfg, tp), seg["k"][li],
                                 seg["v"][li], seg["slot_pos"], pos, acfg,
                                 window=w)
             x = _ffn(p, x + _attn_out(y, tp), cfg, tp)
     cache["pos"] = pos + 1
-    return bb._logits(params, cfg, x[:, -1]), cache
+    return head_logits(params, cfg, x[:, -1], tp), cache
+
+
+# --------------------------------------------------------- training ---
+
+def _train_layer(p, x, cfg, acfg, window, tp: TPRank):
+    """One decoder layer for training: x + attention on this rank's
+    heads (whole where they do not split), then ``_ffn``."""
+    y, _ = attn.gqa_forward(_attn_params(p["attn"], cfg, tp),
+                            _attn_in(p, x, cfg, tp), acfg, window=window)
+    return _ffn(p, x + _attn_out(y, tp), cfg, tp)
+
+
+def forward_train(params, cfg, batch, tp: TPRank):
+    """``backbone.forward_train`` of a dense model on this rank's shard
+    (``sharding.tp_plan``; a stacked leaf may be a ``backbone.StackShard``
+    whose layers ``backbone._layer`` gathers, under ``cfg.remat_layers``
+    inside the layer's checkpoint): (its logits [B, S, V/m], or [B, S, V]
+    where the vocabulary stays whole, and ``{"moe_aux": 0.0}``).
+    Differentiable; score the logits with ``tp.token_logprob``."""
+    _check(cfg)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = embed(params, cfg, tokens, tp)
+    acfg = tp.attn_cfg(cfg)
+    for key, n, off in bb.layer_stacks(cfg):
+        layers = bb.unstack(params[key], n)
+        for i, j, w in bb._segment_windows(cfg, n, off, seq_len=S):
+            for p in layers[i:j]:
+                x = bb._layer(cfg, _train_layer, p, x, cfg, acfg, w, tp)
+    return head_logits(params, cfg, x, tp), {"moe_aux": 0.0}
+
+
+# the biases a rank slices where the heads (``_attn_params``) or the MLP's
+# columns (``_ffn``) split: leaves it holds whole and uses a slice of
+_SLICED_BIASES = {"heads": re.compile(r"(^|/)attn/(bq|bk|bv)$"),
+                  "ffn": re.compile(r"(^|/)mlp/b_up$")}
+
+
+def train_roles(cfg, mesh, params) -> list:
+    """Per leaf of a dense ``params`` (whole tensors, DTensors or meta,
+    in ``tree_leaves`` order), how a tensor-parallel training rank on
+    ``mesh`` uses it: "shard" where ``tp_plan`` splits it over ``model``
+    (the rank computes with its slice; its gradient is that slice's),
+    "sum" where it holds the leaf whole but uses a slice (a bias of
+    split heads or MLP columns: the ranks' gradients are disjoint slices
+    of the whole, summed over ``model``), "whole" elsewhere (every rank
+    of a ``model`` row computes the same gradient)."""
+    from repro_torch.train.optimizer import tree_leaves
+    splits = tp_splits(cfg, mesh)
+
+    def role(path, spec):
+        if any(on_axis(ax, "model") for ax in spec):
+            return "shard"
+        ps = _path_str(path)
+        if cfg.bias and any(splits[k] and rx.search(ps)
+                            for k, rx in _SLICED_BIASES.items()):
+            return "sum"
+        return "whole"
+    return tree_leaves(_map_with_path(role, tp_plan(cfg, mesh, params)))

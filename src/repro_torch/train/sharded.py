@@ -25,11 +25,24 @@ One step (``make_sharded_train_step``):
      axes (``Partial``) and cuts it to the leaf's placements: a
      reduce-scatter where a leaf is sharded over ``data``, a slice where
      it is sharded over ``model``, one layer at a time, so no whole
-     gradient of a stacked leaf is ever alive.  The ranks of a ``model``
-     row ran the same rows and hold the same gradients, so nothing is
-     summed over ``model`` (under expert parallelism each holds its own
-     experts' rows of an expert leaf, the rows its shard keeps); with
-     replicated rows nothing is summed at all;
+     gradient of a stacked leaf is ever alive.  With replicated rows
+     nothing is summed over the data axes;
+  3a. for a dense model on a mesh whose ``model`` axis has more than one
+     rank (``models.tp.tp_rank``), the step is the reference's
+     partitioned one: the loss runs ``models.tp.forward_train`` and the
+     vocabulary-parallel log-prob.  A leaf that the TP body uses as its
+     slice (``tp.train_roles`` "shard": the MLP, ``embed``, ``lm_head``,
+     and ``wq wk wv wo`` where the heads split) keeps its ``model``
+     placement: its gather and its gradient's reduction run over the
+     data axes only, and the gradient is this rank's slice's.  A leaf
+     used whole is gathered whole as above; the ranks of a ``model`` row
+     computed the same gradient of it, so nothing is summed over
+     ``model``, except for a bias a rank holds whole and uses a slice of
+     ("sum"), whose gradient is also summed over ``model``.  For every
+     other family (whose TP is not ported) every leaf is gathered whole:
+     the ranks of a ``model`` row run the same rows and hold the same
+     gradients (under expert parallelism each holds its own experts'
+     rows of an expert leaf, the rows its shard keeps);
   4. Adam on the local shards, clipped by the global gradient norm: the
      local shards' squares summed over the mesh, a leaf's replicated
      copies counted once.
@@ -49,6 +62,7 @@ from repro_torch.models.backbone import StackShard
 from repro_torch.models.sharding import _axis_size, _sizes, \
     activation_sharding, axis_names, batch_shardings, distribute, dp_axes, \
     groups, stacked_leaves, state_shardings
+from repro_torch.models.tp import tp_rank, train_roles
 from repro_torch.train.optimizer import AdamState, adam_update, \
     tree_leaves, tree_map, tree_unflatten
 from repro_torch.train.trainstep import TrainState, make_loss_fn, \
@@ -96,24 +110,35 @@ class _Gather(torch.autograd.Function):
 
 
 class MeshWay:
-    """How one leaf moves on ``mesh``: its shard gathered from the ranks
-    (``full_tensor``); this rank's gradient of the whole leaf summed over
-    the data-parallel axes when the rows are ``split``, then cut to the
-    leaf's placements.  ``layer()`` is the way of one layer's slice of a
+    """How one leaf moves on ``mesh``, by its ``role``
+    (``models.tp.train_roles``): its shard gathered from the ranks into
+    the whole leaf, or, for a "shard" leaf, over the data axes only into
+    its slice along ``model``; this rank's gradient of what it gathered
+    summed over the data-parallel axes when the rows are ``split`` (and,
+    for a "sum" leaf, over ``model`` too), then cut to the leaf's
+    placements.  ``layer()`` is the way of one layer's slice of a
     stacked leaf, whose leading (layer) axis is never sharded."""
 
-    def __init__(self, mesh, placements, split: bool):
+    def __init__(self, mesh, placements, split: bool, role: str = "whole"):
         self.mesh, self.placements, self.split = mesh, placements, split
+        self.role = role
+        self.gathered = [p if role == "shard" and a == "model"
+                         else Replicate()
+                         for a, p in zip(axis_names(mesh), placements)]
 
     def gather(self, local):
         out = DTensor.from_local(local.detach(), self.mesh, self.placements,
-                                 run_check=False).full_tensor()
+                                 run_check=False
+                                 ).redistribute(self.mesh,
+                                                self.gathered).to_local()
         return local.view_as(local) if out.data_ptr() == local.data_ptr() \
             else out
 
     def reduce(self, grad):
-        src = [Partial() if self.split and a in dp_axes(self.mesh)
-               else Replicate() for a in axis_names(self.mesh)]
+        dp = dp_axes(self.mesh)
+        src = [Partial() if (self.split and a in dp)
+               or (self.role == "sum" and a == "model") else g
+               for a, g in zip(axis_names(self.mesh), self.gathered)]
         out = DTensor.from_local(grad, self.mesh, src, run_check=False
                                  ).redistribute(self.mesh,
                                                 self.placements).to_local()
@@ -125,7 +150,15 @@ class MeshWay:
     def layer(self) -> "MeshWay":
         return MeshWay(self.mesh, [Shard(p.dim - 1) if isinstance(p, Shard)
                                    else p for p in self.placements],
-                       self.split)
+                       self.split, self.role)
+
+
+def mesh_ways(mesh, placements, split: bool, roles=None) -> list:
+    """A ``MeshWay`` a leaf, of placements ``placements``; ``roles`` the
+    leaves' ``models.tp.train_roles`` on a tensor-parallel step, else
+    None (every leaf gathered whole)."""
+    roles = roles or ["whole"] * len(placements)
+    return [MeshWay(mesh, pl, split, r) for pl, r in zip(placements, roles)]
 
 
 def gathered_params(local, ways, stacked):
@@ -171,9 +204,12 @@ def make_sharded_train_step(cfg, mesh, *, lr=2e-7, rho=4.0,
     """Returns train_step(state, batch) -> (state, metrics), the step of
     ``make_train_step`` on the state ``shard_state`` gives.  ``batch`` is
     the global batch, the same on every rank; the step keeps this rank's
-    rows.  Every rank of the mesh calls it; the metrics are global."""
+    rows.  Every rank of the mesh calls it; the metrics are global.  A
+    dense ``cfg`` on a ``model`` axis of more than one rank steps on its
+    tensor-parallel shards (step 3a of the module's docstring)."""
+    tp = tp_rank(cfg, mesh)
     loss_fn = make_loss_fn(cfg, rho=rho, clip_mode=clip_mode, kl_coef=kl_coef,
-                           mtp_weight=mtp_weight, remat=remat)
+                           mtp_weight=mtp_weight, remat=remat, tp=tp)
 
     def train_step(state: TrainState, batch) -> tuple:
         B = batch["tokens"].shape[0]
@@ -186,12 +222,13 @@ def make_sharded_train_step(cfg, mesh, *, lr=2e-7, rho=4.0,
 
         placements = [t.placements for t in tree_leaves(state.params)]
         stacked = stacked_leaves(state.params)
+        roles = None if tp is None else train_roles(cfg, mesh, state.params)
         local = to_local(state.params)
         local_g = None
         for i in range(accum_steps):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             rows, split = local_rows(micro, mesh)
-            ways = [MeshWay(mesh, pl, split) for pl in placements]
+            ways = mesh_ways(mesh, placements, split, roles)
 
             def sharded_loss(p, b):
                 return loss_fn(gathered_params(p, ways, stacked), b)

@@ -43,13 +43,25 @@ def init_train_state(cfg, seed: int = 0, dtype=torch.float32,
 
 
 def make_loss_fn(cfg, *, rho=4.0, clip_mode="aipo", kl_coef=0.0,
-                 mtp_weight=0.1, remat=False):
+                 mtp_weight=0.1, remat=False, tp=None):
+    """The loss of ``params`` on a batch: (loss, metrics).  With ``tp``
+    (a ``models.tp.TPRank``) the params are a dense model's
+    tensor-parallel shards: the forward is ``models.tp.forward_train``
+    and the log-probs are its vocabulary-parallel ones."""
+    fwd, logprob = forward_train, None
+    if tp is not None:
+        from repro_torch.models import tp as tpmod
+
+        def fwd(params, cfg, batch):
+            return tpmod.forward_train(params, cfg, batch, tp)
+        logprob = tp.token_logprob
+
     def loss_fn(params, batch):
         if remat:
-            logits, aux = checkpoint(forward_train, params, cfg, batch,
+            logits, aux = checkpoint(fwd, params, cfg, batch,
                                      use_reentrant=False)
         else:
-            logits, aux = forward_train(params, cfg, batch)
+            logits, aux = fwd(params, cfg, batch)
         T = logits.shape[1]
         loss, metrics = aipo_loss(
             logits,
@@ -60,7 +72,7 @@ def make_loss_fn(cfg, *, rho=4.0, clip_mode="aipo", kl_coef=0.0,
             rho=rho, clip_mode=clip_mode, kl_coef=kl_coef,
             ref_logp=(batch["ref_logp"][:, 1:]
                       if kl_coef and "ref_logp" in batch else None),
-            n_valid=T - 1)
+            n_valid=T - 1, logprob=logprob)
         moe_aux = aux.get("moe_aux", 0.0)
         loss = loss + moe_aux
         if "mtp_logits" in aux and mtp_weight:

@@ -42,17 +42,34 @@ def _expected_shard(full, spec, mesh):
     return full[tuple(idx)]
 
 
-class _LayerMeter:
-    """While entered, counts the sharded step's one-layer gathers
-    (``MeshWay.layer()``'s ways): how many, the most bytes of gathered
-    layer slices alive at once in the forward and over the whole step,
-    and the most bytes of whole layer gradients alive at once as the
-    backward hands them to the reductions.  Each is followed from its
-    storage's allocation to its release."""
+def _gathers(way) -> bool:
+    """Whether ``way`` (a ``MeshWay``) moves anything: a placement it
+    gathers over a mesh dim of more than one rank."""
+    return any(p != g and way.mesh.size(i) > 1 for i, (p, g) in enumerate(
+        zip(way.placements, way.gathered)))
 
-    def __init__(self):
+
+def _over_model(way) -> bool:
+    """Whether ``way`` gathers its leaf over the ``model`` axis."""
+    i = way.mesh.mesh_dim_names.index("model")
+    return way.mesh.size(i) > 1 and way.placements[i] != way.gathered[i]
+
+
+class _LayerMeter:
+    """While entered, counts the sharded step's gathers: the one-layer
+    gathers (``MeshWay.layer()``'s ways) -- how many, the most bytes of
+    gathered layer slices alive at once in the forward and over the whole
+    step, and the most bytes of gathered layer gradients alive at once as
+    the backward hands them to the reductions, each followed from its
+    storage's allocation to its release -- and the paths of the leaves
+    gathered over the ``model`` axis (``model_paths``).  ``names`` are
+    the state's leaf paths in ``tree_leaves`` order."""
+
+    def __init__(self, names):
+        self.names = names
         self.n = self.live = self.fwd_peak = self.peak = 0
         self.grad_live = self.grad_peak = 0
+        self.model_paths = set()
 
     def _hold(self, t, attr, peaks):
         n = t.untyped_storage().nbytes()
@@ -63,15 +80,17 @@ class _LayerMeter:
             self, attr, getattr(self, attr) - n))
 
     def __enter__(self):
-        from torch.distributed.tensor import Shard
-
         from repro_torch.train import sharded
-        meter, self._real = self, sharded.MeshWay.layer
+        meter, self._real = self, sharded.mesh_ways
 
         class Counted(sharded.MeshWay):
+            path, is_layer = "", False
+
             def gather(self, local):
                 out = super().gather(local)
-                if out.data_ptr() != local.data_ptr():
+                if _over_model(self):
+                    meter.model_paths.add(self.path)
+                if self.is_layer and out.data_ptr() != local.data_ptr():
                     meter.n += 1
                     fwd = torch._C._current_graph_task_id() == -1
                     meter._hold(out, "live", ("peak", "fwd_peak") if fwd
@@ -79,39 +98,63 @@ class _LayerMeter:
                 return out
 
             def reduce(self, grad):
-                if any(isinstance(p, Shard) and self.mesh.size(i) > 1
-                       for i, p in enumerate(self.placements)):
+                if self.is_layer and _gathers(self):
                     meter._hold(grad, "grad_live", ("grad_peak",))
                 return super().reduce(grad)
 
-        def layer(way):
-            one = meter._real(way)
-            return Counted(one.mesh, one.placements, one.split)
+            def layer(self):
+                one = super().layer()
+                out = Counted(one.mesh, one.placements, one.split,
+                              one.role)
+                out.path, out.is_layer = self.path, True
+                return out
 
-        sharded.MeshWay.layer = layer
+        def ways(*args, **kwargs):
+            out = []
+            for w, path in zip(meter._real(*args, **kwargs), meter.names):
+                c = Counted(w.mesh, w.placements, w.split, w.role)
+                c.path = path
+                out.append(c)
+            return out
+
+        sharded.mesh_ways = ways
         return self
 
     def __exit__(self, *exc):
         from repro_torch.train import sharded
-        sharded.MeshWay.layer = self._real
+        sharded.mesh_ways = self._real
 
     def summary(self) -> dict:
-        return {k: getattr(self, k) for k in
-                ("n", "fwd_peak", "peak", "grad_peak")}
+        out = {k: getattr(self, k) for k in
+               ("n", "fwd_peak", "peak", "grad_peak")}
+        out["model_paths"] = sorted(self.model_paths)
+        return out
 
 
-def _layer_bytes(state) -> int:
-    """The most bytes one layer's sharded stacked leaves take whole."""
+def _layer_bytes(state, cfg, mesh) -> int:
+    """The most bytes one layer's stacked leaves take as the step gathers
+    them (each leaf whose gather moves anything): whole, or, on a
+    tensor-parallel step (``tp.train_roles``), a split leaf's ``model``
+    slice."""
     from repro_torch.models.sharding import stacked_leaves
+    from repro_torch.models.tp import tp_rank, train_roles
     from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.sharded import mesh_ways
+    roles = train_roles(cfg, mesh, state.params) \
+        if tp_rank(cfg, mesh) is not None else None
+    leaves = tree_leaves(state.params)
+    ways = mesh_ways(mesh, [t.placements for t in leaves], True, roles)
     per = {}
-    for key, tree in state.params.items():
-        leaves = tree_leaves(tree)
-        if not all(stacked_leaves({key: tree})):
+    for key, t, w, st in zip(paths(state.params), leaves, ways,
+                             stacked_leaves(state.params)):
+        if not st or not _gathers(w):
             continue
-        per[key] = sum(t.numel() * t.element_size() for t in leaves
-                       if t.to_local().numel() < t.numel()) \
-            // leaves[0].shape[0]
+        n = t.numel() * t.element_size() // t.shape[0]
+        for i, g in enumerate(w.gathered):
+            if g.is_shard():
+                n //= mesh.size(i)
+        stack = key.split("/")[0]
+        per[stack] = per.get(stack, 0) + n
     return max(per.values())
 
 
@@ -199,7 +242,6 @@ def _mesh_checks(mesh, name, cases, runs, ckpt, out):
             step = make_sharded_train_step(cfg, mesh, lr=LR, kl_coef=kl,
                                            accum_steps=accum)
             res["steps"][case] = []
-            meter = _LayerMeter()
             for k, trees in enumerate(run["states"][:STEPS]):
                 params, m, v = (convert.from_jax_numpy(t, device="cpu")
                                 for t in trees)
@@ -213,7 +255,9 @@ def _mesh_checks(mesh, name, cases, runs, ckpt, out):
                         shards_ok.append(torch.equal(
                             t.to_local(),
                             _expected_shard(full[p], specs[p], mesh)))
-                layer_bytes = _layer_bytes(state)
+                layer_bytes = _layer_bytes(state, cfg, mesh)
+                if k == 0:
+                    meter = _LayerMeter(list(paths(state.params)))
                 with meter:
                     state, metrics = step(state, batch)
                 res["steps"][case].append(

@@ -70,10 +70,42 @@ def _mesh_checks(mesh, ref):
                       key=prng.PRNGKey(3), temperature=TEMP, tp=tpr)
     out["tokens"] = tpr.gather_rows(st.tokens, B).numpy()
     out["blp"] = tpr.gather_rows(st.behavior_logp, B).numpy()
+    out["ref_logp"] = _ref_scoring(mesh, params, ref)
+    out["vp_logp"], out["vp_grad"] = _vocab_parallel(tp, ref)
     return out, {"shards_ok": [len(ok), all(ok)],
                  "heads": tpr.heads, "ffn": tpr.ffn, "vocab": tpr.vocab,
                  "row0": tpr.row0,
                  "wq": list(shard["layers"]["attn"]["wq"].shape)}
+
+
+def _ref_scoring(mesh, params, ref):
+    """A reference executor on ``mesh`` (its TP shard; its rows, heads,
+    FFN columns and vocabulary slice) scoring ``ref["score_tokens"]``:
+    its ``ref_logp``."""
+    from repro_torch.configs.llama_paper import smoke
+    from repro_torch.core.executor import RefPolicyExecutor
+    ex = RefPolicyExecutor(smoke(), mesh=mesh)
+    assert ex.tp is not None
+    ex.set_weights(params)
+    ex.put_input("completions",
+                 {"tokens": torch.as_tensor(ref["score_tokens"])})
+    return ex.step()["ref_logp"].numpy()
+
+
+def _vocab_parallel(tp, ref):
+    """``dispatch.token_logprob_vocab_parallel`` of this rank's slice of
+    ``ref["vp_logits"]`` [B, T, V] over the prefix T - 1: the merged
+    log-probs and the gradient of the slice under ``ref["vp_g"]``."""
+    from repro_torch.kernels import dispatch
+    x = torch.as_tensor(ref["vp_logits"])
+    n = x.shape[-1] // tp.size
+    col0 = tp.rank * n
+    local = x[..., col0:col0 + n].clone().requires_grad_()
+    toks = torch.as_tensor(ref["vp_tokens"])
+    lp = dispatch.token_logprob_vocab_parallel(local, toks, col0, tp.group,
+                                               n_valid=toks.shape[1])
+    (g,) = torch.autograd.grad(lp, local, torch.as_tensor(ref["vp_g"]))
+    return lp.detach().numpy(), g.numpy()
 
 
 def _executor_check(mesh):

@@ -250,6 +250,43 @@ def test_socket_actor_on_a_listening_host():
     assert not t.is_alive()
 
 
+@pytest.mark.parametrize("at_once", [True, False])
+def test_spawn_all_starts_jobs_at_once_or_in_order(at_once):
+    spans = {}
+
+    def job(k):
+        t0 = time.perf_counter()
+        time.sleep(0.2)
+        spans[k] = (t0, time.perf_counter(), threading.current_thread())
+        return k
+    out = actors.spawn_all([lambda k=k: job(k) for k in range(3)], at_once)
+    assert out == [0, 1, 2]
+    starts = [spans[k][0] for k in range(3)]
+    ends = [spans[k][1] for k in range(3)]
+    if at_once:
+        assert max(starts) < min(ends)
+        assert threading.current_thread() not in {s[2] for s in
+                                                   spans.values()}
+    else:
+        assert starts[1] >= ends[0] and starts[2] >= ends[1]
+        assert {s[2] for s in spans.values()} == {threading.current_thread()}
+
+
+def test_spawn_all_closes_what_the_others_spawned_when_one_fails():
+    class Handle:
+        closed = False
+
+        def close(self):
+            self.closed = True
+    trainer, pool = Handle(), [Handle(), Handle()]
+
+    def fails():
+        raise RuntimeError("the reference did not start")
+    with pytest.raises(RuntimeError, match="did not start"):
+        actors.spawn_all([lambda: trainer, lambda: (pool, []), fails])
+    assert trainer.closed and all(h.closed for h in pool)
+
+
 def test_unknown_transport_and_respawn_raise():
     with pytest.raises(ValueError, match="unknown transport"):
         spawn_actor(EchoExecutor, transport="carrier-pigeon")

@@ -1,16 +1,24 @@
 """A child's own mesh (``DeviceSpec.mesh_shape``, ``Executor(mesh=)``,
 ``--child-mesh``) on gloo ranks on the CPU.
 
-Two meshed actors spawn at once, each a ``proc`` child and the one other
-rank it spawns: a trainer on a (1, 2) mesh and a generator on a (2, 1)
-mesh, both on llama31's smoke config in fp32.  Each is held to the same
-executor without a mesh, built here on one thread as the children run:
-the trainer's one step (params and m within 1e-6 of each leaf's largest,
-v within 2e-6, the bits reported), the generator's tokens under the same
-key, equal.  The trainer's world of two also carries DDMA onto its mesh
-and across ``trainer_generator_submeshes``, bit for bit; the generator's
-places payloads as ``InprocTransport.prepare`` does.  After
-``close_all_actors()`` no rank of either mesh is left.  (One step only:
+Three meshed actors spawn at once, each a ``proc`` child and the one
+other rank it spawns: two trainers on a (1, 2) mesh and a generator on a
+(2, 1) mesh, in fp32.  Each is held to the same executor without a mesh,
+built here on one thread as the children run.  The first trainer runs
+Llama 4 Scout's smoke config, of the MoE family, whose sharded step
+gathers every leaf whole over ``model``: its one step, params and m within 1e-6 of each
+leaf's largest, v within 2e-6, the bits reported.  The second runs
+llama31's smoke config, whose step on that mesh is the dense family's
+tensor-parallel one (``models.tp``: partial products summed over the
+ranks, a vocabulary-parallel log-prob): its one step at
+tests/test_torch_sharded.py's bounds for such a step (metrics within
+1e-6 relative; m and v within 1e-5 of each leaf's largest; each leaf's
+update 99% within 1e-5 of its largest and all within 0.2 of it).  The
+generator (llama31's smoke): its tokens under the same key, equal.  The
+first trainer's world of two also carries DDMA onto its mesh and across
+``trainer_generator_submeshes``, bit for bit; the generator places
+payloads as ``InprocTransport.prepare`` does.  After
+``close_all_actors()`` no rank of any mesh is left.  (One step only:
 two chained Adam steps lift fp32 noise near eps to lr-sized moves, see
 tests/test_torch_sharded.py.)"""
 import os
@@ -22,6 +30,7 @@ import pytest
 import torch
 
 from _mesh_actors import MeshGenerator, MeshTrainer
+from repro_torch import configs
 from repro_torch.configs.llama_paper import smoke
 from repro_torch.core import DeviceSpec, close_all_actors, spawn_actor
 from repro_torch.core.executor import GeneratorExecutor, TrainerExecutor
@@ -35,6 +44,14 @@ LR = 1e-3
 # differs from the one-device norm in the last bits (m shows it, about
 # 7e-7); v holds the clipped gradient squared, so twice that
 TOL = {"params": 1e-6, "m": 1e-6, "v": 2e-6}
+# the tensor-parallel step sums partial products over the ranks, so its
+# gradients differ from the one-device step's in their last bits, and
+# its global norm with them: tests/test_torch_sharded.py's bounds, m and
+# v within 1e-5 of each leaf's largest, an update 99% within 1e-5 of the
+# leaf's largest and all within 0.2 of it (Adam lifts an element whose
+# gradient is near its eps to a move of about lr whatever its fp32 noise)
+TP_TOL = {"m": 1e-5, "v": 1e-5}
+UPDATE_TOL, UPDATE_WORST = 1e-5, 0.2
 
 
 def _batch(cfg, seed=5, B=4, T=24, prompt=8):
@@ -68,23 +85,23 @@ def _one_thread(fn):
 
 @pytest.fixture(scope="module")
 def meshed():
-    """The two meshed actors, spawned at once; each is driven, then
+    """The three meshed actors, spawned at once; each is driven, then
     closed, and its ranks' pids kept for the leak check."""
-    cfg = smoke()
-    batch = _batch(cfg)
+    cfg, tcfg = smoke(), configs.get_smoke("llama4-scout-17b-a16e")
     out, errors = {}, []
 
-    def trainer():
-        h = spawn_actor(MeshTrainer, cfg, lr=LR, seed=0, device="cpu",
+    def trainer(key, c, ddma):
+        h = spawn_actor(MeshTrainer, c, lr=LR, seed=0, device="cpu",
                         transport="proc",
                         device_spec=DeviceSpec(mesh_shape=(1, 2)))
         h.call("init")
-        out["trainer_info"] = h.call("mesh_info")
-        h.call("put_input", "completions_with_reward", batch)
-        out["trainer_metrics"] = h.call("step")
-        out["trainer_state"] = h.call("state_whole")
-        out["ddma"] = h.call("ddma_checks")
-        out["trainer_h"] = h
+        out[key + "_info"] = h.call("mesh_info")
+        h.call("put_input", "completions_with_reward", _batch(c))
+        out[key + "_metrics"] = h.call("step")
+        out[key + "_state"] = h.call("state_whole")
+        if ddma:
+            out["ddma"] = h.call("ddma_checks")
+        out[key + "_h"] = h
 
     def generator():
         h = spawn_actor(MeshGenerator, cfg, ArithmeticTasks(seed=1),
@@ -100,21 +117,24 @@ def meshed():
     from repro_torch.models import init_params
     out_params = init_params(cfg, 7, torch.float32, device="cpu")
 
-    def run(fn):
+    def run(fn, *args):
         try:
-            fn()
+            fn(*args)
         except BaseException as e:          # re-raised below
             errors.append(e)
-    threads = [threading.Thread(target=run, args=(f,))
-               for f in (trainer, generator)]
+    threads = [threading.Thread(target=run, args=a) for a in (
+        (trainer, "trainer", tcfg, True), (trainer, "tp", cfg, False),
+        (generator,))]
     for t in threads:
         t.start()
     # the unmeshed twins, here, while the children spawn
-    twin = TrainerExecutor(cfg, lr=LR, seed=0, device="cpu")
-    _one_thread(twin.init)
-    twin.put_input("completions_with_reward", batch)
-    out["twin_metrics"] = _one_thread(twin.step)
-    out["twin_state"] = twin.state
+    for key, c in (("twin", tcfg), ("tp_twin", cfg)):
+        twin = TrainerExecutor(c, lr=LR, seed=0, device="cpu")
+        _one_thread(twin.init)
+        out[key + "_init"] = twin.state.params   # Adam makes new params
+        twin.put_input("completions_with_reward", _batch(c))
+        out[key + "_metrics"] = _one_thread(twin.step)
+        out[key + "_state"] = twin.state
     gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=1), **_gen_kwargs())
     gen.set_weights(out_params, version=0)
     out["twin_tokens"] = _one_thread(gen.step)["tokens"]
@@ -129,10 +149,18 @@ def meshed():
         close_all_actors()
 
 
-def test_meshed_trainer_step_equals_the_unmeshed_step(meshed):
-    info = meshed["trainer_info"]
+def _check_info(info):
     assert info["shape"] == [1, 2] and info["axes"] == ["data", "model"]
     assert info["device_type"] == "cpu" and len(set(info["pids"])) == 2
+
+
+def _check_metrics(got, want):
+    for k in ("loss", "grad_norm", "mean_ratio", "mean_logp"):
+        assert abs(got[k] - want[k]) <= 1e-6 * max(1.0, abs(want[k])), k
+
+
+def test_meshed_trainer_step_equals_the_unmeshed_step(meshed):
+    _check_info(meshed["trainer_info"])
     got, want = meshed["trainer_state"], meshed["twin_state"]
     assert got["step"] == want.opt.step == 1
     bits, worst = True, {}
@@ -145,11 +173,43 @@ def test_meshed_trainer_step_equals_the_unmeshed_step(meshed):
                                                    1e-30)
             worst[part] = max(worst.get(part, 0.0), rel)
             assert rel <= TOL[part], part
-    for k in ("loss", "grad_norm", "mean_ratio", "mean_logp"):
-        assert abs(meshed["trainer_metrics"][k] - meshed["twin_metrics"][k]) \
-            <= 1e-6 * max(1.0, abs(meshed["twin_metrics"][k])), k
+    _check_metrics(meshed["trainer_metrics"], meshed["twin_metrics"])
     print(f"meshed trainer bit-equal to the unmeshed one: {bits}; the "
           "largest difference of each leaf's largest: " + ", ".join(
+              f"{k} {v:.1e}" for k, v in worst.items()))
+
+
+def test_meshed_tp_trainer_step_matches_the_unmeshed_step(meshed):
+    """The dense family's tensor-parallel step in a child's own (1, 2)
+    mesh against the unmeshed step, at the bounds for such a step."""
+    _check_info(meshed["tp_info"])
+    got, want = meshed["tp_state"], meshed["tp_twin_state"]
+    assert got["step"] == want.opt.step == 1
+    init = tree_leaves(meshed["tp_twin_init"])
+    worst = {}
+    for part, tree in (("params", want.params), ("m", want.opt.m),
+                       ("v", want.opt.v)):
+        for i, (a, b) in enumerate(zip(tree_leaves(got[part]),
+                                       tree_leaves(tree))):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            if part == "params":
+                # the update's error past one fp32 ulp of the param, over
+                # the leaf's largest update
+                big = (b - init[i]).abs().max().item()
+                ulp = torch.nextafter(b.abs(), torch.tensor(float("inf"))) \
+                    - b.abs()
+                err = ((a - b).abs() - ulp).clamp(min=0) / max(big, 1e-30)
+                worst[part] = max(worst.get(part, 0.0), err.max().item())
+                assert err.max().item() <= UPDATE_WORST, part
+                assert (err > UPDATE_TOL).float().mean().item() <= 0.01, part
+                continue
+            rel = (a - b).abs().max().item() / max(b.abs().max().item(),
+                                                   1e-30)
+            worst[part] = max(worst.get(part, 0.0), rel)
+            assert rel <= TP_TOL[part], part
+    _check_metrics(meshed["tp_metrics"], meshed["tp_twin_metrics"])
+    print("meshed tensor-parallel trainer, the largest difference of each "
+          "leaf's largest (params: of its update): " + ", ".join(
               f"{k} {v:.1e}" for k, v in worst.items()))
 
 
@@ -182,13 +242,15 @@ def test_payload_placement_on_a_mesh(meshed):
 
 def test_no_mesh_rank_left_after_close(meshed):
     close_all_actors()
-    pids = meshed["trainer_info"]["pids"] + meshed["gen_info"]["pids"]
+    pids = meshed["trainer_info"]["pids"] + meshed["tp_info"]["pids"] \
+        + meshed["gen_info"]["pids"]
     deadline = time.monotonic() + 20.0
     while time.monotonic() < deadline and any(
             os.path.exists(f"/proc/{p}") for p in pids):
         time.sleep(0.1)
     assert not [p for p in pids if os.path.exists(f"/proc/{p}")]
     assert not meshed["trainer_h"].healthy()
+    assert not meshed["tp_h"].healthy()
     assert not meshed["gen_h"].healthy()
 
 

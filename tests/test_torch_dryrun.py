@@ -321,8 +321,9 @@ def xla_tp_decode_flops():
     """XLA's ``cost_analysis()`` FLOPs a device of the reference's
     ``lower_combo`` for llama31-smoke's decode at one layer (XLA counts a
     scan's body once) on a (1, 4) mesh of four emulated CPU devices, with
-    2 and with 4 KV heads (a subprocess: the device count is fixed at
-    JAX's first use)."""
+    2 and with 4 KV heads, and of its train step with 4 (a subprocess:
+    the device count is fixed at JAX's first use).  Returns {kv heads:
+    decode FLOPs, "train": train FLOPs}."""
     import os
     import subprocess
     import sys
@@ -336,11 +337,13 @@ from repro.configs.base import INPUT_SHAPES, ShapeSpec
 from repro.configs.llama_paper import smoke
 import repro.launch.dryrun as d
 INPUT_SHAPES["tp_decode"] = ShapeSpec("tp_decode", 32, 4, "decode")
+INPUT_SHAPES["tp_train"] = ShapeSpec("tp_train", 32, 4, "train")
 mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(1, 4),
                          ("data", "model"))
-for k in (2, 4):
-    configs.get_config = lambda a: smoke().replace(n_layers=1, n_kv_heads=k)
-    _, _, lowered = d.lower_combo("llama31-smoke", "tp_decode", mesh,
+for k, shape in ((2, "tp_decode"), (4, "tp_decode"), ("train", "tp_train")):
+    configs.get_config = lambda a: smoke().replace(
+        n_layers=1, n_kv_heads=4 if k == "train" else k)
+    _, _, lowered = d.lower_combo("llama31-smoke", shape, mesh,
                                   dtype=jnp.float32)
     cost = lowered.compile().cost_analysis()
     cost = cost[0] if isinstance(cost, list) else cost
@@ -351,7 +354,7 @@ for k in (2, 4):
     out = subprocess.run([sys.executable, "-c", script], env=env, cwd=root,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    return {int(k): float(f) for k, f in
+    return {(k if k == "train" else int(k)): float(f) for k, f in
             (line.split()[1:] for line in out.stdout.splitlines()
              if line.startswith("FLOPS"))}
 
@@ -376,3 +379,22 @@ def test_tp_decode_flops_against_xla(kv_heads, xla_tp_decode_flops):
         assert 0.9 <= ratio <= 1.1, (rec["flops_per_device"], ratio)
     else:
         assert ratio > 1.1, (rec["flops_per_device"], ratio)
+
+
+def test_tp_train_flops_against_xla(xla_tp_decode_flops):
+    """The port's per-device FLOPs of the tensor-parallel train step
+    (``models.tp.forward_train``, the vocabulary-parallel log-prob, under
+    ``remat_layers`` as the reference's dry run trains) against XLA's for
+    the reference's partitioned train step, llama31-smoke at one layer
+    with 4 KV heads on (1, 4): both split the heads, the MLP and the
+    vocabulary over ``model``; within [0.9, 1.1] (XLA counts elementwise
+    work too, ``FlopCounterMode`` products only).  (With the smoke's own
+    2 KV heads the port runs attention whole on every rank and counts
+    more; PERF.md records that ratio under ROADMAP C2.7.)"""
+    mesh = dryrun.production_mesh(mesh_shape=(1, 4))
+    cfg, shape, lowered = dryrun.lower_combo(
+        llama_smoke().replace(n_layers=1, n_kv_heads=4),
+        ShapeSpec("tp_train", 32, 4, "train"), mesh, dtype=torch.float32)
+    rec = dryrun.analyse(cfg, shape, lowered, mesh)
+    ratio = rec["flops_per_device"] / xla_tp_decode_flops["train"]
+    assert 0.9 <= ratio <= 1.1, (rec["flops_per_device"], ratio)

@@ -211,6 +211,19 @@ def test_serve_partial_rollouts_runs_on_the_cpu(capsys):
     assert "adaptive bound trajectory" in capsys.readouterr().out
 
 
+def test_pool_without_a_trainer_builds_no_weight_channel():
+    """The launcher spawns its trainer beside the pool and wires the
+    weight channels once both are up."""
+    gens, chans = build_generator_pool(
+        micro_cfg(), None,
+        lambda g: ArithmeticTasks(prompt_len=8, max_operand=4, ops="+",
+                                  seed=g),
+        n_generators=2, n_prompts=4, n_per_prompt=2, max_new=4,
+        device="cpu")
+    assert [g.name for g in gens] == ["generator0", "generator1"]
+    assert chans == []
+
+
 def test_duplicate_generator_names_rejected():
     cfg = micro_cfg()
     tasks = ArithmeticTasks(prompt_len=8, max_operand=4, ops="+", seed=0)

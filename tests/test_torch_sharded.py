@@ -21,8 +21,17 @@ cases of ``REMAT`` run again with ``remat_layers`` and hold to the same
 JAX steps; the ranks count the step's one-layer gathers: with
 ``remat_layers`` at most one layer's gathered slices are alive at once
 in the forward (two over the step, while the backward gathers again),
-each layer is gathered twice, and the whole gradients a backward hands
-to the reductions never outgrow one layer's.  The expert-parallel modes,
+each layer is gathered twice, and the gathered gradients a backward
+hands to the reductions never outgrow one layer's.  The dense smokes
+(8 query and 2 KV heads) step tensor-parallel on both meshes
+(``models.tp``): llama31's, and starcoder2's at 96 tokens, whose biases
+(sliced where their heads or MLP columns split, their gradients summed
+over ``model``) and window of 64 take the paths llama31's does not (its
+key bias's update, rounding noise, is held to the 0.2 alone, see
+``NOISE``).  Their FFN, ``embed`` and ``lm_head`` are never gathered
+over ``model``, nor on (2, 2), where the heads split, any attention
+leaf; on (1, 4) (2 % 4 != 0) attention is gathered whole; a layer's
+gathered bytes are the plan's (a split leaf's ``model`` slice).  The expert-parallel modes,
 ep_shmap also under ``remat_layers`` (its recompute runs the EP
 collectives again), hold to the gathered one within
 tests/test_moe_ep.py's 1e-4."""
@@ -44,15 +53,28 @@ from _sharded_ranks import LR, MOE_ARCHS, REMAT, STEPS, paths, rank_main
 
 # (name, arch, rows, accum_steps, kl_coef): llama31 smoke with its two
 # microbatches' rows split over data (2 % 2 == 0), and replicated
-# (3 % 2 != 0); deepseek-v3's smoke (MLA, MoE aux, MTP) split
+# (3 % 2 != 0); starcoder2's smoke split; deepseek-v3's smoke (MLA, MoE
+# aux, MTP) split
 CASES = [("llama", "llama31-8b", 4, 2, 0.05),
          ("llama_rep", "llama31-8b", 3, 1, 0.0),
+         ("sc2", "starcoder2-3b", 4, 1, 0.0),
          ("dsv3", "deepseek-v3-671b", 4, 1, 0.0)]
-TOL = {"llama31-8b": 1e-5, "deepseek-v3-671b": 1e-4}
+# starcoder2's smoke (biases, a window of 64) at 96 tokens, so its
+# layers attend through the window
+SEQ = {"starcoder2-3b": 96}
+TOL = {"llama31-8b": 1e-5, "starcoder2-3b": 1e-5, "deepseek-v3-671b": 1e-4}
 # the most an update may be off, as a share of the leaf's largest update:
 # tests/test_torch_train.py's 0.2, and tests/test_torch_mla.py's 2 lr
 # (an element whose gradient is near Adam's eps can flip its move)
-WORST = {"llama31-8b": 0.2, "deepseek-v3-671b": 2.0}
+WORST = {"llama31-8b": 0.2, "starcoder2-3b": 0.2, "deepseek-v3-671b": 2.0}
+# leaves whose gradient is zero in exact arithmetic: a key bias shifts
+# every score of a query by the same q . b_k, which softmax ignores, so
+# what is computed is rounding noise that Adam scales up to moves of up
+# to about lr, which no two implementations share (the port's one-device
+# step misses the JAX step's on starcoder2's bk at the 99th percentile by
+# 1.1e-2 of the largest).  Their m and v are held as every leaf's, their
+# update to WORST alone
+NOISE = ("layers/attn/bk",)
 
 
 def _jcfg(arch):
@@ -84,7 +106,7 @@ def _jax_runs():
         jcfg = _jcfg(arch)
         state = jts.init_train_state(jcfg, jax.random.PRNGKey(0),
                                      jnp.float32)
-        batch = _batch(jcfg, 30, B)
+        batch = _batch(jcfg, 30, B, T=SEQ.get(arch, 24))
         step = jax.jit(jts.make_train_step(jcfg, lr=LR, kl_coef=kl,
                                            accum_steps=accum))
         states, metrics = [], []
@@ -109,15 +131,13 @@ def _jax_runs():
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """One spawn of four gloo ranks running both meshes' checks: the
-    (data 2, model 2) mesh every case, the (data 1, model 4) mesh the
-    cases whose rows split.  The ranks start (a torch import each) while
+    """One spawn of four gloo ranks running both meshes' checks, every
+    case on each.  The ranks start (a torch import each) while
     this process makes the JAX runs.  Returns (the JAX runs, rank 0's
     results, its arrays)."""
     import pickle
     d = tmp_path_factory.mktemp("sharded")
-    meshes = [("data2_model2", (2, 2), CASES),
-              ("model4", (1, 4), [c for c in CASES if c[0] != "llama_rep"])]
+    meshes = [("data2_model2", (2, 2), CASES), ("model4", (1, 4), CASES)]
     out = str(d / "out")
     ctx = mp.start_processes(rank_main, nprocs=4, join=False,
                              start_method="spawn", args=(
@@ -181,7 +201,8 @@ def _check_case(res, arrays, name, run, case, arch):
                 ulp = np.spacing(np.abs(j).astype(np.float32))
                 err = np.maximum(np.abs(dt - dj) - ulp, 0) / big
                 assert err.max() <= WORST[arch], (case, k, p, err.max())
-                assert np.quantile(err, 0.99) <= tol, (case, k, p)
+                if p not in NOISE:
+                    assert np.quantile(err, 0.99) <= tol, (case, k, p)
 
 
 def _check_layers(res):
@@ -196,6 +217,39 @@ def _check_layers(res):
         assert on["peak"] <= 2 * one, (base, on)
         for r in (off, on):
             assert 0 < r["grad_peak"] <= one, (base, r)
+
+
+_ATTN = ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
+         "layers/attn/wo")
+
+
+# one layer's gathered bytes in fp32.  llama31's smoke: attention's wq wk
+# wv wo are 2 * 256 * 256 + 2 * 256 * 64 = 163840 params, the MLP's 3 *
+# 256 * 512 = 393216 (the norms are replicated, never gathered).
+# Gathered whole over both axes they were 2228224 bytes; on (2, 2) every
+# split leaf is gathered over data into its model half, 557056 * 4 / 2;
+# on (1, 4) the MLP is not gathered (data 1) and attention whole, 163840
+# * 4.  starcoder2's smoke: the same attention, an MLP of 2 * 256 * 512
+# (its biases are replicated), so (163840 + 262144) * 4 / 2 on (2, 2)
+LAYER_BYTES = {("llama31-8b", "data2_model2"): 1114112,
+               ("llama31-8b", "model4"): 655360,
+               ("starcoder2-3b", "data2_model2"): 851968,
+               ("starcoder2-3b", "model4"): 655360}
+
+
+def _check_tp_gathers(res, name, heads_split: bool):
+    """The dense cases step tensor-parallel: no FFN, ``embed`` or
+    ``lm_head`` leaf (nor any leaf where the heads split) is gathered
+    over ``model``; where they do not split, attention is.  A layer's
+    gathered bytes are the plan's."""
+    for base, arch, *_ in CASES:
+        if (arch, name) not in LAYER_BYTES:
+            continue
+        for case in (base, base + "_remat") if base in REMAT else (base,):
+            r = res["layers"][case]
+            assert r["model_paths"] == ([] if heads_split
+                                        else sorted(_ATTN)), (case, r)
+            assert r["layer_bytes"] == LAYER_BYTES[arch, name], (case, r)
 
 
 def _check_moe(res):
@@ -213,8 +267,9 @@ def test_sharded_on_data2_model2(ranks):
     """(data 2, model 2): every shard of the state and of a restored
     checkpoint (fp32 and bf16) is the slice its spec names; each case's
     two sharded steps, with and without ``remat_layers``, equal the JAX
-    steps; the one-layer gathers; ep and ep_shmap equal gathered with 2
-    experts a model rank."""
+    steps (llama31's tensor-parallel on its heads, FFN and vocabulary);
+    the one-layer gathers, none of llama31's over ``model``; ep and
+    ep_shmap equal gathered with 2 experts a model rank."""
     jax_runs, res, arrays = ranks
     r = res["data2_model2"]
     assert r["mesh"] == [[2, 2], ["data", "model"]]
@@ -222,21 +277,24 @@ def test_sharded_on_data2_model2(ranks):
     assert ok and n > 0
     _check_steps(r, arrays, "data2_model2", jax_runs, CASES)
     _check_layers(r)
+    _check_tp_gathers(r, "data2_model2", heads_split=True)
     _check_moe(r)
 
 
 def test_sharded_on_model4(ranks):
     """(data 1, model 4) from ``make_dev_mesh``: the submeshes split the
-    world 2 + 2 and the production mesh refuses a world of 4; the split
-    cases' sharded steps, with and without ``remat_layers``; the
-    one-layer gathers; ep and ep_shmap with 1 expert a model rank."""
+    world 2 + 2 and the production mesh refuses a world of 4; every
+    case's sharded steps, with and without ``remat_layers`` (llama31's
+    tensor-parallel on its FFN and vocabulary, attention whole); the
+    one-layer gathers, only llama31's attention over ``model``; ep and
+    ep_shmap with 1 expert a model rank."""
     jax_runs, res, arrays = ranks
     r = res["model4"]
     assert r["mesh"] == [[1, 4], ["data", "model"]]
     assert res["submeshes"] == [[[0, 1]], [[2, 3]], 0]
     assert "256 ranks" in res["production"]
     assert r["shards_ok"][1]
-    _check_steps(r, arrays, "model4", jax_runs,
-                 [c for c in CASES if c[0] != "llama_rep"])
+    _check_steps(r, arrays, "model4", jax_runs, CASES)
     _check_layers(r)
+    _check_tp_gathers(r, "model4", heads_split=False)
     _check_moe(r)
