@@ -314,17 +314,19 @@ Each phase prints its own lines:
                (a)'s first kernel call of each shape is held against the
                plain version
   [23] tp      tensor-parallel serving and training: B3 in its partial
-               mode on a rank's [16, 64128] vocabulary shard (col0 64128),
-               B4 on a rank's heads [4, 2048, 16, 4, 128], and B1 and B2 on
-               a rank's [16, 80, 64128] logits held against their plain
-               versions and timed here; then two spawned processes share
+               mode on a rank's [16, V/2] vocabulary shard (col0 V/2) and
+               B1 and B2 on a rank's [16, 80, V/2] logits at llama31-8b's,
+               llama4-scout's and deepseek-v3's vocabularies, B4 on a
+               rank's heads [4, 2048, 16, 4, 128] and [4, 2048, 20, 4,
+               128], held against their plain versions and timed here;
+               then two spawned processes share
                the card as a (data 1, model 2) mesh of a gloo group over
                CUDA tensors (NCCL refuses two ranks on one device), each
                building llama31-8b at full depth in bf16 from a seed in
                turn and keeping its shard (16 q heads, 4 KV heads, d_ff
                7168, V 64128; rank 0 first runs the one-card path on the
                whole tree): (a) a prefill of 16 prompts of 16, TP logits
-               against one card; (b) 32 new tokens, the TP step's log-probs
+               against one card; (b) 16 new tokens, the TP step's log-probs
                of the one-card tokens (teacher-forced) against the
                one-card behaviour log-probs within 0.05 nats on average,
                and the share of equal sampled tokens; (c) B3 on each shard
@@ -352,9 +354,34 @@ Each phase prints its own lines:
                rank's [16, 80, 64128] slice merged over the ranks against
                B1 on the whole rows (1e-6 relative), B2 on the slice
                against the whole row's columns (one bf16 ulp; bit for bit
-               with the whole row's stats).  B3 and B4 are counted on the
-               "tp" path (each rank's prefill and rollout), B1, B2 and B4
-               in (f)'s steps, and the first B4 call of each serving
+               with the whole row's stats).  Then the MoE family on the
+               same ranks: (j) llama4-scout (4 layers) and (k)
+               deepseek-v3 (4 layers: 3 dense and a MoE layer) at their
+               published widths and capacity factor in bf16, rank 0
+               building the model whole and running the one-card
+               prefill, rollout and reference scoring: every shard the
+               plan's block with E/2 experts a rank, the TP prefill
+               logits against one card, a 32-token TP rollout, the TP
+               step's log-probs of the one-card tokens and a reference
+               executor on the mesh scoring them (mean |d| within 0.05
+               each, or within one card's own spread where that is
+               larger: the same checks of the model with its embedding
+               moved by a bf16 ulp, TP_WITNESS), the choices the
+               capacity drops on each side, deepseek-v3's latent cache
+               whole and equal on both ranks, the TP and one-card
+               times; (l) each at one layer in fp32 (experts and
+               vocabulary cut, ``tp_moe_train_cfg``, no choice dropped):
+               (h) also at the published capacity factor, dropping on
+               the ranks' own experts what one card drops, (f) and (i)
+               as above (m and v within three times one card's own
+               spread where that is larger than (f)'s bounds), the MTP
+               loss vocabulary-parallel; (m) the dry run's prediction of
+               (k)'s decode step held to the card.  Rank 0 builds every
+               model
+               and runs every one-card twin, and hands rank 1 its blocks
+               over CUDA IPC.  B3 and B4 are counted on the "tp" path
+               (each rank's prefill and rollout), B1, B2 and B4 in (f)'s
+               and (l)'s steps, and the first B4 call of each serving
                shape is held against chunked_attention
 
 A random policy at llama31-8b's vocabulary almost never writes a number,
@@ -372,6 +399,7 @@ result.  Any failed check raises, so the script exits non-zero.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import datetime
 import gc
@@ -7396,6 +7424,9 @@ def phase_sharded(torch, dev, batch):
 
 TP_RANKS = 2                # a (data 1, model 2) mesh on the one card
 TP_ROWS, TP_PROMPT, TP_NEW = 16, 16, 32
+# (a)-(b): llama31-8b's rollout and its teacher-forced replay: at 32
+# layers each token is 66 gloo collectives through the host
+TP_LLAMA_NEW = 16
 TP_FP32_LAYERS = 2          # (d) and (e): [7]'s depth and dtype
 TP_FP32_NEW = 16
 TP_LP_MEAN = 0.05           # (b): mean |dlogp| of the teacher-forced TP
@@ -7430,14 +7461,35 @@ TP_UPDATE_TOL = 1e-4        # 99% of an update within it of the largest
 TP_UPDATE_WORST = 0.5       # and all within this share of it
 TP_REF_TOL = 1e-5           # (h): ref_logp, relative to max(1, |logp|)
 TP_LOGPROB_REL = 1e-6       # (g): merged B1 against the whole row's
-
-
-def _tp_cuts(torch, cfg, mesh, params):
-    """This rank's TP shard of the whole ``params`` and its ``TPRank``."""
-    from repro_torch.models.sharding import tp_plan, tp_shard
-    from repro_torch.models.tp import tp_rank
-    return tp_shard(params, mesh, tp_plan(cfg, mesh, params)), \
-        tp_rank(cfg, mesh)
+# (j)-(m): the MoE family on the same two ranks.  (j) llama4-scout and
+# (k) deepseek-v3 at their published widths in bf16, [16]'s and [17]'s
+# depths (10.9 B and 15.8 B params, 21.7 and 31.6 GB whole, half of it a
+# rank), served (j, k), scored and trained in fp32 at one layer (l), the
+# dry run held to (k)'s decode and (l)'s steps (m)
+TP_MOE_ARCHS = (MOE_ARCH, MLA_ARCH)
+TP_MOE_LAYERS = {MOE_ARCH: MOE_LAYERS, MLA_ARCH: MLA_LAYERS}
+# (l): (experts, vocabulary) each keeps (``tp_moe_train_cfg``): 1.28 B
+# and 1.74 B params
+TP_MOE_TRAIN = {MOE_ARCH: (8, 8192), MLA_ARCH: (16, 8192)}
+# B4 on a rank's heads of llama4-scout (40 query and 8 KV heads, TP 2)
+TP_B4_MOE = (4, 2048, 20, 4, 128)
+# One card's own spread (``_ulp_moved``): the same one-card checks with
+# the embedding moved by an ulp of its dtype, so that every activation of
+# the forward differs in its last bits, as the TP forward's partial sums
+# make it differ.  (j)-(k), bf16: the mean |dlogp| of the TP step's
+# teacher-forced log-probs and of the TP reference's against one card's
+# are held to (b)'s bound or to the witness's own, the larger: each of
+# the TP forward's all-reduces rounds its sum to bf16 once, as one
+# card's product does, while the witness moves every input element by a
+# whole bf16 ulp (at the published capacity factor a route that rounding
+# flips moves which choices the capacity drops).  (l), fp32: m and v are
+# held to (f)'s bounds or TP_WITNESS times the larger of the witness's
+# two steps (``_ulp_witness``): the witness moves the input by one fp32
+# ulp, a TP step reorders sums of thousands of terms at about ten points
+# (each layer's two all-reduces, the embedding's, the vocabulary merge,
+# and as many in the backward), and independent differences of one size
+# add as the square root of their count
+TP_WITNESS = 3.0
 
 
 def _tp_whole(torch, x, tp):
@@ -7449,26 +7501,111 @@ def _tp_whole(torch, x, tp):
     return torch.cat(parts, dim=-1)
 
 
-def _tp_build(torch, cfg, dtype, rank, mesh, dev, yardstick):
-    """Each rank in turn (rank 0 first) builds ``cfg`` whole on the card
-    from TP_SEED, rank 0 runs ``yardstick(params)`` on it, and the rank
-    keeps its shard and frees the rest.  Returns (shard, TPRank, what
-    the yardstick returned)."""
+class _Drops:
+    """While entered, counts the (token, choice) pairs this process's MoE
+    dispatches (``ffn._dispatch_group_local``) route to its own experts
+    (``routed``; every expert on one card, a rank's E/m on the mesh) and
+    those of them the capacity drops (``dropped``)."""
+
+    def __enter__(self):
+        from repro_torch.models import ffn
+        self.routed = self.dropped = 0
+        self._inner = inner = ffn._dispatch_group_local
+
+        def counted(x, idx, n_local, capacity):
+            buf, dest, valid, order = inner(x, idx, n_local, capacity)
+            own = int(((idx >= 0) & (idx < n_local)).sum())
+            self.routed += own
+            self.dropped += own - int(valid.sum())
+            return buf, dest, valid, order
+        ffn._dispatch_group_local = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ffn
+        ffn._dispatch_group_local = self._inner
+
+    def summed(self, torch, group):
+        """[routed, dropped] summed over ``group``'s ranks."""
+        import torch.distributed as dist
+        t = torch.tensor([self.routed, self.dropped], dtype=torch.int64)
+        dist.all_reduce(t, group=group)
+        return t.tolist()
+
+
+def _model_block(t, spec, r: int, m: int):
+    """Rank ``r``'s block of the leaf ``t`` under ``spec`` on a (1, m)
+    mesh (a view): its 1/m slice of each dim ``spec`` puts on
+    ``model``."""
+    idx = []
+    for d, ax in enumerate(spec):
+        if ax == "model":
+            w = t.shape[d] // m
+            idx.append(slice(r * w, (r + 1) * w))
+        else:
+            idx.append(slice(None))
+    return t[tuple(idx)]
+
+
+def _hand_over(torch, queue, rank, group, block):
+    """One tensor from rank 0 to rank 1 of [23]'s two ranks over
+    ``queue``, a spawn-context queue (CUDA IPC for a tensor on the card):
+    rank 0 puts ``block``, rank 1 copies the shared tensor, and both
+    pass a barrier, after which rank 0 may free it.  Returns rank 1's
+    copy (None on rank 0)."""
+    import torch.distributed as dist
+    out = None
+    if rank == 0:
+        queue.put(block)
+    else:
+        shared = queue.get()
+        out = shared.clone()
+        del shared
+        if out.is_cuda:
+            torch.cuda.synchronize()
+    dist.barrier(group=group)
+    return out
+
+
+def _tp_build(torch, cfg, dtype, rank, mesh, dev, yardstick, queue):
+    """Rank 0 builds ``cfg`` whole on the card from TP_SEED, runs
+    ``yardstick(params)`` on it, keeps its TP shard (``tp_plan``) and
+    hands rank 1 its shard leaf by leaf (``_hand_over``), freeing each
+    whole leaf once it is cut; rank 1 keeps what it gets.  Only one
+    whole tree is ever on the card, and it is alone there while it is
+    drawn (a deepseek-v3 init draws expert leaves in fp32).  Returns
+    (shard, TPRank, what the yardstick returned on rank 0)."""
     import torch.distributed as dist
 
     from repro_torch.models import init_params
+    from repro_torch.models.sharding import tp_plan
+    from repro_torch.models.tp import tp_rank
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    tp = tp_rank(cfg, mesh)
+    meta = init_params(cfg, 0, dtype, device="meta")
+    specs = tree_leaves(tp_plan(cfg, mesh, meta))
     got = None
-    for turn in range(TP_RANKS):
-        if turn == rank:
-            params = init_params(cfg, seed=TP_SEED, dtype=dtype, device=dev)
-            if rank == 0:
-                got = yardstick(params)
-            shard, tp = _tp_cuts(torch, cfg, mesh, params)
-            del params
-            gc.collect()
-            torch.cuda.empty_cache()
-        dist.barrier()
-    return shard, tp, got
+    if rank == 0:
+        params = init_params(cfg, seed=TP_SEED, dtype=dtype, device=dev)
+        torch.cuda.empty_cache()        # the init's fp32 draws
+        got = yardstick(params)
+        whole = tree_leaves(params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        local = []
+        for i, sp in enumerate(specs):
+            _hand_over(torch, queue, rank, tp.group,
+                       _model_block(whole[i], sp, 1, TP_RANKS).contiguous())
+            local.append(_model_block(whole[i], sp, 0, TP_RANKS).clone())
+            whole[i] = None             # each whole leaf freed once cut
+    else:
+        local = [_hand_over(torch, queue, rank, tp.group, None)
+                 for _ in specs]
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return tree_unflatten(meta, local), tp, got
 
 
 def _tp_prompts(torch, cfg, rows, dev):
@@ -7477,10 +7614,11 @@ def _tp_prompts(torch, cfg, rows, dev):
                          dtype=torch.int32).to(dev)
 
 
-def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
+def tp_rank_main(rank, rdv, out_path, queue, dev_type="cuda"):
     """One rank of [23]'s (1, 2) mesh on the one card: a gloo group over
-    CUDA tensors (NCCL refuses two ranks on one device).  Writes its
-    results to ``out_path``_<rank>.json.  (``dev_type`` "cpu" runs the
+    CUDA tensors (NCCL refuses two ranks on one device), and ``queue``,
+    over which rank 0 hands rank 1 its blocks (``_hand_over``).  Writes
+    its results to ``out_path``_<rank>.json.  (``dev_type`` "cpu" runs the
     same on the CPU, for a rehearsal with the kernels faked.)"""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -7511,10 +7649,10 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
                             world_size=TP_RANKS,
                             timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
     res = {"backend": dist.get_backend()}
-    times = [time.perf_counter()]
+    times = [("", time.perf_counter())]
 
-    def mark():
-        times.append(time.perf_counter())
+    def mark(label: str):
+        times.append((label, time.perf_counter()))
 
     try:
         mesh = DeviceMesh(dev_type,
@@ -7523,24 +7661,24 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
         cfg = LLAMA31_8B
         key = prng.PRNGKey(TP_KEY)
         prompts = _tp_prompts(torch, cfg, TP_ROWS, dev)
-        cache_len = TP_PROMPT + TP_NEW
+        cache_len = TP_PROMPT + TP_LLAMA_NEW
 
         def one_card(params):
             with torch.no_grad():
                 logits, _ = prefill(params, cfg, {"tokens": prompts},
                                     cache_len, torch.float32)
-                st = generate(params, cfg, prompts, max_new=TP_NEW, key=key,
-                              temperature=1.0)
+                st = generate(params, cfg, prompts, max_new=TP_LLAMA_NEW,
+                              key=key, temperature=1.0)
             torch.cuda.synchronize()
             return logits, st
 
         shard, tp, yard = _tp_build(torch, cfg, torch.bfloat16, rank, mesh,
-                                    dev, one_card)
+                                    dev, one_card, queue)
         res["held_gb"] = sum(t.numel() * t.element_size()
                              for t in leaves(shard)) / 1e9
         res["wq"] = list(shard["layers"]["attn"]["wq"].shape)
         res["splits"] = [tp.heads, tp.ffn, tp.vocab]
-        mark()
+        mark("build")
 
         # B4's calls on this rank's heads, the first of each shape kept
         flash_calls = {}
@@ -7562,14 +7700,14 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
                                torch.float32, tp=tp)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            st = generate(shard, cfg, prompts, max_new=TP_NEW, key=key,
-                          temperature=1.0, tp=tp)
+            st = generate(shard, cfg, prompts, max_new=TP_LLAMA_NEW,
+                          key=key, temperature=1.0, tp=tp)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         res["launches"] = dict(build.LAUNCHES)
         dispatch.flash_attention_cuda = real_flash
         res["prefill_ms"] = (t1 - t0) * 1e3
-        res["decode_ms"] = (t2 - t1) * 1e3 / TP_NEW
+        res["decode_ms"] = (t2 - t1) * 1e3 / TP_LLAMA_NEW
         res["b4"] = {}
         for s, (q, k, v, o) in flash_calls.items():
             o_p = chunked_attention(q, k, v).float()
@@ -7587,8 +7725,8 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
             res["b_equal"] = (st.tokens == one.tokens)[:, TP_PROMPT:] \
                 .float().mean().item()
         # (b) teacher-forced: the TP step's log-prob of the one-card tokens
-        toks = torch.empty((TP_ROWS, TP_PROMPT + TP_NEW), dtype=torch.int32,
-                           device=dev)
+        toks = torch.empty((TP_ROWS, TP_PROMPT + TP_LLAMA_NEW),
+                           dtype=torch.int32, device=dev)
         if rank == 0:
             toks.copy_(yard[1].tokens)
         dist.broadcast(toks, src=0, group=tp.group)
@@ -7596,7 +7734,7 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
         with torch.no_grad():
             logits, cache = prefill(shard, cfg, {"tokens": prompts},
                                     cache_len, torch.float32, tp=tp)
-            for j in range(TP_NEW):
+            for j in range(TP_LLAMA_NEW):
                 full = _tp_whole(torch, logits, tp).float()
                 t = toks[:, TP_PROMPT + j].long()
                 lps.append(torch.log_softmax(full, dim=-1)
@@ -7611,7 +7749,7 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
             res["b"] = {"mean": d[mask].mean().item(),
                         "max": d[mask].max().item(), "n": int(mask.sum())}
         del cache, logits, lps, st
-        mark()
+        mark("(a)-(b)")
 
         # (c) B3 on each shard with col0, merged, against the whole row
         V = local.shape[1]
@@ -7641,7 +7779,7 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
         del local, whole, shard
         gc.collect()
         torch.cuda.empty_cache()
-        mark()
+        mark("(c)")
 
         # (d) 2 layers in fp32 at full width: TP against one card
         cfg2 = cfg.replace(name="llama31-8b-2l", n_layers=TP_FP32_LAYERS)
@@ -7655,7 +7793,7 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
             return logits, st.tokens
 
         shard, tp, yard = _tp_build(torch, cfg2, torch.float32, rank, mesh,
-                                    dev, one_card2)
+                                    dev, one_card2, queue)
         with torch.no_grad():
             local, _ = prefill(shard, cfg2, {"tokens": prompts}, TP_PROMPT,
                                torch.float32, tp=tp)
@@ -7670,7 +7808,7 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
         del local, whole, st, yard
         gc.collect()
         torch.cuda.empty_cache()
-        mark()
+        mark("(d)")
 
         # (e) the dry run's meta prediction of this rank's TP prefill at
         # (d)'s config, held to the card: bytes, FLOPs and all-reduces
@@ -7717,14 +7855,30 @@ def tp_rank_main(rank, rdv, out_path, dev_type="cuda"):
         del shard
         gc.collect()
         torch.cuda.empty_cache()
-        mark()
+        mark("(e)")
 
         # (f)-(i): the TP train step and reference scoring at (d)'s config
-        res["train"] = tp_train_rank(torch, rank, mesh, cfg2, dev, mark)
+        res["train"] = tp_train_rank(torch, rank, mesh, cfg2, dev, mark,
+                                     queue)
         # (g): the vocabulary-parallel B1 and B2 against the whole row's
         res["g"] = tp_logprob_merge(torch, tp, dev)
-        mark()
-        res["seconds"] = [b - a for a, b in zip(times, times[1:])]
+        mark("(i)-(g)")
+        # (j), (k) and (m): the MoE family served at full width
+        res["moe"] = {arch: tp_moe_serve(torch, rank, mesh, dev, arch, mark,
+                                         queue)
+                      for arch in TP_MOE_ARCHS}
+        # (l) and (m): scored and trained in fp32 at one layer
+        res["moe_train"] = {}
+        for arch in TP_MOE_ARCHS:
+            cfg_l = tp_moe_train_cfg(torch, arch)
+            pub = dataclasses.replace(cfg_l.moe, capacity_factor=configs_full(
+                arch).moe.capacity_factor)
+            res["moe_train"][arch] = tp_train_rank(
+                torch, rank, mesh, cfg_l, dev, mark, queue,
+                first_on_card=False, pub=cfg_l.replace(moe=pub))
+            mark("(i)")
+        res["seconds"] = [(b[0], b[1] - a[1])
+                          for a, b in zip(times, times[1:])]
     finally:
         with open(f"{out_path}_{rank}.json", "w") as f:
             json.dump(res, f)
@@ -7821,20 +7975,65 @@ def _tp_against(torch, state, want, before):
     return out
 
 
-def tp_train_rank(torch, rank, mesh, cfg, dev, mark):
-    """[23] (h), (f) and (i) on this rank of the (1, 2) mesh, llama31-8b
-    at full width with (d)'s layers in fp32 from TP_SEED on a
-    ``_tp_train_batch``.  Each rank in turn builds the whole state on the
-    card, keeps its blocks of it, scores the batch with the one-card
-    ``RefPolicyExecutor`` and runs TP_TRAIN_STEPS one-card
-    ``make_train_step`` steps, keeping its blocks of each step's state
-    (the second's on the host until it is compared).  Then (h) a
+def _ulp_moved(torch, t):
+    """``t`` with each element moved by one ulp of its dtype, up or down
+    at random (from TP_KEY)."""
+    up = torch.rand(t.shape, generator=torch.Generator(device=t.device)
+                    .manual_seed(TP_KEY), device=t.device) < 0.5
+    inf = torch.full_like(t, float("inf"))
+    return torch.where(up, torch.nextafter(t, inf), torch.nextafter(t, -inf))
+
+
+def _ulp_witness(torch, step, state, batch):
+    """One card's own spread for [23] (l): ``step`` from ``state`` with
+    the embedding moved by an ulp (``_ulp_moved``), so every activation
+    of the forward differs from the twin's in its last bits, as a TP
+    step's partial sums make them differ.  It steps copies of the
+    moments (Adam updates them in place) and returns its (m, v)."""
+    from repro_torch.train.optimizer import AdamState, tree_map
+    from repro_torch.train.trainstep import TrainState
+    p = dict(state.params, embed=_ulp_moved(torch, state.params["embed"]))
+    st, _ = step(TrainState(p, AdamState(
+        state.opt.step, tree_map(torch.clone, state.opt.m),
+        tree_map(torch.clone, state.opt.v))), batch)
+    return st.opt.m, st.opt.v
+
+
+def _moments_apart(mv, opt):
+    """The largest difference of the moments ``mv`` ((m, v)) from
+    ``opt``'s, over each leaf's largest |value|: per part the worst and
+    its leaf."""
+    out = {}
+    for part, a, b in zip(("m", "v"), mv, (opt.m, opt.v)):
+        worst = (0.0, "")
+        for (k, x), y in zip(leaves_by_path(a).items(), leaves(b)):
+            e = ((x - y).abs().max() / y.abs().max().clamp(min=1e-30)).item()
+            worst = max(worst, (e, "/".join(k)))
+        out[part], out[part + "_leaf"] = worst
+    return out
+
+
+def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
+                  first_on_card=True, pub=None):
+    """[23] (h), (f) and (i) on this rank of the (1, 2) mesh: ``cfg``
+    (llama31-8b at (d)'s config, or (l)'s) in fp32 from TP_SEED on a
+    ``_tp_train_batch``.  Rank 0 builds the whole state on the card,
+    scores the batch with the one-card ``RefPolicyExecutor`` and runs
+    TP_TRAIN_STEPS one-card ``make_train_step`` steps; each rank keeps
+    its blocks of the initial params and of each step's state (rank 0
+    sends the others theirs; the first step's on the card where
+    ``first_on_card``, else on the host too; the second's on the host
+    until it is compared).  Then (h) a
     ``RefPolicyExecutor`` on the mesh scores the batch on its TP shard;
     (f) ``make_sharded_train_step`` steps tensor-parallel, each step from
     the one-card state before it, its launches counted; (i) the dry
     run's prediction of that step, held to one more step: the bytes it
-    starts with and its peak, its FLOPs and its collective bytes.
-    Returns what the parent holds to its bounds."""
+    starts with and its peak, its FLOPs and its collective bytes.  With
+    ``pub`` ((l): ``cfg`` at its published capacity factor, which drops
+    choices) the batch is scored by both references at ``pub`` too,
+    their drops counted, and rank 0 also steps one card from each state
+    with its embedding moved by an ulp (``_ulp_witness``): how far that
+    moves the moments.  Returns what the parent holds to its bounds."""
     import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -7849,42 +8048,101 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark):
     from repro_torch.train.sharded import make_sharded_train_step
     from repro_torch.train.trainstep import TrainState, make_train_step
 
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+
     out = {}
     batch = _tp_train_batch(torch, cfg, dev)
     kw = dict(lr=TP_TRAIN_LR, kl_coef=KL_COEF)
-    specs = yard = None
-    for turn in range(TP_RANKS):
-        if turn == rank:
-            params = init_params(cfg, seed=TP_SEED, dtype=torch.float32,
-                                 device=dev)
-            state = TrainState(params, adam_init(params))
-            specs = state_shardings(state, mesh)
-            p0 = _tp_slices(torch, params, specs.params, mesh, dev)
-            ref = RefPolicyExecutor(cfg)
+    meta = init_params(cfg, 0, torch.float32, device="meta")
+    specs = state_shardings(TrainState(meta, adam_init(meta)), mesh)
+    group = mesh.get_group("model")
+
+    n_leaves = len(tree_leaves(meta))
+
+    def blocks(tree, sp, keep):
+        """This rank's blocks of ``tree`` under ``sp`` on ``keep``: cut
+        by rank 0 from the one-card run, which hands rank 1 its own
+        (``_hand_over``)."""
+        got = []
+        for t, s in zip(tree_leaves(tree) if rank == 0
+                        else [None] * n_leaves, tree_leaves(sp)):
+            if rank == 0:
+                _hand_over(torch, queue, rank, group,
+                           _model_block(t, s, 1, TP_RANKS).contiguous())
+                got.append(_model_block(t, s, 0, TP_RANKS).to(keep,
+                                                              copy=True))
+            else:
+                got.append(_hand_over(torch, queue, rank, group,
+                                      None).to(keep))
+        return tree_unflatten(meta, got)
+
+    # the one-card twin runs once, on rank 0 (its gradients' atomics make
+    # two runs differ in the last bits, and the ranks' blocks of a whole
+    # leaf must come from one run)
+    params = state = None
+    if rank == 0:
+        params = init_params(cfg, seed=TP_SEED, dtype=torch.float32,
+                             device=dev)
+        state = TrainState(params, adam_init(params))
+    p0 = blocks(params, specs.params, dev)
+    ref_lp = torch.empty(batch["tokens"].shape, dtype=torch.float32,
+                         device=dev)
+    pub_lp = torch.empty_like(ref_lp)
+    one = [None, None]
+    pub_drops = [None]
+    if rank == 0:
+        ref = RefPolicyExecutor(cfg)
+        ref.set_weights(params)
+        ref.put_input("completions", {"tokens": batch["tokens"]})
+        ref_lp.copy_(ref.step()["ref_logp"])
+        del ref
+        if pub is not None:
+            ref = RefPolicyExecutor(pub)
             ref.set_weights(params)
             ref.put_input("completions", {"tokens": batch["tokens"]})
-            out_ref = ref.step()["ref_logp"]
+            with _Drops() as d:
+                pub_lp.copy_(ref.step()["ref_logp"])
+            pub_drops = [[d.routed, d.dropped]]
             del ref
-            step = make_train_step(cfg, **kw)
-            yard, one_ms, one_metrics = [], [], []
-            for i in range(TP_TRAIN_STEPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, metrics = step(state, batch)
-                torch.cuda.synchronize()
-                one_ms.append((time.perf_counter() - t0) * 1e3)
-                one_metrics.append({k: float(v) for k, v in metrics.items()})
-                keep = dev if i == 0 else "cpu"
-                yard.append(tuple(_tp_slices(torch, t, sp, mesh, keep)
-                                  for t, sp in ((state.params, specs.params),
-                                                (state.opt.m, specs.opt.m),
-                                                (state.opt.v, specs.opt.v))))
-            del state, params, step, metrics
-            gc.collect()
-            torch.cuda.empty_cache()
-        dist.barrier()
+        step = make_train_step(cfg, **kw)
+    dist.broadcast(ref_lp, src=0, group=group)
+    if pub is not None:
+        dist.broadcast(pub_lp, src=0, group=group)
+        dist.broadcast_object_list(pub_drops, src=0, group=group)
+    out_ref = ref_lp
+    yard, one_ms, one_metrics = [], [], []
+    if pub is not None:
+        out["witness"] = []
+    for i in range(TP_TRAIN_STEPS):
+        if rank == 0:
+            moved = _ulp_witness(torch, step, state, batch) \
+                if pub is not None else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+            one_metrics.append({k: float(v) for k, v in metrics.items()})
+            if moved is not None:
+                out["witness"].append(_moments_apart(moved, state.opt))
+                del moved
+                torch.cuda.empty_cache()
+        keep = dev if i == 0 and first_on_card else "cpu"
+        yard.append(tuple(blocks(t, sp, keep) for t, sp in (
+            (state.params if state else None, specs.params),
+            (state.opt.m if state else None, specs.opt.m),
+            (state.opt.v if state else None, specs.opt.v))))
+    if rank == 0:
+        one = [one_ms, one_metrics]
+        del step, metrics
+    dist.broadcast_object_list(one, src=0, group=group)
+    one_ms, one_metrics = one
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
     out["one_ms"], out["one_metrics"] = one_ms, one_metrics
-    mark()
+    mark("one-card run")
 
     # (h) reference scoring on the mesh, on the TP shard of the init
     zeros = tree_map(torch.zeros_like, p0)
@@ -7898,19 +8156,36 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark):
                 "err": ((got - out_ref).abs() / out_ref.abs().clamp(
                     min=1.0)).max().item(),
                 "scale": out_ref.abs().max().item()}
-    del ref, got, out_ref, zeros
+    del ref, got, out_ref
+    if pub is not None:
+        # (h) at the published capacity factor: the ranks' own experts
+        # drop what one card drops
+        ref = RefPolicyExecutor(pub, mesh=mesh)
+        ref.set_weights(init.params)
+        ref.put_input("completions", {"tokens": batch["tokens"]})
+        with _Drops() as d:
+            got = ref.step()["ref_logp"]
+        out["h_pub"] = {"cf": pub.moe.capacity_factor, "err": (
+            (got - pub_lp).abs() / pub_lp.abs().clamp(min=1.0)).max().item(),
+            "one": pub_drops[0], "tp": d.summed(torch, group)}
+        del ref, got
+    del pub_lp, zeros
 
     # (f) TP steps, each from the one-card state before it, counted
     step = make_sharded_train_step(cfg, mesh, **kw)
-    starts = [(init, p0)] + [(None, y[0]) for y in yard[:-1]]
+    starts = [(init, p0)] + [(None, None)] * (TP_TRAIN_STEPS - 1)
     out["f"], tp_ms = [], []
     torch.cuda.synchronize()
     build.reset_launches()          # the TP train path's run starts here
     for i in range(TP_TRAIN_STEPS):
         st, before = starts[i]
         if st is None:
-            st = _tp_state(torch, mesh, specs, *yard[i - 1], i)
+            # the one-card state before this step, on the card
+            start = tuple(tree_map(lambda t: t.to(dev), tree)
+                          for tree in yard[i - 1])
+            st, before = _tp_state(torch, mesh, specs, *start, i), start[0]
             yard[i - 1] = None
+            del start
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
@@ -7919,8 +8194,7 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark):
         tp_ms.append((time.perf_counter() - t0) * 1e3)
         del st
         starts[i] = None
-        want = tuple(tree_map(lambda t: t.to(dev), tree) for tree in yard[i]) \
-            if i else yard[i]
+        want = tuple(tree_map(lambda t: t.to(dev), tree) for tree in yard[i])
         check = _tp_against(torch, new, want, before)
         check["metrics"] = {k: float(v) for k, v in metrics.items()}
         check["step"] = new.opt.step
@@ -7935,7 +8209,7 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark):
     del yard, p0, init, starts
     gc.collect()
     torch.cuda.empty_cache()
-    mark()
+    mark("(h)-(f)")
 
     # (i) the dry run's prediction of one TP step, held to one more step
     amesh = dryrun.production_mesh(mesh_shape=(1, TP_RANKS))
@@ -7972,26 +8246,335 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark):
     temp = torch.cuda.max_memory_allocated() - base
     with FlopCounterMode(display=False) as fc:
         new, _ = step(new, batch)
-    H, hd, T = cfg.n_heads // TP_RANKS, cfg.hd, TP_TRAIN_T
-    Vl, n_rows = cfg.vocab // TP_RANKS, TP_TRAIN_ROWS * (TP_TRAIN_T - 1)
-    own = {"fused_logprob": n_rows * Vl * LOGPROB_OPS_PER_LOGIT,
-           "fused_logprob_bwd": n_rows * Vl * LOGPROB_BWD_OPS_PER_LOGIT,
-           "flash_attention": cfg.n_layers * 4 * TP_TRAIN_ROWS * H * hd * T
-           * (T + 1) / 2}
+    own, plain_fwd = tp_train_own_flops(cfg, mesh)
     out["i"] = {"pred": {k: rec[k] for k in (
                     "argument_bytes", "held_bytes", "temp_bytes",
                     "saved_bytes", "peak_bytes_per_device",
                     "flops_per_device", "collectives", "count_s")},
                 "held": held, "temp": temp, "card_flops":
-                fc.get_total_flops(), "own": own,
-                "plain_fwd": cfg.n_layers * 4 * TP_TRAIN_ROWS * H * hd * T
-                * T,
+                fc.get_total_flops(), "own": own, "plain_fwd": plain_fwd,
                 # the global norm's all-reduce of one fp32 over ``model``
                 "all_reduce": counted["all-reduce"] + 4,
                 "all_gather": counted["all-gather"]}
     del new
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_own_flops(cfg, mesh):
+    """The FLOPs a rank's kernels do in one TP train step of ``cfg`` on
+    [TP_TRAIN_ROWS, TP_TRAIN_T], which ``FlopCounterMode`` cannot see (a
+    ``ctypes`` launch): B1 and B2 on its vocabulary slice of the loss's
+    and, with an MTP head, the MTP loss's rows, B4 (causal) on its heads
+    of each layer whose attention goes to the flash kernel (none for
+    MLA, whose asymmetric heads go to ``chunked_attention``).  Returns
+    (those FLOPs by kernel, the plain attention's forward FLOPs over the
+    same layers, which the meta count holds in their place)."""
+    from repro_torch.models.sharding import tp_splits
+    sp = tp_splits(cfg, mesh)
+    m = TP_RANKS
+    T, B = TP_TRAIN_T, TP_TRAIN_ROWS
+    Vl = cfg.vocab // m if sp["vocab"] else cfg.vocab
+    n_rows = B * (T - 1) + (B * (T - 2) if cfg.mtp else 0)
+    H = cfg.n_heads // m if sp["heads"] else cfg.n_heads
+    n_flash = 0 if cfg.attn_kind == "mla" else flash_layers(cfg, T)
+    own = {"fused_logprob": n_rows * Vl * LOGPROB_OPS_PER_LOGIT,
+           "fused_logprob_bwd": n_rows * Vl * LOGPROB_BWD_OPS_PER_LOGIT}
+    if n_flash:
+        own["flash_attention"] = n_flash * 4 * B * H * cfg.hd * T * (T + 1) \
+            / 2
+    return own, n_flash * 4 * B * H * cfg.hd * T * T
+
+
+def tp_moe_cfg(torch, arch):
+    """(j) and (k): ``arch`` at its published widths and capacity factor
+    (1.25: a prefill of 16 gives each of llama4-scout's experts one slot
+    a row and deepseek-v3's one, so the capacity drops choices), cut to
+    TP_MOE_LAYERS layers (llama4-scout: one iRoPE period; deepseek-v3:
+    its 3 dense layers and the first MoE layer)."""
+    from repro_torch import configs
+    n = TP_MOE_LAYERS[arch]
+    return configs.get_config(arch).replace(name=f"{arch}-{n}l", n_layers=n)
+
+
+def tp_moe_train_cfg(torch, arch):
+    """(l): ``arch`` at its published widths, cut to one layer (a MoE
+    layer; deepseek-v3 keeps its MTP head, whose block has the dense
+    MLP), to TP_MOE_TRAIN's experts (top-k kept) at a capacity factor
+    of E / k, so that no expert's capacity drops a choice, and to
+    TP_MOE_TRAIN's vocabulary: in fp32 the one-card twin's step peaks
+    near 28 bytes a param (params, moments, gradients and Adam's new
+    state) beside the other rank's shards, and the full vocabularies'
+    embedding and head alone (2.07 B and 1.85 B params) do not fit the
+    card so."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+    full = configs.get_config(arch)
+    E, V = TP_MOE_TRAIN[arch]
+    moe = dc.replace(full.moe, n_experts=E, first_k_dense=0,
+                     capacity_factor=E / full.moe.top_k)
+    return full.replace(name=f"{arch}-1l-{E}e-v{V}", n_layers=1, vocab=V,
+                        moe=moe)
+
+
+def _teacher_forced(torch, params, cfg, toks, cache_len, tp=None,
+                    drops=None):
+    """The log-probs [rows, TP_NEW] of ``toks``'s last TP_NEW tokens, fed
+    one by one after a prefill of the first TP_PROMPT: by one card, or
+    by this rank on its shard where ``tp`` is given (its logits gathered
+    whole).  ``drops`` (a ``_Drops``) counts the prefill's."""
+    from repro_torch.models import decode_step, prefill
+    lps = []
+    with torch.no_grad():
+        with drops or contextlib.nullcontext():
+            logits, cache = prefill(params, cfg,
+                                    {"tokens": toks[:, :TP_PROMPT]},
+                                    cache_len, torch.float32, tp=tp)
+        for j in range(TP_NEW):
+            row = (logits if tp is None else _tp_whole(torch, logits, tp))
+            t = toks[:, TP_PROMPT + j].long()
+            lps.append(torch.log_softmax(row.float(), dim=-1)
+                       .gather(1, t[:, None])[:, 0])
+            logits, cache = decode_step(params, cfg, cache,
+                                        toks[:, TP_PROMPT + j:
+                                             TP_PROMPT + j + 1], tp=tp)
+    return torch.stack(lps, 1)
+
+
+def tp_moe_serve(torch, rank, mesh, dev, arch, mark, queue):
+    """[23] (j) or (k) on this rank: ``tp_moe_cfg(arch)`` in bf16 from
+    TP_SEED, rank 0 building it whole and running the one-card
+    yardstick (prefill logits, a TP_NEW-token rollout, the reference's
+    scoring of it, the drops, and the teacher-forced log-probs and
+    scoring of the model with its embedding moved by a bf16 ulp), then
+    each rank keeping its TP shard (``_tp_build``).  The TP prefill and
+    rollout (this phase's launches counted), the TP step's log-probs of
+    the one-card rollout's tokens (teacher-forced), a reference executor
+    on the mesh scoring them, the ranks' drops; deepseek-v3's latent
+    cache whole and equal on both ranks and (m) the dry run's
+    prediction of its TP decode step held to one on the card.  Returns
+    what the parent holds to its bounds."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.executor import RefPolicyExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params, prefill
+    from repro_torch.launch.dryrun import shard_shape
+    from repro_torch.models.sharding import to_placements, tp_plan
+    from repro_torch.rl import prng
+    from repro_torch.rl.rollout import action_mask, generate
+    from repro_torch.train.optimizer import tree_map
+    cfg = tp_moe_cfg(torch, arch)
+    key = prng.PRNGKey(TP_KEY)
+    prompts = _tp_prompts(torch, cfg, TP_ROWS, dev)
+    cache_len = TP_PROMPT + TP_NEW
+    out = {"arch": arch}
+
+    def one_card(params):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = prefill(params, cfg, {"tokens": prompts}, cache_len,
+                                torch.float32)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st = generate(params, cfg, prompts, max_new=TP_NEW, key=key,
+                          temperature=1.0)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            with _Drops() as d:         # the drops of an untimed prefill
+                prefill(params, cfg, {"tokens": prompts}, cache_len,
+                        torch.float32)
+        ref = RefPolicyExecutor(cfg)
+        ref.set_weights(params)
+        ref.put_input("completions", {"tokens": st.tokens})
+        with _Drops() as dr:
+            lp = ref.step()["ref_logp"]
+        # one card's own spread: the same checks of the model with its
+        # embedding moved by a bf16 ulp
+        moved = dict(params, embed=_ulp_moved(torch, params["embed"]))
+        mask = action_mask(st)[:, TP_PROMPT:].bool()
+        w_b = (_teacher_forced(torch, moved, cfg, st.tokens, cache_len)
+               - st.behavior_logp[:, TP_PROMPT:]).abs()[mask].mean().item()
+        ref = RefPolicyExecutor(cfg)
+        ref.set_weights(moved)
+        ref.put_input("completions", {"tokens": st.tokens})
+        w_ref = (ref.step()["ref_logp"] - lp)[:, 1:].abs().mean().item()
+        del ref, moved
+        return logits, st, lp, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / TP_NEW, \
+            [[d.routed, d.dropped], [dr.routed, dr.dropped]], [w_b, w_ref]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_gb_before"] = [torch.cuda.memory_allocated() / 1e9,
+                             torch.cuda.memory_reserved() / 1e9]
+    shard, tp, yard = _tp_build(torch, cfg, torch.bfloat16, rank, mesh, dev,
+                                one_card, queue)
+    plan = tp_plan(cfg, mesh)
+    full = init_params(cfg, 0, torch.bfloat16, device="meta")
+    got_shapes = {k: list(t.shape) for k, t in leaves_by_path(shard).items()}
+    want_shapes = {k: list(shard_shape(t.shape, sp, mesh))
+                   for (k, t), sp in zip(leaves_by_path(full).items(),
+                                         leaves(plan))}
+    stack = "moe_layers"
+    out.update(held_gb=sum(t.numel() * t.element_size()
+                           for t in leaves(shard)) / 1e9,
+               splits=[tp.heads, tp.experts, tp.shared, tp.vocab],
+               shapes_ok=got_shapes == want_shapes,
+               experts=got_shapes[(stack, "moe", "w_gate")][1])
+    del full
+    mark("build and yardstick")
+    # the main path: TP prefill and rollout, this rank's launches counted
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        local, cache = prefill(shard, cfg, {"tokens": prompts}, cache_len,
+                               torch.float32, tp=tp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st = generate(shard, cfg, prompts, max_new=TP_NEW, key=key,
+                      temperature=1.0, tp=tp)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out["launches"] = dict(build.LAUNCHES)
+    out["prefill_ms"], out["decode_ms"] = (t1 - t0) * 1e3, \
+        (t2 - t1) * 1e3 / TP_NEW
+    if cfg.attn_kind == "mla":
+        # the latent cache: whole ([L, rows, Sc, r]) and equal on both
+        # ranks, as every rank computes it from the whole wkv_a
+        same = []
+        for seg in cache["segments"]:
+            for name in ("ckv", "krope"):
+                parts = [torch.empty_like(seg[name])
+                         for _ in range(tp.size)]
+                dist.all_gather(parts, seg[name].contiguous(),
+                                group=tp.group)
+                same.append(all(torch.equal(parts[0], q) for q in parts))
+        out["latent"] = {"equal": all(same), "shape": list(
+            cache["segments"][0]["ckv"].shape)}
+    whole = _tp_whole(torch, local, tp)
+    if rank == 0:
+        want, one, one_lp, one_prefill_ms, one_decode_ms = yard[:5]
+        out["witness"] = yard[6]
+        d = (whole.float() - want.float()).abs()
+        out["a"] = {"max": d.max().item(), "mean": d.mean().item(),
+                    "finite": bool(torch.isfinite(whole).all()),
+                    "scale": want.float().abs().max().item()}
+        out["b_equal"] = (st.tokens == one.tokens)[:, TP_PROMPT:] \
+            .float().mean().item()
+        out["one_prefill_ms"], out["one_decode_ms"] = one_prefill_ms, \
+            one_decode_ms
+    del local, whole, cache, st
+    # teacher-forced: the TP step's log-probs of the one-card tokens
+    toks = torch.empty((TP_ROWS, cache_len), dtype=torch.int32, device=dev)
+    if rank == 0:
+        toks.copy_(yard[1].tokens)
+    dist.broadcast(toks, src=0, group=tp.group)
+    d = _Drops()
+    lps = _teacher_forced(torch, shard, cfg, toks, cache_len, tp, drops=d)
+    drops = [d.summed(torch, tp.group)]
+    # a reference executor on the mesh, its weights carried by DDMA from
+    # this rank's blocks as DTensors of the plan's placements (nothing
+    # moves), scoring the one-card rollout's tokens
+    placed = tree_map(lambda t, sp: DTensor.from_local(
+        t, mesh, to_placements(mesh, sp), run_check=False), shard, plan)
+    ref = RefPolicyExecutor(cfg, mesh=mesh)
+    ref.set_weights(placed)
+    ref.put_input("completions", {"tokens": toks})
+    with _Drops() as d:
+        ref_lp = ref.step()["ref_logp"]
+    drops.append(d.summed(torch, tp.group))
+    out["ref_tp"] = ref.tp is not None
+    del ref, placed
+    if rank == 0:
+        # [routed, dropped] choices of the prefill and of the scoring:
+        # one card's and the ranks' summed
+        out["drops"] = {"one": yard[5], "tp": drops}
+        one, one_lp = yard[1], yard[2]
+        mask = action_mask(one)[:, TP_PROMPT:].bool()
+        d = (lps - one.behavior_logp[:, TP_PROMPT:]).abs()
+        out["b"] = {"mean": d[mask].mean().item(),
+                    "max": d[mask].max().item(), "n": int(mask.sum())}
+        d = (ref_lp - one_lp)[:, 1:].abs()
+        out["ref"] = {"mean": d.mean().item(), "max": d.max().item()}
+    del lps, ref_lp, yard
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("TP runs")
+    if cfg.attn_kind == "mla":
+        out["m"] = tp_moe_decode_prediction(torch, cfg, mesh, shard, tp,
+                                            prompts, cache_len, dev)
+        mark("(m)")
+    del shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_moe_decode_prediction(torch, cfg, mesh, shard, tp, prompts,
+                             cache_len, dev):
+    """[23] (m): the dry run's meta prediction of this rank's TP decode
+    step of ``cfg`` over a cache of ``cache_len`` (rows TP_ROWS, bf16),
+    held to one decode step on the card after a prefill: the bytes it
+    starts with (its shards, its cache, the tokens) and its peak, its
+    FLOPs (no kernel runs in MLA's decode, so the counts meet) and its
+    all-reduces."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.tp import TPRank
+    shape = ShapeSpec("tp_decode", cache_len, TP_ROWS, "decode")
+    amesh = dryrun.production_mesh(mesh_shape=(1, TP_RANKS))
+    c, sh, lowered = dryrun.lower_combo(cfg, shape, amesh,
+                                        dtype=torch.bfloat16)
+    rec = dryrun.analyse(c, sh, lowered, amesh)
+    counted = {"all-reduce": 0, "all-gather": 0}
+
+    class Counted(TPRank):
+        def all_reduce(self, x):
+            counted["all-reduce"] += x.numel() * x.element_size()
+            return super().all_reduce(x)
+
+        def gather_partials(self, part):
+            got = super().gather_partials(part)
+            counted["all-gather"] += got.numel() * got.element_size()
+            return got
+    ctp = Counted(**{f.name: getattr(tp, f.name)
+                     for f in dataclasses.fields(TPRank)})
+    with torch.no_grad():
+        _, cache = prefill(shard, cfg, {"tokens": prompts}, cache_len,
+                           torch.bfloat16, tp=tp)
+    tok = prompts[:, -1:].contiguous()
+    held = sum(t.numel() * t.element_size() for t in leaves(shard)) \
+        + sum(t.numel() * t.element_size() for t in leaves(cache)
+              if torch.is_tensor(t)) \
+        + tok.numel() * tok.element_size()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, cache = decode_step(shard, cfg, cache, tok, tp=ctp)
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base
+    del logits
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        decode_step(shard, cfg, cache, tok, tp=tp)
+    out = {"pred": {k: rec[k] for k in (
+               "argument_bytes", "held_bytes", "temp_bytes",
+               "peak_bytes_per_device", "flops_per_device", "collectives",
+               "count_s")},
+           "held": held, "temp": temp, "card_flops": fc.get_total_flops(),
+           "all_reduce": counted["all-reduce"],
+           "all_gather": counted["all-gather"]}
+    del cache
     return out
 
 
@@ -8041,23 +8624,14 @@ def tp_logprob_merge(torch, tp, dev):
     return out
 
 
-def tp_time_shards(torch, dev, records):
-    """B3 in its partial mode on a rank's [16, 64128] bf16 shard (col0
-    64128), B4 on a rank's heads [4, 2048, 16, 4, 128], and B1 and B2 on
-    a rank's [16, 80, 64128] bf16 logits of the TP train step, each
-    against its plain version, then timed beside it (and B4 beside
-    scaled_dot_product_attention, B1 and B2 beside F.cross_entropy and
-    its backward); added to the kernels' records."""
-    import torch.nn.functional as F
-
+def tp_b3_partial(torch, dev, gen, V):
+    """B3 in its partial mode on a rank's [TP_ROWS, V] bf16 shard (col0
+    V), against its plain version, then timed beside it."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import chunked_attention, \
-        flash_attention_cuda
     from repro_torch.kernels.fused_sample import fused_sample_partial_cuda, \
         fused_sample_split_plain, split_plan
     from repro_torch.rl import prng
-    gen = torch.Generator(device=dev).manual_seed(23)
-    B, V = TP_ROWS, V_LLAMA // TP_RANKS
+    B = TP_ROWS
     x = (torch.randn(B, V, generator=gen, device=dev) * 3).to(torch.bfloat16)
     key = prng.PRNGKey(TP_KEY)
     span, n = split_plan(B, V, build.sm_count(dev))
@@ -8065,74 +8639,111 @@ def tp_time_shards(torch, dev, records):
     plain = fused_sample_split_plain(x, key, 1.0, span, col0=V, partial=True)
     require(torch.equal(part[:, 3], plain[:, 3])
             and torch.equal(part[:, [0, 4]], plain[:, [0, 4]]),
-            "[23] B3 partial: column, max or logit differ")
+            f"[23] B3 partial [{B}, {V}]: column, max or logit differ")
     s_err = ((part[:, 1] - plain[:, 1]).abs() / plain[:, 1]).max().item()
-    require(s_err <= 1e-4, f"[23] B3 partial: s off by {s_err:.2e}")
+    require(s_err <= 1e-4, f"[23] B3 partial [{B}, {V}]: s off by "
+            f"{s_err:.2e}")
 
     def run():
         return fused_sample_partial_cuda(x, key, 1.0, col0=V)
     b_ms, b_by = bound(x.numel() * 2 + B * 20,
                        x.numel() * SAMPLE_OPS_PER_LOGIT, FP32_FLOPS)
-    b3 = {"shape": [B, V], "col0": V, "splits": n, "ms": cuda_ms(torch, run,
-                                                                 50),
-          "kernel_only_ms": kernel_only_ms(torch, run, 20,
-                                           "fused_sample_kernel"),
-          "plain_ms": cuda_ms(torch, lambda: fused_sample_split_plain(
-              x, key, 1.0, span, col0=V, partial=True), 3),
-          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-          "s_rel_err": s_err}
-    Bq, S, H, K, hd = TP_B4
-    g = torch.Generator(device=dev).manual_seed(sum(TP_B4))
+    rec = {"shape": [B, V], "col0": V, "splits": n,
+           "ms": cuda_ms(torch, run, 50),
+           "kernel_only_ms": kernel_only_ms(torch, run, 20,
+                                            "fused_sample_kernel"),
+           "plain_ms": cuda_ms(torch, lambda: fused_sample_split_plain(
+               x, key, 1.0, span, col0=V, partial=True), 3),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "s_rel_err": s_err}
+    del x, part, plain
+    return rec
+
+
+def tp_b4(torch, dev, shape):
+    """B4 on a rank's heads ``shape`` ([B, S, H, K, hd] bf16, causal),
+    against ``chunked_attention``, then timed beside it and beside
+    ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import chunked_attention, \
+        flash_attention_cuda
+    Bq, S, H, K, hd = shape
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
     q, k, v = (torch.randn(Bq, S, h, hd, generator=g, device=dev)
                .to(torch.bfloat16) for h in (H, K, K))
     o = flash_attention_cuda(q, k, v)
     o_p = chunked_attention(q, k, v)
     err = ((o.float() - o_p.float()).abs()
            / o_p.float().abs().clamp(min=1.0)).max().item()
-    require(err <= 3e-2, f"[23] B4 at {list(TP_B4)}: error {err:.3e}")
+    require(err <= 3e-2, f"[23] B4 at {list(shape)}: error {err:.3e}")
 
     def run_flash():
         return flash_attention_cuda(q, k, v)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2) * 2,
                        4 * Bq * H * hd * S * (S + 1) / 2, BF16_TENSOR_FLOPS)
-    b4 = {"shape": list(TP_B4), "ms": cuda_ms(torch, run_flash, 10),
-          "kernel_only_ms": kernel_only_ms(torch, run_flash, 3,
-                                           "flash_fwd_wgmma_kernel"),
-          "plain_ms": cuda_ms(torch, lambda: chunked_attention(q, k, v), 3),
-          "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-              qt, kt, vt, is_causal=True, enable_gqa=True), 10),
-          "bound_ms": b_ms, "bound_by": b_by, "max_rel_err": err}
-    # B1 and B2 on a rank's vocabulary slice of the TP train step's logits
-    # ((f): [16, 80, 64128] bf16, scored over the first 79 positions)
-    for name, timed in (("fused_logprob", timed_logprob_at),
-                        ("fused_logprob_bwd", timed_logprob_bwd_at)):
-        next(x for x in records if x["name"] == name)["tp_shard"] = timed(
-            torch, dev, gen, V_LLAMA // TP_RANKS, T=TP_TRAIN_T)
-    for name, r in (("fused_sample", b3), ("flash_attention", b4)):
-        next(x for x in records if x["name"] == name)["tp_shard"] = r
-        log(f"  time {name} on a rank's shard {r['shape']}"
-            + (f" (partial mode, col0 {r['col0']}, {r['splits']} splits)"
-               if name == "fused_sample" else "")
-            + f": {r['ms']:.4f} ms per call ("
-            + ("not measured" if r["kernel_only_ms"] is None
-               else f"{r['kernel_only_ms']:.4f} ms") + " in the kernel), "
-            f"plain {r['plain_ms']:.4f} ms, "
-            + ("" if r["library_ms"] is None
-               else f"library {r['library_ms']:.4f} ms, ")
-            + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-            + nvidia_smi())
-    del x, q, k, v, o, o_p, qt, kt, vt
+    rec = {"shape": list(shape), "ms": cuda_ms(torch, run_flash, 10),
+           "kernel_only_ms": kernel_only_ms(torch, run_flash, 3,
+                                            "flash_fwd_wgmma_kernel"),
+           "plain_ms": cuda_ms(torch, lambda: chunked_attention(q, k, v), 3),
+           "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+           "bound_ms": b_ms, "bound_by": b_by, "max_rel_err": err}
+    del q, k, v, o, o_p, qt, kt, vt
+    return rec
+
+
+def tp_time_shards(torch, dev, records):
+    """B3 in its partial mode on a rank's [16, V/2] bf16 shard (col0 V/2)
+    of llama31-8b's, llama4-scout's and deepseek-v3's vocabularies, B4 on
+    a rank's heads of llama31-8b [4, 2048, 16, 4, 128] and of
+    llama4-scout [4, 2048, 20, 4, 128], and B1 and B2 on a rank's [16,
+    80, V/2] bf16 logits of a TP train step at the three vocabularies,
+    each against its plain version, then timed beside it (and B4 beside
+    scaled_dot_product_attention, B1 and B2 beside F.cross_entropy and
+    its backward); added to the kernels' records, under ``tp_shard``
+    (llama31-8b's), ``tp_scout`` and ``tp_dsv3``."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    shards = (("tp_shard", V_LLAMA, TP_B4), ("tp_scout", V_SCOUT, TP_B4_MOE),
+              ("tp_dsv3", V_DSV3, None))
+    for label, V, b4_shape in shards:
+        Vl = V // TP_RANKS
+        got = {"fused_sample": tp_b3_partial(torch, dev, gen, Vl)}
+        if b4_shape is not None:
+            got["flash_attention"] = tp_b4(torch, dev, b4_shape)
+        # B1 and B2 on a rank's vocabulary slice of a TP train step's
+        # logits ([16, 80, V/2] bf16, scored over the first 79 positions)
+        for name, timed in (("fused_logprob", timed_logprob_at),
+                            ("fused_logprob_bwd", timed_logprob_bwd_at)):
+            got[name] = timed(torch, dev, gen, Vl, T=TP_TRAIN_T)
+        for name, r in got.items():
+            next(x for x in records if x["name"] == name)[label] = r
+            if name in ("fused_logprob", "fused_logprob_bwd"):
+                continue
+            log(f"  time {name} on a rank's shard {r['shape']} ({label})"
+                + (f" (partial mode, col0 {r['col0']}, {r['splits']} "
+                   "splits)" if name == "fused_sample" else "")
+                + f": {r['ms']:.4f} ms per call ("
+                + ("not measured" if r["kernel_only_ms"] is None
+                   else f"{r['kernel_only_ms']:.4f} ms") + " in the "
+                "kernel), "
+                f"plain {r['plain_ms']:.4f} ms, "
+                + ("" if r["library_ms"] is None
+                   else f"library {r['library_ms']:.4f} ms, ")
+                + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+                + nvidia_smi())
 
 
 def phase_tp(torch, dev, records):
-    """[23]: llama31-8b served and trained tensor-parallel by two spawned
-    ranks sharing the one card as a (data 1, model 2) mesh.  Returns the
-    launch counts of the ranks' main-path runs, summed."""
+    """[23]: llama31-8b, llama4-scout and deepseek-v3 served and trained
+    tensor-parallel by two spawned ranks sharing the one card as a (data
+    1, model 2) mesh.  Returns the launch counts of the ranks' main-path
+    runs, summed."""
     import torch.multiprocessing as mp
-    log(f"[23] tp: llama31-8b served and trained on a (data 1, model 2) "
-        f"mesh of two processes "
-        f"on the one card; {nvidia_smi()}")
+    log(f"[23] tp: llama31-8b, llama4-scout and deepseek-v3 served and "
+        f"trained on a (data 1, model 2) mesh of two processes on the one "
+        f"card; {nvidia_smi()}")
     t0 = time.perf_counter()
     tp_time_shards(torch, dev, records)
     t1 = time.perf_counter()
@@ -8145,9 +8756,10 @@ def phase_tp(torch, dev, records):
     for p in [rdv] + [Path(f"{out}_{r}.json") for r in range(TP_RANKS)]:
         if p.exists():
             p.unlink()
+    queue = mp.get_context("spawn").Queue()
     ctx = mp.start_processes(tp_rank_main, nprocs=TP_RANKS, join=False,
                              start_method="spawn",
-                             args=("file://" + str(rdv), out))
+                             args=("file://" + str(rdv), out, queue))
     try:
         deadline = time.monotonic() + TP_TIMEOUT_S
         while not ctx.join(timeout=5):
@@ -8178,9 +8790,9 @@ def phase_tp(torch, dev, records):
         f"{r0['decode_ms']:.2f} ms a token on gloo; {smi}")
     require(a["finite"], "[23] (a) TP logits not finite")
     b = r0["b"]
-    log(f"  (b) {TP_NEW} new tokens: the TP step's log-probs of the one-card "
-        f"rollout's tokens (teacher-forced) against its behaviour log-probs "
-        f"at {b['n']} actions: mean|d| {b['mean']:.4f} (bound {TP_LP_MEAN}), "
+    log(f"  (b) {TP_LLAMA_NEW} new tokens: the TP step's log-probs of the "
+        f"one-card rollout's tokens (teacher-forced) against its behaviour "
+        f"log-probs at {b['n']} actions: mean|d| {b['mean']:.4f} (bound {TP_LP_MEAN}), "
         f"max|d| {b['max']:.4f}; the TP rollout's own tokens equal to the "
         f"one card's: {100 * r0['b_equal']:.1f}%")
     require(b["mean"] <= TP_LP_MEAN, f"[23] (b) mean|dlogp| {b['mean']:.4f}")
@@ -8246,11 +8858,12 @@ def phase_tp(torch, dev, records):
     require(e["all_reduce"] == p["collectives"].get("all-reduce"),
             "[23] (e) all-reduce bytes")
     tp_train_report(ranks)
+    moe_launches = tp_moe_report(torch, ranks)
     from repro_torch.configs.llama_paper import LLAMA31_8B
-    launches = collections.Counter()
+    launches = collections.Counter(moe_launches)
     for res in ranks:
         want = {"flash_attention": 2 * LLAMA31_8B.n_layers,
-                "fused_sample": TP_NEW}
+                "fused_sample": TP_LLAMA_NEW}
         require(res["launches"] == want,
                 f"[23] launches {res['launches']}, want {want}")
         # (f): B1 and B2 once a step, B4 once a layer (no remat_layers)
@@ -8263,39 +8876,231 @@ def phase_tp(torch, dev, records):
         launches.update(got)
     log(f"  [23] launches {dict(launches)}; {time.perf_counter() - t0:.1f} s "
         f"(shard timings {t1 - t0:.1f} s, ranks {t2 - t1:.1f} s: "
-        + ", ".join(f"{s:.1f}" for s in r0["seconds"])
-        + " s for build, (a)-(b), (c), (d), (e), the one-card turns, "
-        "(h)-(f), (i)-(g))")
+        + ", ".join(f"{label} {s:.1f}" for label, s in r0["seconds"])
+        + " s; (j), (k), then (l)'s two configs in turn)")
     return dict(launches)
+
+
+def tp_moe_report(torch, ranks):
+    """[23] (j)-(m) of every rank, printed and held to their bounds.
+    Returns the launch counts of their main-path runs, summed."""
+    smi = nvidia_smi()
+    launches = collections.Counter()
+    for arch in TP_MOE_ARCHS:
+        cfg = tp_moe_cfg(torch, arch)
+        tag = "(j)" if arch == MOE_ARCH else "(k)"
+        E = cfg.moe.n_experts
+        log(f"  {tag} {cfg.name}: {cut_line(configs_full(arch), cfg)}; "
+            f"capacity factor {cfg.moe.capacity_factor:g}, as published")
+        for r, res in enumerate(ranks):
+            o = res["moe"][arch]
+            log(f"  {tag} {cfg.name} bf16, rank {r} (card memory "
+                f"allocated and reserved as it starts "
+                f"{o['card_gb_before'][0]:.3f}, "
+                f"{o['card_gb_before'][1]:.3f} GB): holds "
+                f"{o['held_gb']:.3f} GB, {o['experts']} of {E} experts, "
+                f"splits heads/experts/shared/vocab {o['splits']}, every "
+                f"leaf the plan's block: {o['shapes_ok']}; launches "
+                f"{o['launches']}")
+            require(o["shapes_ok"] and o["experts"] == E // TP_RANKS
+                    and o["splits"] == [True] * 4,
+                    f"[23] {tag} rank {r}: shards {o['splits']}, "
+                    f"{o['experts']} experts")
+            want = {"fused_sample": TP_NEW}
+            if cfg.attn_kind != "mla" and flash_layers(cfg):
+                want["flash_attention"] = 2 * flash_layers(cfg)
+            require(o["launches"] == want,
+                    f"[23] {tag} launches {o['launches']}, want {want}")
+            require(o["ref_tp"], f"[23] {tag} reference not on its TP shard")
+            launches.update(o["launches"])
+            if "latent" in o:
+                log(f"  {tag} rank {r}: the latent cache "
+                    f"{o['latent']['shape']} per segment's ckv, whole and "
+                    f"equal on both ranks: {o['latent']['equal']}")
+                require(o["latent"]["equal"] and o["latent"]["shape"][-1]
+                        == cfg.mla.kv_lora_rank,
+                        f"[23] {tag} latent cache {o['latent']}")
+        o = ranks[0]["moe"][arch]
+        a, b, ref = o["a"], o["b"], o["ref"]
+        w_b, w_ref = o["witness"]
+        bound_b, bound_ref = max(TP_LP_MEAN, w_b), max(TP_LP_MEAN, w_ref)
+        log(f"  {tag} prefill [{TP_ROWS}, {TP_PROMPT}], TP logits against "
+            f"one card: max|d| {a['max']:.4f}, mean|d| {a['mean']:.5f} "
+            f"(max|logit| "
+            f"{a['scale']:.2f}); {TP_NEW} new tokens, the TP step's log-probs "
+            f"of the one-card rollout's tokens against its behaviour "
+            f"log-probs at {b['n']} actions: mean|d| {b['mean']:.4f} (bound "
+            f"{bound_b:.4f}), max|d| {b['max']:.4f}; the TP "
+            f"rollout's own tokens equal to the one card's: "
+            f"{100 * o['b_equal']:.1f}%; a reference executor on the mesh "
+            f"scoring them against the one-card one: mean|d ref_logp| "
+            f"{ref['mean']:.4f} (bound {bound_ref:.4f}), max "
+            f"{ref['max']:.4f}")
+        log(f"  {tag} one card's own spread, its embedding moved by a bf16 "
+            f"ulp: teacher-forced mean|d| {w_b:.4f}, reference mean|d| "
+            f"{w_ref:.4f}; the TP runs held to that or (b)'s {TP_LP_MEAN}, "
+            f"the larger")
+        (pr, sc), (tpr, tsc) = o["drops"]["one"], o["drops"]["tp"]
+        log(f"  {tag} choices the capacity drops, one card's and the ranks' "
+            f"summed (bf16 routes may flip between them): the prefill "
+            f"{pr[1]} and {tpr[1]} of {pr[0]} and {tpr[0]}, the scoring "
+            f"{sc[1]} and {tsc[1]} of {sc[0]} and {tsc[0]}")
+        require(a["finite"] and b["mean"] <= bound_b
+                and ref["mean"] <= bound_ref
+                and pr[0] == tpr[0] and sc[0] == tsc[0],
+                f"[23] {tag} TP against one card: {a}, {b}, {ref}, "
+                f"drops {o['drops']}")
+        log(f"  {tag} times: TP prefill {o['prefill_ms']:.1f} ms, decode "
+            f"{o['decode_ms']:.2f} ms a token on gloo; one card "
+            f"{o['one_prefill_ms']:.1f} ms, {o['one_decode_ms']:.2f} ms a "
+            f"token; {smi}")
+        if "m" in o:
+            tp_moe_decode_report(o["m"], tag, smi)
+    for arch in TP_MOE_ARCHS:
+        cfg = tp_moe_train_cfg(torch, arch)
+        tag = f" {cfg.name}"
+        full = configs_full(arch)
+        from repro_torch.configs import param_count
+        n = param_count(cfg)[0]
+        log(f"  (l) {cfg.name}, cut where two ranks and the one-card twin "
+            f"must fit the card: {full.n_layers} layers to 1 (a MoE layer; "
+            f"first_k_dense {full.moe.first_k_dense} to 0), "
+            f"{full.moe.n_experts} experts to {cfg.moe.n_experts} (top "
+            f"{cfg.moe.top_k} kept, capacity factor "
+            f"{cfg.moe.capacity_factor:g}, so no choice is dropped), "
+            f"vocabulary {full.vocab} to {cfg.vocab}; {n / 1e9:.2f} B "
+            f"params, {16 * n / 1e9:.1f} GB of fp32 params, gradients and "
+            f"moments")
+        trains = [res["moe_train"][arch] for res in ranks]
+        ws = trains[0]["witness"]
+        m_tol = max(TP_MOMENT_TOL["m"], TP_WITNESS * max(w["m"] for w in ws))
+        v_tol = max(TP_MOMENT_TOL["v"], TP_WITNESS * max(w["v"] for w in ws))
+        log(f"  (l){tag} one card's own spread: its steps with the "
+            f"embedding moved by an ulp move m by "
+            + ", ".join(f"{w['m']:.2e} ({w['m_leaf']})" for w in ws)
+            + " and v by "
+            + ", ".join(f"{w['v']:.2e} ({w['v_leaf']})" for w in ws)
+            + f" of the leaf's largest; the TP steps' m and v held to "
+            f"{TP_WITNESS:g}x the larger, at least (f)'s: {m_tol:.2e}, "
+            f"{v_tol:.2e}")
+        tp_train_checks(trains, tag, f"[16, 80, {cfg.d_model}]",
+                        m_tol=(m_tol,) * TP_TRAIN_STEPS,
+                        v_tol=(v_tol,) * TP_TRAIN_STEPS)
+        steps = TP_TRAIN_STEPS * (2 if cfg.mtp else 1)
+        want = {"fused_logprob": steps, "fused_logprob_bwd": steps}
+        n_flash = 0 if cfg.attn_kind == "mla" else flash_layers(
+            cfg, TP_TRAIN_T)
+        if n_flash:
+            want["flash_attention"] = TP_TRAIN_STEPS * n_flash
+        for tr in trains:
+            require(tr["launches"] == want,
+                    f"[23] (l){tag} launches {tr['launches']}, want {want}")
+            launches.update(tr["launches"])
+    return launches
+
+
+def configs_full(arch):
+    """``arch``'s published config."""
+    from repro_torch import configs
+    return configs.get_config(arch)
+
+
+def tp_moe_decode_report(m, tag, smi):
+    """[23] (m) of (k)'s decode: the dry run's prediction against the
+    card, printed and held to its bounds."""
+    p = m["pred"]
+    flop_err = abs(m["card_flops"] - p["flops_per_device"]) \
+        / p["flops_per_device"]
+    peak = m["held"] + m["temp"]
+    ratio = peak / p["peak_bytes_per_device"]
+    colls = p["collectives"]
+    log(f"  (m) dry run of rank 0's TP decode step at {tag}'s config over a "
+        f"cache of {TP_PROMPT + TP_NEW} (meta, {p['count_s']} s): held "
+        f"{p['held_bytes'] / 1e6:.3f} MB (argument bytes by the reference's "
+        f"rules {p['argument_bytes'] / 1e6:.3f} MB), temp "
+        f"{p['temp_bytes'] / 1e6:.1f} MB, peak "
+        f"{p['peak_bytes_per_device'] / 1e6:.0f} MB, "
+        f"{p['flops_per_device'] / 1e9:.4f} GFLOP, collectives "
+        + ", ".join(f"{k} {v} B" for k, v in colls.items())
+        + f"; on the card: held {m['held'] / 1e6:.3f} MB, "
+        f"{m['temp'] / 1e6:.1f} MB above it, peak {peak / 1e6:.0f} MB "
+        f"({ratio:.4f} of the prediction, band {DRYRUN_BYTES_BAND}), gloo "
+        f"all-reduce {m['all_reduce']} B, all-gather {m['all_gather']} B, "
+        f"FlopCounterMode {m['card_flops'] / 1e9:.4f} GFLOP (relative "
+        f"{flop_err:.2e}, tolerance {DRYRUN_FLOP_TOL:g}); {smi}")
+    require(abs(m["held"] - p["held_bytes"]) <= 1e6,
+            f"[23] (m) held {m['held']} against {p['held_bytes']}")
+    require(flop_err <= DRYRUN_FLOP_TOL, f"[23] (m) FLOPs off {flop_err:.2e}")
+    require(DRYRUN_BYTES_BAND[0] <= ratio <= DRYRUN_BYTES_BAND[1],
+            f"[23] (m) peak {peak} against {p['peak_bytes_per_device']}")
+    require(m["all_reduce"] == colls.get("all-reduce", 0)
+            and m["all_gather"] == colls.get("all-gather", 0),
+            f"[23] (m) collective bytes {m['all_reduce']}, "
+            f"{m['all_gather']} against {colls}")
 
 
 def tp_train_report(ranks):
     """[23] (f)-(i) of every rank, printed and held to their bounds."""
-    smi = nvidia_smi()
+    tp_train_checks([res["train"] for res in ranks], "", "[16, 80, 4096]")
     for r, res in enumerate(ranks):
-        tr = res["train"]
+        g = res["g"]
+        log(f"  (g) rank {r}: B1 on its slice {g['shape']} (col0 "
+            f"{g['col0']}), merged over the ranks, against B1 on the whole "
+            f"rows: max|dlogp|/max(1, |logp|) {g['lp_rel']:.3e} (bound "
+            f"{TP_LOGPROB_REL:g}); B2 on the slice with the merged stats "
+            f"against the whole row's columns: {g['grad_ulps']:.3f} bf16 "
+            f"ulps at most (bound 1), with the whole row's stats bit-equal: "
+            f"{g['own_stats_equal']}; last position zero: {g['last_zero']}")
+        require(g["lp_rel"] <= TP_LOGPROB_REL and g["grad_ulps"] <= 1.0
+                and g["own_stats_equal"] and g["last_zero"],
+                f"[23] (g) rank {r}: {g}")
+
+
+def tp_train_checks(trains, tag: str, act: str,
+                    m_tol=(TP_MOMENT_TOL["m"],) * TP_TRAIN_STEPS,
+                    v_tol=(TP_MOMENT_TOL["v"],) * TP_TRAIN_STEPS):
+    """(h), (f) and (i) of each rank's ``tp_train_rank`` results
+    ``trains``, printed (each line after ``tag``, the config's label;
+    ``act`` the shape of an all-reduced activation) and held to their
+    bounds (m and v of step i to ``m_tol[i]`` and ``v_tol[i]`` of a
+    leaf's largest)."""
+    smi = nvidia_smi()
+    for r, tr in enumerate(trains):
         h = tr["h"]
-        log(f"  (h) rank {r}: reference scoring on the mesh (its TP shard) "
-            f"against the one-card RefPolicyExecutor, [{TP_TRAIN_ROWS}, "
-            f"{TP_TRAIN_T}] fp32: max|d ref_logp|/max(1, |ref_logp|) "
-            f"{h['err']:.3e} (bound {TP_REF_TOL:g}; max|ref_logp| "
-            f"{h['scale']:.2f})")
-        require(h["tp"] and h["err"] <= TP_REF_TOL, f"[23] (h) rank {r}: {h}")
+        log(f"  (h){tag} rank {r}: reference scoring on the mesh (its TP "
+            f"shard) against the one-card RefPolicyExecutor, "
+            f"[{TP_TRAIN_ROWS}, {TP_TRAIN_T}] fp32: max|d ref_logp|/max(1, "
+            f"|ref_logp|) {h['err']:.3e} (bound {TP_REF_TOL:g}; "
+            f"max|ref_logp| {h['scale']:.2f})")
+        require(h["tp"] and h["err"] <= TP_REF_TOL,
+                f"[23] (h){tag} rank {r}: {h}")
+        h = tr.get("h_pub")
+        if h is not None:
+            log(f"  (h){tag} rank {r} at the published capacity factor "
+                f"{h['cf']:g}: max|d ref_logp|/max(1, |ref_logp|) "
+                f"{h['err']:.3e} (bound {TP_REF_TOL:g}); choices dropped "
+                f"{h['one'][1]} of {h['one'][0]} on one card, {h['tp'][1]} "
+                f"of {h['tp'][0]} by the ranks' own experts, summed")
+            require(h["err"] <= TP_REF_TOL and h["one"] == h["tp"]
+                    and h["one"][1] > 0, f"[23] (h){tag} rank {r}: {h}")
         for i, f in enumerate(tr["f"]):
             want = tr["one_metrics"][i]
+            names = ("loss", "grad_norm", "mean_ratio", "mean_logp",
+                     "total_loss") + tuple(
+                         k for k in ("mtp_loss", "moe_aux") if k in want)
             worst = max(abs(f["metrics"][k] - want[k]) / max(1.0,
                                                                abs(want[k]))
-                        for k in ("loss", "grad_norm", "mean_ratio",
-                                  "mean_logp", "total_loss"))
-            log(f"  (f) rank {r} step {i + 1} from the one-card state before "
-                f"it: metrics within {worst:.2e} relative (bound "
-                f"{TP_METRIC_TOL:g}; loss {f['metrics']['loss']:.6f}, "
-                f"grad_norm {f['metrics']['grad_norm']:.6f}); updates: "
-                f"worst {f['update_worst']:.3e} of the leaf's largest (bound "
+                        for k in names)
+            log(f"  (f){tag} rank {r} step {i + 1} from the one-card state "
+                f"before it: metrics ({', '.join(names)}) within "
+                f"{worst:.2e} relative (bound {TP_METRIC_TOL:g}; loss "
+                f"{f['metrics']['loss']:.6f}, grad_norm "
+                f"{f['metrics']['grad_norm']:.6f}); updates: worst "
+                f"{f['update_worst']:.3e} of the leaf's largest (bound "
                 f"{TP_UPDATE_WORST:g}), {100 * f['update_past']:.3f}% past "
                 f"{TP_UPDATE_TOL:g} (bound 1%); m within {f['m']:.2e}, v "
                 f"within {f['v']:.2e} of the leaf's largest (bounds "
-                f"{TP_MOMENT_TOL['m']:g}, {TP_MOMENT_TOL['v']:g}); the "
+                f"{m_tol[i]:.2e}, {v_tol[i]:.2e}); the "
                 f"{f['m_rms']['n']} elements past {TP_UPDATE_TOL:g}: one-card "
                 f"|m| over the leaf's rms |m|, median "
                 f"{f['m_rms']['median']:.3g}, largest "
@@ -8308,40 +9113,28 @@ def tp_train_report(ranks):
             require(f["step"] == i + 1 and worst <= TP_METRIC_TOL
                     and f["update_worst"] <= TP_UPDATE_WORST
                     and f["update_past"] <= 0.01
-                    and f["m"] <= TP_MOMENT_TOL["m"]
-                    and f["v"] <= TP_MOMENT_TOL["v"],
-                    f"[23] (f) rank {r} step {i + 1}: {f['metrics']}, want "
-                    f"{want}")
-        log(f"  (f) rank {r}: TP step "
+                    and f["m"] <= m_tol[i] and f["v"] <= v_tol[i],
+                    f"[23] (f){tag} rank {r} step {i + 1}: {f['metrics']}, "
+                    f"want {want}")
+        log(f"  (f){tag} rank {r}: TP step "
             + ", ".join(f"{t:.1f}" for t in tr["tp_ms"])
-            + " ms (gloo-bound: each all-reduce of [16, 80, 4096] fp32 "
-            "crosses the host) against the one-card step "
+            + f" ms (gloo-bound: each all-reduce of {act} fp32 crosses the "
+            "host) against the one-card step "
             + ", ".join(f"{t:.1f}" for t in tr["one_ms"])
             + f" ms; launches {tr['launches']}; {smi}")
-        g = res["g"]
-        log(f"  (g) rank {r}: B1 on its slice {g['shape']} (col0 "
-            f"{g['col0']}), merged over the ranks, against B1 on the whole "
-            f"rows: max|dlogp|/max(1, |logp|) {g['lp_rel']:.3e} (bound "
-            f"{TP_LOGPROB_REL:g}); B2 on the slice with the merged stats "
-            f"against the whole row's columns: {g['grad_ulps']:.3f} bf16 "
-            f"ulps at most (bound 1), with the whole row's stats bit-equal: "
-            f"{g['own_stats_equal']}; last position zero: {g['last_zero']}")
-        require(g["lp_rel"] <= TP_LOGPROB_REL and g["grad_ulps"] <= 1.0
-                and g["own_stats_equal"] and g["last_zero"],
-                f"[23] (g) rank {r}: {g}")
-    i = ranks[0]["train"]["i"]
+    i = trains[0]["i"]
     p = i["pred"]
     card = i["card_flops"] + sum(i["own"].values())
     flop_err = abs(card - p["flops_per_device"]) / p["flops_per_device"]
     peak = i["held"] + i["temp"]
     ratio = peak / p["peak_bytes_per_device"]
     colls = p["collectives"]
-    log(f"  (i) peak on the card less the prediction: "
+    log(f"  (i){tag} peak on the card less the prediction: "
         f"{peak - p['peak_bytes_per_device']} B, held less the prediction: "
         f"{i['held'] - p['held_bytes']} B")
-    log(f"  (i) dry run of rank 0's TP train step at (f)'s config (meta, "
-        f"{p['count_s']} s): held {p['held_bytes'] / 1e6:.0f} MB, temp "
-        f"{p['temp_bytes'] / 1e6:.0f} MB (saved activations "
+    log(f"  (i){tag} dry run of rank 0's TP train step at (f)'s config "
+        f"(meta, {p['count_s']} s): held {p['held_bytes'] / 1e6:.0f} MB, "
+        f"temp {p['temp_bytes'] / 1e6:.0f} MB (saved activations "
         f"{p['saved_bytes'] / 1e6:.0f} MB), peak "
         f"{p['peak_bytes_per_device'] / 1e6:.0f} MB, "
         f"{p['flops_per_device'] / 1e12:.4f} TFLOP, collectives "
@@ -8357,13 +9150,14 @@ def tp_train_report(ranks):
         f"{i['card_flops'] + i['plain_fwd'] - p['flops_per_device']:.0f} "
         f"FLOP; {smi}")
     require(abs(i["held"] - p["held_bytes"]) <= 1e6,
-            f"[23] (i) held {i['held']} against {p['held_bytes']}")
-    require(flop_err <= DRYRUN_FLOP_TOL, f"[23] (i) FLOPs off {flop_err:.2e}")
+            f"[23] (i){tag} held {i['held']} against {p['held_bytes']}")
+    require(flop_err <= DRYRUN_FLOP_TOL,
+            f"[23] (i){tag} FLOPs off {flop_err:.2e}")
     require(DRYRUN_BYTES_BAND[0] <= ratio <= DRYRUN_BYTES_BAND[1],
-            f"[23] (i) peak {peak} against {p['peak_bytes_per_device']}")
+            f"[23] (i){tag} peak {peak} against {p['peak_bytes_per_device']}")
     require(i["all_reduce"] == colls.get("all-reduce")
             and i["all_gather"] == colls.get("all-gather"),
-            f"[23] (i) collective bytes {i['all_reduce']}, "
+            f"[23] (i){tag} collective bytes {i['all_reduce']}, "
             f"{i['all_gather']} against {colls}")
 
 

@@ -12,21 +12,22 @@ builds it where the actor lives).  Every rank of the mesh holds the
 executor and runs each endpoint call.  The trainer keeps its state in
 shards (``train/sharded.shard_state``) and steps with
 ``make_sharded_train_step``; it publishes its params whole.  A
-generator of the dense family on a mesh whose ``model`` axis has more
-than one rank serves tensor-parallel (``models/tp.py``): each rank holds
-its shard (``sharding.tp_plan``, carried by ``ddma_weight_sync`` onto
-``sharding.Shardings``) and computes its heads, FFN columns and
-vocabulary slice, on its share of the rows where the data axes split
-them (the sampler keys the noise by the global row and column, so a
-rank draws its rows alone), and every rank emits the whole batch.  The
-mesh decides, as the params' placement decides in the reference; the
-engine hooks refuse such a generator (the paged engine on a mesh is
-not ported).  A dense reference on such a mesh holds the same TP shard
-and scores its share of the rows with ``models.tp.forward_train`` and
-the vocabulary-parallel log-prob, then gathers the rows.  Every other
+generator of the dense or MoE family on a mesh whose ``model`` axis has
+more than one rank serves tensor-parallel (``models/tp.py``): each rank
+holds its shard (``sharding.tp_plan``, carried by ``ddma_weight_sync``
+onto ``sharding.Shardings``) and computes its heads, FFN columns or
+experts and vocabulary slice, on its share of the rows where the data
+axes split them (the sampler keys the noise by the global row and
+column, so a rank draws its rows alone), and every rank emits the whole
+batch.  The mesh decides, as the params' placement decides in the
+reference; the engine hooks refuse such a generator (the paged engine
+on a mesh is not ported).  A dense or MoE reference on such a mesh
+holds the same TP shard and scores its share of the rows with
+``models.tp.forward_train`` and the vocabulary-parallel log-prob, then
+gathers the rows.  Every other
 generator and reference hold the weights replicated, each rank the
-whole tree, and compute the whole batch on every rank.  A dense trainer
-on such a mesh steps tensor-parallel (``train/sharded.py``).  An
+whole tree, and compute the whole batch on every rank.  A dense or MoE
+trainer on such a mesh steps tensor-parallel (``train/sharded.py``).  An
 executor with a mesh takes each payload whole: a DTensor that
 ``InprocTransport.prepare`` placed on the mesh becomes its local tensor
 where replicated and is gathered where split (the sharded train step
@@ -373,8 +374,8 @@ class GeneratorExecutor(Executor):
         if self.tp is not None:
             raise NotImplementedError(
                 "the engine on a tensor-parallel mesh is not ported: a "
-                "dense generator on a mesh with model > 1 serves through "
-                "the chunk hooks")
+                "dense or MoE generator on a mesh with model > 1 serves "
+                "through the chunk hooks")
         if self._engine is not None:
             self._engine.abort()
         self._engine = RolloutEngine(

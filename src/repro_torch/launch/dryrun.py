@@ -21,16 +21,18 @@ compiler to ask, so it measures the step itself:
     the leaves outside the layer stacks gathered up front, each stacked
     leaf one layer at a time inside that layer's work, ``forward_train``
     and its backward, each gather's gradient cut to the leaf's shard as
-    the backward reaches it, and Adam on the shards (for a dense model on
-    a ``model`` axis of more than one rank, the tensor-parallel step:
+    the backward reaches it, and Adam on the shards (for a dense or MoE
+    model on a ``model`` axis of more than one rank, the tensor-parallel
+    step:
     ``models.tp.forward_train`` and the vocabulary-parallel log-prob, a
     split leaf gathered over the data axes only into its ``model`` slice,
-    ``tp.train_roles``); for serving a dense
+    ``tp.train_roles``); for serving a dense or MoE
     model on a mesh whose ``model`` axis has more than one rank, the
     tensor-parallel step a rank runs (``models/tp.py``): its shards of
-    ``sharding.tp_plan`` (the reference's serve shards, but ``wq wk wv
-    wo`` whole where ``n_kv_heads % model != 0``), its cache of its own
-    KV heads, ``prefill`` or ``decode_step`` with ``tp``; for serving
+    ``sharding.tp_plan`` (the reference's serve shards, but attention
+    whole where its heads do not split), its cache of its own GQA KV
+    heads (MLA's whole latent), ``prefill`` or ``decode_step`` with
+    ``tp``; for serving
     any other family, or on a ``model`` axis of one rank, the whole tree
     (those serve without tensor parallelism) and ``prefill`` or
     ``decode_step``.  ``meta`` tensors are not CUDA
@@ -59,12 +61,15 @@ compiler to ask, so it measures the step itself:
     data axes) once a microbatch, the global norm's and
     ``batch_total``'s all-reduces; in the tensor-parallel steps, every
     ``TPRank.all_reduce`` over ``model`` (serving: two of [rows, S, D] a
-    layer where the heads split, one where they do not, the embedding's
-    one; training adds the backward's, one a ``TPRank.copy``, the head's
-    included, those of each layer's recompute under ``remat_layers``,
-    and a sliced bias's gradient sum) and, in training, the
-    vocabulary-parallel log-prob's all-gather of the ranks' [rows, T, 3]
-    partials (the serving steps return logits and do not sample, so no
+    layer where the heads split, one where they do not -- a MoE layer's
+    experts and shared expert share one --, the embedding's one;
+    training adds the backward's, one a ``TPRank.copy``, the head's
+    included, MLA's three a layer and the experts' top-k weights', those
+    of each layer's recompute under ``remat_layers``, and a sliced
+    bias's gradient sum) and, in training, every ``TPRank.gather_partials``:
+    the vocabulary-parallel log-prob's all-gather of the ranks' [rows,
+    T, 3] partials (the MTP loss's too) and the MTP ``proj``'s [rows, S,
+    D] (the serving steps return logits and do not sample, so no
     sampler partials).  The whole-tree serving steps count the gather of every
     sharded leaf.  The reference's ``collective_bytes``
     and ``_shape_bytes`` parse XLA's HLO text and have no counterpart
@@ -510,7 +515,8 @@ def _tensors(tree) -> list:
 
 
 def _lower_serve_tp(cfg, shape, mesh, dtype, p_full, arg, rows, local):
-    """The tensor-parallel serving step of a rank of a dense model: its
+    """The tensor-parallel serving step of a rank of a dense or MoE
+    model: its
     shards of ``tp_plan``, its cache (decode: ``K/m`` heads where the
     heads split, its rows, the whole ring), its rows of the batch, as
     the step starts (``held_bytes``); ``argument_bytes`` stays the
@@ -520,7 +526,7 @@ def _lower_serve_tp(cfg, shape, mesh, dtype, p_full, arg, rows, local):
     plan = tp_plan(cfg, mesh, p_full)
     params = tree_map(lambda t, s: _meta(shard_shape(t.shape, s, mesh),
                                          t.dtype), p_full, plan)
-    counted = {"all-reduce": 0}
+    counted = {}
     tp = _meta_tp(cfg, mesh, counted)
     cache = None
     if shape.kind == "decode":
@@ -530,7 +536,7 @@ def _lower_serve_tp(cfg, shape, mesh, dtype, p_full, arg, rows, local):
     held_bytes = sum(t.numel() * t.element_size() for t in held)
 
     def run():
-        counted["all-reduce"] = 0
+        counted.clear()
         with torch.no_grad():
             if shape.kind == "prefill":
                 logits, out_cache = prefill(params, cfg, local,
@@ -545,7 +551,7 @@ def _lower_serve_tp(cfg, shape, mesh, dtype, p_full, arg, rows, local):
         return {"output_bytes": sum(t.numel() * t.element_size()
                                     for t in outs),
                 "saved_bytes": 0,
-                "collectives": {"all-reduce": counted["all-reduce"]}}
+                "collectives": {k: n for k, n in counted.items() if n}}
 
     return Lowered(run, arg, rows, held, held_bytes=held_bytes)
 

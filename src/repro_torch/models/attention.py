@@ -247,33 +247,41 @@ def mla_params(gen, cfg, n_layers: int, dtype, device):
         "wo": dense_init(gen, (L, H * m.v_head_dim, D), dtype, device)}
 
 
-def _mla_qkv_latent(p, x, cfg, positions):
+def _mla_qkv_latent(p, x, cfg, positions, copy=None):
     """The shared front half: the queries' no-rope and rotated parts
     [B, S, H, *], the normed latent c_kv [B, S, kv_lora_rank] and the
-    rotated key shared by every head [B, S, qk_rope_dim]."""
+    rotated key shared by every head [B, S, qk_rope_dim].  A
+    tensor-parallel rank (``models/tp.py``) passes its heads' columns of
+    ``wq_b wk_b wv_b`` and ``copy``, through which the three tensors its
+    heads read of the whole products (the normed query latent, c_kv and
+    the rotated key) pass: the identity, their gradient summed over its
+    ranks."""
     m, H = cfg.mla, cfg.n_heads
     B, S, _ = x.shape
-    q = rmsnorm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    copy = copy or (lambda t: t)
+    q = copy(rmsnorm(x @ p["wq_a"], p["q_norm"])) @ p["wq_b"]
     q_nope, q_rope = q.reshape(B, S, H, m.qk_nope_dim + m.qk_rope_dim) \
         .split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim],
                                           dim=-1)
-    c_kv = rmsnorm(c_kv, p["kv_norm"])
+    c_kv = copy(rmsnorm(c_kv, p["kv_norm"]))
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
-    return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
+    return q_nope, q_rope, c_kv, copy(k_rope[:, :, 0, :])
 
 
-def mla_forward(p, x, cfg):
+def mla_forward(p, x, cfg, copy=None):
     """Full-sequence causal MLA in the expanded form (train and prefill):
     per-head keys [no-rope from the latent, the shared rotated key] of
     qk_nope + qk_rope dims against values of v_head_dim, scaled by
     (qk_nope + qk_rope)^-0.5.  Returns (y, (c_kv, k_rope)), what the
-    latent cache holds."""
+    latent cache holds.  ``copy``: a tensor-parallel rank's, as
+    ``_mla_qkv_latent`` takes it (y is then its heads' partial sum)."""
     m, H = cfg.mla, cfg.n_heads
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(p, x, cfg, positions)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(p, x, cfg, positions,
+                                                   copy)
     k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, m.qk_nope_dim)
     v = (c_kv @ p["wv_b"]).reshape(B, S, H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)

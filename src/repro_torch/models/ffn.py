@@ -9,7 +9,8 @@ slot E*C, which nothing reads) -> three batched expert products ->
 gather back -> weighted combine, plus the shared expert.  Groups are
 batch rows.  No TPU kernel sits behind it, so it is plain PyTorch.  The
 expert-parallel modes run each model rank's share of the experts on a
-device mesh (``moe_forward_shmap``).
+device mesh (``moe_forward_shmap``), and a tensor-parallel rank its
+slice of the experts (``moe_rank``, which both run).
 """
 from __future__ import annotations
 
@@ -160,6 +161,40 @@ def _aux_loss(probs, idx, m):
     return E * (f_e * P_e).sum() * m.aux_loss_coef
 
 
+def moe_rank(p, x, cfg, experts, lo: int, copy, reduce,
+             shared_split: bool = False):
+    """The MoE layer as one rank of a ``model`` group computes it, the
+    body of ``moe_forward_shmap`` and of the tensor-parallel layer
+    (``models/tp.py``).  ``experts`` holds the rank's expert leaves
+    [E_l, ...], of the experts [lo, lo + E_l).  Every row is routed over
+    all E experts by the whole router in ``p`` and dispatched to the
+    rank's own at the reference's capacity C = max(int(S * k / E *
+    capacity_factor), 1), so a choice past its expert's capacity is
+    dropped as the gathered path drops it.  The rows and the top-k
+    weights enter the rank's part through ``copy`` and its partial
+    output leaves through ``reduce``, once for the layer: with
+    ``shared_split`` the shared expert (this rank's column slice of it)
+    adds its partial to that sum, else it runs whole after it.  The aux
+    loss comes from the whole router's probabilities, the same on every
+    rank."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    C = max(int(S * k / E * m.capacity_factor), 1)
+    probs, weights, idx = _route(p, x, m)
+    aux = _aux_loss(probs, idx, m)
+    xl, wl = copy(x), copy(weights)
+    buf, dest, valid, order = _dispatch_group_local(
+        xl, idx - lo, experts["w_gate"].shape[0], C)
+    y = _experts_combine(experts, buf, dest, valid, order, wl, S, k)
+    if "shared" in p and shared_split:
+        y = y + mlp_forward(p["shared"], xl, "silu_gated")
+    y = reduce(y)
+    if "shared" in p and not shared_split:
+        y = y + mlp_forward(p["shared"], x, "silu_gated")
+    return y, aux
+
+
 def moe_forward_shmap(p, x, cfg, mesh):
     """Expert parallelism over the mesh's ``model`` axis (moe_mode
     'ep_shmap'; 'ep' too, see ``moe_forward``).
@@ -169,32 +204,22 @@ def moe_forward_shmap(p, x, cfg, mesh):
     experts (``_MOE_RULES`` shard the expert leaves' E over ``model``),
     computes them with its own expert weights, combines its partial
     per-token outputs, and one all-reduce over ``model`` finishes the
-    layer.  Differentiable: the tokens and the top-k weights enter the
-    local part through ``copy_to`` (their gradient is summed over
-    ``model``) and the partial outputs leave through ``reduce_from``, so
-    every model rank gets the whole gradient of x and of the router, and
-    each the gradient of its own experts' rows of the expert leaves."""
-    m = cfg.moe
-    B, S, D = x.shape
-    E, k = m.n_experts, m.top_k
+    layer (``moe_rank`` on the rank's rows of the whole expert leaves).
+    Differentiable: the tokens and the top-k weights enter the local
+    part through ``copy_to`` (their gradient is summed over ``model``)
+    and the partial outputs leave through ``reduce_from``, so every
+    model rank gets the whole gradient of x and of the router, and each
+    the gradient of its own experts' rows of the expert leaves."""
+    E = cfg.moe.n_experts
     mm = _axis_size(mesh, "model")
     if E % mm:
         raise ValueError(f"{E} experts over a model axis of {mm}")
     E_l = E // mm
-    C = max(int(S * k / E * m.capacity_factor), 1)
     lo = mesh.get_local_rank("model") * E_l
     grp = groups(mesh, ("model",))
-
-    probs, weights, idx = _route(p, x, m)
-    aux = _aux_loss(probs, idx, m)
-    xl, wl = copy_to(x, grp), copy_to(weights, grp)
-    buf, dest, valid, order = _dispatch_group_local(xl, idx - lo, E_l, C)
     local = {n: p[n][lo:lo + E_l] for n in ("w_gate", "w_up", "w_down")}
-    y = reduce_from(
-        _experts_combine(local, buf, dest, valid, order, wl, S, k), grp)
-    if m.n_shared:
-        y = y + mlp_forward(p["shared"], x, "silu_gated")
-    return y, aux
+    return moe_rank(p, x, cfg, local, lo, lambda t: copy_to(t, grp),
+                    lambda t: reduce_from(t, grp))
 
 
 def moe_forward(p, x, cfg):

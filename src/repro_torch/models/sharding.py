@@ -215,6 +215,32 @@ def copy_to(x, grps=(), all_reduce=None):
     return x if fn is None else _CopyTo.apply(x, fn)
 
 
+class _GatherFrom(torch.autograd.Function):
+    """Every rank's ``x`` [.., n] joined along the last dim in rank order
+    forward (``all_gather``: a tensor to the ranks' tensors stacked); the
+    gradient this rank's columns of it backward (every rank computes the
+    same value downstream, so the slice is the whole gradient of its
+    ``x``)."""
+
+    @staticmethod
+    def forward(ctx, x, rank, all_gather):
+        ctx.cols = slice(rank * x.shape[-1], (rank + 1) * x.shape[-1])
+        return torch.movedim(all_gather(x), 0, -2).reshape(
+            *x.shape[:-1], -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[..., ctx.cols], None, None
+
+
+def gather_from(x, rank: int, all_gather):
+    """The ranks' ``x`` [.., n] joined along the last dim, [.., m n] (the
+    output of a product split by columns made whole); its gradient this
+    rank's ``n`` columns.  ``all_gather`` is a callable from a tensor to
+    the ranks' tensors stacked in rank order."""
+    return _GatherFrom.apply(x, rank, all_gather)
+
+
 def _split_groups() -> list:
     if not _ACT_MESH["split_rows"]:
         return []
@@ -441,35 +467,51 @@ def distribute(tree, mesh: DeviceMesh, shardings):
 
 # ----------------------------------------------- tensor parallelism ---
 
-_ATTN_LEAF = re.compile(r"(^|/)attn/(wq|wk|wv|wo)$")
+_ATTN_LEAF = re.compile(r"(^|/)attn/(wq|wk|wv|wo|wq_b|wk_b|wv_b)$")
 
 
 def tp_splits(cfg, mesh) -> dict:
-    """Which products of a dense model a rank of ``mesh``'s ``model``
-    axis (of size m) computes a 1/m share of: ``heads`` when
-    ``n_kv_heads % m == 0`` (the reference's ``constrain_attn``; else
+    """Which products of a dense or MoE model a rank of ``mesh``'s
+    ``model`` axis (of size m) computes a 1/m share of: ``heads`` when
+    ``n_kv_heads % m == 0`` (the reference's ``constrain_attn``; MLA,
+    whose heads share one latent, when ``n_heads % m == 0``; else
     attention runs whole on every rank), ``ffn`` and ``vocab`` where
     ``_fit`` splits the MLP's columns (``d_ff % m == 0``) and the
-    vocabulary (``vocab % m == 0``); what stays whole is computed whole,
-    with no collective."""
+    vocabulary (``vocab % m == 0``); for the MoE family ``experts``
+    where ``_fit`` splits the experts (``n_experts % m == 0``),
+    ``shared`` where it splits the shared expert's columns, and ``mtp``
+    where it splits the MTP head's ``proj`` by columns (``d_model % m ==
+    0``).  What stays whole is computed whole, with no collective."""
     m = _axis_size(mesh, "model")
-    return {"heads": cfg.n_kv_heads % m == 0, "ffn": cfg.d_ff % m == 0,
-            "vocab": cfg.vocab % m == 0}
+    heads = cfg.n_heads if cfg.attn_kind == "mla" else cfg.n_kv_heads
+    out = {"heads": heads % m == 0, "ffn": cfg.d_ff % m == 0,
+           "vocab": cfg.vocab % m == 0, "experts": False, "shared": False,
+           "mtp": False}
+    if cfg.family == "moe":
+        mo = cfg.moe
+        out.update(experts=mo.n_experts % m == 0,
+                   shared=bool(mo.n_shared) and (
+                       mo.n_shared * (mo.d_expert or cfg.d_ff)) % m == 0,
+                   mtp=bool(cfg.mtp) and cfg.d_model % m == 0)
+    return out
 
 
 def tp_plan(cfg, mesh, params=None):
-    """A tree of ``Spec`` in the structure of the dense ``params`` (built
-    on ``meta`` when None): each leaf's slice along ``model`` that a
-    tensor-parallel rank holds and computes with.  It is
+    """A tree of ``Spec`` in the structure of the dense or MoE ``params``
+    (built on ``meta`` when None): each leaf's slice along ``model`` that
+    a tensor-parallel rank holds and computes with.  It is
     ``params_shardings(mode="serve")`` -- the column products ``wq wk wv
-    w_gate w_up w_in`` split by columns, the row products ``wo w_down``
-    by rows, ``embed`` and ``lm_head`` by the vocabulary, each only where
-    ``_fit`` divides -- except that ``wq wk wv wo`` stay whole where the
-    heads do not split (``tp_splits``).  Biases and norms stay whole, as
-    the rules leave them; a rank slices a bias where it uses it."""
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: tensor-parallel serving covers the "
-                         f"dense family, not {cfg.family!r}")
+    w_gate w_up w_in`` (MLA's ``wq_b wk_b wv_b``, the MTP head's
+    ``proj``) split by columns, the row products ``wo w_down`` by rows,
+    the expert leaves [L, E, ...] by experts, ``embed`` and ``lm_head``
+    by the vocabulary, each only where ``_fit`` divides; MLA's ``wq_a
+    wkv_a``, the router and every norm whole -- except that the
+    attention products stay whole where the heads do not split
+    (``tp_splits``).  Biases stay whole, as the rules leave them; a rank
+    slices a bias where it uses it."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"{cfg.name}: tensor parallelism covers the "
+                         f"dense and MoE families, not {cfg.family!r}")
     if params is None:
         from repro_torch.models import init_params
         params = init_params(cfg, 0, torch.bfloat16, device="meta")

@@ -1,18 +1,33 @@
-"""Tensor-parallel serving of the dense family over a mesh's ``model``
-axis: the reference's partitioned serving steps (its ``param_spec`` in
-``mode="serve"`` and ``constrain_attn``, which XLA partitions), written
-out for a rank of a ``DeviceMesh``.
+"""Tensor parallelism of the dense and MoE families over a mesh's
+``model`` axis: the reference's partitioned serving and training steps
+(its ``param_spec`` in ``mode="serve"`` and ``mode="train"`` and
+``constrain_attn``, which XLA partitions), written out for a rank of a
+``DeviceMesh``.
 
 A rank of a ``model`` axis of m ranks holds its shard of each leaf
 (``sharding.tp_plan``, ``tp_shard``) and computes:
 
-* attention on its ``H/m`` query and ``K/m`` KV heads where ``K % m ==
-  0``: the column products ``wq wk wv`` give its heads, the row product
-  ``wo`` a partial sum that one all-reduce over the ``model`` group
-  completes; its KV cache holds its own heads.  Where ``K % m != 0``
-  attention runs whole on every rank, with no collective;
+* GQA attention on its ``H/m`` query and ``K/m`` KV heads where ``K % m
+  == 0``: the column products ``wq wk wv`` give its heads, the row
+  product ``wo`` a partial sum that one all-reduce over the ``model``
+  group completes; its KV cache holds its own heads.  Where ``K % m !=
+  0`` attention runs whole on every rank, with no collective;
+* MLA attention on its ``H/m`` heads where ``n_heads % m == 0``: the
+  whole ``wq_a wkv_a`` and their norms give every rank the same query
+  latent, latent c_kv and rotated key (the latent cache is whole on
+  every rank), its columns of ``wq_b wk_b wv_b`` its heads, its rows of
+  ``wo`` a partial sum, one all-reduce; whole elsewhere;
 * the MLP on its ``d_ff/m`` columns: ``w_gate w_up`` (or ``w_in``) by
   columns, ``w_down`` by rows, then one all-reduce, then ``b_down``;
+* a MoE layer on its ``E/m`` experts (``ffn.moe_rank``): every row
+  routed over all E experts by the whole fp32 router, dispatched to its
+  own at the reference's capacity, so it drops what the gathered path
+  drops; the shared expert on its columns adds its partial to the
+  experts', then one all-reduce for both.  The aux loss is the whole
+  router's, the same on every rank;
+* the MTP head's ``proj`` on its ``D/m`` columns, whose output is
+  gathered whole over the ranks (``TPRank.gather``) before the MTP
+  block, a decoder layer like the others;
 * a vocabulary-parallel embedding (a masked lookup of its ``V/m`` rows,
   then an all-reduce: one row is the token's, the others add zeros, so
   the sum is exact) and head (its ``[rows, V/m]`` logits, never
@@ -24,31 +39,32 @@ is computed whole with no collective.  Rows split over the data axes
 where ``batch_shardings`` splits them (``TPRank.for_rows``); the sampler
 keys each row's noise by its global row.  The layers' bodies are the
 one-card ones (``attention.gqa_forward``, ``gqa_decode``,
-``ffn.mlp_forward``, and the head's product) on local shapes: a local
-config holds the rank's heads.  A layer is two all-reduces of [rows, S,
-D] where the heads split, and the embedding one more.  The paged engine
-on a mesh is not here (a later slice); the other families serve on the
-whole tree.
+``mla_forward``, ``mla_decode``, ``ffn.mlp_forward``, the local-experts
+MoE, and the head's product) on local shapes: a local config holds the
+rank's heads.  A layer is two all-reduces of [rows, S, D] where the
+heads split, and the embedding one more.  The paged engine on a mesh is
+not here (a later slice); the other families serve on the whole tree.
 
 ``forward_train`` is the teacher-forced forward on the same shards and
-layer bodies with autograd, the reference's partitioned training step
-(its ``param_spec`` in ``mode="train"``): the input of every column
-product (q/k/v where the heads split, the MLP's first products, the
-head) passes through ``TPRank.copy`` (the identity; its gradient summed
-over the ``model`` group; serving, without grad, runs it as the
-identity), the output of every row product (``wo``, ``w_down``) and the
+layer bodies with autograd, the reference's partitioned training step:
+the input of every column product (q/k/v where the heads split, MLA's
+query latent, c_kv and rotated key, the MLP's and the experts' first
+products with the top-k weights, the MTP ``proj``, the head) passes
+through ``TPRank.copy`` (the identity; its gradient summed over the
+``model`` group; serving, without grad, runs it as the identity), the
+output of every row product (``wo``, ``w_down``, the experts') and the
 embedding through ``TPRank.reduce`` (the sum; its gradient as it is).
-The head's logits stay this rank's vocabulary slice, scored by
-``TPRank.token_logprob`` (``dispatch.token_logprob_vocab_parallel``):
-every rank of a ``model`` row then holds the same residual stream, the
-same loss and the same gradients of the leaves it holds whole, and its
-own slice's gradients of the split leaves.  A layer's backward is two
-all-reduces of [rows, S, D] where the heads split (one where they do
-not), and under ``cfg.remat_layers`` its recompute runs its forward's
-again; the head's backward one more.  Every all-reduce of the
-``model`` group goes through ``TPRank.all_reduce`` and the log-prob's
-gather through ``TPRank.gather_partials``, the seams the dry run and
-the checks count at.
+The head's logits (the MTP head's too) stay this rank's vocabulary
+slice, scored by ``TPRank.token_logprob``
+(``dispatch.token_logprob_vocab_parallel``): every rank of a ``model``
+row then holds the same residual stream, the same loss and the same
+gradients of the leaves it holds whole, and its own slice's gradients
+of the split leaves.  Under ``cfg.remat_layers`` a layer's recompute
+runs its forward's collectives again.  Every all-reduce of the
+``model`` group goes through ``TPRank.all_reduce`` and every all-gather
+(the log-prob's partials, the MTP ``proj``'s output) through
+``TPRank.gather_partials``, the seams the dry run and the checks count
+at.
 """
 from __future__ import annotations
 
@@ -66,8 +82,8 @@ from repro_torch.models import ffn as ffnmod
 from repro_torch.models import serve
 from repro_torch.models.common import norm
 from repro_torch.models.sharding import _axis_size, _map_with_path, \
-    _path_str, all_reduce_groups, copy_to, dp_axes, on_axis, reduce_from, \
-    tp_plan, tp_splits
+    _path_str, all_reduce_groups, copy_to, dp_axes, gather_from, on_axis, \
+    reduce_from, tp_plan, tp_splits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +99,9 @@ class TPRank:
     heads: bool
     ffn: bool
     vocab: bool
+    experts: bool = False
+    shared: bool = False
+    mtp: bool = False
     group: Any = None
     dp: tuple = ()
     row0: int = 0
@@ -104,8 +123,14 @@ class TPRank:
 
     def gather_partials(self, part):
         """Every rank's ``part`` of the ``model`` group, stacked in rank
-        order."""
+        order (not differentiable; the log-prob's partials and ``gather``
+        call it: every all-gather over ``model``)."""
         return dispatch.all_gather_stacked(part, self.group)
+
+    def gather(self, x):
+        """The ranks' ``x`` [.., n] joined along the last dim in rank
+        order; its gradient this rank's columns."""
+        return gather_from(x, self.rank, self.gather_partials)
 
     def token_logprob(self, logits, tokens, n_valid=None):
         """``dispatch.token_logprob`` of this rank's logits: of its
@@ -166,10 +191,10 @@ class TPRank:
 
 def steps_tp(cfg, model: int) -> bool:
     """Whether a rank of ``cfg`` on a ``model`` axis of ``model`` ranks
-    computes tensor-parallel: a dense model on more than one rank (every
-    other family, and a ``model`` axis of one rank, run on the whole
-    tree)."""
-    return cfg.family == "dense" and model > 1
+    computes tensor-parallel: a dense or MoE model on more than one rank
+    (every other family, and a ``model`` axis of one rank, run on the
+    whole tree)."""
+    return cfg.family in ("dense", "moe") and model > 1
 
 
 def tp_rank(cfg, mesh):
@@ -226,18 +251,45 @@ def _attn_out(y, tp: TPRank):
     return tp.reduce(y) if tp.heads else y
 
 
+def _moe(mp, h, cfg, tp: TPRank):
+    """The MoE layer of norm(x) ``h`` on this rank's experts and shared
+    expert columns, one ``TPRank.reduce`` for both (``ffn.moe_rank``):
+    (y, aux).  Where the experts stay whole every rank computes them
+    whole, and the shared expert alone is summed over the ranks where
+    its columns split."""
+    if tp.experts:
+        lo = tp.rank * mp["w_gate"].shape[0]
+        return ffnmod.moe_rank(mp, h, cfg, mp, lo, tp.copy, tp.reduce,
+                               shared_split=tp.shared)
+    y, aux = ffnmod.moe_rank({k: v for k, v in mp.items() if k != "shared"},
+                             h, cfg, mp, 0, _same, _same)
+    if "shared" in mp:
+        y = y + (ffnmod.mlp_forward(mp["shared"], tp.copy(h), "silu_gated",
+                                    reduce=tp.reduce) if tp.shared
+                 else ffnmod.mlp_forward(mp["shared"], h, "silu_gated"))
+    return y, aux
+
+
+def _same(x):
+    return x
+
+
 def _ffn(p, x, cfg, tp: TPRank):
-    """x + the MLP of norm(x) on this rank's columns, summed over the
-    ranks where they split (its input through ``TPRank.copy`` there)."""
-    mp = p["mlp"]
+    """(x + the FFN of norm(x) on this rank's share, the MoE aux loss):
+    the MLP on its columns, summed over the ranks where they split (its
+    input through ``TPRank.copy`` there), or the MoE layer (``_moe``)."""
     h = norm(x, p["ln2"], cfg.norm)
+    if "moe" in p:
+        y, aux = _moe(p["moe"], h, cfg, tp)
+        return x + y, aux
+    mp = p["mlp"]
     if not tp.ffn:
-        return x + ffnmod.mlp_forward(mp, h, cfg.act, bias=cfg.bias)
+        return x + ffnmod.mlp_forward(mp, h, cfg.act, bias=cfg.bias), 0.0
     if cfg.bias:
         n = mp["w_down"].shape[-2]
         mp = dict(mp, b_up=mp["b_up"][..., tp.rank * n:(tp.rank + 1) * n])
     return x + ffnmod.mlp_forward(mp, tp.copy(h), cfg.act, bias=cfg.bias,
-                                  reduce=tp.reduce)
+                                  reduce=tp.reduce), 0.0
 
 
 def head_logits(params, cfg, x, tp: TPRank):
@@ -250,18 +302,42 @@ def head_logits(params, cfg, x, tp: TPRank):
 
 
 def _check(cfg, cache=None):
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: tensor-parallel serving covers the "
-                         f"dense family, not {cfg.family!r}")
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"{cfg.name}: tensor parallelism covers the dense "
+                         f"and MoE families, not {cfg.family!r}")
     if cache is not None and "page_table" in cache:
         raise NotImplementedError("the paged layout on a tensor-parallel "
                                   "mesh is not ported")
 
 
+def _attn(p, x, cfg, acfg, window, tp: TPRank):
+    """(x + attention on this rank's heads, what its cache holds): GQA's
+    K/m heads, or MLA's H/m heads over the whole latent (c_kv, k_rope),
+    which every rank computes from the whole ``wq_a wkv_a``; whole where
+    the heads do not split."""
+    if cfg.attn_kind == "mla":
+        y, kv = attn.mla_forward(p["attn"], norm(x, p["ln1"], cfg.norm),
+                                 acfg, copy=tp.copy if tp.heads else None)
+    else:
+        y, kv = attn.gqa_forward(_attn_params(p["attn"], cfg, tp),
+                                 _attn_in(p, x, cfg, tp), acfg,
+                                 window=window)
+    return x + _attn_out(y, tp), kv
+
+
+def _layer(p, x, cfg, acfg, window, tp: TPRank):
+    """One decoder layer on this rank's share: (x, the MoE aux loss, what
+    the cache holds)."""
+    x, kv = _attn(p, x, cfg, acfg, window, tp)
+    x, aux = _ffn(p, x, cfg, tp)
+    return x, aux, kv
+
+
 def prefill(params, cfg, batch, cache_len: int, dtype, tp: TPRank):
     """``serve.prefill`` on this rank's shard: (its logits [B, V/m] of the
     last position, or [B, V] where the vocabulary stays whole, and its
-    cache, which holds its ``K/m`` heads where the heads split)."""
+    cache, which holds its ``K/m`` heads where GQA's heads split, MLA's
+    whole latent on every rank)."""
     _check(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -272,15 +348,11 @@ def prefill(params, cfg, batch, cache_len: int, dtype, tp: TPRank):
     for key, n, off in bb.layer_stacks(cfg):
         layers = bb.unstack(params[key], n)
         for i, j, w in bb._segment_windows(cfg, n, off):
-            ks, vs = [], []
+            kvs = []
             for p in layers[i:j]:
-                y, (k, v) = attn.gqa_forward(
-                    _attn_params(p["attn"], cfg, tp),
-                    _attn_in(p, x, cfg, tp), acfg, window=w)
-                x = _ffn(p, x + _attn_out(y, tp), cfg, tp)
-                ks.append(k)
-                vs.append(v)
-            kv_segs.append((torch.stack(ks), torch.stack(vs)))
+                x, _, kv = _layer(p, x, cfg, acfg, w, tp)
+                kvs.append(kv)
+            kv_segs.append(tuple(torch.stack(t) for t in zip(*kvs)))
     for seg, kvs in zip(cache["segments"], kv_segs):
         serve._write_seg(seg, kvs, start=0)
     cache["pos"] = S
@@ -297,11 +369,16 @@ def decode_step(params, cfg, cache, tokens, tp: TPRank):
     for (layers, w), seg in zip(serve.stack_segments(params, cfg),
                                 cache["segments"]):
         for li, p in enumerate(layers):
-            y = attn.gqa_decode(_attn_params(p["attn"], cfg, tp),
-                                _attn_in(p, x, cfg, tp), seg["k"][li],
-                                seg["v"][li], seg["slot_pos"], pos, acfg,
-                                window=w)
-            x = _ffn(p, x + _attn_out(y, tp), cfg, tp)
+            if "ckv" in seg:
+                y = attn.mla_decode(p["attn"], norm(x, p["ln1"], cfg.norm),
+                                    seg["ckv"][li], seg["krope"][li],
+                                    seg["slot_pos"], pos, acfg)
+            else:
+                y = attn.gqa_decode(_attn_params(p["attn"], cfg, tp),
+                                    _attn_in(p, x, cfg, tp), seg["k"][li],
+                                    seg["v"][li], seg["slot_pos"], pos, acfg,
+                                    window=w)
+            x, _ = _ffn(p, x + _attn_out(y, tp), cfg, tp)
     cache["pos"] = pos + 1
     return head_logits(params, cfg, x[:, -1], tp), cache
 
@@ -309,31 +386,51 @@ def decode_step(params, cfg, cache, tokens, tp: TPRank):
 # --------------------------------------------------------- training ---
 
 def _train_layer(p, x, cfg, acfg, window, tp: TPRank):
-    """One decoder layer for training: x + attention on this rank's
-    heads (whole where they do not split), then ``_ffn``."""
-    y, _ = attn.gqa_forward(_attn_params(p["attn"], cfg, tp),
-                            _attn_in(p, x, cfg, tp), acfg, window=window)
-    return _ffn(p, x + _attn_out(y, tp), cfg, tp)
+    """One decoder layer for training: (x, the MoE aux loss)."""
+    x, aux, _ = _layer(p, x, cfg, acfg, window, tp)
+    return x, aux
+
+
+def _mtp_proj(w, x, tp: TPRank):
+    """x @ the MTP head's ``proj``: this rank's columns of it (its input
+    through ``TPRank.copy``) gathered whole over the ranks
+    (``TPRank.gather``), or the whole product where they do not split."""
+    if not tp.mtp:
+        return x @ w
+    return tp.gather(tp.copy(x) @ w)
 
 
 def forward_train(params, cfg, batch, tp: TPRank):
-    """``backbone.forward_train`` of a dense model on this rank's shard
-    (``sharding.tp_plan``; a stacked leaf may be a ``backbone.StackShard``
-    whose layers ``backbone._layer`` gathers, under ``cfg.remat_layers``
-    inside the layer's checkpoint): (its logits [B, S, V/m], or [B, S, V]
-    where the vocabulary stays whole, and ``{"moe_aux": 0.0}``).
+    """``backbone.forward_train`` of a dense or MoE model on this rank's
+    shard (``sharding.tp_plan``; a stacked leaf may be a
+    ``backbone.StackShard`` whose layers ``backbone._layer`` gathers,
+    under ``cfg.remat_layers`` inside the layer's checkpoint): (its
+    logits [B, S, V/m], or [B, S, V] where the vocabulary stays whole,
+    and ``{"moe_aux"}`` with, for an MTP head, its logits in
+    ``"mtp_logits"``, this rank's vocabulary slice too).
     Differentiable; score the logits with ``tp.token_logprob``."""
     _check(cfg)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = embed(params, cfg, tokens, tp)
     acfg = tp.attn_cfg(cfg)
+    aux = 0.0
     for key, n, off in bb.layer_stacks(cfg):
         layers = bb.unstack(params[key], n)
         for i, j, w in bb._segment_windows(cfg, n, off, seq_len=S):
             for p in layers[i:j]:
-                x = bb._layer(cfg, _train_layer, p, x, cfg, acfg, w, tp)
-    return head_logits(params, cfg, x, tp), {"moe_aux": 0.0}
+                x, a = bb._layer(cfg, _train_layer, p, x, cfg, acfg, w, tp)
+                aux = aux + a
+    out = {"moe_aux": aux}
+    if cfg.mtp and "mtp" in params:
+        mtp = params["mtp"]
+        nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+        h = _mtp_proj(mtp["proj"], torch.cat(
+            [norm(x, mtp["norm"], cfg.norm), embed(params, cfg, nxt, tp)],
+            dim=-1), tp)
+        h, _, _ = _layer(mtp["block"], h, cfg, acfg, 0, tp)
+        out["mtp_logits"] = head_logits(params, cfg, h, tp)
+    return head_logits(params, cfg, x, tp), out
 
 
 # the biases a rank slices where the heads (``_attn_params``) or the MLP's
@@ -343,14 +440,16 @@ _SLICED_BIASES = {"heads": re.compile(r"(^|/)attn/(bq|bk|bv)$"),
 
 
 def train_roles(cfg, mesh, params) -> list:
-    """Per leaf of a dense ``params`` (whole tensors, DTensors or meta,
-    in ``tree_leaves`` order), how a tensor-parallel training rank on
-    ``mesh`` uses it: "shard" where ``tp_plan`` splits it over ``model``
-    (the rank computes with its slice; its gradient is that slice's),
+    """Per leaf of a dense or MoE ``params`` (whole tensors, DTensors or
+    meta, in ``tree_leaves`` order), how a tensor-parallel training rank
+    on ``mesh`` uses it: "shard" where ``tp_plan`` splits it over
+    ``model`` (the rank computes with its slice, its experts or its MLA
+    heads; its gradient is that slice's),
     "sum" where it holds the leaf whole but uses a slice (a bias of
     split heads or MLP columns: the ranks' gradients are disjoint slices
-    of the whole, summed over ``model``), "whole" elsewhere (every rank
-    of a ``model`` row computes the same gradient)."""
+    of the whole, summed over ``model``), "whole" elsewhere (the router,
+    the norms, MLA's ``wq_a wkv_a``: every rank of a ``model`` row
+    computes the same gradient)."""
     from repro_torch.train.optimizer import tree_leaves
     splits = tp_splits(cfg, mesh)
 

@@ -27,22 +27,25 @@ One step (``make_sharded_train_step``):
      it is sharded over ``model``, one layer at a time, so no whole
      gradient of a stacked leaf is ever alive.  With replicated rows
      nothing is summed over the data axes;
-  3a. for a dense model on a mesh whose ``model`` axis has more than one
-     rank (``models.tp.tp_rank``), the step is the reference's
+  3a. for a dense or MoE model on a mesh whose ``model`` axis has more
+     than one rank (``models.tp.tp_rank``), the step is the reference's
      partitioned one: the loss runs ``models.tp.forward_train`` and the
-     vocabulary-parallel log-prob.  A leaf that the TP body uses as its
-     slice (``tp.train_roles`` "shard": the MLP, ``embed``, ``lm_head``,
-     and ``wq wk wv wo`` where the heads split) keeps its ``model``
-     placement: its gather and its gradient's reduction run over the
-     data axes only, and the gradient is this rank's slice's.  A leaf
-     used whole is gathered whole as above; the ranks of a ``model`` row
-     computed the same gradient of it, so nothing is summed over
-     ``model``, except for a bias a rank holds whole and uses a slice of
-     ("sum"), whose gradient is also summed over ``model``.  For every
-     other family (whose TP is not ported) every leaf is gathered whole:
-     the ranks of a ``model`` row run the same rows and hold the same
-     gradients (under expert parallelism each holds its own experts'
-     rows of an expert leaf, the rows its shard keeps);
+     vocabulary-parallel log-prob (the MTP loss's too).  A leaf that
+     the TP body uses as its slice (``tp.train_roles`` "shard": the MLP,
+     ``embed``, ``lm_head``, ``wq wk wv wo`` where the heads split, MLA's
+     ``wq_b wk_b wv_b wo``, the expert leaves, the shared expert, the
+     MTP ``proj``) keeps its ``model`` placement: its gather and its
+     gradient's reduction run over the data axes only, and the gradient
+     is this rank's slice's (an expert leaf's, its own experts').  A
+     leaf used whole (the router, the norms, MLA's ``wq_a wkv_a``) is
+     gathered whole as above; the ranks of a ``model`` row computed the
+     same gradient of it, so nothing is summed over ``model``, except
+     for a bias a rank holds whole and uses a slice of ("sum"), whose
+     gradient is also summed over ``model``.  For every other family
+     (whose TP is not ported) every leaf is gathered whole: the ranks
+     of a ``model`` row run the same rows and hold the same gradients
+     (under expert parallelism each holds its own experts' rows of an
+     expert leaf, the rows its shard keeps);
   4. Adam on the local shards, clipped by the global gradient norm: the
      local shards' squares summed over the mesh, a leaf's replicated
      copies counted once.
@@ -205,8 +208,8 @@ def make_sharded_train_step(cfg, mesh, *, lr=2e-7, rho=4.0,
     ``make_train_step`` on the state ``shard_state`` gives.  ``batch`` is
     the global batch, the same on every rank; the step keeps this rank's
     rows.  Every rank of the mesh calls it; the metrics are global.  A
-    dense ``cfg`` on a ``model`` axis of more than one rank steps on its
-    tensor-parallel shards (step 3a of the module's docstring)."""
+    dense or MoE ``cfg`` on a ``model`` axis of more than one rank steps
+    on its tensor-parallel shards (step 3a of the module's docstring)."""
     tp = tp_rank(cfg, mesh)
     loss_fn = make_loss_fn(cfg, rho=rho, clip_mode=clip_mode, kl_coef=kl_coef,
                            mtp_weight=mtp_weight, remat=remat, tp=tp)

@@ -45,9 +45,10 @@ def init_train_state(cfg, seed: int = 0, dtype=torch.float32,
 def make_loss_fn(cfg, *, rho=4.0, clip_mode="aipo", kl_coef=0.0,
                  mtp_weight=0.1, remat=False, tp=None):
     """The loss of ``params`` on a batch: (loss, metrics).  With ``tp``
-    (a ``models.tp.TPRank``) the params are a dense model's
+    (a ``models.tp.TPRank``) the params are a dense or MoE model's
     tensor-parallel shards: the forward is ``models.tp.forward_train``
-    and the log-probs are its vocabulary-parallel ones."""
+    and the log-probs, the MTP head's too, are its vocabulary-parallel
+    ones."""
     fwd, logprob = forward_train, None
     if tp is not None:
         from repro_torch.models import tp as tpmod
@@ -79,7 +80,8 @@ def make_loss_fn(cfg, *, rho=4.0, clip_mode="aipo", kl_coef=0.0,
             # multi-token-prediction auxiliary CE on t+2 targets
             tgt = batch["tokens"][:, 2:]
             m = batch["mask"][:, 2:]
-            lp = token_logprobs(aux["mtp_logits"], tgt, n_valid=T - 2)
+            lp = (logprob or token_logprobs)(aux["mtp_logits"], tgt,
+                                             n_valid=T - 2)
             mtp_loss = -batch_total((lp * m).sum()) \
                 / torch.clamp(batch_total(m.sum()), min=1.0)
             loss = loss + mtp_weight * mtp_loss

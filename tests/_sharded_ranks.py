@@ -135,7 +135,8 @@ def _layer_bytes(state, cfg, mesh) -> int:
     """The most bytes one layer's stacked leaves take as the step gathers
     them (each leaf whose gather moves anything): whole, or, on a
     tensor-parallel step (``tp.train_roles``), a split leaf's ``model``
-    slice."""
+    slice; 0 where no stacked leaf is gathered (each is this rank's TP
+    slice and the data axis is one rank)."""
     from repro_torch.models.sharding import stacked_leaves
     from repro_torch.models.tp import tp_rank, train_roles
     from repro_torch.train.optimizer import tree_leaves
@@ -155,7 +156,7 @@ def _layer_bytes(state, cfg, mesh) -> int:
                 n //= mesh.size(i)
         stack = key.split("/")[0]
         per[stack] = per.get(stack, 0) + n
-    return max(per.values())
+    return max(per.values(), default=0)
 
 
 def _moe_checks(mesh, arch, ref, out):

@@ -1,20 +1,32 @@
 """A child's own mesh (``DeviceSpec.mesh_shape``, ``Executor(mesh=)``,
 ``--child-mesh``) on gloo ranks on the CPU.
 
-Three meshed actors spawn at once, each a ``proc`` child and the one
-other rank it spawns: two trainers on a (1, 2) mesh and a generator on a
-(2, 1) mesh, in fp32.  Each is held to the same executor without a mesh,
-built here on one thread as the children run.  The first trainer runs
-Llama 4 Scout's smoke config, of the MoE family, whose sharded step
-gathers every leaf whole over ``model``: its one step, params and m within 1e-6 of each
-leaf's largest, v within 2e-6, the bits reported.  The second runs
-llama31's smoke config, whose step on that mesh is the dense family's
-tensor-parallel one (``models.tp``: partial products summed over the
-ranks, a vocabulary-parallel log-prob): its one step at
-tests/test_torch_sharded.py's bounds for such a step (metrics within
-1e-6 relative; m and v within 1e-5 of each leaf's largest; each leaf's
-update 99% within 1e-5 of its largest and all within 0.2 of it).  The
-generator (llama31's smoke): its tokens under the same key, equal.  The
+Four meshed actors spawn at once, each a ``proc`` child and the one
+other rank it spawns: three trainers and a generator, in fp32.  Each is
+held to the same executor without a mesh, built here on one thread as
+the children run.  The first trainer runs Llama 4 Scout's smoke config,
+of the MoE family, on a (2, 1) mesh with a batch of 3 rows, which the
+data axis does not split: its sharded step gathers every leaf whole
+over ``data`` and runs every row on both ranks (on a ``model`` axis of
+two its step is tensor-parallel since the MoE family's TP; no family
+whose step gathers whole there holds these bounds: the VLM's and the
+audio model's executors take no patch or frame embeddings, in both
+packages, and the zamba2, xlstm, qwen2-vl and seamless smokes' m miss
+1e-6 by their clip scale alone: torch's CPU ``vector_norm`` adds a
+leaf's squares in fp32 in turn, so the norm of a leaf's two halves, as a
+rank on the model axis holds them, differs from the whole leaf's past
+fp32 rounding, see tests/test_torch_train.py::
+test_cpu_global_norm_of_a_leaf_and_of_its_halves): its one step,
+params and m within 1e-6 of each leaf's largest, v within 2e-6, the
+bits reported.  The second and the third run llama31's and Llama 4
+Scout's smoke configs on a (1, 2) mesh, whose steps there are
+tensor-parallel (``models.tp``: partial products summed over the ranks,
+each rank its own experts of the MoE, a vocabulary-parallel log-prob):
+their one step at tests/test_torch_sharded.py's bounds for such a step
+(metrics within 1e-6 relative; m and v within 1e-5 of each leaf's
+largest; each leaf's update 99% within 1e-5 of its largest and all
+within 0.2 of it).  The generator (llama31's smoke, on a (2, 1) mesh):
+its tokens under the same key, equal.  The
 first trainer's world of two also carries DDMA onto its mesh and across
 ``trainer_generator_submeshes``, bit for bit; the generator places
 payloads as ``InprocTransport.prepare`` does.  After
@@ -52,6 +64,12 @@ TOL = {"params": 1e-6, "m": 1e-6, "v": 2e-6}
 # gradient is near its eps to a move of about lr whatever its fp32 noise)
 TP_TOL = {"m": 1e-5, "v": 1e-5}
 UPDATE_TOL, UPDATE_WORST = 1e-5, 0.2
+# Llama 4 Scout's smoke: tests/test_torch_sharded.py's bounds for it, m,
+# v and 99% of an update within 1e-4, where its reference gradient is at
+# least 1e-6 (``G_SIGN`` there: below it Adam's update turns on the
+# gradient's last bits; such an element is held to the 0.2 alone)
+MOE_TP_TOL = {"m": 1e-4, "v": 1e-4, "update": 1e-4}
+MOE_G_SIGN = 1e-6
 
 
 def _batch(cfg, seed=5, B=4, T=24, prompt=8):
@@ -85,18 +103,21 @@ def _one_thread(fn):
 
 @pytest.fixture(scope="module")
 def meshed():
-    """The three meshed actors, spawned at once; each is driven, then
+    """The four meshed actors, spawned at once; each is driven, then
     closed, and its ranks' pids kept for the leak check."""
     cfg, tcfg = smoke(), configs.get_smoke("llama4-scout-17b-a16e")
     out, errors = {}, []
+    # (key, config, mesh, rows of the batch)
+    trainers = [("trainer", tcfg, (2, 1), 3), ("tp", cfg, (1, 2), 4),
+                ("moe_tp", tcfg, (1, 2), 4)]
 
-    def trainer(key, c, ddma):
+    def trainer(key, c, shape, rows, ddma):
         h = spawn_actor(MeshTrainer, c, lr=LR, seed=0, device="cpu",
                         transport="proc",
-                        device_spec=DeviceSpec(mesh_shape=(1, 2)))
+                        device_spec=DeviceSpec(mesh_shape=shape))
         h.call("init")
         out[key + "_info"] = h.call("mesh_info")
-        h.call("put_input", "completions_with_reward", _batch(c))
+        h.call("put_input", "completions_with_reward", _batch(c, B=rows))
         out[key + "_metrics"] = h.call("step")
         out[key + "_state"] = h.call("state_whole")
         if ddma:
@@ -122,17 +143,19 @@ def meshed():
             fn(*args)
         except BaseException as e:          # re-raised below
             errors.append(e)
-    threads = [threading.Thread(target=run, args=a) for a in (
-        (trainer, "trainer", tcfg, True), (trainer, "tp", cfg, False),
-        (generator,))]
+    threads = [threading.Thread(target=run, args=(
+        trainer, key, c, shape, rows, key == "trainer"))
+        for key, c, shape, rows in trainers]
+    threads.append(threading.Thread(target=run, args=(generator,)))
     for t in threads:
         t.start()
     # the unmeshed twins, here, while the children spawn
-    for key, c in (("twin", tcfg), ("tp_twin", cfg)):
+    for key, c, _, rows in trainers:
+        key = "twin" if key == "trainer" else key + "_twin"
         twin = TrainerExecutor(c, lr=LR, seed=0, device="cpu")
         _one_thread(twin.init)
         out[key + "_init"] = twin.state.params   # Adam makes new params
-        twin.put_input("completions_with_reward", _batch(c))
+        twin.put_input("completions_with_reward", _batch(c, B=rows))
         out[key + "_metrics"] = _one_thread(twin.step)
         out[key + "_state"] = twin.state
     gen = GeneratorExecutor(cfg, ArithmeticTasks(seed=1), **_gen_kwargs())
@@ -149,8 +172,17 @@ def meshed():
         close_all_actors()
 
 
-def _check_info(info):
-    assert info["shape"] == [1, 2] and info["axes"] == ["data", "model"]
+def _paths(tree, prefix=()):
+    """The leaf paths of nested dicts in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + (k,))
+    else:
+        yield "/".join(prefix)
+
+
+def _check_info(info, shape=(1, 2)):
+    assert info["shape"] == list(shape) and info["axes"] == ["data", "model"]
     assert info["device_type"] == "cpu" and len(set(info["pids"])) == 2
 
 
@@ -160,7 +192,7 @@ def _check_metrics(got, want):
 
 
 def test_meshed_trainer_step_equals_the_unmeshed_step(meshed):
-    _check_info(meshed["trainer_info"])
+    _check_info(meshed["trainer_info"], (2, 1))
     got, want = meshed["trainer_state"], meshed["twin_state"]
     assert got["step"] == want.opt.step == 1
     bits, worst = True, {}
@@ -182,10 +214,27 @@ def test_meshed_trainer_step_equals_the_unmeshed_step(meshed):
 def test_meshed_tp_trainer_step_matches_the_unmeshed_step(meshed):
     """The dense family's tensor-parallel step in a child's own (1, 2)
     mesh against the unmeshed step, at the bounds for such a step."""
-    _check_info(meshed["tp_info"])
-    got, want = meshed["tp_state"], meshed["tp_twin_state"]
+    _check_tp_step(meshed, "tp", dict(TP_TOL, update=UPDATE_TOL))
+
+
+def test_meshed_moe_tp_trainer_step_matches_the_unmeshed_step(meshed):
+    """The MoE family's tensor-parallel step (Llama 4 Scout's smoke: two
+    experts, four of eight query heads and half the vocabulary a rank)
+    in a child's own (1, 2) mesh against the unmeshed step, at the
+    bounds for such a step."""
+    _check_tp_step(meshed, "moe_tp", MOE_TP_TOL, MOE_G_SIGN)
+
+
+def _check_tp_step(meshed, key, tol, g_sign=0.0):
+    """One TP step against the unmeshed one at ``tol``; an update whose
+    reference gradient (the unmeshed m over 0.1, Adam's first step) is
+    below ``g_sign`` is held to UPDATE_WORST alone."""
+    _check_info(meshed[key + "_info"])
+    got, want = meshed[key + "_state"], meshed[key + "_twin_state"]
     assert got["step"] == want.opt.step == 1
-    init = tree_leaves(meshed["tp_twin_init"])
+    init = tree_leaves(meshed[key + "_twin_init"])
+    names = list(_paths(want.params))
+    grads = [m.abs() / 0.1 for m in tree_leaves(want.opt.m)]
     worst = {}
     for part, tree in (("params", want.params), ("m", want.opt.m),
                        ("v", want.opt.v)):
@@ -201,14 +250,17 @@ def test_meshed_tp_trainer_step_matches_the_unmeshed_step(meshed):
                 err = ((a - b).abs() - ulp).clamp(min=0) / max(big, 1e-30)
                 worst[part] = max(worst.get(part, 0.0), err.max().item())
                 assert err.max().item() <= UPDATE_WORST, part
-                assert (err > UPDATE_TOL).float().mean().item() <= 0.01, part
+                held = grads[i] >= g_sign
+                assert (err[held] > tol["update"]).float().mean().item() \
+                    <= 0.01, (part, names[i])
                 continue
             rel = (a - b).abs().max().item() / max(b.abs().max().item(),
                                                    1e-30)
             worst[part] = max(worst.get(part, 0.0), rel)
-            assert rel <= TP_TOL[part], part
-    _check_metrics(meshed["tp_metrics"], meshed["tp_twin_metrics"])
-    print("meshed tensor-parallel trainer, the largest difference of each "
+            assert rel <= tol[part], part
+    _check_metrics(meshed[key + "_metrics"], meshed[key + "_twin_metrics"])
+    print(f"meshed tensor-parallel trainer ({key}), the largest difference "
+          "of each "
           "leaf's largest (params: of its update): " + ", ".join(
               f"{k} {v:.1e}" for k, v in worst.items()))
 
@@ -220,7 +272,7 @@ def test_meshed_generator_tokens_equal_the_unmeshed_ones(meshed):
 
 
 def test_ddma_onto_a_mesh_and_across_submeshes(meshed):
-    """Replicated onto the trainer's (1, 2) mesh on both ranks; across
+    """Replicated onto the trainer's (2, 1) mesh on both ranks; across
     the submeshes ([0] trains, [1] generates), rank 1 holds rank 0's
     version bit for bit and rank 0 gets None."""
     r0, r1 = meshed["ddma"]
@@ -243,7 +295,7 @@ def test_payload_placement_on_a_mesh(meshed):
 def test_no_mesh_rank_left_after_close(meshed):
     close_all_actors()
     pids = meshed["trainer_info"]["pids"] + meshed["tp_info"]["pids"] \
-        + meshed["gen_info"]["pids"]
+        + meshed["moe_tp_info"]["pids"] + meshed["gen_info"]["pids"]
     deadline = time.monotonic() + 20.0
     while time.monotonic() < deadline and any(
             os.path.exists(f"/proc/{p}") for p in pids):
@@ -251,6 +303,7 @@ def test_no_mesh_rank_left_after_close(meshed):
     assert not [p for p in pids if os.path.exists(f"/proc/{p}")]
     assert not meshed["trainer_h"].healthy()
     assert not meshed["tp_h"].healthy()
+    assert not meshed["moe_tp_h"].healthy()
     assert not meshed["gen_h"].healthy()
 
 

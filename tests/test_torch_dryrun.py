@@ -321,9 +321,10 @@ def xla_tp_decode_flops():
     """XLA's ``cost_analysis()`` FLOPs a device of the reference's
     ``lower_combo`` for llama31-smoke's decode at one layer (XLA counts a
     scan's body once) on a (1, 4) mesh of four emulated CPU devices, with
-    2 and with 4 KV heads, and of its train step with 4 (a subprocess:
-    the device count is fixed at JAX's first use).  Returns {kv heads:
-    decode FLOPs, "train": train FLOPs}."""
+    2 and with 4 KV heads, and of its train step with 4, and of
+    deepseek-v3's smoke decode (a subprocess: the device count is fixed
+    at JAX's first use).  Returns {kv heads: decode FLOPs, "train": train
+    FLOPs, "dsv3": deepseek-v3's decode FLOPs}."""
     import os
     import subprocess
     import sys
@@ -348,13 +349,20 @@ for k, shape in ((2, "tp_decode"), (4, "tp_decode"), ("train", "tp_train")):
     cost = lowered.compile().cost_analysis()
     cost = cost[0] if isinstance(cost, list) else cost
     print("FLOPS", k, cost["flops"])
+dsv3 = configs.get_smoke("deepseek-v3-671b")
+configs.get_config = lambda a: dsv3
+_, _, lowered = d.lower_combo("deepseek-v3-671b", "tp_decode", mesh,
+                              dtype=jnp.float32)
+cost = lowered.compile().cost_analysis()
+cost = cost[0] if isinstance(cost, list) else cost
+print("FLOPS dsv3", cost["flops"])
 """
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", script], env=env, cwd=root,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    return {(k if k == "train" else int(k)): float(f) for k, f in
+    return {(k if k in ("train", "dsv3") else int(k)): float(f) for k, f in
             (line.split()[1:] for line in out.stdout.splitlines()
              if line.startswith("FLOPS"))}
 
@@ -398,3 +406,45 @@ def test_tp_train_flops_against_xla(xla_tp_decode_flops):
     rec = dryrun.analyse(cfg, shape, lowered, mesh)
     ratio = rec["flops_per_device"] / xla_tp_decode_flops["train"]
     assert 0.9 <= ratio <= 1.1, (rec["flops_per_device"], ratio)
+
+
+def test_tp_moe_decode_flops_against_xla(xla_tp_decode_flops):
+    """The port's per-device FLOPs of deepseek-v3's smoke decode on (1, 4),
+    tensor-parallel (MLA on one of its 4 heads a rank over the whole
+    latent, one of 4 experts and a quarter of the shared expert's and of
+    the dense layer's columns, a quarter of the vocabulary), against
+    XLA's for the reference's partitioned decode: within [0.9, 1.1].
+    Every leaf splits as the reference's serve shards split it and the
+    latent cache is whole in both, so the rank holds the reference's
+    arguments to the byte."""
+    mesh = dryrun.production_mesh(mesh_shape=(1, 4))
+    cfg, shape, lowered = dryrun.lower_combo(
+        configs.get_smoke("deepseek-v3-671b"),
+        ShapeSpec("tp_decode", 32, 4, "decode"), mesh, dtype=torch.float32)
+    rec = dryrun.analyse(cfg, shape, lowered, mesh)
+    ratio = rec["flops_per_device"] / xla_tp_decode_flops["dsv3"]
+    assert 0.9 <= ratio <= 1.1, (rec["flops_per_device"], ratio)
+    assert rec["held_bytes"] == rec["argument_bytes"], rec
+    assert set(rec["collectives"]) == {"all-reduce"}, rec
+
+
+def test_tp_moe_collectives_counted():
+    """The dry run counts a MoE rank's collectives at their seams on (1,
+    4), deepseek-v3's smoke (a dense MLA layer, an MLA + MoE layer, the
+    MTP head): decoding, one all-reduce of [rows, 1, D] for each layer's
+    ``wo`` and one for its MLP or its experts and shared expert
+    together, and the embedding's; training, the all-gathers of the
+    log-prob's [rows, T - 1, 3] and the MTP loss's [rows, T - 2, 3]
+    partials and of the MTP ``proj``'s [rows, T, D / 4] output."""
+    cfg = configs.get_smoke("deepseek-v3-671b")
+    mesh = dryrun.production_mesh(mesh_shape=(1, 4))
+    B, T, D = 4, 32, cfg.d_model
+    _, _, lowered = dryrun.lower_combo(
+        cfg, ShapeSpec("d", T, B, "decode"), mesh, dtype=torch.float32)
+    got = lowered.run()["collectives"]
+    assert got == {"all-reduce": (2 * cfg.n_layers + 1) * B * D * 4}, got
+    _, _, lowered = dryrun.lower_combo(
+        cfg, ShapeSpec("t", T, B, "train"), mesh, dtype=torch.float32)
+    got = lowered.run()["collectives"]
+    want = 4 * 4 * (B * (T - 1) * 3 + B * (T - 2) * 3 + B * T * D // 4)
+    assert got["all-gather"] == want, got

@@ -31,12 +31,22 @@ key bias's update, rounding noise, is held to the 0.2 alone, see
 ``NOISE``).  Their FFN, ``embed`` and ``lm_head`` are never gathered
 over ``model``, nor on (2, 2), where the heads split, any attention
 leaf; on (1, 4) (2 % 4 != 0) attention is gathered whole; a layer's
-gathered bytes are the plan's (a split leaf's ``model`` slice).  The expert-parallel modes,
+gathered bytes are the plan's (a split leaf's ``model`` slice).  The
+MoE smokes step tensor-parallel too: deepseek-v3's (MLA on its 4 heads,
+2 or 1 of 4 experts a rank, the MTP head's ``proj`` by columns, its
+loss vocabulary-parallel) at its unchanged bounds, and llama4-scout's
+(GQA split as llama31's, a top-1 MoE with a shared expert, windows) at
+tests/test_torch_moe.py's 1e-4 and llama31's 0.2 (an update whose
+reference gradient is below 1e-6 held to the 0.2 alone, see
+``G_SIGN``); no expert leaf, MLA head, MTP
+``proj`` or vocabulary leaf is gathered over ``model``.  The
+expert-parallel modes,
 ep_shmap also under ``remat_layers`` (its recompute runs the EP
 collectives again), hold to the gathered one within
 tests/test_moe_ep.py's 1e-4."""
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -54,19 +64,27 @@ from _sharded_ranks import LR, MOE_ARCHS, REMAT, STEPS, paths, rank_main
 # (name, arch, rows, accum_steps, kl_coef): llama31 smoke with its two
 # microbatches' rows split over data (2 % 2 == 0), and replicated
 # (3 % 2 != 0); starcoder2's smoke split; deepseek-v3's smoke (MLA, MoE
-# aux, MTP) split
+# aux, MTP) split; llama4-scout's smoke (GQA, a top-1 MoE with a shared
+# expert, windows) split
 CASES = [("llama", "llama31-8b", 4, 2, 0.05),
          ("llama_rep", "llama31-8b", 3, 1, 0.0),
          ("sc2", "starcoder2-3b", 4, 1, 0.0),
-         ("dsv3", "deepseek-v3-671b", 4, 1, 0.0)]
+         ("dsv3", "deepseek-v3-671b", 4, 1, 0.0),
+         ("scout", "llama4-scout-17b-a16e", 4, 1, 0.0)]
 # starcoder2's smoke (biases, a window of 64) at 96 tokens, so its
 # layers attend through the window
 SEQ = {"starcoder2-3b": 96}
-TOL = {"llama31-8b": 1e-5, "starcoder2-3b": 1e-5, "deepseek-v3-671b": 1e-4}
+# llama4-scout's smoke at tests/test_torch_moe.py's 1e-4 (the port's
+# one-device step misses 1e-5 against the JAX step at the 99th percentile
+# itself: the shared expert and wq by 1.5e-5-1.8e-5; the TP step's
+# router m by up to 4.2e-5 of its largest, see ``G_SIGN``)
+TOL = {"llama31-8b": 1e-5, "starcoder2-3b": 1e-5, "deepseek-v3-671b": 1e-4,
+       "llama4-scout-17b-a16e": 1e-4}
 # the most an update may be off, as a share of the leaf's largest update:
 # tests/test_torch_train.py's 0.2, and tests/test_torch_mla.py's 2 lr
 # (an element whose gradient is near Adam's eps can flip its move)
-WORST = {"llama31-8b": 0.2, "starcoder2-3b": 0.2, "deepseek-v3-671b": 2.0}
+WORST = {"llama31-8b": 0.2, "starcoder2-3b": 0.2, "deepseek-v3-671b": 2.0,
+         "llama4-scout-17b-a16e": 0.2}
 # leaves whose gradient is zero in exact arithmetic: a key bias shifts
 # every score of a query by the same q . b_k, which softmax ignores, so
 # what is computed is rounding noise that Adam scales up to moves of up
@@ -75,6 +93,16 @@ WORST = {"llama31-8b": 0.2, "starcoder2-3b": 0.2, "deepseek-v3-671b": 2.0}
 # 1.1e-2 of the largest).  Their m and v are held as every leaf's, their
 # update to WORST alone
 NOISE = ("layers/attn/bk",)
+# and per arch, the size of the reference gradient below which an
+# element's update is held to WORST alone: Adam's first step moves an
+# element by lr g / (|g| + 1e-8), which turns on the gradient's last bits
+# (its sign too) where |g| is within 100 of that eps.  llama4-scout's
+# top-1 router has a gradient of 2.6e-05 at most (the aux loss's) that
+# carries its normalised weight v / (v + 1e-9)'s rounding, of about
+# 1e-9: a quarter of its elements lie below 1e-6, and there 1-3% of the
+# TP step's updates miss the JAX step's by more than 1e-4 of the largest
+# (0.05% at most of the elements above it)
+G_SIGN = {"llama4-scout-17b-a16e": 1e-6}
 
 
 def _jcfg(arch):
@@ -201,8 +229,19 @@ def _check_case(res, arrays, name, run, case, arch):
                 ulp = np.spacing(np.abs(j).astype(np.float32))
                 err = np.maximum(np.abs(dt - dj) - ulp, 0) / big
                 assert err.max() <= WORST[arch], (case, k, p, err.max())
-                if p not in NOISE:
-                    assert np.quantile(err, 0.99) <= tol, (case, k, p)
+                if p in NOISE:
+                    continue
+                if arch in G_SIGN:
+                    # the reference gradient of this step, from its m
+                    g = np.abs(after[1][p] - 0.9 * before[1][p]) / 0.1
+                    held = g >= G_SIGN[arch]
+                    if not held.all():
+                        print(f"{case} step {k + 1} {p}: reference gradient "
+                              f"{g.max():.3g} at most, {1 - held.mean():.3f} "
+                              f"of it below {G_SIGN[arch]:g}")
+                    assert (err[held] > tol).mean() <= 0.01, (case, k, p)
+                    continue
+                assert np.quantile(err, 0.99) <= tol, (case, k, p)
 
 
 def _check_layers(res):
@@ -211,6 +250,13 @@ def _check_layers(res):
     for base in REMAT:
         off, on = res["layers"][base], res["layers"][base + "_remat"]
         one = on["layer_bytes"]
+        if off["layer_bytes"] == one == 0:
+            # a tensor-parallel step whose every stacked leaf is this
+            # rank's slice on one data rank (deepseek-v3 on (1, 4)):
+            # no layer is gathered, with or without remat_layers
+            for r in (off, on):
+                assert r["n"] == r["peak"] == r["grad_peak"] == 0, (base, r)
+            continue
         assert off["layer_bytes"] == one > 0, (base, off, on)
         assert off["n"] > 0 and on["n"] == 2 * off["n"], (base, off, on)
         assert 0 < on["fwd_peak"] <= one < off["fwd_peak"], (base, off, on)
@@ -237,16 +283,30 @@ LAYER_BYTES = {("llama31-8b", "data2_model2"): 1114112,
                ("starcoder2-3b", "model4"): 655360}
 
 
+# the leaves a MoE case gathers over ``model``: attention where its heads
+# do not split (llama4-scout's 2 KV heads on (1, 4)), no other
+MOE_MODEL_PATHS = {("llama4-scout-17b-a16e", "model4"): sorted(
+    "moe_layers/attn/" + n for n in ("wq", "wk", "wv", "wo"))}
+# an expert leaf, the shared expert, an MLA head's product, the MTP
+# ``proj`` or a vocabulary leaf: never gathered over ``model``
+_NEVER = re.compile(r"moe/(w_gate|w_up|w_down|shared/)|wq_b$|wk_b$|wv_b$|"
+                    r"proj$|embed$|lm_head$")
+
+
 def _check_tp_gathers(res, name, heads_split: bool):
-    """The dense cases step tensor-parallel: no FFN, ``embed`` or
-    ``lm_head`` leaf (nor any leaf where the heads split) is gathered
-    over ``model``; where they do not split, attention is.  A layer's
-    gathered bytes are the plan's."""
+    """Every case steps tensor-parallel: no FFN, ``embed`` or
+    ``lm_head`` leaf (nor any leaf where the heads split), and no expert
+    leaf, MLA head or MTP ``proj`` is gathered over ``model``; where the
+    GQA heads do not split, attention is.  A dense layer's gathered
+    bytes are the plan's."""
     for base, arch, *_ in CASES:
-        if (arch, name) not in LAYER_BYTES:
-            continue
         for case in (base, base + "_remat") if base in REMAT else (base,):
             r = res["layers"][case]
+            if arch in MOE_ARCHS:
+                assert r["model_paths"] == MOE_MODEL_PATHS.get(
+                    (arch, name), []), (case, r)
+                assert not [p for p in r["model_paths"] if _NEVER.search(p)]
+                continue
             assert r["model_paths"] == ([] if heads_split
                                         else sorted(_ATTN)), (case, r)
             assert r["layer_bytes"] == LAYER_BYTES[arch, name], (case, r)

@@ -1,7 +1,8 @@
-"""Tensor-parallel serving of the dense family (``repro_torch.models.tp``,
-``sharding.tp_plan``, ``dispatch.sample_vocab_parallel``, the generator
-executor on a mesh) on gloo ranks on the CPU, against the JAX package's
-single-device serving steps.
+"""Tensor-parallel serving of the dense and MoE families
+(``repro_torch.models.tp``, ``sharding.tp_plan``,
+``dispatch.sample_vocab_parallel``, the generator executor on a mesh) on
+gloo ranks on the CPU, against the JAX package's single-device serving
+steps.
 
 One spawn of four ranks runs three meshes over them: two (1, 2) meshes
 at once (ranks 0-1 and 2-3), a (1, 4) and a (2, 2).  llama31-smoke has 8
@@ -25,7 +26,13 @@ vocabulary-parallel log-prob) within 1e-5 of the JAX package's
 ``dispatch.token_logprob_vocab_parallel`` of its vocabulary slice and
 its gradient hold to the JAX package's ``fused_logprob`` and
 ``fused_logprob_bwd`` run in interpret mode, as tests/test_kernels.py
-runs them, within 1e-5.
+runs them, within 1e-5.  The same meshes run the MoE family's smokes
+(llama4-scout's GQA with a top-1 MoE and a shared expert, whose 2 KV
+heads split on (1, 2) and (2, 2) but not on (1, 4); deepseek-v3's MLA,
+4 heads, a dense first layer and a top-2 MoE): every shard the JAX
+package's ``param_spec(mode="serve")`` block, E/m experts a rank, the
+same serving, rollout and scoring bounds as llama31's, and on (1, 2) a
+llama4-scout generator executor against the unmeshed one.
 Rendezvous is a ``file://`` in the test's own tmp_path."""
 import json
 import os
@@ -36,15 +43,20 @@ import numpy as np
 import pytest
 import torch.multiprocessing as mp
 
+from jax.sharding import AbstractMesh as JMesh
+
+from repro import configs as jconfigs
 from repro.configs.llama_paper import smoke as jsmoke
 from repro.kernels.fused_logprob import fused_logprob as jlogprob
 from repro.kernels.fused_logprob import fused_logprob_bwd as jlogprob_bwd
 from repro.models import forward_train as jforward
 from repro.models import init_params as jinit
 from repro.models.serve import decode_step as jdecode
+from repro.models import sharding as jsh
 from repro.models.serve import prefill as jprefill
 from repro.rl.rollout import generate as jgenerate
-from _tp_ranks import B, CACHE, MAX_NEW, MESHES, PROMPT, TEMP, rank_main
+from _tp_ranks import B, CACHE, DROP_CF, MAX_NEW, MESHES, MOE_ARCHS, \
+    PROMPT, TEMP, drop_cfg, rank_main
 
 TOL = 1e-5
 WORLD = 4
@@ -88,8 +100,53 @@ def _jax_runs():
     out["vp_grad"] = np.concatenate([dl, np.zeros_like(dl[:, :1])], axis=1)
     ref = {"params": jax.device_get(params), "prompts": prompts,
            "decode_tokens": steps, "score_tokens": score, "vp_logits": vp,
-           "vp_tokens": vtok, "vp_g": g}
+           "vp_tokens": vtok, "vp_g": g, "moe": {}}
+    for arch in MOE_ARCHS:
+        ref["moe"][arch], out[arch] = _jax_moe_runs(arch)
     return ref, out
+
+
+def _jax_moe_runs(arch):
+    """A MoE smoke's JAX prefill, three decode steps, rollout and
+    forward scoring from one init, at its own capacity factor and (keys
+    "drop|...") at DROP_CF, and its ``param_spec(mode="serve")`` on each
+    mesh of ``MESHES``."""
+    cfg = jconfigs.get_smoke(arch)
+    params = jinit(cfg, jax.random.PRNGKey(0), jnp.float32)
+    rng = np.random.default_rng(13)
+    prompts = rng.integers(3, cfg.vocab, (B, PROMPT)).astype(np.int32)
+    steps = [rng.integers(3, cfg.vocab, (B, 1)).astype(np.int32)
+             for _ in range(3)]
+    score = rng.integers(0, cfg.vocab, (B, PROMPT + MAX_NEW)).astype(np.int32)
+    out = _jax_moe_outputs(params, cfg, prompts, steps, score)
+    drop = _jax_moe_outputs(params, drop_cfg(cfg), prompts, steps, score)
+    out.update({f"drop|{k}": v for k, v in drop.items()})
+    specs = {}
+    for name, shape, _ in MESHES:
+        flat = jax.tree_util.tree_flatten_with_path(jsh.params_shardings(
+            params, JMesh(shape, ("data", "model")), mode="serve"))[0]
+        specs[name] = {jsh._path_str(p): tuple(s.spec) for p, s in flat}
+    ref = {"params": jax.device_get(params), "prompts": prompts,
+           "decode_tokens": steps, "score_tokens": score, "specs": specs}
+    return ref, out
+
+
+def _jax_moe_outputs(params, cfg, prompts, steps, score):
+    logits, cache = jprefill(params, cfg, {"tokens": jnp.asarray(prompts)},
+                             cache_len=CACHE, dtype=jnp.float32)
+    out = {"prefill": np.asarray(logits)}
+    for i, tok in enumerate(steps):
+        logits, cache = jdecode(params, cfg, cache, jnp.asarray(tok))
+        out[f"decode{i}"] = np.asarray(logits)
+    st = jgenerate(params, cfg, jnp.asarray(prompts), max_new=MAX_NEW,
+                   key=jax.random.PRNGKey(3), temperature=TEMP)
+    out["tokens"] = np.asarray(st.tokens)
+    out["blp"] = np.asarray(st.behavior_logp)
+    logits, _ = jforward(params, cfg, {"tokens": jnp.asarray(score)})
+    lp = jnp.take_along_axis(jax.nn.log_softmax(logits[:, :-1], axis=-1),
+                             jnp.asarray(score)[:, 1:, None], axis=-1)[..., 0]
+    out["ref_logp"] = np.pad(np.asarray(lp), ((0, 0), (1, 0)))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -204,6 +261,123 @@ def test_tp_generator_executor(ranks):
     for res, _ in got:
         r = res["executor"]
         assert r["tp"] and r["wq"] == [2, 256, 128], r
+        assert r["tokens_equal"] and r["mask_equal"], r
+        assert r["blp"] <= TOL, r
+
+
+# per (mesh, arch): whether the heads split, and the experts a rank holds
+# of the smoke's 4 (llama4-scout: 8 query and 2 KV heads; deepseek-v3: 4
+# MLA heads)
+MOE_LAYOUT = {("model2", MOE_ARCHS[0]): (True, 2),
+              ("model4", MOE_ARCHS[0]): (False, 1),
+              ("data2_model2", MOE_ARCHS[0]): (True, 2),
+              ("model2", MOE_ARCHS[1]): (True, 2),
+              ("model4", MOE_ARCHS[1]): (True, 1),
+              ("data2_model2", MOE_ARCHS[1]): (True, 2)}
+
+
+@pytest.mark.parametrize("name,arch", sorted(MOE_LAYOUT))
+def test_tp_moe_serving_matches_jax(ranks, name, arch):
+    """A MoE smoke served tensor-parallel: every shard the JAX package's
+    ``param_spec(mode="serve")`` block (attention whole where its heads
+    do not split; cut from the whole tree, and carried by DDMA from the
+    trainer's FSDP + TP DTensors), E/m experts a rank, the reference
+    executor's too; prefill and three decode steps' logits within 1e-5
+    of JAX's (relative to max(1, |logit|)), the rollout's tokens under
+    one key identical and its behaviour log-probs within 1e-5."""
+    want, got = ranks
+    want = want[arch]
+    heads, experts = MOE_LAYOUT[name, arch]
+    for rank, (res, arrays) in enumerate(got):
+        r = res[f"{name}|{arch}"]
+        n, ok = r["shards_ok"]
+        assert ok and n > 0, (name, arch, rank)
+        assert r["tp"] and r["heads"] == heads, r
+        assert r["experts"] and r["shared"] and r["vocab"], r
+        assert r["held_experts"] == r["ref_experts"] == experts, r
+        _check_moe_serving(arrays, want, f"{name}|{arch}|", (name, arch,
+                                                             rank))
+
+
+def _check_moe_serving(arrays, want, key, label, drop=""):
+    """Prefill and decode logits within TOL of max(1, |logit|) of the JAX
+    package's, the rollout's tokens equal and its behaviour log-probs
+    within TOL (the keys ``drop`` + name)."""
+    for k in ("prefill", "decode0", "decode1", "decode2"):
+        w = want[drop + k]
+        err = np.max(np.abs(arrays[key + drop + k] - w))
+        assert err <= TOL * max(1.0, np.max(np.abs(w))), (label, k, err)
+    np.testing.assert_array_equal(arrays[key + drop + "tokens"],
+                                  want[drop + "tokens"])
+    assert np.max(np.abs(arrays[key + drop + "blp"] - want[drop + "blp"])) \
+        <= TOL, label
+
+
+def _check_moe_scoring(arrays, want, key, label):
+    lp = arrays[key]
+    assert lp.shape == want.shape, label
+    err = np.abs(lp - want) / np.maximum(1.0, np.abs(want))
+    assert err.max() <= TOL, (label, err.max())
+
+
+@pytest.mark.parametrize("name,arch", sorted(MOE_LAYOUT))
+def test_tp_moe_reference_scoring_matches_jax(ranks, name, arch):
+    """A reference executor on the mesh scores a MoE smoke on its TP
+    shard: its ``ref_logp`` within 1e-5 of the JAX package's forward and
+    log-softmax (relative to max(1, |logp|)), on every rank."""
+    want, got = ranks
+    for rank, (_, arrays) in enumerate(got):
+        _check_moe_scoring(arrays, want[arch]["ref_logp"],
+                           f"{name}|{arch}|ref_logp", (name, arch, rank))
+
+
+@pytest.mark.parametrize("name,arch", sorted(MOE_LAYOUT))
+def test_tp_moe_matches_jax_where_the_capacity_drops(ranks, name, arch):
+    """At the published capacity factor DROP_CF the smokes' prefills
+    (8 tokens a row: llama4-scout's 4 experts take 2 choices each,
+    deepseek-v3's 5 of 16) and scoring (14: 4 and 8) drop choices, which
+    a rank's own experts must drop as the gathered path does: the TP
+    prefill, decode steps, rollout and reference scoring hold to the JAX
+    package's at DROP_CF at the bounds above.  The drops show: JAX's
+    prefill logits and scoring at DROP_CF differ from its own at the
+    smoke's capacity factor, which drops nothing."""
+    want, got = ranks
+    want = want[arch]
+    for k in ("prefill", "ref_logp"):
+        assert np.max(np.abs(want["drop|" + k] - want[k])) > 1e-3, \
+            (arch, k, DROP_CF)
+    for rank, (_, arrays) in enumerate(got):
+        label = (name, arch, rank, DROP_CF)
+        _check_moe_serving(arrays, want, f"{name}|{arch}|", label,
+                           drop="drop|")
+        _check_moe_scoring(arrays, want["drop|ref_logp"],
+                           f"{name}|{arch}|drop|ref_logp", label)
+
+
+def test_tp_moe_experts_kept_whole_where_the_axis_does_not_divide(ranks):
+    """llama4-scout's smoke with 6 experts on (1, 4): every rank holds the
+    6 experts whole and its quarter of the shared expert's columns, and
+    its TP forward matches the port's one-device forward (logits within
+    1e-5 of max(1, |logit|), moe_aux within 1e-6)."""
+    _, got = ranks
+    for res, _ in got:
+        r = res["experts_whole"]
+        assert not r["experts"] and r["shared"], r
+        assert r["held_experts"] == 6 and r["shared_cols"] == 128, r
+        assert r["logits"] <= TOL * max(1.0, r["scale"]), r
+        assert r["aux"] <= 1e-6, r
+
+
+def test_tp_moe_generator_executor(ranks):
+    """On a (1, 2) mesh a llama4-scout generator holds its TP shard (2 of
+    the smoke's 4 experts, half the shared expert's columns) and emits
+    the unmeshed generator's batch."""
+    _, got = ranks
+    for res, _ in got:
+        r = res["moe_executor"]
+        assert r["tp"] and r["wq"] == [2, 256, 128], r
+        assert r["held"]["moe_layers/moe/w_gate"] == [2, 2, 256, 512], r
+        assert r["held"]["moe_layers/moe/shared/w_up"] == [2, 256, 256], r
         assert r["tokens_equal"] and r["mask_equal"], r
         assert r["blp"] <= TOL, r
 

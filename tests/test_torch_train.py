@@ -314,6 +314,28 @@ def test_clip_by_global_norm_matches_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
 
 
+@pytest.mark.parametrize("n", [100_000, 1_000_000])
+def test_cpu_global_norm_of_a_leaf_and_of_its_halves(n):
+    """On the CPU torch's fp32 ``vector_norm`` adds a leaf's squares in
+    turn, so ``global_norm`` of a leaf and of its two halves (as the
+    ranks of a model axis of two hold it, ``sharded_global_norm``)
+    differ by more than fp32 rounding; the clip scale, and every m with
+    it, moves by as much (tests/test_torch_child_mesh.py's whole-gather
+    trainer).  Printed against the float64 norm, with ``x.square()
+    .sum()`` beside them; each within 1e-3 of it."""
+    x = torch.randn(n, generator=torch.Generator().manual_seed(0)) \
+        * torch.rand(n, generator=torch.Generator().manual_seed(1)) ** 4
+    exact = torch.linalg.vector_norm(x.double()).item()
+    got = {"whole": opt.global_norm({"w": x}).item(),
+           "halves": opt.global_norm({"a": x[:n // 2],
+                                      "b": x[n // 2:]}).item(),
+           "sum of squares": x.square().sum().sqrt().item()}
+    rel = {k: (v - exact) / exact for k, v in got.items()}
+    print(f"{n} elements, fp32 against the float64 norm: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in rel.items()))
+    assert all(abs(v) <= 1e-3 for v in rel.values()), rel
+
+
 @pytest.mark.parametrize("kind,warmup,total", [("constant", 0, 0),
                                                ("constant", 10, 0),
                                                ("cosine", 5, 40)])
