@@ -7461,6 +7461,16 @@ TP_UPDATE_TOL = 1e-4        # 99% of an update within it of the largest
 TP_UPDATE_WORST = 0.5       # and all within this share of it
 TP_REF_TOL = 1e-5           # (h): ref_logp, relative to max(1, |logp|)
 TP_LOGPROB_REL = 1e-6       # (g): merged B1 against the whole row's
+# the one-card gradient below which an element's update is held to
+# TP_UPDATE_WORST alone, as tests/test_torch_sharded.py's G_SIGN: Adam's
+# first step moves an element by lr g / (|g| + 1e-8), which turns on the
+# gradient's last bits where g is rounding noise.  A key bias
+# (starcoder2's, (n)) reaches the scores through RoPE: on a pair that
+# turns little over the window it shifts every score of a query by
+# nearly the same q . b_k, which softmax ignores, so its gradient falls
+# with the pair's frequency and the lowest pairs' is mostly rounding.
+# m and v are held as every leaf's
+TP_G_SIGN = 1e-6
 # (j)-(m): the MoE family on the same two ranks.  (j) llama4-scout and
 # (k) deepseek-v3 at their published widths in bf16, [16]'s and [17]'s
 # depths (10.9 B and 15.8 B params, 21.7 and 31.6 GB whole, half of it a
@@ -7482,14 +7492,35 @@ TP_B4_MOE = (4, 2048, 20, 4, 128)
 # the TP forward's all-reduces rounds its sum to bf16 once, as one
 # card's product does, while the witness moves every input element by a
 # whole bf16 ulp (at the published capacity factor a route that rounding
-# flips moves which choices the capacity drops).  (l), fp32: m and v are
-# held to (f)'s bounds or TP_WITNESS times the larger of the witness's
-# two steps (``_ulp_witness``): the witness moves the input by one fp32
+# flips moves which choices the capacity drops).  (l) and (n), fp32: m
+# and v are held to (f)'s bounds or TP_WITNESS times the larger of the
+# witness's steps (``_ulp_witness``): the witness moves the input by one fp32
 # ulp, a TP step reorders sums of thousands of terms at about ten points
 # (each layer's two all-reduces, the embedding's, the vocabulary merge,
 # and as many in the backward), and independent differences of one size
 # add as the square root of their count
 TP_WITNESS = 3.0
+# (n): starcoder2-3b at its published widths on a (data 1, model 4) mesh
+# of four ranks on the one card.  Its 2 KV heads do not divide 4, so a
+# rank computes its quarter of wq wk wv by columns and of wo by rows
+# around a whole attention core ([23]'s (1, 2) meshes split every
+# model's heads).  Served in bf16 at TP4_LAYERS of its 30 layers (a
+# [4, 64] prefill, 8 new tokens), trained in fp32 at one layer, one step.
+# Its m and v are held as (l)'s, with a second witness: the vocabulary
+# split four ways moves final_norm's m by 1.25e-05 and v by 2.49e-05 of
+# their largest, past (f)'s 1e-5 and 2e-5, while with the vocabulary
+# whole (``--tp4-vocab``: 49154) the TP step holds (f)'s bounds; the ulp
+# witness (3.63e-06) does not reach that arithmetic, so rank 0 also steps
+# one card with its head and log-probs cut into the ranks' four slices
+# (``_split_witness``, 2.53e-06 on final_norm), and the bound is
+# TP_WITNESS times the two witnesses' moves summed: the TP step makes
+# the activations' partial sums and the split's arithmetic at once
+TP4_RANKS = 4
+TP4_ARCH = "starcoder2-3b"
+TP4_LAYERS = 4
+TP4_ROWS, TP4_PROMPT, TP4_NEW = 4, 64, 8
+# ``--tp4-vocab``: a vocabulary 4 does not divide (starcoder2-3b's + 2)
+TP4_VOCAB_WHOLE = 49154
 
 
 def _tp_whole(torch, x, tp):
@@ -7547,18 +7578,20 @@ def _model_block(t, spec, r: int, m: int):
     return t[tuple(idx)]
 
 
-def _hand_over(torch, queue, rank, group, block):
-    """One tensor from rank 0 to rank 1 of [23]'s two ranks over
-    ``queue``, a spawn-context queue (CUDA IPC for a tensor on the card):
-    rank 0 puts ``block``, rank 1 copies the shared tensor, and both
-    pass a barrier, after which rank 0 may free it.  Returns rank 1's
-    copy (None on rank 0)."""
+def _hand_over(torch, queues, rank, group, blocks):
+    """One tensor from rank 0 to each other rank of a [23] mesh over
+    ``queues``, one spawn-context queue a receiving rank (CUDA IPC for a
+    tensor on the card): rank 0 puts ``blocks[r - 1]`` on
+    ``queues[r - 1]``, rank r copies the shared tensor, and all pass a
+    barrier, after which rank 0 may free them.  Returns rank r's copy
+    (None on rank 0)."""
     import torch.distributed as dist
     out = None
     if rank == 0:
-        queue.put(block)
+        for q, block in zip(queues, blocks):
+            q.put(block)
     else:
-        shared = queue.get()
+        shared = queues[rank - 1].get()
         out = shared.clone()
         del shared
         if out.is_cuda:
@@ -7567,13 +7600,28 @@ def _hand_over(torch, queue, rank, group, block):
     return out
 
 
-def _tp_build(torch, cfg, dtype, rank, mesh, dev, yardstick, queue):
+def _cut_and_hand(torch, queues, rank, group, t, spec, keep):
+    """This rank's block of the leaf ``t`` (whole on rank 0, None on the
+    others) under ``spec`` on a (1, m) mesh of m = len(queues) + 1
+    ranks, on ``keep``: rank 0 cuts every rank's block and hands the
+    others theirs (``_hand_over``)."""
+    m = len(queues) + 1
+    if rank != 0:
+        return _hand_over(torch, queues, rank, group, None).to(keep)
+    _hand_over(torch, queues, rank, group,
+               [_model_block(t, spec, r, m).contiguous()
+                for r in range(1, m)])
+    return _model_block(t, spec, 0, m).to(keep, copy=True)
+
+
+def _tp_build(torch, cfg, dtype, rank, mesh, dev, yardstick, queues):
     """Rank 0 builds ``cfg`` whole on the card from TP_SEED, runs
     ``yardstick(params)`` on it, keeps its TP shard (``tp_plan``) and
-    hands rank 1 its shard leaf by leaf (``_hand_over``), freeing each
-    whole leaf once it is cut; rank 1 keeps what it gets.  Only one
-    whole tree is ever on the card, and it is alone there while it is
-    drawn (a deepseek-v3 init draws expert leaves in fp32).  Returns
+    hands each other rank its shard leaf by leaf (``_cut_and_hand``),
+    freeing each whole leaf once it is cut; the others keep what they
+    get.  Only one whole tree is ever on the card, and it is alone there
+    while it is drawn (a deepseek-v3 init draws expert leaves in fp32).
+    Returns
     (shard, TPRank, what the yardstick returned on rank 0)."""
     import torch.distributed as dist
 
@@ -7595,29 +7643,29 @@ def _tp_build(torch, cfg, dtype, rank, mesh, dev, yardstick, queue):
         torch.cuda.empty_cache()
         local = []
         for i, sp in enumerate(specs):
-            _hand_over(torch, queue, rank, tp.group,
-                       _model_block(whole[i], sp, 1, TP_RANKS).contiguous())
-            local.append(_model_block(whole[i], sp, 0, TP_RANKS).clone())
+            local.append(_cut_and_hand(torch, queues, rank, tp.group,
+                                       whole[i], sp, dev))
             whole[i] = None             # each whole leaf freed once cut
     else:
-        local = [_hand_over(torch, queue, rank, tp.group, None)
-                 for _ in specs]
+        local = [_cut_and_hand(torch, queues, rank, tp.group, None, sp, dev)
+                 for sp in specs]
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
     return tree_unflatten(meta, local), tp, got
 
 
-def _tp_prompts(torch, cfg, rows, dev):
+def _tp_prompts(torch, cfg, rows, dev, prompt=TP_PROMPT):
     g = torch.Generator().manual_seed(TP_KEY)
-    return torch.randint(3, cfg.vocab, (rows, TP_PROMPT), generator=g,
+    return torch.randint(3, cfg.vocab, (rows, prompt), generator=g,
                          dtype=torch.int32).to(dev)
 
 
-def tp_rank_main(rank, rdv, out_path, queue, dev_type="cuda"):
+def tp_rank_main(rank, rdv, out_path, queues, dev_type="cuda"):
     """One rank of [23]'s (1, 2) mesh on the one card: a gloo group over
-    CUDA tensors (NCCL refuses two ranks on one device), and ``queue``,
-    over which rank 0 hands rank 1 its blocks (``_hand_over``).  Writes
+    CUDA tensors (NCCL refuses two ranks on one device), and ``queues``
+    (one), over which rank 0 hands rank 1 its blocks (``_hand_over``).
+    Writes
     its results to ``out_path``_<rank>.json.  (``dev_type`` "cpu" runs the
     same on the CPU, for a rehearsal with the kernels faked.)"""
     sys.path.insert(0, str(ROOT / "src"))
@@ -7673,7 +7721,7 @@ def tp_rank_main(rank, rdv, out_path, queue, dev_type="cuda"):
             return logits, st
 
         shard, tp, yard = _tp_build(torch, cfg, torch.bfloat16, rank, mesh,
-                                    dev, one_card, queue)
+                                    dev, one_card, queues)
         res["held_gb"] = sum(t.numel() * t.element_size()
                              for t in leaves(shard)) / 1e9
         res["wq"] = list(shard["layers"]["attn"]["wq"].shape)
@@ -7793,7 +7841,7 @@ def tp_rank_main(rank, rdv, out_path, queue, dev_type="cuda"):
             return logits, st.tokens
 
         shard, tp, yard = _tp_build(torch, cfg2, torch.float32, rank, mesh,
-                                    dev, one_card2, queue)
+                                    dev, one_card2, queues)
         with torch.no_grad():
             local, _ = prefill(shard, cfg2, {"tokens": prompts}, TP_PROMPT,
                                torch.float32, tp=tp)
@@ -7859,13 +7907,13 @@ def tp_rank_main(rank, rdv, out_path, queue, dev_type="cuda"):
 
         # (f)-(i): the TP train step and reference scoring at (d)'s config
         res["train"] = tp_train_rank(torch, rank, mesh, cfg2, dev, mark,
-                                     queue)
+                                     queues)
         # (g): the vocabulary-parallel B1 and B2 against the whole row's
         res["g"] = tp_logprob_merge(torch, tp, dev)
         mark("(i)-(g)")
         # (j), (k) and (m): the MoE family served at full width
         res["moe"] = {arch: tp_moe_serve(torch, rank, mesh, dev, arch, mark,
-                                         queue)
+                                         queues)
                       for arch in TP_MOE_ARCHS}
         # (l) and (m): scored and trained in fp32 at one layer
         res["moe_train"] = {}
@@ -7874,8 +7922,9 @@ def tp_rank_main(rank, rdv, out_path, queue, dev_type="cuda"):
             pub = dataclasses.replace(cfg_l.moe, capacity_factor=configs_full(
                 arch).moe.capacity_factor)
             res["moe_train"][arch] = tp_train_rank(
-                torch, rank, mesh, cfg_l, dev, mark, queue,
-                first_on_card=False, pub=cfg_l.replace(moe=pub))
+                torch, rank, mesh, cfg_l, dev, mark, queues,
+                first_on_card=False, pub=cfg_l.replace(moe=pub),
+                witness=True)
             mark("(i)")
         res["seconds"] = [(b[0], b[1] - a[1])
                           for a, b in zip(times, times[1:])]
@@ -7931,44 +7980,86 @@ def _tp_state(torch, mesh, specs, params, m, v, step):
                                 placed(v, specs.opt.v)))
 
 
-def _tp_against(torch, state, want, before):
+TP_CHUNK = 1 << 24          # elements a pass of ``_tp_against`` holds
+
+
+def _tp_against(torch, state, want, before, before_m=None):
     """A TP step's ``state`` against the one-card step's blocks ``want``
-    ((params, m, v)) from params ``before``: per part the worst share --
-    params: an update's error past one fp32 ulp over the leaf's largest
-    update (the worst, and the share of elements past TP_UPDATE_TOL, and
-    of those elements the one-card |m| over the leaf's rms |m|: the
-    median and the largest, ``m_rms``); m and v: the largest difference
-    over the leaf's largest |value|."""
+    ((params, m, v)) from params ``before`` and m ``before_m`` (None:
+    zeros): per part the worst share -- params: an update's error past
+    one fp32 ulp over the leaf's largest update (the worst, and the share
+    of elements past TP_UPDATE_TOL, and of those elements the one-card
+    |m| over the leaf's rms |m|: the median and the largest, ``m_rms``);
+    m and v: the largest difference over the leaf's largest |value|.
+    ``update_past``, the share of a leaf past TP_UPDATE_TOL, counts only
+    the elements whose one-card gradient (from m, Adam's b1 0.9) is at
+    least TP_G_SIGN; a leaf with elements below it records its largest
+    |gradient| and their share.  Every leaf is read TP_CHUNK elements at
+    a time: the card holds the ranks and the twin's blocks beside it."""
     out = {"update_worst": 0.0, "update_past": 0.0, "m": 0.0, "v": 0.0,
            "leaves": {}, "m_rms": []}
     got = (state.params, state.opt.m, state.opt.v)
     want_m = list(leaves(want[1]))
+    prev_m = None if before_m is None else list(leaves(before_m))
+
+    def chunks(*ts):
+        flat = [None if t is None else t.reshape(-1) for t in ts]
+        n = flat[0].numel()
+        for a in range(0, n, TP_CHUNK):
+            yield [None if t is None else t[a:a + TP_CHUNK] for t in flat]
+
+    def most(fn, *ts):
+        return max(fn(*c).max().item() for c in chunks(*ts))
     for part, g_tree, w_tree in zip(("params", "m", "v"), got, want):
         for j, ((k, t), w) in enumerate(zip(leaves_by_path(g_tree).items(),
                                             leaves(w_tree))):
             t = t.to_local()
             leaf = out["leaves"].setdefault("/".join(k), {})
             if part != "params":
-                leaf[part] = ((t - w).abs().max()
-                              / w.abs().max().clamp(min=1e-30)).item()
+                leaf[part] = most(lambda t, w: (t - w).abs(), t, w) / max(
+                    most(torch.abs, w), 1e-30)
                 out[part] = max(out[part], leaf[part])
                 continue
             b = leaves_by_path(before)[k]
-            big = (w - b).abs().max().clamp(min=1e-30)
-            ulp = torch.nextafter(w.abs(), torch.full_like(w, float("inf"))) \
-                - w.abs()
-            err = ((t - w).abs() - ulp).clamp(min=0) / big
-            leaf.update(worst=err.max().item(), past=(
-                err > TP_UPDATE_TOL).float().mean().item(), past_1e5=(
-                err > 1e-5).float().mean().item(), past_1e3=(
-                err > 1e-3).float().mean().item())
-            m = want_m[j].float()
-            rel = m.abs()[err > TP_UPDATE_TOL] / m.square().mean().sqrt()
-            if rel.numel():
-                out["m_rms"].append(rel.cpu())
-            out["update_worst"] = max(out["update_worst"], leaf["worst"])
-            out["update_past"] = max(out["update_past"], leaf["past"])
-            del ulp, err, m, rel
+            m = want_m[j]
+            big = max(most(lambda w, b: (w - b).abs(), w, b), 1e-30)
+            rms = math.sqrt(sum(c.float().square().sum().item()
+                                for c, in chunks(m)) / m.numel())
+            n = dict(past=0, past_1e5=0, past_1e3=0, below=0, held_past=0)
+            worst = g_max = 0.0
+            for tc, wc, mc, pc in chunks(
+                    t, w, m, None if prev_m is None else prev_m[j]):
+                a = wc.abs()
+                ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+                err = ((tc - wc).abs() - ulp).clamp(min=0) / big
+                del a, ulp
+                worst = max(worst, err.max().item())
+                past = err > TP_UPDATE_TOL
+                n["past"] += past.sum().item()
+                n["past_1e5"] += (err > 1e-5).sum().item()
+                n["past_1e3"] += (err > 1e-3).sum().item()
+                del err
+                # a tenth of the one-card gradient
+                mc = mc.float()
+                gm = mc.abs() if pc is None else \
+                    (mc - 0.9 * pc.to(mc.device)).abs()
+                held = gm >= 0.1 * TP_G_SIGN
+                n["below"] += (~held).sum().item()
+                n["held_past"] += (past & held).sum().item()
+                g_max = max(g_max, 10 * gm.max().item())
+                rel = mc.abs()[past] / max(rms, 1e-30)
+                if rel.numel():
+                    out["m_rms"].append(rel.cpu())
+                del past, gm, held, rel
+            size = t.numel()
+            leaf.update(worst=worst, past=n["past"] / size,
+                        past_1e5=n["past_1e5"] / size,
+                        past_1e3=n["past_1e3"] / size)
+            if n["below"]:
+                leaf.update(g_max=g_max, below=n["below"] / size)
+            out["update_worst"] = max(out["update_worst"], worst)
+            out["update_past"] = max(out["update_past"],
+                                     n["held_past"] / size)
     rel = torch.cat(out["m_rms"]) if out["m_rms"] else torch.zeros(1)
     out["m_rms"] = {"n": len(rel), "median": rel.median().item(),
                     "max": rel.max().item()}
@@ -7999,6 +8090,57 @@ def _ulp_witness(torch, step, state, batch):
     return st.opt.m, st.opt.v
 
 
+def _split_witness(torch, step, state, batch, parts: int):
+    """One card's own spread from a vocabulary split ((n)): ``step`` from
+    ``state`` with the head and the log-probs cut into ``parts`` column
+    slices, as a TP step's ranks compute them: each slice's product of
+    the normed hidden state (whose gradient then sums the slices'), B1 on
+    each slice with their partials merged in slice order
+    (``dispatch.token_logprob_vocab_parallel``) and B2 on each slice with
+    the merged statistics.  It steps copies of the moments and returns
+    its (m, v)."""
+    from repro_torch.core import aipo
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import backbone as bb
+    from repro_torch.models.common import norm
+    from repro_torch.train.optimizer import AdamState, tree_map
+    from repro_torch.train.trainstep import TrainState
+
+    def logits(params, cfg, x):
+        x = norm(x, params["final_norm"], cfg.norm)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return torch.cat([x @ w for w in head.chunk(parts, dim=-1)], dim=-1)
+
+    def logprobs(logits, tokens, n_valid=None):
+        n = logits.shape[-1] // parts
+        cuts = [c.contiguous() for c in logits.split(n, dim=-1)]
+        stats = []
+
+        def record(part):
+            stats.append(part)
+            return part[None]
+        with torch.no_grad():
+            for r, c in enumerate(cuts):
+                dispatch.token_logprob_vocab_parallel(
+                    c, tokens, r * n, None, n_valid, gather=record)
+        merged = torch.stack(stats)
+        lps = [dispatch.token_logprob_vocab_parallel(
+            c, tokens, r * n, None, n_valid, gather=lambda part: merged)
+            for r, c in enumerate(cuts)]
+        # each slice's B2 takes the whole gradient, as on its rank
+        return lps[0].detach() + sum(lp - lp.detach() for lp in lps)
+
+    real = bb._logits, aipo.token_logprobs
+    bb._logits, aipo.token_logprobs = logits, logprobs
+    try:
+        st, _ = step(TrainState(state.params, AdamState(
+            state.opt.step, tree_map(torch.clone, state.opt.m),
+            tree_map(torch.clone, state.opt.v))), batch)
+    finally:
+        bb._logits, aipo.token_logprobs = real
+    return st.opt.m, st.opt.v
+
+
 def _moments_apart(mv, opt):
     """The largest difference of the moments ``mv`` ((m, v)) from
     ``opt``'s, over each leaf's largest |value|: per part the worst and
@@ -8013,13 +8155,14 @@ def _moments_apart(mv, opt):
     return out
 
 
-def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
-                  first_on_card=True, pub=None):
-    """[23] (h), (f) and (i) on this rank of the (1, 2) mesh: ``cfg``
-    (llama31-8b at (d)'s config, or (l)'s) in fp32 from TP_SEED on a
-    ``_tp_train_batch``.  Rank 0 builds the whole state on the card,
-    scores the batch with the one-card ``RefPolicyExecutor`` and runs
-    TP_TRAIN_STEPS one-card ``make_train_step`` steps; each rank keeps
+def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queues,
+                  first_on_card=True, pub=None, steps=TP_TRAIN_STEPS,
+                  witness=False, split=0):
+    """[23] (h), (f) and (i) on this rank of a (1, m) mesh: ``cfg``
+    (llama31-8b at (d)'s config, (l)'s, or (n)'s) in fp32 from TP_SEED
+    on a ``_tp_train_batch``.  Rank 0 builds the whole state on the
+    card, scores the batch with the one-card ``RefPolicyExecutor`` and
+    runs ``steps`` one-card ``make_train_step`` steps; each rank keeps
     its blocks of the initial params and of each step's state (rank 0
     sends the others theirs; the first step's on the card where
     ``first_on_card``, else on the host too; the second's on the host
@@ -8031,9 +8174,12 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
     starts with and its peak, its FLOPs and its collective bytes.  With
     ``pub`` ((l): ``cfg`` at its published capacity factor, which drops
     choices) the batch is scored by both references at ``pub`` too,
-    their drops counted, and rank 0 also steps one card from each state
-    with its embedding moved by an ulp (``_ulp_witness``): how far that
-    moves the moments.  Returns what the parent holds to its bounds."""
+    their drops counted.  With ``witness`` ((l), (n)) rank 0 also steps
+    one card from each state with its embedding moved by an ulp
+    (``_ulp_witness``): how far that moves the moments; with ``split``
+    ((n)) also with its head and log-probs cut into that many vocabulary
+    slices (``_split_witness``).  Returns what the parent holds to its
+    bounds."""
     import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -8045,10 +8191,9 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
     from repro_torch.models.sharding import state_shardings
     from repro_torch.models.tp import TPRank
     from repro_torch.train.optimizer import adam_init, tree_map
-    from repro_torch.train.sharded import make_sharded_train_step
-    from repro_torch.train.trainstep import TrainState, make_train_step
-
     from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    from repro_torch.train.sharded import MeshWay, make_sharded_train_step
+    from repro_torch.train.trainstep import TrainState, make_train_step
 
     out = {}
     batch = _tp_train_batch(torch, cfg, dev)
@@ -8061,20 +8206,12 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
 
     def blocks(tree, sp, keep):
         """This rank's blocks of ``tree`` under ``sp`` on ``keep``: cut
-        by rank 0 from the one-card run, which hands rank 1 its own
-        (``_hand_over``)."""
-        got = []
-        for t, s in zip(tree_leaves(tree) if rank == 0
-                        else [None] * n_leaves, tree_leaves(sp)):
-            if rank == 0:
-                _hand_over(torch, queue, rank, group,
-                           _model_block(t, s, 1, TP_RANKS).contiguous())
-                got.append(_model_block(t, s, 0, TP_RANKS).to(keep,
-                                                              copy=True))
-            else:
-                got.append(_hand_over(torch, queue, rank, group,
-                                      None).to(keep))
-        return tree_unflatten(meta, got)
+        by rank 0 from the one-card run, which hands the others theirs
+        (``_cut_and_hand``)."""
+        return tree_unflatten(meta, [
+            _cut_and_hand(torch, queues, rank, group, t, s, keep)
+            for t, s in zip(tree_leaves(tree) if rank == 0
+                            else [None] * n_leaves, tree_leaves(sp))])
 
     # the one-card twin runs once, on rank 0 (its gradients' atomics make
     # two runs differ in the last bits, and the ranks' blocks of a whole
@@ -8111,12 +8248,16 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
         dist.broadcast_object_list(pub_drops, src=0, group=group)
     out_ref = ref_lp
     yard, one_ms, one_metrics = [], [], []
-    if pub is not None:
+    if witness:
         out["witness"] = []
-    for i in range(TP_TRAIN_STEPS):
+    if split:
+        out["split_witness"] = []
+    for i in range(steps):
         if rank == 0:
             moved = _ulp_witness(torch, step, state, batch) \
-                if pub is not None else None
+                if witness else None
+            cut = _split_witness(torch, step, state, batch, split) \
+                if split else None
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
@@ -8125,8 +8266,10 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
             one_metrics.append({k: float(v) for k, v in metrics.items()})
             if moved is not None:
                 out["witness"].append(_moments_apart(moved, state.opt))
-                del moved
-                torch.cuda.empty_cache()
+            if cut is not None:
+                out["split_witness"].append(_moments_apart(cut, state.opt))
+            del moved, cut
+            torch.cuda.empty_cache()
         keep = dev if i == 0 and first_on_card else "cpu"
         yard.append(tuple(blocks(t, sp, keep) for t, sp in (
             (state.params if state else None, specs.params),
@@ -8173,17 +8316,19 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
 
     # (f) TP steps, each from the one-card state before it, counted
     step = make_sharded_train_step(cfg, mesh, **kw)
-    starts = [(init, p0)] + [(None, None)] * (TP_TRAIN_STEPS - 1)
+    starts = [(init, p0)] + [(None, None)] * (steps - 1)
     out["f"], tp_ms = [], []
     torch.cuda.synchronize()
     build.reset_launches()          # the TP train path's run starts here
-    for i in range(TP_TRAIN_STEPS):
+    for i in range(steps):
         st, before = starts[i]
         if st is None:
             # the one-card state before this step, on the card
             start = tuple(tree_map(lambda t: t.to(dev), tree)
                           for tree in yard[i - 1])
             st, before = _tp_state(torch, mesh, specs, *start, i), start[0]
+            # m on the host: Adam moves the step's m in place
+            before_m = tree_map(lambda t: t.cpu(), yard[i - 1][1])
             yard[i - 1] = None
             del start
         torch.cuda.synchronize()
@@ -8195,12 +8340,14 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
         del st
         starts[i] = None
         want = tuple(tree_map(lambda t: t.to(dev), tree) for tree in yard[i])
-        check = _tp_against(torch, new, want, before)
+        check = _tp_against(torch, new, want, before,
+                            before_m if i else None)
         check["metrics"] = {k: float(v) for k, v in metrics.items()}
         check["step"] = new.opt.step
         out["f"].append(check)
         del want, before
-        if i < TP_TRAIN_STEPS - 1:
+        before_m = None
+        if i < steps - 1:
             del new
         gc.collect()
     torch.cuda.synchronize()
@@ -8212,7 +8359,7 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
     mark("(h)-(f)")
 
     # (i) the dry run's prediction of one TP step, held to one more step
-    amesh = dryrun.production_mesh(mesh_shape=(1, TP_RANKS))
+    amesh = dryrun.production_mesh(mesh_shape=(1, len(queues) + 1))
     c2, sh, lowered = dryrun.lower_combo(
         cfg, ShapeSpec("tp_train", TP_TRAIN_T, TP_TRAIN_ROWS, "train"),
         amesh, dtype=torch.float32, remat=False, kl_coef=KL_COEF)
@@ -8228,6 +8375,12 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
         got = real[1](self, part)
         counted["all-gather"] += got.numel() * got.element_size()
         return got
+
+    def reduce(self, grad):
+        # a sliced bias's gradient, summed over ``model`` by DTensor
+        if self.role == "sum":
+            counted["all-reduce"] += grad.numel() * grad.element_size()
+        return real_reduce(self, grad)
     held = sum(t.to_local().numel() * t.to_local().element_size()
                for tree in (new.params, new.opt.m, new.opt.v)
                for t in leaves(tree)) \
@@ -8237,11 +8390,14 @@ def tp_train_rank(torch, rank, mesh, cfg, dev, mark, queue,
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    real_reduce = MeshWay.reduce
     TPRank.all_reduce, TPRank.gather_partials = all_reduce, gather_partials
+    MeshWay.reduce = reduce
     try:
         new, _ = step(new, batch)
     finally:
         TPRank.all_reduce, TPRank.gather_partials = real
+        MeshWay.reduce = real_reduce
     torch.cuda.synchronize()
     temp = torch.cuda.max_memory_allocated() - base
     with FlopCounterMode(display=False) as fc:
@@ -8271,9 +8427,9 @@ def tp_train_own_flops(cfg, mesh):
     MLA, whose asymmetric heads go to ``chunked_attention``).  Returns
     (those FLOPs by kernel, the plain attention's forward FLOPs over the
     same layers, which the meta count holds in their place)."""
-    from repro_torch.models.sharding import tp_splits
+    from repro_torch.models.sharding import _axis_size, tp_splits
     sp = tp_splits(cfg, mesh)
-    m = TP_RANKS
+    m = _axis_size(mesh, "model")
     T, B = TP_TRAIN_T, TP_TRAIN_ROWS
     Vl = cfg.vocab // m if sp["vocab"] else cfg.vocab
     n_rows = B * (T - 1) + (B * (T - 2) if cfg.mtp else 0)
@@ -8320,30 +8476,30 @@ def tp_moe_train_cfg(torch, arch):
 
 
 def _teacher_forced(torch, params, cfg, toks, cache_len, tp=None,
-                    drops=None):
-    """The log-probs [rows, TP_NEW] of ``toks``'s last TP_NEW tokens, fed
-    one by one after a prefill of the first TP_PROMPT: by one card, or
-    by this rank on its shard where ``tp`` is given (its logits gathered
-    whole).  ``drops`` (a ``_Drops``) counts the prefill's."""
+                    drops=None, prompt=TP_PROMPT):
+    """The log-probs [rows, n] of ``toks``'s last n tokens, fed one by one
+    after a prefill of the first ``prompt``: by one card, or by this rank
+    on its shard where ``tp`` is given (its logits gathered whole).
+    ``drops`` (a ``_Drops``) counts the prefill's."""
     from repro_torch.models import decode_step, prefill
     lps = []
     with torch.no_grad():
         with drops or contextlib.nullcontext():
             logits, cache = prefill(params, cfg,
-                                    {"tokens": toks[:, :TP_PROMPT]},
+                                    {"tokens": toks[:, :prompt]},
                                     cache_len, torch.float32, tp=tp)
-        for j in range(TP_NEW):
+        for j in range(toks.shape[1] - prompt):
             row = (logits if tp is None else _tp_whole(torch, logits, tp))
-            t = toks[:, TP_PROMPT + j].long()
+            t = toks[:, prompt + j].long()
             lps.append(torch.log_softmax(row.float(), dim=-1)
                        .gather(1, t[:, None])[:, 0])
             logits, cache = decode_step(params, cfg, cache,
-                                        toks[:, TP_PROMPT + j:
-                                             TP_PROMPT + j + 1], tp=tp)
+                                        toks[:, prompt + j:
+                                             prompt + j + 1], tp=tp)
     return torch.stack(lps, 1)
 
 
-def tp_moe_serve(torch, rank, mesh, dev, arch, mark, queue):
+def tp_moe_serve(torch, rank, mesh, dev, arch, mark, queues):
     """[23] (j) or (k) on this rank: ``tp_moe_cfg(arch)`` in bf16 from
     TP_SEED, rank 0 building it whole and running the one-card
     yardstick (prefill logits, a TP_NEW-token rollout, the reference's
@@ -8412,7 +8568,7 @@ def tp_moe_serve(torch, rank, mesh, dev, arch, mark, queue):
     out["card_gb_before"] = [torch.cuda.memory_allocated() / 1e9,
                              torch.cuda.memory_reserved() / 1e9]
     shard, tp, yard = _tp_build(torch, cfg, torch.bfloat16, rank, mesh, dev,
-                                one_card, queue)
+                                one_card, queues)
     plan = tp_plan(cfg, mesh)
     full = init_params(cfg, 0, torch.bfloat16, device="meta")
     got_shapes = {k: list(t.shape) for k, t in leaves_by_path(shard).items()}
@@ -8506,7 +8662,7 @@ def tp_moe_serve(torch, rank, mesh, dev, arch, mark, queue):
     torch.cuda.empty_cache()
     mark("TP runs")
     if cfg.attn_kind == "mla":
-        out["m"] = tp_moe_decode_prediction(torch, cfg, mesh, shard, tp,
+        out["m"] = tp_decode_prediction(torch, cfg, mesh, shard, tp,
                                             prompts, cache_len, dev)
         mark("(m)")
     del shard
@@ -8515,22 +8671,22 @@ def tp_moe_serve(torch, rank, mesh, dev, arch, mark, queue):
     return out
 
 
-def tp_moe_decode_prediction(torch, cfg, mesh, shard, tp, prompts,
-                             cache_len, dev):
-    """[23] (m): the dry run's meta prediction of this rank's TP decode
-    step of ``cfg`` over a cache of ``cache_len`` (rows TP_ROWS, bf16),
-    held to one decode step on the card after a prefill: the bytes it
-    starts with (its shards, its cache, the tokens) and its peak, its
-    FLOPs (no kernel runs in MLA's decode, so the counts meet) and its
-    all-reduces."""
+def tp_decode_prediction(torch, cfg, mesh, shard, tp, prompts, cache_len,
+                         dev):
+    """[23] (m) and (n): the dry run's meta prediction of this rank's TP
+    decode step of ``cfg`` over a cache of ``cache_len`` (the rows of
+    ``prompts``, bf16), held to one decode step on the card after a
+    prefill: the bytes it starts with (its shards, its cache, the tokens)
+    and its peak, its FLOPs (no kernel runs in a dense decode, so the
+    counts meet) and its all-reduces and all-gathers."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
     from repro_torch.models import decode_step, prefill
     from repro_torch.models.tp import TPRank
-    shape = ShapeSpec("tp_decode", cache_len, TP_ROWS, "decode")
-    amesh = dryrun.production_mesh(mesh_shape=(1, TP_RANKS))
+    shape = ShapeSpec("tp_decode", cache_len, prompts.shape[0], "decode")
+    amesh = dryrun.production_mesh(mesh_shape=(1, tp.size))
     c, sh, lowered = dryrun.lower_combo(cfg, shape, amesh,
                                         dtype=torch.bfloat16)
     rec = dryrun.analyse(c, sh, lowered, amesh)
@@ -8573,7 +8729,7 @@ def tp_moe_decode_prediction(torch, cfg, mesh, shard, tp, prompts,
                "count_s")},
            "held": held, "temp": temp, "card_flops": fc.get_total_flops(),
            "all_reduce": counted["all-reduce"],
-           "all_gather": counted["all-gather"]}
+           "all_gather": counted["all-gather"], "cache_len": cache_len}
     del cache
     return out
 
@@ -8735,35 +8891,233 @@ def tp_time_shards(torch, dev, records):
                 + nvidia_smi())
 
 
-def phase_tp(torch, dev, records):
-    """[23]: llama31-8b, llama4-scout and deepseek-v3 served and trained
-    tensor-parallel by two spawned ranks sharing the one card as a (data
-    1, model 2) mesh.  Returns the launch counts of the ranks' main-path
-    runs, summed."""
+def tp4_cfg(layers: int):
+    """(n): starcoder2-3b at its published widths, cut to ``layers``."""
+    return configs_full(TP4_ARCH).replace(name=f"{TP4_ARCH}-{layers}l",
+                                          n_layers=layers)
+
+
+def tp4_rank_main(rank, rdv, out_path, queues, dev_type="cuda"):
+    """One rank of [23] (n)'s (1, 4) mesh on the one card, a gloo group
+    over CUDA tensors, rank 0 handing the others their blocks over
+    ``queues``: starcoder2-3b at TP4_LAYERS layers in bf16 from TP_SEED,
+    rank 0 running the one-card yardstick (prefill logits, a TP4_NEW-token
+    rollout, the teacher-forced log-probs of the model with its embedding
+    moved by a bf16 ulp); each rank's shards against the plan, the TP
+    prefill and rollout (launches counted), the TP step's log-probs of
+    the one-card tokens (teacher-forced), the dry run's prediction of a
+    TP decode step held to the card; then one fp32 TP train step at one
+    layer (``tp_train_rank``: (h), (f), (i)).  Writes its results to
+    ``out_path``_<rank>.json."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.dryrun import shard_shape
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.sharding import tp_plan
+    from repro_torch.rl import prng
+    from repro_torch.rl.rollout import action_mask, generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" \
+        else torch.device(dev_type)
+    dist.init_process_group("gloo", init_method=rdv, rank=rank,
+                            world_size=TP4_RANKS,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    res = {"backend": dist.get_backend()}
+    times = [("", time.perf_counter())]
+
+    def mark(label: str):
+        times.append((label, time.perf_counter()))
+
+    try:
+        mesh = DeviceMesh(dev_type,
+                          torch.arange(TP4_RANKS).reshape(1, TP4_RANKS),
+                          mesh_dim_names=("data", "model"))
+        cfg = tp4_cfg(TP4_LAYERS)
+        key = prng.PRNGKey(TP_KEY)
+        prompts = _tp_prompts(torch, cfg, TP4_ROWS, dev, prompt=TP4_PROMPT)
+        cache_len = TP4_PROMPT + TP4_NEW
+
+        def one_card(params):
+            with torch.no_grad():
+                logits, _ = prefill(params, cfg, {"tokens": prompts},
+                                    cache_len, torch.float32)
+                st = generate(params, cfg, prompts, max_new=TP4_NEW,
+                              key=key, temperature=1.0)
+            # one card's own spread: its embedding moved by a bf16 ulp
+            moved = dict(params, embed=_ulp_moved(torch, params["embed"]))
+            mask = action_mask(st)[:, TP4_PROMPT:].bool()
+            w_b = (_teacher_forced(torch, moved, cfg, st.tokens, cache_len,
+                                   prompt=TP4_PROMPT)
+                   - st.behavior_logp[:, TP4_PROMPT:]).abs()[mask] \
+                .mean().item()
+            return logits, st, w_b
+
+        shard, tp, yard = _tp_build(torch, cfg, torch.bfloat16, rank, mesh,
+                                    dev, one_card, queues)
+        full = init_params(cfg, 0, torch.bfloat16, device="meta")
+        got = {"/".join(k): list(t.shape)
+               for k, t in leaves_by_path(shard).items()}
+        want = {"/".join(k): list(shard_shape(t.shape, sp, mesh))
+                for (k, t), sp in zip(leaves_by_path(full).items(),
+                                      leaves(tp_plan(cfg, mesh)))}
+        res.update(
+            held_gb=sum(t.numel() * t.element_size()
+                        for t in leaves(shard)) / 1e9,
+            whole_gb=sum(t.numel() * t.element_size()
+                         for t in leaves(full)) / 1e9,
+            splits=[tp.heads, tp.proj, tp.ffn, tp.vocab],
+            shapes_ok=got == want,
+            attn={w: [list(full["layers"]["attn"][w].shape),
+                      got[f"layers/attn/{w}"]]
+                  for w in ("wq", "wk", "wv", "wo")})
+        del full
+        mark("build and yardstick")
+        # the main path: TP prefill and rollout, this rank's launches
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            local, _ = prefill(shard, cfg, {"tokens": prompts}, cache_len,
+                               torch.float32, tp=tp)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st = generate(shard, cfg, prompts, max_new=TP4_NEW, key=key,
+                          temperature=1.0, tp=tp)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res["launches"] = dict(build.LAUNCHES)
+        res["prefill_ms"] = (t1 - t0) * 1e3
+        res["decode_ms"] = (t2 - t1) * 1e3 / TP4_NEW
+        whole = _tp_whole(torch, local, tp)
+        toks = torch.empty((TP4_ROWS, cache_len), dtype=torch.int32,
+                           device=dev)
+        if rank == 0:
+            want_logits, one, res["witness"] = yard
+            d = (whole.float() - want_logits.float()).abs()
+            res["a"] = {"max": d.max().item(), "mean": d.mean().item(),
+                        "finite": bool(torch.isfinite(whole).all()),
+                        "scale": want_logits.float().abs().max().item()}
+            res["b_equal"] = (st.tokens == one.tokens)[:, TP4_PROMPT:] \
+                .float().mean().item()
+            toks.copy_(one.tokens)
+        del local, whole, st
+        # teacher-forced: the TP step's log-probs of the one-card tokens
+        dist.broadcast(toks, src=0, group=tp.group)
+        lps = _teacher_forced(torch, shard, cfg, toks, cache_len, tp,
+                              prompt=TP4_PROMPT)
+        if rank == 0:
+            one = yard[1]
+            mask = action_mask(one)[:, TP4_PROMPT:].bool()
+            d = (lps - one.behavior_logp[:, TP4_PROMPT:]).abs()
+            res["b"] = {"mean": d[mask].mean().item(),
+                        "max": d[mask].max().item(), "n": int(mask.sum())}
+        del lps, yard
+        mark("TP runs")
+        res["m"] = tp_decode_prediction(torch, cfg, mesh, shard, tp, prompts,
+                                        cache_len, dev)
+        del shard
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("dry run")
+        res["train"] = tp_train_rank(torch, rank, mesh, tp4_cfg(1), dev,
+                                     mark, queues, steps=1, witness=True,
+                                     split=TP4_RANKS)
+        res["seconds"] = [(b[0], b[1] - a[1])
+                          for a, b in zip(times, times[1:])]
+    finally:
+        with open(f"{out_path}_{rank}.json", "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+
+
+def tp4_vocab_rank_main(rank, rdv, out_path, queues, dev_type="cuda"):
+    """One rank of ``python3 chip_smoke.py --tp4-vocab``: (n)'s fp32 TP
+    train step at one layer (``tp_train_rank`` with one card's ulp
+    witness) on the (1, 4) mesh twice, at starcoder2-3b's vocabulary
+    (split four ways) and at TP4_VOCAB_WHOLE (which 4 does not divide, so
+    the embedding, the head and the loss stay whole on every rank), to
+    show how much of the step's spread the vocabulary split makes.
+    Writes its results to ``out_path``_<rank>.json."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" \
+        else torch.device(dev_type)
+    dist.init_process_group("gloo", init_method=rdv, rank=rank,
+                            world_size=TP4_RANKS,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    res = {}
+    try:
+        mesh = DeviceMesh(dev_type,
+                          torch.arange(TP4_RANKS).reshape(1, TP4_RANKS),
+                          mesh_dim_names=("data", "model"))
+        for V in (tp4_cfg(1).vocab, TP4_VOCAB_WHOLE):
+            res[str(V)] = tp_train_rank(
+                torch, rank, mesh, tp4_cfg(1).replace(vocab=V), dev,
+                lambda label: None, queues, steps=1, witness=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        with open(f"{out_path}_{rank}.json", "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+
+
+def tp4_vocab(torch):
+    """``--tp4-vocab``: (n)'s train checks (``tp_train_checks``, m and v
+    at the witness rule) at each vocabulary of ``tp4_vocab_rank_main``,
+    every reading printed, none of them failing the run.  Returns 0."""
+    phase_build()
+    ranks = _spawn_ranks(tp4_vocab_rank_main, TP4_RANKS, "tp4v")
+    for V in ranks[0]:
+        cfg = tp4_cfg(1).replace(vocab=int(V))
+        tag = f" {cfg.name} vocabulary {V}"
+        trains = [r[V] for r in ranks]
+        log(f"[tp4-vocab]{tag}: split over model "
+            f"{cfg.vocab % TP4_RANKS == 0}; {nvidia_smi()}")
+        try:
+            m_tol, v_tol = _witness_tols(trains[0]["witness"], "(n)" + tag)
+            tp_train_checks(trains, tag, f"[16, 80, {cfg.d_model}]",
+                            m_tol=(m_tol,), v_tol=(v_tol,))
+        except RuntimeError as e:
+            log(f"  outside the bounds: {e}")
+    return 0
+
+
+def _spawn_ranks(fn, n: int, name: str) -> list:
+    """``fn(rank, rendezvous, out, queues)`` in ``n`` spawned processes
+    (a ``file://`` rendezvous under build/, one spawn-context queue a
+    rank past the first), within TP_TIMEOUT_S; every rank's results."""
     import torch.multiprocessing as mp
-    log(f"[23] tp: llama31-8b, llama4-scout and deepseek-v3 served and "
-        f"trained on a (data 1, model 2) mesh of two processes on the one "
-        f"card; {nvidia_smi()}")
-    t0 = time.perf_counter()
-    tp_time_shards(torch, dev, records)
-    t1 = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
     d = ROOT / "build"
     d.mkdir(exist_ok=True)
-    rdv = d / f"rendezvous_tp_{os.getpid()}"
-    out = str(d / f"tp_rank_{os.getpid()}")
-    for p in [rdv] + [Path(f"{out}_{r}.json") for r in range(TP_RANKS)]:
+    rdv = d / f"rendezvous_{name}_{os.getpid()}"
+    out = str(d / f"{name}_rank_{os.getpid()}")
+    for p in [rdv] + [Path(f"{out}_{r}.json") for r in range(n)]:
         if p.exists():
             p.unlink()
-    queue = mp.get_context("spawn").Queue()
-    ctx = mp.start_processes(tp_rank_main, nprocs=TP_RANKS, join=False,
-                             start_method="spawn",
-                             args=("file://" + str(rdv), out, queue))
+    queues = [mp.get_context("spawn").Queue() for _ in range(n - 1)]
+    ctx = mp.start_processes(fn, nprocs=n, join=False, start_method="spawn",
+                             args=("file://" + str(rdv), out, queues))
     try:
         deadline = time.monotonic() + TP_TIMEOUT_S
         while not ctx.join(timeout=5):
-            require(time.monotonic() < deadline, "[23] ranks timed out")
+            require(time.monotonic() < deadline, f"[23] {name} ranks timed "
+                    "out")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -8771,11 +9125,32 @@ def phase_tp(torch, dev, records):
         if rdv.exists():
             rdv.unlink()
     ranks = []
-    for r in range(TP_RANKS):
+    for r in range(n):
         path = Path(f"{out}_{r}.json")
         ranks.append(json.loads(path.read_text()))
         path.unlink()
+    return ranks
+
+
+def phase_tp(torch, dev, records):
+    """[23]: llama31-8b, llama4-scout and deepseek-v3 served and trained
+    tensor-parallel by two spawned ranks sharing the one card as a (data
+    1, model 2) mesh, then (n) starcoder2-3b by four as a (data 1, model
+    4) mesh.  Returns the launch counts of the ranks' main-path runs,
+    summed."""
+    log(f"[23] tp: llama31-8b, llama4-scout and deepseek-v3 served and "
+        f"trained on a (data 1, model 2) mesh of two processes on the one "
+        f"card, then starcoder2-3b on a (data 1, model 4) mesh of four; "
+        f"{nvidia_smi()}")
+    t0 = time.perf_counter()
+    tp_time_shards(torch, dev, records)
+    t1 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = _spawn_ranks(tp_rank_main, TP_RANKS, "tp")
     t2 = time.perf_counter()
+    ranks4 = _spawn_ranks(tp4_rank_main, TP4_RANKS, "tp4")
+    t3 = time.perf_counter()
     r0 = ranks[0]
     smi = nvidia_smi()
     require(all(r["backend"] == "gloo" for r in ranks), "[23] backend")
@@ -8874,11 +9249,78 @@ def phase_tp(torch, dev, records):
         require(got == want, f"[23] (f) launches {got}, want {want}")
         launches.update(res["launches"])
         launches.update(got)
+    launches.update(tp4_report(ranks4))
     log(f"  [23] launches {dict(launches)}; {time.perf_counter() - t0:.1f} s "
         f"(shard timings {t1 - t0:.1f} s, ranks {t2 - t1:.1f} s: "
         + ", ".join(f"{label} {s:.1f}" for label, s in r0["seconds"])
-        + " s; (j), (k), then (l)'s two configs in turn)")
+        + " s; (j), (k), then (l)'s two configs in turn; (n)'s four ranks "
+        f"{t3 - t2:.1f} s: "
+        + ", ".join(f"{label} {s:.1f}" for label, s in ranks4[0]["seconds"])
+        + " s)")
     return dict(launches)
+
+
+def tp4_report(ranks):
+    """[23] (n) of every rank, printed and held to its bounds.  Returns
+    the launch counts of its main-path runs, summed."""
+    smi = nvidia_smi()
+    cfg, cfg1 = tp4_cfg(TP4_LAYERS), tp4_cfg(1)
+    require(all(r["backend"] == "gloo" for r in ranks), "[23] (n) backend")
+    log(f"  (n) {cfg.name}: {cut_line(configs_full(TP4_ARCH), cfg)}; "
+        f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads of {cfg.hd} on "
+        f"a (data 1, model {TP4_RANKS}) mesh of {TP4_RANKS} processes, gloo "
+        f"over CUDA tensors")
+    launches = collections.Counter()
+    for r, o in enumerate(ranks):
+        log(f"  (n) rank {r}: holds {o['held_gb']:.4f} GB of "
+            f"{o['whole_gb']:.4f} bf16, splits heads/proj/ffn/vocab "
+            f"{o['splits']}, every leaf the plan's block: {o['shapes_ok']}; "
+            "wq wk wv wo whole and held: "
+            + ", ".join(f"{w} {a} {b}" for w, (a, b) in o["attn"].items())
+            + f"; launches {o['launches']}")
+        quarter = all(
+            b[:d] + b[d + 1:] == a[:d] + a[d + 1:] and b[d] * TP4_RANKS == a[d]
+            for w, (a, b) in o["attn"].items()
+            for d in [len(a) - (2 if w == "wo" else 1)])
+        require(o["shapes_ok"] and quarter
+                and o["splits"] == [False, True, True, True],
+                f"[23] (n) rank {r}: shards {o['splits']}, {o['attn']}")
+        want = {"fused_sample": TP4_NEW}
+        if flash_layers(cfg):
+            want["flash_attention"] = 2 * flash_layers(cfg)
+        require(o["launches"] == want,
+                f"[23] (n) launches {o['launches']}, want {want}")
+        launches.update(o["launches"])
+    o = ranks[0]
+    a, b = o["a"], o["b"]
+    bound_b = max(TP_LP_MEAN, o["witness"])
+    log(f"  (n) prefill [{TP4_ROWS}, {TP4_PROMPT}] bf16, TP logits against "
+        f"one card: max|d| {a['max']:.4f}, mean|d| {a['mean']:.5f} "
+        f"(max|logit| {a['scale']:.2f}); {TP4_NEW} new tokens, the TP "
+        f"step's log-probs of the one-card rollout's tokens against its "
+        f"behaviour log-probs at {b['n']} actions: mean|d| {b['mean']:.4f} "
+        f"(bound {bound_b:.4f}: (b)'s {TP_LP_MEAN} or one card's own with "
+        f"its embedding moved by a bf16 ulp, {o['witness']:.4f}, the "
+        f"larger), max|d| {b['max']:.4f}; the TP rollout's own tokens equal "
+        f"to the one card's: {100 * o['b_equal']:.1f}%; TP prefill "
+        f"{o['prefill_ms']:.1f} ms, decode {o['decode_ms']:.2f} ms a token "
+        f"on gloo; {smi}")
+    require(a["finite"] and b["mean"] <= bound_b,
+            f"[23] (n) TP against one card: {a}, {b}")
+    tp_decode_report(o["m"], "(n)", cfg.name, smi)
+    trains = [res["train"] for res in ranks]
+    m_tol, v_tol = _witness_tols(trains[0]["witness"], f"(n) {cfg1.name}",
+                                 split=trains[0]["split_witness"])
+    tp_train_checks(trains, f" {cfg1.name}", f"[16, 80, {cfg1.d_model}]",
+                    m_tol=(m_tol,), v_tol=(v_tol,))
+    want = {"fused_logprob": 1, "fused_logprob_bwd": 1}
+    if flash_layers(cfg1, TP_TRAIN_T):
+        want["flash_attention"] = flash_layers(cfg1, TP_TRAIN_T)
+    for tr in trains:
+        require(tr["launches"] == want,
+                f"[23] (n) train launches {tr['launches']}, want {want}")
+        launches.update(tr["launches"])
+    return launches
 
 
 def tp_moe_report(torch, ranks):
@@ -8955,7 +9397,7 @@ def tp_moe_report(torch, ranks):
             f"{o['one_prefill_ms']:.1f} ms, {o['one_decode_ms']:.2f} ms a "
             f"token; {smi}")
         if "m" in o:
-            tp_moe_decode_report(o["m"], tag, smi)
+            tp_decode_report(o["m"], "(m)", tag, smi)
     for arch in TP_MOE_ARCHS:
         cfg = tp_moe_train_cfg(torch, arch)
         tag = f" {cfg.name}"
@@ -8972,17 +9414,7 @@ def tp_moe_report(torch, ranks):
             f"params, {16 * n / 1e9:.1f} GB of fp32 params, gradients and "
             f"moments")
         trains = [res["moe_train"][arch] for res in ranks]
-        ws = trains[0]["witness"]
-        m_tol = max(TP_MOMENT_TOL["m"], TP_WITNESS * max(w["m"] for w in ws))
-        v_tol = max(TP_MOMENT_TOL["v"], TP_WITNESS * max(w["v"] for w in ws))
-        log(f"  (l){tag} one card's own spread: its steps with the "
-            f"embedding moved by an ulp move m by "
-            + ", ".join(f"{w['m']:.2e} ({w['m_leaf']})" for w in ws)
-            + " and v by "
-            + ", ".join(f"{w['v']:.2e} ({w['v_leaf']})" for w in ws)
-            + f" of the leaf's largest; the TP steps' m and v held to "
-            f"{TP_WITNESS:g}x the larger, at least (f)'s: {m_tol:.2e}, "
-            f"{v_tol:.2e}")
+        m_tol, v_tol = _witness_tols(trains[0]["witness"], "(l)" + tag)
         tp_train_checks(trains, tag, f"[16, 80, {cfg.d_model}]",
                         m_tol=(m_tol,) * TP_TRAIN_STEPS,
                         v_tol=(v_tol,) * TP_TRAIN_STEPS)
@@ -9005,17 +9437,17 @@ def configs_full(arch):
     return configs.get_config(arch)
 
 
-def tp_moe_decode_report(m, tag, smi):
-    """[23] (m) of (k)'s decode: the dry run's prediction against the
-    card, printed and held to its bounds."""
+def tp_decode_report(m, label, tag, smi):
+    """[23] (m) of (k)'s decode or (n)'s (``label``): the dry run's
+    prediction against the card, printed and held to its bounds."""
     p = m["pred"]
     flop_err = abs(m["card_flops"] - p["flops_per_device"]) \
         / p["flops_per_device"]
     peak = m["held"] + m["temp"]
     ratio = peak / p["peak_bytes_per_device"]
     colls = p["collectives"]
-    log(f"  (m) dry run of rank 0's TP decode step at {tag}'s config over a "
-        f"cache of {TP_PROMPT + TP_NEW} (meta, {p['count_s']} s): held "
+    log(f"  {label} dry run of rank 0's TP decode step at {tag}'s config "
+        f"over a cache of {m['cache_len']} (meta, {p['count_s']} s): held "
         f"{p['held_bytes'] / 1e6:.3f} MB (argument bytes by the reference's "
         f"rules {p['argument_bytes'] / 1e6:.3f} MB), temp "
         f"{p['temp_bytes'] / 1e6:.1f} MB, peak "
@@ -9029,14 +9461,42 @@ def tp_moe_decode_report(m, tag, smi):
         f"FlopCounterMode {m['card_flops'] / 1e9:.4f} GFLOP (relative "
         f"{flop_err:.2e}, tolerance {DRYRUN_FLOP_TOL:g}); {smi}")
     require(abs(m["held"] - p["held_bytes"]) <= 1e6,
-            f"[23] (m) held {m['held']} against {p['held_bytes']}")
-    require(flop_err <= DRYRUN_FLOP_TOL, f"[23] (m) FLOPs off {flop_err:.2e}")
+            f"[23] {label} held {m['held']} against {p['held_bytes']}")
+    require(flop_err <= DRYRUN_FLOP_TOL,
+            f"[23] {label} FLOPs off {flop_err:.2e}")
     require(DRYRUN_BYTES_BAND[0] <= ratio <= DRYRUN_BYTES_BAND[1],
-            f"[23] (m) peak {peak} against {p['peak_bytes_per_device']}")
+            f"[23] {label} peak {peak} against {p['peak_bytes_per_device']}")
     require(m["all_reduce"] == colls.get("all-reduce", 0)
             and m["all_gather"] == colls.get("all-gather", 0),
-            f"[23] (m) collective bytes {m['all_reduce']}, "
+            f"[23] {label} collective bytes {m['all_reduce']}, "
             f"{m['all_gather']} against {colls}")
+
+
+def _witness_tols(ws, tag: str, split=()):
+    """(m, v) bounds of a TP step's moments from one card's own spread
+    ``ws`` (``_ulp_witness``'s moves, a step each) and ``split``
+    (``_split_witness``'s): (f)'s bounds, or TP_WITNESS times the larger
+    ulp move plus the larger split move (the TP step makes both kinds of
+    difference at once), the larger; logged after ``tag``."""
+    def top(part):
+        return max(w[part] for w in ws) + max(
+            (w[part] for w in split), default=0.0)
+    m_tol = max(TP_MOMENT_TOL["m"], TP_WITNESS * top("m"))
+    v_tol = max(TP_MOMENT_TOL["v"], TP_WITNESS * top("v"))
+
+    def moves(part, group):
+        return ", ".join(f"{w[part]:.2e} ({w[part + '_leaf']})"
+                         for w in group)
+    log(f"  {tag} one card's own spread: its steps with the embedding "
+        f"moved by an ulp move m by {moves('m', ws)} and v by "
+        f"{moves('v', ws)}"
+        + (f"; with the head and log-probs cut into {TP4_RANKS} vocabulary "
+           f"slices m by {moves('m', split)} and v by {moves('v', split)}"
+           if split else "")
+        + " of the leaf's largest; the TP steps' m and v held to "
+        f"{TP_WITNESS:g}x the larger" + (" of each, summed" if split else "")
+        + f", at least (f)'s: {m_tol:.2e}, {v_tol:.2e}")
+    return m_tol, v_tol
 
 
 def tp_train_report(ranks):
@@ -9110,6 +9570,17 @@ def tp_train_checks(trains, tag: str, act: str,
                 f"{key} {k} {lv[k][key]:.3g}" for key in (
                     "worst", "past_1e5", "past", "past_1e3", "m", "v")
                 for k in [max(lv, key=lambda n: lv[n][key])]))
+            low = sorted((k for k in lv if "below" in lv[k]),
+                         key=lambda n: -lv[n]["below"])
+            if low:
+                log(f"    one-card |gradient| below {TP_G_SIGN:g}, updates "
+                    "held to the worst bound alone (the share of the leaf, "
+                    "its largest |gradient|, its share past "
+                    f"{TP_UPDATE_TOL:g}): " + "; ".join(
+                        f"{k} {lv[k]['below']:.3g}, {lv[k]['g_max']:.3g}, "
+                        f"{lv[k]['past']:.3g}" for k in low[:4])
+                    + (f"; {len(low) - 4} more leaves" if len(low) > 4
+                       else ""))
             require(f["step"] == i + 1 and worst <= TP_METRIC_TOL
                     and f["update_worst"] <= TP_UPDATE_WORST
                     and f["update_past"] <= 0.01
@@ -9178,6 +9649,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
+    if sys.argv[1:] == ["--tp4-vocab"]:
+        return tp4_vocab(torch)
     smi = nvidia_smi()
     log(f"[0] device: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")

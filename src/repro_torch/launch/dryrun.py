@@ -29,10 +29,10 @@ compiler to ask, so it measures the step itself:
     ``tp.train_roles``); for serving a dense or MoE
     model on a mesh whose ``model`` axis has more than one rank, the
     tensor-parallel step a rank runs (``models/tp.py``): its shards of
-    ``sharding.tp_plan`` (the reference's serve shards, but attention
-    whole where its heads do not split), its cache of its own GQA KV
-    heads (MLA's whole latent), ``prefill`` or ``decode_step`` with
-    ``tp``; for serving
+    ``sharding.tp_plan`` (the reference's serve shards, but MLA's
+    attention whole where its heads do not split), its cache of its own
+    GQA KV heads (all K where they do not split; MLA's whole latent),
+    ``prefill`` or ``decode_step`` with ``tp``; for serving
     any other family, or on a ``model`` axis of one rank, the whole tree
     (those serve without tensor parallelism) and ``prefill`` or
     ``decode_step``.  ``meta`` tensors are not CUDA
@@ -61,16 +61,20 @@ compiler to ask, so it measures the step itself:
     data axes) once a microbatch, the global norm's and
     ``batch_total``'s all-reduces; in the tensor-parallel steps, every
     ``TPRank.all_reduce`` over ``model`` (serving: two of [rows, S, D] a
-    layer where the heads split, one where they do not -- a MoE layer's
-    experts and shared expert share one --, the embedding's one;
-    training adds the backward's, one a ``TPRank.copy``, the head's
-    included, MLA's three a layer and the experts' top-k weights', those
-    of each layer's recompute under ``remat_layers``, and a sliced
-    bias's gradient sum) and, in training, every ``TPRank.gather_partials``:
-    the vocabulary-parallel log-prob's all-gather of the ranks' [rows,
-    T, 3] partials (the MTP loss's too) and the MTP ``proj``'s [rows, S,
-    D] (the serving steps return logits and do not sample, so no
-    sampler partials).  The whole-tree serving steps count the gather of every
+    layer where the attention's heads or projections split, one where
+    they do not -- a MoE layer's experts and shared expert share one --,
+    the embedding's one; training adds the backward's, one a
+    ``TPRank.copy``, the head's included, MLA's three a layer and the
+    experts' top-k weights', those of each layer's recompute under
+    ``remat_layers``, and a sliced bias's gradient sum) and every
+    ``TPRank.gather_partials``: where GQA's projections split and its
+    heads do not, a layer's q, k and v columns, [rows, S, (H + 2 K) hd]
+    whole (training adds the backward's gather of the core output's
+    gradient, [rows, S, H hd]); in training the vocabulary-parallel
+    log-prob's all-gather of the ranks' [rows, T, 3] partials (the MTP
+    loss's too) and the MTP ``proj``'s [rows, S, D] (the serving steps
+    return logits and do not sample, so no sampler partials).  The
+    whole-tree serving steps count the gather of every
     sharded leaf.  The reference's ``collective_bytes``
     and ``_shape_bytes`` parse XLA's HLO text and have no counterpart
     here.
@@ -491,8 +495,10 @@ def _meta_tp(cfg, mesh, counted):
     """The meta step's ``TPRank``: each all-reduce over ``model`` (a
     ``reduce`` forward, a ``copy`` backward) counted (its result's bytes)
     and run as the card runs it, into a new tensor of the input's shape;
-    the vocabulary-parallel log-prob's gather of the ranks' partials
-    counted (its result's bytes) and stood in for by a new tensor."""
+    each all-gather over ``model`` (the log-prob's partials, the MTP
+    ``proj``'s output, the attention's q, k and v columns and, backward,
+    the core output's gradient) counted (its result's bytes) and stood
+    in for by a new tensor."""
     from repro_torch.models.sharding import tp_splits
 
     class Counted(TPRank):
@@ -516,11 +522,10 @@ def _tensors(tree) -> list:
 
 def _lower_serve_tp(cfg, shape, mesh, dtype, p_full, arg, rows, local):
     """The tensor-parallel serving step of a rank of a dense or MoE
-    model: its
-    shards of ``tp_plan``, its cache (decode: ``K/m`` heads where the
-    heads split, its rows, the whole ring), its rows of the batch, as
-    the step starts (``held_bytes``); ``argument_bytes`` stays the
-    reference's."""
+    model: its shards of ``tp_plan``, its cache (decode: ``K/m`` heads
+    where the heads split, else all K, its rows, the whole ring), its
+    rows of the batch, as the step starts (``held_bytes``);
+    ``argument_bytes`` stays the reference's."""
     from repro_torch.models.serve import decode_step, init_cache, prefill
     from repro_torch.models.sharding import tp_plan
     plan = tp_plan(cfg, mesh, p_full)

@@ -44,12 +44,20 @@ def gqa_params(gen, cfg, n_layers: int, dtype, device):
     return p
 
 
-def _qkv(p, x, cfg):
+def _matmuls(x, ws):
+    return [x @ w for w in ws]
+
+
+# the one-card (cols, row) products of ``gqa_forward`` and ``gqa_decode``
+ONE_CARD = (_matmuls, torch.matmul)
+
+
+def _qkv(p, x, cfg, cols=_matmuls):
+    """q, k and v [B, S, heads, hd] of x; ``cols`` (by default one product
+    a weight) maps x and ``(wq, wk, wv)`` to their three products."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q, k, v = cols(x, (p["wq"], p["wk"], p["wv"]))
     if cfg.bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (q.reshape(B, S, H, hd), k.reshape(B, S, K, hd),
@@ -72,17 +80,22 @@ def _rotate(q, k, cfg, positions, mrope_pos=None):
 
 
 def gqa_forward(p, x, cfg, *, window: int = 0, mrope_pos=None,
-                causal: bool = True):
+                causal: bool = True, products=ONE_CARD):
     """Full-sequence GQA, causal unless ``causal=False`` (an encoder),
     over a sliding ``window`` when it is not 0; M-RoPE turns at
     ``mrope_pos`` [3, B, S].  Returns (y, (k, v)) so prefill can build
-    the KV cache; keys are returned already rotated."""
+    the KV cache; keys are returned already rotated.  ``products``: a
+    tensor-parallel rank's (cols, row), cols as ``_qkv`` takes it (the
+    whole q, k, v from its columns of ``wq wk wv``) and row mapping the
+    core's whole output and ``wo`` to its product (the rank's rows of it:
+    y is then its partial sum); by default the one-card products."""
+    cols, row = products
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, cols)
     q, k = _rotate(q, k, cfg, torch.arange(S, device=x.device).expand(B, S),
                    mrope_pos)
     y = dispatch.attention(q, k, v, causal=causal, window=window)
-    return y.reshape(B, S, -1) @ p["wo"], (k, v)
+    return row(y.reshape(B, S, -1), p["wo"]), (k, v)
 
 
 def gqa_cross_forward(p, x, k, v, cfg):
@@ -96,7 +109,7 @@ def gqa_cross_forward(p, x, k, v, cfg):
 
 
 def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg, *,
-               window: int = 0, mrope_pos=None):
+               window: int = 0, mrope_pos=None, products=ONE_CARD):
     """One-token decode.  x: [B, 1, D]; cache_[kv]: [B, Sc, K, hd];
     cache_pos: [Sc] absolute position per slot (-1 = empty); pos: an int
     (one cursor for every row) or a [B] int tensor (one decode cursor per
@@ -120,11 +133,12 @@ def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg, *,
     projection, so the residual stream keeps the params' dtype.  (The
     reference's ``dynamic_update_slice`` refuses a bf16 update into an
     fp32 cache, so it runs only with params and cache of one dtype.)
-    Returns y [B, 1, D].
+    ``products`` as ``gqa_forward`` takes it.  Returns y [B, 1, D].
     """
+    cols, row = products
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, cols)
     per_row = torch.is_tensor(pos)
     posb = pos[:, None] if per_row else torch.full((B, 1), pos,
                                                    device=x.device)
@@ -157,7 +171,7 @@ def gqa_decode(p, x, cache_k, cache_v, cache_pos, pos, cfg, *,
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     y = torch.einsum("bkgqs,bskh->bqkgh", probs.to(cache_v.dtype), cache_v)
-    return y.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
+    return row(y.reshape(B, 1, H * hd).to(x.dtype), p["wo"])
 
 
 def gqa_decode_paged(p, x, arena_k, arena_v, page_table, pos, cfg, *,

@@ -241,6 +241,32 @@ def gather_from(x, rank: int, all_gather):
     return _GatherFrom.apply(x, rank, all_gather)
 
 
+class _SplitTo(torch.autograd.Function):
+    """``_GatherFrom``'s mirror: this rank's ``n / m`` columns of ``x``
+    [.., n] forward; the ranks' gradients of their columns gathered whole
+    backward (each rank's columns feed its own share of a sum that
+    ``reduce_from`` takes, so its gradient holds only those columns)."""
+
+    @staticmethod
+    def forward(ctx, x, rank, size, all_gather):
+        n = x.shape[-1] // size
+        ctx.all_gather = all_gather
+        return x[..., rank * n:(rank + 1) * n].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.movedim(ctx.all_gather(grad.contiguous()), 0, -2) \
+            .reshape(*grad.shape[:-1], -1), None, None, None
+
+
+def split_to(x, rank: int, size: int, all_gather):
+    """This rank's ``n / size`` columns of ``x`` [.., n] (the input of a
+    product split by rows); its gradient the ranks' columns' gradients
+    joined in rank order, [.., n].  ``all_gather`` as ``gather_from``
+    takes it."""
+    return _SplitTo.apply(x, rank, size, all_gather)
+
+
 def _split_groups() -> list:
     if not _ACT_MESH["split_rows"]:
         return []
@@ -474,19 +500,28 @@ def tp_splits(cfg, mesh) -> dict:
     """Which products of a dense or MoE model a rank of ``mesh``'s
     ``model`` axis (of size m) computes a 1/m share of: ``heads`` when
     ``n_kv_heads % m == 0`` (the reference's ``constrain_attn``; MLA,
-    whose heads share one latent, when ``n_heads % m == 0``; else
-    attention runs whole on every rank), ``ffn`` and ``vocab`` where
-    ``_fit`` splits the MLP's columns (``d_ff % m == 0``) and the
-    vocabulary (``vocab % m == 0``); for the MoE family ``experts``
-    where ``_fit`` splits the experts (``n_experts % m == 0``),
-    ``shared`` where it splits the shared expert's columns, and ``mtp``
-    where it splits the MTP head's ``proj`` by columns (``d_model % m ==
-    0``).  What stays whole is computed whole, with no collective."""
+    whose heads share one latent, when ``n_heads % m == 0``): the rank
+    runs its heads' core; ``proj`` when GQA's heads do not split but
+    ``_fit`` splits ``wq wk wv`` by columns and ``wo`` by rows (``H hd``
+    and ``K hd`` divide by m): the rank computes its columns of q, k and
+    v, gathers them whole, runs the core whole (``constrain_attn``'s
+    replicated q, k, v) and its rows of ``wo``; else attention runs whole
+    on every rank (MLA's heads, and a GQA whose ``K hd`` m does not
+    divide).  ``ffn`` and ``vocab`` where ``_fit`` splits the MLP's
+    columns (``d_ff % m == 0``) and the vocabulary (``vocab % m == 0``);
+    for the MoE family ``experts`` where ``_fit`` splits the experts
+    (``n_experts % m == 0``), ``shared`` where it splits the shared
+    expert's columns, and ``mtp`` where it splits the MTP head's ``proj``
+    by columns (``d_model % m == 0``).  What stays whole is computed
+    whole, with no collective."""
     m = _axis_size(mesh, "model")
-    heads = cfg.n_heads if cfg.attn_kind == "mla" else cfg.n_kv_heads
-    out = {"heads": heads % m == 0, "ffn": cfg.d_ff % m == 0,
+    mla = cfg.attn_kind == "mla"
+    heads = (cfg.n_heads if mla else cfg.n_kv_heads) % m == 0
+    out = {"heads": heads, "ffn": cfg.d_ff % m == 0,
            "vocab": cfg.vocab % m == 0, "experts": False, "shared": False,
-           "mtp": False}
+           "mtp": False,
+           "proj": not (heads or mla) and (cfg.n_heads * cfg.hd) % m == 0
+           and (cfg.n_kv_heads * cfg.hd) % m == 0}
     if cfg.family == "moe":
         mo = cfg.moe
         out.update(experts=mo.n_experts % m == 0,
@@ -506,9 +541,10 @@ def tp_plan(cfg, mesh, params=None):
     the expert leaves [L, E, ...] by experts, ``embed`` and ``lm_head``
     by the vocabulary, each only where ``_fit`` divides; MLA's ``wq_a
     wkv_a``, the router and every norm whole -- except that the
-    attention products stay whole where the heads do not split
-    (``tp_splits``).  Biases stay whole, as the rules leave them; a rank
-    slices a bias where it uses it."""
+    attention products stay whole where ``tp_splits`` gives attention
+    neither ``heads`` nor ``proj`` (MLA's heads that m does not divide).
+    Biases stay whole, as the rules leave them; a rank slices a bias
+    where its heads split."""
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"{cfg.name}: tensor parallelism covers the "
                          f"dense and MoE families, not {cfg.family!r}")
@@ -516,7 +552,8 @@ def tp_plan(cfg, mesh, params=None):
         from repro_torch.models import init_params
         params = init_params(cfg, 0, torch.bfloat16, device="meta")
     specs = params_shardings(params, mesh, mode="serve")
-    if tp_splits(cfg, mesh)["heads"]:
+    splits = tp_splits(cfg, mesh)
+    if splits["heads"] or splits["proj"]:
         return specs
     return _map_with_path(
         lambda path, s: Spec(*(None,) * len(s))

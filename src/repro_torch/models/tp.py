@@ -11,7 +11,14 @@ A rank of a ``model`` axis of m ranks holds its shard of each leaf
   == 0``: the column products ``wq wk wv`` give its heads, the row
   product ``wo`` a partial sum that one all-reduce over the ``model``
   group completes; its KV cache holds its own heads.  Where ``K % m !=
-  0`` attention runs whole on every rank, with no collective;
+  0`` (``proj``) it holds the same shards of ``wq wk wv wo``, as the
+  reference's ``param_spec`` stores them whatever the head count: its
+  columns of the three products are joined and gathered whole over the
+  ranks in one all-gather (``TPRank.gather_cols``), the core runs whole
+  on every rank (the reference's ``constrain_attn`` replicates q, k and
+  v there) over a cache of all K heads, and its rows of ``wo`` take its
+  columns of the core's output (``TPRank.row``, whose gradient the
+  ranks' columns gathered whole) into a partial sum, one all-reduce;
 * MLA attention on its ``H/m`` heads where ``n_heads % m == 0``: the
   whole ``wq_a wkv_a`` and their norms give every rank the same query
   latent, latent c_kv and rotated key (the latent cache is whole on
@@ -41,17 +48,21 @@ keys each row's noise by its global row.  The layers' bodies are the
 one-card ones (``attention.gqa_forward``, ``gqa_decode``,
 ``mla_forward``, ``mla_decode``, ``ffn.mlp_forward``, the local-experts
 MoE, and the head's product) on local shapes: a local config holds the
-rank's heads.  A layer is two all-reduces of [rows, S, D] where the
-heads split, and the embedding one more.  The paged engine on a mesh is
-not here (a later slice); the other families serve on the whole tree.
+rank's heads, and GQA takes the rank's column and row products as
+hooks (``products=``).  A layer is two all-reduces of [rows, S, D]
+where the heads or the projections split (and one all-gather of [rows,
+S, (H + 2 K) hd] where only the projections do), and the embedding one
+more.  The paged engine on a mesh is not here (a later slice); the
+other families serve on the whole tree.
 
 ``forward_train`` is the teacher-forced forward on the same shards and
 layer bodies with autograd, the reference's partitioned training step:
-the input of every column product (q/k/v where the heads split, MLA's
-query latent, c_kv and rotated key, the MLP's and the experts' first
-products with the top-k weights, the MTP ``proj``, the head) passes
-through ``TPRank.copy`` (the identity; its gradient summed over the
-``model`` group; serving, without grad, runs it as the identity), the
+the input of every column product (q/k/v where the heads or the
+projections split, MLA's query latent, c_kv and rotated key, the MLP's
+and the experts' first products with the top-k weights, the MTP
+``proj``, the head) passes through ``TPRank.copy`` (the identity; its
+gradient summed over the ``model`` group; serving, without grad, runs
+it as the identity), the
 output of every row product (``wo``, ``w_down``, the experts') and the
 embedding through ``TPRank.reduce`` (the sum; its gradient as it is).
 The head's logits (the MTP head's too) stay this rank's vocabulary
@@ -62,7 +73,8 @@ gradients of the leaves it holds whole, and its own slice's gradients
 of the split leaves.  Under ``cfg.remat_layers`` a layer's recompute
 runs its forward's collectives again.  Every all-reduce of the
 ``model`` group goes through ``TPRank.all_reduce`` and every all-gather
-(the log-prob's partials, the MTP ``proj``'s output) through
+(the log-prob's partials, the MTP ``proj``'s output, GQA's q, k and v
+columns forward and its core output's gradient backward) through
 ``TPRank.gather_partials``, the seams the dry run and the checks count
 at.
 """
@@ -83,14 +95,15 @@ from repro_torch.models import serve
 from repro_torch.models.common import norm
 from repro_torch.models.sharding import _axis_size, _map_with_path, \
     _path_str, all_reduce_groups, copy_to, dp_axes, gather_from, on_axis, \
-    reduce_from, tp_plan, tp_splits
+    reduce_from, split_to, tp_plan, tp_splits
 
 
 @dataclasses.dataclass(frozen=True)
 class TPRank:
     """A rank of a ``model`` axis of ``size`` ranks, its index ``rank``
-    there, which products split (``sharding.tp_splits``), its ``model``
-    group, and the global row of its first row (``row0``, set by
+    there, which products split (``sharding.tp_splits``; ``proj``: GQA's
+    projections where its heads do not), its ``model`` group, and the
+    global row of its first row (``row0``, set by
     ``for_rows``).  ``dp`` lists (group, size, index) of each data axis,
     major first, over which its rows split."""
 
@@ -102,6 +115,7 @@ class TPRank:
     experts: bool = False
     shared: bool = False
     mtp: bool = False
+    proj: bool = False
     group: Any = None
     dp: tuple = ()
     row0: int = 0
@@ -131,6 +145,30 @@ class TPRank:
         """The ranks' ``x`` [.., n] joined along the last dim in rank
         order; its gradient this rank's columns."""
         return gather_from(x, self.rank, self.gather_partials)
+
+    def gather_cols(self, x, ws):
+        """``[x @ w for w in ws]`` whole from this rank's columns of each
+        ``w``: its products joined, one ``gather`` of them, each cut out
+        of every rank's block and joined in rank order."""
+        parts = [x @ w for w in ws]
+        ns = [t.shape[-1] for t in parts]
+        whole = self.gather(torch.cat(parts, dim=-1)).unflatten(
+            -1, (self.size, sum(ns)))
+        return [t.flatten(-2) for t in whole.split(ns, dim=-1)]
+
+    def row(self, y, w):
+        """This rank's partial ``y @ w`` of a whole ``y`` [.., n]: its
+        ``n/m`` columns of y times its rows of ``w``; y's gradient the
+        ranks' columns' gradients gathered whole (``gather``'s mirror,
+        ``split_to``)."""
+        return split_to(y, self.rank, self.size, self.gather_partials) @ w
+
+    def attn_products(self):
+        """The (cols, row) products of ``attention.gqa_forward`` and
+        ``gqa_decode`` where the projections split and the core runs whole
+        (``proj``); the one-card products elsewhere."""
+        return (self.gather_cols, self.row) if self.proj \
+            else attn.ONE_CARD
 
     def token_logprob(self, logits, tokens, n_valid=None):
         """``dispatch.token_logprob`` of this rank's logits: of its
@@ -241,14 +279,14 @@ def _attn_params(p, cfg, tp: TPRank):
 
 def _attn_in(p, x, cfg, tp: TPRank):
     """norm(x), the attention's input: through ``TPRank.copy`` where the
-    heads split (the identity forward, so serving, which runs without
-    grad, computes as before)."""
+    heads or the projections split (the identity forward, so serving,
+    which runs without grad, computes as before)."""
     h = norm(x, p["ln1"], cfg.norm)
-    return tp.copy(h) if tp.heads else h
+    return tp.copy(h) if tp.heads or tp.proj else h
 
 
 def _attn_out(y, tp: TPRank):
-    return tp.reduce(y) if tp.heads else y
+    return tp.reduce(y) if tp.heads or tp.proj else y
 
 
 def _moe(mp, h, cfg, tp: TPRank):
@@ -313,15 +351,17 @@ def _check(cfg, cache=None):
 def _attn(p, x, cfg, acfg, window, tp: TPRank):
     """(x + attention on this rank's heads, what its cache holds): GQA's
     K/m heads, or MLA's H/m heads over the whole latent (c_kv, k_rope),
-    which every rank computes from the whole ``wq_a wkv_a``; whole where
-    the heads do not split."""
+    which every rank computes from the whole ``wq_a wkv_a``; GQA's core
+    whole between this rank's columns of ``wq wk wv`` and rows of ``wo``
+    where only the projections split; whole elsewhere."""
     if cfg.attn_kind == "mla":
         y, kv = attn.mla_forward(p["attn"], norm(x, p["ln1"], cfg.norm),
                                  acfg, copy=tp.copy if tp.heads else None)
     else:
         y, kv = attn.gqa_forward(_attn_params(p["attn"], cfg, tp),
                                  _attn_in(p, x, cfg, tp), acfg,
-                                 window=window)
+                                 window=window,
+                                 products=tp.attn_products())
     return x + _attn_out(y, tp), kv
 
 
@@ -377,7 +417,7 @@ def decode_step(params, cfg, cache, tokens, tp: TPRank):
                 y = attn.gqa_decode(_attn_params(p["attn"], cfg, tp),
                                     _attn_in(p, x, cfg, tp), seg["k"][li],
                                     seg["v"][li], seg["slot_pos"], pos, acfg,
-                                    window=w)
+                                    window=w, products=tp.attn_products())
             x, _ = _ffn(p, x + _attn_out(y, tp), cfg, tp)
     cache["pos"] = pos + 1
     return head_logits(params, cfg, x[:, -1], tp), cache
@@ -448,8 +488,9 @@ def train_roles(cfg, mesh, params) -> list:
     "sum" where it holds the leaf whole but uses a slice (a bias of
     split heads or MLP columns: the ranks' gradients are disjoint slices
     of the whole, summed over ``model``), "whole" elsewhere (the router,
-    the norms, MLA's ``wq_a wkv_a``: every rank of a ``model`` row
-    computes the same gradient)."""
+    the norms, MLA's ``wq_a wkv_a``, GQA's biases where only its
+    projections split, added whole to the gathered q, k and v: every
+    rank of a ``model`` row computes the same gradient)."""
     from repro_torch.train.optimizer import tree_leaves
     splits = tp_splits(cfg, mesh)
 

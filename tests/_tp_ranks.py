@@ -85,9 +85,15 @@ def _mesh_checks(mesh, ref):
     out["ref_logp"] = _ref_scoring(mesh, params, ref)
     out["vp_logp"], out["vp_grad"] = _vocab_parallel(tp, ref)
     return out, {"shards_ok": [len(ok), all(ok)],
-                 "heads": tpr.heads, "ffn": tpr.ffn, "vocab": tpr.vocab,
-                 "row0": tpr.row0,
-                 "wq": list(shard["layers"]["attn"]["wq"].shape)}
+                 "heads": tpr.heads, "proj": tpr.proj, "ffn": tpr.ffn,
+                 "vocab": tpr.vocab, "row0": tpr.row0,
+                 "wq": list(shard["layers"]["attn"]["wq"].shape),
+                 "attn": _attn_shapes(shard["layers"]["attn"])}
+
+
+def _attn_shapes(attn):
+    """The shapes of a rank's ``wq wk wv wo``."""
+    return {w: list(attn[w].shape) for w in ("wq", "wk", "wv", "wo")}
 
 
 def _ref_scoring(mesh, params, ref):
@@ -122,27 +128,22 @@ def _vocab_parallel(tp, ref):
 
 def _moe_checks(mesh, mesh_name, arch, ref):
     """A MoE smoke ``arch`` on ``mesh``: each shard against the JAX
-    package's ``param_spec(mode="serve")`` block (``ref["specs"]``;
-    attention whole where its heads do not split), the experts a rank
-    holds, prefill and decode logits, a rollout and a reference
-    executor's scoring at the smoke's capacity factor and at DROP_CF, as
-    numpy for the parent."""
+    package's ``param_spec(mode="serve")`` block (``ref["specs"]``), the
+    experts a rank holds, prefill and decode logits, a rollout and a
+    reference executor's scoring at the smoke's capacity factor and at
+    DROP_CF, as numpy for the parent."""
     from repro_torch import configs, convert
     from repro_torch.core.ddma import ddma_weight_sync
-    from repro_torch.models.sharding import _ATTN_LEAF, Shardings, \
-        distribute, params_shardings, tp_plan, tp_shard
+    from repro_torch.models.sharding import Shardings, distribute, \
+        params_shardings, tp_plan, tp_shard
     from repro_torch.models.tp import tp_rank
     cfg = configs.get_smoke(arch)
     params = convert.from_jax_numpy(ref["params"], device="cpu")
     tp = tp_rank(cfg, mesh)
     shard = tp_shard(params, mesh, tp_plan(cfg, mesh))
     full, want = paths(params), ref["specs"][mesh_name]
-    ok = []
-    for p, t in paths(shard).items():
-        spec = want[p]
-        if not tp.heads and _ATTN_LEAF.search(p):
-            spec = (None,) * len(spec)
-        ok.append(torch.equal(t, _expected_shard(full[p], spec, mesh)))
+    ok = [torch.equal(t, _expected_shard(full[p], want[p], mesh))
+          for p, t in paths(shard).items()]
     # the trainer's FSDP + TP shards (DTensors, expert leaves split over
     # model and data) carried onto the serve shards by DDMA
     carried = ddma_weight_sync(
@@ -156,7 +157,10 @@ def _moe_checks(mesh, mesh_name, arch, ref):
     out.update({f"drop|{k}": v for k, v in drop.items()})
     _, tpr = tp.for_rows(B)
     return out, {"shards_ok": [len(ok), all(ok)], "tp": tp is not None,
-                 "heads": tpr.heads, "experts": tpr.experts,
+                 "heads": tpr.heads, "proj": tpr.proj,
+                 "attn": _attn_shapes(shard["moe_layers"]["attn"])
+                 if cfg.attn_kind != "mla" else None,
+                 "experts": tpr.experts,
                  "vocab": tpr.vocab, "shared": tpr.shared,
                  "held_experts": shard["moe_layers"]["moe"]["w_gate"]
                  .shape[1], "ref_experts": experts}

@@ -28,25 +28,24 @@ hands to the reductions never outgrow one layer's.  The dense smokes
 (sliced where their heads or MLP columns split, their gradients summed
 over ``model``) and window of 64 take the paths llama31's does not (its
 key bias's update, rounding noise, is held to the 0.2 alone, see
-``NOISE``).  Their FFN, ``embed`` and ``lm_head`` are never gathered
-over ``model``, nor on (2, 2), where the heads split, any attention
-leaf; on (1, 4) (2 % 4 != 0) attention is gathered whole; a layer's
-gathered bytes are the plan's (a split leaf's ``model`` slice).  The
+``NOISE``).  On (1, 4) (2 % 4 != 0) a rank computes its columns of
+``wq wk wv`` (its biases whole, added after q, k and v are gathered)
+and its rows of ``wo`` around a whole attention core.  No leaf is
+gathered over ``model``; a layer's gathered bytes are the plan's (a
+split leaf's ``model`` slice).  The
 MoE smokes step tensor-parallel too: deepseek-v3's (MLA on its 4 heads,
 2 or 1 of 4 experts a rank, the MTP head's ``proj`` by columns, its
 loss vocabulary-parallel) at its unchanged bounds, and llama4-scout's
-(GQA split as llama31's, a top-1 MoE with a shared expert, windows) at
+(GQA as llama31's, a top-1 MoE with a shared expert, windows) at
 tests/test_torch_moe.py's 1e-4 and llama31's 0.2 (an update whose
 reference gradient is below 1e-6 held to the 0.2 alone, see
-``G_SIGN``); no expert leaf, MLA head, MTP
-``proj`` or vocabulary leaf is gathered over ``model``.  The
+``G_SIGN``).  The
 expert-parallel modes,
 ep_shmap also under ``remat_layers`` (its recompute runs the EP
 collectives again), hold to the gathered one within
 tests/test_moe_ep.py's 1e-4."""
 import json
 import os
-import re
 
 import jax
 import jax.numpy as jnp
@@ -265,51 +264,34 @@ def _check_layers(res):
             assert 0 < r["grad_peak"] <= one, (base, r)
 
 
-_ATTN = ("layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
-         "layers/attn/wo")
-
-
 # one layer's gathered bytes in fp32.  llama31's smoke: attention's wq wk
 # wv wo are 2 * 256 * 256 + 2 * 256 * 64 = 163840 params, the MLP's 3 *
 # 256 * 512 = 393216 (the norms are replicated, never gathered).
 # Gathered whole over both axes they were 2228224 bytes; on (2, 2) every
 # split leaf is gathered over data into its model half, 557056 * 4 / 2;
-# on (1, 4) the MLP is not gathered (data 1) and attention whole, 163840
-# * 4.  starcoder2's smoke: the same attention, an MLP of 2 * 256 * 512
-# (its biases are replicated), so (163840 + 262144) * 4 / 2 on (2, 2)
+# on (1, 4) nothing is gathered (data 1, and every matrix is this rank's
+# model slice: attention's projections by columns and rows).
+# starcoder2's smoke: the same attention, an MLP of 2 * 256 * 512 (its
+# biases are replicated), so (163840 + 262144) * 4 / 2 on (2, 2)
 LAYER_BYTES = {("llama31-8b", "data2_model2"): 1114112,
-               ("llama31-8b", "model4"): 655360,
+               ("llama31-8b", "model4"): 0,
                ("starcoder2-3b", "data2_model2"): 851968,
-               ("starcoder2-3b", "model4"): 655360}
+               ("starcoder2-3b", "model4"): 0}
 
 
-# the leaves a MoE case gathers over ``model``: attention where its heads
-# do not split (llama4-scout's 2 KV heads on (1, 4)), no other
-MOE_MODEL_PATHS = {("llama4-scout-17b-a16e", "model4"): sorted(
-    "moe_layers/attn/" + n for n in ("wq", "wk", "wv", "wo"))}
-# an expert leaf, the shared expert, an MLA head's product, the MTP
-# ``proj`` or a vocabulary leaf: never gathered over ``model``
-_NEVER = re.compile(r"moe/(w_gate|w_up|w_down|shared/)|wq_b$|wk_b$|wv_b$|"
-                    r"proj$|embed$|lm_head$")
-
-
-def _check_tp_gathers(res, name, heads_split: bool):
-    """Every case steps tensor-parallel: no FFN, ``embed`` or
-    ``lm_head`` leaf (nor any leaf where the heads split), and no expert
-    leaf, MLA head or MTP ``proj`` is gathered over ``model``; where the
-    GQA heads do not split, attention is.  A dense layer's gathered
-    bytes are the plan's."""
+def _check_tp_gathers(res, name):
+    """Every case steps tensor-parallel and gathers no leaf over
+    ``model``: no attention leaf (on (1, 4), where the smokes' 2 KV heads
+    do not split, a rank holds its columns of ``wq wk wv`` and rows of
+    ``wo``), FFN, expert, shared-expert, MLA-head, MTP ``proj``,
+    ``embed`` or ``lm_head`` leaf.  A dense layer's gathered bytes are
+    the plan's."""
     for base, arch, *_ in CASES:
         for case in (base, base + "_remat") if base in REMAT else (base,):
             r = res["layers"][case]
-            if arch in MOE_ARCHS:
-                assert r["model_paths"] == MOE_MODEL_PATHS.get(
-                    (arch, name), []), (case, r)
-                assert not [p for p in r["model_paths"] if _NEVER.search(p)]
-                continue
-            assert r["model_paths"] == ([] if heads_split
-                                        else sorted(_ATTN)), (case, r)
-            assert r["layer_bytes"] == LAYER_BYTES[arch, name], (case, r)
+            assert r["model_paths"] == [], (case, r)
+            if arch not in MOE_ARCHS:
+                assert r["layer_bytes"] == LAYER_BYTES[arch, name], (case, r)
 
 
 def _check_moe(res):
@@ -337,7 +319,7 @@ def test_sharded_on_data2_model2(ranks):
     assert ok and n > 0
     _check_steps(r, arrays, "data2_model2", jax_runs, CASES)
     _check_layers(r)
-    _check_tp_gathers(r, "data2_model2", heads_split=True)
+    _check_tp_gathers(r, "data2_model2")
     _check_moe(r)
 
 
@@ -345,9 +327,10 @@ def test_sharded_on_model4(ranks):
     """(data 1, model 4) from ``make_dev_mesh``: the submeshes split the
     world 2 + 2 and the production mesh refuses a world of 4; every
     case's sharded steps, with and without ``remat_layers`` (llama31's
-    tensor-parallel on its FFN and vocabulary, attention whole); the
-    one-layer gathers, only llama31's attention over ``model``; ep and
-    ep_shmap with 1 expert a model rank."""
+    tensor-parallel on its FFN and vocabulary and on its columns of ``wq
+    wk wv`` and rows of ``wo``, the attention core whole); no leaf
+    gathered (data 1), none over ``model``; ep and ep_shmap with 1
+    expert a model rank."""
     jax_runs, res, arrays = ranks
     r = res["model4"]
     assert r["mesh"] == [[1, 4], ["data", "model"]]
@@ -356,5 +339,5 @@ def test_sharded_on_model4(ranks):
     assert r["shards_ok"][1]
     _check_steps(r, arrays, "model4", jax_runs, CASES)
     _check_layers(r)
-    _check_tp_gathers(r, "model4", heads_split=False)
+    _check_tp_gathers(r, "model4")
     _check_moe(r)

@@ -6,12 +6,15 @@ steps.
 
 One spawn of four ranks runs three meshes over them: two (1, 2) meshes
 at once (ranks 0-1 and 2-3), a (1, 4) and a (2, 2).  llama31-smoke has 8
-query and 2 KV heads, so (1, 2) splits the heads and (1, 4) (2 % 4 != 0)
-runs attention whole on every rank while the FFN and the vocabulary
-split; (2, 2) splits the heads over ``model`` and the rows over
-``data``.  The JAX runs (``repro.models.serve.prefill``,
-``decode_step``, ``repro.rl.rollout.generate`` from one init, carried
-across by ``convert``) are made here while the ranks start.  Each mesh
+query and 2 KV heads, so (1, 2) splits the heads; on (1, 4) (2 % 4 != 0)
+a rank holds a quarter of ``wq wk wv`` by columns and of ``wo`` by rows,
+as the reference's ``param_spec`` stores them, gathers q, k and v whole
+and runs the attention core whole (the reference's ``constrain_attn``),
+with the FFN and the vocabulary split; (2, 2) splits the heads over
+``model`` and the rows over ``data``.  The JAX runs
+(``repro.models.serve.prefill``, ``decode_step``,
+``repro.rl.rollout.generate`` from one init, carried across by
+``convert``) are made here while the ranks start.  Each mesh
 holds the prefill and three decode steps' logits within 1e-5 of JAX's
 (fp32; the ranks' partial products are summed by an all-reduce, one
 more rounding than one product), the rollout's tokens under one key
@@ -28,7 +31,8 @@ its gradient hold to the JAX package's ``fused_logprob`` and
 ``fused_logprob_bwd`` run in interpret mode, as tests/test_kernels.py
 runs them, within 1e-5.  The same meshes run the MoE family's smokes
 (llama4-scout's GQA with a top-1 MoE and a shared expert, whose 2 KV
-heads split on (1, 2) and (2, 2) but not on (1, 4); deepseek-v3's MLA,
+heads split on (1, 2) and (2, 2), and whose projections split on (1,
+4) as llama31's do; deepseek-v3's MLA,
 4 heads, a dense first layer and a top-2 MoE): every shard the JAX
 package's ``param_spec(mode="serve")`` block, E/m experts a rank, the
 same serving, rollout and scoring bounds as llama31's, and on (1, 2) a
@@ -60,6 +64,8 @@ from _tp_ranks import B, CACHE, DROP_CF, MAX_NEW, MESHES, MOE_ARCHS, \
 
 TOL = 1e-5
 WORLD = 4
+# each mesh's ``model`` size
+MODEL_SIZE = {m[0]: m[1][1] for m in MESHES}
 
 
 def _jax_runs():
@@ -182,10 +188,27 @@ def ranks(tmp_path_factory):
 
 
 # per mesh: (heads split, what a rank holds of wq [L, D, H hd] and of the
-# cache's k [L, rows, Sc, K, hd]) for llama31-smoke (8 heads of 32, 2 KV)
+# cache's k [L, rows, Sc, K, hd]) for llama31-smoke (8 heads of 32, 2 KV):
+# on (1, 4) a quarter of wq's columns (the projections split, the core
+# whole) and a cache of all K heads, which the reference replicates
 LAYOUT = {"model2": (True, [2, 256, 128], [2, 4, CACHE, 1, 32]),
-          "model4": (False, [2, 256, 256], [2, 4, CACHE, 2, 32]),
+          "model4": (False, [2, 256, 64], [2, 4, CACHE, 2, 32]),
           "data2_model2": (True, [2, 256, 128], [2, 2, CACHE, 1, 32])}
+# the whole wq wk wv wo [L, in, out] of the smokes' attention (8 heads
+# and 2 KV heads of 32; llama31's, starcoder2's and llama4-scout's), and
+# the dim each splits over ``model``: the columns of wq wk wv, the rows
+# of wo
+ATTN_WHOLE = {"wq": ([2, 256, 256], 2), "wk": ([2, 256, 64], 2),
+              "wv": ([2, 256, 64], 2), "wo": ([2, 256, 256], 1)}
+
+
+def _check_attn_quarters(r, size, label):
+    """Every one of ``wq wk wv wo`` a rank holds is its 1/size of the
+    whole, cut along its split dim."""
+    for w, (whole, dim) in ATTN_WHOLE.items():
+        want = list(whole)
+        want[dim] //= size
+        assert r["attn"][w] == want, (label, w, r["attn"][w], want)
 
 
 @pytest.mark.parametrize("name", [m[0] for m in MESHES])
@@ -197,7 +220,9 @@ def test_tp_serving_matches_jax(ranks, name):
         n, ok = r["shards_ok"]
         assert ok and n > 0, (name, rank)
         assert r["heads"] == heads and r["ffn"] and r["vocab"], r
+        assert r["proj"] == (not heads), r
         assert r["wq"] == wq, (name, rank, r)
+        _check_attn_quarters(r, MODEL_SIZE[name], (name, rank))
         assert list(arrays[f"{name}|cache_k"]) == cache_k, (name, rank)
         if name == "data2_model2":
             assert r["row0"] == (rank // 2) * (B // 2), (rank, r)
@@ -235,7 +260,7 @@ def test_tp_vocab_parallel_logprob_matches_jax(ranks, name):
     log-probs bit for bit."""
     want, got = ranks
     V = want["vp_grad"].shape[-1]
-    size = {m[0]: m[1][1] for m in MESHES}[name]
+    size = MODEL_SIZE[name]
     n = V // size
     groups = {}
     for rank, (_, arrays) in enumerate(got):
@@ -279,10 +304,10 @@ MOE_LAYOUT = {("model2", MOE_ARCHS[0]): (True, 2),
 @pytest.mark.parametrize("name,arch", sorted(MOE_LAYOUT))
 def test_tp_moe_serving_matches_jax(ranks, name, arch):
     """A MoE smoke served tensor-parallel: every shard the JAX package's
-    ``param_spec(mode="serve")`` block (attention whole where its heads
-    do not split; cut from the whole tree, and carried by DDMA from the
-    trainer's FSDP + TP DTensors), E/m experts a rank, the reference
-    executor's too; prefill and three decode steps' logits within 1e-5
+    ``param_spec(mode="serve")`` block (cut from the whole tree, and
+    carried by DDMA from the trainer's FSDP + TP DTensors; llama4-scout's
+    ``wq wk wv wo`` a 1/m share on every mesh), E/m experts a rank, the
+    reference executor's too; prefill and three decode steps' logits within 1e-5
     of JAX's (relative to max(1, |logit|)), the rollout's tokens under
     one key identical and its behaviour log-probs within 1e-5."""
     want, got = ranks
@@ -293,6 +318,9 @@ def test_tp_moe_serving_matches_jax(ranks, name, arch):
         n, ok = r["shards_ok"]
         assert ok and n > 0, (name, arch, rank)
         assert r["tp"] and r["heads"] == heads, r
+        if arch == MOE_ARCHS[0]:
+            assert r["proj"] == (not heads), r
+            _check_attn_quarters(r, MODEL_SIZE[name], (name, arch, rank))
         assert r["experts"] and r["shared"] and r["vocab"], r
         assert r["held_experts"] == r["ref_experts"] == experts, r
         _check_moe_serving(arrays, want, f"{name}|{arch}|", (name, arch,
